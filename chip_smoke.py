@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`seaweedfs_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py [--volume-gib 1.0] [--seed 0]
+    python3 chip_smoke.py [--volume-gib 1.0] [--batch-gib 1.0] [--seed 0]
 
 Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the seconds the kernel build took (the CUDA sources in
    seaweedfs_tpu_torch/csrc are compiled with nvcc at first use).
-2. kernel: the CUDA GF(2^8) kernel against its plain PyTorch version and
-   the numpy twin, bit for bit, at the main path's shapes, with its time
-   (CUDA events) beside its bytes and operations bounds and the plain
-   version's time.
+2. kernel: the CUDA GF(2^8) kernel's two entries against their plain
+   PyTorch versions and the numpy twin, bit for bit, at the main paths'
+   shapes (one 32 MiB staging window, [4,10] x 838,860 words; the
+   64-volume batch step, [64,10] -> [64,4] x 262,144 words; and ragged
+   and word-path shapes), with their times (CUDA events, median of 20)
+   beside their bytes and operations bounds and the plain versions'
+   times.
 3. ec: the volume-server EC sequence on a volume of seeded needles
    written through the port's Volume (BASELINE.json's "Single 1GB
    volume, RS(10,4)" by default): .ecx, encode, .vif; lose shards
@@ -52,6 +55,12 @@ INT32_OPS_PER_S = 67e12
 MAIN_WORDS = 16_777_216          # 64 MiB per shard row: one device batch
 TWIN_WORDS = 1 << 20             # 4 MiB per row held against numpy
 LOST = (0, 7, 11, 13)
+STAGE_SPANS = ("encode.read", "encode.codec", "encode.write",
+               "rebuild.fetch", "rebuild.codec", "rebuild.write")
+BATCH_VOLUMES = 64               # BASELINE.json config 3
+BATCH_STEP_WORDS = 262_144       # 1 MiB row per volume at 64 volumes
+STEP_LOST = (0, 11)
+SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
 
 def emit(obj: dict) -> None:
@@ -63,30 +72,49 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of `reps` single-call CUDA-event times, after a warm-up."""
+def time_ms(fn, reps: int, trials: int = 10) -> float:
+    """Device time of one call: the median over `trials` of a run of
+    `reps` back-to-back calls between two CUDA events, queued behind a
+    spin kernel so that the host's launch overhead leaves no gap on the
+    device.  After a warm-up."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
-def bounds_ms(r: int, k: int, w: int) -> "tuple[float, float]":
-    """(bytes bound, operations bound) of one [R,K] x W-word apply:
-    K+R rows of W words moved once (plus the tables), and K*8*(2 + 2R)
-    integer operations per word column."""
-    nbytes = (k + r) * w * 4 + r * k * 8 * 4
-    ops = k * 8 * (2 + 2 * r) * w
+def bounds_ms(r: int, k: int, w: int, v: int = 1
+              ) -> "tuple[float, float]":
+    """(bytes bound, operations bound) of V [R,K] x W-word applies: V
+    times K+R rows of W words moved once (plus the tables, read once),
+    and K*8*(2 + 2R) integer operations per word column."""
+    nbytes = v * (k + r) * w * 4 + r * k * 8 * 4
+    ops = v * k * 8 * (2 + 2 * r) * w
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+
+def launches_for(k: int, batch_bytes: int) -> int:
+    """Kernel launches of one codec batch of k rows: one per staging
+    window when the batch is larger than a window (ops.staging), else
+    one."""
+    from seaweedfs_tpu_torch.ops import staging
+    from seaweedfs_tpu_torch.ops.rs_torch import PACK_MULTIPLE
+    w = -(-batch_bytes // PACK_MULTIPLE) * PACK_MULTIPLE // 4
+    wb = staging.window_bytes()
+    if wb > 0 and k * w * 4 > wb:
+        return len(staging.plan_windows(k, w))
+    return 1
 
 
 def sha256_file(path: str) -> str:
@@ -133,11 +161,26 @@ def phase_device(smi: str) -> dict:
 
 # --- phase 2 ---------------------------------------------------------------
 
+def _check_case(name, out, plain, twin_out, twin_want) -> int:
+    """Bit-exact checks of one kernel case; returns the max abs error
+    (over bytes) against the plain version."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    err = int((out.view(torch.uint8).to(torch.int16) -
+               plain.view(torch.uint8).to(torch.int16)).abs().max().item())
+    check(err == 0 and torch.equal(out, plain),
+          f"{name}: kernel differs from the plain version")
+    check(np.array_equal(twin_out, twin_want),
+          f"{name}: kernel differs from the numpy twin")
+    return err
+
+
 def phase_kernel(seed: int) -> dict:
     import numpy as np
     import torch
 
-    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix, staging
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -146,49 +189,71 @@ def phase_kernel(seed: int) -> dict:
     present = tuple(i not in LOST for i in range(14))
     rec, _rows = rs_matrix.cached_reconstruction_matrix(10, 4, present,
                                                         LOST)
+    pm = rs_matrix.parity_matrix(10, 4)
+    window_words = staging.plan_windows(10, MAIN_WORDS)[0][1]
+    # (name, matrix, words, volumes or None for the single entry)
     cases = [
-        ("parity [4,10]", rs_matrix.parity_matrix(10, 4), MAIN_WORDS),
-        ("rebuild {0,7,11,13} [4,10]", np.asarray(rec), MAIN_WORDS),
+        ("window parity [4,10]", pm, window_words, None),
+        ("batch parity [64,10]->[64,4]", pm, BATCH_STEP_WORDS,
+         BATCH_VOLUMES),
+        ("batch ragged [3,10]->[3,4] odd W", pm, 100_003, 3),
+        ("parity [4,10]", pm, MAIN_WORDS, None),
+        ("rebuild {0,7,11,13} [4,10]", np.asarray(rec), MAIN_WORDS, None),
         ("tail [3,6] x 1000003 bytes",
-         rng.integers(0, 256, (3, 6), dtype=np.uint8), -(-1_000_003 // 4)),
+         rng.integers(0, 256, (3, 6), dtype=np.uint8), -(-1_000_003 // 4),
+         None),
         ("random [16,16]", rng.integers(0, 256, (16, 16), dtype=np.uint8),
-         1 << 22),
+         1 << 22, None),
     ]
     results = []
-    max_err = 0
-    main = None
-    for name, mat, w in cases:
+    max_err = {"single": 0, "batched": 0}
+    main = {}
+    for name, mat, w, v in cases:
         r, k = mat.shape
         tables = rs_cuda.tables_from_numpy(mat, dev)
-        data = torch.randint(0, 256, (k, w * 4), dtype=torch.uint8,
+        shape = (k, w * 4) if v is None else (v, k, w * 4)
+        data = torch.randint(0, 256, shape, dtype=torch.uint8,
                              device=dev, generator=g).view(torch.int32)
-        out = rs_cuda.gf_apply_matrix_words(tables, data)
-        plain = rs_cuda.gf_apply_matrix_words_plain(tables, data)
-        torch.cuda.synchronize()
-        err = int((out.view(torch.uint8).to(torch.int16) -
-                   plain.view(torch.uint8).to(torch.int16)
-                   ).abs().max().item())
-        s = min(w, TWIN_WORDS)
-        twin = gf256.gf_apply_matrix(
-            mat, data[:, :s].cpu().numpy().view(np.uint8))
-        twin_ok = bool(np.array_equal(
-            out[:, :s].cpu().numpy().view(np.uint8), twin))
-        check(err == 0 and torch.equal(out, plain),
-              f"{name}: kernel differs from the plain version")
-        check(twin_ok, f"{name}: kernel differs from the numpy twin")
-        max_err = max(max_err, err)
-        ms = time_ms(lambda: rs_cuda.gf_apply_matrix_words(tables, data), 20)
-        bytes_ms, ops_ms = bounds_ms(r, k, w)
-        row = {"case": name, "R": r, "K": k, "words": w,
-               "equal_plain": True, "numpy_twin_bytes_per_row": s * 4,
-               "equal_numpy_twin": twin_ok, "max_abs_err": err,
+        if v is None:
+            kind = "single"
+            fn = rs_cuda.gf_apply_matrix_words
+            plain_fn = rs_cuda.gf_apply_matrix_words_plain
+            s = min(w, TWIN_WORDS)
+            host = data[:, :s].cpu().numpy().view(np.uint8)
+            out = fn(tables, data)
+            twin_out = out[:, :s].cpu().numpy().view(np.uint8)
+            twin_want = gf256.gf_apply_matrix(mat, host)
+            twin_bytes = s * 4
+        else:
+            kind = "batched"
+            fn = rs_cuda.gf_apply_matrix_words_batch
+            plain_fn = rs_cuda.gf_apply_matrix_words_batch_plain
+            # whole volumes against the twin until >= 4 MiB per row
+            nv = min(v, -(-TWIN_WORDS // w))
+            out = fn(tables, data)
+            twin_out = np.concatenate(
+                [out[i].cpu().numpy().view(np.uint8) for i in range(nv)],
+                axis=1)
+            twin_want = np.concatenate(
+                [gf256.gf_apply_matrix(mat, data[i].cpu().numpy().view(
+                    np.uint8)) for i in range(nv)], axis=1)
+            twin_bytes = nv * w * 4
+        plain = plain_fn(tables, data)
+        err = _check_case(name, out, plain, twin_out, twin_want)
+        max_err[kind] = max(max_err[kind], err)
+        del plain
+        ms = time_ms(lambda: fn(tables, data), 20)
+        bytes_ms, ops_ms = bounds_ms(r, k, w, v or 1)
+        row = {"case": name, "entry": kind, "V": v or 1, "R": r, "K": k,
+               "words": w, "equal_plain": True,
+               "numpy_twin_bytes_per_row": twin_bytes,
+               "equal_numpy_twin": True, "max_abs_err": err,
                "ms": ms, "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms}
-        if main is None:
-            row["plain_ms"] = time_ms(
-                lambda: rs_cuda.gf_apply_matrix_words_plain(tables, data), 5)
-            main = row
+        if kind not in main:
+            row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
+            main[kind] = row
         results.append(row)
-        del data, out, plain
+        del data, out
         torch.cuda.empty_cache()
     out = {"phase": "kernel", "cases": results, "max_abs_err": max_err,
            "library": "no single PyTorch call computes a GF(2^8) "
@@ -236,6 +301,64 @@ def _copy_rates() -> dict:
             "host_to_pinned_gbps": nbytes / statistics.median(host) / 1e9}
 
 
+def _staging_probe(seed: int) -> dict:
+    """The codec's staging alone, without the disk: one encode batch
+    (10 x 64 MiB) through parity_lazy(...).materialize(), windowed and
+    one-shot in turns (host clock, 3 each), the windowed launches'
+    staging snapshot, and the host copy of one staging window into
+    pinned memory by torch and by numpy (host clock, median of 5)."""
+    import numpy as np
+    import torch
+
+    from seaweedfs_tpu_torch.ops import staging
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch, pack_words
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (10, MAIN_WORDS * 4), dtype=np.uint8)
+    codec = ReedSolomonTorch(10, 4, "cuda")
+    walls: "dict[str, list]" = {"windowed": [], "one_shot": []}
+    knob = os.environ.get("SEAWEEDFS_TPU_H2D_WINDOW_MB")
+    staging.reset_aggregate()
+    results = {}
+    try:
+        for _turn in range(3):
+            for mode in ("windowed", "one_shot"):
+                if mode == "one_shot":
+                    os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = "0"
+                elif knob is None:
+                    os.environ.pop("SEAWEEDFS_TPU_H2D_WINDOW_MB", None)
+                else:
+                    os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = knob
+                t0 = time.perf_counter()
+                results[mode] = codec.parity_lazy(data).materialize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if knob is None:
+            os.environ.pop("SEAWEEDFS_TPU_H2D_WINDOW_MB", None)
+        else:
+            os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = knob
+    check(np.array_equal(results["windowed"], results["one_shot"]),
+          "windowed and one-shot parity differ")
+    snap = staging.snapshot()
+    flat = pack_words(data).view(np.int32)
+    _w0, n, _ = staging.plan_windows(10, flat.shape[1])[0]
+    pin = torch.empty((10, n), dtype=torch.int32, pin_memory=True)
+    copies = {}
+    for name, fn in (
+            ("torch", lambda: pin.copy_(torch.from_numpy(flat[:, :n]))),
+            ("numpy", lambda: np.copyto(pin.numpy(), flat[:, :n]))):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            t.append(time.perf_counter() - t0)
+        copies[name] = pin.nbytes / statistics.median(t) / 1e9
+    return {"staging_probe": {
+        "batch": "[10, 67108864] uint8 -> [4, 67108864]",
+        "windowed_ms": walls["windowed"], "one_shot_ms": walls["one_shot"],
+        "windowed_snapshot": snap,
+        "window_host_copy_gbps": copies}}
+
+
 def _disk_write_gbps(path: str, nbytes: int = 1 << 30) -> float:
     """Sequential write + fdatasync of `nbytes` (host clock)."""
     chunk = bytes(64 << 20)
@@ -253,7 +376,8 @@ def _disk_write_gbps(path: str, nbytes: int = 1 << 30) -> float:
 def _profiled_encode(dat_path: str, workdir: str) -> dict:
     """Encode the volume once more under torch.profiler: the device's
     busy time (kernels and copies) against the wall.  The profiler's own
-    cost lands in this wall, not in the timed encode above."""
+    cost lands in this wall, not in the timed encode above.  Staging
+    follows SEAWEEDFS_TPU_H2D_WINDOW_MB as it is set."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -289,7 +413,8 @@ def _profiled_encode(dat_path: str, workdir: str) -> dict:
 def phase_ec(volume_gib: float, seed: int) -> dict:
     import numpy as np
 
-    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch import profiling, stats, tracing
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix, staging
     from seaweedfs_tpu_torch.storage.erasure_coding import ec_decoder
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
         LARGE_BLOCK_SIZE, ECContext)
@@ -324,7 +449,12 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
 
         # the three calls of volume_server.py:1457-1459, on the card
         ctx = ECContext(device="cuda")
-        expect_enc = len(_encode_work_items(dat_size, ctx))
+        work = _encode_work_items(dat_size, ctx)
+        expect_enc = sum(launches_for(ctx.data_shards, item[3])
+                         for item in work)
+        staging.reset_aggregate()
+        tracing.reset_buffer()
+        root = tracing.start_span("chip_smoke.ec", role="volume")
         rs_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         write_sorted_file_from_idx(base)
@@ -335,7 +465,8 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
         t3 = time.perf_counter()
         enc_launches = rs_cuda.LAUNCHES
         check(enc_launches == expect_enc,
-              f"encode launched {enc_launches}, work list has {expect_enc}")
+              f"encode launched {enc_launches}, the staging windows of "
+              f"the work list are {expect_enc}")
 
         shard_size = os.path.getsize(base + ".ec00")
         lengths = {os.path.getsize(base + ctx.to_ext(i))
@@ -362,16 +493,52 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
         for sid in LOST:
             os.remove(base + ctx.to_ext(sid))
         step = ctx.batch_size(LARGE_BLOCK_SIZE)
-        expect_reb = -(-shard_size // step)
+        expect_reb = sum(launches_for(ctx.data_shards,
+                                      min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
         before = rs_cuda.LAUNCHES
         t4 = time.perf_counter()
         generated = rebuild_ec_files(base)
         t5 = time.perf_counter()
         reb_launches = rs_cuda.LAUNCHES - before
         main_launches = rs_cuda.LAUNCHES
+        root.finish()
         check(generated == list(LOST), f"rebuilt {generated}")
         check(reb_launches == expect_reb,
-              f"rebuild launched {reb_launches}, work list has {expect_reb}")
+              f"rebuild launched {reb_launches}, the staging windows of "
+              f"the work list are {expect_reb}")
+        snap = staging.snapshot()
+        check(snap["windows"] == main_launches,
+              f"staging counted {snap['windows']} windows, the kernel "
+              f"{main_launches} launches")
+        spans = {}
+        for sp in tracing.spans_for(root.trace_id):
+            if sp["name"] in STAGE_SPANS:
+                check(sp["parentId"] == root.span_id,
+                      f"{sp['name']} is not parented to the ec span")
+                spans[sp["name"]] = {
+                    "durationMs": sp["durationMs"],
+                    "busySeconds": sp["attrs"]["busySeconds"],
+                    "calls": sp["attrs"]["calls"]}
+        check(sorted(spans) == sorted(STAGE_SPANS),
+              f"stage spans {sorted(spans)}")
+        m = stats.PROCESS
+        gauges = {
+            "device_h2d_gbps": m.gauge_value("device_h2d_gbps"),
+            "device_d2h_gbps": m.gauge_value("device_d2h_gbps"),
+            "device_h2d_overlap_fraction": {
+                op: m.gauge_value("device_h2d_overlap_fraction", op=op)
+                for op in ("encode", "rebuild")},
+            "device_staged_windows_total": {
+                op: m.counter_value("device_staged_windows_total", op=op)
+                for op in ("encode", "rebuild")},
+            "device_kernel_last_ms": m.gauge_value(
+                "device_kernel_last_ms", kernel="gf_apply_matrix")}
+        hist = m.histogram_merged("device_kernel_seconds")
+        gauges["device_kernel_seconds"] = {"count": hist["count"],
+                                           "sum": hist["sum"]}
+        memory = profiling.sample_device_memory()
+        check(bool(memory), "no device memory sample")
         for sid in LOST:
             check(sha256_file(base + ctx.to_ext(sid)) == shard_sha[sid],
                   f"rebuilt shard {sid} differs")
@@ -399,10 +566,22 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
         for i in range(ctx.total):      # disk room for the profiled run
             os.remove(base + ctx.to_ext(i))
         rates = _copy_rates()
+        rates.update(_staging_probe(seed))
         rates["disk_write_gbps"] = _disk_write_gbps(
             os.path.join(tmp, "disk_probe"))
-        rates.update(_profiled_encode(base + ".dat",
-                                      os.path.join(tmp, "profiled")))
+        # windowed (default) then one-shot, in turns, in this call
+        profiled = {"windowed": _profiled_encode(
+            base + ".dat", os.path.join(tmp, "profiled_windowed"))}
+        knob = os.environ.get("SEAWEEDFS_TPU_H2D_WINDOW_MB")
+        os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = "0"
+        try:
+            profiled["one_shot"] = _profiled_encode(
+                base + ".dat", os.path.join(tmp, "profiled_one_shot"))
+        finally:
+            if knob is None:
+                os.environ.pop("SEAWEEDFS_TPU_H2D_WINDOW_MB")
+            else:
+                os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = knob
         out = {"phase": "ec", "scheme": str(ctx),
                "volume_gib_requested": volume_gib, "dat_bytes": dat_size,
                "needles": n_needles, "payload_bytes": sum(sizes.values()),
@@ -422,7 +601,157 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
                "parity_windows_checked": len(samples),
                "shards_sha256_equal_after_rebuild": True,
                "dat_sha256_equal_after_decode": True,
-               "needles_read_back": len(pick), **rates}
+               "needles_read_back": len(pick),
+               "staging": snap, "stage_spans": spans,
+               "telemetry": gauges, "device_memory": memory,
+               "profiled_encode": profiled, **rates}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- phase 4 ---------------------------------------------------------------
+
+def _write_volume(directory: str, vid: int, target: int, rng,
+                  seed: int) -> "tuple[str, int, int, dict]":
+    """A seeded volume of `target` .dat bytes, less under 8 KiB, written
+    through the port's Volume; returns (base, dat bytes, version, needle
+    sizes)."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    v = Volume(directory, vid)
+    sizes = {}
+    while v.dat_size() < target - (8 << 10):
+        nid = len(sizes) + 1
+        room = target - v.dat_size() - 4096    # needle header and tail
+        sizes[nid] = min(int(rng.integers(256 << 10, 2 << 20)), room)
+        v.write_needle(Needle(cookie=_cookie(nid), id=nid,
+                              data=_payload(seed + vid, nid, sizes[nid])))
+    v.read_only = True
+    v.sync()
+    out = (v.file_name(""), v.dat_size(), v.version, sizes)
+    v.close()
+    return out
+
+
+def phase_batch(batch_gib: float, seed: int) -> dict:
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch.parallel import ec_batch, ec_sharded, make_mesh
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        DEVICE_BATCH_SIZE, SMALL_BLOCK_SIZE, ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        save_ec_volume_info, write_ec_files, write_sorted_file_from_idx)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    try:
+        rng = np.random.default_rng(seed + 1)
+        mean = batch_gib * (1 << 30) / BATCH_VOLUMES
+        batch_dir = os.path.join(tmp, "batch")
+        alone_dir = os.path.join(tmp, "alone")
+        os.makedirs(batch_dir)
+        os.makedirs(alone_dir)
+        t0 = time.perf_counter()
+        vols = [_write_volume(batch_dir, vid, int(rng.uniform(
+            0.75 * mean, 1.25 * mean)), rng, seed)
+            for vid in range(1, BATCH_VOLUMES + 1)]
+        write_s = time.perf_counter() - t0
+        bases = [b for b, _, _, _ in vols]
+        total = sum(n for _, n, _, _ in vols)
+        ctx = ECContext(device="cuda")
+        d = ctx.data_shards
+        rows_per_step = max(1, DEVICE_BATCH_SIZE //
+                            (SMALL_BLOCK_SIZE * BATCH_VOLUMES))
+        n_rows = [-(-n // (SMALL_BLOCK_SIZE * d)) for _, n, _, _ in vols]
+        expect_steps = max(-(-r // rows_per_step) for r in n_rows)
+
+        # as the worker's execute_batch: .ecx each, one batched encode,
+        # .vif each
+        for b in bases:
+            write_sorted_file_from_idx(b)
+        rs_cuda.LAUNCHES = 0
+        rs_cuda.LAUNCHES_BATCHED = 0
+        t1 = time.perf_counter()
+        ec_batch.encode_volume_files_batch(bases, ctx)
+        t2 = time.perf_counter()
+        batched = rs_cuda.LAUNCHES_BATCHED
+        single = rs_cuda.LAUNCHES
+        for b, n, version, _ in vols:
+            save_ec_volume_info(b, ctx, n, version)
+        check(batched == expect_steps and single == 0,
+              f"batch encode made {batched} batched and {single} single "
+              f"launches for {expect_steps} steps")
+
+        # each volume alone through the per-volume pipeline
+        t3 = time.perf_counter()
+        for b in bases:
+            alone = os.path.join(alone_dir, os.path.basename(b))
+            os.link(b + ".dat", alone + ".dat")
+            write_ec_files(alone, ctx)
+        t4 = time.perf_counter()
+        for b in bases:
+            alone = os.path.join(alone_dir, os.path.basename(b))
+            for i in range(ctx.total):
+                check(sha256_file(b + ctx.to_ext(i)) ==
+                      sha256_file(alone + ctx.to_ext(i)),
+                      f"{b}{ctx.to_ext(i)} differs from the per-volume "
+                      f"encode")
+        pm = rs_matrix.parity_matrix(d, ctx.parity_shards)
+        win = 1 << 20
+        checked = 0
+        for b in (bases[0], bases[BATCH_VOLUMES // 2], bases[-1]):
+            shard = os.path.getsize(b + ".ec00")
+            for off in sorted({0, max(0, shard - win)}):
+                rows = []
+                for i in range(ctx.total):
+                    with open(b + ctx.to_ext(i), "rb") as f:
+                        f.seek(off)
+                        rows.append(np.frombuffer(f.read(win),
+                                                  dtype=np.uint8))
+                check(np.array_equal(gf256.gf_apply_matrix(
+                    pm, np.stack(rows[:d])), np.stack(rows[d:])),
+                    f"{b} parity at {off} differs from numpy")
+                checked += 1
+
+        # the sharded step on the one-card grid, 64 MiB per shard row
+        mesh = make_mesh()
+        data32 = rng.integers(0, 1 << 32, size=(d, MAIN_WORDS),
+                              dtype=np.uint32)
+        rs_cuda.LAUNCHES = 0
+        t5 = time.perf_counter()
+        par, _rec, err = ec_sharded.distributed_ec_step(
+            mesh, data32, lost=STEP_LOST)
+        t6 = time.perf_counter()
+        step_launches = rs_cuda.LAUNCHES
+        check(err == 0, f"distributed_ec_step err {err}")
+        s = TWIN_WORDS
+        check(np.array_equal(
+            par[:, :s].view(np.uint8),
+            gf256.gf_apply_matrix(pm, data32[:, :s].view(np.uint8))),
+            "distributed_ec_step parity differs from numpy")
+        out = {"phase": "batch", "volumes": BATCH_VOLUMES,
+               "batch_gib_requested": batch_gib, "dat_bytes": total,
+               "dat_bytes_min": min(n for _, n, _, _ in vols),
+               "dat_bytes_max": max(n for _, n, _, _ in vols),
+               "volume_write_seconds": write_s,
+               "rows_per_step": rows_per_step, "steps": expect_steps,
+               "step_shape": f"[{BATCH_VOLUMES},{d}] -> "
+                             f"[{BATCH_VOLUMES},{ctx.parity_shards}] x "
+                             f"{rows_per_step * SMALL_BLOCK_SIZE // 4} "
+                             f"words",
+               "batch_encode_seconds": t2 - t1,
+               "batch_encode_gbps": total / (t2 - t1) / 1e9,
+               "batched_launches": batched,
+               "per_volume_encode_seconds": t4 - t3,
+               "per_volume_encode_gbps": total / (t4 - t3) / 1e9,
+               "shards_sha256_equal_per_volume": BATCH_VOLUMES * ctx.total,
+               "parity_windows_checked": checked,
+               "step": {"grid": mesh.shape, "words": MAIN_WORDS,
+                        "lost": list(STEP_LOST), "err": err,
+                        "launches": step_launches,
+                        "seconds": t6 - t5}}
         emit(out)
         return out
     finally:
@@ -433,6 +762,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
                     help="size of the seeded volume to encode (GiB)")
+    ap.add_argument("--batch-gib", type=float, default=1.0,
+                    help="total .dat size of the 64-volume batch (GiB)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -445,20 +776,28 @@ def main(argv=None) -> int:
     phase_device(smi)
     kern = phase_kernel(args.seed)
     ec = phase_ec(args.volume_gib, args.seed)
-    main_case = kern["main"]
-    bytes_ms, ops_ms = main_case["bytes_bound_ms"], main_case["ops_bound_ms"]
-    emit({"kernels": [{
-        "name": "gf_apply_words", "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:33",
-        "launches": ec["main_path_launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "matched": True,
-        "shape": f"[{main_case['R']},{main_case['K']}] x "
-                 f"{main_case['words']} words"}]})
+    batch = phase_batch(args.batch_gib, args.seed)
+    kernels = []
+    for kind, name, replaces, launches in (
+            ("single", "gf_apply_words", "seaweedfs_tpu/ops/rs_pallas.py:33",
+             ec["main_path_launches"]),
+            ("batched", "gf_apply_words_batched",
+             "seaweedfs_tpu/parallel/ec_sharded.py:157",
+             batch["batched_launches"])):
+        case = kern["main"][kind]
+        bytes_ms, ops_ms = case["bytes_bound_ms"], case["ops_bound_ms"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": kern["max_abs_err"][kind],
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "matched": True,
+            "shape": f"[{case['V']},{case['R']},{case['K']}] x "
+                     f"{case['words']} words"})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

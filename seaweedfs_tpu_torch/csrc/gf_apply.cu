@@ -27,6 +27,18 @@
 // work is what keeps it above that floor, and a formulation with fewer
 // operations per byte is later work.
 //
+// The batched entry (gf_apply_words_batched) replaces the `vmap` over
+// volumes of seaweedfs_tpu/parallel/ec_sharded.py
+// `_apply_tables_batch_local` (BASELINE.json config 3, a 64-volume
+// ec.encode): one launch for V volumes, the volume on blockIdx.y, one
+// set of tables for all of them.  At the batch path's step shape
+// ([64,10] -> [64,4] x 262,144 words) it is the same work as the
+// single-volume main-path launch: 0.94 GB moved, >= 0.28 ms at
+// 3.35 TB/s, and 13.4 G integer operations, >= 0.20 ms at 67 T/s, so
+// bytes bound it.  The x grid is cut to about 8*SMs/V blocks, so the
+// x*V blocks of a launch still fill the 132 SMs without launching
+// V * 8*SMs of them.
+//
 // Design:
 // - a grid-stride loop over word columns; neighbouring threads take
 //   neighbouring 16-byte (uint4) columns when every row is 16-byte
@@ -39,8 +51,9 @@
 //   shared memory by each block (no __constant__ symbol written per
 //   call: encode and rebuild launches may be in flight on different
 //   streams at once);
-// - 64-bit offsets; it allocates nothing, launches on the caller's
-//   stream and returns cudaGetLastError().
+// - 64-bit offsets, per volume too (V*K*W passes 2^31 words at large
+//   steps); it allocates nothing, launches on the caller's stream and
+//   returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,15 +63,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxRowsPerGroup = 8;
 constexpr int kMaxShards = 32;
+constexpr int kMaxGridY = 65535;
 constexpr uint32_t kLaneMask = 0x01010101u;
 
 template <int RB, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const uint32_t* __restrict__ tables,  // [RB, K, 8]
-                const uint32_t* __restrict__ data,    // [K, W]
-                uint32_t* __restrict__ out,           // [RB, W] rows of W
-                int K, int64_t W) {
+                const uint32_t* __restrict__ data,    // [V][K, W]
+                uint32_t* __restrict__ out,           // [V][RB rows of W]
+                int K, int64_t W,
+                int64_t data_vstride,                 // words per volume
+                int64_t out_vstride) {
   extern __shared__ uint32_t tab[];
+  data += (int64_t)blockIdx.y * data_vstride;
+  out += (int64_t)blockIdx.y * out_vstride;
   for (int i = threadIdx.x; i < RB * K * 8; i += blockDim.x) {
     tab[i] = tables[i];
   }
@@ -123,21 +141,70 @@ gf_apply_kernel(const uint32_t* __restrict__ tables,  // [RB, K, 8]
 
 template <int RB>
 cudaError_t launch_group(const uint32_t* tables, const uint32_t* data,
-                         uint32_t* out, int K, int64_t W, bool vec,
-                         int max_blocks, cudaStream_t stream) {
+                         uint32_t* out, int V, int K, int64_t W,
+                         int64_t data_vstride, int64_t out_vstride,
+                         bool vec, int max_blocks, cudaStream_t stream) {
   const int64_t columns = vec ? W / 4 : W;
   int64_t blocks = (columns + kThreads - 1) / kThreads;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
+  const dim3 grid((unsigned)blocks, (unsigned)V);
   const size_t smem = (size_t)RB * K * 8 * sizeof(uint32_t);
   if (vec) {
-    gf_apply_kernel<RB, true><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        tables, data, out, K, W);
+    gf_apply_kernel<RB, true><<<grid, kThreads, smem, stream>>>(
+        tables, data, out, K, W, data_vstride, out_vstride);
   } else {
-    gf_apply_kernel<RB, false><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        tables, data, out, K, W);
+    gf_apply_kernel<RB, false><<<grid, kThreads, smem, stream>>>(
+        tables, data, out, K, W, data_vstride, out_vstride);
   }
   return cudaGetLastError();
+}
+
+// V volumes of [K, W] words in, [R, W] each out; row groups of <= 8.
+int apply_volumes(const void* tables, const void* data, void* out, int V,
+                  int R, int K, long long W, void* stream) {
+  if (R < 1 || R > kMaxShards || K < 1 || K > kMaxShards || W < 0 ||
+      V < 1 || V > kMaxGridY) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (W == 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // about 8 blocks per SM over the whole grid, at least one per volume
+  const int max_blocks = (sms * 8 + V - 1) / V;
+  // every volume's base is data + v*K*W and out + v*R*W (+ r0*W): with
+  // W % 4 == 0 those offsets are whole 16-byte units, so the bases'
+  // alignment holds for every volume and row group
+  const bool vec = (W % 4 == 0) &&
+                   ((uintptr_t)data % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  const int64_t data_vstride = (int64_t)K * W;
+  const int64_t out_vstride = (int64_t)R * W;
+  const cudaStream_t s = (cudaStream_t)stream;
+  for (int r0 = 0; r0 < R; r0 += kMaxRowsPerGroup) {
+    const int rb = (R - r0 < kMaxRowsPerGroup) ? R - r0 : kMaxRowsPerGroup;
+    const uint32_t* t = (const uint32_t*)tables + (size_t)r0 * K * 8;
+    const uint32_t* d = (const uint32_t*)data;
+    uint32_t* o = (uint32_t*)out + (size_t)r0 * (size_t)W;
+#define GF_GROUP(N)                                                    \
+  err = launch_group<N>(t, d, o, V, K, W, data_vstride, out_vstride,  \
+                        vec, max_blocks, s)
+    switch (rb) {
+      case 1: GF_GROUP(1); break;
+      case 2: GF_GROUP(2); break;
+      case 3: GF_GROUP(3); break;
+      case 4: GF_GROUP(4); break;
+      case 5: GF_GROUP(5); break;
+      case 6: GF_GROUP(6); break;
+      case 7: GF_GROUP(7); break;
+      default: GF_GROUP(8); break;
+    }
+#undef GF_GROUP
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -149,35 +216,14 @@ cudaError_t launch_group(const uint32_t* tables, const uint32_t* data,
 extern "C" int gf_apply_words(const void* tables, const void* data,
                               void* out, int R, int K, long long W,
                               void* stream) {
-  if (R < 1 || R > kMaxShards || K < 1 || K > kMaxShards || W < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (W == 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int max_blocks = sms * 8;
-  const bool vec = (W % 4 == 0) &&
-                   ((uintptr_t)data % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  const cudaStream_t s = (cudaStream_t)stream;
-  for (int r0 = 0; r0 < R; r0 += kMaxRowsPerGroup) {
-    const int rb = (R - r0 < kMaxRowsPerGroup) ? R - r0 : kMaxRowsPerGroup;
-    const uint32_t* t = (const uint32_t*)tables + (size_t)r0 * K * 8;
-    const uint32_t* d = (const uint32_t*)data;
-    uint32_t* o = (uint32_t*)out + (size_t)r0 * (size_t)W;
-    switch (rb) {
-      case 1: err = launch_group<1>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 2: err = launch_group<2>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 3: err = launch_group<3>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 4: err = launch_group<4>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 5: err = launch_group<5>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 6: err = launch_group<6>(t, d, o, K, W, vec, max_blocks, s); break;
-      case 7: err = launch_group<7>(t, d, o, K, W, vec, max_blocks, s); break;
-      default: err = launch_group<8>(t, d, o, K, W, vec, max_blocks, s); break;
-    }
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return apply_volumes(tables, data, out, 1, R, K, W, stream);
+}
+
+// The same apply for V volumes in one launch (one set of tables):
+// data [V, K, W] and out [V, R, W], contiguous, in device memory;
+// 1 <= V <= 65,535 (the grid's y limit).
+extern "C" int gf_apply_words_batched(const void* tables, const void* data,
+                                      void* out, int V, int R, int K,
+                                      long long W, void* stream) {
+  return apply_volumes(tables, data, out, V, R, K, W, stream);
 }

@@ -8,7 +8,10 @@ CUDA device and runs `gf_apply_matrix_words_plain` for tensors on the
 CPU; it never falls back from one to the other.  The kernel replaces
 the TPU kernel `seaweedfs_tpu/ops/rs_pallas.py:_rs_kernel` and the XLA
 network `rs_jax._packed_xor_network`; the plain version is that
-network written in torch ops.
+network written in torch ops.  `gf_apply_matrix_words_batch` is the
+same apply over V volumes in one launch (the volume on the kernel
+grid's y axis), in place of the reference's `vmap` over volumes
+(`parallel/ec_sharded.py:_apply_tables_batch_local`).
 
 Words are int32 here: PyTorch has no `>>` for uint32 on the CPU.  The
 lane mask drops the sign-extended bits of an arithmetic shift and the
@@ -26,12 +29,15 @@ from . import _build, gf256
 
 SOURCE = "gf_apply.cu"
 MAX_SHARDS = 32          # ShardBits is uint32 (ec_context.MAX_SHARD_COUNT)
+MAX_VOLUMES = 65535      # the kernel grid's y limit
 LANE_MASK = 0x01010101
 
-# Kernel launches made by gf_apply_matrix_words (one per call on a CUDA
-# tensor).  Read and reset by chip_smoke.py to show that the main path
-# went through the kernel.
+# Kernel launches made by gf_apply_matrix_words and by
+# gf_apply_matrix_words_batch (one per call on a CUDA tensor).  Read and
+# reset by chip_smoke.py to show that the main path went through the
+# kernel.
 LAUNCHES = 0
+LAUNCHES_BATCHED = 0
 
 
 def tables_from_numpy(mat: np.ndarray, device="cpu") -> torch.Tensor:
@@ -59,7 +65,26 @@ def gf_apply_matrix_words_plain(tables: torch.Tensor,
     return out
 
 
-def _check(tables: torch.Tensor, data32: torch.Tensor) -> "tuple[int, int]":
+def gf_apply_matrix_words_batch_plain(tables: torch.Tensor,
+                                      batch32: torch.Tensor) -> torch.Tensor:
+    """The batched kernel's function in torch ops: tables [R*K*8] int32,
+    batch32 [V, K, W] int32 -> [V, R, W] int32."""
+    v, k, w = batch32.shape
+    r = tables.numel() // (k * 8)
+    tab = tables.view(r, k, 8).to(torch.int32)
+    out = torch.zeros((v, r, w), dtype=torch.int32, device=batch32.device)
+    for ki in range(k):
+        d = batch32[:, ki].unsqueeze(1)               # [V, 1, W]
+        for b in range(8):
+            mask = (d >> b) & LANE_MASK
+            out ^= mask * tab[:, ki, b].view(1, r, 1)
+    return out
+
+
+def _check(tables: torch.Tensor, data32: torch.Tensor,
+           dims: int = 2) -> "tuple[int, int]":
+    """Validate tables [R*K*8] against data [K, W] (dims=2) or a batch
+    [V, K, W] (dims=3); returns (R, K)."""
     if tables.device != data32.device:
         raise ValueError(
             f"tables on {tables.device}, data on {data32.device}")
@@ -67,11 +92,12 @@ def _check(tables: torch.Tensor, data32: torch.Tensor) -> "tuple[int, int]":
         raise TypeError(
             f"expected int32 tables and words, got {tables.dtype} and "
             f"{data32.dtype}")
-    if data32.dim() != 2 or tables.dim() != 1:
+    if data32.dim() != dims or tables.dim() != 1:
+        want = "[K, W]" if dims == 2 else "[V, K, W]"
         raise ValueError(
-            f"expected tables [R*K*8] and data [K, W], got "
+            f"expected tables [R*K*8] and data {want}, got "
             f"{tuple(tables.shape)} and {tuple(data32.shape)}")
-    k = data32.shape[0]
+    k = data32.shape[-2]
     if not 0 < k <= MAX_SHARDS or tables.numel() % (k * 8):
         raise ValueError(
             f"{tables.numel()} table entries do not fit K={k}")
@@ -83,12 +109,18 @@ def _check(tables: torch.Tensor, data32: torch.Tensor) -> "tuple[int, int]":
     return r, k
 
 
-def _kernel():
+def _kernel(batched: bool = False):
     lib = _build.load(SOURCE)
-    fn = lib.gf_apply_words
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
+    if batched:
+        fn = lib.gf_apply_words_batched
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p]
+    else:
+        fn = lib.gf_apply_words
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,4 +154,37 @@ def gf_apply_matrix_words(tables: torch.Tensor, data32: torch.Tensor,
             f"gf_apply_words launch failed: cudaError {err} "
             f"(R={r} K={k} W={w})")
     LAUNCHES += 1
+    return out
+
+
+def gf_apply_matrix_words_batch(tables: torch.Tensor, batch32: torch.Tensor,
+                                stream: "torch.cuda.Stream | None" = None
+                                ) -> torch.Tensor:
+    """tables [R*K*8] int32, batch32 [V, K, W] int32 -> [V, R, W] int32:
+    the same matrix applied to each of V volumes, in ONE kernel launch
+    on a CUDA device (on `stream`, default the calling thread's current
+    stream; raises if the launch fails), or the plain version on the
+    CPU."""
+    global LAUNCHES_BATCHED
+    r, k = _check(tables, batch32, dims=3)
+    v, _k, w = batch32.shape
+    if not 0 < v <= MAX_VOLUMES:
+        raise ValueError(f"V={v} volumes; at most {MAX_VOLUMES} a launch")
+    if batch32.device.type == "cpu":
+        return gf_apply_matrix_words_batch_plain(tables, batch32)
+    if batch32.device.type != "cuda":
+        raise ValueError(f"no kernel for device {batch32.device}")
+    fn = _kernel(batched=True)
+    if stream is None:
+        stream = torch.cuda.current_stream(batch32.device)
+    with torch.cuda.stream(stream):
+        out = torch.empty((v, r, w), dtype=torch.int32,
+                          device=batch32.device)
+    err = fn(tables.data_ptr(), batch32.data_ptr(), out.data_ptr(),
+             v, r, k, w, stream.cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"gf_apply_words_batched launch failed: cudaError {err} "
+            f"(V={v} R={r} K={k} W={w})")
+    LAUNCHES_BATCHED += 1
     return out

@@ -6,22 +6,27 @@ The counterpart of `seaweedfs_tpu/ops/rs_jax.py` (`ReedSolomonJax`),
 with the same API and the same bytes out.  Host buffers are packed to
 32-bit words (a free numpy view), so the device never relayouts bytes.
 
-A lazy launch (`parity_lazy`, `apply_matrix_lazy`) copies the packed
-batch into a pinned host buffer, then on the codec's own CUDA stream
-copies it to the device, launches the kernel and copies the output back
-into pinned memory, and records an event.  The caller's writer thread
-`materialize()`s the handle, which waits on that event.  The stream is
-passed explicitly everywhere: PyTorch's current stream is per thread.
+A lazy launch (`parity_lazy`, `apply_matrix_lazy`) of a batch larger
+than one staging window is a `staging.WindowedLaunch`: a staging thread
+copies window after window into pinned buffers and to the device on the
+codec's copy stream, and the kernel and the copy back run on its compute
+stream, while the caller's writer drains the finished windows.  A batch
+within one window (or any batch with SEAWEEDFS_TPU_H2D_WINDOW_MB=0) is
+copied, launched and copied back in one shot on the compute stream, and
+`materialize()` waits on its event.  Streams are passed explicitly
+everywhere: PyTorch's current stream is per thread.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
-from . import rs_cuda, rs_matrix
+from .. import profiling
+from . import rs_cuda, rs_matrix, staging
 
 # Pack batches to 16-byte multiples: rows of W words are then 16-byte
 # aligned and the kernel takes its uint4 path.
@@ -92,60 +97,62 @@ def gf_apply_matrix(mat, data, device="cpu"):
     return out.reshape((mat.shape[0],) + batch_shape)
 
 
-class _PinnedPool:
-    """Reused page-locked host buffers, by shape.  Taken on the compute
-    thread, given back on the writer thread."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._free: dict[tuple, list] = {}
-
-    def take(self, shape: tuple) -> torch.Tensor:
-        with self._lock:
-            free = self._free.get(shape)
-            if free:
-                return free.pop()
-        return torch.empty(shape, dtype=torch.int32, pin_memory=True)
-
-    def give(self, *bufs: torch.Tensor) -> None:
-        with self._lock:
-            for t in bufs:
-                self._free.setdefault(tuple(t.shape), []).append(t)
+def _windowed_wanted(flat: np.ndarray) -> bool:
+    """Take the windowed staging path (ops.staging)?  Yes when windowing
+    is on and the batch spans more than one window; a batch within one
+    window gains nothing from a staging thread and launches in one shot.
+    """
+    wb = staging.window_bytes()
+    return wb > 0 and flat.nbytes > wb
 
 
 class _PendingParity:
-    """An in-flight codec launch (see ReedSolomonTorch.parity_lazy)."""
+    """An in-flight one-shot codec launch (see ReedSolomonTorch.
+    parity_lazy): the whole batch in one h2d copy, one kernel launch and
+    one d2h copy, or the plain version's result on the CPU."""
 
-    def __init__(self, nbytes: int, result: "np.ndarray | None" = None,
-                 event=None, pinned=(), pool=None, keep=()):
+    def __init__(self, nbytes: int, host: torch.Tensor, dispatched_at: float,
+                 event=None, pinned_in=None, keep=()):
         self._nbytes = nbytes
-        self._result = result
+        self._host = host            # [R, W] int32 output (pinned on CUDA)
+        self._dispatched_at = dispatched_at
         self._event = event
-        self._pinned = pinned        # (pinned in, pinned out)
-        self._pool = pool
+        self._pinned_in = pinned_in
         self._keep = keep            # device tensors the launch uses
+        self._result: "np.ndarray | None" = None
 
     def _release(self) -> None:
-        if self._pool is not None and self._pinned:
-            self._pool.give(*self._pinned)
-        self._pinned = ()
+        if self._event is not None:
+            self._event.synchronize()
+            staging.POOL.give(self._pinned_in, pinned=True)
+            staging.POOL.give(self._host, pinned=True)
+            self._event = None
+        self._pinned_in = None
+        self._host = None
         self._keep = ()
 
     def materialize(self) -> np.ndarray:
         """Wait for the launch; returns uint8 [R, B] (a copy: the pinned
-        buffer goes back to the pool)."""
+        buffer goes back to the pool).  Records the d2h wait and the
+        dispatch-to-fetch kernel window, as the reference's
+        _PendingParity.materialize does."""
         if self._result is None:
-            self._event.synchronize()
-            host = self._pinned[1].numpy()
+            t0 = time.perf_counter()
+            if self._event is not None:
+                self._event.synchronize()
+            fetch = time.perf_counter() - t0
+            host = self._host.numpy()
             self._result = unpack_words(host, self._nbytes).copy()
+            profiling.device_note("d2h", host.nbytes, fetch)
+            profiling.kernel_note("gf_apply_matrix",
+                                  t0 + fetch - self._dispatched_at,
+                                  host.nbytes)
             self._release()
         return self._result
 
     def abort(self) -> None:
         """Drop a launch whose result is not wanted, once the device is
         done with its buffers."""
-        if self._event is not None:
-            self._event.synchronize()
         self._release()
 
 
@@ -164,11 +171,11 @@ class ReedSolomonTorch:
         self.total_shards = data_shards + parity_shards
         self.matrix = rs_matrix.build_matrix(data_shards, self.total_shards)
         self._parity_rows = np.ascontiguousarray(self.matrix[data_shards:])
-        self._stream = None
-        self._pool = None
+        self._stream = None          # compute: kernels and d2h copies
+        self._copy_stream = None     # windowed h2d copies
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-            self._pool = _PinnedPool()
+            self._copy_stream = torch.cuda.Stream(self.device)
         self._tables_lock = threading.Lock()
         self._tables: dict[bytes, torch.Tensor] = {}
         self._parity_tables = self._device_tables(self._parity_rows)
@@ -206,28 +213,34 @@ class ReedSolomonTorch:
                 f"expected [{rows}, B] shard array, got {tuple(arr.shape)}")
         return arr
 
-    def _launch(self, tables: torch.Tensor, data) -> _PendingParity:
+    def _launch(self, tables: torch.Tensor, data, op: str):
         data = np.ascontiguousarray(data)
         b = data.shape[1]
         flat = pack_words(data, PACK_MULTIPLE).view(np.int32)
         r = tables.numel() // (data.shape[0] * 8)
+        if _windowed_wanted(flat):
+            return staging.WindowedLaunch(
+                tables, flat, r, b, self.device, op=op,
+                streams=(self._copy_stream, self._stream))
+        profiling.device_note("h2d", flat.nbytes, None)
         if self._stream is None:
+            t_dispatch = time.perf_counter()
             out32 = rs_cuda.gf_apply_matrix_words(
                 tables, torch.from_numpy(flat))
-            return _PendingParity(b, result=unpack_words(
-                out32.numpy(), b).copy())
-        pin_in = self._pool.take(flat.shape)
-        pin_out = self._pool.take((r, flat.shape[1]))
+            return _PendingParity(b, out32, t_dispatch)
+        pin_in = staging.POOL.take(flat.shape, pinned=True)
+        pin_out = staging.POOL.take((r, flat.shape[1]), pinned=True)
         pin_in.copy_(torch.from_numpy(flat))
         s = self._stream
         with torch.cuda.stream(s):
             dev_in = pin_in.to(self.device, non_blocking=True)
+            t_dispatch = time.perf_counter()
             out32 = rs_cuda.gf_apply_matrix_words(tables, dev_in, stream=s)
             pin_out.copy_(out32, non_blocking=True)
             event = torch.cuda.Event(blocking=True)
             event.record(s)
-        return _PendingParity(b, event=event, pinned=(pin_in, pin_out),
-                              pool=self._pool, keep=(dev_in, out32))
+        return _PendingParity(b, pin_out, t_dispatch, event=event,
+                              pinned_in=pin_in, keep=(dev_in, out32))
 
     # -- encode ------------------------------------------------------------
 
@@ -236,29 +249,32 @@ class ReedSolomonTorch:
         data = self._check(data, self.data_shards)
         return gf_apply_matrix(self._parity_rows, data, self.device)
 
-    def parity_lazy(self, data) -> _PendingParity:
+    def parity_lazy(self, data):
         """Launch the parity computation WITHOUT waiting for it.
 
         Returns a handle whose .materialize() waits for the device and
         yields the [parity_shards, B] uint8 numpy array, so a pipeline
-        overlaps launch k's d2h with launch k+1's h2d and kernel.
+        overlaps launch k's d2h with launch k+1's h2d and kernel.  A
+        batch larger than one staging window gives a
+        staging.WindowedLaunch, whose .windows() also yields the parity
+        window by window as it lands.
 
-        Aliasing contract: `data` is copied into a pinned buffer before
-        this returns, and callers recycle it only after materialize()
-        returns (ec_encoder._staged_run)."""
+        Aliasing contract: callers recycle `data` only after
+        materialize() returns or windows() is drained
+        (ec_encoder._staged_run)."""
         data = self._check(data, self.data_shards)
-        return self._launch(self._parity_tables, data)
+        return self._launch(self._parity_tables, data, "encode")
 
     def apply_matrix(self, mat, data) -> np.ndarray:
         """out[r] = XOR_k mat[r,k] * data[k] — public generic apply."""
         return gf_apply_matrix(mat, data, self.device)
 
-    def apply_matrix_lazy(self, mat, data) -> _PendingParity:
-        """Generic apply launched without waiting (same contract as
-        parity_lazy)."""
+    def apply_matrix_lazy(self, mat, data):
+        """Generic apply launched without waiting (same contract and the
+        same staging as parity_lazy)."""
         mat = np.asarray(mat, dtype=np.uint8)
         data = self._check(data, mat.shape[1])
-        return self._launch(self._device_tables(mat), data)
+        return self._launch(self._device_tables(mat), data, "rebuild")
 
     def encode(self, shards) -> np.ndarray:
         """shards: [total, B] with data rows filled; returns the full

@@ -19,9 +19,11 @@ tests can shrink them.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
+from ... import tracing
 from .. import idx as idxmod
 from ..volume_info import (EcShardConfig, VolumeInfo,
                            maybe_load_volume_info, save_volume_info)
@@ -106,6 +108,52 @@ class _Stopped(Exception):
     """Internal: a pipeline stage was asked to abort."""
 
 
+class _StageTimer:
+    """Wraps one pipeline-stage callback to measure its window: wall
+    start of the first call, end of the last call, and cumulative busy
+    seconds.  The three stage windows overlap by design (the triple
+    buffer); emitted as sibling trace spans they show that overlap."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        # forwarded so _staged_run still sees a lazy-capable writer
+        # through the wrap
+        self.accepts_lazy = getattr(fn, "accepts_lazy", False)
+        self.start_wall = 0.0
+        self.first = 0.0
+        self.last = 0.0
+        self.busy = 0.0
+        self.calls = 0
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        if not self.calls:
+            self.first = t0
+            self.start_wall = time.time()
+        try:
+            return self._fn(*args)
+        finally:
+            t1 = time.perf_counter()
+            self.busy += t1 - t0
+            self.last = t1
+            self.calls += 1
+
+    def emit(self, name: str, trace_ctx, **attrs) -> None:
+        """Record the stage window as a span parented to the span that
+        was active when the pipeline started (`trace_ctx` from
+        tracing.current_ids(): the stages ran on other threads, where
+        the contextvar does not follow)."""
+        if not self.calls:
+            return
+        attrs.update(busySeconds=round(self.busy, 6), calls=self.calls)
+        tracing.emit_span(
+            name, self.start_wall, self.last - self.first,
+            role=trace_ctx[2] if trace_ctx else "",
+            parent=trace_ctx[1] if trace_ctx else "",
+            trace_id=trace_ctx[0] if trace_ctx else "",
+            attrs=attrs)
+
+
 class _OverlappedFlusher:
     """Background thread that round-robins flush+fdatasync over the
     output files while the pipeline runs, so flushing overlaps reads and
@@ -161,7 +209,9 @@ def _staged_run(work, read_item, compute, write_item) -> None:
     buffer; the payload's FIRST element must be the buffer to recycle.
     compute(payload) -> result: may return a lazy handle exposing
     .materialize(); the writer materializes it before the buffer is
-    recycled (the aliasing contract of the codec's *_lazy calls).
+    recycled (the aliasing contract of the codec's *_lazy calls),
+    unless write_item.accepts_lazy, in which case write_item takes the
+    handle and must drain it before returning.
     write_item(payload, result) -> None: append to the output files.
 
     Host memory is bounded by a pool of 3 recycled buffers.  A shared
@@ -202,21 +252,28 @@ def _staged_run(work, read_item, compute, write_item) -> None:
             q_read.put(None)
 
     def writer():
+        result = None
         try:
             while True:
                 item = _blocking(q_write.get)
                 if item is None:
                     return
                 payload, result = item
-                if hasattr(result, "materialize"):
+                if hasattr(result, "materialize") and \
+                        not getattr(write_item, "accepts_lazy", False):
                     result = result.materialize()
                 write_item(payload, result)
+                result = None
                 pool.put(payload[0])  # recycle the slot for the reader
         except _Stopped:
             pass
         except BaseException as e:  # noqa: BLE001
             errors.append(e)
             stop.set()
+            # a launch this writer failed to drain: stop its staging
+            # thread now, not when the handle is collected
+            if hasattr(result, "abort"):
+                result.abort()
 
     rt = threading.Thread(target=reader, daemon=True)
     wt = threading.Thread(target=writer, daemon=True)
@@ -253,13 +310,14 @@ def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
     LocalShardSink per `.ecNN`.  On success every sink is finish()ed and
     committed; on failure every sink is abort()ed, so a failed encode
     leaves no partial shard."""
-    from .shard_sink import LocalShardSink
+    from .shard_sink import LocalShardSink, ScatterStats
     dat_path = base_file_name + ".dat"
     dat_size = os.path.getsize(dat_path)
     codec = ctx.create_codec()
     d = ctx.data_shards
     work = _encode_work_items(dat_size, ctx)
-    sinks = [LocalShardSink(base_file_name + ctx.to_ext(i))
+    stats = ScatterStats()
+    sinks = [LocalShardSink(base_file_name + ctx.to_ext(i), stats=stats)
              for i in range(ctx.total)]
     dat = open(dat_path, "rb")
 
@@ -300,8 +358,33 @@ def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
         buf, real = payload
         for i in range(d):
             sinks[i].write(buf[i, :real].data)
+        if hasattr(parity, "windows"):
+            # windowed launch (ops.staging): push each parity window to
+            # its sink as it lands, so window k's d2h wait and write
+            # overlap the staging of windows k+1, k+2.  Always drain
+            # fully: the buffer is recycled when this returns.
+            for w0, chunk in parity.windows():
+                n = min(chunk.shape[1], real - w0)
+                if n <= 0:
+                    continue  # device-shape padding beyond `real`
+                for j in range(ctx.total - d):
+                    sinks[d + j].write(chunk[j, :n].data)
+            return
+        if hasattr(parity, "materialize"):
+            # one-shot launch: accepts_lazy means _staged_run leaves the
+            # materialize to this writer
+            parity = parity.materialize()
         for j in range(ctx.total - d):
             sinks[d + j].write(parity[j, :real].data)
+
+    write_item.accepts_lazy = True
+
+    # stage spans: capture the caller's span context now (the stages run
+    # on pipeline threads, where the contextvar does not follow)
+    trace_ctx = tracing.current_ids()
+    read_item = _StageTimer(read_item)
+    compute = _StageTimer(compute)
+    write_item = _StageTimer(write_item)
 
     flusher = _OverlappedFlusher([s.file for s in sinks])
     ok = False
@@ -329,6 +412,14 @@ def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
             else:
                 for s in sinks:
                     s.commit()
+            read_item.emit("encode.read", trace_ctx,
+                           datBytes=dat_size, windows=len(work))
+            compute.emit("encode.codec", trace_ctx,
+                         dataShards=d, parityShards=ctx.total - d,
+                         device=ctx.device)
+            write_item.emit("encode.write", trace_ctx,
+                            bytesByDest=stats.snapshot()[0],
+                            aborted=not ok)
 
 
 # --- rebuild ------------------------------------------------------------
@@ -491,6 +582,13 @@ def rebuild_from_sources(base_file_name: str, ctx: ECContext,
         for row, sid in enumerate(missing):
             outputs[sid].write(rec[row, :n].data)
 
+    # stage spans: capture the caller's span context now (the stages run
+    # on pipeline threads, where the contextvar does not follow)
+    trace_ctx = tracing.current_ids()
+    read_item = _StageTimer(read_item)
+    compute = _StageTimer(compute)
+    write_item = _StageTimer(write_item)
+
     flusher = _OverlappedFlusher(outputs.values())
     ok = False
     try:
@@ -510,6 +608,17 @@ def rebuild_from_sources(base_file_name: str, ctx: ECContext,
                         os.remove(base_file_name + ctx.to_ext(sid))
                     except OSError:
                         pass
+            by_source = stats.snapshot()[0] if stats is not None \
+                else {}
+            read_item.emit("rebuild.fetch", trace_ctx,
+                           bytesBySource=by_source,
+                           windows=len(work), sliceBytes=step)
+            compute.emit("rebuild.codec", trace_ctx,
+                         missingShards=list(missing),
+                         dataShards=ctx.data_shards)
+            write_item.emit("rebuild.write", trace_ctx,
+                            bytesWritten=len(missing) * shard_size,
+                            aborted=not ok)
     return missing
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix
+from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix, staging
 from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +95,116 @@ def test_codec_lazy_on_card_matches_cpu(cuda, d, p):
     rec = gpu.apply_matrix_lazy(m, full[list(rows)]).materialize()
     assert np.array_equal(rec, full[[0, d - 1, d]])
     gpu.parity_lazy(data).abort()
+
+
+@pytest.mark.parametrize("v,r,k,w", [
+    (1, 4, 10, 4096), (3, 4, 10, 1001), (8, 4, 10, 4100), (64, 4, 10, 256),
+    (5, 9, 5, 333), (2, 16, 16, 2048), (7, 1, 1, 3), (4, 31, 2, 64)])
+def test_batched_kernel_matches_plain(cuda, v, r, k, w):
+    rng = np.random.default_rng(v * 10000 + r * 100 + k + w)
+    mat = rng.integers(0, 256, size=(r, k), dtype=np.uint8)
+    batch = torch.from_numpy(np.stack([_words(rng, k, w) for _ in range(v)])
+                             ).to(cuda)
+    tables = rs_cuda.tables_from_numpy(mat, cuda)
+    before = rs_cuda.LAUNCHES_BATCHED
+    got = rs_cuda.gf_apply_matrix_words_batch(tables, batch)
+    torch.cuda.synchronize()
+    assert rs_cuda.LAUNCHES_BATCHED == before + 1
+    assert torch.equal(got,
+                       rs_cuda.gf_apply_matrix_words_batch_plain(tables, batch))
+    for i in range(v):
+        assert torch.equal(got[i], rs_cuda.gf_apply_matrix_words_plain(
+            tables, batch[i].contiguous()))
+
+
+def test_batched_wrapper_rejects_bad_inputs(cuda):
+    tables = rs_cuda.tables_from_numpy(np.ones((2, 3), np.uint8), cuda)
+    with pytest.raises(ValueError):     # not a [V, K, W] batch
+        rs_cuda.gf_apply_matrix_words_batch(
+            tables, torch.zeros((3, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):     # 48 entries do not fit K=5
+        rs_cuda.gf_apply_matrix_words_batch(
+            tables, torch.zeros((2, 5, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):     # too many volumes for the grid
+        rs_cuda.gf_apply_matrix_words_batch(
+            tables, torch.zeros((65536, 3, 1), dtype=torch.int32,
+                                device=cuda))
+
+
+def test_windowed_parity_matches_one_shot(cuda, monkeypatch):
+    """A windowed parity_lazy (many windows, a ragged tail) equals the
+    one-shot launch bit for bit, and launches once per window."""
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "0.25")
+    rng = np.random.default_rng(77)
+    gpu = ReedSolomonTorch(10, 4, "cuda")
+    data = rng.integers(0, 256, size=(10, 5 * 65536 + 12345), dtype=np.uint8)
+    before = rs_cuda.LAUNCHES
+    win = gpu.parity_lazy(data)
+    assert hasattr(win, "windows")
+    got = win.materialize()
+    w = -(-data.shape[1] // 16) * 4
+    assert rs_cuda.LAUNCHES - before == len(staging.plan_windows(10, w))
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "0")
+    one = gpu.parity_lazy(data)
+    assert not hasattr(one, "windows")
+    assert np.array_equal(got, one.materialize())
+    assert np.array_equal(got, gf256.gf_apply_matrix(
+        rs_matrix.parity_matrix(10, 4), data))
+    assert len(staging.POOL) <= staging.POOL.max_bufs
+
+
+def test_batched_kernel_unaligned_base(cuda):
+    """A batch whose base is off a 16-byte boundary (W % 4 == 0): no
+    volume may take the uint4 path, and every volume stays exact."""
+    rng = np.random.default_rng(6)
+    v, k, w = 3, 10, 4096
+    base = torch.from_numpy(_words(rng, 1, v * k * w + 1)).to(cuda)
+    batch = base[0, 1:].view(v, k, w)
+    tables = rs_cuda.tables_from_numpy(rs_matrix.parity_matrix(k, 4), cuda)
+    got = rs_cuda.gf_apply_matrix_words_batch(tables, batch)
+    assert torch.equal(
+        got, rs_cuda.gf_apply_matrix_words_batch_plain(tables, batch))
+
+
+def test_windowed_abort_waits_and_bounds_pool(cuda, monkeypatch):
+    """An undrained windowed launch aborted on the card stops its
+    staging thread once its in-flight windows are done, and the pinned
+    pool stays within its bound."""
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "0.25")
+    rng = np.random.default_rng(78)
+    gpu = ReedSolomonTorch(10, 4, "cuda")
+    data = rng.integers(0, 256, size=(10, 9 * 65536 + 3), dtype=np.uint8)
+    win = gpu.parity_lazy(data)
+    win.abort()
+    assert not win._t.is_alive()
+    assert len(staging.POOL) <= staging.POOL.max_bufs
+    assert staging.POOL.nbytes <= staging.POOL.max_bytes
+    assert np.array_equal(gpu.parity_lazy(data).materialize(),
+                          gf256.gf_apply_matrix(
+                              rs_matrix.parity_matrix(10, 4), data))
+
+
+def test_grid_functions_on_the_card(cuda):
+    """encode_volume_batch and distributed_ec_step on the card's grid
+    (every CUDA device): one batched launch per grid device, err 0."""
+    from seaweedfs_tpu_torch.parallel import ec_sharded, make_mesh
+    grid = make_mesh()
+    rng = np.random.default_rng(79)
+    s = grid.shape["stripe"]
+    batch = rng.integers(0, 256, size=(2 * s, 10, 4 * 4099), dtype=np.uint8)
+    batch32 = batch.view(np.uint32)
+    before = rs_cuda.LAUNCHES_BATCHED
+    got = ec_sharded.encode_volume_batch(
+        grid, rs_matrix.parity_matrix(10, 4), batch32)
+    n_dev = s * grid.shape["shard"]
+    assert rs_cuda.LAUNCHES_BATCHED - before == n_dev
+    pm = rs_matrix.parity_matrix(10, 4)
+    for i in range(2 * s):
+        assert np.array_equal(got[i].cpu().numpy().view(np.uint8),
+                              gf256.gf_apply_matrix(pm, batch[i]))
+    data32 = rng.integers(0, 1 << 32, size=(10, 4096 * s),
+                          dtype=np.uint32)
+    for lost in ((0, 11), (3, 7), (10, 13)):
+        _par, _rec, err = ec_sharded.distributed_ec_step(grid, data32,
+                                                         lost=lost)
+        assert err == 0

@@ -5,6 +5,8 @@ network `rs_jax.gf_apply_matrix_words` and the numpy twin
 `gf256.gf_apply_matrix`.  Exact: GF arithmetic is integer (tolerance 0).
 """
 
+import ast
+import json
 import os
 import subprocess
 import sys
@@ -150,9 +152,17 @@ def test_create_codec_raises_without_cuda(monkeypatch):
     assert ECContext(device="cpu").create_codec().device.type == "cpu"
 
 
+PORT_MODULES_OF_SLICE_2 = (
+    "seaweedfs_tpu_torch.stats", "seaweedfs_tpu_torch.profiling",
+    "seaweedfs_tpu_torch.tracing", "seaweedfs_tpu_torch.ops.staging",
+    "seaweedfs_tpu_torch.parallel", "seaweedfs_tpu_torch.parallel.mesh",
+    "seaweedfs_tpu_torch.parallel.ec_sharded",
+    "seaweedfs_tpu_torch.parallel.ec_batch")
+
+
 def test_port_imports_neither_jax_nor_reference_package():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, json, pkgutil, sys\n"
         "import seaweedfs_tpu_torch as p\n"
         "mods = [m.name for m in\n"
         "        pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -162,10 +172,38 @@ def test_port_imports_neither_jax_nor_reference_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or\n"
         "             k.startswith(('jax.', 'jaxlib')) or\n"
         "             k.split('.')[0] == 'seaweedfs_tpu')\n"
-        "print(len(mods), bad)\n")
+        "print(json.dumps([mods, bad]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
-    assert bad == "[]"
+    mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(mods) >= 31
+    assert set(PORT_MODULES_OF_SLICE_2) <= set(mods)
+    assert bad == []
+
+
+def _imported_names(path: str) -> "list[str]":
+    """Every absolute module a source file imports, at any depth (an
+    import inside a function does not run at import time)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_sources_name_neither_jax_nor_reference_package():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO,
+                                                   "seaweedfs_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= 33
+    for path in paths:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "seaweedfs_tpu"), \
+                f"{os.path.relpath(path, REPO)} imports {name}"
