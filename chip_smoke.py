@@ -10,11 +10,19 @@ Phases, each printing one JSON line:
    seaweedfs_tpu_torch/csrc are compiled with nvcc at first use).
 2. kernel: the CUDA GF(2^8) kernel's two entries against their plain
    PyTorch versions and the numpy twin, bit for bit, at the main paths'
-   shapes (one 32 MiB staging window, [4,10] x 838,860 words; the
-   64-volume batch step, [64,10] -> [64,4] x 262,144 words; and ragged
-   and word-path shapes), with their times (CUDA events, median of 20)
-   beside their bytes and operations bounds and the plain versions'
-   times.
+   shapes (one 32 MiB staging window, [4,10] x 838,860 words, with the
+   encode matrix and the rebuild matrices of 4, 3, 2 and 1 lost shards;
+   the 64-volume batch step, [64,10] -> [64,4] x 262,144 words; a 64 MiB
+   batch; and ragged, word-path and generic-body shapes).  Each case is
+   timed (CUDA events, median of 10 runs) on the same buffers and
+   rotating over enough buffer sets that every launch reads past the
+   50 MB L2, beside its bytes bound, a device-to-device copy_ of the same
+   bytes, the card's streaming ceiling in this call (`stream_gbps`, a
+   copy_ of 512 MiB), the launch's grid (`rs_cuda.launch_plan`) and its
+   issue floor: the SASS instructions of the launched template's column
+   loop (`cuobjdump -sass`) x columns / (4 x 32 lanes x SMs x the highest
+   SM clock nvidia-smi sampled during the phase).  The plain versions of
+   the two main cases are timed too.
 3. ec: the volume-server EC sequence on a volume of seeded needles
    written through the port's Volume (BASELINE.json's "Single 1GB
    volume, RS(10,4)" by default): .ecx, encode, .vif; lose shards
@@ -25,7 +33,12 @@ Phases, each printing one JSON line:
    The phase writes about 5.2x the volume to disk (volume, shards,
    rebuilt shards, decoded volume, a profiled second encode) and holds
    about 2.4x at its peak.
+4. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
+   one batched launch a step, every shard's SHA-256 held against the
+   same volumes encoded one by one, sampled parity against the numpy
+   twin, and `distributed_ec_step` on the one-card grid.
 
+`--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
 line.  Exits non-zero, with no result, when there is no CUDA device or
 the package is not beside this script; any failed check fails the run.
@@ -35,8 +48,10 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -44,13 +59,14 @@ import sys
 import tempfile
 import time
 
-# H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3, and 67 T float32
-# operations/s outside the tensor cores.  The data sheet gives no 32-bit
-# integer rate; the float32 one is taken for the kernel's 32-bit integer
-# operations (a lower bound on time: the shifts, ANDs, multiplies and
-# XORs issue on the same lanes, and three-input LOP3 folds XORs).
+# H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3.  The data sheet gives
+# no 32-bit integer rate, so the kernel's operations are bounded by its
+# issue floor instead: the SASS instructions of one column, four warp
+# schedulers of 32 lanes a clock on each SM, at the sampled SM clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+ISSUE_LANES_PER_SM = 4 * 32
+L2_BYTES = 50 * 10**6
+STREAM_BYTES = 512 << 20
 
 MAIN_WORDS = 16_777_216          # 64 MiB per shard row: one device batch
 TWIN_WORDS = 1 << 20             # 4 MiB per row held against numpy
@@ -94,14 +110,120 @@ def time_ms(fn, reps: int, trials: int = 10) -> float:
     return statistics.median(times)
 
 
-def bounds_ms(r: int, k: int, w: int, v: int = 1
-              ) -> "tuple[float, float]":
-    """(bytes bound, operations bound) of V [R,K] x W-word applies: V
-    times K+R rows of W words moved once (plus the tables, read once),
-    and K*8*(2 + 2R) integer operations per word column."""
-    nbytes = v * (k + r) * w * 4 + r * k * 8 * 4
-    ops = v * k * 8 * (2 + 2 * r) * w
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def case_bytes(r: int, k: int, w: int, v: int = 1) -> int:
+    """Bytes V [R,K] x W-word applies must move: V times K+R rows of W
+    words, each read or written once, plus the tables read once."""
+    return v * (k + r) * w * 4 + r * k * 8 * 4
+
+
+def stream_gbps(nbytes: int = STREAM_BYTES) -> float:
+    """The card's streaming ceiling in this call: a device-to-device
+    copy_ of `nbytes`, counted as the bytes read plus the bytes written
+    (CUDA events, median of 10 runs of 5)."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), 5)
+    return 2 * nbytes / ms / 1e6
+
+
+def _copy_ms(nbytes: int) -> float:
+    """A device-to-device copy_ that moves `nbytes` (half read, half
+    written), rotated over buffer sets as the kernel's cases are: the
+    streaming yardstick at a case's own size, launch and ramp
+    included."""
+    import torch
+    pairs = []
+    for _ in range(max(3, -(-3 * L2_BYTES // nbytes))):
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+        pairs.append((torch.empty_like(src), src))
+    nxt = itertools.cycle(pairs).__next__
+    return time_ms(lambda: torch.Tensor.copy_(*nxt()), 60)
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock and power draw every 50 ms while the block
+    runs (a child process, stopped on exit)."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        try:
+            out, _ = self._proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            out, _ = self._proc.communicate()
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((mhz, watts))
+        return False
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {"samples": 0}
+        mhz = [m for m, _ in self.samples]
+        watts = [w for _, w in self.samples]
+        return {"samples": len(self.samples),
+                "clocks_sm_mhz": {"min": min(mhz), "median":
+                                  statistics.median(mhz), "max": max(mhz)},
+                "power_draw_w": {"min": min(watts), "median":
+                                 statistics.median(watts),
+                                 "max": max(watts)}}
+
+
+_SASS_LINE = re.compile(
+    r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
+    r"\s*([^;]*);")
+
+
+def sass_loops(lib_path: str) -> "dict | str":
+    """The SASS of every kernel in a built library (`cuobjdump -sass`):
+    for each function, its instruction count, and for each loop (a
+    backward branch) the instructions of its body by class (the opcode
+    before its first dot).  "not measured" without cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return "not measured"
+    text = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs: "dict[str, list]" = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _SASS_LINE.match(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, code in funcs.items():
+        loops = []
+        for addr, op, args in code:
+            t = re.search(r"0x([0-9a-f]+)", args)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= addr:
+                lo = int(t.group(1), 16)
+                body = [o for a, o, _ in code if lo <= a <= addr]
+                classes: "dict[str, int]" = {}
+                for o in body:
+                    c = o.split(".")[0]
+                    classes[c] = classes.get(c, 0) + 1
+                loops.append({"start": lo, "end": addr, "n": len(body),
+                              "classes": dict(sorted(
+                                  classes.items(), key=lambda kv: -kv[1]))})
+        out[name] = {"n": len(code), "loops": loops}
+    return out
 
 
 def launches_for(k: int, batch_bytes: int) -> int:
@@ -149,12 +271,27 @@ def phase_device(smi: str) -> dict:
                    for line in log.splitlines() if "Used " in line})
     spills = [line.strip() for line in log.splitlines()
               if "spill" in line and not line.strip().startswith("0 bytes")]
+    # ptxas' report per kernel: registers and spilled bytes
+    per_kernel: "dict[str, dict]" = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|properties for )([\w$]+)", line)
+        if m:
+            fn = per_kernel.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
     out = {"phase": "device", "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "device_name": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
            "kernel_build_seconds": build_s,
-           "registers_per_thread": regs, "spills": spills}
+           "registers_per_thread": regs, "spills": spills,
+           "ptxas": per_kernel}
     emit(out)
     return out
 
@@ -176,19 +313,46 @@ def _check_case(name, out, plain, twin_out, twin_want) -> int:
     return err
 
 
+def _column_loop(sass, symbol: str, k: int) -> "dict | None":
+    """The column loop of the kernel whose mangled name holds `symbol`
+    (its outermost loop) and the instructions one column runs: the
+    loop's body, or with one loop nested in it (the generic body's loop
+    over the K input rows), that loop K times.  None otherwise."""
+    if not isinstance(sass, dict):
+        return None
+    fns = [f for name, f in sass.items() if symbol in name]
+    if len(fns) != 1 or not fns[0]["loops"]:
+        return None
+    loops = fns[0]["loops"]
+    outer = max(loops, key=lambda lp: lp["end"] - lp["start"])
+    inner = [lp for lp in loops if lp is not outer and
+             outer["start"] <= lp["start"] and lp["end"] <= outer["end"]]
+    if len(inner) > 1:
+        return None
+    n = outer["n"] + (k - 1) * inner[0]["n"] if inner else outer["n"]
+    return {**outer, "inner": inner[0] if inner else None,
+            "per_column": n}
+
+
 def phase_kernel(seed: int) -> dict:
     import numpy as np
     import torch
 
-    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix, staging
+    from seaweedfs_tpu_torch.ops import _build, rs_cuda, rs_matrix, staging
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     rng = np.random.default_rng(seed)
-    present = tuple(i not in LOST for i in range(14))
-    rec, _rows = rs_matrix.cached_reconstruction_matrix(10, 4, present,
-                                                        LOST)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _build.load(rs_cuda.SOURCE)
+    sass = sass_loops(_build.BUILD_INFO[rs_cuda.SOURCE]["path"])
+
+    def rec_matrix(lost):
+        present = tuple(i not in lost for i in range(14))
+        return np.asarray(rs_matrix.cached_reconstruction_matrix(
+            10, 4, present, tuple(lost))[0])
+
     pm = rs_matrix.parity_matrix(10, 4)
     window_words = staging.plan_windows(10, MAIN_WORDS)[0][1]
     # (name, matrix, words, volumes or None for the single entry)
@@ -197,70 +361,128 @@ def phase_kernel(seed: int) -> dict:
         ("batch parity [64,10]->[64,4]", pm, BATCH_STEP_WORDS,
          BATCH_VOLUMES),
         ("batch ragged [3,10]->[3,4] odd W", pm, 100_003, 3),
+        ("window rebuild {0,7,11,13} [4,10]", rec_matrix(LOST),
+         window_words, None),
+        ("window rebuild {0,7,11} [3,10]", rec_matrix(LOST[:3]),
+         window_words, None),
+        ("window rebuild {0,13} [2,10]", rec_matrix((0, 13)),
+         window_words, None),
+        ("window rebuild {7} [1,10]", rec_matrix((7,)), window_words, None),
         ("parity [4,10]", pm, MAIN_WORDS, None),
-        ("rebuild {0,7,11,13} [4,10]", np.asarray(rec), MAIN_WORDS, None),
+        ("rebuild {0,7,11,13} [4,10]", rec_matrix(LOST), MAIN_WORDS, None),
         ("tail [3,6] x 1000003 bytes",
          rng.integers(0, 256, (3, 6), dtype=np.uint8), -(-1_000_003 // 4),
          None),
         ("random [16,16]", rng.integers(0, 256, (16, 16), dtype=np.uint8),
          1 << 22, None),
     ]
+    stream = stream_gbps()
     results = []
     max_err = {"single": 0, "batched": 0}
     main = {}
-    for name, mat, w, v in cases:
-        r, k = mat.shape
-        tables = rs_cuda.tables_from_numpy(mat, dev)
-        shape = (k, w * 4) if v is None else (v, k, w * 4)
-        data = torch.randint(0, 256, shape, dtype=torch.uint8,
-                             device=dev, generator=g).view(torch.int32)
-        if v is None:
-            kind = "single"
-            fn = rs_cuda.gf_apply_matrix_words
-            plain_fn = rs_cuda.gf_apply_matrix_words_plain
-            s = min(w, TWIN_WORDS)
-            host = data[:, :s].cpu().numpy().view(np.uint8)
-            out = fn(tables, data)
-            twin_out = out[:, :s].cpu().numpy().view(np.uint8)
-            twin_want = gf256.gf_apply_matrix(mat, host)
-            twin_bytes = s * 4
-        else:
-            kind = "batched"
-            fn = rs_cuda.gf_apply_matrix_words_batch
-            plain_fn = rs_cuda.gf_apply_matrix_words_batch_plain
-            # whole volumes against the twin until >= 4 MiB per row
-            nv = min(v, -(-TWIN_WORDS // w))
-            out = fn(tables, data)
-            twin_out = np.concatenate(
-                [out[i].cpu().numpy().view(np.uint8) for i in range(nv)],
-                axis=1)
-            twin_want = np.concatenate(
-                [gf256.gf_apply_matrix(mat, data[i].cpu().numpy().view(
-                    np.uint8)) for i in range(nv)], axis=1)
-            twin_bytes = nv * w * 4
-        plain = plain_fn(tables, data)
-        err = _check_case(name, out, plain, twin_out, twin_want)
-        max_err[kind] = max(max_err[kind], err)
-        del plain
-        ms = time_ms(lambda: fn(tables, data), 20)
-        bytes_ms, ops_ms = bounds_ms(r, k, w, v or 1)
-        row = {"case": name, "entry": kind, "V": v or 1, "R": r, "K": k,
-               "words": w, "equal_plain": True,
-               "numpy_twin_bytes_per_row": twin_bytes,
-               "equal_numpy_twin": True, "max_abs_err": err,
-               "ms": ms, "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms}
-        if kind not in main:
-            row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
-            main[kind] = row
-        results.append(row)
-        del data, out
-        torch.cuda.empty_cache()
-    out = {"phase": "kernel", "cases": results, "max_abs_err": max_err,
+    sampler = SmiSampler()
+    with sampler:
+        for case in cases:
+            kind = "single" if case[3] is None else "batched"
+            row = _kernel_case(case, dev, g, sass, stream,
+                               time_plain=kind not in main)
+            max_err[row["entry"]] = max(max_err[row["entry"]],
+                                        row["max_abs_err"])
+            main.setdefault(row["entry"], row)
+            results.append(row)
+    clocks = sampler.summary()
+    # the issue floor at the highest SM clock sampled (the least time)
+    mhz = clocks.get("clocks_sm_mhz", {}).get("max")
+    for row in results:
+        n = row.pop("_instructions_per_column")
+        row["issue_floor_ms"] = (
+            n * row["columns"] / (ISSUE_LANES_PER_SM * sms * mhz * 1e6) * 1e3
+            if n and mhz else "not measured")
+    out = {"phase": "kernel", "stream_gbps": stream, "sms": sms,
+           "clocks": clocks, "cases": results, "max_abs_err": max_err,
+           "sass": sass,
            "library": "no single PyTorch call computes a GF(2^8) "
                       "constant-matrix apply: no library_ms",
            "main": main}
     emit(out)
     return out
+
+
+def _kernel_case(case, dev, g, sass, stream, time_plain: bool) -> dict:
+    """One kernel case: bit-exact against the plain version and the
+    numpy twin, then timed on the same buffers and rotating over enough
+    buffer sets that each launch reads past the L2 cache."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+    name, mat, w, v = case
+    r, k = mat.shape
+    tables = rs_cuda.tables_from_numpy(mat, dev)
+    shape = (k, w * 4) if v is None else (v, k, w * 4)
+    data = torch.randint(0, 256, shape, dtype=torch.uint8,
+                         device=dev, generator=g).view(torch.int32)
+    if v is None:
+        kind = "single"
+        fn = rs_cuda.gf_apply_matrix_words
+        plain_fn = rs_cuda.gf_apply_matrix_words_plain
+        s = min(w, TWIN_WORDS)
+        host = data[:, :s].cpu().numpy().view(np.uint8)
+        out = fn(tables, data)
+        twin_out = out[:, :s].cpu().numpy().view(np.uint8)
+        twin_want = gf256.gf_apply_matrix(mat, host)
+        twin_bytes = s * 4
+    else:
+        kind = "batched"
+        fn = rs_cuda.gf_apply_matrix_words_batch
+        plain_fn = rs_cuda.gf_apply_matrix_words_batch_plain
+        # whole volumes against the twin until >= 4 MiB per row
+        nv = min(v, -(-TWIN_WORDS // w))
+        out = fn(tables, data)
+        twin_out = np.concatenate(
+            [out[i].cpu().numpy().view(np.uint8) for i in range(nv)],
+            axis=1)
+        twin_want = np.concatenate(
+            [gf256.gf_apply_matrix(mat, data[i].cpu().numpy().view(
+                np.uint8)) for i in range(nv)], axis=1)
+        twin_bytes = nv * w * 4
+    plain = plain_fn(tables, data)
+    err = _check_case(name, out, plain, twin_out, twin_want)
+    del plain, out
+    nbytes = case_bytes(r, k, w, v or 1)
+    ms = time_ms(lambda: fn(tables, data), 20)
+    sets = [data] + [
+        torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                      generator=g).view(torch.int32)
+        for _ in range(max(3, -(-3 * L2_BYTES // nbytes)) - 1)]
+    kept = collections.deque(maxlen=len(sets))   # outputs rotate too
+    nxt = itertools.cycle(sets).__next__
+    rotated_ms = time_ms(lambda: kept.append(fn(tables, nxt())), 60)
+    del sets, kept
+    copy_ms = _copy_ms(nbytes)
+    aligned = w % 4 == 0
+    loop = _column_loop(sass, rs_cuda.kernel_symbol(r, k, aligned), k)
+    row = {"case": name, "entry": kind, "V": v or 1, "R": r, "K": k,
+           "words": w, "equal_plain": True,
+           "numpy_twin_bytes_per_row": twin_bytes,
+           "equal_numpy_twin": True, "max_abs_err": err,
+           "ms": ms, "rotated_ms": rotated_ms,
+           "rotated_gbps": nbytes / rotated_ms / 1e6,
+           "stream_share": nbytes / rotated_ms / 1e6 / stream,
+           "copy_ms": copy_ms,
+           "bytes": nbytes,
+           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "columns": (v or 1) * (w // 4 if aligned else w),
+           "launch": rs_cuda.launch_plan(r, k, w, v or 1, aligned),
+           "column_loop": loop,
+           "_instructions_per_column": loop and loop["per_column"]}
+    if time_plain:
+        row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
+    del data
+    torch.cuda.empty_cache()
+    return row
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -765,6 +987,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-gib", type=float, default=1.0,
                     help="total .dat size of the 64-volume batch (GiB)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="run the device and kernel phases only (no main "
+                         "path, no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -775,6 +1000,9 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     phase_device(smi)
     kern = phase_kernel(args.seed)
+    if args.kernel_only:
+        print(smi, flush=True)
+        return 0
     ec = phase_ec(args.volume_gib, args.seed)
     batch = phase_batch(args.batch_gib, args.seed)
     kernels = []
@@ -785,16 +1013,20 @@ def main(argv=None) -> int:
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              batch["batched_launches"])):
         case = kern["main"][kind]
-        bytes_ms, ops_ms = case["bytes_bound_ms"], case["ops_bound_ms"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": kern["max_abs_err"][kind],
-            "ms": case["ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ms": case["rotated_ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bytes_bound_ms"], "bound_by": "bytes",
             "library_ms": None, "matched": True,
+            "same_buffer_ms": case["ms"], "copy_ms": case["copy_ms"],
+            "issue_floor_ms": case["issue_floor_ms"],
+            "stream_gbps": kern["stream_gbps"],
+            "resident_blocks_per_sm":
+                case["launch"]["resident_blocks_per_sm"],
+            "waves": case["launch"]["waves"],
             "shape": f"[{case['V']},{case['R']},{case['K']}] x "
                      f"{case['words']} words"})
     emit({"kernels": kernels})

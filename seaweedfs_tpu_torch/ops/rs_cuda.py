@@ -9,9 +9,16 @@ CPU; it never falls back from one to the other.  The kernel replaces
 the TPU kernel `seaweedfs_tpu/ops/rs_pallas.py:_rs_kernel` and the XLA
 network `rs_jax._packed_xor_network`; the plain version is that
 network written in torch ops.  `gf_apply_matrix_words_batch` is the
-same apply over V volumes in one launch (the volume on the kernel
-grid's y axis), in place of the reference's `vmap` over volumes
-(`parallel/ec_sharded.py:_apply_tables_batch_local`).
+same apply over V volumes in one launch (the volumes' columns indexed
+linearly over one grid), in place of the reference's `vmap` over
+volumes (`parallel/ec_sharded.py:_apply_tables_batch_local`).
+
+The kernel takes its tables twice: on the device (the generic body
+reads them into shared memory) and on the host, copied into the launch
+parameters of the specialised templates (`SPECIALISED`), which read
+them from the constant bank.  `tables_from_numpy` keeps the host copy
+of every table tensor it makes beside it (`host_tables`), so a launch
+never copies tables back from the device.
 
 Words are int32 here: PyTorch has no `>>` for uint32 on the CPU.  The
 lane mask drops the sign-extended bits of an arithmetic shift and the
@@ -21,6 +28,8 @@ product wraps, so every output bit equals the uint32 result.
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -29,8 +38,12 @@ from . import _build, gf256
 
 SOURCE = "gf_apply.cu"
 MAX_SHARDS = 32          # ShardBits is uint32 (ec_context.MAX_SHARD_COUNT)
-MAX_VOLUMES = 65535      # the kernel grid's y limit
+MAX_VOLUMES = 65535      # volumes a batched launch takes
 LANE_MASK = 0x01010101
+# (R, K) shapes with a kernel template of their own: RS(10,4)'s encode and
+# its rebuilds of 4, 3, 2 and 1 lost shards.  Every other shape runs the
+# kernel's generic body (runtime K, row groups of <= 8).
+SPECIALISED = frozenset((r, 10) for r in (1, 2, 3, 4))
 
 # Kernel launches made by gf_apply_matrix_words and by
 # gf_apply_matrix_words_batch (one per call on a CUDA tensor).  Read and
@@ -40,13 +53,90 @@ LAUNCHES = 0
 LAUNCHES_BATCHED = 0
 
 
+_host_lock = threading.Lock()
+# id(device tables) -> (weak reference, tensor version, host copy)
+_host: "dict[int, tuple]" = {}
+
+
+def _forget(key: int) -> None:
+    with _host_lock:
+        _host.pop(key, None)
+
+
+def _remember(tables: torch.Tensor, host: torch.Tensor) -> None:
+    key = id(tables)
+    with _host_lock:
+        _host[key] = (weakref.ref(tables), tables._version, host)
+    weakref.finalize(tables, _forget, key)
+
+
+def host_tables(tables: torch.Tensor) -> torch.Tensor:
+    """The host copy (CPU int32) of a table tensor: the tensor itself on
+    the CPU, the copy `tables_from_numpy` kept for a tensor it made, or
+    else a copy from the device (a synchronising copy, kept for the next
+    launch until the tensor changes or is freed)."""
+    if tables.device.type == "cpu":
+        return tables
+    with _host_lock:
+        entry = _host.get(id(tables))
+    if entry is not None and entry[0]() is tables and \
+            entry[1] == tables._version:
+        return entry[2]
+    host = tables.cpu()
+    _remember(tables, host)
+    return host
+
+
 def tables_from_numpy(mat: np.ndarray, device="cpu") -> torch.Tensor:
     """[R, K] uint8 coding matrix -> flat [R*K*8] int32 bit tables,
     tab[(r*K + k)*8 + b] = mat[r,k] * 2^b in GF(2^8) (the layout of
-    rs_pallas.expand_tables; every value is < 256)."""
+    rs_pallas.expand_tables; every value is < 256), on `device`, with
+    its host copy kept for the launches (`host_tables`)."""
     tab = gf256.MUL_BY_POW2[np.asarray(mat, dtype=np.uint8)]
-    return torch.from_numpy(
-        tab.astype(np.int32).reshape(-1)).to(device)
+    host = torch.from_numpy(tab.astype(np.int32).reshape(-1))
+    if torch.device(device).type == "cpu":
+        return host
+    out = host.to(device)
+    _remember(out, host)
+    return out
+
+
+def specialised(r: int, k: int) -> bool:
+    """Does an [R, K] launch run a template of its own (else the
+    generic body)?"""
+    return (r, k) in SPECIALISED
+
+
+def kernel_symbol(r: int, k: int, aligned: bool) -> str:
+    """A piece of the mangled name of the kernel an [R, K] launch runs,
+    on 16-byte-aligned rows (uint4 columns) or not (word columns).  The
+    generic body's first row group is named."""
+    if specialised(r, k):
+        return f"gf_apply_specILi{r}ELi{k}ELb{int(aligned)}E"
+    return f"gf_apply_genericILi{min(r, 8)}ELb{int(aligned)}E"
+
+
+def launch_plan(r: int, k: int, w: int, v: int = 1,
+                aligned: bool = True) -> dict:
+    """How the kernel launches V [R, K] x W-word applies on the current
+    CUDA device: template or generic body, threads a block, resident
+    blocks an SM (the occupancy API), SMs, blocks launched, launches
+    (row groups), and the columns each thread walks.  Needs the card."""
+    info = (ctypes.c_longlong * 6)()
+    fn = _build.load(SOURCE).gf_apply_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(v, r, k, w, int(aligned), ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"gf_apply_plan failed: cudaError {err}")
+    spec, threads, resident, sms, grid, groups = (int(x) for x in info)
+    columns = v * (w // 4 if aligned and w % 4 == 0 else w)
+    return {"specialised": bool(spec), "threads": threads,
+            "resident_blocks_per_sm": resident, "sms": sms,
+            "grid_blocks": grid, "launches": groups,
+            "waves": grid / (sms * resident),
+            "columns_per_thread": columns / (grid * threads)}
 
 
 def gf_apply_matrix_words_plain(tables: torch.Tensor,
@@ -111,16 +201,15 @@ def _check(tables: torch.Tensor, data32: torch.Tensor,
 
 def _kernel(batched: bool = False):
     lib = _build.load(SOURCE)
+    ptrs = [ctypes.c_void_p] * 4      # tables, host tables, data, out
     if batched:
         fn = lib.gf_apply_words_batched
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_void_p]
     else:
         fn = lib.gf_apply_words
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p]
+        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -147,8 +236,8 @@ def gf_apply_matrix_words(tables: torch.Tensor, data32: torch.Tensor,
     w = data32.shape[1]
     with torch.cuda.stream(stream):
         out = torch.empty((r, w), dtype=torch.int32, device=data32.device)
-    err = fn(tables.data_ptr(), data32.data_ptr(), out.data_ptr(),
-             r, k, w, stream.cuda_stream)
+    err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
+             data32.data_ptr(), out.data_ptr(), r, k, w, stream.cuda_stream)
     if err:
         raise RuntimeError(
             f"gf_apply_words launch failed: cudaError {err} "
@@ -180,8 +269,9 @@ def gf_apply_matrix_words_batch(tables: torch.Tensor, batch32: torch.Tensor,
     with torch.cuda.stream(stream):
         out = torch.empty((v, r, w), dtype=torch.int32,
                           device=batch32.device)
-    err = fn(tables.data_ptr(), batch32.data_ptr(), out.data_ptr(),
-             v, r, k, w, stream.cuda_stream)
+    err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
+             batch32.data_ptr(), out.data_ptr(), v, r, k, w,
+             stream.cuda_stream)
     if err:
         raise RuntimeError(
             f"gf_apply_words_batched launch failed: cudaError {err} "

@@ -190,12 +190,11 @@ class ReedSolomonTorch:
             if tab is None:
                 if len(self._tables) >= self._MAX_CACHED_MATRICES:
                     self._tables.clear()
-                host = rs_cuda.tables_from_numpy(mat)
                 if self._stream is None:
-                    tab = host
+                    tab = rs_cuda.tables_from_numpy(mat)
                 else:
                     with torch.cuda.stream(self._stream):
-                        tab = host.to(self.device)
+                        tab = rs_cuda.tables_from_numpy(mat, self.device)
                     self._stream.synchronize()
                 self._tables[key] = tab
             return tab

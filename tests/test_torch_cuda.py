@@ -8,6 +8,8 @@ card it runs without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -182,6 +184,144 @@ def test_windowed_abort_waits_and_bounds_pool(cuda, monkeypatch):
     assert np.array_equal(gpu.parity_lazy(data).materialize(),
                           gf256.gf_apply_matrix(
                               rs_matrix.parity_matrix(10, 4), data))
+
+
+def _rec_matrix(lost, d=10, p=4):
+    present = tuple(i not in lost for i in range(d + p))
+    return np.asarray(rs_matrix.cached_reconstruction_matrix(
+        d, p, present, tuple(lost))[0])
+
+
+_TEMPLATE_CASES = [
+    ("parity", rs_matrix.parity_matrix(10, 4)),
+    ("rebuild4", _rec_matrix((0, 7, 11, 13))),
+    ("rebuild3", _rec_matrix((2, 5, 12))),
+    ("rebuild2", _rec_matrix((0, 13))),
+    ("rebuild1", _rec_matrix((9,))),
+    ("generic_6_3", rs_matrix.parity_matrix(6, 3)),
+    ("generic_5_10", np.random.default_rng(1).integers(
+        0, 256, (5, 10), dtype=np.uint8)),
+    ("generic_12_20", np.random.default_rng(2).integers(
+        0, 256, (12, 20), dtype=np.uint8)),
+]
+
+
+@pytest.mark.parametrize("name,mat", _TEMPLATE_CASES,
+                         ids=[c[0] for c in _TEMPLATE_CASES])
+@pytest.mark.parametrize("aligned", [True, False], ids=["uint4", "word"])
+def test_each_template_matches_plain(cuda, name, mat, aligned):
+    """Each specialised template and the generic body, on uint4 columns
+    and (from a base off a 16-byte boundary) on word columns, bit for
+    bit against the plain version; the launch plan names the body the
+    template map chose."""
+    r, k = mat.shape
+    rng = np.random.default_rng(r * 100 + k)
+    w = 4 * 40_009
+    base = torch.from_numpy(_words(rng, 1, k * w + 1)).to(cuda)
+    dev = (base[0, :k * w] if aligned else base[0, 1:]).view(k, w)
+    tables = rs_cuda.tables_from_numpy(mat, cuda)
+    got = rs_cuda.gf_apply_matrix_words(tables, dev)
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(tables, dev))
+    plan = rs_cuda.launch_plan(r, k, w, 1, aligned)
+    assert plan["specialised"] == rs_cuda.specialised(r, k)
+    assert plan["grid_blocks"] <= plan["sms"] * plan["resident_blocks_per_sm"]
+
+
+def test_every_4_loss_rebuild_matrix_of_rs_10_4(cuda):
+    """All 1001 ways to lose 4 of RS(10,4)'s 14 shards: each rebuild
+    matrix through the [4, 10] template equals the numpy twin."""
+    rng = np.random.default_rng(1001)
+    w = 4 * 33
+    survivors = rng.integers(0, 256, (10, 4 * w), dtype=np.uint8)
+    dev = torch.from_numpy(survivors.view(np.int32)).to(cuda)
+    n = 0
+    for lost in itertools.combinations(range(14), 4):
+        mat = _rec_matrix(lost)
+        got = rs_cuda.gf_apply_matrix_words(
+            rs_cuda.tables_from_numpy(mat, cuda), dev)
+        assert np.array_equal(got.cpu().numpy().view(np.uint8),
+                              gf256.gf_apply_matrix(mat, survivors)), lost
+        n += 1
+    assert n == 1001
+
+
+@pytest.mark.parametrize("r", [1, 4])
+def test_columns_not_a_multiple_of_the_persistent_grid(cuda, r):
+    """W such that the persistent grid's threads walk unequal column
+    counts (and the volume index wraps mid-walk in the batched entry)."""
+    plan = rs_cuda.launch_plan(r, 10, 1 << 24)
+    threads = plan["grid_blocks"] * plan["threads"]
+    w = 4 * (2 * threads + 37)
+    rng = np.random.default_rng(r + 7)
+    mat = _rec_matrix(tuple(range(r))) if r < 4 else \
+        rs_matrix.parity_matrix(10, 4)
+    tables = rs_cuda.tables_from_numpy(mat, cuda)
+    dev = torch.from_numpy(_words(rng, 10, w)).to(cuda)
+    assert rs_cuda.launch_plan(r, 10, w)["columns_per_thread"] % 1 != 0
+    assert torch.equal(rs_cuda.gf_apply_matrix_words(tables, dev),
+                       rs_cuda.gf_apply_matrix_words_plain(tables, dev))
+    batch = torch.from_numpy(np.stack(
+        [_words(rng, 10, threads // 3 + 1) for _ in range(5)])).to(cuda)
+    assert torch.equal(rs_cuda.gf_apply_matrix_words_batch(tables, batch),
+                       rs_cuda.gf_apply_matrix_words_batch_plain(tables,
+                                                                 batch))
+
+
+@pytest.mark.parametrize("v", [1, 3, 64])
+@pytest.mark.parametrize("w", [4097, 4100, 1023])
+@pytest.mark.parametrize("mat_name", ["parity", "generic_6_3"])
+def test_batched_ragged_volumes(cuda, v, w, mat_name):
+    mat = dict(_TEMPLATE_CASES)[mat_name]
+    r, k = mat.shape
+    rng = np.random.default_rng(v * 7 + w)
+    batch = torch.from_numpy(np.stack([_words(rng, k, w) for _ in range(v)])
+                             ).to(cuda)
+    tables = rs_cuda.tables_from_numpy(mat, cuda)
+    got = rs_cuda.gf_apply_matrix_words_batch(tables, batch)
+    assert torch.equal(
+        got, rs_cuda.gf_apply_matrix_words_batch_plain(tables, batch))
+
+
+def test_two_streams_two_matrices(cuda):
+    """Launches of different matrices on two streams at once, the
+    non-default one among them: the tables travel with each launch, so
+    neither stream sees the other's."""
+    rng = np.random.default_rng(11)
+    w = 1 << 20
+    dev = torch.from_numpy(_words(rng, 10, w)).to(cuda)
+    mats = [rs_matrix.parity_matrix(10, 4), _rec_matrix((0, 7, 11, 13)),
+            _rec_matrix((1, 2)), rs_matrix.parity_matrix(6, 3)]
+    tables = [rs_cuda.tables_from_numpy(m, cuda) for m in mats]
+    srcs = [dev, dev, dev, dev[:6].contiguous()]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs = []
+    for rep in range(4):
+        for i, t in enumerate(tables):
+            s = streams[(i + rep) % 2]
+            outs.append((i, rs_cuda.gf_apply_matrix_words(t, srcs[i],
+                                                          stream=s)))
+    torch.cuda.synchronize()
+    for i, got in outs:
+        assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(
+            tables[i], srcs[i])), i
+
+
+def test_host_tables_follow_the_device_tensor(cuda):
+    """Tables moved to the card by hand have no kept host copy: the
+    first launch copies them back once; after an in-place change the
+    next launch sees the new tables."""
+    rng = np.random.default_rng(12)
+    dev = torch.from_numpy(_words(rng, 10, 4096)).to(cuda)
+    tables = rs_cuda.tables_from_numpy(rs_matrix.parity_matrix(10, 4)).to(
+        cuda)
+    got = rs_cuda.gf_apply_matrix_words(tables, dev)
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(tables, dev))
+    assert rs_cuda.host_tables(tables) is rs_cuda.host_tables(tables)
+    tables.copy_(rs_cuda.tables_from_numpy(_rec_matrix((3, 4, 5, 6)), cuda))
+    got = rs_cuda.gf_apply_matrix_words(tables, dev)
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(tables, dev))
 
 
 def test_grid_functions_on_the_card(cuda):
