@@ -12,8 +12,10 @@ Phases, each printing one JSON line:
    PyTorch versions and the numpy twin, bit for bit, at the main paths'
    shapes (one 32 MiB staging window, [4,10] x 838,860 words, with the
    encode matrix and the rebuild matrices of 4, 3, 2 and 1 lost shards;
-   the 64-volume batch step, [64,10] -> [64,4] x 262,144 words; a 64 MiB
-   batch; and ragged, word-path and generic-body shapes).  Each case is
+   the streamed rebuild's [2,10] matrix of shards {1,8} at the window
+   and at the step tail of an 8 MiB slice (419,432 words); the 64-volume
+   batch step, [64,10] -> [64,4] x 262,144 words; a 64 MiB batch; and
+   ragged, word-path and generic-body shapes).  Each case is
    timed (CUDA events, median of 10 runs) on the same buffers and
    rotating over enough buffer sets that every launch reads past the
    50 MB L2, beside its bytes bound, a device-to-device copy_ of the same
@@ -21,8 +23,8 @@ Phases, each printing one JSON line:
    copy_ of 512 MiB), the launch's grid (`rs_cuda.launch_plan`) and its
    issue floor: the SASS instructions of the launched template's column
    loop (`cuobjdump -sass`) x columns / (4 x 32 lanes x SMs x the highest
-   SM clock nvidia-smi sampled during the phase).  The plain versions of
-   the two main cases are timed too.
+   SM clock nvidia-smi sampled during the phase).  Each case's plain
+   version is timed too.
 3. ec: the volume-server EC sequence on a volume of seeded needles
    written through the port's Volume (BASELINE.json's "Single 1GB
    volume, RS(10,4)" by default): .ecx, encode, .vif; lose shards
@@ -33,7 +35,22 @@ Phases, each printing one JSON line:
    The phase writes about 5.2x the volume to disk (volume, shards,
    rebuilt shards, decoded volume, a profiled second encode) and holds
    about 2.4x at its peak.
-4. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
+4. remote: the same volume (its .dat/.idx hard-linked) scatter-encoded
+   and rebuilt across 7 port volume servers on loopback, one directory
+   each: server 0 in this process (its codec on the card, so the launch
+   count covers it), servers 1-6 started as `python3 -m
+   seaweedfs_tpu_torch volume` subprocesses.  `POST /admin/ec/generate`
+   with placement sid % 7 (2 shards a server); every shard's SHA-256 at
+   its destination held against the ec phase's.  Server 1 is stopped
+   and its directory deleted (shards 1 and 8 lost); `POST
+   /admin/ec/rebuild` in stream mode on server 0, the survivors listed
+   as a master would, streams 8 remote rows from 5 donors; the rebuilt
+   .ec01/.ec08 held against the originals.  Walls, GB/s, the scatter and
+   rebuild stats summaries, the stage and stream spans, and launches
+   against `plan_windows` are printed; then each is run once more under
+   torch.profiler (after deleting what it wrote) for the device's busy
+   time and idle share.  About 3x the volume written.
+5. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
    one batched launch a step, every shard's SHA-256 held against the
    same volumes encoded one by one, sampled parity against the numpy
    twin, and `distributed_ec_step` on the one-card grid.
@@ -57,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3.  The data sheet gives
@@ -76,6 +94,9 @@ STAGE_SPANS = ("encode.read", "encode.codec", "encode.write",
 BATCH_VOLUMES = 64               # BASELINE.json config 3
 BATCH_STEP_WORDS = 262_144       # 1 MiB row per volume at 64 volumes
 STEP_LOST = (0, 11)
+REMOTE_SERVERS = 7               # placement sid % 7, 2 shards a server
+REMOTE_DOWN = 1                  # the server stopped: shards 1 and 8
+REMOTE_LOST = (1, 8)
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
 
@@ -353,8 +374,13 @@ def phase_kernel(seed: int) -> dict:
         return np.asarray(rs_matrix.cached_reconstruction_matrix(
             10, 4, present, tuple(lost))[0])
 
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
     pm = rs_matrix.parity_matrix(10, 4)
     window_words = staging.plan_windows(10, MAIN_WORDS)[0][1]
+    # the streamed rebuild's step: 8 MiB slices of 10 rows, windowed
+    step_tail_words = staging.plan_windows(
+        10, rebuild_slice_bytes() // 4)[-1][1]
     # (name, matrix, words, volumes or None for the single entry)
     cases = [
         ("window parity [4,10]", pm, window_words, None),
@@ -368,6 +394,10 @@ def phase_kernel(seed: int) -> dict:
         ("window rebuild {0,13} [2,10]", rec_matrix((0, 13)),
          window_words, None),
         ("window rebuild {7} [1,10]", rec_matrix((7,)), window_words, None),
+        ("window rebuild {1,8} [2,10]", rec_matrix(REMOTE_LOST),
+         window_words, None),
+        ("step tail rebuild {1,8} [2,10]", rec_matrix(REMOTE_LOST),
+         step_tail_words, None),
         ("parity [4,10]", pm, MAIN_WORDS, None),
         ("rebuild {0,7,11,13} [4,10]", rec_matrix(LOST), MAIN_WORDS, None),
         ("tail [3,6] x 1000003 bytes",
@@ -383,9 +413,7 @@ def phase_kernel(seed: int) -> dict:
     sampler = SmiSampler()
     with sampler:
         for case in cases:
-            kind = "single" if case[3] is None else "batched"
-            row = _kernel_case(case, dev, g, sass, stream,
-                               time_plain=kind not in main)
+            row = _kernel_case(case, dev, g, sass, stream)
             max_err[row["entry"]] = max(max_err[row["entry"]],
                                         row["max_abs_err"])
             main.setdefault(row["entry"], row)
@@ -408,7 +436,7 @@ def phase_kernel(seed: int) -> dict:
     return out
 
 
-def _kernel_case(case, dev, g, sass, stream, time_plain: bool) -> dict:
+def _kernel_case(case, dev, g, sass, stream) -> dict:
     """One kernel case: bit-exact against the plain version and the
     numpy twin, then timed on the same buffers and rotating over enough
     buffer sets that each launch reads past the L2 cache."""
@@ -478,8 +506,7 @@ def _kernel_case(case, dev, g, sass, stream, time_plain: bool) -> dict:
            "launch": rs_cuda.launch_plan(r, k, w, v or 1, aligned),
            "column_loop": loop,
            "_instructions_per_column": loop and loop["per_column"]}
-    if time_plain:
-        row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
+    row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
     del data
     torch.cuda.empty_cache()
     return row
@@ -595,25 +622,17 @@ def _disk_write_gbps(path: str, nbytes: int = 1 << 30) -> float:
     return nbytes / wall / 1e9
 
 
-def _profiled_encode(dat_path: str, workdir: str) -> dict:
-    """Encode the volume once more under torch.profiler: the device's
-    busy time (kernels and copies) against the wall.  The profiler's own
-    cost lands in this wall, not in the timed encode above.  Staging
-    follows SEAWEEDFS_TPU_H2D_WINDOW_MB as it is set."""
+def _device_profile(fn) -> dict:
+    """Run fn() once under torch.profiler: its wall (host clock) and the
+    device's busy time in it (kernels and copies), the idle share, and
+    the busiest device events.  The profiler's own cost lands in this
+    wall, so a profiled run is a second run beside the timed one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
-        ECContext)
-    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
-        write_ec_files)
-    os.makedirs(workdir)
-    base = os.path.join(workdir, "1")
-    os.link(dat_path, base + ".dat")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        write_ec_files(base, ECContext(device="cuda"))
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, memcpys): the host ops that
     # launched them (aten::copy_) carry the same time again
@@ -622,9 +641,8 @@ def _profiled_encode(dat_path: str, workdir: str) -> dict:
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and e.device_type == DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
-    shutil.rmtree(workdir)
     busy = sum(by_name.values())
-    return {"profiled_encode_ms": wall_ms,
+    return {"wall_ms": wall_ms,
             "device_busy_ms": busy if busy else "not measured",
             "device_idle_share": 1 - busy / wall_ms if busy
             else "not measured",
@@ -632,7 +650,28 @@ def _profiled_encode(dat_path: str, workdir: str) -> dict:
                 by_name.items(), key=lambda kv: -kv[1])[:6])}
 
 
-def phase_ec(volume_gib: float, seed: int) -> dict:
+def _profiled_encode(dat_path: str, workdir: str) -> dict:
+    """Encode the volume once more under torch.profiler (staging follows
+    SEAWEEDFS_TPU_H2D_WINDOW_MB as it is set)."""
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        write_ec_files)
+    os.makedirs(workdir)
+    base = os.path.join(workdir, "1")
+    os.link(dat_path, base + ".dat")
+    out = _device_profile(
+        lambda: write_ec_files(base, ECContext(device="cuda")))
+    shutil.rmtree(workdir)
+    out["profiled_encode_ms"] = out.pop("wall_ms")
+    return out
+
+
+def phase_ec(volume_gib: float, seed: int, tmp: str
+             ) -> "tuple[dict, dict]":
+    """The EC sequence in `tmp`, which it leaves holding the volume
+    (.dat/.idx, decoded) for the remote phase; returns the printed
+    result and what the remote phase needs of it."""
     import numpy as np
 
     from seaweedfs_tpu_torch import profiling, stats, tracing
@@ -646,194 +685,433 @@ def phase_ec(volume_gib: float, seed: int) -> dict:
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.volume import Volume
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.makedirs(tmp)
+    vid = 1
+    rng = np.random.default_rng(seed)
+    target = int(volume_gib * (1 << 30))
+    t0 = time.perf_counter()
+    v = Volume(tmp, vid)
+    sizes = {}
+    while v.dat_size() < target:
+        nid = len(sizes) + 1
+        sizes[nid] = int(rng.integers(256 << 10, 4 << 20))
+        v.write_needle(Needle(cookie=_cookie(nid), id=nid,
+                              data=_payload(seed, nid, sizes[nid])))
+    n_needles = len(sizes)
+    v.read_only = True
+    v.sync()
+    dat_size = v.dat_size()
+    version = v.version
+    base = v.file_name("")
+    v.close()
+    write_s = time.perf_counter() - t0
+    dat_sha = sha256_file(base + ".dat")
+
+    # the three calls of volume_server.py:1457-1459, on the card
+    ctx = ECContext(device="cuda")
+    work = _encode_work_items(dat_size, ctx)
+    expect_enc = sum(launches_for(ctx.data_shards, item[3])
+                     for item in work)
+    staging.reset_aggregate()
+    tracing.reset_buffer()
+    root = tracing.start_span("chip_smoke.ec", role="volume")
+    rs_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    write_sorted_file_from_idx(base)
+    t1 = time.perf_counter()
+    write_ec_files(base, ctx)
+    t2 = time.perf_counter()
+    save_ec_volume_info(base, ctx, dat_size, version)
+    t3 = time.perf_counter()
+    enc_launches = rs_cuda.LAUNCHES
+    check(enc_launches == expect_enc,
+          f"encode launched {enc_launches}, the staging windows of "
+          f"the work list are {expect_enc}")
+
+    shard_size = os.path.getsize(base + ".ec00")
+    lengths = {os.path.getsize(base + ctx.to_ext(i))
+               for i in range(ctx.total)}
+    check(lengths == {shard_size}, f"shard sizes differ: {lengths}")
+    # parity on sampled windows against the numpy twin
+    pm = rs_matrix.parity_matrix(10, 4)
+    win = 1 << 20
+    samples = sorted({0, shard_size // 2, max(0, shard_size - win)})
+    for off in samples:
+        rows = []
+        for i in range(ctx.total):
+            with open(base + ctx.to_ext(i), "rb") as f:
+                f.seek(off)
+                rows.append(np.frombuffer(f.read(win), dtype=np.uint8))
+        data = np.stack(rows[:10])
+        check(np.array_equal(gf256.gf_apply_matrix(pm, data),
+                             np.stack(rows[10:])),
+              f"parity at shard offset {off} differs from numpy")
+    shard_sha = {i: sha256_file(base + ctx.to_ext(i))
+                 for i in range(ctx.total)}
+
+    # lose 4 shards, rebuild them (scheme recovered from .vif)
+    for sid in LOST:
+        os.remove(base + ctx.to_ext(sid))
+    step = ctx.batch_size(LARGE_BLOCK_SIZE)
+    expect_reb = sum(launches_for(ctx.data_shards,
+                                  min(step, shard_size - pos))
+                     for pos in range(0, shard_size, step))
+    before = rs_cuda.LAUNCHES
+    t4 = time.perf_counter()
+    generated = rebuild_ec_files(base)
+    t5 = time.perf_counter()
+    reb_launches = rs_cuda.LAUNCHES - before
+    main_launches = rs_cuda.LAUNCHES
+    root.finish()
+    check(generated == list(LOST), f"rebuilt {generated}")
+    check(reb_launches == expect_reb,
+          f"rebuild launched {reb_launches}, the staging windows of "
+          f"the work list are {expect_reb}")
+    snap = staging.snapshot()
+    check(snap["windows"] == main_launches,
+          f"staging counted {snap['windows']} windows, the kernel "
+          f"{main_launches} launches")
+    spans = {}
+    for sp in tracing.spans_for(root.trace_id):
+        if sp["name"] in STAGE_SPANS:
+            check(sp["parentId"] == root.span_id,
+                  f"{sp['name']} is not parented to the ec span")
+            spans[sp["name"]] = {
+                "durationMs": sp["durationMs"],
+                "busySeconds": sp["attrs"]["busySeconds"],
+                "calls": sp["attrs"]["calls"]}
+    check(sorted(spans) == sorted(STAGE_SPANS),
+          f"stage spans {sorted(spans)}")
+    m = stats.PROCESS
+    gauges = {
+        "device_h2d_gbps": m.gauge_value("device_h2d_gbps"),
+        "device_d2h_gbps": m.gauge_value("device_d2h_gbps"),
+        "device_h2d_overlap_fraction": {
+            op: m.gauge_value("device_h2d_overlap_fraction", op=op)
+            for op in ("encode", "rebuild")},
+        "device_staged_windows_total": {
+            op: m.counter_value("device_staged_windows_total", op=op)
+            for op in ("encode", "rebuild")},
+        "device_kernel_last_ms": m.gauge_value(
+            "device_kernel_last_ms", kernel="gf_apply_matrix")}
+    hist = m.histogram_merged("device_kernel_seconds")
+    gauges["device_kernel_seconds"] = {"count": hist["count"],
+                                       "sum": hist["sum"]}
+    memory = profiling.sample_device_memory()
+    check(bool(memory), "no device memory sample")
+    for sid in LOST:
+        check(sha256_file(base + ctx.to_ext(sid)) == shard_sha[sid],
+              f"rebuilt shard {sid} differs")
+
+    # decode back to .dat + .idx and read needles through Volume
+    os.remove(base + ".dat")
+    os.remove(base + ".idx")
+    t6 = time.perf_counter()
+    ec_decoder.write_dat_file(
+        base, dat_size, [base + ctx.to_ext(i) for i in range(10)])
+    ec_decoder.write_idx_file_from_ec_index(base)
+    t7 = time.perf_counter()
+    check(sha256_file(base + ".dat") == dat_sha,
+          "decoded .dat differs from the original")
+    pick = sorted({1, n_needles, *(int(x) for x in rng.integers(
+        1, n_needles + 1, size=30))})
+    v = Volume(tmp, vid)
     try:
-        vid = 1
-        rng = np.random.default_rng(seed)
-        target = int(volume_gib * (1 << 30))
-        t0 = time.perf_counter()
-        v = Volume(tmp, vid)
-        sizes = {}
-        while v.dat_size() < target:
-            nid = len(sizes) + 1
-            sizes[nid] = int(rng.integers(256 << 10, 4 << 20))
-            v.write_needle(Needle(cookie=_cookie(nid), id=nid,
-                                  data=_payload(seed, nid, sizes[nid])))
-        n_needles = len(sizes)
-        v.read_only = True
-        v.sync()
-        dat_size = v.dat_size()
-        version = v.version
-        base = v.file_name("")
-        v.close()
-        write_s = time.perf_counter() - t0
-        dat_sha = sha256_file(base + ".dat")
-
-        # the three calls of volume_server.py:1457-1459, on the card
-        ctx = ECContext(device="cuda")
-        work = _encode_work_items(dat_size, ctx)
-        expect_enc = sum(launches_for(ctx.data_shards, item[3])
-                         for item in work)
-        staging.reset_aggregate()
-        tracing.reset_buffer()
-        root = tracing.start_span("chip_smoke.ec", role="volume")
-        rs_cuda.LAUNCHES = 0
-        t0 = time.perf_counter()
-        write_sorted_file_from_idx(base)
-        t1 = time.perf_counter()
-        write_ec_files(base, ctx)
-        t2 = time.perf_counter()
-        save_ec_volume_info(base, ctx, dat_size, version)
-        t3 = time.perf_counter()
-        enc_launches = rs_cuda.LAUNCHES
-        check(enc_launches == expect_enc,
-              f"encode launched {enc_launches}, the staging windows of "
-              f"the work list are {expect_enc}")
-
-        shard_size = os.path.getsize(base + ".ec00")
-        lengths = {os.path.getsize(base + ctx.to_ext(i))
-                   for i in range(ctx.total)}
-        check(lengths == {shard_size}, f"shard sizes differ: {lengths}")
-        # parity on sampled windows against the numpy twin
-        pm = rs_matrix.parity_matrix(10, 4)
-        win = 1 << 20
-        samples = sorted({0, shard_size // 2, max(0, shard_size - win)})
-        for off in samples:
-            rows = []
-            for i in range(ctx.total):
-                with open(base + ctx.to_ext(i), "rb") as f:
-                    f.seek(off)
-                    rows.append(np.frombuffer(f.read(win), dtype=np.uint8))
-            data = np.stack(rows[:10])
-            check(np.array_equal(gf256.gf_apply_matrix(pm, data),
-                                 np.stack(rows[10:])),
-                  f"parity at shard offset {off} differs from numpy")
-        shard_sha = {i: sha256_file(base + ctx.to_ext(i))
-                     for i in range(ctx.total)}
-
-        # lose 4 shards, rebuild them (scheme recovered from .vif)
-        for sid in LOST:
-            os.remove(base + ctx.to_ext(sid))
-        step = ctx.batch_size(LARGE_BLOCK_SIZE)
-        expect_reb = sum(launches_for(ctx.data_shards,
-                                      min(step, shard_size - pos))
-                         for pos in range(0, shard_size, step))
-        before = rs_cuda.LAUNCHES
-        t4 = time.perf_counter()
-        generated = rebuild_ec_files(base)
-        t5 = time.perf_counter()
-        reb_launches = rs_cuda.LAUNCHES - before
-        main_launches = rs_cuda.LAUNCHES
-        root.finish()
-        check(generated == list(LOST), f"rebuilt {generated}")
-        check(reb_launches == expect_reb,
-              f"rebuild launched {reb_launches}, the staging windows of "
-              f"the work list are {expect_reb}")
-        snap = staging.snapshot()
-        check(snap["windows"] == main_launches,
-              f"staging counted {snap['windows']} windows, the kernel "
-              f"{main_launches} launches")
-        spans = {}
-        for sp in tracing.spans_for(root.trace_id):
-            if sp["name"] in STAGE_SPANS:
-                check(sp["parentId"] == root.span_id,
-                      f"{sp['name']} is not parented to the ec span")
-                spans[sp["name"]] = {
-                    "durationMs": sp["durationMs"],
-                    "busySeconds": sp["attrs"]["busySeconds"],
-                    "calls": sp["attrs"]["calls"]}
-        check(sorted(spans) == sorted(STAGE_SPANS),
-              f"stage spans {sorted(spans)}")
-        m = stats.PROCESS
-        gauges = {
-            "device_h2d_gbps": m.gauge_value("device_h2d_gbps"),
-            "device_d2h_gbps": m.gauge_value("device_d2h_gbps"),
-            "device_h2d_overlap_fraction": {
-                op: m.gauge_value("device_h2d_overlap_fraction", op=op)
-                for op in ("encode", "rebuild")},
-            "device_staged_windows_total": {
-                op: m.counter_value("device_staged_windows_total", op=op)
-                for op in ("encode", "rebuild")},
-            "device_kernel_last_ms": m.gauge_value(
-                "device_kernel_last_ms", kernel="gf_apply_matrix")}
-        hist = m.histogram_merged("device_kernel_seconds")
-        gauges["device_kernel_seconds"] = {"count": hist["count"],
-                                           "sum": hist["sum"]}
-        memory = profiling.sample_device_memory()
-        check(bool(memory), "no device memory sample")
-        for sid in LOST:
-            check(sha256_file(base + ctx.to_ext(sid)) == shard_sha[sid],
-                  f"rebuilt shard {sid} differs")
-
-        # decode back to .dat + .idx and read needles through Volume
-        os.remove(base + ".dat")
-        os.remove(base + ".idx")
-        t6 = time.perf_counter()
-        ec_decoder.write_dat_file(
-            base, dat_size, [base + ctx.to_ext(i) for i in range(10)])
-        ec_decoder.write_idx_file_from_ec_index(base)
-        t7 = time.perf_counter()
-        check(sha256_file(base + ".dat") == dat_sha,
-              "decoded .dat differs from the original")
-        pick = sorted({1, n_needles, *(int(x) for x in rng.integers(
-            1, n_needles + 1, size=30))})
-        v = Volume(tmp, vid)
-        try:
-            for i in pick:
-                n = v.read_needle(i, cookie=_cookie(i))
-                check(n.data == _payload(seed, i, sizes[i]),
-                      f"needle {i} read back wrong")
-        finally:
-            v.close()
-        for i in range(ctx.total):      # disk room for the profiled run
-            os.remove(base + ctx.to_ext(i))
-        rates = _copy_rates()
-        rates.update(_staging_probe(seed))
-        rates["disk_write_gbps"] = _disk_write_gbps(
-            os.path.join(tmp, "disk_probe"))
-        # windowed (default) then one-shot, in turns, in this call
-        profiled = {"windowed": _profiled_encode(
-            base + ".dat", os.path.join(tmp, "profiled_windowed"))}
-        knob = os.environ.get("SEAWEEDFS_TPU_H2D_WINDOW_MB")
-        os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = "0"
-        try:
-            profiled["one_shot"] = _profiled_encode(
-                base + ".dat", os.path.join(tmp, "profiled_one_shot"))
-        finally:
-            if knob is None:
-                os.environ.pop("SEAWEEDFS_TPU_H2D_WINDOW_MB")
-            else:
-                os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = knob
-        out = {"phase": "ec", "scheme": str(ctx),
-               "volume_gib_requested": volume_gib, "dat_bytes": dat_size,
-               "needles": n_needles, "payload_bytes": sum(sizes.values()),
-               "volume_write_seconds": write_s,
-               "shard_bytes": shard_size,
-               "ecx_seconds": t1 - t0, "encode_seconds": t2 - t1,
-               "vif_seconds": t3 - t2,
-               "encode_gbps": dat_size / (t2 - t1) / 1e9,
-               "encode_sequence_gbps": dat_size / (t3 - t0) / 1e9,
-               "encode_launches": enc_launches,
-               "rebuild_lost": list(LOST),
-               "rebuild_seconds": t5 - t4,
-               "rebuild_gbps": dat_size / (t5 - t4) / 1e9,
-               "rebuild_launches": reb_launches,
-               "main_path_launches": main_launches,
-               "decode_seconds": t7 - t6,
-               "parity_windows_checked": len(samples),
-               "shards_sha256_equal_after_rebuild": True,
-               "dat_sha256_equal_after_decode": True,
-               "needles_read_back": len(pick),
-               "staging": snap, "stage_spans": spans,
-               "telemetry": gauges, "device_memory": memory,
-               "profiled_encode": profiled, **rates}
-        emit(out)
-        return out
+        for i in pick:
+            n = v.read_needle(i, cookie=_cookie(i))
+            check(n.data == _payload(seed, i, sizes[i]),
+                  f"needle {i} read back wrong")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        v.close()
+    for i in range(ctx.total):      # disk room for the profiled run
+        os.remove(base + ctx.to_ext(i))
+    rates = _copy_rates()
+    rates.update(_staging_probe(seed))
+    rates["disk_write_gbps"] = _disk_write_gbps(
+        os.path.join(tmp, "disk_probe"))
+    # windowed (default) then one-shot, in turns, in this call
+    profiled = {"windowed": _profiled_encode(
+        base + ".dat", os.path.join(tmp, "profiled_windowed"))}
+    knob = os.environ.get("SEAWEEDFS_TPU_H2D_WINDOW_MB")
+    os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = "0"
+    try:
+        profiled["one_shot"] = _profiled_encode(
+            base + ".dat", os.path.join(tmp, "profiled_one_shot"))
+    finally:
+        if knob is None:
+            os.environ.pop("SEAWEEDFS_TPU_H2D_WINDOW_MB")
+        else:
+            os.environ["SEAWEEDFS_TPU_H2D_WINDOW_MB"] = knob
+    out = {"phase": "ec", "scheme": str(ctx),
+           "volume_gib_requested": volume_gib, "dat_bytes": dat_size,
+           "needles": n_needles, "payload_bytes": sum(sizes.values()),
+           "volume_write_seconds": write_s,
+           "shard_bytes": shard_size,
+           "ecx_seconds": t1 - t0, "encode_seconds": t2 - t1,
+           "vif_seconds": t3 - t2,
+           "encode_gbps": dat_size / (t2 - t1) / 1e9,
+           "encode_sequence_gbps": dat_size / (t3 - t0) / 1e9,
+           "encode_launches": enc_launches,
+           "rebuild_lost": list(LOST),
+           "rebuild_seconds": t5 - t4,
+           "rebuild_gbps": dat_size / (t5 - t4) / 1e9,
+           "rebuild_launches": reb_launches,
+           "main_path_launches": main_launches,
+           "decode_seconds": t7 - t6,
+           "parity_windows_checked": len(samples),
+           "shards_sha256_equal_after_rebuild": True,
+           "dat_sha256_equal_after_decode": True,
+           "needles_read_back": len(pick),
+           "staging": snap, "stage_spans": spans,
+           "telemetry": gauges, "device_memory": memory,
+           "profiled_encode": profiled, **rates}
+    emit(out)
+    return out, {"base": base, "dat_size": dat_size,
+                 "shard_size": shard_size, "shard_sha": shard_sha,
+                 "encode_launches": enc_launches}
 
 
 # --- phase 4 ---------------------------------------------------------------
+
+def _start_peers(dirs: "list[str]", logdir: str, procs: list
+                 ) -> "list[str]":
+    """`python3 -m seaweedfs_tpu_torch volume` on each directory, all
+    started together and appended to `procs` as they start (the caller
+    stops them); returns their urls once each has printed its own
+    (120 s), and fails if one does not."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    logs = []
+    for d in dirs:
+        log = os.path.join(logdir, os.path.basename(d) + ".log")
+        logs.append(log)
+        with open(log, "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+                 "-dir", d, "-port", "0"],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env))
+    lines = [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, out=out:
+                                out.append(p.stdout.readline()),
+                                daemon=True)
+               for p, out in zip(procs, lines)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + 120
+    for t in readers:
+        t.join(max(0.0, deadline - time.monotonic()))
+    urls = []
+    for p, out, log in zip(procs, lines, logs):
+        m = re.fullmatch(r"volume server listening on (\S+:\d+)\n",
+                         out[0] if out else "")
+        if m is None:
+            with open(log) as f:
+                raise RuntimeError(f"check failed: peer {log} did not "
+                                   f"start: {out} {f.read()[-2000:]}")
+        urls.append(m.group(1))
+    return urls
+
+
+def _stop_peers(procs) -> "list[str]":
+    """SIGTERM each peer still running and wait for a clean exit 0
+    (30 s); a peer that does not is killed and reported."""
+    bad = []
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            rc = p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+            rc = "killed after 30 s"
+        if rc != 0:
+            bad.append(f"pid {p.pid}: {rc}")
+        if p.stdout is not None:
+            p.stdout.close()
+    return bad
+
+
+def _spans(trace_id: str, prefix: str) -> dict:
+    """The spans of one request's trace whose names start `prefix`."""
+    from seaweedfs_tpu_torch import tracing
+    out = {}
+    for sp in tracing.spans_for(trace_id):
+        if sp["name"].startswith(prefix):
+            out[sp["name"]] = {"durationMs": sp["durationMs"],
+                               **(sp.get("attrs") or {})}
+    return dict(sorted(out.items()))
+
+
+def _post(url: str, payload: dict, rid: str) -> dict:
+    """An EC admin POST under request id `rid`; fails on an error."""
+    from seaweedfs_tpu_torch import tracing
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    r = http_json("POST", url, payload, timeout=900,
+                  headers={tracing.REQUEST_ID_HEADER: rid})
+    check("error" not in r, f"{url}: {r}")
+    return r
+
+
+def phase_remote(ec: dict, tmp: str) -> dict:
+    """Scatter-encode the ec phase's volume over 7 port volume servers,
+    lose one server, and rebuild its shards by streaming survivors."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch import tracing
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"v{i}") for i in range(REMOTE_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    for ext in (".dat", ".idx"):
+        os.link(ec["base"] + ext, os.path.join(dirs[0], "1" + ext))
+    ctx = ECContext(device="cuda")
+    shard_size = ec["shard_size"]
+    t0 = time.perf_counter()
+    server0 = VolumeServer([dirs[0]]).start()
+    procs = []
+    try:
+        peer_urls = _start_peers(dirs[1:], tmp, procs)
+        peers_s = time.perf_counter() - t0
+        urls = [server0.url] + peer_urls
+        _post(f"{server0.url}/admin/set_readonly", {"volumeId": 1},
+              "smoke-readonly")
+
+        # scatter-encode: placement round-robin over the 7 servers
+        placement = {str(s): urls[s % REMOTE_SERVERS]
+                     for s in range(ctx.total)}
+        tracing.reset_buffer()
+        generate = (f"{server0.url}/admin/ec/generate",
+                    {"volumeId": 1, "placement": placement})
+        rs_cuda.LAUNCHES = 0
+        t1 = time.perf_counter()
+        r = _post(*generate, "smoke-scatter")
+        t2 = time.perf_counter()
+        scatter_launches = rs_cuda.LAUNCHES
+        scatter_tele = r["telemetry"]
+        check(scatter_launches == ec["encode_launches"],
+              f"scatter launched {scatter_launches}, the staging windows "
+              f"of the work list are {ec['encode_launches']}")
+
+        def check_placed() -> dict:
+            placed = {}
+            for sid in range(ctx.total):
+                host = sid % REMOTE_SERVERS
+                sha = sha256_file(os.path.join(dirs[host],
+                                               f"1{ctx.to_ext(sid)}"))
+                check(sha == ec["shard_sha"][sid], f"shard {sid} at "
+                      f"{urls[host]} differs from the ec phase's")
+                placed[sid] = {"dest": urls[host], "sha256": sha}
+            return placed
+        placed = check_placed()
+        for d in dirs:
+            check(os.path.exists(os.path.join(d, "1.ecx")) and
+                  os.path.exists(os.path.join(d, "1.vif")),
+                  f"sidecars missing in {d}")
+            check(not [p for p in os.listdir(d) if ".scatter." in p],
+                  f"staged temps left in {d}")
+        scatter_spans = _spans("smoke-scatter", "encode.")
+        check(len([n for n in scatter_spans
+                   if n.startswith("encode.scatter.")]) == 12 and
+              {"encode.read", "encode.codec", "encode.write"} <=
+              set(scatter_spans), f"scatter spans {sorted(scatter_spans)}")
+        # the same scatter again under the profiler, after deleting every
+        # shard: the device's share of its wall
+        for url in urls:
+            _post(f"{url}/admin/ec/delete_shards",
+                  {"volumeId": 1, "shardIds": list(range(ctx.total))},
+                  "smoke-delete")
+        scatter_profile = _device_profile(
+            lambda: _post(*generate, "smoke-scatter-profiled"))
+        check_placed()
+
+        # lose server 1 (shards 1 and 8) with its disk
+        bad = _stop_peers([procs[REMOTE_DOWN - 1]])
+        check(not bad, f"server {REMOTE_DOWN} did not stop: {bad}")
+        shutil.rmtree(dirs[REMOTE_DOWN])
+        locs = {str(s): [urls[s % REMOTE_SERVERS]] for s in range(ctx.total)
+                if s % REMOTE_SERVERS != REMOTE_DOWN}
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        expect_reb = sum(launches_for(ctx.data_shards,
+                                      min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        rebuild = (f"{server0.url}/admin/ec/rebuild",
+                   {"volumeId": 1, "mode": "stream", "shardLocations": locs})
+        rs_cuda.LAUNCHES = 0
+        t3 = time.perf_counter()
+        r = _post(*rebuild, "smoke-rebuild")
+        t4 = time.perf_counter()
+        rebuild_launches = rs_cuda.LAUNCHES
+        check(r.get("rebuiltShardIds") == list(REMOTE_LOST),
+              f"streamed rebuild: {r}")
+        check(rebuild_launches == expect_reb,
+              f"rebuild launched {rebuild_launches}, the staging windows "
+              f"of its steps are {expect_reb}")
+        rebuilt = {}
+        for sid in REMOTE_LOST:
+            rebuilt[sid] = sha256_file(os.path.join(dirs[0],
+                                                    f"1{ctx.to_ext(sid)}"))
+            check(rebuilt[sid] == ec["shard_sha"][sid],
+                  f"rebuilt shard {sid} differs")
+        fetched = r["telemetry"]["bytesFetchedBySource"]
+        remote_rows = [u for u in fetched if u != "local"]
+        check(len(remote_rows) == 5 and
+              r["telemetry"]["bytesFetchedTotal"] ==
+              ctx.data_shards * shard_size,
+              f"rebuild fetched {fetched}")
+        rebuild_spans = _spans("smoke-rebuild", "rebuild.")
+        check({"rebuild.fetch", "rebuild.codec", "rebuild.write"} <=
+              set(rebuild_spans) and
+              len([n for n in rebuild_spans
+                   if n.startswith("rebuild.source.")]) == 8,
+              f"rebuild spans {sorted(rebuild_spans)}")
+        # the same rebuild again under the profiler
+        _post(f"{server0.url}/admin/ec/delete_shards",
+              {"volumeId": 1, "shardIds": list(REMOTE_LOST)}, "smoke-delete")
+        rebuild_profile = _device_profile(
+            lambda: _post(*rebuild, "smoke-rebuild-profiled"))
+        for sid in REMOTE_LOST:
+            check(sha256_file(os.path.join(dirs[0], f"1{ctx.to_ext(sid)}"))
+                  == ec["shard_sha"][sid], f"re-rebuilt shard {sid} differs")
+    finally:
+        server0.stop()
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"peers did not stop cleanly: {bad}")
+    dat = ec["dat_size"]
+    out = {"phase": "remote", "servers": REMOTE_SERVERS,
+           "placement": "shard sid on server sid % 7",
+           "peer_start_seconds": peers_s,
+           "scatter": {"seconds": t2 - t1, "gbps": dat / (t2 - t1) / 1e9,
+                       "launches": scatter_launches,
+                       "expected_launches": ec["encode_launches"],
+                       "shards_sha256_equal": ctx.total,
+                       "shards": placed,
+                       "telemetry": scatter_tele,
+                       "spans": scatter_spans,
+                       "profiled": scatter_profile},
+           "lost": {"server": REMOTE_DOWN, "shards": list(REMOTE_LOST)},
+           "rebuild": {"seconds": t4 - t3, "gbps": dat / (t4 - t3) / 1e9,
+                       "step_bytes": step,
+                       "launches": rebuild_launches,
+                       "expected_launches": expect_reb,
+                       "rebuilt_sha256_equal": rebuilt,
+                       "telemetry": r["telemetry"],
+                       "spans": rebuild_spans,
+                       "profiled": rebuild_profile}}
+    emit(out)
+    return out
+
+
+# --- phase 5 ---------------------------------------------------------------
 
 def _write_volume(directory: str, vid: int, target: int, rng,
                   seed: int) -> "tuple[str, int, int, dict]":
@@ -1003,20 +1281,29 @@ def main(argv=None) -> int:
     if args.kernel_only:
         print(smi, flush=True)
         return 0
-    ec = phase_ec(args.volume_gib, args.seed)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ec, ec_state = phase_ec(args.volume_gib, args.seed,
+                                os.path.join(work, "ec"))
+        remote = phase_remote(ec_state, os.path.join(work, "remote"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     batch = phase_batch(args.batch_gib, args.seed)
     kernels = []
-    for kind, name, replaces, launches in (
+    for kind, name, replaces, by_path in (
             ("single", "gf_apply_words", "seaweedfs_tpu/ops/rs_pallas.py:33",
-             ec["main_path_launches"]),
+             {"ec": ec["main_path_launches"],
+              "scatter": remote["scatter"]["launches"],
+              "streamed_rebuild": remote["rebuild"]["launches"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
-             batch["batched_launches"])):
+             {"batch": batch["batched_launches"]})):
         case = kern["main"][kind]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": kern["max_abs_err"][kind],
             "ms": case["rotated_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bytes_bound_ms"], "bound_by": "bytes",

@@ -65,15 +65,16 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def gf_apply_matrix(mat, data, device="cpu"):
+def gf_apply_matrix(mat, data, device="cuda"):
     """out[r] = XOR_k mat[r,k] * data[k] over GF(2^8), computed on
-    `device`.
+    `device`: the CUDA card unless the caller passes "cpu" (raises when
+    there is no card; never falls back to the CPU).
 
     mat: [R, K] uint8.  data: [K, ...] uint8, numpy (packed on the host;
     returns numpy) or a torch tensor (packed where it lies; returns a
     uint8 tensor on `device`).  The batch is padded to a word multiple
     internally and cut back."""
-    dev = torch.device(device)
+    dev = _resolve_device(device)
     mat = np.asarray(mat, dtype=np.uint8)
     k = data.shape[0]
     batch_shape = tuple(data.shape[1:])

@@ -1,0 +1,485 @@
+"""Threaded HTTP server with (method, path) routing, and the client
+calls of the remote EC paths: the part of `seaweedfs_tpu/server/httpd.py`
+that the port's volume server, shard sinks and shard sources use.
+
+Handlers of GET and POST routes return (status, payload): a dict or
+list (JSON), bytes, or a (body, headers) tuple whose body may be a
+`FileSlice`, sent with sendfile(2).  Request bodies are read whole
+(`body`, `json()`) or a chunk at a time (`stream_body()`,
+Content-Length or chunked framing).
+The wire formats are the reference's, so servers and clients of either
+package talk to each other.
+
+Plain HTTP, bound to 127.0.0.1 by default: no TLS, no admin JWT, no
+connection pool, no QoS admission, no deadline plane and no fault
+sites (ROADMAP C).
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import secrets
+import socket
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable
+
+from .. import tracing
+
+
+class Request:
+    def __init__(self, handler: BaseHTTPRequestHandler):
+        path, _, query = handler.path.partition("?")
+        self.method = handler.command
+        self.path = path
+        self.remote_ip = handler.client_address[0]
+        self._raw_query = query
+        self._query: "dict[str, str] | None" = None
+        self.headers = handler.headers
+        self._handler = handler
+        self._body: bytes | None = None
+
+    @property
+    def query(self) -> "dict[str, str]":
+        """Parsed query parameters (first value of each), blank values
+        kept."""
+        if self._query is None:
+            self._query = {
+                k: v[0] for k, v in urllib.parse.parse_qs(
+                    self._raw_query, keep_blank_values=True).items()} \
+                if self._raw_query else {}
+        return self._query
+
+    @property
+    def body(self) -> bytes:
+        if self._body is None:
+            te = (self.headers.get("Transfer-Encoding") or "").lower()
+            if "chunked" in te:
+                self._body = b"".join(self._stream_chunked(4 << 20))
+            else:
+                length = int(self.headers.get("Content-Length") or 0)
+                self._body = self._handler.rfile.read(length) \
+                    if length else b""
+        return self._body
+
+    def json(self) -> dict:
+        return json.loads(self.body or b"{}")
+
+    def stream_body(self, chunk_size: int = 4 << 20):
+        """Yield the request body in chunks without buffering it whole,
+        for Content-Length and chunked framing.  While streaming, the
+        connection is marked close-on-response, so a handler that fails
+        mid-stream never leaves unread body bytes to be parsed as the
+        next request; a clean end clears the mark.  Mutually exclusive
+        with touching `.body` first."""
+        if self._body is not None:
+            if self._body:
+                yield self._body
+            return
+        self._body = b""
+        self._handler.close_connection = True
+        te = (self.headers.get("Transfer-Encoding") or "").lower()
+        if "chunked" in te:
+            yield from self._stream_chunked(chunk_size)
+            return
+        length = int(self.headers.get("Content-Length") or 0)
+        remaining = length
+        while remaining > 0:
+            chunk = self._handler.rfile.read(min(chunk_size, remaining))
+            if not chunk:
+                raise IOError(
+                    f"short body: {remaining} of {length} bytes missing")
+            remaining -= len(chunk)
+            yield chunk
+        self._handler.close_connection = False
+
+    def _stream_chunked(self, chunk_size: int):
+        """Chunk-at-a-time RFC 9112 §7.1 parser: nothing accumulates, so
+        a chunked multi-GB upload streams with bounded memory.  Bad
+        framing or a body that ends early raises IOError."""
+        rfile = self._handler.rfile
+        while True:
+            size_line = rfile.readline(1024).strip()
+            try:
+                size = int(size_line.split(b";")[0], 16)
+            except ValueError:
+                raise IOError(f"malformed chunk framing: "
+                              f"{size_line[:64]!r}") from None
+            if size == 0:
+                while True:  # optional trailers up to the blank line
+                    line = rfile.readline(1024)
+                    if line in (b"\r\n", b"\n", b""):
+                        break
+                break
+            remaining = size
+            while remaining > 0:
+                piece = rfile.read(min(chunk_size, remaining))
+                if not piece:
+                    raise IOError("short chunked body")
+                remaining -= len(piece)
+                yield piece
+            rfile.readline(8)  # CRLF after each chunk
+        self._handler.close_connection = False
+
+    def drain(self, max_drain: int = 64 << 20) -> None:
+        """Discard any unread body with bounded memory; a chunked or
+        oversized unread body closes the connection instead."""
+        if self._body is not None:
+            return
+        te = (self.headers.get("Transfer-Encoding") or "").lower()
+        length = int(self.headers.get("Content-Length") or 0)
+        if "chunked" in te or length > max_drain:
+            self._body = b""
+            self._handler.close_connection = True
+            return
+        remaining = length
+        while remaining > 0:
+            chunk = self._handler.rfile.read(min(1 << 20, remaining))
+            if not chunk:
+                self._handler.close_connection = True
+                break
+            remaining -= len(chunk)
+        self._body = b""
+
+
+Route = Callable[[Request], "tuple[int, object]"]
+
+
+def normalize_payload(payload) -> "tuple[object, str, dict]":
+    """(body or file-like, content type, extra headers) of a handler's
+    payload: a dict or list (JSON), bytes, or a (body, headers) tuple."""
+    if isinstance(payload, (dict, list)):
+        return json.dumps(payload).encode(), "application/json", {}
+    if isinstance(payload, tuple):
+        body, extra = payload
+        extra = dict(extra)
+        return body, extra.pop("Content-Type",
+                               "application/octet-stream"), extra
+    return payload, "application/octet-stream", {}
+
+
+class FileSlice:
+    """A file-like over [current position, + size) of an open file, for
+    streamed byte-range responses; closes the file with it."""
+
+    def __init__(self, f, size: int):
+        self._f = f
+        self._remaining = max(size, 0)
+
+    def read(self, n: int = -1) -> bytes:
+        if self._remaining <= 0:
+            return b""
+        if n < 0 or n > self._remaining:
+            n = self._remaining
+        chunk = self._f.read(n)
+        self._remaining -= len(chunk)
+        if not chunk:
+            self._remaining = 0
+        return chunk
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class HttpServer:
+    """Exact (method, path) routes on the stdlib ThreadingHTTPServer,
+    one thread per connection.  Each request runs under a server span
+    whose trace id is the caller's X-Request-ID (or a fresh one) and
+    whose parent is the caller's X-Trace-Parent."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self.routes: dict[tuple[str, str], Route] = {}
+        self.role = ""
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # small control requests must not wait in Nagle's window
+            disable_nagle_algorithm = True
+
+            def _dispatch(self):
+                req = Request(self)
+                rid = req.headers.get(tracing.REQUEST_ID_HEADER) or \
+                    secrets.token_hex(8)
+                tracing.set_request_id(rid)
+                _, parent = tracing.parse_traceparent(
+                    req.headers.get(tracing.HEADER, ""))
+                sp = tracing.start_span(f"{req.method} {req.path}",
+                                        role=outer.role, parent=parent,
+                                        trace_id=rid)
+                status = 0
+                body = None
+                try:
+                    route = outer.routes.get((req.method, req.path))
+                    try:
+                        if route is None:
+                            status, payload = 404, {"error": "not found"}
+                        else:
+                            status, payload = route(req)
+                    except Exception as e:  # noqa: BLE001 — the server
+                        # must answer, and the error is the answer
+                        status, payload = 500, {"error": str(e)}
+                        sp.set_error(e)
+                    try:
+                        req.drain()
+                    except OSError:
+                        self.close_connection = True
+                    body, ctype, extra = normalize_payload(payload)
+                    self.send_response(status)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header(tracing.REQUEST_ID_HEADER, rid)
+                    for hk, hv in extra.items():
+                        self.send_header(hk, hv)
+                    if hasattr(body, "read"):
+                        # file-like: Content-Length is in `extra`; never
+                        # chunked
+                        self.end_headers()
+                        self._send_file(body)
+                        return
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                finally:
+                    if hasattr(body, "close"):
+                        body.close()
+                    sp.set("status", status)
+                    sp.finish()
+
+            def _send_file(self, body) -> None:
+                """sendfile(2) for a FileSlice over a real file, a read
+                loop otherwise.  A partial sendfile is never retried:
+                the connection is closed instead of re-sending bytes."""
+                f = getattr(body, "_f", None)
+                count = getattr(body, "_remaining", 0)
+                if f is not None and count > 0 and hasattr(f, "fileno"):
+                    try:
+                        self.wfile.flush()
+                        # offset defaults to 0, not the file position
+                        self.connection.sendfile(f, offset=f.tell(),
+                                                 count=count)
+                    except (OSError, ValueError):
+                        self.close_connection = True
+                    return
+                while True:
+                    chunk = body.read(1 << 20)
+                    if not chunk:
+                        break
+                    self.wfile.write(chunk)
+
+            do_GET = do_POST = _dispatch
+
+            def log_message(self, *args):  # quiet
+                pass
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                # established keep-alive connections, so stop() can
+                # sever them: shutdown() only ends the accept loop
+                self._conns: set = set()
+                self._conns_lock = threading.Lock()
+
+            def finish_request(self, request, client_address):
+                with self._conns_lock:
+                    self._conns.add(request)
+                try:
+                    super().finish_request(request, client_address)
+                finally:
+                    with self._conns_lock:
+                        self._conns.discard(request)
+
+            def close_established(self):
+                with self._conns_lock:
+                    conns = list(self._conns)
+                for c in conns:
+                    try:
+                        c.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    try:
+                        c.close()
+                    except OSError:
+                        pass
+
+            def handle_error(self, request, client_address):
+                # a peer dropping the socket mid-response is teardown,
+                # not a stack trace
+                import sys
+                if isinstance(sys.exc_info()[1],
+                              (BrokenPipeError, ConnectionResetError,
+                               ConnectionAbortedError)):
+                    return
+                super().handle_error(request, client_address)
+
+        self._httpd = Server((host, port), Handler)
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread: threading.Thread | None = None
+
+    def route(self, method: str, path: str, fn: Route) -> None:
+        self.routes[(method, path)] = fn
+
+    def start(self) -> None:
+        # a short poll keeps stop() from waiting out the default 0.5 s
+        self._thread = threading.Thread(
+            target=lambda: self._httpd.serve_forever(poll_interval=0.02),
+            daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop accepting, close the listener, and sever established
+        connections: a stopped server answers nothing more."""
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread.join(timeout=10)
+        self._httpd.server_close()
+        self._httpd.close_established()
+
+    @property
+    def url(self) -> str:
+        return f"{self.host}:{self.port}"
+
+
+# --- client calls ---------------------------------------------------------
+
+def _dial(url: str) -> str:
+    """The full URL of a `host:port/path` address (plain http)."""
+    return url if url.startswith("http") else "http://" + url
+
+
+def _connect(url: str, timeout: float
+             ) -> "tuple[http.client.HTTPConnection, str]":
+    """A fresh connection to the url's host and the request target."""
+    parsed = urllib.parse.urlsplit(_dial(url))
+    if parsed.scheme != "http":
+        raise ValueError(f"{url}: only plain http is supported")
+    target = parsed.path or "/"
+    if parsed.query:
+        target += "?" + parsed.query
+    return http.client.HTTPConnection(parsed.netloc,
+                                      timeout=timeout), target
+
+
+def _with_trace(headers: "dict | None") -> dict:
+    """The caller's headers plus the active request id and span, so the
+    receiver's server span joins the caller's trace."""
+    headers = dict(headers or {})
+    rid = tracing.get_request_id()
+    if rid:
+        headers.setdefault(tracing.REQUEST_ID_HEADER, rid)
+    tp = tracing.traceparent_header()
+    if tp:
+        headers.setdefault(tracing.HEADER, tp)
+    return headers
+
+
+def http_bytes(method: str, url: str, body: bytes | None = None,
+               headers: dict | None = None, timeout: float = 60.0
+               ) -> "tuple[int, bytes, dict]":
+    """One request on a fresh connection: (status, body, headers).
+    Transport failures raise OSError."""
+    conn, target = _connect(url, timeout)
+    try:
+        conn.request(method, target, body=body,
+                     headers=_with_trace(headers))
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.headers)
+    except http.client.HTTPException as e:
+        raise OSError(f"{method} {url}: {e!r}") from e
+    finally:
+        conn.close()
+
+
+def http_json(method: str, url: str, payload: dict | None = None,
+              timeout: float = 30.0, headers: dict | None = None) -> dict:
+    """JSON request; a non-2xx response returns its parsed body with an
+    "error" key (callers check for it, as for a gRPC status)."""
+    data = json.dumps(payload).encode() if payload is not None else None
+    headers = dict(headers or {})
+    if data:
+        headers.setdefault("Content-Type", "application/json")
+    status, body, _ = http_bytes(method, url, data, headers, timeout)
+    try:
+        parsed = json.loads(body or b"{}")
+    except ValueError:
+        parsed = {"error": body.decode(errors="replace")}
+    if status >= 300 and isinstance(parsed, dict):
+        parsed.setdefault("error", f"HTTP {status}")
+    return parsed
+
+
+def http_open_stream(url: str, headers: dict | None = None,
+                     timeout: float = 60.0
+                     ) -> "tuple[http.client.HTTPConnection, http.client.HTTPResponse]":
+    """A GET whose response body the caller reads incrementally
+    (`resp.readinto`); the caller checks the status and closes the
+    connection.  A whole streamed rebuild costs one such request per
+    survivor."""
+    conn, target = _connect(url, timeout)
+    try:
+        conn.request("GET", target, headers=_with_trace(headers))
+        return conn, conn.getresponse()
+    except (OSError, http.client.HTTPException) as e:
+        conn.close()
+        if isinstance(e, OSError):
+            raise
+        raise OSError(f"GET {url}: {e!r}") from e
+
+
+def http_stream_request(method: str, url: str, chunks,
+                        headers: dict | None = None,
+                        timeout: float = 60.0) -> "tuple[int, bytes]":
+    """Send an iterable of byte windows as ONE chunked request body (the
+    producer side of `Request.stream_body`): the request is on the wire
+    from the first window, with bounded memory.  A producer exception
+    tears the connection down mid-body, so the receiver sees a short
+    chunked stream and errors, never a clean truncated upload.  Returns
+    (status, body)."""
+    conn, target = _connect(url, timeout)
+    try:
+        # framing by hand: http.client's encode_chunked concatenates
+        # header + chunk + trailer into a fresh buffer per window; three
+        # sends straight off the caller's memoryview copy nothing
+        conn.putrequest(method, target, skip_accept_encoding=True)
+        for hk, hv in _with_trace(headers).items():
+            conn.putheader(hk, hv)
+        conn.putheader("Transfer-Encoding", "chunked")
+        conn.endheaders()
+        if conn.sock is not None:
+            # small size-line sends between multi-MB payload sends must
+            # not wait behind delayed ACKs
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        it = iter(chunks)
+        while True:
+            # a producer error propagates from here, and the finally
+            # tears the connection down mid-body
+            chunk = next(it, None)
+            try:
+                if chunk is None:
+                    conn.send(b"0\r\n\r\n")
+                    break
+                if len(chunk):
+                    conn.send(b"%X\r\n" % len(chunk))
+                    conn.send(chunk)
+                    conn.send(b"\r\n")
+            except OSError:
+                # the receiver may have rejected the upload mid-body
+                # (4xx/5xx and close): its verdict, if readable, is the
+                # root cause
+                try:
+                    resp = conn.getresponse()
+                    return resp.status, resp.read()
+                except (OSError, http.client.HTTPException):
+                    pass
+                raise
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    except http.client.HTTPException as e:
+        raise OSError(f"{method} {url}: {e!r}") from e
+    finally:
+        conn.close()

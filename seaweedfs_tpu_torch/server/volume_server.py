@@ -1,0 +1,734 @@
+"""Volume server: the EC admin routes of `seaweedfs_tpu/server/
+volume_server.py` (volume_grpc_erasure_coding.go mirrored as JSON over
+HTTP), with the GF(2^8) work on this server's codec device.
+
+- `/admin/ec/generate`: encode a read-only volume, locally or, with a
+  `placement` map ({shard_id: url}), as a scatter-encode: each shard
+  streams off the codec to its placement target, sidecars follow, and
+  every shard is committed and mounted at its destination.  A failure
+  anywhere unwinds: nothing is mounted from a partial stripe and a
+  pre-existing `.vif` is restored byte for byte.
+- `/admin/ec/shard_write`, `_commit`, `_abort`: the receiving side of a
+  scatter (temp file + CRC32 while streaming, atomic rename on commit).
+- `/admin/ec/rebuild`: regenerate lost shards, streaming survivors this
+  node lacks from their servers' `/admin/ec/shard_read` (`mode:
+  "stream"`, the default) or from local files only (`mode: "local"`).
+- `/admin/ec/mount`, `unmount`, `delete_shards`, `info`, `shard_read`,
+  `/admin/set_readonly` and `/admin/receive_file`.
+
+There is no master: a scatter's `placement` and a rebuild's
+`shardLocations` ({shard_id: [urls]}) come in the request body, as the
+shell and the rebuild worker send them.  No heartbeat, TLS, admin JWT,
+fault sites or QoS throttle (ROADMAP C).  Counters go to
+`stats.PROCESS`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import re
+import threading
+import time
+import uuid
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
+from .. import stats
+from ..storage.erasure_coding import ec_encoder
+from ..storage.erasure_coding.ec_context import ECContext, to_ext
+from ..storage.store import Store
+from .httpd import FileSlice, HttpServer, Request, http_bytes, http_json
+
+_SAFE_EXT = re.compile(r"^\.(dat|idx|vif|ecx|ecj|ec\d{2})$")
+_SAFE_COLLECTION = re.compile(r"^[A-Za-z0-9_.-]*$")
+
+
+def check_path_fields(collection: str, ext: str | None = None) -> None:
+    """Both fields land in file paths: reject traversal before any path
+    is built."""
+    if ext is not None and not _SAFE_EXT.match(ext):
+        raise ValueError(f"unacceptable ext {ext!r}")
+    if not _SAFE_COLLECTION.match(collection):
+        raise ValueError(f"unacceptable collection {collection!r}")
+
+
+class VolumeServer:
+    """The EC admin plane of one volume server over `directories`.  The
+    codec runs on `device`: the CUDA card by default, the CPU when the
+    caller asks for it; a card that is missing fails the request."""
+
+    def __init__(self, directories: list[str], host: str = "127.0.0.1",
+                 port: int = 0, public_url: str = "",
+                 device: str = "cuda"):
+        self.device = device
+        self.http = HttpServer(host, port)
+        self.http.role = "volume"
+        self.store = Store(directories, ip=host, port=self.http.port,
+                           public_url=public_url or self.http.url)
+        self.metrics = stats.PROCESS
+        r = self.http.route
+        r("POST", "/admin/set_readonly", self._set_readonly)
+        r("POST", "/admin/receive_file", self._receive_file)
+        r("POST", "/admin/ec/generate", self._ec_generate)
+        r("POST", "/admin/ec/shard_write", self._ec_shard_write)
+        r("POST", "/admin/ec/shard_write_commit",
+          self._ec_shard_write_commit)
+        r("POST", "/admin/ec/shard_write_abort", self._ec_shard_write_abort)
+        r("POST", "/admin/ec/mount", self._ec_mount)
+        r("POST", "/admin/ec/unmount", self._ec_unmount)
+        r("POST", "/admin/ec/delete_shards", self._ec_delete_shards)
+        r("POST", "/admin/ec/rebuild", self._ec_rebuild)
+        r("GET", "/admin/ec/shard_read", self._ec_shard_read)
+        r("GET", "/admin/ec/info", self._ec_info)
+        # staged scatter uploads awaiting commit:
+        # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
+        self._pending_shard_writes: dict[str, dict] = {}
+        self._pending_lock = threading.Lock()
+
+    # -- lifecycle --------------------------------------------------------
+
+    def start(self) -> "VolumeServer":
+        # staged scatter temps of a crashed process: the pending
+        # registry died with it, so nothing else would reclaim them
+        for loc in self.store.locations:
+            for name in os.listdir(loc.directory):
+                if ".scatter." in name:
+                    try:
+                        os.remove(os.path.join(loc.directory, name))
+                    except OSError:
+                        pass
+        self.http.start()
+        return self
+
+    def stop(self) -> None:
+        self.http.stop()
+        self.store.close()
+
+    @property
+    def url(self) -> str:
+        return self.http.url
+
+    def _codec_device(self):
+        """CUDA's current device is per thread: make the codec's device
+        current on this handler thread (streams are passed explicitly
+        below it).  Raises when the codec device is a missing card."""
+        from ..ops.rs_torch import _resolve_device
+        dev = _resolve_device(self.device)
+        if dev.type != "cuda":
+            return contextlib.nullcontext()
+        import torch
+        return torch.cuda.device(dev)
+
+    # -- paths ------------------------------------------------------------
+
+    def _file_path(self, vid: int, collection: str, ext: str
+                   ) -> str | None:
+        check_path_fields(collection, ext)
+        name = (f"{collection}_" if collection else "") + f"{vid}{ext}"
+        for loc in self.store.locations:
+            p = os.path.join(loc.directory, name)
+            if os.path.exists(p):
+                return p
+        return None
+
+    def _base_path(self, vid: int, collection: str) -> str:
+        """Base file path of volume vid on the disk holding it (or the
+        first location for new files)."""
+        check_path_fields(collection)
+        for ext in (".dat", ".ecx", ".ec00"):
+            p = self._file_path(vid, collection, ext)
+            if p is not None:
+                return p[: -len(ext)]
+        name = (f"{collection}_" if collection else "") + str(vid)
+        return os.path.join(self.store.locations[0].directory, name)
+
+    # -- volume admin -----------------------------------------------------
+
+    def _set_readonly(self, req: Request):
+        b = req.json()
+        vid = int(b["volumeId"])
+        self.store.set_volume_read_only(vid, bool(b.get("readOnly", True)))
+        v = self.store.find_volume(vid)
+        if v.read_only:
+            v.sync()  # commit buffered .dat/.idx before anyone reads them
+        return 200, {}
+
+    def _receive_file(self, req: Request):
+        """volume_server.proto ReceiveFile: a sidecar or shard file
+        pushed whole, to a temp file renamed into place, so a push that
+        dies mid-stream never leaves a truncated file at the final
+        path."""
+        vid = int(req.query["volumeId"])
+        collection = req.query.get("collection", "")
+        ext = req.query["ext"]
+        try:
+            check_path_fields(collection, ext)
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        base = self._base_path(vid, collection)
+        n = 0
+        tmp = f"{base}{ext}.recv.{uuid.uuid4().hex}"
+        try:
+            with open(tmp, "wb") as f:
+                for chunk in req.stream_body():
+                    f.write(chunk)
+                    n += len(chunk)
+            os.replace(tmp, base + ext)
+        finally:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+        return 200, {"bytes": n}
+
+    # -- EC generate (volume_grpc_erasure_coding.go:43) -------------------
+
+    def _ec_generate(self, req: Request):
+        """:43 VolumeEcShardsGenerate: `.ecx` BEFORE the shard files
+        (race rationale :89-98), then the scheme to `.vif` (:132).  With
+        `placement` ({shard_id: url}) in the body, a scatter-encode."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        ctx = ECContext(int(b.get("dataShards") or 10),
+                        int(b.get("parityShards") or 4),
+                        collection, vid, device=self.device)
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        if collection != v.collection:
+            return 409, {"error": f"collection mismatch: volume {vid} "
+                                  f"is {v.collection!r}, "
+                                  f"not {collection!r}"}
+        if not v.read_only:
+            return 409, {"error": "volume must be readonly before encode"}
+        v.sync()
+        base = v.file_name("")
+        dat_size = v.dat_size()
+        placement = b.get("placement")
+        with self._codec_device():
+            if placement is not None:
+                return self._ec_scatter_generate(
+                    v, ctx, collection, base, dat_size, placement)
+            ec_encoder.write_sorted_file_from_idx(base)      # .ecx first
+            ec_encoder.write_ec_files(base, ctx)
+            ec_encoder.save_ec_volume_info(base, ctx, dat_size, v.version)
+        return 200, {"shardIds": list(range(ctx.total))}
+
+    def _ec_scatter_generate(self, v, ctx: ECContext, collection: str,
+                             base: str, dat_size: int, placement: dict):
+        """Placement-first streaming encode.  The order is the
+        no-partial-stripe invariant: (1) stream every shard to its sink
+        and verify delivery (CRC and byte count, still uncommitted
+        temps), (2) push the sidecars (.ecx/.vif/.ecj) to every remote
+        destination, (3) commit each destination's shards in one round
+        trip, mounting them, (4) commit and mount the local shards.  A
+        failure anywhere aborts what is uncommitted, deletes what was
+        committed, and restores this node's `.vif`; `failedDests` in the
+        error body names the destinations seen failing, for a
+        re-planner."""
+        from ..storage.erasure_coding.shard_sink import (
+            LocalShardSink, RemoteShardSink, ScatterStats)
+        dests = {int(sid): url for sid, url in (placement or {}).items()}
+        if sorted(dests) != list(range(ctx.total)):
+            return 400, {"error": f"placement must cover shards "
+                                  f"0..{ctx.total - 1}, got "
+                                  f"{sorted(dests)}"}
+        self_urls = {self.http.url, self.store.public_url}
+        stats_ = ScatterStats()
+        failed_dests: set = set()
+        failed_lock = threading.Lock()
+
+        def _note_failed(url: str) -> None:
+            with failed_lock:
+                failed_dests.add(url)
+
+        t_start = time.perf_counter()
+        # a pre-existing .vif is restored verbatim by the unwind, never
+        # just deleted (for a tiered volume it is the only pointer to
+        # the remote .dat)
+        vif_before: "bytes | None" = None
+        try:
+            with open(base + ".vif", "rb") as vf:
+                vif_before = vf.read()
+        except OSError:
+            pass
+        ec_encoder.write_sorted_file_from_idx(base)      # .ecx first
+        sinks: list = []
+        local_sids: list[int] = []
+        try:
+            for sid in range(ctx.total):
+                if dests[sid] in self_urls:
+                    local_sids.append(sid)
+                    sinks.append(LocalShardSink(base + ctx.to_ext(sid),
+                                                temp=True, stats=stats_))
+                else:
+                    sinks.append(RemoteShardSink(
+                        dests[sid], v.id, sid, collection=collection))
+            # (1) on return every sink is finished (delivery verified)
+            # or aborted
+            ec_encoder._generate_ec_files(base, ctx, sinks=sinks,
+                                          stats=stats_)
+            t_encoded = time.perf_counter()
+            ec_encoder.save_ec_volume_info(base, ctx, dat_size, v.version)
+            # (2) sidecars before any commit: mount needs .ecx, and a
+            # destination must never hold a visible shard it cannot
+            # serve.  One thread per destination: the files are small,
+            # the round trips are what would serialise
+            remote_dests = sorted({u for s, u in dests.items()
+                                   if s not in local_sids})
+            sidecars: list[tuple[str, bytes]] = []
+            for ext in (".ecx", ".vif", ".ecj"):
+                if os.path.exists(base + ext):
+                    with open(base + ext, "rb") as sf:
+                        sidecars.append((ext, sf.read()))
+
+            def push_sidecars(url: str) -> None:
+                try:
+                    for ext, payload in sidecars:
+                        st, body, _ = http_bytes(
+                            "POST",
+                            f"{url}/admin/receive_file?volumeId={v.id}"
+                            f"&collection={collection}&ext={ext}",
+                            payload, timeout=60)
+                        if st != 200:
+                            raise OSError(f"push {ext} to {url}: {st} "
+                                          f"{body[:200]!r}")
+                except OSError:
+                    _note_failed(url)
+                    raise
+            with ThreadPoolExecutor(
+                    max_workers=max(1, len(remote_dests))) as pool:
+                list(pool.map(push_sidecars, remote_dests))
+            t_sidecars = time.perf_counter()
+            # (3) + (4): one batched commit-and-mount per destination,
+            # destinations in parallel
+            by_dest_sids: dict[str, list[int]] = {}
+            for sid in range(ctx.total):
+                if sid not in local_sids:
+                    by_dest_sids.setdefault(dests[sid], []).append(sid)
+
+            def commit_dest(item):
+                url, sids = item
+                try:
+                    r = http_json(
+                        "POST", f"{url}/admin/ec/shard_write_commit",
+                        {"volumeId": v.id, "collection": collection,
+                         "mount": True,
+                         "commits": [{"uploadId": sinks[sid].upload_id,
+                                      "shardId": sid,
+                                      "crc32": sinks[sid].crc,
+                                      "bytes": sinks[sid].bytes}
+                                     for sid in sids]},
+                        timeout=30)
+                    if "error" in r:
+                        raise OSError(f"commit {sids} on {url}: "
+                                      f"{r['error']}")
+                except OSError:
+                    _note_failed(url)
+                    raise
+                for sid in sids:
+                    sinks[sid].mark_committed()
+            with ThreadPoolExecutor(
+                    max_workers=max(1, len(by_dest_sids))) as pool:
+                list(pool.map(commit_dest, by_dest_sids.items()))
+            for sid in local_sids:
+                sinks[sid].commit()
+            if local_sids:
+                self.store.mount_ec_shards(v.id, collection, local_sids)
+            else:
+                # no shard stays here: drop the staging .ecx so this
+                # node does not resolve a stale EC base for the vid
+                try:
+                    os.remove(base + ".ecx")
+                except OSError:
+                    pass
+            t_mounted = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 — unwind, then report
+            for sink in sinks:
+                url = getattr(sink, "url", "")
+                if url and (getattr(sink, "_error", None) is not None
+                            or url in str(e)):
+                    # the sink's send thread failed, or the error names
+                    # this destination (finish()'s mismatch does)
+                    _note_failed(url)
+                try:
+                    sink.close()  # aborts anything uncommitted
+                except OSError:
+                    pass
+            self._ec_scatter_unwind(v.id, collection, ctx, dests, base,
+                                    vif_before)
+            return 500, {"error": f"scatter encode: {e}",
+                         "failedDests": sorted(failed_dests)}
+        wall = time.perf_counter() - t_start
+        tele = stats_.summary(dat_size, wall)
+        tele["mode"] = "scatter"
+        tele["encodeSeconds"] = round(t_encoded - t_start, 3)
+        tele["sidecarSeconds"] = round(t_sidecars - t_encoded, 3)
+        tele["commitSeconds"] = round(t_mounted - t_sidecars, 3)
+        self._record_scatter_metrics(stats_, tele)
+        return 200, {"shardIds": list(range(ctx.total)),
+                     "placement": {str(s): u for s, u in dests.items()},
+                     "localShardIds": local_sids,
+                     "telemetry": tele}
+
+    def _ec_scatter_unwind(self, vid: int, collection: str,
+                           ctx: ECContext, dests: "dict[int, str]",
+                           base: str, vif_before: "bytes | None") -> None:
+        """Tear down whatever a destination may already hold (committed
+        shards, pushed sidecars) and this node's local artifacts, so the
+        still-live volume is the only copy.  delete_shards is idempotent
+        and cleans sidecars when the last shard goes.  The `.vif` is
+        restored to its pre-encode bytes."""
+        for url in sorted(set(dests.values())):
+            try:
+                http_json("POST", f"{url}/admin/ec/delete_shards",
+                          {"volumeId": vid, "collection": collection,
+                           "shardIds": list(range(ctx.total))},
+                          timeout=30)
+            except OSError:
+                pass
+        try:
+            os.remove(base + ".ecx")
+        except OSError:
+            pass
+        try:
+            if vif_before is not None:
+                with open(base + ".vif", "wb") as vf:
+                    vf.write(vif_before)
+            else:
+                os.remove(base + ".vif")
+        except OSError:
+            pass
+
+    def _record_scatter_metrics(self, stats_, tele: dict) -> None:
+        """Bytes scattered per destination against bytes written
+        locally, per-window push latency, and the last GB/s."""
+        by_dest, latencies, local_bytes = stats_.snapshot()
+        for dest, nbytes in by_dest.items():
+            self.metrics.counter_add(
+                "ec_encode_bytes_scattered_total", float(nbytes),
+                help_text="shard bytes streamed to placement targets "
+                          "during scatter-encode", dest=dest)
+        self.metrics.counter_add(
+            "ec_encode_local_write_bytes_total", float(local_bytes),
+            help_text="shard bytes written to this node's own disks "
+                      "during scatter-encode")
+        for seconds in latencies:
+            self.metrics.histogram_observe(
+                "ec_encode_push_slice_seconds", seconds,
+                help_text="per-window destination push latency")
+        self.metrics.counter_add("ec_scatter_encodes_total", 1.0,
+                                 help_text="scatter encodes run")
+        self.metrics.gauge_set(
+            "ec_encode_volume_gbps", tele["volumeGbps"],
+            help_text="volume-bytes/s of the last scatter encode")
+
+    # -- scatter receivers -------------------------------------------------
+
+    def _ec_shard_write(self, req: Request):
+        """Stream one shard into a `.scatter.<uploadId>` temp file with a
+        running CRC32.  It stays invisible until `shard_write_commit`; a
+        stream that dies mid-body leaves nothing registered and the temp
+        is removed.  Page-cache writes: integrity is the CRC and commit
+        handshake."""
+        vid = int(req.query["volumeId"])
+        sid = int(req.query["shardId"])
+        collection = req.query.get("collection", "")
+        upload_id = req.query.get("uploadId", "")
+        try:
+            check_path_fields(collection)
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        if not upload_id.isalnum():
+            return 400, {"error": "bad uploadId"}
+        self._reap_stale_shard_writes()
+        base = self._base_path(vid, collection)
+        tmp = f"{base}{to_ext(sid)}.scatter.{upload_id}"
+        crc = 0
+        n = 0
+        ok = False
+        try:
+            with open(tmp, "wb") as f:
+                for chunk in req.stream_body():
+                    f.write(chunk)
+                    crc = zlib.crc32(chunk, crc)
+                    n += len(chunk)
+            ok = True
+        finally:
+            if not ok:
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+        with self._pending_lock:
+            self._pending_shard_writes[upload_id] = {
+                "path": tmp, "crc": crc, "bytes": n, "vid": vid,
+                "sid": sid, "collection": collection,
+                "stamp": time.monotonic()}
+        return 200, {"bytes": n, "crc32": crc}
+
+    def _reap_stale_shard_writes(self, max_age: float = 3600.0) -> None:
+        """Drop staged uploads whose sender died without an abort."""
+        now = time.monotonic()
+        with self._pending_lock:
+            stale = [k for k, rec in self._pending_shard_writes.items()
+                     if now - rec["stamp"] > max_age]
+            recs = [self._pending_shard_writes.pop(k) for k in stale]
+        for rec in recs:
+            try:
+                os.remove(rec["path"])
+            except OSError:
+                pass
+
+    def _ec_shard_write_commit(self, req: Request):
+        """Check the sender's CRC and byte count against what was
+        streamed, then rename the temps to their `.ecNN` names (`mount:
+        true` mounts them too).  One upload ({uploadId, shardId, crc32,
+        bytes}) or a batch (`commits: [...]`), all verified before any
+        rename; a mismatch refuses the commit and discards the
+        temps."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        commits = b.get("commits")
+        if commits is None:
+            commits = [{"uploadId": b.get("uploadId", ""),
+                        "shardId": b.get("shardId", -1),
+                        "crc32": b.get("crc32", -1),
+                        "bytes": b.get("bytes", -1)}]
+        recs: list[tuple[dict, dict]] = []
+        with self._pending_lock:
+            for c in commits:
+                rec = self._pending_shard_writes.pop(
+                    str(c.get("uploadId", "")), None)
+                if rec is not None:
+                    recs.append((c, rec))
+
+        def _discard():
+            for _c, rec in recs:
+                try:
+                    os.remove(rec["path"])
+                except OSError:
+                    pass
+        if len(recs) != len(commits):
+            _discard()
+            return 404, {"error": f"unknown staged upload in "
+                                  f"{[c.get('uploadId') for c in commits]}"}
+        for c, rec in recs:
+            sid = int(c["shardId"])
+            if int(c.get("bytes", -1)) != rec["bytes"] or \
+                    int(c.get("crc32", -1)) != rec["crc"] or \
+                    vid != rec["vid"] or sid != rec["sid"] or \
+                    collection != rec["collection"]:
+                _discard()
+                return 409, {"error":
+                             f"shard {vid}.{sid} upload mismatch: staged "
+                             f"{rec['bytes']}B crc {rec['crc']}, caller "
+                             f"says {c.get('bytes')}B crc "
+                             f"{c.get('crc32')}"}
+        base = self._base_path(vid, collection)
+        sids = []
+        for c, rec in recs:
+            sid = int(c["shardId"])
+            os.replace(rec["path"], base + to_ext(sid))
+            sids.append(sid)
+        if b.get("mount"):
+            self.store.mount_ec_shards(vid, collection, sids)
+        return 200, {"shardIds": sids,
+                     "bytes": sum(rec["bytes"] for _c, rec in recs)}
+
+    def _ec_shard_write_abort(self, req: Request):
+        upload_id = str(req.json().get("uploadId", ""))
+        with self._pending_lock:
+            rec = self._pending_shard_writes.pop(upload_id, None)
+        if rec is not None:
+            try:
+                os.remove(rec["path"])
+            except OSError:
+                pass
+        return 200, {}
+
+    # -- mount / unmount / delete -----------------------------------------
+
+    def _ec_mount(self, req: Request):
+        """:443 VolumeEcShardsMount."""
+        b = req.json()
+        collection = b.get("collection", "")
+        check_path_fields(collection)
+        ev = self.store.mount_ec_shards(
+            int(b["volumeId"]), collection,
+            [int(s) for s in b.get("shardIds", [])])
+        return 200, {"shardIds": ev.shard_ids}
+
+    def _ec_unmount(self, req: Request):
+        """:464 VolumeEcShardsUnmount: only the listed shards; no
+        `shardIds` key unmounts the volume, an empty list nothing."""
+        b = req.json()
+        self.store.unmount_ec_shards(
+            int(b["volumeId"]),
+            [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
+        return 200, {}
+
+    def _ec_delete_shards(self, req: Request):
+        """:327 VolumeEcShardsDelete: remove local shard files, and the
+        index files with the last shard."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        base = self._base_path(vid, collection)
+        for s in b.get("shardIds", []):
+            try:
+                os.remove(base + to_ext(int(s)))
+            except FileNotFoundError:
+                pass
+        if not any(os.path.exists(base + to_ext(s)) for s in range(32)):
+            for ext in (".ecx", ".ecj", ".vif"):
+                try:
+                    os.remove(base + ext)
+                except FileNotFoundError:
+                    pass
+            self.store.unmount_ec_shards(vid)
+        else:
+            self.store.mount_ec_shards(vid, collection, [])
+        return 200, {}
+
+    # -- rebuild (:149) ----------------------------------------------------
+
+    def _ec_rebuild(self, req: Request):
+        """:149 VolumeEcShardsRebuild, streaming by default: survivors
+        this node lacks are read in slice windows straight off their
+        servers' `/admin/ec/shard_read` (one prefetching stream each),
+        so repair stages no whole survivor file here.  `mode: "local"`
+        needs every survivor on this node.  Remote survivors come from
+        `shardLocations` ({shard_id: [urls]}); without it the rebuild
+        is local."""
+        from ..storage.erasure_coding.shard_source import (
+            LocalShardSource, RebuildStats, RemoteShardSource,
+            rebuild_slice_bytes)
+        t_start = time.perf_counter()
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        base = self._base_path(vid, collection)
+        extra_dirs = [loc.directory for loc in self.store.locations]
+        ctx = ec_encoder.scheme_from_vif(base, device=self.device) or \
+            ECContext(int(b.get("dataShards") or 10),
+                      int(b.get("parityShards") or 4), device=self.device)
+        if b.get("mode", "stream") == "local":
+            with self._codec_device():
+                generated = ec_encoder.rebuild_ec_files(
+                    base, ctx, additional_dirs=extra_dirs)
+            return 200, {"rebuiltShardIds": generated, "mode": "local"}
+        # file discovery is the anchor (survivors copied here unmounted
+        # count); the mounted shards only give the size
+        present_paths, local_missing = \
+            ec_encoder.discover_shard_files(base, ctx, extra_dirs)
+        ev = self.store.find_ec_volume(vid)
+        size_hint = None
+        if ev is not None:
+            with ev.lock:
+                if ev.shards:
+                    size_hint = max(s.size for s in ev.shards.values())
+        remote: dict[int, list[str]] = {}
+        self_urls = {self.http.url, self.store.public_url}
+        for sid_s, urls in (b.get("shardLocations") or {}).items():
+            sid = int(sid_s)
+            urls = [u for u in urls if u not in self_urls]
+            if sid not in present_paths and urls:
+                remote[sid] = urls
+        targets = [sid for sid in local_missing if sid not in remote]
+        if not targets:
+            return 200, {"rebuiltShardIds": [], "mode": "stream"}
+        device = self._codec_device()   # raises before any file opens
+        sources: dict[int, object] = {
+            sid: LocalShardSource(p) for sid, p in present_paths.items()}
+        # any d survivors reconstruct, so the local ones first, then
+        # only d - local remote rows, round-robined across donors so no
+        # one peer's disk serialises the streams
+        want_remote = max(ctx.data_shards - len(present_paths), 0)
+        by_donor: dict[str, list[int]] = {}
+        for sid in sorted(remote):
+            by_donor.setdefault(remote[sid][0], []).append(sid)
+        chosen: list[int] = []
+        tiers = list(by_donor.values())
+        i = 0
+        while len(chosen) < want_remote and any(tiers):
+            if tiers[i % len(tiers)]:
+                chosen.append(tiers[i % len(tiers)].pop(0))
+            i += 1
+        for sid in chosen:
+            sources[sid] = RemoteShardSource(remote[sid], vid, sid)
+        stats_ = RebuildStats()
+        t0 = time.perf_counter()
+        try:
+            if size_hint is None and present_paths:
+                size_hint = max(os.path.getsize(p)
+                                for p in present_paths.values())
+            with device:
+                generated = ec_encoder.rebuild_from_sources(
+                    base, ctx, sources, targets, stats=stats_,
+                    slice_bytes=rebuild_slice_bytes() if chosen else None,
+                    shard_size=size_hint)
+        except ValueError as e:
+            return 500, {"error": str(e)}
+        wall = time.perf_counter() - t0
+        shard_size = os.path.getsize(base + ctx.to_ext(targets[0]))
+        tele = stats_.summary(ctx.data_shards * shard_size, wall)
+        tele["mode"] = "stream"
+        tele["rebuiltBytes"] = len(generated) * shard_size
+        tele["setupSeconds"] = round(t0 - t_start, 3)
+        self._record_rebuild_metrics(stats_, tele)
+        return 200, {"rebuiltShardIds": generated, "mode": "stream",
+                     "telemetry": tele}
+
+    def _record_rebuild_metrics(self, stats_, tele: dict) -> None:
+        by_source, latencies = stats_.snapshot()
+        for label, nbytes in by_source.items():
+            self.metrics.counter_add(
+                "ec_rebuild_bytes_fetched_total", float(nbytes),
+                help_text="survivor bytes streamed into EC rebuild",
+                source=label)
+        for seconds in latencies:
+            self.metrics.histogram_observe(
+                "ec_rebuild_slice_seconds", seconds,
+                help_text="per-slice survivor fetch latency")
+        self.metrics.counter_add("ec_rebuilds_total", 1.0,
+                                 help_text="streaming EC rebuilds run")
+        self.metrics.gauge_set(
+            "ec_rebuild_volume_gbps", tele["volumeGbps"],
+            help_text="volume-bytes/s of the last streaming rebuild")
+
+    # -- reads --------------------------------------------------------------
+
+    def _ec_shard_read(self, req: Request):
+        """:101 VolumeEcShardRead: a raw range of one mounted shard, from
+        a private fd (shard files are immutable), sent with sendfile."""
+        vid = int(req.query["volumeId"])
+        shard_id = int(req.query["shardId"])
+        offset = int(req.query.get("offset", 0))
+        size = int(req.query.get("size", 0))
+        ev = self.store.find_ec_volume(vid)
+        if ev is None or shard_id not in ev.shards:
+            return 404, {"error": f"shard {vid}.{shard_id} not found"}
+        shard = ev.shards[shard_id]
+        n = max(0, min(size, shard.size - offset))
+        f = open(shard.path, "rb")
+        f.seek(offset)
+        return 200, (FileSlice(f, n), {"Content-Length": str(n)})
+
+    def _ec_info(self, req: Request):
+        """:688 VolumeEcShardsInfo."""
+        vid = int(req.query["volumeId"])
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            return 404, {"error": f"ec volume {vid} not mounted"}
+        return 200, {
+            "volumeId": vid,
+            "collection": ev.collection,
+            "shardIds": ev.shard_ids,
+            "shardSize": ev.shard_size(),
+            "dataShards": ev.ctx.data_shards,
+            "parityShards": ev.ctx.parity_shards,
+        }

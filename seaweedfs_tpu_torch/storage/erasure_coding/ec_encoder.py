@@ -305,20 +305,34 @@ def _staged_run(work, read_item, compute, write_item) -> None:
         raise errors[0]
 
 
-def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
-    """Staged encode: .dat batches -> GF parity -> d+p shard files, one
-    LocalShardSink per `.ecNN`.  On success every sink is finish()ed and
-    committed; on failure every sink is abort()ed, so a failed encode
-    leaves no partial shard."""
+def _generate_ec_files(base_file_name: str, ctx: ECContext,
+                       sinks: "list | None" = None,
+                       stats=None) -> None:
+    """Staged encode: .dat batches -> GF parity -> d+p shard streams.
+
+    `sinks` (shard_sink.ShardSink, one per shard id) are where the
+    writer puts each shard: None means a LocalShardSink per `.ecNN` file
+    on this node; scatter-encode passes RemoteShardSink streams to each
+    shard's placement target.  On success every sink is finish()ed
+    (delivery verified), on failure every sink is abort()ed, so a failed
+    encode leaves no partial shard.  Only the local sinks made here are
+    committed here: the scatter caller commits after the sidecars have
+    landed."""
     from .shard_sink import LocalShardSink, ScatterStats
     dat_path = base_file_name + ".dat"
     dat_size = os.path.getsize(dat_path)
     codec = ctx.create_codec()
     d = ctx.data_shards
     work = _encode_work_items(dat_size, ctx)
-    stats = ScatterStats()
-    sinks = [LocalShardSink(base_file_name + ctx.to_ext(i), stats=stats)
-             for i in range(ctx.total)]
+    own_sinks = sinks is None
+    if stats is None:
+        stats = ScatterStats()
+    if sinks is None:
+        sinks = [LocalShardSink(base_file_name + ctx.to_ext(i), stats=stats)
+                 for i in range(ctx.total)]
+    for s in sinks:
+        if hasattr(s, "set_stats"):
+            s.set_stats(stats)
     dat = open(dat_path, "rb")
 
     def read_item(item, buf):
@@ -386,7 +400,8 @@ def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
     compute = _StageTimer(compute)
     write_item = _StageTimer(write_item)
 
-    flusher = _OverlappedFlusher([s.file for s in sinks])
+    flusher = _OverlappedFlusher(
+        [s.file for s in sinks if hasattr(s, "file")])
     ok = False
     try:
         _staged_run(work, read_item, compute, write_item)
@@ -409,7 +424,7 @@ def _generate_ec_files(base_file_name: str, ctx: ECContext) -> None:
                         s.abort()
                     except OSError:
                         pass
-            else:
+            elif own_sinks:
                 for s in sinks:
                     s.commit()
             read_item.emit("encode.read", trace_ctx,
@@ -499,16 +514,31 @@ def _generate_missing_ec_files(base_file_name: str, ctx: ECContext,
     return rebuild_from_sources(base_file_name, ctx, sources, missing)
 
 
+def rebuild_step(shard_size: int, ctx: ECContext,
+                 slice_bytes: int | None = None) -> int:
+    """Bytes of each shard row per rebuild step.  Without `slice_bytes`
+    one device batch; with it, the slice caps the step, and small shards
+    get steps of ~1/8 of the shard (at least 1 MiB, or the cap when
+    smaller), so the prefetching streams overlap fetch with compute
+    instead of degenerating to one or two giant slices."""
+    if not slice_bytes:
+        return ctx.batch_size(LARGE_BLOCK_SIZE)
+    return max(min(slice_bytes, -(-shard_size // 8)),
+               min(slice_bytes, 1 << 20))
+
+
 def rebuild_from_sources(base_file_name: str, ctx: ECContext,
                          sources: dict, missing: list[int],
-                         stats=None) -> list[int]:
+                         stats=None, slice_bytes: int | None = None,
+                         shard_size: int | None = None) -> list[int]:
     """Regenerate `missing` shard files from survivor `sources`
     ({shard_id: ShardSource}) through the staged pipeline: a
-    MultiSourceFetcher reads one device batch per window, the codec
-    applies the
+    MultiSourceFetcher streams the windows of `rebuild_step` (one
+    concurrent stream per prefetching source), the codec applies the
     reconstruction matrix, and the writer appends to the new shard
-    files.  Slice boundaries never change output bytes.  Closes every
-    source."""
+    files.  Slice boundaries never change output bytes.  `shard_size`,
+    when the caller knows it, spares a size lookup per source.  Closes
+    every source; a failure leaves no target file behind."""
     from ...ops import rs_matrix
     from .shard_source import MultiSourceFetcher
     outputs: dict = {}
@@ -533,10 +563,11 @@ def rebuild_from_sources(base_file_name: str, ctx: ECContext,
         for sid in sources:
             if sid not in used:  # survivors beyond the first d: unused
                 sources[sid].close()
-        shard_size = max(src.size() for src in used.values())
+        if shard_size is None:
+            shard_size = max(src.size() for src in used.values())
         for sid in missing:
             outputs[sid] = open(base_file_name + ctx.to_ext(sid), "wb")
-        step = ctx.batch_size(LARGE_BLOCK_SIZE)
+        step = rebuild_step(shard_size, ctx, slice_bytes)
         work = [(pos, min(step, shard_size - pos))
                 for pos in range(0, shard_size, step)]
         d = ctx.data_shards

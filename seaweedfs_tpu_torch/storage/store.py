@@ -1,0 +1,121 @@
+"""Store: a volume server's disk locations, their volumes and mounted EC
+volumes (weed/storage/store.go, disk_location.go) — the part of
+`seaweedfs_tpu/storage/store.py` that the EC admin routes use, over the
+port's `Volume`.  Needle I/O, volume admin and the heartbeat snapshot
+come with later slices.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+import threading
+
+from .erasure_coding.ec_context import to_ext
+from .erasure_coding.ec_volume import EcVolume
+from .volume import Volume
+
+_VOL_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
+_EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec00$")
+
+
+class DiskLocation:
+    """One storage directory (weed/storage/disk_location.go)."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        self.volumes: dict[int, Volume] = {}
+        self.ec_volumes: dict[int, EcVolume] = {}
+        os.makedirs(self.directory, exist_ok=True)
+
+    def load_existing(self) -> None:
+        for path in glob.glob(os.path.join(self.directory, "*.dat")):
+            m = _VOL_RE.match(os.path.basename(path))
+            if m:
+                vid = int(m.group("vid"))
+                self.volumes[vid] = Volume(self.directory, vid,
+                                           collection=m.group("col") or "")
+        for path in glob.glob(os.path.join(self.directory, "*.ec00")):
+            m = _EC_RE.match(os.path.basename(path))
+            if m:
+                vid = int(m.group("vid"))
+                self.ec_volumes[vid] = EcVolume(
+                    self.directory, vid, collection=m.group("col") or "")
+
+
+class Store:
+    """storage/store.go:88 NewStore."""
+
+    def __init__(self, directories: list[str], ip: str = "localhost",
+                 port: int = 0, public_url: str = ""):
+        self.ip = ip
+        self.port = port
+        self.public_url = public_url or f"{ip}:{port}"
+        self.locations = [DiskLocation(d) for d in directories]
+        self.lock = threading.RLock()
+        for loc in self.locations:
+            loc.load_existing()
+
+    def find_volume(self, vid: int) -> Volume | None:
+        for loc in self.locations:
+            v = loc.volumes.get(vid)
+            if v is not None:
+                return v
+        return None
+
+    def find_ec_volume(self, vid: int) -> EcVolume | None:
+        for loc in self.locations:
+            ev = loc.ec_volumes.get(vid)
+            if ev is not None:
+                return ev
+        return None
+
+    def set_volume_read_only(self, vid: int, read_only: bool) -> None:
+        v = self.find_volume(vid)
+        if v is None:
+            raise KeyError(f"volume {vid} not found")
+        v.read_only = read_only
+
+    # -- EC shard admin (store_ec.go) -------------------------------------
+
+    def mount_ec_shards(self, vid: int, collection: str,
+                        shard_ids: list[int]) -> EcVolume:
+        """Open an EcVolume over the locally present shard files
+        (store_ec.go MountEcShards)."""
+        with self.lock:
+            for loc in self.locations:
+                base = os.path.join(
+                    loc.directory,
+                    (f"{collection}_" if collection else "") + str(vid))
+                if any(os.path.exists(base + to_ext(s))
+                       for s in (shard_ids or range(32))):
+                    ev = EcVolume(loc.directory, vid, collection=collection)
+                    loc.ec_volumes[vid] = ev
+                    return ev
+            raise KeyError(f"no local shards for volume {vid}")
+
+    def unmount_ec_shards(self, vid: int,
+                          shard_ids: "list[int] | None" = None) -> None:
+        """shard_ids=None unmounts the whole EC volume; an EMPTY list is
+        a no-op (the reference servicer loops over req.ShardIds,
+        volume_grpc_erasure_coding.go:463-481); a subset drops only
+        those shards."""
+        if shard_ids is not None and not shard_ids:
+            return
+        with self.lock:
+            for loc in self.locations:
+                ev = loc.ec_volumes.get(vid)
+                if ev is None:
+                    continue
+                if shard_ids is not None:
+                    for sid in shard_ids:
+                        ev.shards.pop(int(sid), None)
+                if shard_ids is None or not ev.shards:
+                    del loc.ec_volumes[vid]
+                return
+
+    def close(self) -> None:
+        for loc in self.locations:
+            for v in loc.volumes.values():
+                v.close()

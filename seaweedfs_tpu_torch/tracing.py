@@ -12,7 +12,9 @@ with `spans_for(trace_id)` and show where the time went.
 - spans at least `SEAWEEDFS_TPU_SLOW_MS` long are logged at WARNING.
 
 The trace id follows the request id of this module's own contextvar
-(`set_request_id`).  HTTP/gRPC propagation comes with the server slice.
+(`set_request_id`).  Over HTTP the request id rides `X-Request-ID` and
+the parent span `X-Trace-Parent` (`<trace_id>-<span_id>`), the
+reference's headers, so a trace crosses servers of either package.
 
     with tracing.span("ec.encode", role="volume") as sp:
         sp.set("volume", 7)
@@ -34,6 +36,9 @@ import time
 from collections import deque
 
 _log = logging.getLogger("seaweedfs_tpu_torch.trace")
+
+HEADER = "X-Trace-Parent"
+REQUEST_ID_HEADER = "X-Request-ID"
 
 _request_id: contextvars.ContextVar[str] = \
     contextvars.ContextVar("weed_request_id", default="")
@@ -241,6 +246,24 @@ def current_ids() -> "tuple[str, str, str] | None":
     this before handing work to another thread (contextvars do not
     follow threading.Thread) and pass it back as the parent."""
     return _current.get()
+
+
+def traceparent_header() -> str:
+    """`<trace_id>-<span_id>` for an outbound X-Trace-Parent header;
+    empty when no span is active."""
+    cur = _current.get()
+    return f"{cur[0]}-{cur[1]}" if cur else ""
+
+
+def parse_traceparent(value: "str | None") -> "tuple[str, str]":
+    """(trace_id, parent_span_id) from an inbound header; ("", "") when
+    absent or malformed."""
+    if not value or "-" not in value:
+        return "", ""
+    trace_id, _, span_id = value.rpartition("-")
+    if not trace_id or not span_id:
+        return "", ""
+    return trace_id, span_id
 
 
 def spans_for(trace_id: str) -> "list[dict]":

@@ -1,5 +1,6 @@
 """The port's CUDA kernel and codec on the card, held against the plain
-PyTorch version and the numpy twin (exact: GF arithmetic is integer).
+PyTorch version and the numpy twin (exact: GF arithmetic is integer),
+and a streamed rebuild between two port volume servers on the card.
 
 Marked `cuda`; each test skips when no CUDA device is present.  This
 file imports neither JAX nor the JAX package, so on a machine with a
@@ -348,3 +349,93 @@ def test_grid_functions_on_the_card(cuda):
         _par, _rec, err = ec_sharded.distributed_ec_step(grid, data32,
                                                          lost=lost)
         assert err == 0
+
+
+# --- the streamed rebuild's shapes (two data shards lost) -------------------
+
+@pytest.mark.parametrize("lost", [(1, 8), (0, 13), (4, 9)])
+@pytest.mark.parametrize("w", [838_860, 419_432, 157_291, 3],
+                         ids=["window", "step-tail", "last-tail", "tiny"])
+def test_rebuild_2_of_14_window_and_tail_shapes(cuda, lost, w):
+    """[2,10] rebuild matrices at the streamed rebuild's window (8 MiB
+    slices of 10 rows cut into 32 MiB windows), its step tail, a ragged
+    last tail and a tiny launch."""
+    rng = np.random.default_rng(sum(lost) * 7 + w)
+    mat = _rec_matrix(lost)
+    assert mat.shape == (2, 10)
+    data = torch.from_numpy(_words(rng, 10, w)).to(cuda)
+    tables = rs_cuda.tables_from_numpy(mat, cuda)
+    before = rs_cuda.LAUNCHES
+    got = rs_cuda.gf_apply_matrix_words(tables, data)
+    torch.cuda.synchronize()
+    assert rs_cuda.LAUNCHES == before + 1
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(tables,
+                                                                data))
+
+
+def test_streamed_rebuild_on_the_card_equals_cpu(cuda, tmp_path,
+                                                 monkeypatch):
+    """Two in-process port servers: the rebuilder (codec on the card)
+    streams the survivors it lacks from the other; the rebuilt shards
+    equal the CPU encode's, with one launch per staging window."""
+    import os
+
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding import (ec_context,
+                                                            ec_encoder)
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    monkeypatch.setattr(ec_context, "DEVICE_BATCH_SIZE", 1 << 20)
+    monkeypatch.setenv("SEAWEEDFS_TPU_EC_REBUILD_SLICE_MB", "1")
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "1")
+    src = tmp_path / "src"
+    src.mkdir()
+    v = Volume(str(src), 1)
+    rng = np.random.default_rng(81)
+    nid = 0
+    while v.dat_size() < 12 << 20:
+        nid += 1
+        v.write_needle(Needle(cookie=nid, id=nid, data=rng.bytes(
+            int(rng.integers(1000, 300_000)))))
+    v.close()
+    base = str(src / "1")
+    cpu = ec_context.ECContext(device="cpu")
+    ec_encoder.write_sorted_file_from_idx(base)
+    ec_encoder.write_ec_files(base, cpu)
+    ec_encoder.save_ec_volume_info(base, cpu, os.path.getsize(base + ".dat"),
+                                   3)
+    lost = (1, 8)
+    dirs = [tmp_path / "a", tmp_path / "b"]
+    for i, d in enumerate(dirs):
+        d.mkdir()
+        for sid in range(14):
+            if sid % 2 == i and sid not in lost:
+                os.link(f"{base}.ec{sid:02d}", d / f"1.ec{sid:02d}")
+        for ext in (".ecx", ".vif"):
+            os.link(base + ext, d / f"1{ext}")
+    a = VolumeServer([str(dirs[0])]).start()
+    b = VolumeServer([str(dirs[1])], device="cpu").start()
+    try:
+        for vs in (a, b):
+            http_json("POST", f"{vs.url}/admin/ec/mount",
+                      {"volumeId": 1, "shardIds": []}, timeout=10)
+        shard = os.path.getsize(base + ".ec00")
+        locs = {str(s): [b.url] for s in range(1, 14, 2) if s not in lost}
+        before = rs_cuda.LAUNCHES
+        r = http_json("POST", f"{a.url}/admin/ec/rebuild",
+                      {"volumeId": 1, "shardLocations": locs}, timeout=120)
+        launches = rs_cuda.LAUNCHES - before
+    finally:
+        a.stop()
+        b.stop()
+    assert r.get("rebuiltShardIds") == list(lost), r
+    for sid in lost:
+        with open(dirs[0] / f"1.ec{sid:02d}", "rb") as f, \
+                open(f"{base}.ec{sid:02d}", "rb") as g:
+            assert f.read() == g.read(), sid
+    step = ec_encoder.rebuild_step(shard, cpu, 1 << 20)
+    want = sum(len(staging.plan_windows(10, -(-min(step, shard - pos)
+                                              // 16) * 4))
+               for pos in range(0, shard, step))
+    assert launches == want

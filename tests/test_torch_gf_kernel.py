@@ -159,6 +159,13 @@ PORT_MODULES_OF_SLICE_2 = (
     "seaweedfs_tpu_torch.parallel.ec_sharded",
     "seaweedfs_tpu_torch.parallel.ec_batch")
 
+PORT_MODULES_OF_SLICE_5 = (
+    "seaweedfs_tpu_torch.__main__", "seaweedfs_tpu_torch.server",
+    "seaweedfs_tpu_torch.server.httpd",
+    "seaweedfs_tpu_torch.server.volume_server",
+    "seaweedfs_tpu_torch.storage.store",
+    "seaweedfs_tpu_torch.storage.erasure_coding.ec_volume")
+
 
 def test_port_imports_neither_jax_nor_reference_package():
     code = (
@@ -179,6 +186,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(mods) >= 31
     assert set(PORT_MODULES_OF_SLICE_2) <= set(mods)
+    assert set(PORT_MODULES_OF_SLICE_5) <= set(mods)
     assert bad == []
 
 

@@ -41,7 +41,7 @@ def test_gf_apply_matrix_arbitrary():
     rng = np.random.default_rng(11)
     mat = rng.integers(0, 256, size=(7, 5), dtype=np.uint8)
     data = rng.integers(0, 256, size=(5, 513), dtype=np.uint8)
-    got = gf_apply_matrix(mat, data)
+    got = gf_apply_matrix(mat, data, device="cpu")
     assert np.array_equal(got, gf256.gf_apply_matrix(mat, data))
     assert np.array_equal(got, np.asarray(jax_apply(mat, data)))
     port = _torch(5, 2)
@@ -54,7 +54,7 @@ def test_gf_apply_matrix_batched_3d():
     rng = np.random.default_rng(12)
     mat = rng.integers(0, 256, size=(4, 10), dtype=np.uint8)
     data = rng.integers(0, 256, size=(10, 3, 257), dtype=np.uint8)
-    got = gf_apply_matrix(mat, data)
+    got = gf_apply_matrix(mat, data, device="cpu")
     want = gf256.gf_apply_matrix(mat, data.reshape(10, -1)).reshape(4, 3, 257)
     assert got.shape == (4, 3, 257)
     assert np.array_equal(got, want)
@@ -125,7 +125,7 @@ def test_device_array_input_unaligned():
     rng = np.random.default_rng(21)
     mat = np.asarray([[1, 2, 3], [4, 5, 6]], dtype=np.uint8)
     data = rng.integers(0, 256, size=(3, 1001), dtype=np.uint8)
-    got = gf_apply_matrix(mat, torch.from_numpy(data))
+    got = gf_apply_matrix(mat, torch.from_numpy(data), device="cpu")
     assert isinstance(got, torch.Tensor) and got.dtype == torch.uint8
     want = gf256.gf_apply_matrix(mat, data)
     assert np.array_equal(got.numpy(), want)
