@@ -50,7 +50,23 @@ Phases, each printing one JSON line:
    against `plan_windows` are printed; then each is run once more under
    torch.profiler (after deleting what it wrote) for the device's busy
    time and idle share.  About 3x the volume written.
-5. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
+5. cluster: the same volume (hard-linked) through the port's own
+   cluster on loopback: `python3 -m seaweedfs_tpu_torch master -port 0`,
+   server 0 in this process with `master=` (its launches counted) and 6
+   `volume -mserver` peers, polled in /vol/list until all 7 and volume
+   1 show.  The port's shell runs `lock; ec.encode -volumeId=1; unlock`
+   (scatter; launches against the ec phase's encode count, 14 shards in
+   /dir/ec_lookup with the ec phase's SHA-256s, volume 1 gone from the
+   normal volumes); a peer holding two data shards is stopped with its
+   disk, and once the master has dropped it, `ec.rebuild` (stream;
+   launches against `plan_windows`, SHA-256s); the same rebuild once
+   more under torch.profiler, posted to server 0 without shard
+   locations (it asks the master); then `ec.decode` (the target's
+   .dat/.idx against the originals' SHA-256s, volume 1 listed again, no
+   shard file left).  Walls, GB/s, the routes' telemetry, launches, the
+   servers' start time and the heartbeats the master received.  About
+   4x the volume written.
+6. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
    one batched launch a step, every shard's SHA-256 held against the
    same volumes encoded one by one, sampled parity against the numpy
    twin, and `distributed_ec_step` on the one-card grid.
@@ -97,6 +113,7 @@ STEP_LOST = (0, 11)
 REMOTE_SERVERS = 7               # placement sid % 7, 2 shards a server
 REMOTE_DOWN = 1                  # the server stopped: shards 1 and 8
 REMOTE_LOST = (1, 8)
+CLUSTER_SERVERS = 7              # the master's 7 volume servers
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
 
@@ -866,50 +883,61 @@ def phase_ec(volume_gib: float, seed: int, tmp: str
            "telemetry": gauges, "device_memory": memory,
            "profiled_encode": profiled, **rates}
     emit(out)
-    return out, {"base": base, "dat_size": dat_size,
+    return out, {"base": base, "dat_size": dat_size, "dat_sha": dat_sha,
                  "shard_size": shard_size, "shard_sha": shard_sha,
                  "encode_launches": enc_launches}
 
 
 # --- phase 4 ---------------------------------------------------------------
 
-def _start_peers(dirs: "list[str]", logdir: str, procs: list
-                 ) -> "list[str]":
-    """`python3 -m seaweedfs_tpu_torch volume` on each directory, all
-    started together and appended to `procs` as they start (the caller
-    stops them); returns their urls once each has printed its own
-    (120 s), and fails if one does not."""
+def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
+                 procs: list, role: str) -> "list[str]":
+    """`python3 -m seaweedfs_tpu_torch <argv>` for each argv, all started
+    together and appended to `procs` as they start (the caller stops
+    them), stderr to its log; returns their urls once each has printed
+    its `<role> server listening on` line (120 s), and fails if one does
+    not."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
-    logs = []
-    for d in dirs:
-        log = os.path.join(logdir, os.path.basename(d) + ".log")
-        logs.append(log)
+    started = []
+    for argv, log in zip(argvs, logs):
         with open(log, "w") as err:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
-                 "-dir", d, "-port", "0"],
-                stdout=subprocess.PIPE, stderr=err, text=True, env=env))
-    lines = [[] for _ in procs]
+            p = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+        procs.append(p)
+        started.append(p)
+    lines = [[] for _ in started]
     readers = [threading.Thread(target=lambda p=p, out=out:
                                 out.append(p.stdout.readline()),
                                 daemon=True)
-               for p, out in zip(procs, lines)]
+               for p, out in zip(started, lines)]
     for t in readers:
         t.start()
     deadline = time.monotonic() + 120
     for t in readers:
         t.join(max(0.0, deadline - time.monotonic()))
     urls = []
-    for p, out, log in zip(procs, lines, logs):
-        m = re.fullmatch(r"volume server listening on (\S+:\d+)\n",
+    for out, log in zip(lines, logs):
+        m = re.fullmatch(rf"{role} server listening on (\S+:\d+)\n",
                          out[0] if out else "")
         if m is None:
             with open(log) as f:
-                raise RuntimeError(f"check failed: peer {log} did not "
-                                   f"start: {out} {f.read()[-2000:]}")
+                raise RuntimeError(f"check failed: {log} did not start: "
+                                   f"{out} {f.read()[-2000:]}")
         urls.append(m.group(1))
     return urls
+
+
+def _start_peers(dirs: "list[str]", logdir: str, procs: list,
+                 master: str = "") -> "list[str]":
+    """A `volume` subprocess on each directory (heartbeating to `master`
+    when one is given); their urls."""
+    extra = ["-mserver", master] if master else []
+    return _start_procs(
+        [["volume", "-dir", d, "-port", "0", *extra] for d in dirs],
+        [os.path.join(logdir, os.path.basename(d) + ".log") for d in dirs],
+        procs, "volume")
 
 
 def _stop_peers(procs) -> "list[str]":
@@ -1113,6 +1141,208 @@ def phase_remote(ec: dict, tmp: str) -> dict:
 
 # --- phase 5 ---------------------------------------------------------------
 
+def _recording(calls: list):
+    """The shell's http_json, keeping each EC generate and rebuild reply
+    (the routes' telemetry) in `calls`."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+
+    def call(method, url, payload=None, timeout=30.0, headers=None):
+        r = http_json(method, url, payload, timeout, headers)
+        if url.endswith(("/admin/ec/generate", "/admin/ec/rebuild")):
+            calls.append({"url": url, "reply": r})
+        return r
+    return call
+
+
+def phase_cluster(ec: dict, tmp: str) -> dict:
+    """The ec phase's volume through the port's own cluster: a `master`
+    subprocess, server 0 in this process (its codec on the card, so the
+    launch count covers it) and 6 `volume -mserver` peers, driven by the
+    port's shell: `ec.encode` (scatter), a peer stopped with its disk,
+    `ec.rebuild` (stream), `ec.decode`."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, commands
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_nodes
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    for ext in (".dat", ".idx"):
+        os.link(ec["base"] + ext, os.path.join(dirs[0], "1" + ext))
+    idx_sha = sha256_file(ec["base"] + ".idx")
+    ctx = ECContext(device="cuda")
+    shard_size = ec["shard_size"]
+    dat = ec["dat_size"]
+    procs = []
+    server0 = None
+    calls: list = []
+    real_http_json = commands.http_json
+    commands.http_json = _recording(calls)
+    try:
+        t0 = time.perf_counter()
+        (murl,) = _start_procs([["master", "-port", "0"]],
+                               [os.path.join(tmp, "master.log")], procs,
+                               "master")
+        server0 = VolumeServer([dirs[0]], master=murl).start()
+        peer_urls = _start_peers(dirs[1:], tmp, procs, master=murl)
+        urls = [server0.url] + peer_urls
+        dir_of = dict(zip(urls, dirs))
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def normal_vids():
+            return {v["id"] for n in iter_volume_list_nodes(
+                get("/vol/list")) for v in n["volumes"]}
+        poll(lambda: len(list(iter_volume_list_nodes(get("/vol/list"))))
+             == CLUSTER_SERVERS and 1 in normal_vids(), "7 nodes and "
+             "volume 1 in /vol/list")
+        start_s = time.perf_counter() - t0
+
+        def ec_locs():
+            r = get("/dir/ec_lookup?volumeId=1")
+            return {loc["url"]: loc["shardIds"]
+                    for loc in r.get("shardIdLocations", [])}
+
+        def check_shards(what):
+            locs = ec_locs()
+            held = sorted(s for sids in locs.values() for s in sids)
+            check(held == list(range(ctx.total)),
+                  f"{what}: /dir/ec_lookup lists {locs}")
+            for url, sids in locs.items():
+                for sid in sids:
+                    check(sha256_file(os.path.join(
+                        dir_of[url], f"1{ctx.to_ext(sid)}")) ==
+                        ec["shard_sha"][sid],
+                        f"{what}: shard {sid} at {url} differs")
+            return locs
+
+        env = CommandEnv(murl)
+        rs_cuda.LAUNCHES = 0
+        t1 = time.perf_counter()
+        enc_out = commands.run_script(
+            env, "lock; ec.encode -volumeId=1; unlock")
+        t2 = time.perf_counter()
+        enc_launches = rs_cuda.LAUNCHES
+        check(enc_launches == ec["encode_launches"],
+              f"shell encode launched {enc_launches}, the staging "
+              f"windows of the work list are {ec['encode_launches']}")
+        check(1 not in normal_vids() and all(
+            "shardBits" in loc for loc in
+            get("/dir/lookup?volumeId=1")["locations"]),
+            "volume 1 still listed as a normal volume")
+        placed = check_shards("encode")
+        enc_tele = calls[-1]["reply"].get("telemetry")
+
+        # a peer holding two data shards (else any peer), stopped with
+        # its disk
+        victim = next((u for u in peer_urls if len(placed.get(u, ())) == 2
+                       and all(s < ctx.data_shards for s in placed[u])),
+                      next(u for u in peer_urls if placed.get(u)))
+        lost = placed[victim]
+        bad = _stop_peers([procs[1 + peer_urls.index(victim)]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        shutil.rmtree(dir_of[victim])
+        t3 = time.perf_counter()
+        poll(lambda: victim not in ec_locs(), "master drops the peer")
+        drop_s = time.perf_counter() - t3
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        expect_reb = sum(launches_for(ctx.data_shards,
+                                      min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        rs_cuda.LAUNCHES = 0
+        t4 = time.perf_counter()
+        reb_out = commands.run_script(
+            env, "lock; ec.rebuild -volumeId=1; unlock")
+        t5 = time.perf_counter()
+        reb_launches = rs_cuda.LAUNCHES
+        check(f"rebuilt shards {lost} on {server0.url}" in reb_out[1],
+              f"rebuild: {reb_out}")
+        check(reb_launches == expect_reb,
+              f"shell rebuild launched {reb_launches}, the staging "
+              f"windows of its steps are {expect_reb}")
+        reb_tele = calls[-1]["reply"].get("telemetry")
+        check_shards("rebuild")
+
+        # the rebuild once more under the profiler, on server 0 with the
+        # survivors from the master (no shardLocations in the request)
+        for url, sids in ec_locs().items():
+            gone = [s for s in sids if s in lost]
+            if gone:
+                _post(f"{url}/admin/ec/delete_shards",
+                      {"volumeId": 1, "shardIds": gone}, "smoke-delete")
+        rs_cuda.LAUNCHES = 0
+        reb_profile = _device_profile(lambda: _post(
+            f"{server0.url}/admin/ec/rebuild", {"volumeId": 1},
+            "smoke-cluster-rebuild"))
+        reb_profile["launches"] = rs_cuda.LAUNCHES
+        check(reb_profile["launches"] == expect_reb,
+              f"profiled rebuild launched {reb_profile['launches']}")
+        _post(f"{server0.url}/admin/ec/mount",
+              {"volumeId": 1, "shardIds": lost}, "smoke-mount")
+        check_shards("profiled rebuild")
+
+        t6 = time.perf_counter()
+        dec_out = commands.run_script(
+            env, "lock; ec.decode -volumeId=1; unlock")
+        t7 = time.perf_counter()
+        target = dec_out[1].rsplit(" ", 1)[1]
+        for ext, want in ((".dat", ec["dat_sha"]), (".idx", idx_sha)):
+            check(sha256_file(os.path.join(dir_of[target], "1" + ext)) ==
+                  want, f"decoded {ext} on {target} differs")
+        check(get("/dir/lookup?volumeId=1")["locations"] ==
+              [{"url": target, "publicUrl": target}],
+              "volume 1 not listed again after the decode")
+        left = [os.path.join(d, n) for d in dirs if os.path.isdir(d)
+                for n in os.listdir(d) if re.search(r"\.ec\d\d$", n)]
+        check(not left, f"shard files left: {left}")
+        heartbeats = get("/cluster/status")["heartbeats"]
+    finally:
+        commands.http_json = real_http_json
+        if server0 is not None:
+            server0.stop()
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"servers did not stop cleanly: {bad}")
+    out = {"phase": "cluster", "servers": CLUSTER_SERVERS,
+           "server_start_seconds": start_s,
+           "encode": {"seconds": t2 - t1, "gbps": dat / (t2 - t1) / 1e9,
+                      "launches": enc_launches,
+                      "expected_launches": ec["encode_launches"],
+                      "shell": enc_out, "placement": placed,
+                      "telemetry": enc_tele},
+           "lost": {"server": victim, "shards": lost,
+                    "master_drop_seconds": drop_s},
+           "rebuild": {"seconds": t5 - t4, "gbps": dat / (t5 - t4) / 1e9,
+                       "launches": reb_launches,
+                       "expected_launches": expect_reb,
+                       "shell": reb_out, "telemetry": reb_tele,
+                       "profiled": reb_profile},
+           "decode": {"seconds": t7 - t6, "gbps": dat / (t7 - t6) / 1e9,
+                      "target": target, "shell": dec_out,
+                      "dat_idx_sha256_equal": True},
+           "master_heartbeats": heartbeats}
+    emit(out)
+    return out
+
+
+# --- phase 6 ---------------------------------------------------------------
+
 def _write_volume(directory: str, vid: int, target: int, rng,
                   seed: int) -> "tuple[str, int, int, dict]":
     """A seeded volume of `target` .dat bytes, less under 8 KiB, written
@@ -1286,6 +1516,7 @@ def main(argv=None) -> int:
         ec, ec_state = phase_ec(args.volume_gib, args.seed,
                                 os.path.join(work, "ec"))
         remote = phase_remote(ec_state, os.path.join(work, "remote"))
+        cluster = phase_cluster(ec_state, os.path.join(work, "cluster"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     batch = phase_batch(args.batch_gib, args.seed)
@@ -1294,7 +1525,9 @@ def main(argv=None) -> int:
             ("single", "gf_apply_words", "seaweedfs_tpu/ops/rs_pallas.py:33",
              {"ec": ec["main_path_launches"],
               "scatter": remote["scatter"]["launches"],
-              "streamed_rebuild": remote["rebuild"]["launches"]}),
+              "streamed_rebuild": remote["rebuild"]["launches"],
+              "shell_encode": cluster["encode"]["launches"],
+              "shell_rebuild": cluster["rebuild"]["launches"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"]})):

@@ -234,10 +234,14 @@ def gf_apply_matrix_words(tables: torch.Tensor, data32: torch.Tensor,
     if stream is None:
         stream = torch.cuda.current_stream(data32.device)
     w = data32.shape[1]
-    with torch.cuda.stream(stream):
+    # the kernel's host code reads the SM count from the CURRENT device,
+    # and CUDA refuses a launch onto another device's stream: make the
+    # data's device current for the allocation and the launch
+    with torch.cuda.device(data32.device), torch.cuda.stream(stream):
         out = torch.empty((r, w), dtype=torch.int32, device=data32.device)
-    err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
-             data32.data_ptr(), out.data_ptr(), r, k, w, stream.cuda_stream)
+        err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
+                 data32.data_ptr(), out.data_ptr(), r, k, w,
+                 stream.cuda_stream)
     if err:
         raise RuntimeError(
             f"gf_apply_words launch failed: cudaError {err} "
@@ -266,12 +270,12 @@ def gf_apply_matrix_words_batch(tables: torch.Tensor, batch32: torch.Tensor,
     fn = _kernel(batched=True)
     if stream is None:
         stream = torch.cuda.current_stream(batch32.device)
-    with torch.cuda.stream(stream):
+    with torch.cuda.device(batch32.device), torch.cuda.stream(stream):
         out = torch.empty((v, r, w), dtype=torch.int32,
                           device=batch32.device)
-    err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
-             batch32.data_ptr(), out.data_ptr(), v, r, k, w,
-             stream.cuda_stream)
+        err = fn(tables.data_ptr(), host_tables(tables).data_ptr(),
+                 batch32.data_ptr(), out.data_ptr(), v, r, k, w,
+                 stream.cuda_stream)
     if err:
         raise RuntimeError(
             f"gf_apply_words_batched launch failed: cudaError {err} "

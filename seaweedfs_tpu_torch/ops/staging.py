@@ -41,6 +41,7 @@ plane alone.  `snapshot()` aggregates every launch since
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import queue
@@ -262,48 +263,56 @@ class _Stager:
         k = self.flat.shape[0]
         cuda = self.device.type == "cuda"
         try:
-            for (w0, n, npad) in plan:
-                while not self.slots.acquire(timeout=0.2):
+            # CUDA's current device is per thread, and this thread's
+            # starts at 0: the codec's device must be current for the
+            # launches and allocations below (see rs_cuda's wrappers)
+            with (torch.cuda.device(self.device) if cuda
+                  else contextlib.nullcontext()):
+                for (w0, n, npad) in plan:
+                    while not self.slots.acquire(timeout=0.2):
+                        if self.stop.is_set():
+                            raise _StagingError()
                     if self.stop.is_set():
                         raise _StagingError()
-                if self.stop.is_set():
-                    raise _StagingError()
-                buf = POOL.take((k, npad), pinned=cuda)
-                t0 = time.perf_counter()
-                # pad columns (npad > n) are left dirty: the apply is
-                # column-independent and the consumer cuts them off
-                buf[:, :n].copy_(torch.from_numpy(self.flat[:, w0:w0 + n]))
-                if cuda:
-                    with torch.cuda.stream(self.copy_stream):
-                        dev = buf.to(self.device, non_blocking=True)
-                        staged = torch.cuda.Event()
-                        staged.record(self.copy_stream)
-                    staged.synchronize()
-                else:
-                    dev = buf
-                dt = time.perf_counter() - t0
-                self.stats.windows += 1
-                self.stats.h2d_bytes += buf.nbytes
-                self.stats.h2d_seconds += dt
-                profiling.device_note("h2d", buf.nbytes, dt)
-                t_dispatch = time.perf_counter()
-                if cuda:
-                    s = self.compute_stream
-                    s.wait_event(staged)
-                    # made on the copy stream, read on the compute one
-                    dev.record_stream(s)
-                    out = rs_cuda.gf_apply_matrix_words(self.tables, dev,
-                                                        stream=s)
-                    host = POOL.take((self.rows, npad), pinned=True)
-                    with torch.cuda.stream(s):
-                        host.copy_(out, non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record(s)
-                    self.ready.put((w0, n, buf, host, done, t_dispatch,
-                                    (dev, out)))
-                else:
-                    out = rs_cuda.gf_apply_matrix_words(self.tables, dev)
-                    self.ready.put((w0, n, buf, out, None, t_dispatch, ()))
+                    buf = POOL.take((k, npad), pinned=cuda)
+                    t0 = time.perf_counter()
+                    # pad columns (npad > n) are left dirty: the apply is
+                    # column-independent and the consumer cuts them off
+                    buf[:, :n].copy_(
+                        torch.from_numpy(self.flat[:, w0:w0 + n]))
+                    if cuda:
+                        with torch.cuda.stream(self.copy_stream):
+                            dev = buf.to(self.device, non_blocking=True)
+                            staged = torch.cuda.Event()
+                            staged.record(self.copy_stream)
+                        staged.synchronize()
+                    else:
+                        dev = buf
+                    dt = time.perf_counter() - t0
+                    self.stats.windows += 1
+                    self.stats.h2d_bytes += buf.nbytes
+                    self.stats.h2d_seconds += dt
+                    profiling.device_note("h2d", buf.nbytes, dt)
+                    t_dispatch = time.perf_counter()
+                    if cuda:
+                        s = self.compute_stream
+                        s.wait_event(staged)
+                        # made on the copy stream, read on the compute one
+                        dev.record_stream(s)
+                        out = rs_cuda.gf_apply_matrix_words(
+                            self.tables, dev, stream=s)
+                        host = POOL.take((self.rows, npad), pinned=True)
+                        with torch.cuda.stream(s):
+                            host.copy_(out, non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record(s)
+                        self.ready.put((w0, n, buf, host, done,
+                                        t_dispatch, (dev, out)))
+                    else:
+                        out = rs_cuda.gf_apply_matrix_words(self.tables,
+                                                            dev)
+                        self.ready.put((w0, n, buf, out, None, t_dispatch,
+                                        ()))
         except _StagingError:
             pass
         except BaseException as e:  # noqa: BLE001 — re-raised by the

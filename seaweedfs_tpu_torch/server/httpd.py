@@ -1,6 +1,7 @@
 """Threaded HTTP server with (method, path) routing, and the client
-calls of the remote EC paths: the part of `seaweedfs_tpu/server/httpd.py`
-that the port's volume server, shard sinks and shard sources use.
+calls of the EC paths: the part of `seaweedfs_tpu/server/httpd.py` that
+the port's master, volume server, shell, shard sinks and shard sources
+use.
 
 Handlers of GET and POST routes return (status, payload): a dict or
 list (JSON), bytes, or a (body, headers) tuple whose body may be a
@@ -483,3 +484,82 @@ def http_stream_request(method: str, url: str, chunks,
         raise OSError(f"{method} {url}: {e!r}") from e
     finally:
         conn.close()
+
+
+def http_download(url: str, dest_path: str, headers: dict | None = None,
+                  timeout: float = 60.0, chunk_size: int = 4 << 20
+                  ) -> "tuple[int, dict]":
+    """GET `url` into `dest_path` a chunk at a time, never holding the
+    file in memory: (status, response headers).  The body lands in a
+    sibling temp file renamed into place on success, so a transfer that
+    dies midway never leaves a short file at `dest_path`; a non-2xx
+    status leaves `dest_path` untouched.  `timeout` bounds each socket
+    operation, not the transfer."""
+    import os
+    import uuid
+    conn, target = _connect(url, timeout)
+    tmp = f"{dest_path}.download.{uuid.uuid4().hex}"
+    try:
+        conn.request("GET", target, headers=_with_trace(headers))
+        resp = conn.getresponse()
+        if resp.status // 100 != 2:
+            return resp.status, dict(resp.headers)
+        expected = resp.length
+        got = 0
+        with open(tmp, "wb") as f:
+            while True:
+                chunk = resp.read(chunk_size)
+                if not chunk:
+                    break
+                f.write(chunk)
+                got += len(chunk)
+        if expected is not None and got != expected:
+            raise OSError(f"download {url}: {got} of {expected} bytes")
+        os.replace(tmp, dest_path)
+        return resp.status, dict(resp.headers)
+    except http.client.HTTPException as e:
+        raise OSError(f"GET {url}: {e!r}") from e
+    finally:
+        conn.close()
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+
+
+def http_relay(src_url: str, dst_method: str, dst_url: str,
+               headers: dict | None = None, timeout: float = 60.0,
+               chunk_size: int = 4 << 20) -> "tuple[int, int, bytes]":
+    """Stream a GET of `src_url` into a chunked `dst_method dst_url`
+    body: the push starts at the first downloaded chunk, and memory
+    stays at one chunk.  Returns (src_status, dst_status, dst_body); on
+    a non-2xx source the upload never starts (dst_status 0).  A source
+    that ends short of its Content-Length raises, so the destination
+    sees a broken chunked stream and never a clean short file."""
+    src, target = _connect(src_url, timeout)
+    try:
+        src.request("GET", target, headers=_with_trace(headers))
+        resp = src.getresponse()
+        if resp.status != 200:
+            return resp.status, 0, b""
+        expected = resp.length
+
+        def chunks():
+            sent = 0
+            while True:
+                chunk = resp.read(chunk_size)
+                if not chunk:
+                    if expected is not None and sent != expected:
+                        raise OSError(f"relay source {src_url} ended at "
+                                      f"{sent} of {expected} bytes")
+                    return
+                sent += len(chunk)
+                yield chunk
+        status, body = http_stream_request(dst_method, dst_url, chunks(),
+                                           headers=headers,
+                                           timeout=timeout)
+        return 200, status, body
+    except http.client.HTTPException as e:
+        raise OSError(f"relay {src_url} -> {dst_url}: {e!r}") from e
+    finally:
+        src.close()

@@ -1,6 +1,7 @@
 """Volume server: the EC admin routes of `seaweedfs_tpu/server/
 volume_server.py` (volume_grpc_erasure_coding.go mirrored as JSON over
-HTTP), with the GF(2^8) work on this server's codec device.
+HTTP), with the GF(2^8) work on this server's codec device, and its
+link to a master.
 
 - `/admin/ec/generate`: encode a read-only volume, locally or, with a
   `placement` map ({shard_id: url}), as a scatter-encode: each shard
@@ -13,12 +14,22 @@ HTTP), with the GF(2^8) work on this server's codec device.
 - `/admin/ec/rebuild`: regenerate lost shards, streaming survivors this
   node lacks from their servers' `/admin/ec/shard_read` (`mode:
   "stream"`, the default) or from local files only (`mode: "local"`).
+  Survivors come from the request's `shardLocations` ({shard_id:
+  [urls]}), else from the master's `/dir/ec_lookup`; with neither, the
+  rebuild is local.
+- `/admin/ec/copy` (pull shard and index files from another server) and
+  `/admin/ec/to_volume` (decode the local data shards back to a
+  `.dat`/`.idx` volume): the two steps of `ec.decode`.
 - `/admin/ec/mount`, `unmount`, `delete_shards`, `info`, `shard_read`,
-  `/admin/set_readonly` and `/admin/receive_file`.
+  `/admin/volume_file`, `/admin/delete_volume`, `/admin/mount_volume`,
+  `/admin/unmount_volume`, `/admin/set_readonly` and
+  `/admin/receive_file`.
 
-There is no master: a scatter's `placement` and a rebuild's
-`shardLocations` ({shard_id: [urls]}) come in the request body, as the
-shell and the rebuild worker send them.  No heartbeat, TLS, admin JWT,
+With a `master` (host:port), the server posts `Store.collect_heartbeat()`
+to the master's `/heartbeat` at start, every `pulse_seconds`, and at
+once after every change of what it serves.  Without one (`master=""`)
+there is no heartbeat, and a scatter's `placement` and a rebuild's
+`shardLocations` must come in the request body.  No TLS, admin JWT,
 fault sites or QoS throttle (ROADMAP C).  Counters go to
 `stats.PROCESS`.
 """
@@ -35,10 +46,11 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import stats
-from ..storage.erasure_coding import ec_encoder
+from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
 from ..storage.store import Store
-from .httpd import FileSlice, HttpServer, Request, http_bytes, http_json
+from .httpd import (FileSlice, HttpServer, Request, http_bytes,
+                    http_download, http_json)
 
 _SAFE_EXT = re.compile(r"^\.(dat|idx|vif|ecx|ecj|ec\d{2})$")
 _SAFE_COLLECTION = re.compile(r"^[A-Za-z0-9_.-]*$")
@@ -60,16 +72,29 @@ class VolumeServer:
 
     def __init__(self, directories: list[str], host: str = "127.0.0.1",
                  port: int = 0, public_url: str = "",
-                 device: str = "cuda"):
+                 device: str = "cuda", master: str = "",
+                 pulse_seconds: float = 1.0):
         self.device = device
+        self.master = master
+        self.pulse_seconds = pulse_seconds
         self.http = HttpServer(host, port)
         self.http.role = "volume"
         self.store = Store(directories, ip=host, port=self.http.port,
                            public_url=public_url or self.http.url)
         self.metrics = stats.PROCESS
+        self._hb_stop = threading.Event()
+        self._hb_thread: "threading.Thread | None" = None
+        self._hb_lock = threading.Lock()
+        self._last_hb_error: "str | None" = None
         r = self.http.route
         r("POST", "/admin/set_readonly", self._set_readonly)
         r("POST", "/admin/receive_file", self._receive_file)
+        r("GET", "/admin/volume_file", self._read_volume_file)
+        r("POST", "/admin/delete_volume", self._delete_volume)
+        r("POST", "/admin/mount_volume", self._mount_volume)
+        r("POST", "/admin/unmount_volume", self._unmount_volume)
+        r("POST", "/admin/ec/copy", self._ec_copy)
+        r("POST", "/admin/ec/to_volume", self._ec_to_volume)
         r("POST", "/admin/ec/generate", self._ec_generate)
         r("POST", "/admin/ec/shard_write", self._ec_shard_write)
         r("POST", "/admin/ec/shard_write_commit",
@@ -99,15 +124,50 @@ class VolumeServer:
                     except OSError:
                         pass
         self.http.start()
+        if self.master:
+            self._heartbeat_once()
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, name="heartbeat", daemon=True)
+            self._hb_thread.start()
         return self
 
     def stop(self) -> None:
+        self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=10)
         self.http.stop()
         self.store.close()
 
     @property
     def url(self) -> str:
         return self.http.url
+
+    # -- heartbeat (volume_grpc_client_to_master.go:51) -------------------
+
+    def _heartbeat_once(self) -> None:
+        """Post the full heartbeat to the master; an unreachable master
+        is retried at the next pulse.  Pulses are serialised, so the
+        last one posted is the newest state."""
+        if not self.master:
+            return
+        from ..operation import master_json
+        with self._hb_lock:
+            try:
+                r = master_json(self.master, "POST", "/heartbeat",
+                                self.store.collect_heartbeat(), timeout=5)
+            except OSError:
+                return
+        err = r.get("error")
+        if err and err != self._last_hb_error:
+            # invisible to the master: say so once per distinct error
+            import sys
+            print(f"volume server {self.url}: heartbeat rejected by "
+                  f"master: {err}", file=sys.stderr)
+        self._last_hb_error = err
+
+    def _heartbeat_loop(self) -> None:
+        while not self._hb_stop.wait(self.pulse_seconds):
+            self._heartbeat_once()
 
     def _codec_device(self):
         """CUDA's current device is per thread: make the codec's device
@@ -181,6 +241,51 @@ class VolumeServer:
             except OSError:
                 pass
         return 200, {"bytes": n}
+
+    def _read_volume_file(self, req: Request):
+        """volume_server.proto:69 CopyFile: stream a byte range
+        (`offset`, `size`; the rest of the file without `size`) of a
+        volume or EC file, never buffering it."""
+        vid = int(req.query["volumeId"])
+        ext = req.query["ext"]
+        collection = req.query.get("collection", "")
+        try:
+            check_path_fields(collection, ext)
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        offset = int(req.query.get("offset", 0))
+        size = int(req.query.get("size", -1))
+        if ext in (".dat", ".idx"):
+            v = self.store.find_volume(vid)
+            if v is not None:
+                v.sync()  # serve committed bytes, not a buffered tail
+        path = self._file_path(vid, collection, ext)
+        if path is None:
+            return 404, {"error": f"no {ext} file for volume {vid}"}
+        total = os.path.getsize(path)
+        n = max(total - offset, 0) if size < 0 else \
+            max(min(size, total - offset), 0)
+        f = open(path, "rb")
+        f.seek(offset)
+        return 200, (FileSlice(f, n), {"Content-Length": str(n)})
+
+    def _delete_volume(self, req: Request):
+        self.store.delete_volume(int(req.json()["volumeId"]))
+        self._heartbeat_once()
+        return 200, {}
+
+    def _mount_volume(self, req: Request):
+        b = req.json()
+        collection = b.get("collection", "")
+        check_path_fields(collection)
+        self.store.mount_volume(int(b["volumeId"]), collection)
+        self._heartbeat_once()
+        return 200, {}
+
+    def _unmount_volume(self, req: Request):
+        self.store.unmount_volume(int(req.json()["volumeId"]))
+        self._heartbeat_once()
+        return 200, {}
 
     # -- EC generate (volume_grpc_erasure_coding.go:43) -------------------
 
@@ -344,6 +449,7 @@ class VolumeServer:
                     os.remove(base + ".ecx")
                 except OSError:
                     pass
+            self._heartbeat_once()
             t_mounted = time.perf_counter()
         except Exception as e:  # noqa: BLE001 — unwind, then report
             for sink in sinks:
@@ -536,6 +642,7 @@ class VolumeServer:
             sids.append(sid)
         if b.get("mount"):
             self.store.mount_ec_shards(vid, collection, sids)
+            self._heartbeat_once()
         return 200, {"shardIds": sids,
                      "bytes": sum(rec["bytes"] for _c, rec in recs)}
 
@@ -560,6 +667,7 @@ class VolumeServer:
         ev = self.store.mount_ec_shards(
             int(b["volumeId"]), collection,
             [int(s) for s in b.get("shardIds", [])])
+        self._heartbeat_once()
         return 200, {"shardIds": ev.shard_ids}
 
     def _ec_unmount(self, req: Request):
@@ -569,6 +677,7 @@ class VolumeServer:
         self.store.unmount_ec_shards(
             int(b["volumeId"]),
             [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
+        self._heartbeat_once()
         return 200, {}
 
     def _ec_delete_shards(self, req: Request):
@@ -592,6 +701,58 @@ class VolumeServer:
             self.store.unmount_ec_shards(vid)
         else:
             self.store.mount_ec_shards(vid, collection, [])
+        self._heartbeat_once()
+        return 200, {}
+
+    def _ec_copy(self, req: Request):
+        """:228 VolumeEcShardsCopy: pull shard and index files from the
+        source server's `/admin/volume_file`, each streamed to disk."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        source = b["sourceDataNode"]
+        base = self._base_path(vid, collection)
+        exts = [to_ext(int(s)) for s in b.get("shardIds", [])]
+        if exts:
+            self.metrics.counter_add(
+                "ec_shard_whole_file_copies", float(len(exts)),
+                help_text="whole shard files pulled via /admin/ec/copy")
+        for key, ext in (("copyEcxFile", ".ecx"), ("copyEcjFile", ".ecj"),
+                         ("copyVifFile", ".vif")):
+            if b.get(key, False):
+                exts.append(ext)
+        for ext in exts:
+            status, _hdrs = http_download(
+                f"{source}/admin/volume_file?volumeId={vid}"
+                f"&collection={collection}&ext={ext}", base + ext,
+                timeout=600)
+            if status != 200:
+                if ext == ".ecj":  # the journal may not exist
+                    continue
+                return 500, {"error":
+                             f"copy {ext} from {source}: {status}"}
+        return 200, {}
+
+    def _ec_to_volume(self, req: Request):
+        """:586 VolumeEcShardsToVolume: the data shards back into a
+        `.dat` (concatenated on the host, no codec) and the `.ecx` minus
+        the `.ecj` deletes into an `.idx`, then mounted as a normal
+        volume."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        collection = b.get("collection", "")
+        base = self._base_path(vid, collection)
+        if not ec_decoder.has_live_needles(base):
+            return 400, {"error": f"volume {vid} has no live entries"}
+        dat_size = ec_decoder.find_dat_file_size(base, base)
+        scheme = ec_encoder.scheme_from_vif(base, device="cpu")
+        n_data = scheme.data_shards if scheme else 10
+        ec_decoder.write_dat_file(base, dat_size,
+                                  [base + to_ext(i) for i in range(n_data)])
+        ec_decoder.write_idx_file_from_ec_index(base)
+        self.store.unmount_ec_shards(vid)
+        self.store.mount_volume(vid, collection)
+        self._heartbeat_once()
         return 200, {}
 
     # -- rebuild (:149) ----------------------------------------------------
@@ -602,8 +763,8 @@ class VolumeServer:
         servers' `/admin/ec/shard_read` (one prefetching stream each),
         so repair stages no whole survivor file here.  `mode: "local"`
         needs every survivor on this node.  Remote survivors come from
-        `shardLocations` ({shard_id: [urls]}); without it the rebuild
-        is local."""
+        `shardLocations` ({shard_id: [urls]}) or, without it, from the
+        master; with neither, the rebuild is local."""
         from ..storage.erasure_coding.shard_source import (
             LocalShardSource, RebuildStats, RemoteShardSource,
             rebuild_slice_bytes)
@@ -632,8 +793,11 @@ class VolumeServer:
                 if ev.shards:
                     size_hint = max(s.size for s in ev.shards.values())
         remote: dict[int, list[str]] = {}
+        raw_locs = b.get("shardLocations")
+        if raw_locs is None:
+            raw_locs = self._master_shard_locations(vid)
         self_urls = {self.http.url, self.store.public_url}
-        for sid_s, urls in (b.get("shardLocations") or {}).items():
+        for sid_s, urls in (raw_locs or {}).items():
             sid = int(sid_s)
             urls = [u for u in urls if u not in self_urls]
             if sid not in present_paths and urls:
@@ -682,6 +846,19 @@ class VolumeServer:
         self._record_rebuild_metrics(stats_, tele)
         return 200, {"rebuiltShardIds": generated, "mode": "stream",
                      "telemetry": tele}
+
+    def _master_shard_locations(self, vid: int) -> "dict[str, list[str]]":
+        """Survivor locations for a rebuild sent without
+        `shardLocations`: the master's `/dir/ec_lookup`.  No master, or
+        one that does not answer, leaves a local rebuild."""
+        if not self.master:
+            return {}
+        from ..topology import fetch_ec_shard_locations, shard_ids_to_urls
+        try:
+            return shard_ids_to_urls(
+                fetch_ec_shard_locations(self.master, vid))
+        except OSError:
+            return {}
 
     def _record_rebuild_metrics(self, stats_, tele: dict) -> None:
         by_source, latencies = stats_.snapshot()

@@ -1,8 +1,9 @@
 """Store: a volume server's disk locations, their volumes and mounted EC
 volumes (weed/storage/store.go, disk_location.go) — the part of
-`seaweedfs_tpu/storage/store.py` that the EC admin routes use, over the
-port's `Volume`.  Needle I/O, volume admin and the heartbeat snapshot
-come with later slices.
+`seaweedfs_tpu/storage/store.py` that the EC admin routes and the
+heartbeat use, over the port's `Volume`: lookups, volume mount, unmount
+and delete, EC shard mount and unmount, and the heartbeat snapshot the
+master consumes.  Needle I/O comes with a later slice.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ _EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec00$")
 class DiskLocation:
     """One storage directory (weed/storage/disk_location.go)."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, max_volume_count: int = 8):
         self.directory = os.path.abspath(directory)
+        self.max_volume_count = max_volume_count
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
         os.makedirs(self.directory, exist_ok=True)
@@ -71,6 +73,37 @@ class Store:
                 return ev
         return None
 
+    # -- volume admin -----------------------------------------------------
+
+    def delete_volume(self, vid: int) -> None:
+        with self.lock:
+            for loc in self.locations:
+                v = loc.volumes.pop(vid, None)
+                if v is not None:
+                    v.destroy()
+                    return
+            raise KeyError(f"volume {vid} not found")
+
+    def unmount_volume(self, vid: int) -> None:
+        with self.lock:
+            for loc in self.locations:
+                v = loc.volumes.pop(vid, None)
+                if v is not None:
+                    v.close()
+                    return
+            raise KeyError(f"volume {vid} not found")
+
+    def mount_volume(self, vid: int, collection: str = "") -> Volume:
+        with self.lock:
+            for loc in self.locations:
+                name = (f"{collection}_" if collection else "") + f"{vid}"
+                if os.path.exists(os.path.join(loc.directory,
+                                               name + ".dat")):
+                    v = Volume(loc.directory, vid, collection=collection)
+                    loc.volumes[vid] = v
+                    return v
+            raise KeyError(f"volume {vid} files not found")
+
     def set_volume_read_only(self, vid: int, read_only: bool) -> None:
         v = self.find_volume(vid)
         if v is None:
@@ -114,6 +147,51 @@ class Store:
                 if shard_ids is None or not ev.shards:
                     del loc.ec_volumes[vid]
                 return
+
+    # -- heartbeat (store.go:371 CollectHeartbeat) ------------------------
+
+    def collect_heartbeat(self) -> dict:
+        volumes = []
+        ec_shards = []
+        max_volume_count = 0
+        max_file_key = 0
+        with self.lock:
+            for loc in self.locations:
+                max_volume_count += loc.max_volume_count
+                for vid, v in loc.volumes.items():
+                    max_file_key = max(max_file_key, v.max_file_key())
+                    volumes.append({
+                        "id": vid,
+                        "collection": v.collection,
+                        "size": v.dat_size(),
+                        "fileCount": v.file_count(),
+                        "deleteCount": v.deleted_count(),
+                        "deletedByteCount": v.deleted_bytes(),
+                        "readOnly": v.read_only,
+                        "replicaPlacement":
+                            v.super_block.replica_placement.byte(),
+                        "ttl": v.super_block.ttl.to_u32(),
+                        "version": v.version,
+                        # no remote tiers in the port
+                        "remoteTiered": False,
+                    })
+                for vid, ev in loc.ec_volumes.items():
+                    ec_shards.append({
+                        "id": vid,
+                        "collection": ev.collection,
+                        "ecIndexBits": sum(1 << s for s in ev.shard_ids),
+                        "dataShards": ev.ctx.data_shards,
+                        "parityShards": ev.ctx.parity_shards,
+                    })
+        return {
+            "ip": self.ip,
+            "port": self.port,
+            "publicUrl": self.public_url,
+            "maxVolumeCount": max_volume_count,
+            "maxFileKey": max_file_key,
+            "volumes": volumes,
+            "ecShards": ec_shards,
+        }
 
     def close(self) -> None:
         for loc in self.locations:

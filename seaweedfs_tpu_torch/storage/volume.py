@@ -2,7 +2,8 @@
 
 The part of `seaweedfs_tpu/storage/volume.py` that the EC path uses:
 create or open a volume, cookie-checked writes with a monotonic
-AppendAtNs, reads, sync, read-only, close.  Byte-compatible with the
+AppendAtNs, reads, the heartbeat's counts, sync, read-only, close and
+destroy.  Byte-compatible with the
 reference package, so either package reads the other's volumes.  One
 process, one writer: a lock serialises appends, and each acknowledged
 write is flushed to the OS before write_needle returns.
@@ -78,6 +79,21 @@ class Volume:
         with self.lock:
             self._dat.seek(0, os.SEEK_END)
             return self._dat.tell()
+
+    # -- stats (the heartbeat's per-volume fields) -----------------------
+
+    def file_count(self) -> int:
+        return self.nm.metrics.file_count
+
+    def deleted_count(self) -> int:
+        return self.nm.metrics.deleted_count
+
+    def deleted_bytes(self) -> int:
+        return self.nm.metrics.deleted_bytes
+
+    def max_file_key(self) -> int:
+        """Largest needle id in this volume (volume.go MaxFileKey)."""
+        return self.nm.max_key()
 
     # -- write path (volume_write.go:112-218) ----------------------------
 
@@ -174,3 +190,19 @@ class Volume:
             self._dat.flush()
             self._dat.close()
             self.nm.close()
+
+    def destroy(self) -> None:
+        """Close the handles, then unlink this volume's files (only the
+        names in this directory: a hard link elsewhere keeps its data).
+        The `.vif` stays while an EC conversion of the volume is here:
+        it records the scheme that rebuild and decode read."""
+        self.close()
+        exts = [".dat", ".idx", ".cpd", ".cpx"]
+        if not (os.path.exists(self.file_name(".ecx")) or
+                os.path.exists(self.file_name(".ec00"))):
+            exts.append(".vif")
+        for ext in exts:
+            try:
+                os.remove(self.file_name(ext))
+            except FileNotFoundError:
+                pass

@@ -156,6 +156,70 @@ def test_windowed_parity_matches_one_shot(cuda, monkeypatch):
     assert len(staging.POOL) <= staging.POOL.max_bufs
 
 
+def _in_fresh_thread(fn):
+    """fn() on a new thread (whose current CUDA device is the default
+    one): its result, or its exception re-raised here."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _launches_on(dev: torch.device, monkeypatch):
+    """Both wrappers and a WindowedLaunch of several windows, each run
+    from a fresh thread with the codec's device given explicitly, held
+    against the plain version."""
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "0.25")
+    rng = np.random.default_rng(dev.index or 0)
+    mat = rs_matrix.parity_matrix(10, 4)
+    tables = rs_cuda.tables_from_numpy(mat, dev)
+    data = torch.from_numpy(_words(rng, 10, 65536 + 3)).to(dev)
+    got = _in_fresh_thread(
+        lambda: rs_cuda.gf_apply_matrix_words(tables, data))
+    assert got.device == dev
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_plain(tables,
+                                                                 data))
+    batch = torch.from_numpy(_words(rng, 3 * 10, 4096)).to(dev).view(
+        3, 10, 4096)
+    got = _in_fresh_thread(
+        lambda: rs_cuda.gf_apply_matrix_words_batch(tables, batch))
+    assert torch.equal(got, rs_cuda.gf_apply_matrix_words_batch_plain(
+        tables, batch))
+    host = rng.integers(0, 256, size=(10, 5 * 65536 + 12345),
+                        dtype=np.uint8)
+    codec = ReedSolomonTorch(10, 4, str(dev))
+
+    before = rs_cuda.LAUNCHES
+    got = _in_fresh_thread(lambda: codec.parity_lazy(host).materialize())
+    n_windows = len(staging.plan_windows(10, -(-host.shape[1] // 16) * 4))
+    assert n_windows > 1 and rs_cuda.LAUNCHES - before == n_windows
+    assert np.array_equal(got, gf256.gf_apply_matrix(mat, host))
+
+
+def test_launches_from_a_fresh_thread(cuda, monkeypatch):
+    _launches_on(torch.device("cuda", 0), monkeypatch)
+
+
+def test_launches_on_a_second_device_from_a_fresh_thread(cuda,
+                                                         monkeypatch):
+    """A codec on cuda:1 launched from threads whose current device is
+    0: the wrappers and the staging thread make cuda:1 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    _launches_on(torch.device("cuda", 1), monkeypatch)
+
+
 def test_batched_kernel_unaligned_base(cuda):
     """A batch whose base is off a 16-byte boundary (W % 4 == 0): no
     volume may take the uint4 path, and every volume stays exact."""
