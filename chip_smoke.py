@@ -69,7 +69,32 @@ Phases, each printing one JSON line:
 6. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
    one batched launch a step, every shard's SHA-256 held against the
    same volumes encoded one by one, sampled parity against the numpy
-   twin, and `distributed_ec_step` on the one-card grid.
+   twin, and `distributed_ec_step` on the one-card grid.  It leaves the
+   volumes' .dat/.idx for the worker phase.
+7. worker: the maintenance plane over the port's own cluster: a `master`
+   subprocess (`-volumeSizeLimitMB` the volume's whole MiB, 1025 at 1
+   GiB, so the volume is full), server 0 in this process holding the ec
+   phase's volume (hard-linked, volume 1) and the batch's 64 (volumes
+   101-164), 6 `volume -mserver` peers, an `admin` subprocess, one start
+   and stop of the `worker` command (its first line checked), and the
+   worker in this process (`EcEncodeHandler(device="cuda")`,
+   `EcRebuildHandler`), so its launches are counted.  Jobs:
+   `trigger_detection` finds volume 1, which the worker pulls, encodes
+   on the card (launches against the ec phase's encode) and spreads over
+   the 7 servers; a peer is stopped with its disk and, once the master
+   drops it, detection proposes the rebuild, streamed on the server with
+   the most survivors (launches against `plan_windows`, read as that
+   server's `device_staged_windows_total{op="rebuild"}` on its
+   `/metrics`); the batch's 64 volumes in one job (batched launches
+   against the batch phase's); a scatter job on a second link of the
+   volume (volume 2, encoded by server 0); then the worker-mode encode
+   once more under torch.profiler (volume 3).  Every shard's SHA-256,
+   found through /dir/ec_lookup, is held against the ec phase's or the
+   batch's one-by-one encode.  Each job's wall, GB/s of .dat and stage
+   times from `/maintenance/job`, the worker's spans from the admin's
+   `/debug/traces`, and the bytes of the files its jobs wrote are
+   printed: about 14x the volume at 1 GiB (the batch's shards are padded
+   to whole 1 MiB rows).
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -114,6 +139,7 @@ REMOTE_SERVERS = 7               # placement sid % 7, 2 shards a server
 REMOTE_DOWN = 1                  # the server stopped: shards 1 and 8
 REMOTE_LOST = (1, 8)
 CLUSTER_SERVERS = 7              # the master's 7 volume servers
+WORKER_BATCH_VID0 = 100          # batch volume i is volume 100 + i there
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
 
@@ -891,12 +917,14 @@ def phase_ec(volume_gib: float, seed: int, tmp: str
 # --- phase 4 ---------------------------------------------------------------
 
 def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
-                 procs: list, role: str) -> "list[str]":
+                 procs: list, role: str, line: "str | None" = None
+                 ) -> "list[str]":
     """`python3 -m seaweedfs_tpu_torch <argv>` for each argv, all started
     together and appended to `procs` as they start (the caller stops
-    them), stderr to its log; returns their urls once each has printed
-    its `<role> server listening on` line (120 s), and fails if one does
-    not."""
+    them), stderr to its log; returns the group of `line` (a regex; by
+    default `<role> server listening on <url>`, the url) once each has
+    printed its first line (120 s), and fails if one does not."""
+    line = line or rf"{role} server listening on (\S+:\d+)\n"
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     started = []
@@ -919,8 +947,7 @@ def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
         t.join(max(0.0, deadline - time.monotonic()))
     urls = []
     for out, log in zip(lines, logs):
-        m = re.fullmatch(rf"{role} server listening on (\S+:\d+)\n",
-                         out[0] if out else "")
+        m = re.fullmatch(line, out[0] if out else "")
         if m is None:
             with open(log) as f:
                 raise RuntimeError(f"check failed: {log} did not start: "
@@ -1365,7 +1392,11 @@ def _write_volume(directory: str, vid: int, target: int, rng,
     return out
 
 
-def phase_batch(batch_gib: float, seed: int) -> dict:
+def phase_batch(batch_gib: float, seed: int, tmp: str
+                ) -> "tuple[dict, dict]":
+    """The 64-volume batch in `tmp`, which it leaves holding the volumes
+    (.dat/.idx) for the worker phase; returns the printed result and
+    what the worker phase needs of it."""
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_matrix
@@ -1375,14 +1406,13 @@ def phase_batch(batch_gib: float, seed: int) -> dict:
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
         save_ec_volume_info, write_ec_files, write_sorted_file_from_idx)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    batch_dir = os.path.join(tmp, "batch")
+    alone_dir = os.path.join(tmp, "alone")
+    os.makedirs(batch_dir)
+    os.makedirs(alone_dir)
     try:
         rng = np.random.default_rng(seed + 1)
         mean = batch_gib * (1 << 30) / BATCH_VOLUMES
-        batch_dir = os.path.join(tmp, "batch")
-        alone_dir = os.path.join(tmp, "alone")
-        os.makedirs(batch_dir)
-        os.makedirs(alone_dir)
         t0 = time.perf_counter()
         vols = [_write_volume(batch_dir, vid, int(rng.uniform(
             0.75 * mean, 1.25 * mean)), rng, seed)
@@ -1421,11 +1451,13 @@ def phase_batch(batch_gib: float, seed: int) -> dict:
             os.link(b + ".dat", alone + ".dat")
             write_ec_files(alone, ctx)
         t4 = time.perf_counter()
-        for b in bases:
+        alone_sha = {}
+        for vid, b in enumerate(bases, 1):
             alone = os.path.join(alone_dir, os.path.basename(b))
+            alone_sha[vid] = [sha256_file(alone + ctx.to_ext(i))
+                              for i in range(ctx.total)]
             for i in range(ctx.total):
-                check(sha256_file(b + ctx.to_ext(i)) ==
-                      sha256_file(alone + ctx.to_ext(i)),
+                check(sha256_file(b + ctx.to_ext(i)) == alone_sha[vid][i],
                       f"{b}{ctx.to_ext(i)} differs from the per-volume "
                       f"encode")
         pm = rs_matrix.parity_matrix(d, ctx.parity_shards)
@@ -1483,9 +1515,370 @@ def phase_batch(batch_gib: float, seed: int) -> dict:
                         "launches": step_launches,
                         "seconds": t6 - t5}}
         emit(out)
-        return out
     finally:
+        # the worker phase needs the volumes only
+        shutil.rmtree(alone_dir, ignore_errors=True)
+        for name in os.listdir(batch_dir):
+            if not name.endswith((".dat", ".idx")):
+                os.remove(os.path.join(batch_dir, name))
+    return out, {"bases": bases, "dat_bytes": total,
+                 "batched_launches": batched, "alone_sha": alone_sha}
+
+
+# --- phase 7 ---------------------------------------------------------------
+
+def _metric(text: str, name: str) -> float:
+    """One sample of a Prometheus text page (0 when absent)."""
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _job(admin: str, submit: "dict | None" = None,
+         job_type: str = "") -> dict:
+    """Submit a job to the admin, or without `submit` trigger detection
+    and take the one new job of `job_type`; wait for it to end (900 s)
+    and fail unless it is done.  Returns its record with `wall_s`
+    (submit or trigger to done, host clock) and `stages`: each trace
+    event's seconds after the assignment."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+
+    def call(method, path, payload=None):
+        r = http_json(method, f"{admin}{path}", payload, timeout=60)
+        check("error" not in r, f"{path}: {r}")
+        return r
+    before = {j["jobId"] for j in call("GET", "/maintenance/queue")["jobs"]}
+    t0 = time.perf_counter()
+    if submit is not None:
+        jid = call("POST", "/maintenance/submit_job", submit)["jobId"]
+    else:
+        call("POST", "/maintenance/trigger_detection")
+        deadline = time.monotonic() + 60
+        while True:
+            new = [j["jobId"] for j in call("GET", "/maintenance/queue")[
+                "jobs"] if j["jobId"] not in before and
+                j["jobType"] == job_type]
+            if new:
+                break
+            check(time.monotonic() < deadline,
+                  f"detection proposed no {job_type} job")
+            time.sleep(0.05)
+        check(len(new) == 1, f"detection proposed {new}")
+        jid = new[0]
+    deadline = time.monotonic() + 900
+    while True:
+        job = call("GET", f"/maintenance/job?id={jid}")
+        if job["status"] in ("done", "failed"):
+            break
+        check(time.monotonic() < deadline, f"job {jid} did not end")
+        time.sleep(0.05)
+    job["wall_s"] = time.perf_counter() - t0
+    check(job["status"] == "done", f"job {jid}: {job['message']} "
+          f"{job['trace']}")
+    t_assigned = next(t["ts"] for t in job["trace"]
+                      if t["event"].startswith("assigned to"))
+    # a run of like events (a batch's "pulled volume 7 (7/64)") keeps
+    # its last
+    stages = []
+    for t in job["trace"]:
+        if t["ts"] < t_assigned:
+            continue
+        kind = re.sub(r"[\d.]+", "N", t["event"])
+        if stages and stages[-1][0] == kind:
+            stages.pop()
+        stages.append((kind, [t["event"][:60],
+                              round(t["ts"] - t_assigned, 3)]))
+    job["stages"] = [s for _, s in stages]
+    return job
+
+
+def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
+    """The maintenance plane over the port's own cluster: a `master`
+    subprocess (the volume's size as its limit), server 0 in this
+    process, 6 `volume -mserver` peers, an `admin` subprocess, and the
+    worker in this process with its codec on the card.  Jobs: the ec
+    phase's volume found by detection and encoded on the worker; a peer
+    lost with its disk and its shards rebuilt by a detected job; the
+    batch phase's 64 volumes in one job; a scatter job on a second link
+    of the volume; and the worker-mode encode once more under
+    torch.profiler."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.plugin import (EcEncodeHandler,
+                                            EcRebuildHandler, PluginWorker)
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_nodes
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    # server 0 holds the ec phase's volume as volume 1 and batch volume
+    # i as volume WORKER_BATCH_VID0 + i (no volume id is inside a file)
+    batch_vids = [WORKER_BATCH_VID0 + i
+                  for i in range(1, len(batch["bases"]) + 1)]
+    for ext in (".dat", ".idx"):
+        os.link(ec["base"] + ext, os.path.join(dirs[0], "1" + ext))
+        for vid, b in zip(batch_vids, batch["bases"]):
+            os.link(b + ext, os.path.join(dirs[0], f"{vid}{ext}"))
+    ctx = ECContext(device="cuda")
+    shard_size = ec["shard_size"]
+    dat = ec["dat_size"]
+    idx = os.path.getsize(ec["base"] + ".idx")
+    procs: list = []
+    server0 = None
+    worker = None
+    try:
+        t0 = time.perf_counter()
+        # the volume is full at this limit (its whole MiB, 1025 at
+        # 1 GiB): over the encode handler's 0.9, where no batch volume
+        # comes near
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(dat >> 20)]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        server0 = VolumeServer([dirs[0]], master=murl).start()
+        peer_urls = _start_peers(dirs[1:], tmp, procs, master=murl)
+        urls = [server0.url] + peer_urls
+        dir_of = dict(zip(urls, dirs))
+        (aurl,) = _start_procs(
+            [["admin", "-port", "0", "-master", murl,
+              "-detectionInterval", "3600",
+              "-dataDir", os.path.join(tmp, "admin")]],
+            [os.path.join(tmp, "admin.log")], procs, "admin",
+            r"admin listening on (\S+:\d+)\n")
+        # the command line's worker: its first line, then a clean stop
+        # (it would take jobs whose launches this process cannot count)
+        (cli_id,) = _start_procs(
+            [["worker", "-admin", aurl, "-master", murl,
+              "-dir", os.path.join(tmp, "cli_worker"), "-device", "cuda"]],
+            [os.path.join(tmp, "cli_worker.log")], procs, "worker",
+            rf"worker (\w+) polling {re.escape(aurl)}\n")
+        bad = _stop_peers([procs[-1]])
+        check(not bad, f"the worker command did not stop cleanly: {bad}")
+        worker = PluginWorker(
+            aurl, murl, os.path.join(tmp, "worker"),
+            [EcEncodeHandler(device="cuda"), EcRebuildHandler()],
+            poll_wait=1.0).start()
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def normal_vids():
+            return {v["id"] for n in iter_volume_list_nodes(
+                get("/vol/list")) for v in n["volumes"]}
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) ==
+             CLUSTER_SERVERS and {1, *batch_vids} <= normal_vids(),
+             "7 nodes and the volumes in /vol/list")
+        start_s = time.perf_counter() - t0
+
+        def ec_locs(vid):
+            r = get(f"/dir/ec_lookup?volumeId={vid}")
+            return {loc["url"]: loc["shardIds"]
+                    for loc in r.get("shardIdLocations", [])}
+
+        def check_shards(vid, want, what):
+            """The 14 shards of vid where the master lists them, each
+            against `want`; the original volume gone.  Returns the
+            placement and the bytes of vid's EC files on the servers."""
+            poll(lambda: vid not in normal_vids(),
+                 f"{what}: volume {vid} still listed as a normal volume")
+            locs = ec_locs(vid)
+            held = sorted(s for sids in locs.values() for s in sids)
+            check(held == list(range(ctx.total)),
+                  f"{what}: /dir/ec_lookup lists {locs}")
+            for url, sids in locs.items():
+                for sid in sids:
+                    check(sha256_file(os.path.join(
+                        dir_of[url], f"{vid}{ctx.to_ext(sid)}")) ==
+                        want[sid], f"{what}: shard {sid} at {url} differs")
+            held_bytes = sum(
+                os.path.getsize(os.path.join(d, n)) for d in dirs
+                if os.path.isdir(d) for n in os.listdir(d)
+                if re.fullmatch(rf"{vid}\.(ec\d\d|ecx|vif)", n))
+            return locs, held_bytes
+
+        def drop_shards(vid):
+            for url in ec_locs(vid):
+                _post(f"{url}/admin/ec/delete_shards",
+                      {"volumeId": vid, "shardIds": list(range(ctx.total))},
+                      "smoke-delete")
+
+        def worker_spans(job):
+            rid = job["requestId"] or f"job-{job['jobId']}"
+            r = http_json("GET", f"{aurl}/debug/traces?request_id={rid}",
+                          timeout=30)
+            return {sp["name"]: {"durationMs": sp["durationMs"],
+                                 **(sp.get("attrs") or {})}
+                    for sp in r["spans"]
+                    if sp["name"].startswith(("encode.", "job:"))}
+
+        def summary(job, nbytes, launches, expected):
+            return {"jobId": job["jobId"], "seconds": job["wall_s"],
+                    "gbps": nbytes / job["wall_s"] / 1e9,
+                    "launches": launches, "expected_launches": expected,
+                    "message": job["message"], "stages": job["stages"]}
+
+        # 1. detection finds the full volume; the worker pulls it,
+        # encodes it on the card and distributes 14 shards
+        rs_cuda.LAUNCHES = 0
+        enc = _job(aurl, job_type="erasure_coding")
+        enc_launches = rs_cuda.LAUNCHES
+        check(enc["params"]["volumeId"] == 1, f"detected {enc['params']}")
+        check(enc_launches == ec["encode_launches"],
+              f"worker encode launched {enc_launches}, the staging "
+              f"windows of the work list are {ec['encode_launches']}")
+        placed, held = check_shards(1, ec["shard_sha"], "worker encode")
+        spans = worker_spans(enc)
+        check({"job:erasure_coding", "encode.read", "encode.codec",
+               "encode.write"} <= set(spans), f"worker spans {spans}")
+        # files written: the pulled .dat/.idx, the worker's shards and
+        # sidecars, and what it pushed (shards, sidecars at each target)
+        sidecars = (held - ctx.total * shard_size) // len(placed)
+        written = {"worker_encode": dat + idx + ctx.total * shard_size +
+                   sidecars + held}
+
+        # 2. a peer with two data shards (else any) stopped with its
+        # disk; once the master drops it, detection proposes the rebuild
+        victim = next((u for u in peer_urls if len(placed.get(u, ())) == 2
+                       and all(s < ctx.data_shards for s in placed[u])),
+                      next(u for u in peer_urls if placed.get(u)))
+        lost = placed[victim]
+        bad = _stop_peers([procs[1 + peer_urls.index(victim)]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        shutil.rmtree(dir_of[victim])
+        t1 = time.perf_counter()
+        poll(lambda: victim not in ec_locs(1) and victim not in
+             get("/cluster/status")["dataNodes"], "master drops the peer")
+        drop_s = time.perf_counter() - t1
+        live = [u for u in urls if u != victim]
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        expect_reb = sum(launches_for(ctx.data_shards,
+                                      min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        windows_name = \
+            'seaweedfs_tpu_device_staged_windows_total{op="rebuild"}'
+        launches_name = \
+            'seaweedfs_tpu_gf_kernel_launches{entry="gf_apply_words"}'
+
+        def counts(url):
+            """(the wrapper's launches, staged rebuild windows) of the
+            process serving `url`, from its /metrics."""
+            text = http_bytes("GET", f"{url}/metrics")[1].decode()
+            return _metric(text, launches_name), _metric(text, windows_name)
+        rs_cuda.LAUNCHES = 0
+        before = {u: counts(u) for u in live}
+        reb = _job(aurl, job_type="ec_rebuild")
+        in_process = rs_cuda.LAUNCHES
+        check(f"rebuilt shards {lost} on " in reb["message"],
+              f"rebuild job: {reb['message']}")
+        rebuilder = re.search(r" on (\S+:\d+),", reb["message"]).group(1)
+        after = counts(rebuilder)
+        # the rebuilder's own wrapper count, wherever it ran (server 0
+        # shares this process's count); every launch is a staged window
+        reb_launches, staged = (int(a - b) for a, b in
+                                zip(after, before[rebuilder]))
+        check(reb_launches == staged == expect_reb and
+              in_process == (expect_reb if rebuilder == server0.url else 0),
+              f"rebuild on {rebuilder}: {reb_launches} launches and "
+              f"{staged} staged windows there, {in_process} launches "
+              f"here; plan_windows: {expect_reb}")
+        check_shards(1, ec["shard_sha"], "rebuild job")
+        moved = int(re.search(r"rebalanced (\d+)", reb["message"]).group(1))
+        written["worker_rebuild"] = (len(lost) + moved) * shard_size
+        drop_shards(1)
+
+        # 3. the 64 volumes in one job: one batched launch a step
+        rs_cuda.LAUNCHES = 0
+        rs_cuda.LAUNCHES_BATCHED = 0
+        bj = _job(aurl, {"jobType": "erasure_coding",
+                         "params": {"volumeIds": batch_vids}})
+        batched, single = rs_cuda.LAUNCHES_BATCHED, rs_cuda.LAUNCHES
+        check(batched == batch["batched_launches"] and single == 0,
+              f"batch job made {batched} batched and {single} single "
+              f"launches; the batch phase made {batch['batched_launches']}")
+        batch_held = 0
+        for i, vid in enumerate(batch_vids, 1):
+            batch_held += check_shards(vid, batch["alone_sha"][i],
+                                       "batch job")[1]
+            drop_shards(vid)
+        batch_idx = sum(os.path.getsize(b + ".idx") for b in batch["bases"])
+        written["worker_batch"] = batch["dat_bytes"] + batch_idx + \
+            2 * batch_held   # pulled, the worker's files, the pushes
+
+        # 4. a scatter job on a second link of the volume: the source
+        # (server 0, in this process) encodes and streams the shards
+        def mount_link(vid):
+            for ext in (".dat", ".idx"):
+                os.link(ec["base"] + ext,
+                        os.path.join(dirs[0], f"{vid}{ext}"))
+            _post(f"{server0.url}/admin/mount_volume", {"volumeId": vid},
+                  "smoke-mount")
+            poll(lambda: vid in normal_vids(), f"volume {vid} listed")
+        mount_link(2)
+        rs_cuda.LAUNCHES = 0
+        sj = _job(aurl, {"jobType": "erasure_coding",
+                         "params": {"volumeId": 2, "encodeMode": "scatter"}})
+        scatter_launches = rs_cuda.LAUNCHES
+        check(scatter_launches == ec["encode_launches"],
+              f"scatter job launched {scatter_launches}, the staging "
+              f"windows of the work list are {ec['encode_launches']}")
+        written["worker_scatter"] = check_shards(2, ec["shard_sha"],
+                                                 "scatter job")[1]
+        drop_shards(2)
+
+        # 5. the worker-mode encode again, under the profiler
+        mount_link(3)
+        rs_cuda.LAUNCHES = 0
+        prof_jobs = []
+        profiled = _device_profile(lambda: prof_jobs.append(_job(
+            aurl, {"jobType": "erasure_coding", "params": {"volumeId": 3}})))
+        profiled["launches"] = rs_cuda.LAUNCHES
+        check(profiled["launches"] == ec["encode_launches"],
+              f"profiled worker encode launched {profiled['launches']}")
+        written["worker_encode_profiled"] = written["worker_encode"]
+        check_shards(3, ec["shard_sha"], "profiled worker encode")
+        profiled["job_seconds"] = prof_jobs[0]["wall_s"]
+        heartbeats = get("/cluster/status")["heartbeats"]
+    finally:
+        if worker is not None:
+            worker.stop()
+        if server0 is not None:
+            server0.stop()
+        bad = _stop_peers(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"servers or the admin did not stop cleanly: {bad}")
+    out = {"phase": "worker", "servers": CLUSTER_SERVERS,
+           "cluster_start_seconds": start_s, "cli_worker_id": cli_id,
+           "encode": {**summary(enc, dat, enc_launches,
+                                ec["encode_launches"]),
+                      "placement": placed, "worker_spans": spans},
+           "lost": {"server": victim, "shards": lost,
+                    "master_drop_seconds": drop_s},
+           "rebuild": {**summary(reb, dat, reb_launches, expect_reb),
+                       "rebuilder": rebuilder,
+                       "staged_windows_on_rebuilder": staged,
+                       "launches_in_this_process": in_process},
+           "batch": summary(bj, batch["dat_bytes"], batched,
+                            batch["batched_launches"]),
+           "scatter": summary(sj, dat, scatter_launches,
+                              ec["encode_launches"]),
+           "profiled_encode": profiled,
+           "files_written_bytes": {**written,
+                                   "total": sum(written.values())},
+           "master_heartbeats": heartbeats}
+    emit(out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1517,9 +1910,12 @@ def main(argv=None) -> int:
                                 os.path.join(work, "ec"))
         remote = phase_remote(ec_state, os.path.join(work, "remote"))
         cluster = phase_cluster(ec_state, os.path.join(work, "cluster"))
+        batch, batch_state = phase_batch(args.batch_gib, args.seed,
+                                         os.path.join(work, "batch"))
+        worker = phase_worker(ec_state, batch_state,
+                              os.path.join(work, "worker"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    batch = phase_batch(args.batch_gib, args.seed)
     kernels = []
     for kind, name, replaces, by_path in (
             ("single", "gf_apply_words", "seaweedfs_tpu/ops/rs_pallas.py:33",
@@ -1527,10 +1923,14 @@ def main(argv=None) -> int:
               "scatter": remote["scatter"]["launches"],
               "streamed_rebuild": remote["rebuild"]["launches"],
               "shell_encode": cluster["encode"]["launches"],
-              "shell_rebuild": cluster["rebuild"]["launches"]}),
+              "shell_rebuild": cluster["rebuild"]["launches"],
+              "worker_encode": worker["encode"]["launches"],
+              "worker_rebuild": worker["rebuild"]["launches"],
+              "worker_scatter": worker["scatter"]["launches"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
-             {"batch": batch["batched_launches"]})):
+             {"batch": batch["batched_launches"],
+              "worker_batch": worker["batch"]["launches"]})):
         case = kern["main"][kind]
         kernels.append({
             "name": name, "route": "cuda",

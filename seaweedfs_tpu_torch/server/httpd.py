@@ -527,6 +527,29 @@ def http_download(url: str, dest_path: str, headers: dict | None = None,
             pass
 
 
+def http_upload(method: str, url: str, src_path: str,
+                headers: dict | None = None, timeout: float = 60.0
+                ) -> "tuple[int, bytes, dict]":
+    """Send a file as the request body without holding it in memory:
+    Content-Length from the file's size, the body read off disk 4 MiB at
+    a time (the worker's shard push).  `timeout` bounds each socket
+    operation, not the transfer.  Returns (status, body, headers)."""
+    import os
+    conn, target = _connect(url, timeout)
+    conn.blocksize = 4 << 20
+    headers = _with_trace(headers)
+    headers["Content-Length"] = str(os.path.getsize(src_path))
+    try:
+        with open(src_path, "rb") as f:
+            conn.request(method, target, body=f, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.headers)
+    except http.client.HTTPException as e:
+        raise OSError(f"{method} {url}: {e!r}") from e
+    finally:
+        conn.close()
+
+
 def http_relay(src_url: str, dst_method: str, dst_url: str,
                headers: dict | None = None, timeout: float = 60.0,
                chunk_size: int = 4 << 20) -> "tuple[int, int, bytes]":

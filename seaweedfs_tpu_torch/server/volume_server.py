@@ -31,7 +31,9 @@ once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body.  No TLS, admin JWT,
 fault sites or QoS throttle (ROADMAP C).  Counters go to
-`stats.PROCESS`.
+`stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
+report reads its EC totals there), with this process's kernel launch
+counts.
 """
 
 from __future__ import annotations
@@ -106,6 +108,7 @@ class VolumeServer:
         r("POST", "/admin/ec/rebuild", self._ec_rebuild)
         r("GET", "/admin/ec/shard_read", self._ec_shard_read)
         r("GET", "/admin/ec/info", self._ec_info)
+        r("GET", "/metrics", self._metrics)
         # staged scatter uploads awaiting commit:
         # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
         self._pending_shard_writes: dict[str, dict] = {}
@@ -876,6 +879,26 @@ class VolumeServer:
         self.metrics.gauge_set(
             "ec_rebuild_volume_gbps", tele["volumeGbps"],
             help_text="volume-bytes/s of the last streaming rebuild")
+
+    def _metrics(self, req: Request):
+        """Prometheus text of `stats.PROCESS` (device, staging, kernel
+        and EC route metrics), with this server's volume gauges and the
+        launches the GF(2^8) kernel's wrappers have counted in this
+        process (`rs_cuda.LAUNCHES` and `LAUNCHES_BATCHED`)."""
+        from ..ops import rs_cuda
+        for entry, n in (("gf_apply_words", rs_cuda.LAUNCHES),
+                         ("gf_apply_words_batched",
+                          rs_cuda.LAUNCHES_BATCHED)):
+            self.metrics.gauge_set(
+                "gf_kernel_launches", float(n), entry=entry,
+                help_text="kernel launches counted by the wrappers")
+        hb = self.store.collect_heartbeat()
+        self.metrics.gauge_set("volumes", len(hb["volumes"]),
+                               help_text="mounted volumes")
+        self.metrics.gauge_set("ec_volumes", len(hb["ecShards"]))
+        self.metrics.gauge_set("max_volume_count", hb["maxVolumeCount"])
+        return 200, (self.metrics.render().encode(),
+                     {"Content-Type": "text/plain; version=0.0.4"})
 
     # -- reads --------------------------------------------------------------
 

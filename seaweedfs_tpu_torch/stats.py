@@ -79,6 +79,13 @@ class Metrics:
         with self._lock:
             return self._counters.get(key)
 
+    def counter_sum(self, name: str) -> float:
+        """Counter `name` summed over every label set (0 if never
+        incremented)."""
+        with self._lock:
+            return sum(v for (n, _labels), v in self._counters.items()
+                       if n == name)
+
     def gauge_value(self, name: str, **labels) -> "float | None":
         key = (name, tuple(sorted(labels.items())))
         with self._lock:

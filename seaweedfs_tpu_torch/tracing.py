@@ -15,6 +15,9 @@ The trace id follows the request id of this module's own contextvar
 (`set_request_id`).  Over HTTP the request id rides `X-Request-ID` and
 the parent span `X-Trace-Parent` (`<trace_id>-<span_id>`), the
 reference's headers, so a trace crosses servers of either package.
+A maintenance job carries its trace context in the job message instead:
+the worker adopts it (`adopt_remote_parent`) and reports its spans with
+the job, and the admin re-records them (`ingest`).
 
     with tracing.span("ec.encode", role="volume") as sp:
         sp.set("volume", 7)
@@ -44,8 +47,14 @@ _request_id: contextvars.ContextVar[str] = \
     contextvars.ContextVar("weed_request_id", default="")
 
 
-def set_request_id(rid: str) -> None:
-    _request_id.set(rid)
+def set_request_id(rid: str) -> "contextvars.Token":
+    """Make `rid` this context's request id; the returned token undoes
+    it (`reset_request_id`)."""
+    return _request_id.set(rid)
+
+
+def reset_request_id(token: "contextvars.Token") -> None:
+    _request_id.reset(token)
 
 
 def get_request_id() -> str:
@@ -264,6 +273,45 @@ def parse_traceparent(value: "str | None") -> "tuple[str, str]":
     if not trace_id or not span_id:
         return "", ""
     return trace_id, span_id
+
+
+def adopt_remote_parent(header_value: "str | None",
+                        role: str = "") -> None:
+    """Make an inbound trace parent (`<trace_id>-<span_id>`) the
+    context's current span without opening a local span: the worker
+    adopts a job's context, then opens its own child spans.  An absent
+    or malformed value clears the context instead, so a long-lived loop
+    thread never carries one job's ancestry into the next."""
+    trace_id, span_id = parse_traceparent(header_value)
+    _current.set((trace_id, span_id, role) if trace_id else None)
+
+
+def ingest(spans: "list[dict]") -> int:
+    """Re-record span documents made by another process into this
+    process's ring buffer (the admin keeps the spans a worker reports
+    with a finished job).  Malformed entries are dropped and span ids
+    already buffered skipped, so a report sent twice adds nothing
+    twice; returns how many were added."""
+    global _buffer
+    added = 0
+    with _buffer_lock:
+        if _buffer.maxlen != buffer_size():
+            _buffer = deque(_buffer, maxlen=buffer_size())
+        have = {d["spanId"] for d in _buffer}
+        for doc in spans or []:
+            if not isinstance(doc, dict) or not (
+                    doc.get("traceId") and doc.get("spanId") and
+                    doc.get("name")) or doc["spanId"] in have:
+                continue
+            doc = dict(doc)
+            doc.setdefault("parentId", "")
+            doc.setdefault("role", "")
+            doc.setdefault("start", 0.0)
+            doc.setdefault("durationMs", 0.0)
+            _buffer.append(doc)
+            have.add(doc["spanId"])
+            added += 1
+    return added
 
 
 def spans_for(trace_id: str) -> "list[dict]":

@@ -41,7 +41,7 @@ from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.util import retry
 
-from test_torch_cluster_shell import PULSE, TOTAL, VID, _read, golden  # noqa: F401,E501
+from test_torch_cluster_shell import MASTER_PULSE, PULSE, TOTAL, VID, _read, golden  # noqa: F401,E501
 from test_torch_cluster_shell import small_sizes  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -219,9 +219,11 @@ def test_admin_lease():
 @pytest.fixture
 def cluster(tmp_path):
     """start(dirs) -> (port master, port volume servers on the CPU
-    codec, heartbeating every PULSE); all stopped at teardown."""
+    codec, heartbeating every PULSE); all stopped at teardown.  The
+    master expects a pulse every MASTER_PULSE, the margin a live server
+    needs under load (see test_torch_cluster_shell)."""
     made = []
-    master = MasterServer(pulse_seconds=PULSE).start()
+    master = MasterServer(pulse_seconds=MASTER_PULSE).start()
     made.append(master)
 
     def start(dir_list):

@@ -18,9 +18,13 @@ left.  Both shells' output lines have the same shape.
 
 The volume is ~5 MiB, seeded, with the real 1 MiB small blocks (1 MiB
 shards); codec batches, staging windows and rebuild slices are 1 MiB,
-and port servers run their codec with `device="cpu"`.  Heartbeats pulse
-every 0.2 s, so a stopped server drops out of the masters' live set in
-0.6 s.
+and port servers run their codec with `device="cpu"`.  Servers pulse
+every `PULSE` (0.2 s); the masters expect a pulse every `MASTER_PULSE`
+(1 s), so a stopped server drops out of their live sets after 3 s.
+That margin is for load: with 7 servers, a master and a shell in one
+process beside other test processes, a live server's pulses have come
+more than 0.6 s apart, and a master that expected 0.2 s pulses dropped
+it mid-command.
 """
 
 import os
@@ -51,6 +55,7 @@ from seaweedfs_tpu_torch.storage.volume import Volume
 VID = 1
 TOTAL = 14
 PULSE = 0.2
+MASTER_PULSE = 1.0
 NODES = 7
 
 
@@ -104,12 +109,12 @@ class Cluster:
         self.ctl = ctl
         if ctl == "ref":
             self.master = RefMaster(volume_size_limit_mb=64,
-                                    pulse_seconds=PULSE).start()
+                                    pulse_seconds=MASTER_PULSE).start()
             self.env = RefEnv(self.master.url)
             self.run_command = ref_run_command
         else:
             self.master = MasterServer(volume_size_limit_mb=64,
-                                       pulse_seconds=PULSE).start()
+                                       pulse_seconds=MASTER_PULSE).start()
             self.env = CommandEnv(self.master.url)
             self.run_command = port_run_command
         self.servers = []

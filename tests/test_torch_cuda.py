@@ -1,6 +1,8 @@
 """The port's CUDA kernel and codec on the card, held against the plain
 PyTorch version and the numpy twin (exact: GF arithmetic is integer),
-and a streamed rebuild between two port volume servers on the card.
+a streamed rebuild between two port volume servers on the card, and a
+worker-mode job of the port's maintenance plane on the card.  One test
+runs only where there is no card: `worker -device cuda` must fail there.
 
 Marked `cuda`; each test skips when no CUDA device is present.  This
 file imports neither JAX nor the JAX package, so on a machine with a
@@ -503,3 +505,120 @@ def test_streamed_rebuild_on_the_card_equals_cpu(cuda, tmp_path,
                                               // 16) * 4))
                for pos in range(0, shard, step))
     assert launches == want
+
+
+def _launches_for(k, batch_bytes):
+    """Kernel launches of one codec batch of k rows: one a staging window
+    when the batch is larger than a window, else one."""
+    from seaweedfs_tpu_torch.ops.rs_torch import PACK_MULTIPLE
+    w = -(-batch_bytes // PACK_MULTIPLE) * PACK_MULTIPLE // 4
+    wb = staging.window_bytes()
+    if wb > 0 and k * w * 4 > wb:
+        return len(staging.plan_windows(k, w))
+    return 1
+
+
+def test_worker_mode_job_on_the_card(cuda, tmp_path, monkeypatch):
+    """The port's admin hands a worker-mode encode to a worker whose
+    codec is on the card: the shards its servers mount equal the CPU
+    encode's, and the worker launched the kernel once a staging window
+    of the encode's work list."""
+    import os
+    import time
+
+    from seaweedfs_tpu_torch.plugin import (AdminServer, EcEncodeHandler,
+                                            PluginWorker)
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding import (ec_context,
+                                                            ec_encoder)
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    monkeypatch.setattr(ec_context, "DEVICE_BATCH_SIZE", 1 << 20)
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "1")
+    src = tmp_path / "src"
+    src.mkdir()
+    v = Volume(str(src), 1)
+    rng = np.random.default_rng(83)
+    nid = 0
+    while v.dat_size() < 12 << 20:
+        nid += 1
+        v.write_needle(Needle(cookie=nid, id=nid, data=rng.bytes(
+            int(rng.integers(1000, 300_000)))))
+    v.close()
+    base = str(src / "1")
+    cpu = ec_context.ECContext(device="cpu")
+    ec_encoder.write_ec_files(base, cpu)
+    dat_size = os.path.getsize(base + ".dat")
+    want = sum(_launches_for(cpu.data_shards, item[3])
+               for item in ec_encoder._encode_work_items(dat_size, cpu))
+    dirs = [tmp_path / f"v{i}" for i in range(3)]
+    for d in dirs:
+        d.mkdir()
+    for ext in (".dat", ".idx"):
+        os.link(base + ext, dirs[0] / f"1{ext}")
+    made = [MasterServer(pulse_seconds=1.0).start()]
+    master = made[0].url
+    try:
+        made += [VolumeServer([str(d)], device="cpu", master=master,
+                              pulse_seconds=0.2).start() for d in dirs]
+        admin = AdminServer(master, detection_interval=3600).start()
+        made.append(admin)
+        worker = PluginWorker(admin.url, master, str(tmp_path / "w"),
+                              [EcEncodeHandler(device="cuda")],
+                              poll_wait=1.0)
+        deadline = time.monotonic() + 30
+        while len(http_json("GET", f"{master}/cluster/status",
+                            timeout=10)["dataNodes"]) < 3:
+            assert time.monotonic() < deadline, "servers registered"
+            time.sleep(0.05)
+        made.append(worker.start())
+        before = rs_cuda.LAUNCHES
+        jid = http_json("POST", f"{admin.url}/maintenance/submit_job",
+                        {"jobType": "erasure_coding",
+                         "params": {"volumeId": 1}}, timeout=10)["jobId"]
+        deadline = time.monotonic() + 120
+        while True:
+            job = http_json("GET", f"{admin.url}/maintenance/job?id={jid}",
+                            timeout=10)
+            if job["status"] in ("done", "failed"):
+                break
+            assert time.monotonic() < deadline, "job ends"
+            time.sleep(0.1)
+        launches = rs_cuda.LAUNCHES - before
+    finally:
+        for s in reversed(made):
+            s.stop()
+    assert job["status"] == "done", (job["message"], job["trace"])
+    assert "(cuda)" in job["message"], job["message"]
+    assert launches == want
+    seen = set()
+    for d in dirs:
+        for sid in range(14):
+            p = d / f"1.ec{sid:02d}"
+            if p.exists():
+                with open(p, "rb") as f, \
+                        open(f"{base}.ec{sid:02d}", "rb") as g:
+                    assert f.read() == g.read(), sid
+                seen.add(sid)
+    assert seen == set(range(14))
+
+
+def test_worker_device_cuda_without_a_card_fails(tmp_path):
+    """`worker -device cuda` on a machine without a card exits non-zero
+    at start, before it registers (runs where there is no card)."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "worker",
+         "-admin", "127.0.0.1:1", "-master", "127.0.0.1:1",
+         "-dir", str(tmp_path), "-device", "cuda"],
+        capture_output=True, text=True, timeout=60,
+        env=dict(os.environ, PYTHONPATH=repo), cwd=str(tmp_path))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "polling" not in out.stdout
