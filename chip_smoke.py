@@ -63,9 +63,20 @@ Phases, each printing one JSON line:
    more under torch.profiler, posted to server 0 without shard
    locations (it asks the master); then `ec.decode` (the target's
    .dat/.idx against the originals' SHA-256s, volume 1 listed again, no
-   shard file left).  Walls, GB/s, the routes' telemetry, launches, the
-   servers' start time and the heartbeats the master received.  About
-   4x the volume written.
+   shard file left).  Needle reads, every `GET /<fid>` sent to server 0
+   and held against its seeded payload: a seeded sample of 128 needles
+   (half of them with intervals on the shards the peer will lose) after
+   the encode; one lost-shard needle right after the peer stops, while
+   the master still lists it; the sample once the master has dropped
+   the peer (one-shot degraded reads on the host CPU codec: degraded
+   reads counted = the sample's lost intervals); its lost-shard needles
+   again with `SEAWEEDFS_TPU_DEGRADED_SLICE_MB=0.25` (the streamed path
+   for every interval over 256 KiB, no fallback); and the sample after
+   the rebuild, server 0's location cache cleared (no degraded read).
+   Each read step fails if the kernel was launched in it, and prints
+   its GB/s, p50/p99 ms a needle, degraded reads and failovers.  Walls,
+   GB/s, the routes' telemetry, launches, the servers' start time and
+   the heartbeats the master received.  About 4x the volume written.
 6. batch: 64 seeded volumes (BASELINE.json's config 3) encoded through
    one batched launch a step, every shard's SHA-256 held against the
    same volumes encoded one by one, sampled parity against the numpy
@@ -88,7 +99,10 @@ Phases, each printing one JSON line:
    `/metrics`); the batch's 64 volumes in one job (batched launches
    against the batch phase's); a scatter job on a second link of the
    volume (volume 2, encoded by server 0); then the worker-mode encode
-   once more under torch.profiler (volume 3).  Every shard's SHA-256,
+   once more under torch.profiler (volume 3).  Before volume 2's
+   shards are dropped, 3 of its needles are deleted through server 0:
+   each is then a 404 on every holder and in every holder's `.ecj`, and
+   the port's `ec.scrub -mode=local` finds no error.  Every shard's SHA-256,
    found through /dir/ec_lookup, is held against the ec phase's or the
    batch's one-by-one encode.  Each job's wall, GB/s of .dat and stage
    times from `/maintenance/job`, the worker's spans from the admin's
@@ -139,6 +153,9 @@ REMOTE_SERVERS = 7               # placement sid % 7, 2 shards a server
 REMOTE_DOWN = 1                  # the server stopped: shards 1 and 8
 REMOTE_LOST = (1, 8)
 CLUSTER_SERVERS = 7              # the master's 7 volume servers
+READ_SAMPLE = 128                # needles read from server 0 a state
+LOST_SAMPLE_INTERVALS = 32       # of their intervals on the lost shards
+EC_DELETES = 3                   # needles deleted from an EC volume
 WORKER_BATCH_VID0 = 100          # batch volume i is volume 100 + i there
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
@@ -911,7 +928,8 @@ def phase_ec(volume_gib: float, seed: int, tmp: str
     emit(out)
     return out, {"base": base, "dat_size": dat_size, "dat_sha": dat_sha,
                  "shard_size": shard_size, "shard_sha": shard_sha,
-                 "encode_launches": enc_launches}
+                 "encode_launches": enc_launches, "seed": seed,
+                 "sizes": sizes}
 
 
 # --- phase 4 ---------------------------------------------------------------
@@ -1181,12 +1199,80 @@ def _recording(calls: list):
     return call
 
 
+def _fid(vid: int, nid: int) -> str:
+    from seaweedfs_tpu_torch.storage import types
+    return str(types.FileId(vid, nid, _cookie(nid)))
+
+
+def _lost_intervals(ev, nids, lost) -> "dict[int, list[int]]":
+    """Needle id -> the sizes of its intervals on the shards `lost`, for
+    the needles of `nids` that have any."""
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)
+    out = {}
+    for nid in nids:
+        sizes = [iv.size for iv in ev.locate_needle(nid)[2]
+                 if iv.to_shard_id_and_offset(
+                     LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE,
+                     ev.ctx.data_shards)[0] in lost]
+        if sizes:
+            out[nid] = sizes
+    return out
+
+
+def _read_step(server, nids, ec: dict, what: str) -> dict:
+    """GET each needle of `nids` (volume 1) from `server`, which runs in
+    this process, one after another, each held against its seeded
+    payload.  Returns the read GB/s over the GETs' wall time, p50/p99 ms
+    a needle, and the degraded reads and source failovers the server's
+    reader counted meanwhile.  Fails if a read launched the kernel."""
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    launches = (rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED)
+    deg0 = stats.PROCESS.counter_value("ec_degraded_reads_total", vid=1) \
+        or 0.0
+    fo0 = stats.PROCESS.counter_sum("ec_read_source_failovers_total")
+    ms = []
+    nbytes = 0
+    for nid in nids:
+        t = time.perf_counter()
+        st, body, _ = http_bytes("GET", f"{server.url}/{_fid(1, nid)}",
+                                 timeout=300)
+        ms.append((time.perf_counter() - t) * 1e3)
+        check(st == 200 and body == _payload(ec["seed"], nid,
+                                             ec["sizes"][nid]),
+              f"{what}: needle {nid} read {st}, {len(body)} bytes, "
+              f"not its payload")
+        nbytes += len(body)
+    check((rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED) == launches,
+          f"{what}: the reads launched the kernel")
+    deg = (stats.PROCESS.counter_value("ec_degraded_reads_total", vid=1)
+           or 0.0) - deg0
+    ordered = sorted(ms)
+    return {"needles": len(nids), "bytes": nbytes,
+            "seconds": sum(ms) / 1e3, "gbps": nbytes / sum(ms) / 1e6,
+            "p50_ms": statistics.median(ordered),
+            "p99_ms": statistics.quantiles(ordered, n=100,
+                                          method="inclusive")[98]
+            if len(ordered) > 1 else ordered[0],
+            "max_ms": ordered[-1], "degraded_reads": int(deg),
+            "failovers": int(stats.PROCESS.counter_sum(
+                "ec_read_source_failovers_total") - fo0),
+            "kernel_launches": 0}
+
+
 def phase_cluster(ec: dict, tmp: str) -> dict:
     """The ec phase's volume through the port's own cluster: a `master`
     subprocess, server 0 in this process (its codec on the card, so the
     launch count covers it) and 6 `volume -mserver` peers, driven by the
     port's shell: `ec.encode` (scatter), a peer stopped with its disk,
-    `ec.rebuild` (stream), `ec.decode`."""
+    `ec.rebuild` (stream), `ec.decode`.  A seeded sample of 128 needles
+    is read from server 0 after the encode, with the peer lost (one-shot
+    degraded reads, then the lost-shard needles again with a 0.25 MiB
+    streaming window) and after the rebuild."""
+    import numpy as np
+
     from seaweedfs_tpu_torch.ops import rs_cuda
     from seaweedfs_tpu_torch.server.httpd import http_json
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
@@ -1282,12 +1368,77 @@ def phase_cluster(ec: dict, tmp: str) -> dict:
                        and all(s < ctx.data_shards for s in placed[u])),
                       next(u for u in peer_urls if placed.get(u)))
         lost = placed[victim]
+
+        # the read sample: 128 needles, seeded, half of them (at most)
+        # with intervals on the shards that will be lost
+        ev0 = server0.store.find_ec_volume(1)
+        hit = _lost_intervals(ev0, ec["sizes"], set(lost))
+        rng = np.random.default_rng([ec["seed"], 8])
+        n_hit = min(READ_SAMPLE // 2, len(hit))
+        others = sorted(set(ec["sizes"]) - set(hit))
+        sample = sorted(
+            [int(x) for x in rng.choice(sorted(hit), n_hit, replace=False)] +
+            [int(x) for x in rng.choice(
+                others, min(READ_SAMPLE - n_hit, len(others)),
+                replace=False)])
+        lost_in_sample = {nid: hit[nid] for nid in sample if nid in hit}
+        n_lost_iv = sum(len(v) for v in lost_in_sample.values())
+        check(n_lost_iv >= LOST_SAMPLE_INTERVALS,
+              f"only {n_lost_iv} sampled intervals on the lost shards "
+              f"{lost}")
+        reads = {"sample": {
+            "needles": len(sample), "lost_shard_needles":
+                len(lost_in_sample), "lost_shard_intervals": n_lost_iv,
+            "min_bytes": min(ec["sizes"][n] for n in sample),
+            "max_bytes": max(ec["sizes"][n] for n in sample)}}
+        reads["encoded"] = _read_step(server0, sample, ec, "encoded")
+        check(reads["encoded"]["degraded_reads"] == 0,
+              f"degraded reads with every shard up: {reads['encoded']}")
+
         bad = _stop_peers([procs[1 + peer_urls.index(victim)]])
         check(not bad, f"{victim} did not stop: {bad}")
         shutil.rmtree(dir_of[victim])
         t3 = time.perf_counter()
+        # one lost-shard needle while the master still lists the peer
+        reads["in_master_window"] = _read_step(
+            server0, [next(iter(lost_in_sample))], ec, "in window")
         poll(lambda: victim not in ec_locs(), "master drops the peer")
         drop_s = time.perf_counter() - t3
+        reads["degraded"] = _read_step(server0, sample, ec, "degraded")
+        check(reads["degraded"]["degraded_reads"] == n_lost_iv,
+              f"{reads['degraded']['degraded_reads']} degraded reads "
+              f"counted, {n_lost_iv} sampled intervals are lost")
+        # the lost-shard needles again through 0.25 MiB windows: each
+        # interval over a window streams, the others take the one-shot
+        # path, and no streamed read falls back to it
+        reader = server0.ec_reader
+        paths = {"streamed": 0, "one_shot": 0}
+
+        def counting(name, fn):
+            def call(*a, **k):
+                paths[name] += 1
+                return fn(*a, **k)
+            return call
+        reader._recover_interval_streamed = counting(
+            "streamed", reader._recover_interval_streamed)
+        reader._recover_interval = counting("one_shot",
+                                            reader._recover_interval)
+        os.environ["SEAWEEDFS_TPU_DEGRADED_SLICE_MB"] = "0.25"
+        try:
+            reads["streamed"] = _read_step(server0, sorted(lost_in_sample),
+                                           ec, "streamed")
+        finally:
+            del os.environ["SEAWEEDFS_TPU_DEGRADED_SLICE_MB"]
+            del reader._recover_interval_streamed, \
+                reader._recover_interval
+        window = 1 << 18
+        want = {"streamed": sum(1 for v in lost_in_sample.values()
+                                for n in v if n > window),
+                "one_shot": sum(1 for v in lost_in_sample.values()
+                                for n in v if n <= window)}
+        reads["streamed"]["paths"] = paths
+        check(paths == want and want["streamed"] > 0,
+              f"streamed pass took {paths}, its intervals need {want}")
         step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
         expect_reb = sum(launches_for(ctx.data_shards,
                                       min(step, shard_size - pos))
@@ -1323,6 +1474,12 @@ def phase_cluster(ec: dict, tmp: str) -> dict:
         _post(f"{server0.url}/admin/ec/mount",
               {"volumeId": 1, "shardIds": lost}, "smoke-mount")
         check_shards("profiled rebuild")
+        # the reader's 12-of-14 location entry would stay fresh for 7
+        # minutes and keep rebuilding intervals whose shards are back
+        server0.ec_reader.forget(1)
+        reads["rebuilt"] = _read_step(server0, sample, ec, "rebuilt")
+        check(reads["rebuilt"]["degraded_reads"] == 0,
+              f"degraded reads after the rebuild: {reads['rebuilt']}")
 
         t6 = time.perf_counter()
         dec_out = commands.run_script(
@@ -1363,6 +1520,7 @@ def phase_cluster(ec: dict, tmp: str) -> dict:
            "decode": {"seconds": t7 - t6, "gbps": dat / (t7 - t6) / 1e9,
                       "target": target, "shell": dec_out,
                       "dat_idx_sha256_equal": True},
+           "reads": reads,
            "master_heartbeats": heartbeats}
     emit(out)
     return out
@@ -1606,6 +1764,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
                                             EcRebuildHandler, PluginWorker)
     from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, commands
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
         ECContext)
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
@@ -1723,6 +1882,55 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
                     for sp in r["spans"]
                     if sp["name"].startswith(("encode.", "job:"))}
 
+        def delete_and_scrub(vid):
+            """EC_DELETES seeded needles of vid deleted through server 0
+            (a holder: 14 shards on 7 servers): each then a 404 on every
+            holder and in every holder's .ecj, a live needle still read
+            back, and `ec.scrub -mode=local` with no error on any
+            holder."""
+            import numpy as np
+            locs = ec_locs(vid)
+            check(server0.url in locs, f"server 0 holds no shard of "
+                                       f"volume {vid}: {locs}")
+            rng = np.random.default_rng([ec["seed"], 9])
+            dead = sorted(int(x) for x in rng.choice(
+                sorted(ec["sizes"]), EC_DELETES, replace=False))
+            live = next(n for n in sorted(ec["sizes"]) if n not in dead)
+            t = time.perf_counter()
+            for nid in dead:
+                st, body, _ = http_bytes(
+                    "DELETE", f"{server0.url}/{_fid(vid, nid)}",
+                    timeout=120)
+                check(st == 202, f"DELETE {_fid(vid, nid)}: {st} {body}")
+            delete_s = time.perf_counter() - t
+            journal = b"".join(n.to_bytes(8, "big") for n in dead)
+            for url in locs:
+                for nid in dead:
+                    st = http_bytes("GET", f"{url}/{_fid(vid, nid)}",
+                                    timeout=120)[0]
+                    check(st == 404, f"deleted {_fid(vid, nid)} on {url}: "
+                                     f"{st}")
+                with open(os.path.join(dir_of[url], f"{vid}.ecj"),
+                          "rb") as f:
+                    check(f.read() == journal, f"{url}: .ecj differs")
+                st, body, _ = http_bytes(
+                    "GET", f"{url}/{_fid(vid, live)}", timeout=300)
+                check(st == 200 and body == _payload(
+                    ec["seed"], live, ec["sizes"][live]),
+                    f"live needle {live} on {url}: {st}")
+            t = time.perf_counter()
+            (scrub,) = commands.run_script(CommandEnv(murl),
+                                           "ec.scrub -mode=local")
+            scrub_s = time.perf_counter() - t
+            lines = scrub.splitlines()
+            check(len(lines) == len(locs) and all(
+                line.startswith(f"volume {vid} @ ") and
+                line.endswith(", ok") for line in lines),
+                f"ec.scrub: {scrub}")
+            return {"volume": vid, "deleted": dead, "holders": len(locs),
+                    "delete_seconds": delete_s, "scrub": lines,
+                    "scrub_seconds": scrub_s}
+
         def summary(job, nbytes, launches, expected):
             return {"jobId": job["jobId"], "seconds": job["wall_s"],
                     "gbps": nbytes / job["wall_s"] / 1e9,
@@ -1835,6 +2043,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
               f"windows of the work list are {ec['encode_launches']}")
         written["worker_scatter"] = check_shards(2, ec["shard_sha"],
                                                  "scatter job")[1]
+        deletes = delete_and_scrub(2)
         drop_shards(2)
 
         # 5. the worker-mode encode again, under the profiler
@@ -1873,6 +2082,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
                             batch["batched_launches"]),
            "scatter": summary(sj, dat, scatter_launches,
                               ec["encode_launches"]),
+           "deletes": deletes,
            "profiled_encode": profiled,
            "files_written_bytes": {**written,
                                    "total": sum(written.values())},
@@ -1924,6 +2134,9 @@ def main(argv=None) -> int:
               "streamed_rebuild": remote["rebuild"]["launches"],
               "shell_encode": cluster["encode"]["launches"],
               "shell_rebuild": cluster["rebuild"]["launches"],
+              "cluster_reads": sum(r["kernel_launches"] for r in
+                                   cluster["reads"].values()
+                                   if "kernel_launches" in r),
               "worker_encode": worker["encode"]["launches"],
               "worker_rebuild": worker["rebuild"]["launches"],
               "worker_scatter": worker["scatter"]["launches"]}),

@@ -3,10 +3,13 @@ calls of the EC paths: the part of `seaweedfs_tpu/server/httpd.py` that
 the port's master, volume server, shell, shard sinks and shard sources
 use.
 
-Handlers of GET and POST routes return (status, payload): a dict or
-list (JSON), bytes, or a (body, headers) tuple whose body may be a
-`FileSlice`, sent with sendfile(2).  Request bodies are read whole
-(`body`, `json()`) or a chunk at a time (`stream_body()`,
+Handlers return (status, payload): a dict or list (JSON), bytes, or a
+(body, headers) tuple whose body may be a `FileSlice`, sent with
+sendfile(2).  Routes match the exact (method, path); a request that no
+route matches goes to the server's `fallback` when it has one (the
+volume server's `/<fid>` data path), else answers 404.  A HEAD response
+carries the headers of its GET and no body.  Request bodies are read
+whole (`body`, `json()`) or a chunk at a time (`stream_body()`,
 Content-Length or chunked framing).
 The wire formats are the reference's, so servers and clients of either
 package talk to each other.
@@ -185,13 +188,14 @@ class FileSlice:
 
 
 class HttpServer:
-    """Exact (method, path) routes on the stdlib ThreadingHTTPServer,
-    one thread per connection.  Each request runs under a server span
-    whose trace id is the caller's X-Request-ID (or a fresh one) and
-    whose parent is the caller's X-Trace-Parent."""
+    """Exact (method, path) routes, then the `fallback` route, on the
+    stdlib ThreadingHTTPServer, one thread per connection.  Each request
+    runs under a server span whose trace id is the caller's X-Request-ID
+    (or a fresh one) and whose parent is the caller's X-Trace-Parent."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self.routes: dict[tuple[str, str], Route] = {}
+        self.fallback: "Route | None" = None
         self.role = ""
         outer = self
 
@@ -213,7 +217,8 @@ class HttpServer:
                 status = 0
                 body = None
                 try:
-                    route = outer.routes.get((req.method, req.path))
+                    route = outer.routes.get((req.method, req.path)) \
+                        or outer.fallback
                     try:
                         if route is None:
                             status, payload = 404, {"error": "not found"}
@@ -237,11 +242,13 @@ class HttpServer:
                         # file-like: Content-Length is in `extra`; never
                         # chunked
                         self.end_headers()
-                        self._send_file(body)
+                        if req.method != "HEAD":
+                            self._send_file(body)
                         return
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
-                    self.wfile.write(body)
+                    if req.method != "HEAD":
+                        self.wfile.write(body)
                 finally:
                     if hasattr(body, "close"):
                         body.close()
@@ -269,7 +276,7 @@ class HttpServer:
                         break
                     self.wfile.write(chunk)
 
-            do_GET = do_POST = _dispatch
+            do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _dispatch
 
             def log_message(self, *args):  # quiet
                 pass

@@ -1,7 +1,15 @@
 """Volume server: the EC admin routes of `seaweedfs_tpu/server/
 volume_server.py` (volume_grpc_erasure_coding.go mirrored as JSON over
-HTTP), with the GF(2^8) work on this server's codec device, and its
-link to a master.
+HTTP), with the GF(2^8) work on this server's codec device, its link to
+a master, and the public data path for reads and deletes.
+
+- `GET` / `HEAD` / `DELETE /<vid>,<key><cookie>`: a needle of a normal
+  or an EC volume (`Range` answers 206).  An EC needle's intervals are
+  read from local shards, else from the shards' holders, else rebuilt
+  from survivors on the host CPU codec (`store_ec.EcReader`).  A delete
+  on an EC volume tombstones the needle on every holder the master's
+  `/dir/ec_lookup` lists; on a replicated normal volume, on every
+  replica.  `POST`/`PUT` answer 405: needle writes are not ported.
 
 - `/admin/ec/generate`: encode a read-only volume, locally or, with a
   `placement` map ({shard_id: url}), as a scatter-encode: each shard
@@ -21,7 +29,8 @@ link to a master.
   `/admin/ec/to_volume` (decode the local data shards back to a
   `.dat`/`.idx` volume): the two steps of `ec.decode`.
 - `/admin/ec/mount`, `unmount`, `delete_shards`, `info`, `shard_read`,
-  `/admin/volume_file`, `/admin/delete_volume`, `/admin/mount_volume`,
+  `scrub` (modes `index` and `local`), `/admin/volume_file`,
+  `/admin/delete_volume`, `/admin/mount_volume`,
   `/admin/unmount_volume`, `/admin/set_readonly` and
   `/admin/receive_file`.
 
@@ -29,8 +38,9 @@ With a `master` (host:port), the server posts `Store.collect_heartbeat()`
 to the master's `/heartbeat` at start, every `pulse_seconds`, and at
 once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
-`shardLocations` must come in the request body.  No TLS, admin JWT,
-fault sites or QoS throttle (ROADMAP C).  Counters go to
+`shardLocations` must come in the request body, and EC reads find no
+remote shard.  No TLS, admin JWT, fault sites, QoS throttle, hot-needle
+cache, resize-on-read or native read plane (ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts.
@@ -48,11 +58,14 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import stats
+from ..storage import types
 from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
+from ..storage.needle import Needle
 from ..storage.store import Store
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     http_download, http_json)
+from .store_ec import EcReader
 
 _SAFE_EXT = re.compile(r"^\.(dat|idx|vif|ecx|ecj|ec\d{2})$")
 _SAFE_COLLECTION = re.compile(r"^[A-Za-z0-9_.-]*$")
@@ -108,7 +121,10 @@ class VolumeServer:
         r("POST", "/admin/ec/rebuild", self._ec_rebuild)
         r("GET", "/admin/ec/shard_read", self._ec_shard_read)
         r("GET", "/admin/ec/info", self._ec_info)
+        r("POST", "/admin/ec/scrub", self._ec_scrub)
         r("GET", "/metrics", self._metrics)
+        self.http.fallback = self._data_path
+        self.ec_reader = EcReader(master, self.http.url)
         # staged scatter uploads awaiting commit:
         # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
         self._pending_shard_writes: dict[str, dict] = {}
@@ -139,6 +155,7 @@ class VolumeServer:
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10)
         self.http.stop()
+        self.ec_reader.close()
         self.store.close()
 
     @property
@@ -205,6 +222,119 @@ class VolumeServer:
                 return p[: -len(ext)]
         name = (f"{collection}_" if collection else "") + str(vid)
         return os.path.join(self.store.locations[0].directory, name)
+
+    # -- public data path ---------------------------------------------------
+
+    def _data_path(self, req: Request):
+        """`/<vid>,<key><cookie>`: every request that no admin route
+        matches."""
+        fid_str = req.path.lstrip("/")
+        try:
+            fid = types.parse_file_id(fid_str)
+        except ValueError:
+            return 404, {"error": f"bad file id {fid_str!r}"}
+        if req.method in ("GET", "HEAD"):
+            return self._get_needle(fid, req.headers.get("Range", ""))
+        if req.method == "DELETE":
+            return self._delete_needle(fid, req)
+        return 405, {"error": f"{req.method} of a needle is not served: "
+                              f"the port has no write path"}
+
+    def _get_needle(self, fid: types.FileId, rng: str = ""):
+        """volume_server_handlers_read.go: the needle's data with its
+        mime type, or the `Range` asked for (206)."""
+        try:
+            n = self.store.read_needle(fid.volume_id, fid.key,
+                                       cookie=fid.cookie,
+                                       ec_reader=self.ec_reader)
+        except KeyError:
+            return 404, {"error": "not found"}
+        except ValueError as e:   # cookie mismatch, corrupt record
+            return 404, {"error": str(e)}
+        mime = n.mime.decode() if n.mime else "application/octet-stream"
+        data = n.data
+        if rng.startswith("bytes="):
+            try:
+                lo, _, hi = rng[6:].partition("-")
+                total = len(data)
+                if lo:
+                    start = int(lo)
+                    stop = int(hi) + 1 if hi else total
+                else:
+                    start = total - min(int(hi), total)
+                    stop = total
+                part = data[start:stop]
+                return 206, (part, {
+                    "Content-Type": mime,
+                    "Content-Range":
+                        f"bytes {start}-{start + len(part) - 1}/{total}"})
+            except ValueError:
+                pass
+        return 200, (data, {"Content-Type": mime})
+
+    def _delete_needle(self, fid: types.FileId, req: Request):
+        """Delete here, then on every other holder (store_replicate.go:142
+        ReplicatedDelete; for EC, store_ec_delete.go:38), even when the
+        local copy is already gone, accepting a sibling's 404, so a
+        retried delete stays idempotent.  A holder reached with
+        `?type=replicate` does not fan out again."""
+        try:
+            freed = self.store.delete_needle(
+                fid.volume_id, Needle(cookie=fid.cookie, id=fid.key))
+        except KeyError:
+            freed = None
+        if req.query.get("type") != "replicate":
+            if self.store.find_ec_volume(fid.volume_id) is not None:
+                err = self._ec_delete_fan_out(fid)
+            else:
+                err = self._replicate_delete(fid)
+            if err:
+                return 500, {"error": f"replication: {err}"}
+        if freed is None:
+            return 404, {"error": "not found"}
+        return 202, {"size": freed}
+
+    def _ec_delete_fan_out(self, fid: types.FileId) -> "str | None":
+        """Tombstone the needle in every other shard holder's .ecx/.ecj
+        (store_ec_delete.go:38; each holder keeps a full index copy).
+        A master that does not know the shard set fails the delete:
+        that beats a delete silently lost on some holder."""
+        from ..operation import master_json
+        try:
+            r = master_json(self.master, "GET",
+                            f"/dir/ec_lookup?volumeId={fid.volume_id}",
+                            timeout=5)
+        except OSError as e:
+            return str(e)
+        if "error" in r:
+            return f"ec_lookup: {r['error']}"
+        return self._delete_on({loc["url"]
+                                for loc in r.get("shardIdLocations", [])},
+                               fid)
+
+    def _replicate_delete(self, fid: types.FileId) -> "str | None":
+        """The delete on the other replicas of a replicated normal volume
+        (store_replicate.go:192 DistributedOperation)."""
+        v = self.store.find_volume(fid.volume_id)
+        if v is None or not v.super_block.replica_placement.byte():
+            return None
+        from ..operation import master_json
+        try:
+            locs = master_json(self.master, "GET",
+                               f"/dir/lookup?volumeId={fid.volume_id}",
+                               timeout=5).get("locations", [])
+        except OSError as e:
+            return str(e)
+        return self._delete_on({loc["url"] for loc in locs}, fid)
+
+    def _delete_on(self, urls: "set[str]", fid: types.FileId
+                   ) -> "str | None":
+        for url in sorted(urls - {self.url, self.store.public_url}):
+            status, data, _ = http_bytes(
+                "DELETE", f"{url}/{fid}?type=replicate", timeout=60)
+            if status >= 300 and status != 404:
+                return f"{url} -> {status}: {data[:200]!r}"
+        return None
 
     # -- volume admin -----------------------------------------------------
 
@@ -677,9 +807,10 @@ class VolumeServer:
         """:464 VolumeEcShardsUnmount: only the listed shards; no
         `shardIds` key unmounts the volume, an empty list nothing."""
         b = req.json()
+        vid = int(b["volumeId"])
         self.store.unmount_ec_shards(
-            int(b["volumeId"]),
-            [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
+            vid, [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
+        self.ec_reader.forget(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -704,6 +835,7 @@ class VolumeServer:
             self.store.unmount_ec_shards(vid)
         else:
             self.store.mount_ec_shards(vid, collection, [])
+        self.ec_reader.forget(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -754,6 +886,7 @@ class VolumeServer:
                                   [base + to_ext(i) for i in range(n_data)])
         ec_decoder.write_idx_file_from_ec_index(base)
         self.store.unmount_ec_shards(vid)
+        self.ec_reader.forget(vid)
         self.store.mount_volume(vid, collection)
         self._heartbeat_once()
         return 200, {}
@@ -917,6 +1050,23 @@ class VolumeServer:
         f = open(shard.path, "rb")
         f.seek(offset)
         return 200, (FileSlice(f, n), {"Content-Length": str(n)})
+
+    def _ec_scrub(self, req: Request):
+        """volume_grpc_scrub.go ScrubEcVolume, modes `index` and `local`
+        (shell/command_ec_scrub.go:52)."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        mode = b.get("mode", "local")
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            return 404, {"error": f"ec volume {vid} not mounted"}
+        if mode == "index":
+            count, errors = ev.scrub_index()
+            return 200, {"checked": count, "errors": errors,
+                         "brokenShards": []}
+        count, broken, errors = ev.scrub_local()
+        return 200, {"checked": count, "errors": errors,
+                     "brokenShards": broken}
 
     def _ec_info(self, req: Request):
         """:688 VolumeEcShardsInfo."""

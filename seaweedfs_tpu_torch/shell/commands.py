@@ -6,6 +6,7 @@
                 [-dataShards=10 -parityShards=4]
     ec.rebuild  [-volumeId=N] [-mode=stream|copy]
     ec.decode   -volumeId=N
+    ec.scrub    [-mode=local|index]
 
 Commands run against a CommandEnv holding the master address and the
 cluster admin lock token; the EC commands need the lock
@@ -530,6 +531,28 @@ def _rebuild_one(env: CommandEnv, vid: int, collection: str,
                 f"{tele['volumeGbps']} GB/s volume-rate, "
                 f"slice p95 {tele['sliceP95Ms']}ms]")
     return msg
+
+
+@command("ec.scrub")
+def cmd_ec_scrub(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_ec_scrub.go:31: every holder of every EC volume
+    checks its index (`-mode=index`) or also the needles whose intervals
+    it holds (`-mode=local`, the default; :52)."""
+    mode = _parse_flags(args).get("mode", "local")
+    out = []
+    for vid in _ec_volumes(env):
+        for url in _ec_shard_locations(env, vid):
+            r = http_json("POST", f"{url}/admin/ec/scrub",
+                          {"volumeId": vid, "mode": mode}, timeout=30)
+            if r.get("error"):
+                out.append(f"volume {vid} @ {url}: ERROR {r['error']}")
+            else:
+                status = "ok" if not r["errors"] else \
+                    f"{len(r['errors'])} errors, broken shards " \
+                    f"{r['brokenShards']}"
+                out.append(f"volume {vid} @ {url}: checked "
+                           f"{r['checked']} entries, {status}")
+    return "\n".join(out) if out else "no ec volumes"
 
 
 # --- helpers -------------------------------------------------------------

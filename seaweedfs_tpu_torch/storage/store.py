@@ -2,8 +2,10 @@
 volumes (weed/storage/store.go, disk_location.go) — the part of
 `seaweedfs_tpu/storage/store.py` that the EC admin routes and the
 heartbeat use, over the port's `Volume`: lookups, volume mount, unmount
-and delete, EC shard mount and unmount, and the heartbeat snapshot the
-master consumes.  Needle I/O comes with a later slice.
+and delete, EC shard mount and unmount, needle reads and deletes on
+normal and EC volumes, and the heartbeat snapshot the master consumes.
+An EcVolume holds open shard and `.ecx` handles: the store closes one it
+replaces or unmounts.  Needle writes come with a later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import threading
 
 from .erasure_coding.ec_context import to_ext
 from .erasure_coding.ec_volume import EcVolume
+from .needle import Needle
 from .volume import Volume
 
 _VOL_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
@@ -110,13 +113,47 @@ class Store:
             raise KeyError(f"volume {vid} not found")
         v.read_only = read_only
 
+    # -- needle IO (store.go:604) -----------------------------------------
+
+    def read_needle(self, vid: int, needle_id: int,
+                    cookie: int | None = None, ec_reader=None) -> Needle:
+        """store.go:604 ReadVolumeNeedle.  For EC volumes, `ec_reader`
+        (server/store_ec.EcReader) reads remote intervals and rebuilds
+        lost ones; without it only locally complete needles are
+        readable."""
+        v = self.find_volume(vid)
+        if v is not None:
+            return v.read_needle(needle_id, cookie=cookie)
+        ev = self.find_ec_volume(vid)
+        if ev is not None:
+            if ec_reader is not None:
+                return ec_reader.read_needle(ev, needle_id, cookie=cookie)
+            return ev.read_needle_local(needle_id, cookie=cookie)
+        raise KeyError(f"volume {vid} not found")
+
+    def delete_needle(self, vid: int, n: Needle) -> int:
+        """The freed size on a normal volume; 0 on an EC volume, whose
+        `.ecx` entry is tombstoned and the id journaled to `.ecj`."""
+        v = self.find_volume(vid)
+        if v is not None:
+            return v.delete_needle(n)
+        ev = self.find_ec_volume(vid)
+        if ev is not None:
+            ev.delete_needle(n.id)
+            return 0
+        raise KeyError(f"volume {vid} not found")
+
     # -- EC shard admin (store_ec.go) -------------------------------------
 
     def mount_ec_shards(self, vid: int, collection: str,
                         shard_ids: list[int]) -> EcVolume:
         """Open an EcVolume over the locally present shard files
-        (store_ec.go MountEcShards)."""
+        (store_ec.go MountEcShards), closing the one it replaces."""
         with self.lock:
+            for loc in self.locations:
+                old = loc.ec_volumes.pop(vid, None)
+                if old is not None:
+                    old.close()
             for loc in self.locations:
                 base = os.path.join(
                     loc.directory,
@@ -141,11 +178,15 @@ class Store:
                 ev = loc.ec_volumes.get(vid)
                 if ev is None:
                     continue
-                if shard_ids is not None:
-                    for sid in shard_ids:
-                        ev.shards.pop(int(sid), None)
-                if shard_ids is None or not ev.shards:
-                    del loc.ec_volumes[vid]
+                if shard_ids is None:
+                    loc.ec_volumes.pop(vid).close()
+                    return
+                for sid in shard_ids:
+                    shard = ev.shards.pop(int(sid), None)
+                    if shard is not None:
+                        shard.close()
+                if not ev.shards:
+                    loc.ec_volumes.pop(vid).close()
                 return
 
     # -- heartbeat (store.go:371 CollectHeartbeat) ------------------------
@@ -197,3 +238,5 @@ class Store:
         for loc in self.locations:
             for v in loc.volumes.values():
                 v.close()
+            for ev in loc.ec_volumes.values():
+                ev.close()

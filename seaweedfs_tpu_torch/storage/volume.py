@@ -2,8 +2,8 @@
 
 The part of `seaweedfs_tpu/storage/volume.py` that the EC path uses:
 create or open a volume, cookie-checked writes with a monotonic
-AppendAtNs, reads, the heartbeat's counts, sync, read-only, close and
-destroy.  Byte-compatible with the
+AppendAtNs, reads, tombstone deletes, the heartbeat's counts, sync,
+read-only, close and destroy.  Byte-compatible with the
 reference package, so either package reads the other's volumes.  One
 process, one writer: a lock serialises appends, and each acknowledged
 write is flushed to the OS before write_needle returns.
@@ -146,6 +146,24 @@ class Volume:
             offset += pad
         self._dat.write(n.to_bytes(self.version))
         return offset
+
+    def delete_needle(self, n: Needle) -> int:
+        """Append a zero-data tombstone record, then tombstone the map
+        (volume_write.go:222 doDeleteRequest).  Returns the freed size,
+        0 for a needle that is not there."""
+        with self.lock:
+            if self.read_only:
+                raise PermissionError(f"volume {self.id} is read-only")
+            existing = self.nm.get(n.id)
+            if existing is None:
+                return 0
+            tomb = Needle(cookie=n.cookie, id=n.id)
+            tomb.append_at_ns = self._next_append_at_ns()
+            self._append(tomb)
+            self.nm.delete(n.id)
+            self._dat.flush()
+            self.nm.flush()
+        return existing[1]
 
     # -- read path (volume_read.go:21 readNeedle) ------------------------
 

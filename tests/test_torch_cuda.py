@@ -622,3 +622,69 @@ def test_worker_device_cuda_without_a_card_fails(tmp_path):
         env=dict(os.environ, PYTHONPATH=repo), cwd=str(tmp_path))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "polling" not in out.stdout
+
+
+def test_degraded_reads_on_a_card_server_launch_nothing(cuda, tmp_path):
+    """A volume server whose codec is on the card serves needle reads of
+    an EC volume with a data shard lost: every needle equals its payload,
+    some reads were degraded, and the kernel was not launched (degraded
+    reads rebuild on the host CPU codec, as the reference's do)."""
+    import os
+
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage import types
+    from seaweedfs_tpu_torch.storage.erasure_coding import (ec_context,
+                                                            ec_encoder)
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    src = tmp_path / "src"
+    src.mkdir()
+    v = Volume(str(src), 1)
+    rng = np.random.default_rng(85)
+    payloads = {}
+    while v.dat_size() < 3 << 20:
+        nid = len(payloads) + 1
+        payloads[nid] = rng.bytes(int(rng.integers(1000, 300_000)))
+        v.write_needle(Needle(cookie=nid, id=nid, data=payloads[nid]))
+    v.close()
+    base = str(src / "1")
+    cpu = ec_context.ECContext(device="cpu")
+    ec_encoder.write_sorted_file_from_idx(base)
+    ec_encoder.write_ec_files(base, cpu)
+    ec_encoder.save_ec_volume_info(base, cpu, os.path.getsize(base + ".dat"),
+                                   3)
+    # shard 1 (the second MiB of the volume) is lost
+    dirs = [tmp_path / "a", tmp_path / "b"]
+    for i, d in enumerate(dirs):
+        d.mkdir()
+        for sid in range(14):
+            if sid % 2 == i and sid != 1:
+                os.link(f"{base}.ec{sid:02d}", d / f"1.ec{sid:02d}")
+        for ext in (".ecx", ".vif"):
+            os.link(base + ext, d / f"1{ext}")
+    master = MasterServer(pulse_seconds=1.0).start()
+    a = VolumeServer([str(dirs[0])], master=master.url,
+                     pulse_seconds=0.2).start()
+    b = VolumeServer([str(dirs[1])], device="cpu", master=master.url,
+                     pulse_seconds=0.2).start()
+    try:
+        for vs in (a, b):
+            http_json("POST", f"{vs.url}/admin/ec/mount",
+                      {"volumeId": 1, "shardIds": []}, timeout=10)
+        before = (rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED,
+                  stats.PROCESS.counter_value("ec_degraded_reads_total",
+                                              vid=1) or 0)
+        for nid, payload in payloads.items():
+            st, body, _ = http_bytes(
+                "GET", f"{a.url}/{types.FileId(1, nid, nid)}", timeout=60)
+            assert st == 200 and body == payload, nid
+        assert (rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED) == before[:2]
+        assert stats.PROCESS.counter_value("ec_degraded_reads_total",
+                                           vid=1) > before[2]
+    finally:
+        a.stop()
+        b.stop()
+        master.stop()

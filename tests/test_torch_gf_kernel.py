@@ -166,6 +166,11 @@ PORT_MODULES_OF_SLICE_5 = (
     "seaweedfs_tpu_torch.storage.store",
     "seaweedfs_tpu_torch.storage.erasure_coding.ec_volume")
 
+PORT_MODULES_OF_SLICE_7 = (
+    "seaweedfs_tpu_torch.ops.rs_cpu",
+    "seaweedfs_tpu_torch.storage.erasure_coding.ec_locate",
+    "seaweedfs_tpu_torch.server.store_ec")
+
 
 def test_port_imports_neither_jax_nor_reference_package():
     code = (
@@ -187,6 +192,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(mods) >= 31
     assert set(PORT_MODULES_OF_SLICE_2) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_5) <= set(mods)
+    assert set(PORT_MODULES_OF_SLICE_7) <= set(mods)
     assert bad == []
 
 
