@@ -110,6 +110,30 @@ Phases, each printing one JSON line:
    printed: about 14x the volume at 1 GiB (the batch's shards are padded
    to whole 1 MiB rows).
 
+8. write: the write path through the front door of the port's own
+   cluster: a `master -volumeSizeLimitMB 1024 -defaultReplication 000`
+   subprocess, 3 `volume -max 8` subprocesses (racks r1, r1, r2), the
+   admin and the worker in this process (`EcEncodeHandler(device=
+   "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
+   benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
+   65,536 for the run's time, printed), every read held against the
+   payload, and the volumes the assigns grew; 256 seeded needles of
+   1 KiB - 1 MiB under each of 001 and 010, each read back from every
+   location `/dir/lookup` gives and its record on each replica (bytes,
+   flags, ts, ETag against the ack's) compared; the second holder of a
+   001 volume stopped: a write to it answers 500 `replication:` before
+   and after the master drops the holder, and no assign hands out its
+   volumes; config 1's seeded needles (256 KiB - 4 MiB) through
+   `operation.submit` on 8 writers under collection `fill` until
+   `/dir/assign` stops naming the first volume (the master's 1 GiB
+   limit, seen through the heartbeat); detection's `erasure_coding` job
+   encodes it on the card (launches against the sum of `launches_for`
+   over its batches); every filled fid read back through
+   `operation.read` on 8 readers (0 launches, here and on every server's
+   `/metrics`); then `upload` and `download` on the command line.  Fill
+   and read-back GB/s and p50/p99, the job's wall and stages.  About 3x
+   the volume written.
+
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
 line.  Exits non-zero, with no result, when there is no CUDA device or
@@ -131,6 +155,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3.  The data sheet gives
 # no 32-bit integer rate, so the kernel's operations are bounded by its
@@ -157,6 +182,15 @@ READ_SAMPLE = 128                # needles read from server 0 a state
 LOST_SAMPLE_INTERVALS = 32       # of their intervals on the lost shards
 EC_DELETES = 3                   # needles deleted from an EC volume
 WORKER_BATCH_VID0 = 100          # batch volume i is volume 100 + i there
+WRITE_RACKS = ("r1", "r1", "r2")  # the write phase's 3 volume servers
+WRITE_MAX_VOLUMES = 8
+WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
+BENCH_N = 65_536                 # cut from weed benchmark's 1,048,576
+BENCH_SIZE = 1024                # weed benchmark's file size and
+BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
+REPLICATED = 256                 # seeded needles under each of 001 and 010
+FILL_WRITERS = 8
+FILL_READERS = 8
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 
 
@@ -1720,7 +1754,9 @@ def _job(admin: str, submit: "dict | None" = None,
             check(time.monotonic() < deadline,
                   f"detection proposed no {job_type} job")
             time.sleep(0.05)
-        check(len(new) == 1, f"detection proposed {new}")
+        check(len(new) == 1, f"detection proposed {new}: " + str([
+            j.get("params") for j in call("GET", "/maintenance/queue")[
+                "jobs"] if j["jobId"] in new]))
         jid = new[0]
     deadline = time.monotonic() + 900
     while True:
@@ -2091,6 +2127,390 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
     return out
 
 
+def _pcts(ms: "list[float]") -> dict:
+    ordered = sorted(ms)
+    return {"p50_ms": statistics.median(ordered),
+            "p99_ms": statistics.quantiles(ordered, n=100,
+                                          method="inclusive")[98]
+            if len(ordered) > 1 else ordered[0],
+            "max_ms": ordered[-1]}
+
+
+_CRC_PROBE = """
+import json, time
+import numpy as np
+from seaweedfs_tpu_torch.storage import crc
+buf = np.random.default_rng(0).bytes(4 << 20)
+crc.crc32c(buf)
+t = time.perf_counter()
+for _ in range(4):
+    crc.crc32c(buf)
+s = time.perf_counter() - t
+print(json.dumps({"path": "numpy" if crc.crc32c is crc.crc32c_numpy
+                  else "google_crc32c", "gbps": 4 * len(buf) / s / 1e9}))
+"""
+
+
+def _crc_probe() -> dict:
+    """Which CRC32-C the volume servers compute a needle's checksum with
+    (the same interpreter and path as `_start_procs` gives them), and its
+    rate on one core over a 4 MiB buffer (the fill's mean needle is
+    ~2.1 MiB)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _CRC_PROBE],
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    check(out.returncode == 0, f"the CRC probe: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def _record(directory: str, vid: int, collection: str, key: int):
+    """The live needle record of key in volume vid as it lies in
+    `directory` (its .idx's last entry for the key, then the .dat)."""
+    from seaweedfs_tpu_torch.storage import idx, types
+    from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+    base = os.path.join(directory, (f"{collection}_" if collection else "")
+                        + str(vid))
+    with open(base + ".idx", "rb") as f:
+        off, size = idx.live_entries(f.read())[key]
+    with open(base + ".dat", "rb") as f:
+        f.seek(types.to_actual_offset(off))
+        buf = f.read(get_actual_size(size, types.CURRENT_VERSION))
+    return Needle.from_bytes(buf, types.CURRENT_VERSION, expected_size=size)
+
+
+def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
+                limit_mb: int = WRITE_LIMIT_MB) -> dict:
+    """The write path through the front door of the port's own cluster:
+    a `master -volumeSizeLimitMB 1024 -defaultReplication 000`
+    subprocess, 3 `volume -max 8` subprocesses (racks r1, r1, r2), the
+    admin and the worker in this process (its codec on the card).
+    `benchmark.run_benchmark` (1 KiB files, 16 threads); 256 seeded
+    needles under each of 001 and 010, each read back from every
+    location with its record, then a lost replica that must fail the
+    write; a fill of config 1's needles through `operation.submit` on 8
+    writers until the master's limit seals the first volume; the
+    detected EC job that encodes it on the card; every filled fid read
+    back on 8 readers; `upload` and `download` on the command line."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import benchmark, operation
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.plugin import (AdminServer, EcEncodeHandler,
+                                            EcRebuildHandler, PluginWorker)
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.storage import types
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        _encode_work_items)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"w{i}") for i in range(len(WRITE_RACKS))]
+    procs: list = []
+    admin = worker = None
+    launches_name = \
+        'seaweedfs_tpu_gf_kernel_launches{entry="gf_apply_words"}'
+    cuts = {"benchmark_n": {"run": bench_n, "reference_default": 1 << 20,
+                            "why": "the run's time"}}
+    print(f"write phase: benchmark n = {bench_n} (weed benchmark's "
+          f"default 1,048,576, cut for the run's time)", flush=True)
+    try:
+        t0 = time.perf_counter()
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb),
+              "-defaultReplication", "000"]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        urls = _start_procs(
+            [["volume", "-dir", d, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-rack", rack]
+             for d, rack in zip(dirs, WRITE_RACKS)],
+            [d + ".log" for d in dirs], procs, "volume")
+        dir_of = dict(zip(urls, dirs))
+        proc_of = dict(zip(urls, procs[1:]))
+        admin = AdminServer(murl, detection_interval=3600).start()
+        worker = PluginWorker(admin.url, murl, os.path.join(tmp, "worker"),
+                              [EcEncodeHandler(device="cuda"),
+                               EcRebuildHandler()], poll_wait=1.0).start()
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def volumes():
+            out: dict = {}
+            for node, v in iter_volume_list_volumes(get("/vol/list")):
+                out.setdefault(v["id"], []).append((node["url"], v))
+            return out
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) ==
+             len(urls), "3 volume servers registered")
+        start_s = time.perf_counter() - t0
+        check(volumes() == {}, "the cluster starts with no volume")
+
+        # 1. weed benchmark's shape; every read held against the payload
+        import random
+        rng0 = random.Random(0)
+        payload = bytes(rng0.getrandbits(8) for _ in range(BENCH_SIZE))
+        reads = []
+        real_read = operation.read
+
+        def checked_read(master, fid, *a, **kw):
+            data = real_read(master, fid, *a, **kw)
+            check(data == payload, f"benchmark read of {fid}: "
+                                   f"{len(data)} bytes, not its payload")
+            reads.append(fid)
+            return data
+        # what shares the host with the benchmark's 16 client threads
+        host = {"cpus": len(os.sched_getaffinity(0)),
+                "loadavg_1m": os.getloadavg()[0],
+                "threads_in_this_process": threading.active_count()}
+        rs_cuda.LAUNCHES = 0
+        operation.read = checked_read
+        try:
+            bench = benchmark.run_benchmark(murl, bench_n, BENCH_SIZE,
+                                            BENCH_C)
+        finally:
+            operation.read = real_read
+        host["loadavg_1m_after"] = os.getloadavg()[0]
+        check(len(reads) == bench_n and len(set(reads)) == bench_n,
+              f"benchmark read {len(set(reads))} of {bench_n} fids")
+        bench_grown = sorted(volumes())
+        check(bench_grown, "the benchmark grew no volume")
+        bench_launches = rs_cuda.LAUNCHES
+
+        # 2. replication: 256 seeded needles under each of 001 and 010
+        rng = np.random.default_rng([seed, 10])
+        sizes = [int(x) for x in rng.integers(1 << 10, 1 << 20,
+                                              2 * REPLICATED)]
+        jobs = [("001" if i < REPLICATED else "010", i, n)
+                for i, n in enumerate(sizes)]
+
+        def write_replicated(job):
+            rep, i, n = job
+            body = _payload(seed + 1, i, n)
+            a, r = operation.assign_and_upload(murl, body, replication=rep)
+            return rep, i, a.fid, r["eTag"]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            acked = list(pool.map(write_replicated, jobs))
+        repl_s = time.perf_counter() - t
+        racks = dict(zip(urls, WRITE_RACKS))
+        repl_vids: dict = {"001": set(), "010": set()}
+        for rep, i, fid, etag in acked:
+            f = types.parse_file_id(fid)
+            repl_vids[rep].add(f.volume_id)
+            locs = [loc["url"] for loc in
+                    operation.lookup(murl, f.volume_id, use_cache=False)]
+            check(len(locs) == 2 and len({racks[u] for u in locs}) ==
+                  (1 if rep == "001" else 2),
+                  f"{rep} fid {fid} at {locs}")
+            body = _payload(seed + 1, i, sizes[i])
+            recs = []
+            for u in locs:
+                st, data, _ = http_bytes("GET", f"{u}/{fid}", timeout=120)
+                check(st == 200 and data == body,
+                      f"{rep} fid {fid} on {u}: {st}, not its bytes")
+                recs.append(_record(dir_of[u], f.volume_id, "", f.key))
+            check(all(r.etag() == etag and r.data == body for r in recs),
+                  f"{rep} fid {fid}: a replica's ETag is not the ack's")
+            check(all((r.cookie, r.flags, r.last_modified, r.checksum) ==
+                      (recs[0].cookie, recs[0].flags, recs[0].last_modified,
+                       recs[0].checksum) for r in recs),
+                  f"{rep} fid {fid}: the replicas' records differ")
+        # the second holder of a 001 volume goes away
+        a = operation.assign(murl, replication="001")
+        vid = types.parse_file_id(a.fid).volume_id
+        holders = [loc["url"] for loc in operation.lookup(
+            murl, vid, use_cache=False)]
+        second = next(u for u in holders if u != a.url)
+        second_vids = {v for v, reps in volumes().items()
+                       if second in [u for u, _ in reps]}
+        bad = _stop_peers([proc_of[second]])
+        check(not bad, f"{second} did not stop: {bad}")
+        st, body, _ = http_bytes("POST", f"{a.url}/{a.fid}", b"unacked",
+                                 timeout=60)
+        check(st == 500 and b'"replication: ' in body,
+              f"a write with a replica down: {st} {body[:200]!r}")
+        t = time.perf_counter()
+        poll(lambda: second not in get("/cluster/status")["dataNodes"],
+             "the master drops the stopped replica")
+        drop_s = time.perf_counter() - t
+        st, body2, _ = http_bytes("POST", f"{a.url}/{a.fid}", b"unacked",
+                                  timeout=60)
+        check(st == 500 and b'"replication: ' in body2,
+              f"a write with a replica dropped: {st} {body2[:200]!r}")
+        try:
+            b = operation.assign(murl, replication="001")
+            handed = types.parse_file_id(b.fid).volume_id
+            check(handed not in second_vids,
+                  f"an assign handed out volume {handed} of {second}")
+        except RuntimeError as e:
+            # the one refusal expected: 001 has no same-rack pair left
+            if "not enough same-rack nodes" not in str(e):
+                raise
+            handed = str(e)
+        live = [u for u in urls if u != second]
+
+        # 3. the fill: config 1's needles until the limit seals volume 1
+        first = types.parse_file_id(operation.assign(
+            murl, collection="fill").fid).volume_id
+        frng = np.random.default_rng(seed)
+        counter = itertools.count(1)
+        stop = threading.Event()
+        written: list = []          # (fid, nid, size, ms)
+        lock = threading.Lock()
+        fill_sizes: dict = {}
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    nid = next(counter)
+                    fill_sizes[nid] = int(frng.integers(256 << 10, 4 << 20))
+                body = _payload(seed, nid, fill_sizes[nid])
+                t = time.perf_counter()
+                fid = operation.submit(murl, body, collection="fill")
+                ms = (time.perf_counter() - t) * 1e3
+                with lock:
+                    written.append((fid, nid, len(body), ms))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs):
+                    time.sleep(0.2)
+                    nxt = types.parse_file_id(operation.assign(
+                        murl, collection="fill").fid).volume_id
+                    if nxt != first:
+                        break
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        fill_bytes = sum(w[2] for w in written)
+        in_first = [w for w in written
+                    if types.parse_file_id(w[0]).volume_id == first]
+        (holder,) = [loc["url"] for loc in operation.lookup(
+            murl, first, use_cache=False)]
+        dat_path = os.path.join(dir_of[holder], f"fill_{first}.dat")
+        dat_size = os.path.getsize(dat_path)
+        poll(lambda: [v["size"] for _, v in volumes()[first]] == [dat_size],
+             "the master sees the filled volume's size")
+        check(dat_size >= limit_mb << 20, f"volume {first} is {dat_size} "
+                                          f"bytes, under the limit")
+
+        # 4. the detected EC job encodes it on the card (in this process)
+        ctx = ECContext(device="cuda")
+        expect = sum(launches_for(ctx.data_shards, item[3])
+                     for item in _encode_work_items(dat_size, ctx))
+        rs_cuda.LAUNCHES = 0
+        job = _job(admin.url, job_type="erasure_coding")
+        enc_launches = rs_cuda.LAUNCHES
+        check(job["params"]["volumeId"] == first, f"detected {job['params']}")
+        check(enc_launches == expect,
+              f"the fill's encode launched {enc_launches}, the staging "
+              f"windows of its work list are {expect}")
+        poll(lambda: sorted(s for loc in get(
+            f"/dir/ec_lookup?volumeId={first}").get(
+                "shardIdLocations", []) for s in loc["shardIds"]) ==
+             list(range(ctx.total)) and first not in volumes(),
+             "14 shards listed and the volume gone")
+
+        # 5. every filled fid read back from the EC volume, 8 readers
+        def launches_on(u):
+            text = http_bytes("GET", f"{u}/metrics")[1].decode()
+            return _metric(text, launches_name)
+        before = {u: launches_on(u) for u in live}
+        rs_cuda.LAUNCHES = 0
+
+        def read_one(w):
+            fid, nid, size, _ = w
+            t = time.perf_counter()
+            data = operation.read(murl, fid)
+            ms = (time.perf_counter() - t) * 1e3
+            check(data == _payload(seed, nid, fill_sizes[nid]),
+                  f"fill fid {fid}: {len(data)} bytes, not its payload")
+            return ms
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_READERS) as pool:
+            read_ms = list(pool.map(read_one, written))
+        read_s = time.perf_counter() - t
+        read_launches = rs_cuda.LAUNCHES + int(sum(
+            launches_on(u) - before[u] for u in live))
+        check(read_launches == 0,
+              f"the read-back launched the kernel {read_launches} times")
+
+        # 6. upload and download on the command line
+        src = os.path.join(tmp, "upload.bin")
+        with open(src, "wb") as f:
+            f.write(_payload(seed + 2, 1, 3 << 20))
+        env = dict(os.environ,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        up = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "upload",
+             "-master", murl, src], capture_output=True, text=True,
+            timeout=120, env=env)
+        check(up.returncode == 0, f"upload: {up.stderr[-2000:]}")
+        cli_fid = up.stdout.strip()
+        down = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "download",
+             "-master", murl, cli_fid], capture_output=True, timeout=120,
+            env=env)
+        check(down.returncode == 0 and
+              down.stdout == _payload(seed + 2, 1, 3 << 20),
+              f"download of {cli_fid}: {down.returncode}, "
+              f"{len(down.stdout)} bytes, {down.stderr[-2000:]!r}")
+        heartbeats = get("/cluster/status")["heartbeats"]
+        crc_probe = _crc_probe()
+    finally:
+        if worker is not None:
+            worker.stop()
+        if admin is not None:
+            admin.stop()
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"the master or a volume server did not stop "
+                   f"cleanly: {bad}")
+    write_ms = [w[3] for w in written]
+    out = {"phase": "write", "servers": len(urls),
+           "racks": list(WRITE_RACKS), "cuts": cuts,
+           "cluster_start_seconds": start_s,
+           "benchmark": {"ops": bench, "volumes_grown": len(bench_grown),
+                         "host": host,
+                         "every_read_its_bytes": True,
+                         "kernel_launches": bench_launches},
+           "replication": {"needles": len(acked), "seconds": repl_s,
+                           "volumes": {k: sorted(v) for k, v in
+                                       repl_vids.items()},
+                           "every_replica_equal": True,
+                           "stopped": second, "unacked_status": 500,
+                           "master_drop_seconds": drop_s,
+                           "assign_after_drop": handed},
+           "fill": {"writers": FILL_WRITERS, "needles": len(written),
+                    "in_first_volume": len(in_first), "bytes": fill_bytes,
+                    "seconds": fill_s, "gbps": fill_bytes / fill_s / 1e9,
+                    **_pcts(write_ms), "volume": first,
+                    "volume_bytes": dat_size, "limit_bytes": limit_mb << 20},
+           "encode": {"jobId": job["jobId"], "seconds": job["wall_s"],
+                      "gbps": dat_size / job["wall_s"] / 1e9,
+                      "launches": enc_launches, "expected_launches": expect,
+                      "message": job["message"], "stages": job["stages"]},
+           "read_back": {"readers": FILL_READERS, "needles": len(read_ms),
+                         "bytes": fill_bytes, "seconds": read_s,
+                         "gbps": fill_bytes / read_s / 1e9,
+                         **_pcts(read_ms), "kernel_launches": read_launches},
+           "cli": {"fid": cli_fid, "bytes": 3 << 20, "round_trip": True},
+           "crc32c": crc_probe, "master_heartbeats": heartbeats}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -2124,6 +2544,7 @@ def main(argv=None) -> int:
                                          os.path.join(work, "batch"))
         worker = phase_worker(ec_state, batch_state,
                               os.path.join(work, "worker"))
+        write = phase_write(os.path.join(work, "write"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -2139,7 +2560,9 @@ def main(argv=None) -> int:
                                    if "kernel_launches" in r),
               "worker_encode": worker["encode"]["launches"],
               "worker_rebuild": worker["rebuild"]["launches"],
-              "worker_scatter": worker["scatter"]["launches"]}),
+              "worker_scatter": worker["scatter"]["launches"],
+              "write_encode": write["encode"]["launches"],
+              "write_reads": write["read_back"]["kernel_launches"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

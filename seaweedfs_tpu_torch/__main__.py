@@ -1,9 +1,11 @@
 """Command line of the port.
 
     python3 -m seaweedfs_tpu_torch master [-ip 127.0.0.1] [-port 9333]
-        [-volumeSizeLimitMB 1024] [-telemetry -telemetryUrl URL]
+        [-volumeSizeLimitMB 1024] [-defaultReplication 000]
+        [-telemetry -telemetryUrl URL]
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
-        [-ip 127.0.0.1] [-mserver HOST:PORT] [-device cuda]
+        [-ip 127.0.0.1] [-mserver HOST:PORT] [-device cuda] [-max 8]
+        [-dataCenter DC] [-rack RACK]
     python3 -m seaweedfs_tpu_torch shell [-master HOST:PORT]
         ["lock; ec.encode -volumeId=1; unlock"]
     python3 -m seaweedfs_tpu_torch admin [-ip 127.0.0.1] [-port 23646]
@@ -11,10 +13,17 @@
     python3 -m seaweedfs_tpu_torch worker [-admin HOST:PORT]
         [-master HOST:PORT] [-dir DIR]
         [-capabilities erasure_coding,ec_rebuild] [-device cuda]
+    python3 -m seaweedfs_tpu_torch benchmark [-master HOST:PORT]
+        [-n 1000] [-size 1024] [-c 16]
+    python3 -m seaweedfs_tpu_torch upload [-master HOST:PORT] FILE
+    python3 -m seaweedfs_tpu_torch download [-master HOST:PORT] FID
 
 `master` starts the master (`server/master_server.py`) and `volume` a
 volume server (`server/volume_server.py`) that heartbeats to
-`-mserver` (without it, the server has no master).  Each prints
+`-mserver` (without it, the server has no master), reporting `-max`
+volume slots and its `-dataCenter` and `-rack`, which the master's
+placement of new volumes reads.  The master grows volumes of
+`-defaultReplication` for assigns that name none.  Each prints
 `<role> server listening on <ip>:<port>` on its first line (`-port 0`
 takes a free port) and serves until SIGTERM or SIGINT, when it stops
 cleanly and exits 0.  A master given `-telemetry` and `-telemetryUrl`
@@ -35,6 +44,11 @@ pulled volumes on its `-device` (the card by default; `-device cuda`
 must find it at start), and both `erasure_coding` and `ec_rebuild`
 bring the rebuild handler.  Both serve until SIGTERM or SIGINT, stop
 and exit 0.
+
+`benchmark` writes `-n` files of `-size` bytes through `-master` on
+`-c` threads, then reads each back, and prints one JSON line of
+latencies a phase (`benchmark.py`); `upload` writes a file as one needle
+and prints its fid; `download` writes a fid's bytes to standard output.
 """
 
 from __future__ import annotations
@@ -75,6 +89,7 @@ def main(argv=None) -> int:
     m.add_argument("-ip", default="127.0.0.1")
     m.add_argument("-port", type=int, default=9333)
     m.add_argument("-volumeSizeLimitMB", type=int, default=1024)
+    m.add_argument("-defaultReplication", default="000")
     m.add_argument("-telemetry", action="store_true",
                    help="opt-in anonymous cluster reports (default off)")
     m.add_argument("-telemetryUrl", default="",
@@ -87,6 +102,9 @@ def main(argv=None) -> int:
                    help="master host:port (none: no heartbeat)")
     v.add_argument("-device", default=None,
                    help="codec device: cuda (the default) or cpu")
+    v.add_argument("-max", type=int, default=8)
+    v.add_argument("-dataCenter", default="")
+    v.add_argument("-rack", default="")
     ad = sub.add_parser("admin", help="start the maintenance admin")
     ad.add_argument("-ip", default="127.0.0.1")
     ad.add_argument("-port", type=int, default=23646)
@@ -108,6 +126,18 @@ def main(argv=None) -> int:
     sh.add_argument("-master", default="127.0.0.1:9333")
     sh.add_argument("command", nargs="*",
                     help="one `;`-separated command line")
+    bm = sub.add_parser("benchmark",
+                        help="write/read load test (weed benchmark)")
+    bm.add_argument("-master", default="127.0.0.1:9333")
+    bm.add_argument("-n", type=int, default=1000)
+    bm.add_argument("-size", type=int, default=1024)
+    bm.add_argument("-c", type=int, default=16)
+    up = sub.add_parser("upload", help="upload a file")
+    up.add_argument("-master", default="127.0.0.1:9333")
+    up.add_argument("file")
+    down = sub.add_parser("download", help="download a fid")
+    down.add_argument("-master", default="127.0.0.1:9333")
+    down.add_argument("fid")
     args = ap.parse_args(argv)
 
     if args.cmd == "master":
@@ -124,7 +154,8 @@ def main(argv=None) -> int:
         try:
             return _serve(MasterServer(
                 args.ip, args.port,
-                volume_size_limit_mb=args.volumeSizeLimitMB),
+                volume_size_limit_mb=args.volumeSizeLimitMB,
+                default_replication=args.defaultReplication),
                 _listening("master server"), report)
         finally:
             reporter.stop()
@@ -135,7 +166,9 @@ def main(argv=None) -> int:
         from .server.volume_server import VolumeServer
         return _serve(VolumeServer(
             args.dir.split(","), host=args.ip, port=args.port,
-            device=args.device or "cuda", master=args.mserver),
+            device=args.device or "cuda", master=args.mserver,
+            data_center=args.dataCenter, rack=args.rack,
+            max_volume_count=args.max),
             _listening("volume server"))
     if args.cmd == "admin":
         from .plugin.admin import AdminServer
@@ -157,6 +190,22 @@ def main(argv=None) -> int:
         return _serve(PluginWorker(args.admin, args.master, args.dir,
                                    handlers),
                       lambda w: f"worker {w.worker_id} polling {w.admin}")
+    if args.cmd == "benchmark":
+        import json
+        from .benchmark import run_benchmark
+        for r in run_benchmark(args.master, args.n, args.size, args.c):
+            print(json.dumps(r))
+        return 0
+    if args.cmd == "upload":
+        from . import operation
+        with open(args.file, "rb") as f:
+            data = f.read()
+        print(operation.submit(args.master, data, name=args.file))
+        return 0
+    if args.cmd == "download":
+        from . import operation
+        sys.stdout.buffer.write(operation.read(args.master, args.fid))
+        return 0
     from .shell import CommandEnv
     from .shell.commands import run_script
     for out in run_script(CommandEnv(args.master), " ".join(args.command)):

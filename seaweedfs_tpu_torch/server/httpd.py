@@ -284,6 +284,10 @@ class HttpServer:
         class Server(ThreadingHTTPServer):
             daemon_threads = True
             allow_reuse_address = True
+            # every client call dials a fresh connection: with the
+            # default backlog of 5, a burst of concurrent writers
+            # overflows it and a dropped SYN waits out a 1 s retransmit
+            request_queue_size = 128
 
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)

@@ -1,22 +1,26 @@
-"""Master server: the topology registry, lookups and the admin lock that
-the EC path uses (weed/server/master_server.go,
-master_grpc_server_volume.go; pb/master.proto), the part of
-`seaweedfs_tpu/server/master_server.py` that heartbeating volume servers
-and the shell's `ec.encode` / `ec.rebuild` / `ec.decode` call, as JSON
+"""Master server: the topology registry, file-id assignment with volume
+growth, lookups and the admin lock (weed/server/master_server.go,
+master_grpc_server_assign.go:49, master_grpc_server_volume.go;
+pb/master.proto), the part of `seaweedfs_tpu/server/master_server.py`
+that heartbeating volume servers, writers and the shell call, as JSON
 over the port's `HttpServer`:
 
     POST /heartbeat                    <- master.proto:12 SendHeartbeat
+    GET  /dir/assign (and POST)        <- master.proto:16 Assign
     GET  /dir/lookup                   <- master.proto:15 LookupVolume
     GET  /dir/ec_lookup                <- master.proto:30 LookupEcVolume
-    GET  /vol/list                     <- master.proto:28 VolumeList
+    GET  /dir/status, /vol/list        <- master.proto:28 VolumeList
+    POST /vol/grow                     <- VolumeGrow
     GET  /cluster/status
     POST /cluster/lease_admin_token    <- master.proto:44 LeaseAdminToken
     POST /cluster/release_admin_token  <- master.proto:46 ReleaseAdminToken
 
 The replies carry the reference's keys.  One node, so it is always the
-leader: no raft, no file-id sequencer, no /dir/assign, /vol/grow,
-/cluster/watch or /metrics (ROADMAP).  `/cluster/status` also counts the
-heartbeats received (`heartbeats`).  It imports no torch.
+leader: no raft log, no /cluster/watch, /metrics or per-fid JWT
+(ROADMAP).  Without a log, the file-id sequencer is floored by each
+heartbeat's `maxFileKey`, so a master that restarts never issues a key a
+volume server holds.  `/cluster/status` also counts the heartbeats
+received (`heartbeats`).  It imports no torch.
 """
 
 from __future__ import annotations
@@ -25,8 +29,17 @@ import threading
 import time
 import uuid
 
+from ..sequence import MemorySequencer
+from ..storage.replica_placement import ReplicaPlacement
+from ..storage.ttl import read_ttl
+from ..storage.types import FileId, check_path_fields
 from ..topology import Topology
-from .httpd import HttpServer, Request
+from ..topology.topology import VolumeInfo
+from .httpd import HttpServer, Request, http_json
+
+
+class _AllocateRefused(Exception):
+    """A reachable volume server answered an allocation with an error."""
 
 
 class MasterServer:
@@ -34,10 +47,16 @@ class MasterServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  volume_size_limit_mb: int = 1024,
+                 default_replication: str = "000",
                  pulse_seconds: float = 1.0):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
+        self.sequencer = MemorySequencer()
+        self.default_replication = default_replication
+        # serialises growth: concurrent assigns that find nothing
+        # writable grow one set between them
+        self._grow_lock = threading.Lock()
         self.topology_id = str(uuid.uuid4())
         self.heartbeats = 0
         self._lock = threading.Lock()
@@ -48,9 +67,13 @@ class MasterServer:
         self.http.role = "master"
         r = self.http.route
         r("POST", "/heartbeat", self._heartbeat)
+        r("GET", "/dir/assign", self._assign)
+        r("POST", "/dir/assign", self._assign)
         r("GET", "/dir/lookup", self._lookup)
         r("GET", "/dir/ec_lookup", self._ec_lookup)
+        r("GET", "/dir/status", self._vol_list)
         r("GET", "/vol/list", self._vol_list)
+        r("POST", "/vol/grow", self._vol_grow)
         r("GET", "/cluster/status", self._cluster_status)
         r("POST", "/cluster/lease_admin_token", self._lease_admin)
         r("POST", "/cluster/release_admin_token", self._release_admin)
@@ -69,12 +92,158 @@ class MasterServer:
     # -- handlers ---------------------------------------------------------
 
     def _heartbeat(self, req: Request):
-        self.topology.register_heartbeat(req.json())
+        hb = req.json()
+        # the sequencer's floor (topology.go FindMaxFileKey): above the
+        # largest needle key any reporting server holds
+        mfk = int(hb.get("maxFileKey", 0))
+        if mfk:
+            self.sequencer.set_max(mfk)
+        self.topology.register_heartbeat(hb)
         with self._lock:
             self.heartbeats += 1
         return 200, {"volumeSizeLimit": self.topology.volume_size_limit,
                      "leader": self.url,
                      "topologyId": self.topology_id}
+
+    def _assign(self, req: Request):
+        """master_grpc_server_assign.go:49 Assign + topology.go:322
+        PickForWrite, growing volumes when nothing is writable."""
+        count = int(req.query.get("count", 1))
+        collection = req.query.get("collection", "")
+        try:
+            # the collection names files on every server this assign
+            # can grow onto: reject traversal at the front door
+            check_path_fields(collection)
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        replication = req.query.get("replication", self.default_replication)
+        ttl = req.query.get("ttl", "")
+        ttl_u32 = _ttl_u32(ttl)
+        try:
+            vid, nodes = self.topology.pick_for_write(
+                collection, replication, ttl_u32)
+        except LookupError:
+            try:
+                # grow a set (volume_growth.go findVolumeCount: 7/6/3 by
+                # copy count), capped at one a copy per 16 free slots so
+                # a small cluster grows one and other collections keep
+                # their slots
+                free = sum(max(0, n.free_space)
+                           for n in self.topology.alive_nodes())
+                per_round, copies = _growth_plan(replication)
+                n_grow = max(1, min(per_round, free // (16 * copies)))
+                self._grow_volume(collection, replication, ttl,
+                                  count=n_grow, only_if_unwritable=True)
+            except LookupError as e:
+                return 500, {"error": f"cannot grow volume: {e}"}
+            vid, nodes = self.topology.pick_for_write(
+                collection, replication, ttl_u32)
+        # a granted count is honest only when the sequencer reserves a
+        # contiguous range the client may derive keys from
+        if not self.sequencer.reserves_ranges:
+            count = 1
+        key = self.sequencer.next_file_id(count)
+        cookie = uuid.uuid4().int & 0xFFFFFFFF
+        node = nodes[0]
+        return 200, {
+            "fid": str(FileId(vid, key, cookie)),
+            "url": node.url,
+            "publicUrl": node.public_url,
+            "count": count,
+            "replicas": [{"url": n.url, "publicUrl": n.public_url}
+                         for n in nodes[1:]],
+        }
+
+    def _grow_volume(self, collection: str, replication: str, ttl: str,
+                     count: int = 1,
+                     only_if_unwritable: bool = False) -> list[int]:
+        """volume_growth.go: plan targets, then allocate on each
+        (AllocateVolume -> /admin/allocate_volume).  A target that
+        refuses is left out of the next plan; one that cannot be reached
+        is marked dead.  Either way the set's allocations so far are
+        rolled back and the volume is planned again, up to 4 times."""
+        with self._grow_lock:
+            if only_if_unwritable:
+                # checked again under the lock: the assigns that found
+                # nothing writable together grow one set
+                try:
+                    self.topology.pick_for_write(
+                        collection, replication, _ttl_u32(ttl))
+                    return []
+                except LookupError:
+                    pass
+            grown = []
+            for _ in range(count):
+                last_err: object = None
+                excluded: set[str] = set()
+                for _attempt in range(4):
+                    targets = self.topology.plan_growth(
+                        replication, exclude=excluded)
+                    vid = self.topology.next_volume_id()
+                    done = []
+                    try:
+                        for node in targets:
+                            r = http_json(
+                                "POST", f"{node.url}/admin/allocate_volume",
+                                {"volumeId": vid, "collection": collection,
+                                 "replication": replication, "ttl": ttl},
+                                timeout=10)
+                            if "error" in r:
+                                # alive but refusing (disk full, perms)
+                                excluded.add(node.url)
+                                raise _AllocateRefused(
+                                    f"{node.url}: {r['error']}")
+                            done.append(node)
+                            # until the node's heartbeat confirms it
+                            with self.topology.lock:
+                                node.volumes[vid] = VolumeInfo(
+                                    id=vid, collection=collection,
+                                    replica_placement=ReplicaPlacement
+                                    .from_string(replication or "000")
+                                    .byte(),
+                                    ttl=_ttl_u32(ttl))
+                    except _AllocateRefused as e:
+                        self._rollback_allocations(vid, done)
+                        last_err = e
+                        continue
+                    except OSError as e:
+                        self._rollback_allocations(vid, done)
+                        self.topology.mark_dead(node.url)
+                        last_err = e
+                        continue
+                    grown.append(vid)
+                    break
+                else:
+                    if grown:
+                        # free slots ran out mid-set: what grew is
+                        # writable, and the assign goes on with it
+                        break
+                    raise LookupError(f"volume growth failed: {last_err}")
+            return grown
+
+    def _rollback_allocations(self, vid: int, done: list) -> None:
+        """Undo a partial set: the volumes already created would come
+        back with their nodes' next heartbeats and hold a slot each."""
+        for n in done:
+            with self.topology.lock:
+                n.volumes.pop(vid, None)
+            for _attempt in range(2):
+                try:
+                    r = http_json("POST", f"{n.url}/admin/delete_volume",
+                                  {"volumeId": vid}, timeout=10)
+                except OSError:
+                    break   # the node went away: its heartbeat re-adds
+                if "error" not in r:
+                    break
+
+    def _vol_grow(self, req: Request):
+        body = req.json()
+        # each target's allocate route checks the collection
+        vids = self._grow_volume(
+            body.get("collection", ""),
+            body.get("replication", self.default_replication),
+            body.get("ttl", ""), count=int(body.get("count", 1)))
+        return 200, {"volumeIds": vids}
 
     def _lookup(self, req: Request):
         vid_str = req.query.get("volumeId", "")
@@ -141,3 +310,18 @@ class MasterServer:
             self._admin_token = None
             self._admin_token_ts = 0.0
         return 200, {}
+
+
+def _ttl_u32(ttl: str) -> int:
+    return read_ttl(ttl).to_u32() if ttl else 0
+
+
+def _growth_plan(replication: str) -> "tuple[int, int]":
+    """(volumes a growth round, copies a volume) (volume_growth.go:32
+    findVolumeCount): 7 unreplicated, 6 for 2 copies, 3 for 3, else 1."""
+    try:
+        copies = ReplicaPlacement.from_string(
+            replication or "000").copy_count()
+    except (ValueError, AttributeError):
+        return 1, 1
+    return {1: 7, 2: 6, 3: 3}.get(copies, 1), copies

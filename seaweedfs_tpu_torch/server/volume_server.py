@@ -9,7 +9,15 @@ a master, and the public data path for reads and deletes.
   from survivors on the host CPU codec (`store_ec.EcReader`).  A delete
   on an EC volume tombstones the needle on every holder the master's
   `/dir/ec_lookup` lists; on a replicated normal volume, on every
-  replica.  `POST`/`PUT` answer 405: needle writes are not ported.
+  replica.
+- `POST` / `PUT /<vid>,<key><cookie>`: write a needle (`name` and `ts`
+  in the query, the mime type in `Content-Type`), flushed to the OS
+  before the answer, then on every other replica of a replicated volume
+  with `?type=replicate` and the stamped `ts`, so that every replica
+  holds the same needle record.  A replica that fails the write fails
+  the request (500, no ack).
+- `/admin/allocate_volume`: a new empty volume, for the master's
+  growth.
 
 - `/admin/ec/generate`: encode a read-only volume, locally or, with a
   `placement` map ({shard_id: url}), as a scatter-encode: each shard
@@ -39,8 +47,9 @@ to the master's `/heartbeat` at start, every `pulse_seconds`, and at
 once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
-remote shard.  No TLS, admin JWT, fault sites, QoS throttle, hot-needle
-cache, resize-on-read or native read plane (ROADMAP C).  Counters go to
+remote shard.  No TLS, JWTs, fault sites, QoS throttle, hot-needle
+cache, resize-on-read, group commit or native read and write planes
+(ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts.
@@ -50,9 +59,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-import re
 import threading
 import time
+import urllib.parse
 import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -63,22 +72,10 @@ from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
 from ..storage.needle import Needle
 from ..storage.store import Store
+from ..storage.types import check_path_fields
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     http_download, http_json)
 from .store_ec import EcReader
-
-_SAFE_EXT = re.compile(r"^\.(dat|idx|vif|ecx|ecj|ec\d{2})$")
-_SAFE_COLLECTION = re.compile(r"^[A-Za-z0-9_.-]*$")
-
-
-def check_path_fields(collection: str, ext: str | None = None) -> None:
-    """Both fields land in file paths: reject traversal before any path
-    is built."""
-    if ext is not None and not _SAFE_EXT.match(ext):
-        raise ValueError(f"unacceptable ext {ext!r}")
-    if not _SAFE_COLLECTION.match(collection):
-        raise ValueError(f"unacceptable collection {collection!r}")
-
 
 class VolumeServer:
     """The EC admin plane of one volume server over `directories`.  The
@@ -88,20 +85,26 @@ class VolumeServer:
     def __init__(self, directories: list[str], host: str = "127.0.0.1",
                  port: int = 0, public_url: str = "",
                  device: str = "cuda", master: str = "",
-                 pulse_seconds: float = 1.0):
+                 pulse_seconds: float = 1.0, data_center: str = "",
+                 rack: str = "", max_volume_count: int = 8):
         self.device = device
         self.master = master
         self.pulse_seconds = pulse_seconds
+        self.data_center = data_center
+        self.rack = rack
         self.http = HttpServer(host, port)
         self.http.role = "volume"
         self.store = Store(directories, ip=host, port=self.http.port,
                            public_url=public_url or self.http.url)
+        for loc in self.store.locations:
+            loc.max_volume_count = max_volume_count
         self.metrics = stats.PROCESS
         self._hb_stop = threading.Event()
         self._hb_thread: "threading.Thread | None" = None
         self._hb_lock = threading.Lock()
         self._last_hb_error: "str | None" = None
         r = self.http.route
+        r("POST", "/admin/allocate_volume", self._allocate_volume)
         r("POST", "/admin/set_readonly", self._set_readonly)
         r("POST", "/admin/receive_file", self._receive_file)
         r("GET", "/admin/volume_file", self._read_volume_file)
@@ -172,9 +175,14 @@ class VolumeServer:
             return
         from ..operation import master_json
         with self._hb_lock:
+            hb = self.store.collect_heartbeat()
+            if self.data_center:
+                hb["dataCenter"] = self.data_center
+            if self.rack:
+                hb["rack"] = self.rack
             try:
-                r = master_json(self.master, "POST", "/heartbeat",
-                                self.store.collect_heartbeat(), timeout=5)
+                r = master_json(self.master, "POST", "/heartbeat", hb,
+                                timeout=5)
             except OSError:
                 return
         err = r.get("error")
@@ -235,10 +243,11 @@ class VolumeServer:
             return 404, {"error": f"bad file id {fid_str!r}"}
         if req.method in ("GET", "HEAD"):
             return self._get_needle(fid, req.headers.get("Range", ""))
+        if req.method in ("POST", "PUT"):
+            return self._put_needle(fid, req)
         if req.method == "DELETE":
             return self._delete_needle(fid, req)
-        return 405, {"error": f"{req.method} of a needle is not served: "
-                              f"the port has no write path"}
+        return 405, {"error": "method not allowed"}
 
     def _get_needle(self, fid: types.FileId, rng: str = ""):
         """volume_server_handlers_read.go: the needle's data with its
@@ -272,6 +281,41 @@ class VolumeServer:
                 pass
         return 200, (data, {"Content-Type": mime})
 
+    def _put_needle(self, fid: types.FileId, req: Request):
+        """volume_server_handlers_write.go: write the needle here, then
+        on the other replicas (topology/store_replicate.go:27
+        ReplicatedWrite).  201 with the reference's keys; 404 for a
+        volume not here, 409 for a read-only one."""
+        body = req.body
+        n = Needle(cookie=fid.cookie, id=fid.key, data=body)
+        name = req.query.get("name", "")
+        if name:
+            n.set_name(name.encode())
+        mime = req.headers.get("Content-Type", "")
+        if mime and mime not in ("application/octet-stream",
+                                 "multipart/form-data"):
+            n.set_mime(mime.encode())
+        ts = req.query.get("ts")
+        ts_val = int(ts) if ts else int(time.time())
+        n.set_last_modified(ts_val)
+        try:
+            size, unchanged = self.store.write_needle(fid.volume_id, n)
+        except KeyError:
+            return 404, {"error": f"volume {fid.volume_id} not found"}
+        except PermissionError as e:
+            return 409, {"error": str(e)}
+        if req.query.get("type") != "replicate":
+            # the stamped ts and the original Content-Type (always set:
+            # "" would store no mime, a missing header likewise) make
+            # every replica write the same needle record
+            err = self._replicate(
+                fid, req, "POST", body, extra_query={"ts": str(ts_val)},
+                headers={"Content-Type": mime or "application/octet-stream"})
+            if err:
+                return 500, {"error": f"replication: {err}"}
+        return 201, {"name": name, "size": size, "eTag": n.etag(),
+                     "unchanged": unchanged}
+
     def _delete_needle(self, fid: types.FileId, req: Request):
         """Delete here, then on every other holder (store_replicate.go:142
         ReplicatedDelete; for EC, store_ec_delete.go:38), even when the
@@ -287,7 +331,8 @@ class VolumeServer:
             if self.store.find_ec_volume(fid.volume_id) is not None:
                 err = self._ec_delete_fan_out(fid)
             else:
-                err = self._replicate_delete(fid)
+                err = self._replicate(fid, req, "DELETE", None,
+                                      ok_statuses=(404,))
             if err:
                 return 500, {"error": f"replication: {err}"}
         if freed is None:
@@ -308,13 +353,29 @@ class VolumeServer:
             return str(e)
         if "error" in r:
             return f"ec_lookup: {r['error']}"
-        return self._delete_on({loc["url"]
-                                for loc in r.get("shardIdLocations", [])},
-                               fid)
+        for url in sorted({loc["url"]
+                           for loc in r.get("shardIdLocations", [])}):
+            if url in (self.url, self.store.public_url):
+                continue
+            status, data, _ = http_bytes(
+                "DELETE", f"{url}/{fid}?type=replicate", timeout=60)
+            if status >= 300 and status != 404:
+                return f"{url} -> {status}: {data[:200]!r}"
+        return None
 
-    def _replicate_delete(self, fid: types.FileId) -> "str | None":
-        """The delete on the other replicas of a replicated normal volume
-        (store_replicate.go:192 DistributedOperation)."""
+    def _replicate(self, fid: types.FileId, req: Request, method: str,
+                   body: "bytes | None",
+                   extra_query: "dict[str, str] | None" = None,
+                   headers: "dict[str, str] | None" = None,
+                   ok_statuses: "tuple[int, ...]" = ()) -> "str | None":
+        """The request on every other replica of a replicated volume,
+        found through the master's /dir/lookup, with `?type=replicate`
+        so that none fans out again (store_replicate.go:192
+        DistributedOperation).  The first failure is returned.  The
+        port's master drops a dead node from its lookups, so fewer
+        locations than the placement's copies is a failure too, as in
+        the reference's GetWritableRemoteReplications: a write must not
+        be acknowledged on a short replica set."""
         v = self.store.find_volume(fid.volume_id)
         if v is None or not v.super_block.replica_placement.byte():
             return None
@@ -325,18 +386,40 @@ class VolumeServer:
                                timeout=5).get("locations", [])
         except OSError as e:
             return str(e)
-        return self._delete_on({loc["url"] for loc in locs}, fid)
-
-    def _delete_on(self, urls: "set[str]", fid: types.FileId
-                   ) -> "str | None":
-        for url in sorted(urls - {self.url, self.store.public_url}):
-            status, data, _ = http_bytes(
-                "DELETE", f"{url}/{fid}?type=replicate", timeout=60)
-            if status >= 300 and status != 404:
-                return f"{url} -> {status}: {data[:200]!r}"
+        copies = v.super_block.replica_placement.copy_count()
+        if len(locs) < copies:
+            return (f"replicating operations [{len(locs)}] is less than "
+                    f"volume {fid.volume_id} replication copy count "
+                    f"[{copies}]")
+        query = {k: val for k, val in req.query.items() if k != "type"}
+        query.update(extra_query or {})
+        qs = urllib.parse.urlencode(query)
+        for loc in locs:
+            if loc["url"] in (self.url, self.store.public_url):
+                continue
+            try:
+                status, data, _ = http_bytes(
+                    method, f"{loc['url']}/{fid}?type=replicate" +
+                    (f"&{qs}" if qs else ""), body, headers=headers,
+                    timeout=60)
+            except OSError as e:
+                return f"{loc['url']} -> {e}"
+            if status >= 300 and status not in ok_statuses:
+                return f"{loc['url']} -> {status}: {data[:200]!r}"
         return None
 
     # -- volume admin -----------------------------------------------------
+
+    def _allocate_volume(self, req: Request):
+        """volume_server.proto AllocateVolume, then an instant heartbeat:
+        the master sees the volume before the allocation answers."""
+        b = req.json()
+        collection = b.get("collection", "")
+        check_path_fields(collection)
+        self.store.add_volume(int(b["volumeId"]), collection,
+                              b.get("replication", ""), b.get("ttl", ""))
+        self._heartbeat_once()
+        return 200, {}
 
     def _set_readonly(self, req: Request):
         b = req.json()

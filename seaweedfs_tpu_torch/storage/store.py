@@ -1,11 +1,11 @@
 """Store: a volume server's disk locations, their volumes and mounted EC
 volumes (weed/storage/store.go, disk_location.go) — the part of
 `seaweedfs_tpu/storage/store.py` that the EC admin routes and the
-heartbeat use, over the port's `Volume`: lookups, volume mount, unmount
-and delete, EC shard mount and unmount, needle reads and deletes on
-normal and EC volumes, and the heartbeat snapshot the master consumes.
-An EcVolume holds open shard and `.ecx` handles: the store closes one it
-replaces or unmounts.  Needle writes come with a later slice.
+heartbeat use, over the port's `Volume`: lookups, volume allocation,
+mount, unmount and delete, EC shard mount and unmount, needle writes,
+needle reads and deletes on normal and EC volumes, and the heartbeat
+snapshot the master consumes.  An EcVolume holds open shard and `.ecx`
+handles: the store closes one it replaces or unmounts.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import threading
 from .erasure_coding.ec_context import to_ext
 from .erasure_coding.ec_volume import EcVolume
 from .needle import Needle
+from .replica_placement import ReplicaPlacement
+from .ttl import EMPTY_TTL, read_ttl
 from .volume import Volume
 
 _VOL_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
@@ -76,7 +78,33 @@ class Store:
                 return ev
         return None
 
+    def _location_for_new_volume(self) -> DiskLocation:
+        """The location with the most free volume slots (the first of
+        equals)."""
+        best, slack = None, -1
+        for loc in self.locations:
+            s = loc.max_volume_count - len(loc.volumes)
+            if s > slack:
+                best, slack = loc, s
+        if best is None:
+            raise RuntimeError("no disk locations")
+        return best
+
     # -- volume admin -----------------------------------------------------
+
+    def add_volume(self, vid: int, collection: str = "",
+                   replication: str = "", ttl: str = "") -> Volume:
+        """volume_server.proto AllocateVolume: a new empty volume."""
+        with self.lock:
+            if self.find_volume(vid) is not None:
+                raise ValueError(f"volume {vid} already exists")
+            loc = self._location_for_new_volume()
+            v = Volume(
+                loc.directory, vid, collection=collection,
+                replica_placement=ReplicaPlacement.from_string(replication),
+                ttl=read_ttl(ttl) if ttl else EMPTY_TTL)
+            loc.volumes[vid] = v
+            return v
 
     def delete_volume(self, vid: int) -> None:
         with self.lock:
@@ -113,7 +141,16 @@ class Store:
             raise KeyError(f"volume {vid} not found")
         v.read_only = read_only
 
-    # -- needle IO (store.go:604) -----------------------------------------
+    # -- needle IO (store.go:580/:604) ------------------------------------
+
+    def write_needle(self, vid: int, n: Needle,
+                     check_cookie: bool = True) -> tuple[int, bool]:
+        """(size, unchanged) of the write (store.go:580)."""
+        v = self.find_volume(vid)
+        if v is None:
+            raise KeyError(f"volume {vid} not found")
+        _, size, unchanged = v.write_needle(n, check_cookie=check_cookie)
+        return size, unchanged
 
     def read_needle(self, vid: int, needle_id: int,
                     cookie: int | None = None, ec_reader=None) -> Needle:

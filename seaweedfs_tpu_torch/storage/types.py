@@ -8,6 +8,7 @@ with 4-byte offsets (offset_4bytes.go:14-16).
 
 from __future__ import annotations
 
+import re
 import struct
 from dataclasses import dataclass
 
@@ -118,3 +119,19 @@ def parse_file_id(fid: str) -> FileId:
     vid = int(fid[:comma])
     key, cookie = parse_needle_id_cookie(fid[comma + 1:])
     return FileId(vid, key, cookie)
+
+
+# --- request fields that name files (security.go check_path_fields) ----
+
+_SAFE_EXT = re.compile(r"^\.(dat|idx|vif|ecx|ecj|ec\d{2})$")
+_SAFE_COLLECTION = re.compile(r"^[A-Za-z0-9_.-]*$")
+
+
+def check_path_fields(collection: str, ext: str | None = None) -> None:
+    """Both fields land in file paths on volume servers: reject
+    traversal before any path is built (the volume admin routes and the
+    master's assign and grow)."""
+    if ext is not None and not _SAFE_EXT.match(ext):
+        raise ValueError(f"unacceptable ext {ext!r}")
+    if not _SAFE_COLLECTION.match(collection):
+        raise ValueError(f"unacceptable collection {collection!r}")

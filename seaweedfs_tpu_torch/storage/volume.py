@@ -1,9 +1,11 @@
 """Append-only needle volume: `.dat` + `.idx` pair.
 
-The part of `seaweedfs_tpu/storage/volume.py` that the EC path uses:
-create or open a volume, cookie-checked writes with a monotonic
-AppendAtNs, reads, tombstone deletes, the heartbeat's counts, sync,
-read-only, close and destroy.  Byte-compatible with the
+The part of `seaweedfs_tpu/storage/volume.py` that the EC and write
+paths use: create or open a volume, cookie-checked writes with a
+monotonic AppendAtNs (the JAX volume's answers: size and unchanged, the
+volume's TTL on needles without one, read-only refused), reads,
+tombstone deletes, the heartbeat's counts, sync, read-only, close and
+destroy.  Byte-compatible with the
 reference package, so either package reads the other's volumes.  One
 process, one writer: a lock serialises appends, and each acknowledged
 write is flushed to the OS before write_needle returns.

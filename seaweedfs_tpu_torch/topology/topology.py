@@ -8,16 +8,20 @@ A node that misses 3 pulses is gone from every view: alive_nodes, the
 lookups and the /vol/list tree.  That is the reference server's
 UnRegisterDataNode when a heartbeat stream breaks
 (topology_event_handling.go); the JAX package's copy drops such a node
-from alive_nodes only.  Write placement and volume growth are not
-ported (the port writes no needles), nor `mark_dead`, which only growth
-calls when a volume allocation finds a node unreachable.
+from alive_nodes only.  Write placement (topology.go:322 PickForWrite,
+volume_layout.go's writable lists) and the volume growth plan
+(volume_growth.go) serve the master's `/dir/assign`.
 """
 
 from __future__ import annotations
 
+import itertools
+import random
 import threading
 import time
 from dataclasses import dataclass, field
+
+from ..storage.replica_placement import ReplicaPlacement
 
 
 @dataclass
@@ -60,6 +64,14 @@ class DataNodeInfo:
     ec_shards: dict[int, EcShardInfo] = field(default_factory=dict)
     last_seen: float = 0.0
 
+    @property
+    def volume_count(self) -> int:
+        return len(self.volumes)
+
+    @property
+    def free_space(self) -> int:
+        return self.max_volume_count - len(self.volumes)
+
 
 class Topology:
     """weed/topology/topology.go:76."""
@@ -71,6 +83,7 @@ class Topology:
         self.volume_size_limit = volume_size_limit
         self.pulse_seconds = pulse_seconds
         self._max_volume_id = 0
+        self._pick_rr = itertools.count()
 
     # -- heartbeat registration -------------------------------------------
 
@@ -119,6 +132,24 @@ class Topology:
             return [n for n in self.nodes.values()
                     if n.last_seen >= deadline]
 
+    def mark_dead(self, url: str) -> None:
+        """Expire a node found unreachable at once (the analog of
+        topology_event_handling.go UnRegisterDataNode on a broken
+        heartbeat stream), without waiting out the missed pulses.  Its
+        next heartbeat brings it back."""
+        with self.lock:
+            n = self.nodes.get(url)
+            if n is not None:
+                # -inf, not 0.0: time.monotonic counts from boot
+                n.last_seen = float("-inf")
+
+    # -- volume id assignment ---------------------------------------------
+
+    def next_volume_id(self) -> int:
+        with self.lock:
+            self._max_volume_id += 1
+            return self._max_volume_id
+
     # -- lookups (master_grpc_server_volume.go LookupVolume,
     #    topology_ec.go:153 LookupEcShards) -------------------------------
 
@@ -149,6 +180,90 @@ class Topology:
                 if e is not None:
                     out[node.url] = e.shard_ids
         return out
+
+    # -- write placement (topology.go:322 PickForWrite +
+    #    volume_layout.go writable selection) ----------------------------
+
+    def writable_volumes(self, collection: str = "", replication: str = "",
+                         ttl_u32: int = 0
+                         ) -> list[tuple[int, list[DataNodeInfo]]]:
+        """(vid, nodes) groups of (collection, rp, ttl) that are not
+        read-only, are under the size limit, sit on live nodes and have
+        a full replica set."""
+        rp = ReplicaPlacement.from_string(replication or "000")
+        want_copies = rp.copy_count()
+        by_vid: dict[int, list[DataNodeInfo]] = {}
+        deadline = self._liveness_deadline()
+        with self.lock:
+            for node in self.nodes.values():
+                if node.last_seen < deadline:
+                    # a disconnected node's volumes leave the writable
+                    # set (volume_layout.go SetVolumeUnavailable)
+                    continue
+                for vid, v in node.volumes.items():
+                    if v.collection != collection:
+                        continue
+                    if replication and v.replica_placement != rp.byte():
+                        continue
+                    if v.ttl != ttl_u32:
+                        continue
+                    if v.read_only or v.size >= self.volume_size_limit:
+                        continue
+                    by_vid.setdefault(vid, []).append(node)
+        return [(vid, nodes) for vid, nodes in by_vid.items()
+                if len(nodes) >= want_copies]
+
+    def pick_for_write(self, collection: str = "", replication: str = "",
+                       ttl_u32: int = 0) -> tuple[int, list[DataNodeInfo]]:
+        candidates = self.writable_volumes(collection, replication, ttl_u32)
+        if not candidates:
+            raise LookupError("no writable volumes")
+        # round-robin over sorted vids: clients that take a window of
+        # fids an assign (count=N) pin a volume for many writes, and
+        # strict rotation keeps the write load even across volumes
+        candidates.sort(key=lambda c: c[0])
+        return candidates[next(self._pick_rr) % len(candidates)]
+
+    # -- growth (volume_growth.go) ----------------------------------------
+
+    def plan_growth(self, replication: str = "",
+                    exclude: set[str] | None = None
+                    ) -> list[DataNodeInfo]:
+        """Target nodes for a new volume's replica set under the xyz
+        placement (volume_growth.go findEmptySlotsForOneVolume,
+        simplified: grouped by data centre, then rack, the nodes with
+        the most free slots first, ties broken at random).  `exclude`
+        drops nodes that just refused an allocation."""
+        rp = ReplicaPlacement.from_string(replication or "000")
+        alive = [n for n in self.alive_nodes()
+                 if n.free_space > 0 and n.url not in (exclude or ())]
+        if not alive:
+            raise LookupError("no free volume slots in cluster")
+        main = max(alive, key=lambda n: (n.free_space, random.random()))
+        picked = [main]
+
+        def pick(pool, count, err):
+            pool = [n for n in pool if n not in picked and n.free_space > 0]
+            if len(pool) < count:
+                raise LookupError(err)
+            pool.sort(key=lambda n: (-n.free_space, random.random()))
+            return pool[:count]
+
+        picked += pick([n for n in alive
+                        if n.data_center == main.data_center
+                        and n.rack == main.rack],
+                       rp.same_rack_count,
+                       "not enough same-rack nodes")
+        picked += pick([n for n in alive
+                        if n.data_center == main.data_center
+                        and n.rack != main.rack],
+                       rp.diff_rack_count,
+                       "not enough cross-rack nodes")
+        picked += pick([n for n in alive
+                        if n.data_center != main.data_center],
+                       rp.diff_data_center_count,
+                       "not enough cross-DC nodes")
+        return picked
 
     # -- full cluster snapshot (master_grpc_server_volume.go VolumeList) --
 

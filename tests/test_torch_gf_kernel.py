@@ -171,6 +171,10 @@ PORT_MODULES_OF_SLICE_7 = (
     "seaweedfs_tpu_torch.storage.erasure_coding.ec_locate",
     "seaweedfs_tpu_torch.server.store_ec")
 
+PORT_MODULES_OF_SLICE_9 = (
+    "seaweedfs_tpu_torch.sequence", "seaweedfs_tpu_torch.benchmark",
+    "seaweedfs_tpu_torch.operation")
+
 
 def test_port_imports_neither_jax_nor_reference_package():
     code = (
@@ -193,6 +197,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert set(PORT_MODULES_OF_SLICE_2) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_5) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_7) <= set(mods)
+    assert set(PORT_MODULES_OF_SLICE_9) <= set(mods)
     assert bad == []
 
 
