@@ -14,9 +14,12 @@ Phases, each printing one JSON line:
    encode matrix and the rebuild matrices of 4, 3, 2 and 1 lost shards;
    the streamed rebuild's [2,10] matrix of shards {1,8} at the window
    and at the step tail of an 8 MiB slice (419,432 words); the 64-volume
-   batch step, [64,10] -> [64,4] x 262,144 words; a 64 MiB batch; and
-   ragged, word-path and generic-body shapes).  Each case is
-   timed (CUDA events, median of 10 runs) on the same buffers and
+   batch step, [64,10] -> [64,4] x 262,144 words; a 64 MiB batch;
+   RS(6,3)'s window, [3,6] x 1,398,100 words (32 MiB of input), encode
+   and 3- and 2-loss rebuilds, each also through the generic body it
+   replaced (`rs_cuda.gf_apply_matrix_words_generic`, equal and timed
+   the same ways); and ragged, word-path and generic-body shapes).  Each
+   case is timed (CUDA events, median of 10 runs) on the same buffers and
    rotating over enough buffer sets that every launch reads past the
    50 MB L2, beside its bytes bound, a device-to-device copy_ of the same
    bytes, the card's streaming ceiling in this call (`stream_gbps`, a
@@ -116,7 +119,7 @@ Phases, each printing one JSON line:
    admin and the worker in this process (`EcEncodeHandler(device=
    "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
    benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
-   65,536 for the run's time, printed), every read held against the
+   32,768 for the run's time, printed), every read held against the
    payload, and the volumes the assigns grew; 256 seeded needles of
    1 KiB - 1 MiB under each of 001 and 010, each read back from every
    location `/dir/lookup` gives and its record on each replica (bytes,
@@ -133,6 +136,32 @@ Phases, each printing one JSON line:
    `/metrics`); then `upload` and `download` on the command line.  Fill
    and read-back GB/s and p50/p99, the job's wall and stages.  About 3x
    the volume written.
+
+9. read_load: BASELINE.json's config 5, "RS(6,3) alt scheme +
+   streaming ec.decode read path under weed benchmark load", through
+   the front door of the port's own cluster: a `master
+   -volumeSizeLimitMB 1024` subprocess and 4 `volume -max 8`
+   subprocesses (their codec on the card).  16,384 files of 1 KiB in
+   `weed benchmark`'s shape (assign and upload on 16 threads; n cut from
+   1,048,576 for the run's time) and config 1's needles on 8 writers, all
+   in collection `rs63`, until the 1 GiB limit seals a volume; every
+   volume of the collection `ec.encode -dataShards=6 -parityShards=3`
+   through the port's shell (launches, read off each server's
+   /metrics, against the sum of `launches_for` over its batches).  Six
+   read passes on 16 threads, each a seeded sample of 4,096 of the 1 KiB
+   files and 64 of the large needles, every byte compared: all shards
+   up, cold and again warm (every 1 KiB read a hit of the hot-needle
+   cache); the server holding the most data shards stopped (at most 3
+   of 9), a fresh sample degraded (every rebuilt interval on the host's
+   native codec) and again warm (the promoted 1 KiB decodes hit, no new
+   degraded read); after `ec.rebuild` (launches against its steps'
+   windows); after `ec.decode`.  Each pass: reads/s, p50/p99/max ms,
+   GB/s, degraded reads, cache hits and misses, the codec engine and its
+   SIMD tier, and 0 launches.  Deadline checks: a GET with a spent
+   budget (`X-Weed-Deadline-Ms: 0`) answers 504 with `Retry-After`
+   without reading the store, and a degraded GET under a 30 s budget
+   forwards less to its shard reads (`deadline_remaining_seconds` on
+   the holders).
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -185,13 +214,24 @@ WORKER_BATCH_VID0 = 100          # batch volume i is volume 100 + i there
 WRITE_RACKS = ("r1", "r1", "r2")  # the write phase's 3 volume servers
 WRITE_MAX_VOLUMES = 8
 WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
-BENCH_N = 65_536                 # cut from weed benchmark's 1,048,576
+# cut from weed benchmark's 1,048,576: at 65,536 the write phase took 426 s
+# of a 900 s run once read_load joined it (PERF.md §4)
+BENCH_N = 32_768
 BENCH_SIZE = 1024                # weed benchmark's file size and
 BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
 REPLICATED = 256                 # seeded needles under each of 001 and 010
 FILL_WRITERS = 8
 FILL_READERS = 8
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
+# read_load: BASELINE.json's config 5, "RS(6,3) alt scheme + streaming
+# ec.decode read path under weed benchmark load"
+RS63 = (6, 3)
+READ_SERVERS = 4
+READ_COLLECTION = "rs63"
+READ_N = 16_384                  # 1 KiB files, cut from weed benchmark's
+READ_SMALL_SAMPLE = 4_096        # 1,048,576; sampled per read pass
+READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
+READ_C = 16                      # weed benchmark's concurrency
 
 
 def emit(obj: dict) -> None:
@@ -472,6 +512,13 @@ def phase_kernel(seed: int) -> dict:
         rebuild_slice_bytes)
     pm = rs_matrix.parity_matrix(10, 4)
     window_words = staging.plan_windows(10, MAIN_WORDS)[0][1]
+    # RS(6,3)'s window: 32 MiB of input rows, 1,398,100 words
+    window_words_63 = staging.plan_windows(6, MAIN_WORDS)[0][1]
+
+    def rec_matrix_63(lost):
+        present = tuple(i not in lost for i in range(9))
+        return np.asarray(rs_matrix.cached_reconstruction_matrix(
+            6, 3, present, tuple(lost))[0])
     # the streamed rebuild's step: 8 MiB slices of 10 rows, windowed
     step_tail_words = staging.plan_windows(
         10, rebuild_slice_bytes() // 4)[-1][1]
@@ -492,6 +539,13 @@ def phase_kernel(seed: int) -> dict:
          window_words, None),
         ("step tail rebuild {1,8} [2,10]", rec_matrix(REMOTE_LOST),
          step_tail_words, None),
+        ("window parity [3,6]", rs_matrix.parity_matrix(6, 3),
+         window_words_63, None),
+        ("window rebuild {0,4,8} [3,6]", rec_matrix_63((0, 4, 8)),
+         window_words_63, None),
+        # read_load's rebuild: a server of 4 holds 2 or 3 of 9 shards
+        ("window rebuild {1,5} [2,6]", rec_matrix_63((1, 5)),
+         window_words_63, None),
         ("parity [4,10]", pm, MAIN_WORDS, None),
         ("rebuild {0,7,11,13} [4,10]", rec_matrix(LOST), MAIN_WORDS, None),
         ("tail [3,6] x 1000003 bytes",
@@ -516,10 +570,13 @@ def phase_kernel(seed: int) -> dict:
     # the issue floor at the highest SM clock sampled (the least time)
     mhz = clocks.get("clocks_sm_mhz", {}).get("max")
     for row in results:
-        n = row.pop("_instructions_per_column")
-        row["issue_floor_ms"] = (
-            n * row["columns"] / (ISSUE_LANES_PER_SM * sms * mhz * 1e6) * 1e3
-            if n and mhz else "not measured")
+        for key in ("", "generic_"):
+            if f"_{key}instructions_per_column" not in row:
+                continue
+            n = row.pop(f"_{key}instructions_per_column")
+            row[f"{key}issue_floor_ms"] = (
+                n * row["columns"] / (ISSUE_LANES_PER_SM * sms * mhz * 1e6)
+                * 1e3 if n and mhz else "not measured")
     out = {"phase": "kernel", "stream_gbps": stream, "sms": sms,
            "clocks": clocks, "cases": results, "max_abs_err": max_err,
            "sass": sass,
@@ -601,6 +658,30 @@ def _kernel_case(case, dev, g, sass, stream) -> dict:
            "column_loop": loop,
            "_instructions_per_column": loop and loop["per_column"]}
     row["plain_ms"] = time_ms(lambda: plain_fn(tables, data), 2)
+    if v is None and k == 6 and rs_cuda.specialised(r, k):
+        # the RS(6,3) template against the generic body it replaced, on
+        # the same inputs: equal outputs, then both timed the same ways
+        gen = rs_cuda.gf_apply_matrix_words_generic
+        check(torch.equal(gen(tables, data), fn(tables, data)),
+              f"{name}: the generic body differs from the template")
+        sets = [data] + [
+            torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=g).view(torch.int32)
+            for _ in range(max(3, -(-3 * L2_BYTES // nbytes)) - 1)]
+        kept = collections.deque(maxlen=len(sets))
+        nxt = itertools.cycle(sets).__next__
+        row["generic_ms"] = time_ms(lambda: gen(tables, data), 20)
+        row["generic_rotated_ms"] = time_ms(
+            lambda: kept.append(gen(tables, nxt())), 60)
+        # and the template again after it, in turns
+        row["rotated_ms_after"] = time_ms(
+            lambda: kept.append(fn(tables, nxt())), 60)
+        gloop = _column_loop(
+            sass, f"gf_apply_genericILi{min(r, 8)}ELb{int(aligned)}E", k)
+        row["generic_column_loop"] = gloop
+        row["_generic_instructions_per_column"] = gloop and \
+            gloop["per_column"]
+        del sets, kept
     del data
     torch.cuda.empty_cache()
     return row
@@ -1259,10 +1340,13 @@ def _read_step(server, nids, ec: dict, what: str) -> dict:
     this process, one after another, each held against its seeded
     payload.  Returns the read GB/s over the GETs' wall time, p50/p99 ms
     a needle, and the degraded reads and source failovers the server's
-    reader counted meanwhile.  Fails if a read launched the kernel."""
+    reader counted meanwhile.  Fails if a read launched the kernel.  The
+    server's hot-needle cache is dropped first, so every GET reaches the
+    EC reader."""
     from seaweedfs_tpu_torch import stats
     from seaweedfs_tpu_torch.ops import rs_cuda
     from seaweedfs_tpu_torch.server.httpd import http_bytes
+    server._nc_drop_volume(1)
     launches = (rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED)
     deg0 = stats.PROCESS.counter_value("ec_degraded_reads_total", vid=1) \
         or 0.0
@@ -2511,6 +2595,504 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
     return out
 
 
+# --- phase 9 ---------------------------------------------------------------
+
+_SAMPLE = re.compile(r"^seaweedfs_tpu_(\w+?)(?:\{([^}]*)\})? (\S+)$", re.M)
+
+
+def _samples(text: str, name: str) -> "list[tuple[dict, float]]":
+    """Every sample of metric `name` (without its namespace) on a
+    Prometheus text page: (labels, value)."""
+    out = []
+    for m in _SAMPLE.finditer(text):
+        if m.group(1) != name:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2) or ""))
+        out.append((labels, float(m.group(3))))
+    return out
+
+
+def _counters(urls) -> dict:
+    """What the read passes read off each server's /metrics, summed over
+    `urls`: kernel launches of both entries, degraded reads, source
+    failovers, hot-needle cache hits and misses, and the lost intervals
+    each host codec rebuilt ("engine/simd": count)."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    out = {"launches": 0.0, "degraded": 0.0, "failovers": 0.0,
+           "hits": 0.0, "misses": 0.0, "engines": {}}
+    for u in urls:
+        text = http_bytes("GET", f"{u}/metrics", timeout=60)[1].decode()
+        out["launches"] += sum(v for _, v in _samples(
+            text, "gf_kernel_launches"))
+        out["degraded"] += sum(v for _, v in _samples(
+            text, "ec_degraded_reads_total"))
+        out["failovers"] += sum(v for _, v in _samples(
+            text, "ec_read_source_failovers_total"))
+        for key, which in (("hits", "read_cache_hits_total"),
+                           ("misses", "read_cache_misses_total")):
+            out[key] += sum(v for lb, v in _samples(text, which)
+                            if lb.get("cache") == "volume_needle")
+        for lb, v in _samples(text, "ec_degraded_codec_intervals_total"):
+            k = f"{lb.get('engine')}/{lb.get('simd')}"
+            out["engines"][k] = out["engines"].get(k, 0.0) + v
+    return out
+
+
+def _delta(after: dict, before: dict) -> dict:
+    out = {k: int(after[k] - before[k]) for k in after if k != "engines"}
+    out["engines"] = {k: int(v - before["engines"].get(k, 0.0))
+                      for k, v in after["engines"].items()
+                      if v - before["engines"].get(k, 0.0)}
+    return out
+
+
+def _read_pass(murl: str, urls, items, seeds: dict, what: str,
+               order=("small", "large")) -> dict:
+    """Read `items` ((fid, nid, size, kind)) through `operation.read` on
+    READ_C threads, every byte held against its payload (seeded by
+    `seeds[kind]`); each kind ("small", "large") in a sub-pass of its
+    own, in `order`, with its reads/s, GB/s, p50/p99/max ms and what the
+    servers counted meanwhile.  Fails if the kernel was launched."""
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    out = {}
+    for kind in order:
+        todo = [it for it in items if it[3] == kind]
+
+        def read_one(it):
+            fid, nid, size, _ = it
+            t = time.perf_counter()
+            data = operation.read(murl, fid)
+            ms = (time.perf_counter() - t) * 1e3
+            check(data == _payload(seeds[kind], nid, size),
+                  f"{what}: {fid} read {len(data)} bytes, not its payload")
+            return ms
+        before = _counters(urls)
+        here = rs_cuda.LAUNCHES + rs_cuda.LAUNCHES_BATCHED
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            ms = list(pool.map(read_one, todo))
+        wall = time.perf_counter() - t
+        d = _delta(_counters(urls), before)
+        d["launches"] += rs_cuda.LAUNCHES + rs_cuda.LAUNCHES_BATCHED - here
+        check(d["launches"] == 0,
+              f"{what} ({kind}): the reads launched the kernel "
+              f"{d['launches']} times")
+        nbytes = sum(it[2] for it in todo)
+        out[kind] = {"reads": len(todo), "bytes": nbytes, "seconds": wall,
+                     "reads_per_s": len(todo) / wall,
+                     "gbps": nbytes / wall / 1e9, **_pcts(ms),
+                     "degraded_reads": d["degraded"],
+                     "cache_hits": d["hits"], "cache_misses": d["misses"],
+                     "failovers": d["failovers"], "engines": d["engines"],
+                     "kernel_launches": d["launches"]}
+    return out
+
+
+def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
+                    limit_mb: int = WRITE_LIMIT_MB,
+                    small_sample: int = READ_SMALL_SAMPLE,
+                    large_sample: int = READ_LARGE_SAMPLE,
+                    device: str = "cuda") -> dict:
+    """BASELINE.json's config 5 through the port's front door: a `master
+    -volumeSizeLimitMB 1024` subprocess and 4 `volume -max 8` subprocesses
+    (their codec on `device`).  `n_small` 1 KiB files in `weed
+    benchmark`'s shape (assign and upload on 16 threads) and config 1's
+    needles on 8 writers, all in collection `rs63`, until the limit seals
+    a volume; every volume of the collection encoded RS(6,3) by the
+    port's shell; then six read passes on 16 threads, each a seeded
+    sample of the 1 KiB files and of the large needles: all shards up
+    (cold, then warm), the server with the most data shards stopped
+    (degraded on the host's native codec, then warm), after `ec.rebuild`,
+    after `ec.decode`.  Two deadline checks.  Launches are read as each
+    server's wrapper counts on its /metrics."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage import types
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext, to_ext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        _encode_work_items, rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    # the host codec of degraded reads, built here once: the servers
+    # load the same library
+    t = time.perf_counter()
+    simd = rs_native.gf_native_simd()
+    native_build_s = time.perf_counter() - t
+    check(simd is not None, "the native host codec did not build: "
+          f"{rs_native.native.BUILD_INFO.get('error')}")
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"r{i}") for i in range(READ_SERVERS)]
+    procs: list = []
+    coll = READ_COLLECTION
+    d, p = RS63
+    ctx = ECContext(d, p, device="cpu")
+    cuts = {"write_n": {"run": n_small, "reference_default": 1 << 20,
+                        "why": "the run's time"},
+            "servers": {"run": READ_SERVERS, "why": "one host, loopback"}}
+    print(f"read_load phase: {n_small} files of 1 KiB (weed benchmark's "
+          f"default 1,048,576, cut for the run's time)", flush=True)
+    try:
+        t0 = time.perf_counter()
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb)]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs,
+            "volume")
+        proc_of = dict(zip(urls, procs[1:]))
+        env = commands.CommandEnv(murl)
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def normal_vids():
+            return {v["id"]: v for _n, v in
+                    iter_volume_list_volumes(get("/vol/list"))
+                    if v.get("collection", "") == coll}
+
+        def ec_locs(vid):
+            return {loc["url"]: loc["shardIds"] for loc in get(
+                f"/dir/ec_lookup?volumeId={vid}").get(
+                    "shardIdLocations", [])}
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "4 volume servers registered")
+        start_s = time.perf_counter() - t0
+
+        # 1. weed benchmark's writes, 1 KiB each, seeded per file
+        def write_small(i):
+            body = _payload(seed + 3, i, BENCH_SIZE)
+            t = time.perf_counter()
+            a = operation.assign(murl, collection=coll)
+            operation.upload(a.url, a.fid, body)
+            return a.fid, i, len(body), (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            small = list(pool.map(write_small, range(n_small)))
+        small_s = time.perf_counter() - t
+
+        # 2. config 1's needles until the limit seals a volume
+        frng = np.random.default_rng([seed, 9])
+        counter = itertools.count(1)
+        stop = threading.Event()
+        large: list = []
+        lock = threading.Lock()
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                body = _payload(seed + 4, nid, size)
+                t = time.perf_counter()
+                fid = operation.submit(murl, body, collection=coll)
+                ms = (time.perf_counter() - t) * 1e3
+                with lock:
+                    large.append((fid, nid, size, ms))
+
+        def sealed():
+            return any(v["size"] >= limit_mb << 20
+                       for v in normal_vids().values())
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and not sealed():
+                    time.sleep(0.2)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        fill_bytes = sum(w[2] for w in large)
+        vols = normal_vids()
+
+        def sizes_seen():
+            seen = {vid: (v["size"], [os.path.getsize(os.path.join(
+                dirs[urls.index(loc["url"])], f"{coll}_{vid}.dat"))
+                for loc in operation.lookup(murl, vid, use_cache=False)])
+                for vid, v in normal_vids().items()}
+            return all(want == [got] for got, want in seen.values())
+        poll(sizes_seen, "the master sees every volume's size")
+        vols = normal_vids()
+        check(any(v["size"] >= limit_mb << 20 for v in vols.values()),
+              f"no volume of {coll} reached the limit: {vols}")
+
+        # 3. every volume of the collection encoded RS(6,3) on the card
+        def launches_on_all():
+            return _counters(urls)["launches"]
+        encode = {}
+        for vid in sorted(vols):
+            size = vols[vid]["size"]
+            expect = sum(launches_for(d, item[3])
+                         for item in _encode_work_items(size, ctx))
+            before = launches_on_all()
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.encode -volumeId={vid} -collection={coll} "
+                     f"-dataShards={d} -parityShards={p}; unlock")
+            wall = time.perf_counter() - t
+            got = int(launches_on_all() - before)
+            check("scatter-encoded 9 shards" in out[1], f"encode: {out}")
+            check(got == expect, f"volume {vid}'s encode launched {got}, "
+                                 f"the windows of its work list are "
+                                 f"{expect}")
+            encode[vid] = {"bytes": size, "seconds": wall,
+                           "gbps": size / wall / 1e9, "launches": got,
+                           "expected_launches": expect, "output": out[1]}
+        poll(lambda: not normal_vids() and all(
+            sorted(s for sids in ec_locs(v).values() for s in sids) ==
+            list(range(d + p)) for v in vols),
+            "every volume's 9 shards listed and the volumes gone")
+        placement = {v: ec_locs(v) for v in sorted(vols)}
+        operation._vid_cache = operation.VidCache()
+
+        # 4. the read passes
+        rng = np.random.default_rng([seed, 11])
+
+        def sample(exclude=frozenset()):
+            s_idx = [i for i in rng.permutation(len(small))
+                     if small[i][0] not in exclude][:small_sample]
+            l_idx = [i for i in rng.permutation(len(large))
+                     if large[i][0] not in exclude][:large_sample]
+            return [(*small[i][:3], "small") for i in s_idx] + \
+                [(*large[i][:3], "large") for i in l_idx]
+
+        seeds = {"small": seed + 3, "large": seed + 4}
+        # a cold pass reads the large needles first and a warm pass
+        # reads the 1 KiB files first: the large ones outgrow the 64 MiB
+        # memory tier, and would evict the 1 KiB files the warm pass
+        # counts on
+        cold_first = ("large", "small")
+
+        def run(items, what, live, order=("small", "large")):
+            return _read_pass(murl, live, items, seeds, what, order)
+        passes = {}
+        a = sample()
+        passes["cold"] = run(a, "cold", urls, cold_first)
+        passes["warm"] = run(a, "warm", urls)
+        check(passes["cold"]["small"]["degraded_reads"] == 0 and
+              passes["warm"]["small"]["cache_hits"] == len(
+                  [x for x in a if x[3] == "small"]),
+              f"all shards up: {passes['cold']['small']} then "
+              f"{passes['warm']['small']}")
+
+        # the server with the most data shards goes away
+        data_held = {u: sum(1 for v in placement for s in
+                            placement[v].get(u, []) if s < d)
+                     for u in urls}
+        victim = max(urls, key=lambda u: data_held[u])
+        check(all(len(placement[v].get(victim, [])) <= p
+                  for v in placement),
+              f"{victim} holds more than {p} shards of a volume")
+        bad = _stop_peers([proc_of[victim]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        t = time.perf_counter()
+        poll(lambda: victim not in get("/cluster/status")["dataNodes"] and
+             all(victim not in ec_locs(v) for v in placement),
+             "the master drops the stopped server")
+        drop_s = time.perf_counter() - t
+        live = [u for u in urls if u != victim]
+        operation._vid_cache = operation.VidCache()
+        b = sample(exclude={x[0] for x in a})
+        passes["degraded"] = run(b, "degraded", live, cold_first)
+        passes["degraded_warm"] = run(b, "degraded_warm", live)
+        deg, warm = passes["degraded"], passes["degraded_warm"]
+        n_b_small = len([x for x in b if x[3] == "small"])
+        for kind in ("small", "large"):
+            eng = deg[kind]["engines"]
+            check(sum(eng.values()) == deg[kind]["degraded_reads"] and
+                  all(k.startswith("native/") for k in eng),
+                  f"degraded ({kind}): {deg[kind]['degraded_reads']} "
+                  f"degraded reads, rebuilt by {eng}: not all native")
+        check(deg["small"]["degraded_reads"] > 0 and
+              deg["large"]["degraded_reads"] > 0,
+              f"the stopped server's loss made no degraded read: {deg}")
+        check(warm["small"]["degraded_reads"] == 0 and
+              warm["small"]["cache_hits"] == n_b_small,
+              f"the promoted 1 KiB decodes: {warm['small']}")
+
+        # the deadline checks, while the server is down
+        from seaweedfs_tpu_torch.util import deadline as dl
+        x = b[0]
+        reader = operation.lookup(murl, types.parse_file_id(
+            x[0]).volume_id, use_cache=False)[0]["url"]
+        before = _counters([reader])
+        st, _body, hdrs = http_bytes("GET", f"{reader}/{x[0]}", timeout=60,
+                                     headers={dl.HEADER: "0"})
+        spent = _delta(_counters([reader]), before)
+        text = http_bytes("GET", f"{reader}/metrics")[1].decode()
+        exceeded = sum(v for lb, v in _samples(
+            text, "deadline_exceeded_total")
+            if lb.get("site") == "volume.ingress")
+        check(st == 504 and hdrs.get("Retry-After") == "1" and
+              spent["hits"] == spent["misses"] == 0 and exceeded >= 1,
+              f"a spent budget: {st} {hdrs}, {spent}")
+
+        def remaining_obs(u):
+            text = http_bytes("GET", f"{u}/metrics")[1].decode()
+            got = {"sum": 0.0, "count": 0.0}
+            for key in got:
+                got[key] = sum(v for lb, v in _samples(
+                    text, f"deadline_remaining_seconds_{key}")
+                    if lb.get("site") == "volume")
+            return got
+        seen = {x[0] for x in a} | {x[0] for x in b}
+        forwarded = None
+        for fid, _nid, _size, _ms in small:
+            if fid in seen:
+                continue
+            vid = types.parse_file_id(fid).volume_id
+            reader = operation.lookup(murl, vid)[0]["url"]
+            holders = [u for u in ec_locs(vid) if u != reader]
+            obs0 = {u: remaining_obs(u) for u in [reader] + holders}
+            deg0 = _counters([reader])["degraded"]
+            st, _body, _ = http_bytes("GET", f"{reader}/{fid}", timeout=60,
+                                      headers={dl.HEADER: "30000"})
+            check(st == 200, f"a budgeted read of {fid}: {st}")
+            if _counters([reader])["degraded"] == deg0:
+                continue
+            obs = {u: {k: remaining_obs(u)[k] - obs0[u][k]
+                       for k in ("sum", "count")} for u in obs0}
+            given = obs[reader]["sum"]
+            shard_reads = {u: o for u, o in obs.items()
+                           if u != reader and o["count"]}
+            check(obs[reader]["count"] == 1 and shard_reads and all(
+                o["sum"] / o["count"] < given
+                for o in shard_reads.values()),
+                f"a degraded read under 30 s: the reader got {given} s, "
+                f"its shard reads {shard_reads}")
+            forwarded = {"fid": fid, "reader_remaining_s": given,
+                         "shard_reads": {u: o["sum"] / o["count"] for u, o
+                                         in shard_reads.items()}}
+            break
+        check(forwarded is not None, "no unsampled 1 KiB needle read "
+                                     "degraded")
+
+        # 5. ec.rebuild of what the server held
+        rebuild = {}
+        for vid in sorted(placement):
+            lost = placement[vid].get(victim, [])
+            if not lost:
+                continue
+            holder = next(iter(ec_locs(vid)))
+            shard_size = int(http_json(
+                "GET", f"{holder}/admin/ec/info?volumeId={vid}",
+                timeout=30)["shardSize"])
+            step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+            expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+            before = _counters(live)["launches"]
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.rebuild -volumeId={vid} "
+                     f"-collection={coll}; unlock")
+            wall = time.perf_counter() - t
+            got = int(_counters(live)["launches"] - before)
+            check(f"rebuilt shards {sorted(lost)} on " in out[1],
+                  f"rebuild of {vid}: {out}")
+            check(got == expect, f"volume {vid}'s rebuild launched {got}, "
+                                 f"the windows of its steps are {expect}")
+            rebuild[vid] = {"lost": sorted(lost), "seconds": wall,
+                            "launches": got, "expected_launches": expect,
+                            "output": out[1]}
+        poll(lambda: all(sorted(s for sids in ec_locs(v).values()
+                                for s in sids) == list(range(d + p))
+                         for v in placement), "9 shards listed again")
+        # each reader asks the master again (an unmount of no shard
+        # drops its cached locations and its cached needles)
+        for u in live:
+            for vid in placement:
+                http_json("POST", f"{u}/admin/ec/unmount",
+                          {"volumeId": vid, "shardIds": []}, timeout=30)
+        c = sample(exclude={x[0] for x in a} | {x[0] for x in b})
+        passes["rebuilt"] = run(c, "rebuilt", live)
+        check(passes["rebuilt"]["small"]["degraded_reads"] ==
+              passes["rebuilt"]["large"]["degraded_reads"] == 0,
+              f"degraded reads after the rebuild: {passes['rebuilt']}")
+
+        # 6. ec.decode back to normal volumes
+        decode = {}
+        for vid in sorted(placement):
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.decode -volumeId={vid} "
+                     f"-collection={coll}; unlock")
+            decode[vid] = {"seconds": time.perf_counter() - t,
+                           "output": out[1]}
+            check("decoded to normal volume" in out[1],
+                  f"decode of {vid}: {out}")
+        poll(lambda: set(normal_vids()) == set(placement) and
+             not any(ec_locs(v) for v in placement),
+             "the volumes listed again and no shard left")
+        left = [f for dd, u in zip(dirs, urls) if u != victim
+                for f in os.listdir(dd)
+                if any(f.endswith(to_ext(i)) for i in range(d + p))]
+        check(not left, f"shard files left after the decode: {left}")
+        operation._vid_cache = operation.VidCache()
+        e = sample(exclude={x[0] for x in a} | {x[0] for x in b} |
+                   {x[0] for x in c})
+        passes["decoded"] = run(e, "decoded", live)
+        check(passes["decoded"]["small"]["degraded_reads"] ==
+              passes["decoded"]["large"]["degraded_reads"] == 0,
+              f"degraded reads after the decode: {passes['decoded']}")
+        heartbeats = get("/cluster/status")["heartbeats"]
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"the master or a volume server did not stop "
+                   f"cleanly: {bad}")
+    write_ms = [w[3] for w in small]
+    fill_ms = [w[3] for w in large]
+    out = {"phase": "read_load", "servers": READ_SERVERS,
+           "scheme": f"RS({d},{p})", "collection": coll, "cuts": cuts,
+           "cluster_start_seconds": start_s,
+           "native_codec": {"simd": simd, "build_seconds": native_build_s,
+                            **{k: v for k, v in
+                               rs_native.native.BUILD_INFO.items()
+                               if k in ("march_native", "error")}},
+           "writes": {"files": len(small), "bytes": len(small) * BENCH_SIZE,
+                      "seconds": small_s,
+                      "writes_per_s": len(small) / small_s,
+                      **_pcts(write_ms)},
+           "fill": {"writers": FILL_WRITERS, "needles": len(large),
+                    "bytes": fill_bytes, "seconds": fill_s,
+                    "gbps": fill_bytes / fill_s / 1e9, **_pcts(fill_ms),
+                    "volumes": {v: x["size"] for v, x in vols.items()},
+                    "limit_bytes": limit_mb << 20},
+           "encode": encode, "placement": placement,
+           "stopped": {"url": victim, "data_shards": data_held[victim],
+                       "master_drop_seconds": drop_s},
+           "passes": passes, "rebuild": rebuild, "decode": decode,
+           "deadline": {"spent_budget_status": 504,
+                        "forwarded": forwarded},
+           "launches": {"encode": sum(x["launches"]
+                                      for x in encode.values()),
+                        "rebuild": sum(x["launches"]
+                                       for x in rebuild.values()),
+                        "reads": sum(pp[k]["kernel_launches"]
+                                     for pp in passes.values()
+                                     for k in pp)},
+           "master_heartbeats": heartbeats}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -2545,6 +3127,8 @@ def main(argv=None) -> int:
         worker = phase_worker(ec_state, batch_state,
                               os.path.join(work, "worker"))
         write = phase_write(os.path.join(work, "write"), args.seed)
+        read_load = phase_read_load(os.path.join(work, "read_load"),
+                                    args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -2562,7 +3146,10 @@ def main(argv=None) -> int:
               "worker_rebuild": worker["rebuild"]["launches"],
               "worker_scatter": worker["scatter"]["launches"],
               "write_encode": write["encode"]["launches"],
-              "write_reads": write["read_back"]["kernel_launches"]}),
+              "write_reads": write["read_back"]["kernel_launches"],
+              "rs63_encode": read_load["launches"]["encode"],
+              "rs63_rebuild": read_load["launches"]["rebuild"],
+              "rs63_reads": read_load["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -36,7 +36,8 @@
 //   bit masks' 2,769: an issue floor of 0.0081 ms at the window, under
 //   the bytes bound, so the templates are bound by memory.
 // - Templates for the main paths' shapes, [1..4, 10] (RS(10,4)'s encode
-//   and every rebuild): K and R are compile-time, so the K 16-byte loads
+//   and every rebuild) and [1..3, 6] (RS(6,3)'s encode and every
+//   rebuild): K and R are compile-time, so the K 16-byte loads
 //   of a column are all issued before its arithmetic, and the R*K*5
 //   table words (800 bytes at [4,10]) are a __grid_constant__ launch
 //   parameter read from the constant bank: no shared memory, no
@@ -50,7 +51,7 @@
 //   double buffer, hides the loads: on the card, a double-buffered form
 //   (155 registers, 3 blocks an SM) ran the window 9% slower than 5
 //   blocks without it, and 5 blocks 7% slower than 6 (PERF.md).
-// - Every other shape (RS(6,3), [16,16], K or R up to 32) runs the
+// - Every other shape ([16,16], K or R up to 32) runs the
 //   generic body: runtime K, groups of RB <= 8 rows with the accumulators
 //   in registers, bit masks times tables read from shared memory (copied
 //   from device memory per block: the largest group's tables are 8 KB,
@@ -75,7 +76,8 @@ constexpr int kMaxShards = 32;
 constexpr int kMaxVolumes = 65535;
 constexpr int64_t kMaxColumns = int64_t{1} << 30;  // 32-bit column index
 constexpr int kMaxDevices = 64;
-constexpr int kSlots = 24;             // 0-7 templates, 8-23 generic
+constexpr int kSpecSlots = 14;         // [1..4,10] 0-7, [1..3,6] 8-13
+constexpr int kSlots = kSpecSlots + 16;  // then the generic body's
 constexpr uint32_t kLaneMask = 0x01010101u;
 
 // ---- columns: a uint4 of 4 words when every row is 16-byte aligned ----
@@ -326,9 +328,10 @@ cudaError_t launch_spec(const uint32_t* host, const uint32_t* data,
                         uint32_t* out, int64_t C, int64_t total, int dev,
                         int sms, cudaStream_t s, Plan* plan) {
   auto kernel = gf_apply_spec<R, K, VEC>;
+  constexpr int slot = (K == 10 ? 0 : 8) + (R - 1) * 2 + (VEC ? 1 : 0);
   int resident = 0;
-  cudaError_t err = resident_blocks(kernel, (R - 1) * 2 + VEC, dev,
-                                    kSpecThreads, 0, &resident);
+  cudaError_t err = resident_blocks(kernel, slot, dev, kSpecThreads, 0,
+                                    &resident);
   if (err != cudaSuccess) return err;
   const int64_t grid = grid_for(total, kSpecThreads, sms, resident);
   if (plan) {
@@ -350,7 +353,7 @@ cudaError_t launch_generic(const uint32_t* tables, const uint32_t* data,
   int resident = 0;
   // cached at the largest group's shared memory (K = 32)
   cudaError_t err = resident_blocks(
-      kernel, 8 + (RB - 1) * 2 + VEC, dev, kThreads,
+      kernel, kSpecSlots + (RB - 1) * 2 + VEC, dev, kThreads,
       (size_t)RB * kMaxShards * 8 * sizeof(uint32_t), &resident);
   if (err != cudaSuccess) return err;
   const int64_t grid = grid_for(total, kThreads, sms, resident);
@@ -366,10 +369,11 @@ cudaError_t launch_generic(const uint32_t* tables, const uint32_t* data,
 }
 
 // V volumes of [K, W] words in, [R, W] each out.  `plan` set: fill it
-// with what the launch would do and launch nothing.
+// with what the launch would do and launch nothing.  `generic`: the
+// generic body even where a template exists (the templates' yardstick).
 int apply_volumes(const void* tables, const void* host, const void* data,
                   void* out, int V, int R, int K, long long W, void* stream,
-                  Plan* plan) {
+                  Plan* plan, bool generic = false) {
   if (R < 1 || R > kMaxShards || K < 1 || K > kMaxShards || W < 0 ||
       V < 1 || V > kMaxVolumes) {
     return (int)cudaErrorInvalidValue;
@@ -390,21 +394,29 @@ int apply_volumes(const void* tables, const void* host, const void* data,
   const uint32_t* h = (const uint32_t*)host;
   const uint32_t* d = (const uint32_t*)data;
   uint32_t* o = (uint32_t*)out;
-  if (K == 10 && R <= 4) {
-#define GF_SPEC(N)                                                         \
-  err = vec ? launch_spec<N, 10, true>(h, d, o, C, total, dev, sms, s,     \
+#define GF_SPEC(N, KK)                                                     \
+  err = vec ? launch_spec<N, KK, true>(h, d, o, C, total, dev, sms, s,     \
                                        plan)                               \
-            : launch_spec<N, 10, false>(h, d, o, C, total, dev, sms, s,    \
+            : launch_spec<N, KK, false>(h, d, o, C, total, dev, sms, s,    \
                                         plan)
+  if (!generic && K == 10 && R <= 4) {
     switch (R) {
-      case 1: GF_SPEC(1); break;
-      case 2: GF_SPEC(2); break;
-      case 3: GF_SPEC(3); break;
-      default: GF_SPEC(4); break;
+      case 1: GF_SPEC(1, 10); break;
+      case 2: GF_SPEC(2, 10); break;
+      case 3: GF_SPEC(3, 10); break;
+      default: GF_SPEC(4, 10); break;
     }
-#undef GF_SPEC
     return (int)err;
   }
+  if (!generic && K == 6 && R <= 3) {
+    switch (R) {
+      case 1: GF_SPEC(1, 6); break;
+      case 2: GF_SPEC(2, 6); break;
+      default: GF_SPEC(3, 6); break;
+    }
+    return (int)err;
+  }
+#undef GF_SPEC
   for (int r0 = 0; r0 < R; r0 += kMaxRowsPerGroup) {
     const int rb = (R - r0 < kMaxRowsPerGroup) ? R - r0 : kMaxRowsPerGroup;
     const uint32_t* t = (const uint32_t*)tables + (size_t)r0 * K * 8;
@@ -442,6 +454,15 @@ extern "C" int gf_apply_words(const void* tables, const void* host_tables,
                               long long W, void* stream) {
   return apply_volumes(tables, host_tables, data, out, 1, R, K, W, stream,
                        nullptr);
+}
+
+// The same apply through the generic body whatever the shape: the
+// yardstick a template is timed against, never the main path.
+extern "C" int gf_apply_words_generic(const void* tables, const void* data,
+                                      void* out, int R, int K, long long W,
+                                      void* stream) {
+  return apply_volumes(tables, nullptr, data, out, 1, R, K, W, stream,
+                       nullptr, true);
 }
 
 // The same apply for V volumes in one launch (one set of tables): data

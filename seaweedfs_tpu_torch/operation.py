@@ -5,8 +5,12 @@ with failover over a volume's locations, and `delete`.
 
 The port's master is a single node, so there is no leader to follow:
 the seeds of a comma-separated list are tried in order and the first
-that answers is used.  No JWTs, deadlines, hedged reads, native read or
-write planes, or follow-mode lookups (ROADMAP).  It imports no torch.
+that answers is used.  Under a deadline (`util/deadline`), assign,
+upload, lookup and read derive each hop's timeout from the remaining
+budget and forward it (the HTTP client stamps `X-Weed-Deadline-Ms`); a
+spent budget raises `DeadlineExceeded` and is never taken for a failed
+location.  No JWTs, hedged reads, native read or write planes, or
+follow-mode lookups (ROADMAP).  It imports no torch.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from dataclasses import dataclass
 
 from .server.httpd import http_bytes, http_json
 from .storage import types
+from .util import deadline
 
 
 def master_json(master: str, method: str, path: str,
@@ -87,7 +92,8 @@ def assign(master: str, count: int = 1, collection: str = "",
         qs += f"&replication={replication}"
     if ttl:
         qs += f"&ttl={ttl}"
-    r = master_json(master, "GET", f"/dir/assign?{qs}", timeout=30.0)
+    r = master_json(master, "GET", f"/dir/assign?{qs}",
+                    timeout=deadline.io_timeout(30.0, site="master.assign"))
     if "error" in r:
         raise RuntimeError(f"assign: {r['error']}")
     return Assignment(r["fid"], r["url"], r.get("publicUrl", r["url"]),
@@ -109,8 +115,9 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
     headers = {"Content-Type": mime} if mime else {}
     if auth:
         headers["Authorization"] = f"Bearer {auth}"
-    status, body, _ = http_bytes("POST", f"{url}/{fid}{qs}", data, headers,
-                                 timeout=60.0)
+    status, body, _ = http_bytes(
+        "POST", f"{url}/{fid}{qs}", data, headers,
+        timeout=deadline.io_timeout(60.0, site="volume.upload"))
     if status >= 300:
         raise UploadError(f"upload {fid} -> {status}: {body[:200]!r}",
                           status)
@@ -225,6 +232,8 @@ def assign_and_upload(master: str, data: bytes, name: str = "",
             if not from_cache and e.status != 409 and e.status < 500:
                 raise  # a deterministic rejection
             last = e
+        except deadline.DeadlineExceeded:
+            raise  # a retry cannot change a spent budget's verdict
         except (RuntimeError, OSError) as e:
             _assign_cache.invalidate(spec)
             last = e
@@ -250,7 +259,7 @@ def lookup(master: str, vid: int, use_cache: bool = True) -> list[dict]:
         if cached is not None:
             return cached
     r = master_json(master, "GET", f"/dir/lookup?volumeId={vid}",
-                    timeout=30.0)
+                    timeout=deadline.io_timeout(30.0, site="master.lookup"))
     if "error" in r:
         raise LookupError(r["error"])
     _vid_cache.put(master, vid, r["locations"])
@@ -273,8 +282,13 @@ def read(master: str, fid: str, offset: int = 0,
             try:
                 status, body, _ = http_bytes(
                     "GET", f"{loc['url']}/{fid}", None, headers,
-                    timeout=60.0)
+                    timeout=deadline.io_timeout(60.0, site="volume.read"))
+            except deadline.DeadlineExceeded:
+                raise
             except OSError as e:
+                # a timeout that the budget capped is the budget's
+                # verdict, not the location's
+                deadline.reraise_if_expired("volume.read")
                 last_err = f"{loc['url']} -> {e}"
                 continue
             if status in (200, 206):

@@ -41,9 +41,11 @@ MAX_SHARDS = 32          # ShardBits is uint32 (ec_context.MAX_SHARD_COUNT)
 MAX_VOLUMES = 65535      # volumes a batched launch takes
 LANE_MASK = 0x01010101
 # (R, K) shapes with a kernel template of their own: RS(10,4)'s encode and
-# its rebuilds of 4, 3, 2 and 1 lost shards.  Every other shape runs the
-# kernel's generic body (runtime K, row groups of <= 8).
-SPECIALISED = frozenset((r, 10) for r in (1, 2, 3, 4))
+# its rebuilds of 4, 3, 2 and 1 lost shards, and RS(6,3)'s encode and its
+# rebuilds of 3, 2 and 1.  Every other shape runs the kernel's generic
+# body (runtime K, row groups of <= 8).
+SPECIALISED = frozenset([(r, 10) for r in (1, 2, 3, 4)] +
+                        [(r, 6) for r in (1, 2, 3)])
 
 # Kernel launches made by gf_apply_matrix_words and by
 # gf_apply_matrix_words_batch (one per call on a CUDA tensor).  Read and
@@ -247,6 +249,31 @@ def gf_apply_matrix_words(tables: torch.Tensor, data32: torch.Tensor,
             f"gf_apply_words launch failed: cudaError {err} "
             f"(R={r} K={k} W={w})")
     LAUNCHES += 1
+    return out
+
+
+def gf_apply_matrix_words_generic(tables: torch.Tensor,
+                                  data32: torch.Tensor) -> torch.Tensor:
+    """The single apply through the kernel's generic body whatever the
+    shape, on the current stream of a CUDA device: the yardstick a
+    template is timed against (chip_smoke.py's kernel phase).  Never on
+    the main path, so it counts no launch."""
+    r, k = _check(tables, data32)
+    if data32.device.type != "cuda":
+        raise ValueError(f"no kernel for device {data32.device}")
+    fn = _build.load(SOURCE).gf_apply_words_generic
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    w = data32.shape[1]
+    with torch.cuda.device(data32.device):
+        stream = torch.cuda.current_stream(data32.device)
+        out = torch.empty((r, w), dtype=torch.int32, device=data32.device)
+        err = fn(tables.data_ptr(), data32.data_ptr(), out.data_ptr(), r, k,
+                 w, stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"gf_apply_words_generic launch failed: "
+                           f"cudaError {err} (R={r} K={k} W={w})")
     return out
 
 

@@ -14,9 +14,15 @@ Content-Length or chunked framing).
 The wire formats are the reference's, so servers and clients of either
 package talk to each other.
 
+Deadlines (`util/deadline`): each request's budget is adopted at
+ingress from its `X-Weed-Deadline-Ms` header, or the operator default
+except on `/admin/` and `/debug/`; a request past its budget answers 504
+with `Retry-After` before its handler runs, and a handler whose budget
+ran out on an outbound hop answers 504 too.  Every client call here
+forwards the remaining budget in the same header.
+
 Plain HTTP, bound to 127.0.0.1 by default: no TLS, no admin JWT, no
-connection pool, no QoS admission, no deadline plane and no fault
-sites (ROADMAP C).
+connection pool, no QoS admission and no fault sites (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
 from .. import tracing
+from ..util import deadline
 
 
 class Request:
@@ -191,7 +198,8 @@ class HttpServer:
     """Exact (method, path) routes, then the `fallback` route, on the
     stdlib ThreadingHTTPServer, one thread per connection.  Each request
     runs under a server span whose trace id is the caller's X-Request-ID
-    (or a fresh one) and whose parent is the caller's X-Trace-Parent."""
+    (or a fresh one) and whose parent is the caller's X-Trace-Parent,
+    and under the deadline its X-Weed-Deadline-Ms grants."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self.routes: dict[tuple[str, str], Route] = {}
@@ -211,19 +219,37 @@ class HttpServer:
                 tracing.set_request_id(rid)
                 _, parent = tracing.parse_traceparent(
                     req.headers.get(tracing.HEADER, ""))
+                # the budget is bound before anything spends time on
+                # the request (always rebinding: handler threads are
+                # reused); the maintenance routes get no default budget
+                site = outer.role or "server"
+                dl = deadline.adopt(
+                    req.headers.get(deadline.HEADER), site=site,
+                    allow_default=not req.path.startswith(
+                        ("/admin/", "/debug/")))
                 sp = tracing.start_span(f"{req.method} {req.path}",
                                         role=outer.role, parent=parent,
                                         trace_id=rid)
+                if dl is not None:
+                    sp.set("deadlineMs", int(dl.remaining() * 1e3))
                 status = 0
                 body = None
                 try:
                     route = outer.routes.get((req.method, req.path)) \
                         or outer.fallback
                     try:
-                        if route is None:
+                        if dl is not None and dl.expired():
+                            status, payload = deadline.expired_response(
+                                f"{site}.ingress")
+                        elif route is None:
                             status, payload = 404, {"error": "not found"}
                         else:
                             status, payload = route(req)
+                    except deadline.DeadlineExceeded as e:
+                        # the budget ran out on an outbound hop
+                        status, payload = \
+                            deadline.handler_exceeded_response()
+                        sp.set_error(e)
                     except Exception as e:  # noqa: BLE001 — the server
                         # must answer, and the error is the answer
                         status, payload = 500, {"error": str(e)}
@@ -379,8 +405,10 @@ def _connect(url: str, timeout: float
 
 def _with_trace(headers: "dict | None") -> dict:
     """The caller's headers plus the active request id and span, so the
-    receiver's server span joins the caller's trace."""
-    headers = dict(headers or {})
+    receiver's server span joins the caller's trace, and the remaining
+    budget of the active deadline, so the receiver cannot out-wait the
+    caller."""
+    headers = dict(deadline.stamp_headers(headers or {}))
     rid = tracing.get_request_id()
     if rid:
         headers.setdefault(tracing.REQUEST_ID_HEADER, rid)

@@ -6,14 +6,19 @@ Resolution order per interval (store_ec.go:207 readOneEcShardInterval):
 local shard -> remote shard (locations cached from the master with
 tiered TTL freshness, :248 cachedLookupEcShardLocations) -> reconstruct
 from >= data_shards surviving shards (:366
-recoverOneRemoteEcShardInterval).  Reconstruction runs on the host CPU
-codec (`ops/rs_cpu.ReedSolomonCPU`), as the reference's does: a
+recoverOneRemoteEcShardInterval).  Reconstruction runs on the host: the
+native C++ codec (`ops/rs_native`, GFNI/AVX2 tiers) when it builds, else
+the numpy codec (`ops/rs_cpu`), as the reference's reader chooses.  A
 single-needle read is bound by its latency, so the card's batched kernel
-stays with bulk encode and rebuild.  The codec does not depend on
-whether a card is present.
+stays with bulk encode and rebuild.  Each rebuilt interval is counted by
+the engine that served it (`ec_degraded_codec_intervals_total{engine,
+simd}`), so a run can show that no fallback served it.
 
-The reference's request deadlines and flight-recorder notes are not
-ported (ROADMAP C): a read waits out each hop's own timeout.
+Deadlines (`util/deadline`): the shard read (site `ec.shard_read`) and
+the master lookup (`master.ec_lookup`) derive their timeouts from the
+request's remaining budget and re-raise a spent one instead of taking
+the peer for dead; the survivor fetch threads run under the caller's
+deadline.  No flight-recorder notes (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -26,14 +31,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import stats
-from ..ops import rs_cpu, rs_matrix
+from ..ops import rs_cpu, rs_matrix, rs_native
 from ..storage.erasure_coding.ec_volume import EcVolume, NotFoundError
 from ..storage.erasure_coding.ec_context import (LARGE_BLOCK_SIZE,
                                                  SMALL_BLOCK_SIZE)
 from ..storage.erasure_coding.shard_source import (
     LocalShardSource, MultiSourceFetcher, RemoteShardSource)
 from ..storage.needle import Needle
-from ..util import retry
+from ..util import deadline, retry
 from .httpd import http_bytes
 
 # tiered freshness (store_ec.go:248): incomplete -> 11s, full -> 37min,
@@ -90,7 +95,7 @@ class EcReader:
         self.master = master
         self.self_url = self_url
         self._caches: dict[int, _ShardLocationCache] = {}
-        self._codecs: dict[tuple[int, int], rs_cpu.ReedSolomonCPU] = {}
+        self._codecs: dict[tuple[int, int], object] = {}
         self._pool = ThreadPoolExecutor(max_workers=14)
 
     # -- public -----------------------------------------------------------
@@ -139,20 +144,27 @@ class EcReader:
                       "instead of a direct shard read", vid=ev.id)
         t0 = time.perf_counter()
         try:
+            data = None
             step = _degraded_stream_bytes()
             if iv.size > step:
                 # large interval: decode-on-read in slice windows, the
                 # survivor fetch overlapping the matrix apply; nothing
                 # is written to disk and memory stays at d x window
                 try:
-                    return self._recover_interval_streamed(
+                    data = self._recover_interval_streamed(
                         ev, sid, off, iv.size, locs, step)
+                except deadline.DeadlineExceeded:
+                    raise
                 except (OSError, ValueError, KeyError):
                     # a survivor died mid-stream past its own failover:
                     # the one-shot path below re-plans from everything
                     # reachable rather than failing the read
                     pass
-            return self._recover_interval(ev, sid, off, iv.size)
+            if data is None:
+                data = self._recover_interval(ev, sid, off, iv.size)
+            self._note_engine(self._codec(ev.ctx.data_shards,
+                                          ev.ctx.parity_shards))
+            return data
         finally:
             stats.PROCESS.histogram_observe(
                 "ec_degraded_read_seconds",
@@ -174,12 +186,17 @@ class EcReader:
         if not retry.peer_available(url):
             self._note_failover(url)
             return None
+        # derived outside the try: a spent budget is the caller's
+        # verdict, not this peer's
+        timeout = deadline.io_timeout(10.0, site="ec.shard_read")
         try:
             status, body, _ = http_bytes(
                 "GET",
                 f"{url}/admin/ec/shard_read?volumeId={vid}&shardId={sid}"
-                f"&offset={offset}&size={size}", timeout=10.0)
+                f"&offset={offset}&size={size}", timeout=timeout)
         except OSError:
+            # a timeout the budget capped is the budget's verdict too
+            deadline.reraise_if_expired("ec.shard_read")
             self._note_failover(url)
             self._bust_locations(vid, url)
             return None
@@ -299,6 +316,9 @@ class EcReader:
         locs = self._shard_locations(ev, force_if_missing=missing_sid)
         bufs = np.zeros((total, size), dtype=np.uint8)
         present = [False] * total
+        # contextvars do not follow pool threads: each fetch runs under
+        # the request's deadline
+        budget = deadline.get()
 
         def fetch(sid: int):
             if sid == missing_sid:
@@ -306,10 +326,12 @@ class EcReader:
             shard = ev.shards.get(sid)
             if shard is not None:
                 return sid, shard.read_at(offset, size)
-            for url in locs.get(sid, []):
-                data = self._remote_read(url, ev.id, sid, offset, size)
-                if data is not None:
-                    return sid, data
+            with deadline.use(budget):
+                for url in locs.get(sid, []):
+                    data = self._remote_read(url, ev.id, sid, offset,
+                                             size)
+                    if data is not None:
+                        return sid, data
             return sid, None
 
         for sid, data in self._pool.map(fetch, range(total)):
@@ -345,11 +367,14 @@ class EcReader:
                 fresh = fresh and age < _TTL_INCOMPLETE
             if not fresh:
                 from ..operation import master_json
+                timeout = deadline.io_timeout(5.0, site="master.ec_lookup")
                 try:
                     r = master_json(
                         self.master, "GET",
-                        f"/dir/ec_lookup?volumeId={ev.id}", timeout=5.0)
+                        f"/dir/ec_lookup?volumeId={ev.id}",
+                        timeout=timeout)
                 except OSError:
+                    deadline.reraise_if_expired("master.ec_lookup")
                     r = {}
                 locs: dict[int, list[str]] = {}
                 for entry in r.get("shardIdLocations", []):
@@ -360,11 +385,33 @@ class EcReader:
                     cache.refreshed = time.monotonic()
             return dict(cache.locations)
 
-    def _codec(self, d: int, p: int) -> rs_cpu.ReedSolomonCPU:
+    def _codec(self, d: int, p: int):
+        """The native C++ codec when it builds, else the numpy one (the
+        same bytes either way)."""
         key = (d, p)
         if key not in self._codecs:
-            self._codecs[key] = rs_cpu.ReedSolomonCPU(d, p)
+            if rs_native.available():
+                self._codecs[key] = rs_native.ReedSolomonNative(d, p)
+            else:
+                self._codecs[key] = rs_cpu.ReedSolomonCPU(d, p)
         return self._codecs[key]
+
+    @staticmethod
+    def engine_of(codec) -> "tuple[str, str]":
+        """(engine, SIMD tier) of a degraded-read codec: ("native",
+        "gfni-avx512" | "avx512bw" | "avx2" | "scalar") or ("numpy",
+        "")."""
+        if isinstance(codec, rs_native.ReedSolomonNative):
+            return "native", rs_native.gf_native_simd()
+        return "numpy", ""
+
+    def _note_engine(self, codec) -> None:
+        engine, simd = self.engine_of(codec)
+        stats.PROCESS.counter_add(
+            "ec_degraded_codec_intervals_total", 1.0,
+            help_text="lost needle intervals rebuilt, by the host "
+                      "codec that rebuilt them",
+            engine=engine, simd=simd)
 
     def forget(self, vid: int) -> None:
         """Drop the cached shard locations of volume vid (after an

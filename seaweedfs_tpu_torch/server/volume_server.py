@@ -6,10 +6,19 @@ a master, and the public data path for reads and deletes.
 - `GET` / `HEAD` / `DELETE /<vid>,<key><cookie>`: a needle of a normal
   or an EC volume (`Range` answers 206).  An EC needle's intervals are
   read from local shards, else from the shards' holders, else rebuilt
-  from survivors on the host CPU codec (`store_ec.EcReader`).  A delete
+  from survivors on the host's codec (`store_ec.EcReader`).  A delete
   on an EC volume tombstones the needle on every holder the master's
   `/dir/ec_lookup` lists; on a replicated normal volume, on every
   replica.
+- The hot-needle cache (`util/chunk_cache.TieredChunkCache`, memory
+  `SEAWEEDFS_TPU_READ_CACHE_MB`, 64 by default, 0 turns it off; an
+  optional disk tier under `SEAWEEDFS_TPU_READ_CACHE_DIR`): a read
+  fills it, degraded decodes included unless
+  `SEAWEEDFS_TPU_DEGRADED_PROMOTE` is 0 or false, and a repeated read is
+  answered from memory.  Keys carry the cookie and a per-volume
+  generation; a write or a delete invalidates its needle, and every
+  mount, unmount, delete or decode that changes what a volume id serves
+  drops the volume's generation.
 - `POST` / `PUT /<vid>,<key><cookie>`: write a needle (`name` and `ts`
   in the query, the mime type in `Content-Type`), flushed to the OS
   before the answer, then on every other replica of a replicated volume
@@ -47,9 +56,8 @@ to the master's `/heartbeat` at start, every `pulse_seconds`, and at
 once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
-remote shard.  No TLS, JWTs, fault sites, QoS throttle, hot-needle
-cache, resize-on-read, group commit or native read and write planes
-(ROADMAP C).  Counters go to
+remote shard.  No TLS, JWTs, fault sites, QoS throttle, resize-on-read,
+group commit or native read and write planes (ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts.
@@ -73,9 +81,20 @@ from ..storage.erasure_coding.ec_context import ECContext, to_ext
 from ..storage.needle import Needle
 from ..storage.store import Store
 from ..storage.types import check_path_fields
+from ..util.chunk_cache import (TieredChunkCache, read_cache_disk,
+                                read_cache_mb)
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     http_download, http_json)
 from .store_ec import EcReader
+
+
+def _promote_degraded() -> bool:
+    """`SEAWEEDFS_TPU_DEGRADED_PROMOTE` (default on): degraded decodes
+    fill the hot-needle cache, so only the first read of a needle pays
+    the d-way fan-out; 0 or false keeps decode results out of it."""
+    return os.environ.get("SEAWEEDFS_TPU_DEGRADED_PROMOTE",
+                          "1") not in ("0", "false")
+
 
 class VolumeServer:
     """The EC admin plane of one volume server over `directories`.  The
@@ -128,6 +147,25 @@ class VolumeServer:
         r("GET", "/metrics", self._metrics)
         self.http.fallback = self._data_path
         self.ec_reader = EcReader(master, self.http.url)
+        # hot-needle cache: a repeated read skips the index lookup and
+        # the .dat read (for an EC volume, the interval resolution and
+        # any degraded decode).  Keys carry a per-volume generation, so
+        # a volume is dropped whole without enumerating its needles;
+        # writes and deletes invalidate their needle's group
+        mb = read_cache_mb(64)
+        disk_dir, disk_mb = read_cache_disk()
+        self.needle_cache = TieredChunkCache(
+            mem_limit=mb << 20,
+            disk_dir=(os.path.join(disk_dir, f"vol{self.http.port}")
+                      if disk_dir else None),
+            disk_limit=disk_mb << 20,
+            name="volume_needle") if mb > 0 else None
+        self._nc_gen: dict[int, int] = {}
+        self._nc_gen_lock = threading.Lock()
+        # fill/invalidate guard: a read that began before a write or
+        # delete landed must not cache its stale needle after the
+        # invalidation ran, so fills carry the epoch they began at
+        self._nc_epoch = 0
         # staged scatter uploads awaiting commit:
         # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
         self._pending_shard_writes: dict[str, dict] = {}
@@ -251,17 +289,27 @@ class VolumeServer:
 
     def _get_needle(self, fid: types.FileId, rng: str = ""):
         """volume_server_handlers_read.go: the needle's data with its
-        mime type, or the `Range` asked for (206)."""
-        try:
-            n = self.store.read_needle(fid.volume_id, fid.key,
-                                       cookie=fid.cookie,
-                                       ec_reader=self.ec_reader)
-        except KeyError:
-            return 404, {"error": "not found"}
-        except ValueError as e:   # cookie mismatch, corrupt record
-            return 404, {"error": str(e)}
-        mime = n.mime.decode() if n.mime else "application/octet-stream"
-        data = n.data
+        mime type, or the `Range` asked for (206), from the hot-needle
+        cache when it holds the needle."""
+        cached = self._nc_get(fid)
+        if cached is not None:
+            mime, data = cached
+        else:
+            token = self._nc_epoch    # before the store read
+            try:
+                n = self.store.read_needle(fid.volume_id, fid.key,
+                                           cookie=fid.cookie,
+                                           ec_reader=self.ec_reader)
+            except KeyError:
+                return 404, {"error": "not found"}
+            except ValueError as e:   # cookie mismatch, corrupt record
+                return 404, {"error": str(e)}
+            if not getattr(n, "was_degraded", False) or \
+                    _promote_degraded():
+                self._nc_put(fid, n, token)
+            mime = n.mime.decode() if n.mime \
+                else "application/octet-stream"
+            data = n.data
         if rng.startswith("bytes="):
             try:
                 lo, _, hi = rng[6:].partition("-")
@@ -304,6 +352,7 @@ class VolumeServer:
             return 404, {"error": f"volume {fid.volume_id} not found"}
         except PermissionError as e:
             return 409, {"error": str(e)}
+        self._nc_invalidate_needle(fid.volume_id, fid.key)
         if req.query.get("type") != "replicate":
             # the stamped ts and the original Content-Type (always set:
             # "" would store no mime, a missing header likewise) make
@@ -327,6 +376,9 @@ class VolumeServer:
                 fid.volume_id, Needle(cookie=fid.cookie, id=fid.key))
         except KeyError:
             freed = None
+        # after the store's change, as for a write: invalidating first
+        # would let a concurrent read cache the needle again
+        self._nc_invalidate_needle(fid.volume_id, fid.key)
         if req.query.get("type") != "replicate":
             if self.store.find_ec_volume(fid.volume_id) is not None:
                 err = self._ec_delete_fan_out(fid)
@@ -408,6 +460,63 @@ class VolumeServer:
                 return f"{loc['url']} -> {status}: {data[:200]!r}"
         return None
 
+    # -- hot-needle cache (util/chunk_cache) ---------------------------------
+
+    def _nc_key(self, vid: int, key: int, cookie: int) -> str:
+        with self._nc_gen_lock:
+            gen = self._nc_gen.get(vid, 0)
+        return f"{vid}.g{gen}.{key:x}.{cookie:08x}"
+
+    def _nc_get(self, fid: types.FileId) -> "tuple[str, bytes] | None":
+        """Cached (mime, data) of a needle, or None.  The cookie is part
+        of the key: a wrong cookie misses and takes the store path,
+        which refuses it."""
+        if self.needle_cache is None:
+            return None
+        blob = self.needle_cache.get(
+            self._nc_key(fid.volume_id, fid.key, fid.cookie))
+        if blob is None:
+            return None
+        mlen = int.from_bytes(blob[:2], "big")
+        return blob[2:2 + mlen].decode(), blob[2 + mlen:]
+
+    def _nc_put(self, fid: types.FileId, n, token: int) -> None:
+        """Cache a needle just read.  TTL'd needles stay out (the cache
+        has no clock of its own), and so do bodies over the memory
+        tier's bound.  `token` is the epoch the store read began at: a
+        fill that raced an invalidation is dropped."""
+        if self.needle_cache is None or n.has_ttl() or \
+                token != self._nc_epoch:
+            return
+        mime = n.mime.decode() if n.mime else "application/octet-stream"
+        blob = len(mime.encode()).to_bytes(2, "big") + \
+            mime.encode() + bytes(n.data)
+        key = self._nc_key(fid.volume_id, fid.key, fid.cookie)
+        self.needle_cache.set(key, blob,
+                              group=f"{fid.volume_id}.{fid.key:x}")
+        # the epoch check above is not atomic with set(): an
+        # invalidation that completed in between wiped the group before
+        # this key joined it.  Check again and undo this fill; one of
+        # the two always removes it
+        if token != self._nc_epoch:
+            self.needle_cache.delete(key)
+
+    def _nc_invalidate_needle(self, vid: int, key: int) -> None:
+        """Invalidate one needle under every cookie (the group has none,
+        so a delete without the right cookie still clears it)."""
+        if self.needle_cache is not None:
+            with self._nc_gen_lock:
+                self._nc_epoch += 1
+            self.needle_cache.invalidate_group(f"{vid}.{key:x}")
+
+    def _nc_drop_volume(self, vid: int) -> None:
+        """Drop a volume whole by bumping its generation: its old keys
+        become unreachable and age out of the LRU."""
+        if self.needle_cache is not None:
+            with self._nc_gen_lock:
+                self._nc_epoch += 1
+                self._nc_gen[vid] = self._nc_gen.get(vid, 0) + 1
+
     # -- volume admin -----------------------------------------------------
 
     def _allocate_volume(self, req: Request):
@@ -443,6 +552,9 @@ class VolumeServer:
         except ValueError as e:
             return 400, {"error": str(e)}
         base = self._base_path(vid, collection)
+        if ext in (".dat", ".idx"):
+            # a pushed data or index file replaces what the volume serves
+            self._nc_drop_volume(vid)
         n = 0
         tmp = f"{base}{ext}.recv.{uuid.uuid4().hex}"
         try:
@@ -486,7 +598,9 @@ class VolumeServer:
         return 200, (FileSlice(f, n), {"Content-Length": str(n)})
 
     def _delete_volume(self, req: Request):
-        self.store.delete_volume(int(req.json()["volumeId"]))
+        vid = int(req.json()["volumeId"])
+        self.store.delete_volume(vid)
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -494,12 +608,16 @@ class VolumeServer:
         b = req.json()
         collection = b.get("collection", "")
         check_path_fields(collection)
-        self.store.mount_volume(int(b["volumeId"]), collection)
+        vid = int(b["volumeId"])
+        self.store.mount_volume(vid, collection)
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
     def _unmount_volume(self, req: Request):
-        self.store.unmount_volume(int(req.json()["volumeId"]))
+        vid = int(req.json()["volumeId"])
+        self.store.unmount_volume(vid)
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -858,6 +976,7 @@ class VolumeServer:
             sids.append(sid)
         if b.get("mount"):
             self.store.mount_ec_shards(vid, collection, sids)
+            self._nc_drop_volume(vid)
             self._heartbeat_once()
         return 200, {"shardIds": sids,
                      "bytes": sum(rec["bytes"] for _c, rec in recs)}
@@ -880,9 +999,10 @@ class VolumeServer:
         b = req.json()
         collection = b.get("collection", "")
         check_path_fields(collection)
+        vid = int(b["volumeId"])
         ev = self.store.mount_ec_shards(
-            int(b["volumeId"]), collection,
-            [int(s) for s in b.get("shardIds", [])])
+            vid, collection, [int(s) for s in b.get("shardIds", [])])
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {"shardIds": ev.shard_ids}
 
@@ -894,6 +1014,7 @@ class VolumeServer:
         self.store.unmount_ec_shards(
             vid, [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
         self.ec_reader.forget(vid)
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -919,6 +1040,7 @@ class VolumeServer:
         else:
             self.store.mount_ec_shards(vid, collection, [])
         self.ec_reader.forget(vid)
+        self._nc_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -970,6 +1092,7 @@ class VolumeServer:
         ec_decoder.write_idx_file_from_ec_index(base)
         self.store.unmount_ec_shards(vid)
         self.ec_reader.forget(vid)
+        self._nc_drop_volume(vid)
         self.store.mount_volume(vid, collection)
         self._heartbeat_once()
         return 200, {}

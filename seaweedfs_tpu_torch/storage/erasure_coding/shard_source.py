@@ -11,6 +11,8 @@ rebuild's staged pipeline, so fetch, codec and writes overlap.
 
 Memory is bounded by sources x (prefetch depth + 1) x slice bytes: 8 MiB
 slices at depth 2 keep a 10-survivor rebuild under ~¼ GB of buffers.
+The prefetch threads run under the caller's deadline (`util/deadline`),
+so their requests forward its remaining budget.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 
 from ... import stats as _stats
 from ... import tracing
+from ...util import deadline
 
 
 def rebuild_slice_bytes() -> int:
@@ -366,9 +369,11 @@ class MultiSourceFetcher:
         self._queues: dict[int, "queue.Queue"] = {}
         self._pools: dict[int, "queue.Queue"] = {}
         self._threads: list[threading.Thread] = []
-        # the caller's span: each prefetch thread emits one stream span,
-        # and contextvars do not follow threading.Thread
+        # the caller's span and deadline: each prefetch thread emits one
+        # stream span and fetches under the caller's budget, and
+        # contextvars do not follow threading.Thread
         self._trace_ctx = tracing.current_ids()
+        self._deadline = deadline.get()
         depth = rebuild_prefetch_depth()
         for sid, src in sources.items():
             if src.prefetch:
@@ -378,7 +383,7 @@ class MultiSourceFetcher:
                     pool.put(None)
                 self._queues[sid] = q
                 self._pools[sid] = pool
-                t = threading.Thread(target=self._fetch_loop,
+                t = threading.Thread(target=self._fetch_under_deadline,
                                      args=(src, q, pool, sid),
                                      daemon=True)
                 self._threads.append(t)
@@ -392,6 +397,10 @@ class MultiSourceFetcher:
             except queue.Full:
                 continue
         return False
+
+    def _fetch_under_deadline(self, *args) -> None:
+        with deadline.use(self._deadline):
+            self._fetch_loop(*args)
 
     def _fetch_loop(self, src: ShardSource, q: "queue.Queue",
                     pool: "queue.Queue", sid: int) -> None:

@@ -265,7 +265,12 @@ _TEMPLATE_CASES = [
     ("rebuild3", _rec_matrix((2, 5, 12))),
     ("rebuild2", _rec_matrix((0, 13))),
     ("rebuild1", _rec_matrix((9,))),
-    ("generic_6_3", rs_matrix.parity_matrix(6, 3)),
+    ("parity_6_3", rs_matrix.parity_matrix(6, 3)),
+    ("rebuild3_6_3", _rec_matrix((0, 4, 8), 6, 3)),
+    ("rebuild2_6_3", _rec_matrix((1, 5), 6, 3)),
+    ("rebuild1_6_3", _rec_matrix((3,), 6, 3)),
+    ("generic_4_6", np.random.default_rng(3).integers(
+        0, 256, (4, 6), dtype=np.uint8)),
     ("generic_5_10", np.random.default_rng(1).integers(
         0, 256, (5, 10), dtype=np.uint8)),
     ("generic_12_20", np.random.default_rng(2).integers(
@@ -336,7 +341,7 @@ def test_columns_not_a_multiple_of_the_persistent_grid(cuda, r):
 
 @pytest.mark.parametrize("v", [1, 3, 64])
 @pytest.mark.parametrize("w", [4097, 4100, 1023])
-@pytest.mark.parametrize("mat_name", ["parity", "generic_6_3"])
+@pytest.mark.parametrize("mat_name", ["parity", "parity_6_3"])
 def test_batched_ragged_volumes(cuda, v, w, mat_name):
     mat = dict(_TEMPLATE_CASES)[mat_name]
     r, k = mat.shape

@@ -435,6 +435,10 @@ def _victim(locs, reader_url, lost_needles_of) -> str:
 
 @pytest.mark.parametrize("d,p", SCHEMES, ids=SCHEME_IDS)
 def test_ec_reads_through_port_servers(tmp_path, monkeypatch, d, p):
+    # every read below must reach the EC reader, so the servers run
+    # without the hot-needle cache in front of it (which a repeated read
+    # would hit; tests/test_torch_read_load.py covers the cache)
+    monkeypatch.setenv("SEAWEEDFS_TPU_READ_CACHE_MB", "0")
     files, payloads = _cluster_volume(tmp_path, seed=d)
     cluster = Cluster(tmp_path, "port", ["port"] * 7, files)
     try:
@@ -547,7 +551,10 @@ def test_ec_reads_across_packages(tmp_path, d, p):
             [vs.url for vs in cluster.servers].index(victim))
         before = (_degraded_reads(), ref_stats.PROCESS.counter_value(
             "ec_degraded_reads_total", vid=VID) or 0.0)
-        ref_s._nc_drop_volume(VID)   # the JAX server's hot-needle cache
+        # each server's hot-needle cache, so that the reads reach the
+        # readers again
+        ref_s._nc_drop_volume(VID)
+        port_s._nc_drop_volume(VID)
         read_all()
         assert _degraded_reads() > before[0]
         assert ref_stats.PROCESS.counter_value(

@@ -91,13 +91,16 @@ def test_host_copy_is_dropped_with_its_tensor():
     (4, 10, True, "gf_apply_specILi4ELi10ELb1E"),
     (3, 10, False, "gf_apply_specILi3ELi10ELb0E"),
     (1, 10, True, "gf_apply_specILi1ELi10ELb1E"),
-    (3, 6, True, "gf_apply_genericILi3ELb1E"),
+    (3, 6, True, "gf_apply_specILi3ELi6ELb1E"),
+    (1, 6, False, "gf_apply_specILi1ELi6ELb0E"),
+    (4, 6, True, "gf_apply_genericILi4ELb1E"),
     (5, 10, True, "gf_apply_genericILi5ELb1E"),
     (4, 9, False, "gf_apply_genericILi4ELb0E"),
     (16, 16, True, "gf_apply_genericILi8ELb1E"),
 ])
 def test_template_map(r, k, aligned, want):
-    assert rs_cuda.specialised(r, k) == (k == 10 and r <= 4)
+    assert rs_cuda.specialised(r, k) == ((k == 10 and r <= 4) or
+                                         (k == 6 and r <= 3))
     assert rs_cuda.kernel_symbol(r, k, aligned) == want
 
 
@@ -113,6 +116,21 @@ def test_every_rs_10_4_rebuild_matrix_has_a_template():
             assert len(rows) == 10
             shapes.add(np.asarray(m).shape)
     assert shapes == {(1, 10), (2, 10), (3, 10), (4, 10)}
+    assert all(rs_cuda.specialised(*s) for s in shapes)
+
+
+def test_every_rs_6_3_rebuild_matrix_has_a_template():
+    """Every loss RS(6,3) survives (1 to 3 of 9 shards) rebuilds through
+    a [losses, 6] matrix: each has a template of its own."""
+    shapes = set()
+    for n in (1, 2, 3):
+        for lost in itertools.combinations(range(9), n):
+            present = tuple(i not in lost for i in range(9))
+            m, rows = rs_matrix.cached_reconstruction_matrix(6, 3, present,
+                                                             lost)
+            assert len(rows) == 6
+            shapes.add(np.asarray(m).shape)
+    assert shapes == {(1, 6), (2, 6), (3, 6)}
     assert all(rs_cuda.specialised(*s) for s in shapes)
 
 
@@ -140,8 +158,8 @@ def launches(monkeypatch):
 
 def test_codec_and_staging_launch_templates(launches, monkeypatch):
     """RS(10,4)'s encode and rebuilds, one-shot and through
-    staging.WindowedLaunch, launch only templated shapes; RS(6,3) the
-    generic body.  Every launch is one the kernel takes."""
+    staging.WindowedLaunch, launch only templated shapes; so does
+    RS(6,3)'s encode.  Every launch is one the kernel takes."""
     rng = np.random.default_rng(5)
     monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "0.0625")
     codec = ReedSolomonTorch(10, 4, "cpu")
@@ -159,7 +177,7 @@ def test_codec_and_staging_launch_templates(launches, monkeypatch):
                                              (3, 10)}
     assert all(rs_cuda.specialised(r, k) for r, k, _v in rs10)
     ReedSolomonTorch(6, 3, "cpu").parity_lazy(data[:6]).materialize()
-    assert launches[-1][:2] == (3, 6) and not rs_cuda.specialised(3, 6)
+    assert launches[-1][:2] == (3, 6) and rs_cuda.specialised(3, 6)
     for r, k, v in launches:
         assert 0 < r <= rs_cuda.MAX_SHARDS and 0 < k <= rs_cuda.MAX_SHARDS
         assert 0 < v <= rs_cuda.MAX_VOLUMES
