@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the seconds the kernel build took (the CUDA sources in
-   seaweedfs_tpu_torch/csrc are compiled with nvcc at first use).
+   seaweedfs_tpu_torch/csrc are compiled with nvcc at first use); the
+   host libraries every volume server loads (the native CRC32-C and the
+   read and write planes, seaweedfs_tpu_torch/native) built with g++,
+   once, before any server starts: one that does not build fails.
 2. kernel: the CUDA GF(2^8) kernel's two entries against their plain
    PyTorch versions and the numpy twin, bit for bit, at the main paths'
    shapes (one 32 MiB staging window, [4,10] x 838,860 words, with the
@@ -134,8 +137,15 @@ Phases, each printing one JSON line:
    over its batches); every filled fid read back through
    `operation.read` on 8 readers (0 launches, here and on every server's
    `/metrics`); then `upload` and `download` on the command line.  Fill
-   and read-back GB/s and p50/p99, the job's wall and stages.  About 3x
-   the volume written.
+   and read-back GB/s and p50/p99, the job's wall and stages.  The
+   native planes: both ports non-zero in every server's `/status`; the
+   planes' counters off every `/metrics` (native writes and reads, write
+   fallbacks, reads on the Python port, the write plane's ack p50/p99)
+   for the benchmark, the fill and the phase; at least 90% of the
+   benchmark's writes (all to volumes of replication 000) acked by the
+   write plane and some of its reads served by the read plane; the
+   servers' CRC32-C engine, which must be `sse4.2`.  About 3x the volume
+   written.
 
 9. read_load: BASELINE.json's config 5, "RS(6,3) alt scheme +
    streaming ec.decode read path under weed benchmark load", through
@@ -161,7 +171,10 @@ Phases, each printing one JSON line:
    budget (`X-Weed-Deadline-Ms: 0`) answers 504 with `Retry-After`
    without reading the store, and a degraded GET under a 30 s budget
    forwards less to its shard reads (`deadline_remaining_seconds` on
-   the holders).
+   the holders).  The native planes as in the write phase: both ports up
+   on every server, the planes' counters for the writes, the fill (some
+   of it acked by the write plane: the master's default replication is
+   000) and each read pass, and the CRC32-C engine `sse4.2`.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -417,10 +430,22 @@ def nvidia_smi() -> str:
 def phase_device(smi: str) -> dict:
     import torch
 
+    from seaweedfs_tpu_torch import native
     from seaweedfs_tpu_torch.ops import _build, rs_cuda
     t0 = time.perf_counter()
     _build.load(rs_cuda.SOURCE)
     build_s = time.perf_counter() - t0
+    # the host libraries every volume server loads (the needle CRC32-C and
+    # the read and write planes), built here once before any server
+    # starts; one that does not build fails the run
+    host_libs = {}
+    for stem, load in (("crc32c", native.load_crc32c),
+                       ("read_plane", native.load_read_plane),
+                       ("write_plane", native.load_write_plane)):
+        check(load() is not None, f"native {stem} did not build: "
+              f"{native.BUILD_INFO[stem].get('error')}")
+        host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
+                           for k in ("seconds", "march_native")}
     log = _build.BUILD_INFO[rs_cuda.SOURCE]["log"]
     regs = sorted({int(line.split("Used ")[1].split()[0])
                    for line in log.splitlines() if "Used " in line})
@@ -444,7 +469,7 @@ def phase_device(smi: str) -> dict:
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "device_name": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
-           "kernel_build_seconds": build_s,
+           "kernel_build_seconds": build_s, "host_libraries": host_libs,
            "registers_per_thread": regs, "spills": spills,
            "ptxas": per_kernel}
     emit(out)
@@ -2230,22 +2255,82 @@ t = time.perf_counter()
 for _ in range(4):
     crc.crc32c(buf)
 s = time.perf_counter() - t
-print(json.dumps({"path": "numpy" if crc.crc32c is crc.crc32c_numpy
-                  else "google_crc32c", "gbps": 4 * len(buf) / s / 1e9}))
+print(json.dumps({"path": crc.engine(), "gbps": 4 * len(buf) / s / 1e9}))
 """
 
 
 def _crc_probe() -> dict:
     """Which CRC32-C the volume servers compute a needle's checksum with
-    (the same interpreter and path as `_start_procs` gives them), and its
-    rate on one core over a 4 MiB buffer (the fill's mean needle is
-    ~2.1 MiB)."""
+    (`crc.engine()` in the same interpreter and path as `_start_procs`
+    gives them: google_crc32c, sse4.2, sw or numpy), and its rate on one
+    core over a 4 MiB buffer (the fill's mean needle is ~2.1 MiB)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run([sys.executable, "-c", _CRC_PROBE],
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=repo))
     check(out.returncode == 0, f"the CRC probe: {out.stderr[-2000:]}")
     return json.loads(out.stdout)
+
+
+_PLANE_LINE = re.compile(
+    r'^volume_server_(\w+?)(?:\{le="([^"]*)"\})? (\S+)$', re.M)
+
+
+def _planes_up(urls) -> dict:
+    """Each server's plane ports from its /status; fails unless both
+    planes run on every server (a plane that did not build or start
+    leaves its port 0)."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    ports = {}
+    for u in urls:
+        st = http_json("GET", f"{u}/status", timeout=30)
+        ports[u] = {"read": st.get("readPlanePort", 0),
+                    "write": st.get("writePlanePort", 0)}
+        check(ports[u]["read"] and ports[u]["write"],
+              f"{u} runs without a native plane: {ports[u]}")
+    return ports
+
+
+def _plane_counters(urls) -> dict:
+    """The planes' counters on every server's /metrics, summed: native
+    writes, write fallbacks, native reads, reads on the Python port while
+    the read plane is up, and the write plane's ack histogram
+    ({bound: cumulative count})."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    out = dict(_NO_PLANES, ack={})
+    names = {"write_plane_requests_total": "native_writes",
+             "write_plane_fallbacks_total": "write_fallbacks",
+             "read_plane_requests_total": "native_reads"}
+    for u in urls:
+        text = http_bytes("GET", f"{u}/metrics", timeout=60)[1].decode()
+        for m in _PLANE_LINE.finditer(text):
+            name, le, val = m.group(1), m.group(2), float(m.group(3))
+            if name in names:
+                out[names[name]] += val
+            elif name == "write_plane_ack_seconds_bucket":
+                out["ack"][le] = out["ack"].get(le, 0.0) + val
+        out["python_reads"] += sum(
+            v for _, v in _samples(text, "read_plane_fallbacks_total"))
+    return out
+
+
+_NO_PLANES = {"native_writes": 0.0, "write_fallbacks": 0.0,
+              "native_reads": 0.0, "python_reads": 0.0, "ack": {}}
+
+
+def _plane_delta(after: dict, before: dict) -> dict:
+    """What the planes counted between two `_plane_counters`, with the
+    ack latency's p50 and p99 as the upper bounds of the histogram
+    buckets that hold them."""
+    out = {k: int(after[k] - before[k]) for k in after if k != "ack"}
+    cells = sorted(((float(le), after["ack"][le] -
+                     before["ack"].get(le, 0.0)) for le in after["ack"]))
+    total = cells[-1][1] if cells else 0.0
+    for name, q in (("ack_p50_s", 0.5), ("ack_p99_s", 0.99)):
+        out[name] = next((le for le, cum in cells if total and
+                          cum >= q * total), None)
+    out["acks"] = int(total)
+    return out
 
 
 def _record(directory: str, vid: int, collection: str, key: int):
@@ -2336,6 +2421,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
              len(urls), "3 volume servers registered")
         start_s = time.perf_counter() - t0
         check(volumes() == {}, "the cluster starts with no volume")
+        plane_ports = _planes_up(urls)
 
         # 1. weed benchmark's shape; every read held against the payload
         import random
@@ -2355,12 +2441,21 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
                 "loadavg_1m": os.getloadavg()[0],
                 "threads_in_this_process": threading.active_count()}
         rs_cuda.LAUNCHES = 0
+        before = _plane_counters(urls)
         operation.read = checked_read
         try:
             bench = benchmark.run_benchmark(murl, bench_n, BENCH_SIZE,
                                             BENCH_C)
         finally:
             operation.read = real_read
+        bench_planes = _plane_delta(_plane_counters(urls), before)
+        # every benchmark write goes to a volume of replication 000, which
+        # the write plane owns; a read goes to the read plane first
+        check(bench_planes["native_writes"] >= 0.9 * bench_n,
+              f"the write plane acked {bench_planes['native_writes']} of "
+              f"the benchmark's {bench_n} writes")
+        check(bench_planes["native_reads"] > 0,
+              "the read plane served none of the benchmark's reads")
         host["loadavg_1m_after"] = os.getloadavg()[0]
         check(len(reads) == bench_n and len(set(reads)) == bench_n,
               f"benchmark read {len(set(reads))} of {bench_n} fids")
@@ -2462,6 +2557,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
                 ms = (time.perf_counter() - t) * 1e3
                 with lock:
                     written.append((fid, nid, len(body), ms))
+        before = _plane_counters(live)
         t = time.perf_counter()
         with ThreadPoolExecutor(FILL_WRITERS) as pool:
             futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
@@ -2477,6 +2573,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
             for f in futs:
                 f.result()
         fill_s = time.perf_counter() - t
+        fill_planes = _plane_delta(_plane_counters(live), before)
         fill_bytes = sum(w[2] for w in written)
         in_first = [w for w in written
                     if types.parse_file_id(w[0]).volume_id == first]
@@ -2552,6 +2649,11 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
               f"{len(down.stdout)} bytes, {down.stderr[-2000:]!r}")
         heartbeats = get("/cluster/status")["heartbeats"]
         crc_probe = _crc_probe()
+        check(crc_probe["path"] == "sse4.2",
+              f"the servers' CRC32-C runs on {crc_probe['path']}, not on "
+              f"the SSE4.2 instruction")
+        # the live servers' counts since they started
+        phase_planes = _plane_delta(_plane_counters(live), _NO_PLANES)
     finally:
         if worker is not None:
             worker.stop()
@@ -2590,6 +2692,8 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
                          "gbps": fill_bytes / read_s / 1e9,
                          **_pcts(read_ms), "kernel_launches": read_launches},
            "cli": {"fid": cli_fid, "bytes": 3 << 20, "round_trip": True},
+           "planes": {"ports": plane_ports, "benchmark": bench_planes,
+                      "fill": fill_planes, "phase": phase_planes},
            "crc32c": crc_probe, "master_heartbeats": heartbeats}
     emit(out)
     return out
@@ -2615,11 +2719,13 @@ def _samples(text: str, name: str) -> "list[tuple[dict, float]]":
 def _counters(urls) -> dict:
     """What the read passes read off each server's /metrics, summed over
     `urls`: kernel launches of both entries, degraded reads, source
-    failovers, hot-needle cache hits and misses, and the lost intervals
-    each host codec rebuilt ("engine/simd": count)."""
+    failovers, hot-needle cache hits and misses, reads the native read
+    plane served and reads on the Python port while it was up, and the
+    lost intervals each host codec rebuilt ("engine/simd": count)."""
     from seaweedfs_tpu_torch.server.httpd import http_bytes
     out = {"launches": 0.0, "degraded": 0.0, "failovers": 0.0,
-           "hits": 0.0, "misses": 0.0, "engines": {}}
+           "hits": 0.0, "misses": 0.0, "native_reads": 0.0,
+           "python_reads": 0.0, "engines": {}}
     for u in urls:
         text = http_bytes("GET", f"{u}/metrics", timeout=60)[1].decode()
         out["launches"] += sum(v for _, v in _samples(
@@ -2632,6 +2738,11 @@ def _counters(urls) -> dict:
                            ("misses", "read_cache_misses_total")):
             out[key] += sum(v for lb, v in _samples(text, which)
                             if lb.get("cache") == "volume_needle")
+        out["native_reads"] += sum(
+            float(m.group(3)) for m in _PLANE_LINE.finditer(text)
+            if m.group(1) == "read_plane_requests_total")
+        out["python_reads"] += sum(
+            v for _, v in _samples(text, "read_plane_fallbacks_total"))
         for lb, v in _samples(text, "ec_degraded_codec_intervals_total"):
             k = f"{lb.get('engine')}/{lb.get('simd')}"
             out["engines"][k] = out["engines"].get(k, 0.0) + v
@@ -2685,6 +2796,8 @@ def _read_pass(murl: str, urls, items, seeds: dict, what: str,
                      "degraded_reads": d["degraded"],
                      "cache_hits": d["hits"], "cache_misses": d["misses"],
                      "failovers": d["failovers"], "engines": d["engines"],
+                     "read_plane_reads": d["native_reads"],
+                     "python_port_reads": d["python_reads"],
                      "kernel_launches": d["launches"]}
     return out
 
@@ -2727,7 +2840,7 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
     simd = rs_native.gf_native_simd()
     native_build_s = time.perf_counter() - t
     check(simd is not None, "the native host codec did not build: "
-          f"{rs_native.native.BUILD_INFO.get('error')}")
+          f"{rs_native.native.BUILD_INFO.get('gf_rs', {}).get('error')}")
     os.makedirs(tmp)
     dirs = [os.path.join(tmp, f"r{i}") for i in range(READ_SERVERS)]
     procs: list = []
@@ -2773,6 +2886,7 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
         poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
              "4 volume servers registered")
         start_s = time.perf_counter() - t0
+        plane_ports = _planes_up(urls)
 
         # 1. weed benchmark's writes, 1 KiB each, seeded per file
         def write_small(i):
@@ -2781,10 +2895,12 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
             a = operation.assign(murl, collection=coll)
             operation.upload(a.url, a.fid, body)
             return a.fid, i, len(body), (time.perf_counter() - t) * 1e3
+        before = _plane_counters(urls)
         t = time.perf_counter()
         with ThreadPoolExecutor(READ_C) as pool:
             small = list(pool.map(write_small, range(n_small)))
         small_s = time.perf_counter() - t
+        small_planes = _plane_delta(_plane_counters(urls), before)
 
         # 2. config 1's needles until the limit seals a volume
         frng = np.random.default_rng([seed, 9])
@@ -2806,8 +2922,13 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
                     large.append((fid, nid, size, ms))
 
         def sealed():
-            return any(v["size"] >= limit_mb << 20
-                       for v in normal_vids().values())
+            # the servers' own files: the master sees a size a heartbeat
+            # late, and at the write plane's rate the collection's volumes
+            # would pass the limit together and grow a third volume first
+            return any(os.path.getsize(os.path.join(dd, f)) >= limit_mb << 20
+                       for dd in dirs for f in os.listdir(dd)
+                       if f.startswith(f"{coll}_") and f.endswith(".dat"))
+        before = _plane_counters(urls)
         t = time.perf_counter()
         with ThreadPoolExecutor(FILL_WRITERS) as pool:
             futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
@@ -2819,6 +2940,11 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
             for f in futs:
                 f.result()
         fill_s = time.perf_counter() - t
+        fill_planes = _plane_delta(_plane_counters(urls), before)
+        # the master runs -defaultReplication 000: the write plane owns
+        # the collection's volumes
+        check(fill_planes["native_writes"] > 0,
+              f"the write plane acked none of the fill: {fill_planes}")
         fill_bytes = sum(w[2] for w in large)
         vols = normal_vids()
 
@@ -3052,6 +3178,12 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
               passes["decoded"]["large"]["degraded_reads"] == 0,
               f"degraded reads after the decode: {passes['decoded']}")
         heartbeats = get("/cluster/status")["heartbeats"]
+        # the live servers' counts since they started
+        phase_planes = _plane_delta(_plane_counters(live), _NO_PLANES)
+        crc_probe = _crc_probe()
+        check(crc_probe["path"] == "sse4.2",
+              f"the servers' CRC32-C runs on {crc_probe['path']}, not on "
+              f"the SSE4.2 instruction")
     finally:
         bad = _stop_peers(procs)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3064,7 +3196,7 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
            "cluster_start_seconds": start_s,
            "native_codec": {"simd": simd, "build_seconds": native_build_s,
                             **{k: v for k, v in
-                               rs_native.native.BUILD_INFO.items()
+                               rs_native.native.BUILD_INFO["gf_rs"].items()
                                if k in ("march_native", "error")}},
            "writes": {"files": len(small), "bytes": len(small) * BENCH_SIZE,
                       "seconds": small_s,
@@ -3081,6 +3213,9 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
            "passes": passes, "rebuild": rebuild, "decode": decode,
            "deadline": {"spent_budget_status": 504,
                         "forwarded": forwarded},
+           "planes": {"ports": plane_ports, "writes": small_planes,
+                      "fill": fill_planes, "phase": phase_planes},
+           "crc32c": crc_probe,
            "launches": {"encode": sum(x["launches"]
                                       for x in encode.values()),
                         "rebuild": sum(x["launches"]

@@ -1,14 +1,22 @@
-"""The host's native GF(2^8) codec, built with g++ at first use.
+"""The host's native libraries, built with g++ at first use.
 
-`gf_rs.cc` (the port's copy of `seaweedfs_tpu/native/gf_rs.cc`) is
-compiled into a shared library with a plain C interface and loaded with
-ctypes (the loader of `seaweedfs_tpu/native/__init__.py`, without its
-read, write and meta planes).  The library lands in
-`seaweedfs_tpu_torch/_build/` under a name that carries a hash of the
+Four C++ sources, each compiled into a shared library with a plain C
+interface and loaded with ctypes (the loader of
+`seaweedfs_tpu/native/__init__.py`, without its meta plane, filer read
+plane and volume tool):
+- `gf_rs.cc`, the GF(2^8) codec of degraded reads (`load`);
+- `crc32c.cc`, the needle CRC32-C where `google_crc32c` is absent
+  (`load_crc32c`);
+- `read_plane.cc` and `write_plane.cc`, the volume server's epoll
+  needle planes (`load_read_plane`, `load_write_plane`).
+The planes include no other header (`plane_pool.h` serves only the meta
+and filer read planes, which the port leaves out).  Each library lands
+in `seaweedfs_tpu_torch/_build/` under a name that carries a hash of the
 source, the flags and the host CPU's feature flags, so an edited source
 is rebuilt, an unchanged one is loaded as it is, and a library built
 with `-march=native` on one CPU is never loaded on another.  Nothing is
-built when the package is imported.
+built when the package is imported.  `BUILD_INFO[stem]` says what the
+last build or load of each did.
 """
 
 from __future__ import annotations
@@ -26,11 +34,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
-_lib: "ctypes.CDLL | None" = None
-_tried = False
-# what the last build or load did: {"path", "seconds", "march_native",
-# "error"}; read by chip_smoke.py and the tests
-BUILD_INFO: dict = {}
+# stem -> the loaded library, or None once a build or load failed
+_libs: "dict[str, ctypes.CDLL | None]" = {}
+# stem -> what its last build or load did: {"path", "seconds",
+# "march_native", "error"}; read by chip_smoke.py and the tests
+BUILD_INFO: "dict[str, dict]" = {}
 
 
 def _cpu_flags() -> str:
@@ -47,32 +55,32 @@ def _cpu_flags() -> str:
     return ""
 
 
-def _build_if_stale(src_path: str) -> "str | None":
+def _build_if_stale(src_path: str, info: dict) -> "str | None":
     """Build `src_path` with g++ unless a library of this exact source,
     these flags and this CPU is already in BUILD_DIR: `-march=native`
     first, then without it.  Each attempt writes a per-process temp file
     renamed into place, so concurrent builders never publish half a
     library.  The library's path, or None when g++ is missing or fails
-    (the reason in BUILD_INFO["error"])."""
+    (the reason in info["error"])."""
     try:
         with open(src_path, "rb") as f:
             digest = hashlib.sha256(f.read())
     except OSError as e:
-        BUILD_INFO["error"] = str(e)
+        info["error"] = str(e)
         return None
     digest.update(" ".join(GXX_FLAGS).encode())
     digest.update(_cpu_flags().encode())
     stem = os.path.splitext(os.path.basename(src_path))[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        BUILD_INFO.update(path=out, seconds=0.0)
+        info.update(path=out, seconds=0.0)
         return out
     t0 = time.perf_counter()
     err = ""
     try:
         os.makedirs(BUILD_DIR, exist_ok=True)
     except OSError as e:
-        BUILD_INFO["error"] = str(e)
+        info["error"] = str(e)
         return None
     for march in (["-march=native"], []):
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -87,44 +95,137 @@ def _build_if_stale(src_path: str) -> "str | None":
             err = proc.stderr[-2000:]
             continue
         os.replace(tmp, out)
-        BUILD_INFO.update(path=out, seconds=time.perf_counter() - t0,
-                          march_native=bool(march))
+        info.update(path=out, seconds=time.perf_counter() - t0,
+                    march_native=bool(march))
         return out
-    BUILD_INFO["error"] = err or "g++ failed"
+    info["error"] = err or "g++ failed"
     return None
 
 
-def load() -> "ctypes.CDLL | None":
-    """Build (if needed) and load the native codec, once a process; None
-    when it cannot be built or loaded.  Callers then use the numpy codec
-    and must never see an exception from here."""
-    global _lib, _tried
+def _load(stem: str, bind) -> "ctypes.CDLL | None":
+    """Build (if needed) and load `<stem>.cc` once a process, with its
+    signatures set by `bind`; None when it cannot be built or loaded.
+    Callers must never see an exception from here."""
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        so = _build_if_stale(SOURCE)
+        if stem in _libs:
+            return _libs[stem]
+        _libs[stem] = None
+        info = BUILD_INFO.setdefault(stem, {})
+        so = _build_if_stale(os.path.join(_DIR, stem + ".cc"), info)
         if so is None:
             return None
         try:
             lib = ctypes.CDLL(so)
         except OSError as e:
-            BUILD_INFO["error"] = str(e)
+            info["error"] = str(e)
             return None
-        lib.gf_matrix_apply.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t, ctypes.c_int]
-        lib.gf_matrix_apply.restype = None
-        lib.gf_mul_slice_acc.argtypes = [
-            ctypes.c_uint8, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_size_t]
-        lib.gf_mul_slice_acc.restype = None
-        lib.gf_native_simd.argtypes = []
-        lib.gf_native_simd.restype = ctypes.c_int
-        _lib = lib
-        return _lib
+        bind(lib)
+        _libs[stem] = lib
+        return lib
+
+
+def _sig(fn, argtypes: list, restype=None) -> None:
+    fn.argtypes = argtypes
+    fn.restype = restype
+
+
+# -- the GF(2^8) codec (gf_rs.cc) ----------------------------------------
+
+def _bind_gf_rs(lib: ctypes.CDLL) -> None:
+    _sig(lib.gf_matrix_apply, [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t, ctypes.c_int])
+    _sig(lib.gf_mul_slice_acc, [ctypes.c_uint8, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_size_t])
+    _sig(lib.gf_native_simd, [], ctypes.c_int)
+
+
+def load() -> "ctypes.CDLL | None":
+    """The native codec; None where it does not build (callers then use
+    the numpy codec)."""
+    return _load("gf_rs", _bind_gf_rs)
 
 
 def available() -> bool:
     return load() is not None
+
+
+# -- CRC32-C (crc32c.cc) -------------------------------------------------
+
+def _bind_crc32c(lib: ctypes.CDLL) -> None:
+    _sig(lib.crc32c_simd, [], ctypes.c_int)
+    for fn in (lib.crc32c_extend, lib.crc32c_extend_sw):
+        _sig(fn, [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t],
+             ctypes.c_uint32)
+
+
+def load_crc32c() -> "ctypes.CDLL | None":
+    """The native CRC32-C; None where it does not build (storage/crc.py
+    then uses its numpy form)."""
+    return _load("crc32c", _bind_crc32c)
+
+
+# -- the read plane (read_plane.cc) --------------------------------------
+
+def _bind_read_plane(lib: ctypes.CDLL) -> None:
+    _sig(lib.rp_start, [ctypes.c_char_p, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    _sig(lib.rp_stop, [ctypes.c_int])
+    _sig(lib.rp_add_volume, [ctypes.c_int, ctypes.c_uint,
+                             ctypes.c_char_p], ctypes.c_int)
+    _sig(lib.rp_remove_volume, [ctypes.c_int, ctypes.c_uint])
+    _sig(lib.rp_put, [ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong,
+                      ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_uint],
+         ctypes.c_int)
+    _sig(lib.rp_del, [ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong])
+    _sig(lib.rp_served, [ctypes.c_int], ctypes.c_ulonglong)
+
+
+def load_read_plane() -> "ctypes.CDLL | None":
+    """The native epoll read plane; None where it does not build."""
+    return _load("read_plane", _bind_read_plane)
+
+
+# -- the write plane (write_plane.cc) ------------------------------------
+
+class WpEntry(ctypes.Structure):
+    """One completed native append, drained back to the Python index
+    (the layout of write_plane.cc's WpEntry)."""
+
+    _fields_ = [("key", ctypes.c_uint64),
+                ("offset", ctypes.c_uint64),
+                ("append_ns", ctypes.c_uint64),
+                ("vid", ctypes.c_uint32),
+                ("cookie", ctypes.c_uint32),
+                ("size", ctypes.c_int32),
+                ("data_len", ctypes.c_uint32)]
+
+
+def _bind_write_plane(lib: ctypes.CDLL) -> None:
+    h, vid = ctypes.c_int, ctypes.c_uint
+    _sig(lib.wp_start, [ctypes.c_char_p, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    _sig(lib.wp_stop, [h])
+    _sig(lib.wp_add_volume, [h, vid, ctypes.c_char_p, ctypes.c_ulonglong,
+                             ctypes.c_ulonglong, ctypes.c_int],
+         ctypes.c_int)
+    _sig(lib.wp_mark_keys, [h, vid, ctypes.POINTER(ctypes.c_ulonglong),
+                            ctypes.c_int], ctypes.c_int)
+    _sig(lib.wp_arm, [h, vid], ctypes.c_int)
+    _sig(lib.wp_remove_volume, [h, vid])
+    _sig(lib.wp_append, [h, vid, ctypes.c_ulonglong, ctypes.c_char_p,
+                         ctypes.c_ulonglong, ctypes.c_ulonglong],
+         ctypes.c_longlong)
+    _sig(lib.wp_drain, [h, vid, ctypes.POINTER(WpEntry), ctypes.c_int],
+         ctypes.c_int)
+    _sig(lib.wp_pending, [h, vid], ctypes.c_int)
+    _sig(lib.wp_requests, [h], ctypes.c_ulonglong)
+    _sig(lib.wp_fallbacks, [h], ctypes.c_ulonglong)
+    _sig(lib.wp_latency, [h, ctypes.POINTER(ctypes.c_ulonglong)],
+         ctypes.c_int)
+
+
+def load_write_plane() -> "ctypes.CDLL | None":
+    """The native epoll write plane; None where it does not build."""
+    return _load("write_plane", _bind_write_plane)

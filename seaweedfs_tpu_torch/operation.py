@@ -9,19 +9,29 @@ that answers is used.  Under a deadline (`util/deadline`), assign,
 upload, lookup and read derive each hop's timeout from the remaining
 budget and forward it (the HTTP client stamps `X-Weed-Deadline-Ms`); a
 spent budget raises `DeadlineExceeded` and is never taken for a failed
-location.  No JWTs, hedged reads, native read or write planes, or
-follow-mode lookups (ROADMAP).  It imports no torch.
+location.
+
+A plain upload (no name, no mime) goes to the server's native write
+plane and a whole-needle read to its native read plane, over a lean
+persistent socket a thread (`_plane_request`), at the ports the
+server's `/status` gives (cached per server).  A 404 or an unreachable
+plane falls through to the server's HTTP port, byte for byte the path
+without planes; everything else goes over the pooled keep-alive client
+of `server/httpd.py`.  No JWTs, UDS reader, hedged reads or follow-mode
+lookups (ROADMAP).  It imports no torch.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
 import threading
 import time
 import urllib.parse
 from dataclasses import dataclass
 
+from . import tracing
 from .server.httpd import http_bytes, http_json
 from .storage import types
 from .util import deadline
@@ -110,9 +120,18 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
            mime: str = "", auth: str = "") -> dict:
     """operation/upload_content.go Upload: POST the needle to a volume
     server; its JSON answer (`name`, `size`, `eTag`, `unchanged`), or
-    UploadError with the status."""
+    UploadError with the status.  A plain upload tries the server's
+    native write plane first."""
+    if not name and not mime and not auth and data:
+        r = _write_via_write_plane(url, fid, data)
+        if r is not None:
+            return r
     qs = "?" + urllib.parse.urlencode({"name": name}) if name else ""
     headers = {"Content-Type": mime} if mime else {}
+    # a write of a fixed fid is idempotent (the server answers a replay
+    # of the same fid, cookie and bytes "unchanged"), so the pooled
+    # client may send it again when a reused socket died under it
+    headers["X-Idempotent"] = "1"
     if auth:
         headers["Authorization"] = f"Bearer {auth}"
     status, body, _ = http_bytes(
@@ -276,6 +295,10 @@ def read(master: str, fid: str, offset: int = 0,
     if offset or size is not None:
         end = f"{offset + size - 1}" if size is not None else ""
         headers["Range"] = f"bytes={offset}-{end}"
+    else:
+        data = _read_via_read_plane(locs, fid)
+        if data is not None:
+            return data
     last_err = None
     for attempt in range(2):
         for loc in locs:
@@ -301,6 +324,220 @@ def read(master: str, fid: str, offset: int = 0,
             except LookupError as e:
                 raise RuntimeError(f"read {fid}: {e}")
     raise RuntimeError(f"read {fid}: {last_err}")
+
+
+# -- the native planes' funnel ----------------------------------------------
+
+_status_cache: "dict[str, dict]" = {}
+_status_lock = threading.Lock()
+
+
+def _server_status(url: str) -> dict:
+    """A volume server's `/status` (its plane ports), probed once and
+    cached.  A probe that a spent budget cut short answers "no plane"
+    for this request and is not cached."""
+    with _status_lock:
+        if url in _status_cache:
+            return _status_cache[url]
+    try:
+        t = deadline.io_timeout(5.0, site="status.probe")
+        st, body, _ = http_bytes("GET", f"{url}/status", None, None, t)
+        doc = json.loads(body) if st == 200 else {}
+    except deadline.DeadlineExceeded:
+        return {}
+    except (OSError, ValueError):
+        d = deadline.get()
+        if d is not None and d.expired():
+            return {}
+        doc = {}
+    with _status_lock:
+        _status_cache[url] = doc
+    return doc
+
+
+def _invalidate_status(url: str) -> None:
+    """Forget a server's cached `/status`: a plane that refused a
+    connection means the server restarted, and its plane ports moved."""
+    with _status_lock:
+        _status_cache.pop(url, None)
+
+
+# The planes speak a strict, minimal HTTP/1.1, so their client skips
+# http.client (several hundred microseconds of Python a call): a
+# persistent socket a thread and plane, a request assembled by hand, a
+# ~100-byte answer parsed with two partitions.
+_plane_local = threading.local()
+
+
+def _plane_request(addr: str, method: str, path: str, body: bytes = b"",
+                   timeout: float = 10.0) -> "tuple[int, bytes]":
+    """One request over the thread's persistent socket to a plane at
+    `addr`: (status, body).  Sent again once on a fresh socket when a
+    reused one failed (a plane request is idempotent: a write of a fixed
+    fid, or a read).  `timeout` bounds the whole call, and a spent
+    request budget raises DeadlineExceeded before anything is sent: the
+    planes do not read `X-Weed-Deadline-Ms`.  OSError when the plane is
+    unreachable."""
+    socks = getattr(_plane_local, "socks", None)
+    if socks is None:
+        socks = _plane_local.socks = {}
+    extra = ""
+    rid = tracing.get_request_id()
+    if rid:
+        extra += f"{tracing.REQUEST_ID_HEADER}: {rid}\r\n"
+    d = deadline.get()
+    if d is not None:
+        remaining_ms = int(d.remaining() * 1e3)
+        if remaining_ms > 0:
+            extra += f"{deadline.HEADER}: {remaining_ms}\r\n"
+    req = (f"{method} {path} HTTP/1.1\r\nHost: {addr}\r\n{extra}"
+           f"Content-Length: {len(body)}\r\n\r\n").encode()
+    end = time.monotonic() + timeout
+
+    def _left() -> float:
+        # a spent request budget is the budget's verdict, never a wedged
+        # plane's: that would drop a healthy server's cached status
+        d = deadline.get()
+        if d is not None and d.expired():
+            deadline.note_exceeded("plane.io")
+            raise deadline.DeadlineExceeded("plane.io")
+        left = end - time.monotonic()
+        if left <= 0:
+            raise socket.timeout(f"plane {addr}: {timeout:.2f} s spent")
+        return left
+
+    for attempt in (0, 1):
+        sock = socks.get(addr)
+        reused = sock is not None
+        if sock is None:
+            host, _, port = addr.rpartition(":")
+            sock = socket.create_connection((host, int(port)),
+                                            timeout=_left())
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            socks[addr] = sock
+        try:
+            sock.settimeout(_left())
+            if len(body) < (256 << 10):
+                sock.sendall(req + body)
+            else:
+                sock.sendall(req)
+                sock.sendall(body)
+            buf = b""
+            while b"\r\n\r\n" not in buf:
+                sock.settimeout(_left())
+                chunk = sock.recv(65536)
+                if not chunk:
+                    raise OSError("plane socket closed mid-response")
+                buf += chunk
+                if len(buf) > (64 << 10):
+                    raise OSError("oversized plane response header")
+            head, _, rest = buf.partition(b"\r\n\r\n")
+            status = int(head.split(b" ", 2)[1])
+            clen = 0
+            for line in head.split(b"\r\n")[1:]:
+                k, _, v = line.partition(b":")
+                if k.strip().lower() == b"content-length":
+                    clen = int(v.strip())
+                    break
+            while len(rest) < clen:
+                sock.settimeout(_left())
+                chunk = sock.recv(65536)
+                if not chunk:
+                    raise OSError("plane socket closed mid-body")
+                rest += chunk
+            return status, rest[:clen]
+        except deadline.DeadlineExceeded:
+            # an answer may be left on the wire: the socket goes, but no
+            # fresh dial can bring budget back
+            sock.close()
+            socks.pop(addr, None)
+            raise
+        except OSError:
+            sock.close()
+            socks.pop(addr, None)
+            if reused and attempt == 0:
+                continue     # a stale keep-alive socket: one re-dial
+            raise
+    raise OSError("unreachable")  # pragma: no cover
+
+
+def _plane_addr(url: str, key: str) -> "str | None":
+    """host:port of the server's plane named by the /status `key`, or
+    None when it runs none."""
+    port = _server_status(url).get(key) or 0
+    if not port:
+        return None
+    return f"{url.split('://')[-1].rsplit(':', 1)[0]}:{port}"
+
+
+def _plane_vid_misses() -> dict:
+    m = getattr(_plane_local, "vid_misses", None)
+    if m is None:
+        m = _plane_local.vid_misses = {}
+    return m
+
+
+def _write_via_write_plane(url: str, fid: str, data: bytes
+                           ) -> "dict | None":
+    """The write plane's answer to a plain upload, or None to send it to
+    the HTTP port.  A 404 (a volume the plane does not own, a key it has
+    seen) is remembered for 2 s a volume, so steady traffic to such a
+    volume does not pay a plane round trip a write."""
+    addr = _plane_addr(url, "writePlanePort")
+    if addr is None:
+        return None
+    vid = fid.partition(",")[0]
+    misses = _plane_vid_misses()
+    until = misses.get((addr, vid))
+    if until is not None:
+        if time.monotonic() < until:
+            return None
+        del misses[(addr, vid)]
+    # outside the try: a spent budget fails the write, it does not read
+    # as a plane that is down
+    t = deadline.io_timeout(10.0, site="plane.write")
+    try:
+        status, body = _plane_request(addr, "POST", f"/{fid}", data,
+                                      timeout=t)
+    except deadline.DeadlineExceeded:
+        raise
+    except OSError:
+        # a wait the budget cut short is the budget's verdict
+        deadline.reraise_if_expired("plane.write")
+        _invalidate_status(url)      # a restarted server: probe again
+        return None
+    if status == 201:
+        try:
+            return json.loads(body)
+        except ValueError:
+            return None
+    misses[(addr, vid)] = time.monotonic() + 2.0
+    return None
+
+
+def _read_via_read_plane(locs: "list[dict]", fid: str
+                         ) -> "bytes | None":
+    """A plain needle from the first location's read plane that serves
+    it, or None: anything the plane does not hold (not registered yet,
+    named, mimed, compressed, TTL'd, an EC volume) answers 404 and the
+    caller reads through the HTTP ports."""
+    for loc in locs:
+        addr = _plane_addr(loc["url"], "readPlanePort")
+        if addr is None:
+            continue
+        t = deadline.io_timeout(10.0, site="plane.read")
+        try:
+            status, body = _plane_request(addr, "GET", f"/{fid}",
+                                          timeout=t)
+        except deadline.DeadlineExceeded:
+            raise
+        except OSError:
+            deadline.reraise_if_expired("plane.read")
+            _invalidate_status(loc["url"])
+            continue
+        if status == 200:
+            return body
+    return None
 
 
 def delete(master: str, fid: str) -> None:

@@ -51,8 +51,8 @@ class ReedSolomonNative:
     def __init__(self, data_shards: int, parity_shards: int):
         self._lib = native.load()
         if self._lib is None:
-            raise RuntimeError("native GF library unavailable: "
-                               f"{native.BUILD_INFO.get('error', '')}")
+            err = native.BUILD_INFO.get("gf_rs", {}).get("error", "")
+            raise RuntimeError(f"native GF library unavailable: {err}")
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards

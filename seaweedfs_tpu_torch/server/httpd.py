@@ -21,8 +21,12 @@ with `Retry-After` before its handler runs, and a handler whose budget
 ran out on an outbound hop answers 504 too.  Every client call here
 forwards the remaining budget in the same header.
 
-Plain HTTP, bound to 127.0.0.1 by default: no TLS, no admin JWT, no
-connection pool, no QoS admission and no fault sites (ROADMAP C).
+`http_bytes` and `http_json` go over a pooled keep-alive client (one
+connection per thread and peer, the JAX package's `_pooled_request`);
+the streaming calls keep a connection of their own for the transfer.
+
+Plain HTTP, bound to 127.0.0.1 by default: no TLS, no admin JWT, no QoS
+admission and no fault sites (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -30,13 +34,14 @@ from __future__ import annotations
 import http.client
 import json
 import secrets
+import select
 import socket
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
-from .. import tracing
+from .. import stats, tracing
 from ..util import deadline
 
 
@@ -310,9 +315,10 @@ class HttpServer:
         class Server(ThreadingHTTPServer):
             daemon_threads = True
             allow_reuse_address = True
-            # every client call dials a fresh connection: with the
-            # default backlog of 5, a burst of concurrent writers
-            # overflows it and a dropped SYN waits out a 1 s retransmit
+            # a burst of clients dialing at once (each thread of each
+            # client opens its own keep-alive connection) overflows the
+            # default backlog of 5, and a dropped SYN waits out a 1 s
+            # retransmit
             request_queue_size = 128
 
             def __init__(self, *a, **kw):
@@ -418,21 +424,110 @@ def _with_trace(headers: "dict | None") -> dict:
     return headers
 
 
+# --- the pooled keep-alive client ----------------------------------------
+#
+# A fresh connection a call costs the TCP setup on every 1 KiB needle; the
+# reference's Go client keeps connections alive.  The pool is per thread
+# (no lock on the request's path) and keyed by scheme and netloc.  A
+# request is re-sent once, on a fresh connection, only when a reused
+# socket died before the request reached the wire: one the peer closed
+# while it sat idle in the pool, or one whose send failed.  When the
+# response is lost after the send, only an idempotent request is re-sent
+# (RFC 9110's methods, or a POST that declares `X-Idempotent: 1`): the
+# server may have run it.
+
+_thread_pools = threading.local()
+_IDEMPOTENT = ("GET", "HEAD", "PUT", "DELETE", "OPTIONS")
+
+
+def _pool() -> dict:
+    p = getattr(_thread_pools, "conns", None)
+    if p is None:
+        p = _thread_pools.conns = {}
+    return p
+
+
+def _peer_closed(sock: socket.socket) -> bool:
+    """True when an idle pooled socket is readable: the peer closed it
+    (an idle keep-alive connection has nothing else to read)."""
+    try:
+        return bool(select.select([sock], [], [], 0)[0])
+    except (OSError, ValueError):
+        return True
+
+
+def _one_pooled_request(method: str, full_url: str, body,
+                        headers: dict, timeout: float
+                        ) -> "tuple[int, bytes, dict]":
+    """One request over the thread's connection to the url's peer:
+    (status, body, headers)."""
+    parsed = urllib.parse.urlsplit(full_url)
+    if parsed.scheme != "http":
+        raise ValueError(f"{full_url}: only plain http is supported")
+    target = parsed.path or "/"
+    if parsed.query:
+        target += "?" + parsed.query
+    key = (parsed.scheme, parsed.netloc)
+    pool = _pool()
+    for attempt in (0, 1):
+        conn = pool.get(key)
+        if conn is not None and (conn.sock is None or
+                                 _peer_closed(conn.sock)):
+            conn.close()              # closed while idle: nothing sent
+            del pool[key]
+            conn = None
+        reused = conn is not None
+        if reused:
+            stats.PROCESS.counter_add(
+                "pool_connections_reused_total", 1.0,
+                help_text="pooled requests served over a kept-alive "
+                          "socket", peer=parsed.netloc)
+        else:
+            stats.PROCESS.counter_add(
+                "pool_connections_opened_total", 1.0,
+                help_text="fresh sockets dialed by the pooled client",
+                peer=parsed.netloc)
+            conn = pool[key] = http.client.HTTPConnection(
+                parsed.netloc, timeout=timeout)
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        try:
+            conn.request(method, target, body=body, headers=headers)
+        except (http.client.HTTPException, OSError) as e:
+            # the send failed: the request never ran
+            conn.close()
+            pool.pop(key, None)
+            if reused and attempt == 0:
+                continue
+            raise OSError(f"{method} {full_url}: {e!r}") from e
+        try:
+            resp = conn.getresponse()
+            data = resp.read()
+        except (http.client.HTTPException, OSError) as e:
+            conn.close()
+            pool.pop(key, None)
+            if attempt == 0 and reused and \
+                    isinstance(e, http.client.RemoteDisconnected) and \
+                    (method in _IDEMPOTENT or
+                     headers.get("X-Idempotent") == "1"):
+                continue
+            if isinstance(e, OSError):
+                raise
+            raise OSError(f"{method} {full_url}: {e!r}") from e
+        if resp.will_close:
+            conn.close()
+            pool.pop(key, None)
+        return resp.status, data, dict(resp.headers)
+    raise OSError("unreachable")  # pragma: no cover
+
+
 def http_bytes(method: str, url: str, body: bytes | None = None,
                headers: dict | None = None, timeout: float = 60.0
                ) -> "tuple[int, bytes, dict]":
-    """One request on a fresh connection: (status, body, headers).
-    Transport failures raise OSError."""
-    conn, target = _connect(url, timeout)
-    try:
-        conn.request(method, target, body=body,
-                     headers=_with_trace(headers))
-        resp = conn.getresponse()
-        return resp.status, resp.read(), dict(resp.headers)
-    except http.client.HTTPException as e:
-        raise OSError(f"{method} {url}: {e!r}") from e
-    finally:
-        conn.close()
+    """One request over the pooled keep-alive client: (status, body,
+    headers).  Transport failures raise OSError."""
+    return _one_pooled_request(method, _dial(url), body,
+                               _with_trace(headers), timeout)
 
 
 def http_json(method: str, url: str, payload: dict | None = None,

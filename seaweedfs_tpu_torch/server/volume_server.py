@@ -25,6 +25,17 @@ a master, and the public data path for reads and deletes.
   with `?type=replicate` and the stamped `ts`, so that every replica
   holds the same needle record.  A replica that fails the write fails
   the request (500, no ack).
+- The native planes (`server/read_plane.py`, `server/write_plane.py`,
+  the JAX server's defaults): a C++ epoll loop on a port of its own
+  serves plain needle reads with sendfile(2), another receives, appends
+  and acks plain anonymous uploads to volumes of replication 000
+  (`SEAWEEDFS_TPU_WRITE_PLANE=0` or `false` turns it off).  `GET
+  /status` gives their ports (`readPlanePort`, `writePlanePort`, 0 for
+  a plane that is off) with the heartbeat's fields; a pump drains the
+  write plane's appends into the needle maps and registers them with
+  the read plane, and the heartbeat ticks it first; `/metrics` carries
+  their counters.  Anything a plane does not own answers 404 there, and
+  the client comes to the HTTP port.
 - `/admin/allocate_volume`: a new empty volume, for the master's
   growth.
 
@@ -57,16 +68,17 @@ once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
 remote shard.  No TLS, JWTs, fault sites, QoS throttle, resize-on-read,
-group commit or native read and write planes (ROADMAP C).  Counters go to
+group commit, `-fsync` tier or UDS reader (ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
-counts.
+counts and the planes' counters.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 import time
 import urllib.parse
@@ -85,6 +97,8 @@ from ..util.chunk_cache import (TieredChunkCache, read_cache_disk,
                                 read_cache_mb)
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     http_download, http_json)
+from .read_plane import DATA_OFFSET_IN_RECORD, plain_record
+from .write_plane import ACK_BUCKETS_S
 from .store_ec import EcReader
 
 
@@ -145,6 +159,7 @@ class VolumeServer:
         r("GET", "/admin/ec/info", self._ec_info)
         r("POST", "/admin/ec/scrub", self._ec_scrub)
         r("GET", "/metrics", self._metrics)
+        r("GET", "/status", self._status)
         self.http.fallback = self._data_path
         self.ec_reader = EcReader(master, self.http.url)
         # hot-needle cache: a repeated read skips the index lookup and
@@ -166,6 +181,12 @@ class VolumeServer:
         # delete landed must not cache its stale needle after the
         # invalidation ran, so fills carry the epoch they began at
         self._nc_epoch = 0
+        # the native planes, started by start(), and the volumes whose
+        # .dat the read plane has open
+        self.read_plane = None
+        self.write_plane = None
+        self._rp_volumes: set[int] = set()
+        self._rp_lock = threading.Lock()
         # staged scatter uploads awaiting commit:
         # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
         self._pending_shard_writes: dict[str, dict] = {}
@@ -183,6 +204,9 @@ class VolumeServer:
                         os.remove(os.path.join(loc.directory, name))
                     except OSError:
                         pass
+        # the planes start before the HTTP port, so /status never shows
+        # a client plane ports of 0 that it would keep
+        self._start_planes()
         self.http.start()
         if self.master:
             self._heartbeat_once()
@@ -191,13 +215,47 @@ class VolumeServer:
             self._hb_thread.start()
         return self
 
+    def _start_planes(self) -> None:
+        """The native read plane, and the write plane unless
+        `SEAWEEDFS_TPU_WRITE_PLANE` is 0 or false.  A plane that does not
+        build or start leaves the server on its Python port, as the JAX
+        server does, with one line on stderr."""
+        from .read_plane import ReadPlane
+        from .write_plane import WritePlane
+        try:
+            self.read_plane = ReadPlane(self.http.host)
+        except (RuntimeError, OSError) as e:
+            print(f"volume server {self.url}: no read plane: {e}",
+                  file=sys.stderr)
+        if os.environ.get("SEAWEEDFS_TPU_WRITE_PLANE",
+                          "1") in ("0", "false"):
+            return
+        try:
+            self.write_plane = WritePlane(self.http.host,
+                                          on_tick=self._wp_tick)
+        except (RuntimeError, OSError) as e:
+            print(f"volume server {self.url}: no write plane: {e}",
+                  file=sys.stderr)
+            return
+        for loc in self.store.locations:
+            for vid in list(loc.volumes):
+                self._wp_sync_volume(vid)
+
     def stop(self) -> None:
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10)
+        with self._rp_lock:         # no index call runs into a stopped plane
+            rp, self.read_plane = self.read_plane, None
+        if rp is not None:
+            rp.stop()
         self.http.stop()
         self.ec_reader.close()
+        # closing the store detaches every volume from the write plane
+        # (a drain and an .idx flush each), so the plane outlives it
         self.store.close()
+        if self.write_plane is not None:
+            self.write_plane.stop()
 
     @property
     def url(self) -> str:
@@ -213,6 +271,9 @@ class VolumeServer:
             return
         from ..operation import master_json
         with self._hb_lock:
+            # native appends count: the master floors its sequencer by
+            # maxFileKey and seals a volume by its size
+            self._wp_tick()
             hb = self.store.collect_heartbeat()
             if self.data_center:
                 hb["dataCenter"] = self.data_center
@@ -304,6 +365,15 @@ class VolumeServer:
                 return 404, {"error": "not found"}
             except ValueError as e:   # cookie mismatch, corrupt record
                 return 404, {"error": str(e)}
+            if self.read_plane is not None:
+                # a read served here while the read plane is up: not
+                # registered yet, not plain, or from a client that never
+                # asked the plane
+                self.metrics.counter_add(
+                    "read_plane_fallbacks_total", 1.0,
+                    help_text="needle reads on the Python port while the "
+                              "native read plane is up")
+                self._rp_sync_needle(fid.volume_id, fid.key)
             if not getattr(n, "was_degraded", False) or \
                     _promote_degraded():
                 self._nc_put(fid, n, token)
@@ -353,6 +423,7 @@ class VolumeServer:
         except PermissionError as e:
             return 409, {"error": str(e)}
         self._nc_invalidate_needle(fid.volume_id, fid.key)
+        self._rp_sync_needle(fid.volume_id, fid.key)
         if req.query.get("type") != "replicate":
             # the stamped ts and the original Content-Type (always set:
             # "" would store no mime, a missing header likewise) make
@@ -376,6 +447,7 @@ class VolumeServer:
                 fid.volume_id, Needle(cookie=fid.cookie, id=fid.key))
         except KeyError:
             freed = None
+        self._rp_sync_needle(fid.volume_id, fid.key)
         # after the store's change, as for a write: invalidating first
         # would let a concurrent read cache the needle again
         self._nc_invalidate_needle(fid.volume_id, fid.key)
@@ -460,6 +532,103 @@ class VolumeServer:
                 return f"{loc['url']} -> {status}: {data[:200]!r}"
         return None
 
+    # -- the native planes (server/read_plane.py, write_plane.py) -------------
+
+    def _rp_sync_needle(self, vid: int, key: int) -> None:
+        """Make the read plane's entry for a needle of a normal volume the
+        record the index points at now, if it is plain, else none: after
+        a Python write or delete and before its answer, and on a read
+        through Python.  The index is read and the entry set in one step
+        under `_rp_lock`, which drops and the pump take too, so no racing
+        registration binds a replaced record.  (The JAX server registers
+        the needle object it was handed, from a queue, so it can serve
+        the old bytes for a moment after an acked overwrite.)"""
+        v = self.store.find_volume(vid)
+        if self.read_plane is None or v is None:
+            return                  # no plane, or not a normal volume
+        with self._rp_lock:
+            rp = self.read_plane
+            if rp is None:
+                return
+            got = v.nm.get(key)
+            rec = None
+            if got is not None and v.version >= 2:
+                off = types.to_actual_offset(got[0])
+                try:
+                    rec = plain_record(v.dat_fd(), off)
+                except (OSError, ValueError):  # closed under an unmount
+                    return
+            if rec is None:
+                rp.delete_needle(vid, key)
+            elif self._rp_add_volume(vid, v):
+                rp.register_raw(vid, key, rec[0],
+                                off + DATA_OFFSET_IN_RECORD, rec[1])
+
+    def _rp_add_volume(self, vid: int, v) -> bool:
+        """Open the volume's `.dat` in the read plane once (the caller
+        holds `_rp_lock`)."""
+        if vid not in self._rp_volumes:
+            if not self.read_plane.add_volume(vid, v.file_name(".dat")):
+                return False
+            self._rp_volumes.add(vid)
+        return True
+
+    def _rp_drop_volume(self, vid: int) -> None:
+        """Forget a volume in the read plane and the hot-needle cache:
+        every caller changed what the volume id serves (its `.dat`
+        replaced, unmounted, deleted, converted).  Live needles
+        register again as they are read."""
+        self._nc_drop_volume(vid)
+        with self._rp_lock:
+            if self.read_plane is not None:
+                self.read_plane.remove_volume(vid)
+            self._rp_volumes.discard(vid)
+
+    def _wp_sync_volume(self, vid: int) -> None:
+        """Offer a volume to the write plane after a change of its state;
+        an ineligible or failed one stays on the Python port."""
+        v = self.store.find_volume(vid)
+        if self.write_plane is not None and v is not None:
+            v.attach_native(self.write_plane)
+
+    def _wp_tick(self) -> None:
+        """Drain every attached volume's completed native appends into
+        its needle map and `.idx`, and register with the read plane the
+        ones that are still the index's record (under `_rp_lock`, as
+        `_rp_sync_needle`: a Python overwrite or delete may have come
+        after the append, or the volume may have gone)."""
+        if self.write_plane is None:
+            return
+        for loc in self.store.locations:
+            for v in list(loc.volumes.values()):
+                if self.read_plane is None:
+                    v.drain_native()
+                    continue
+                with self._rp_lock:
+                    rp = self.read_plane
+                    entries = v.drain_native()
+                    if not entries or rp is None or \
+                            self.store.find_volume(v.id) is not v or \
+                            not self._rp_add_volume(v.id, v):
+                        continue
+                    for e in entries:
+                        if v.nm.get(e.key) == (
+                                types.to_stored_offset(e.offset), e.size):
+                            rp.register_raw(
+                                v.id, e.key, e.cookie,
+                                e.offset + DATA_OFFSET_IN_RECORD, e.data_len)
+
+    def _status(self, req: Request):
+        """The plane ports a client sends plain reads and writes to (0
+        for a plane that is off), with the heartbeat's fields."""
+        return 200, {
+            "version": "seaweedfs-tpu/0.1",
+            "readPlanePort": self.read_plane.port if self.read_plane
+            else 0,
+            "writePlanePort": self.write_plane.port if self.write_plane
+            else 0,
+            **self.store.collect_heartbeat()}
+
     # -- hot-needle cache (util/chunk_cache) ---------------------------------
 
     def _nc_key(self, vid: int, key: int, cookie: int) -> str:
@@ -527,6 +696,7 @@ class VolumeServer:
         check_path_fields(collection)
         self.store.add_volume(int(b["volumeId"]), collection,
                               b.get("replication", ""), b.get("ttl", ""))
+        self._wp_sync_volume(int(b["volumeId"]))
         self._heartbeat_once()
         return 200, {}
 
@@ -537,6 +707,8 @@ class VolumeServer:
         v = self.store.find_volume(vid)
         if v.read_only:
             v.sync()  # commit buffered .dat/.idx before anyone reads them
+        else:
+            self._wp_sync_volume(vid)   # thawed: the plane may own it
         return 200, {}
 
     def _receive_file(self, req: Request):
@@ -554,7 +726,7 @@ class VolumeServer:
         base = self._base_path(vid, collection)
         if ext in (".dat", ".idx"):
             # a pushed data or index file replaces what the volume serves
-            self._nc_drop_volume(vid)
+            self._rp_drop_volume(vid)
         n = 0
         tmp = f"{base}{ext}.recv.{uuid.uuid4().hex}"
         try:
@@ -600,7 +772,7 @@ class VolumeServer:
     def _delete_volume(self, req: Request):
         vid = int(req.json()["volumeId"])
         self.store.delete_volume(vid)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -610,14 +782,15 @@ class VolumeServer:
         check_path_fields(collection)
         vid = int(b["volumeId"])
         self.store.mount_volume(vid, collection)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
+        self._wp_sync_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
     def _unmount_volume(self, req: Request):
         vid = int(req.json()["volumeId"])
         self.store.unmount_volume(vid)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -976,7 +1149,7 @@ class VolumeServer:
             sids.append(sid)
         if b.get("mount"):
             self.store.mount_ec_shards(vid, collection, sids)
-            self._nc_drop_volume(vid)
+            self._rp_drop_volume(vid)
             self._heartbeat_once()
         return 200, {"shardIds": sids,
                      "bytes": sum(rec["bytes"] for _c, rec in recs)}
@@ -1002,7 +1175,7 @@ class VolumeServer:
         vid = int(b["volumeId"])
         ev = self.store.mount_ec_shards(
             vid, collection, [int(s) for s in b.get("shardIds", [])])
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self._heartbeat_once()
         return 200, {"shardIds": ev.shard_ids}
 
@@ -1014,7 +1187,7 @@ class VolumeServer:
         self.store.unmount_ec_shards(
             vid, [int(s) for s in b["shardIds"]] if "shardIds" in b else None)
         self.ec_reader.forget(vid)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -1040,7 +1213,7 @@ class VolumeServer:
         else:
             self.store.mount_ec_shards(vid, collection, [])
         self.ec_reader.forget(vid)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -1092,8 +1265,9 @@ class VolumeServer:
         ec_decoder.write_idx_file_from_ec_index(base)
         self.store.unmount_ec_shards(vid)
         self.ec_reader.forget(vid)
-        self._nc_drop_volume(vid)
+        self._rp_drop_volume(vid)
         self.store.mount_volume(vid, collection)
+        self._wp_sync_volume(vid)
         self._heartbeat_once()
         return 200, {}
 
@@ -1236,8 +1410,46 @@ class VolumeServer:
                                help_text="mounted volumes")
         self.metrics.gauge_set("ec_volumes", len(hb["ecShards"]))
         self.metrics.gauge_set("max_volume_count", hb["maxVolumeCount"])
-        return 200, (self.metrics.render().encode(),
+        return 200, ((self.metrics.render() +
+                      self._plane_metrics_text()).encode(),
                      {"Content-Type": "text/plain; version=0.0.4"})
+
+    def _plane_metrics_text(self) -> str:
+        """The planes' counters, read from their C++ atomics at scrape
+        time (no Python runs on a plane's request): reads the read plane
+        served, writes the write plane acked and handed back to Python,
+        and its ack latency histogram."""
+        out = []
+        rp, wp = self.read_plane, self.write_plane
+        if rp is not None:
+            out.append(
+                "# HELP volume_server_read_plane_requests_total needle "
+                "reads served by the native read plane\n"
+                "# TYPE volume_server_read_plane_requests_total counter\n"
+                f"volume_server_read_plane_requests_total {rp.served()}\n")
+        if wp is None:
+            return "".join(out)
+        out.append(
+            "# HELP volume_server_write_plane_requests_total needle "
+            "writes acked by the native write plane\n"
+            "# TYPE volume_server_write_plane_requests_total counter\n"
+            f"volume_server_write_plane_requests_total {wp.requests()}\n"
+            "# HELP volume_server_write_plane_fallbacks_total native "
+            "writes answered 404 (the Python port takes them)\n"
+            "# TYPE volume_server_write_plane_fallbacks_total counter\n"
+            f"volume_server_write_plane_fallbacks_total {wp.fallbacks()}\n"
+            "# HELP volume_server_write_plane_ack_seconds native write "
+            "plane ack latency\n"
+            "# TYPE volume_server_write_plane_ack_seconds histogram\n")
+        buckets, count, total_s = wp.ack_histogram()
+        for le, cum in zip(ACK_BUCKETS_S, buckets):
+            out.append("volume_server_write_plane_ack_seconds_bucket"
+                       f'{{le="{le}"}} {cum}\n')
+        out.append("volume_server_write_plane_ack_seconds_bucket"
+                   f'{{le="+Inf"}} {count}\n'
+                   f"volume_server_write_plane_ack_seconds_sum {total_s}\n"
+                   f"volume_server_write_plane_ack_seconds_count {count}\n")
+        return "".join(out)
 
     # -- reads --------------------------------------------------------------
 

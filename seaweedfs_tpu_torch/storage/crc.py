@@ -1,7 +1,12 @@
 """CRC32-Castagnoli needle checksums (weed/storage/needle/crc.go).
 
-Uses the C-accelerated google_crc32c when present.  Otherwise large
-buffers go through a vectorised numpy form with the same values: the
+`crc32c` uses the C-accelerated google_crc32c when present (as the JAX
+package does), else the port's native `native/crc32c.cc` (the SSE4.2
+instruction, or its slice-by-8 loop on a CPU without it), built with g++
+at the first checksum, else a vectorised numpy form.  `engine()` names
+the one chosen: "google_crc32c", "sse4.2", "sw" or "numpy".
+
+The numpy form has the same values: the
 buffer is cut into 2^n equal lanes, every lane's CRC register is
 advanced one byte column at a time (one table lookup per lane per step),
 and the lanes are folded pairwise with the CRC's shift operator (the
@@ -123,14 +128,66 @@ def crc32c_numpy(data, value: int = 0) -> int:
     return crc32c_numpy(buf[body:], c ^ 0xFFFFFFFF)
 
 
-try:
-    import google_crc32c
+def _native_call(entry: str, data, value: int) -> int:
+    from .. import native
+    lib = native.load_crc32c()
+    if lib is None:
+        raise RuntimeError("native CRC32-C unavailable: "
+                           f"{native.BUILD_INFO['crc32c'].get('error')}")
+    if isinstance(data, bytes):
+        return getattr(lib, entry)(value, data, len(data))
+    buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+    return getattr(lib, entry)(value, buf.ctypes.data, buf.size)
 
-    def crc32c(data: bytes, value: int = 0) -> int:
+
+def crc32c_native(data, value: int = 0) -> int:
+    """CRC32-C on the native library: the SSE4.2 instruction where the
+    CPU has it, else the table loop (`crc32c_extend_sw` alone runs the
+    loop whatever the CPU).  Raises RuntimeError where the library does
+    not build."""
+    return _native_call("crc32c_extend", data, value)
+
+
+def _google():
+    try:
+        import google_crc32c
+    except ImportError:
+        return None
+
+    def crc32c_google(data, value: int = 0) -> int:
         return google_crc32c.extend(value, bytes(data))
+    return crc32c_google
 
-except ImportError:
-    crc32c = crc32c_numpy
+
+_chosen: "tuple[str, object] | None" = None
+
+
+def _choose() -> "tuple[str, object]":
+    """(engine name, function), resolved at the first checksum: nothing
+    is built when the module is imported."""
+    global _chosen
+    if _chosen is None:
+        from .. import native
+        fn = _google()
+        lib = native.load_crc32c() if fn is None else None
+        if fn is not None:
+            _chosen = ("google_crc32c", fn)
+        elif lib is not None:
+            _chosen = ("sse4.2" if lib.crc32c_simd() else "sw",
+                       crc32c_native)
+        else:
+            _chosen = ("numpy", crc32c_numpy)
+    return _chosen
+
+
+def engine() -> str:
+    """The engine `crc32c` runs on: google_crc32c, sse4.2, sw or numpy."""
+    return _choose()[0]
+
+
+def crc32c(data, value: int = 0) -> int:
+    """CRC32-C of `data` continuing from `value` (google_crc32c.extend)."""
+    return _choose()[1](data, value)
 
 
 def crc_value(c: int) -> int:

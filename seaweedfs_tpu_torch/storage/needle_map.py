@@ -31,13 +31,12 @@ class NeedleMap:
     def __init__(self, idx_path: str | None = None):
         self._m: dict[int, tuple[int, int]] = {}
         self.metrics = MapMetrics()
-        # the newest PUT entry applied, in .idx append order — the
-        # .dat-tail replay floor (storage/volume.py _replay_dat_tail):
-        # every record at or before this entry's end is indexed, so
-        # crash recovery only scans past it.  Tombstone entries don't
-        # advance it (their .idx offset field is 0); the replay's
-        # idempotent re-apply absorbs the re-scan.
-        self.last_put: "tuple[int, int] | None" = None
+        # the put entry that lies furthest into the .dat: the floor of
+        # the .dat-tail replay (storage/volume.py _replay_dat_tail), as
+        # every record before its end is indexed.  The furthest, not the
+        # last: an .idx rebuilt from an .ecx is in key order.  Tombstone
+        # entries do not move it
+        self.furthest_put: "tuple[int, int] | None" = None
         self._idx_path = idx_path
         self._idx_file = None
         if idx_path is not None:
@@ -64,7 +63,8 @@ class NeedleMap:
     def _apply(self, key: int, offset: int, size: int) -> None:
         m = self.metrics
         if not types.size_is_deleted(size):
-            self.last_put = (offset, size)
+            if self.furthest_put is None or offset > self.furthest_put[0]:
+                self.furthest_put = (offset, size)
             old = self._m.get(key)
             # every put counts a file; an overwrite additionally counts
             # the replaced record as deleted (needle_map_metric.go logPut)

@@ -139,6 +139,10 @@ class Store:
         v = self.find_volume(vid)
         if v is None:
             raise KeyError(f"volume {vid} not found")
+        if read_only:
+            # the native write plane must stop acking what Python now
+            # refuses; the volume server re-attaches on the thaw
+            v.detach_native()
         v.read_only = read_only
 
     # -- needle IO (store.go:580/:604) ------------------------------------

@@ -9,16 +9,24 @@ destroy.  Byte-compatible with the
 reference package, so either package reads the other's volumes.  One
 process, one writer: a lock serialises appends, and each acknowledged
 write is flushed to the OS before write_needle returns.
+
+The native write plane (`server/write_plane.py`) can own the `.dat`
+tail (`attach_native`): Python appends then go through the plane's
+per-volume mutex, the plane's completed appends are drained into the
+needle map before every operation that reads it, and an open replays
+the `.dat` records past the `.idx` checkpoint, so a native-acked write
+whose index entry never landed is indexed after a crash.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 import threading
 import time
 
 from . import types
-from .needle import Needle, get_actual_size
+from .needle import Needle, get_actual_size, needle_body_length
 from .needle_map import NeedleMap
 from .replica_placement import ReplicaPlacement
 from .super_block import SuperBlock
@@ -64,6 +72,140 @@ class Volume:
             self._dat.write(self.super_block.to_bytes())
             self._dat.flush()
         self.nm = NeedleMap(self.file_name(".idx"))
+        # the native write plane, while it owns the .dat tail, and the
+        # native appends indexed since the last drain_native
+        self._wp = None
+        self._drained: list = []
+        self._replay_dat_tail()
+
+    # -- the native write plane (server/write_plane.py) ------------------
+
+    def _replay_dat_tail(self) -> None:
+        """Index the `.dat` records past the `.idx` checkpoint (the end of
+        its furthest put): a native-acked write is in the `.dat` once write(2)
+        returned, before its index entry.  Records that match the map
+        are skipped, and the scan stops at the first torn record (a
+        length or CRC failure): records are appended in order, so
+        nothing valid follows a tear."""
+        last = self.nm.furthest_put
+        if last is not None:
+            start = types.to_actual_offset(last[0]) + \
+                get_actual_size(last[1], self.version)
+        else:
+            start = (self.super_block.block_size() +
+                     types.NEEDLE_PADDING_SIZE - 1) // \
+                types.NEEDLE_PADDING_SIZE * types.NEEDLE_PADDING_SIZE
+        total = os.path.getsize(self.file_name(".dat"))
+        if start >= total:
+            return
+        with open(self.file_name(".dat"), "rb") as f:
+            offset = start
+            while offset + types.NEEDLE_HEADER_SIZE <= total:
+                f.seek(offset)
+                n = Needle.parse_header(f.read(types.NEEDLE_HEADER_SIZE))
+                deleted_mark = n.size < 0
+                masked = n.size
+                if deleted_mark:
+                    masked = 0 if types.size_is_tombstone(n.size) \
+                        else types.size_to_u32(n.size) & 0x7FFFFFFF
+                rec_len = get_actual_size(masked, self.version)
+                if offset + rec_len > total:
+                    break                       # truncated tail
+                f.seek(offset)
+                buf = f.read(rec_len)
+                n = Needle.parse_header(buf)
+                n.size = masked
+                try:
+                    n.parse_body(
+                        buf[types.NEEDLE_HEADER_SIZE:
+                            types.NEEDLE_HEADER_SIZE +
+                            needle_body_length(masked, self.version)],
+                        self.version, check_crc=True)
+                except (ValueError, struct.error):
+                    break                       # torn record
+                if deleted_mark:
+                    n.data = b""
+                stored = types.to_stored_offset(offset)
+                if n.data and types.size_is_valid(n.size):
+                    if self.nm._m.get(n.id) != (stored, n.size):
+                        self.nm.put(n.id, stored, n.size)
+                elif self.nm.get(n.id) is not None:
+                    self.nm.delete(n.id)        # a tombstone record
+                if n.append_at_ns > self.last_append_at_ns:
+                    self.last_append_at_ns = n.append_at_ns
+                offset += rec_len
+        self.nm.flush()
+
+    def attach_native(self, wp) -> bool:
+        """Hand the `.dat` tail to the native write plane.  False (and
+        detached) for volumes whose writes need Python: read-only,
+        pre-v3, TTL'd or replicated ones."""
+        with self.lock:
+            if self._wp is not None:
+                return True
+            if self.read_only or self.version != types.VERSION3 or \
+                    bool(self.super_block.ttl) or \
+                    self.super_block.replica_placement.byte() or \
+                    self.id >= 0x80000000:
+                return False
+            # the plane appends through its own fd: the buffered tail
+            # must be in the file before the plane takes its offset
+            self._dat.flush()
+            self._dat.seek(0, os.SEEK_END)
+            if not wp.add_volume(self.id, self.file_name(".dat"),
+                                 self._dat.tell(), self.last_append_at_ns):
+                return False
+            # every key ever mapped, live or tombstoned, falls back to
+            # Python, where the overwrite's cookie and dedup rules are;
+            # the plane refuses every write until it is armed
+            wp.mark_keys(self.id, self.nm._m.keys())
+            if not wp.arm(self.id):
+                wp.remove_volume(self.id)
+                return False
+            self._wp = wp
+            return True
+
+    def detach_native(self) -> None:
+        """Take the tail back: stop native appends, then drain every
+        completed one into the index and flush the `.idx`, so the
+        checkpoint is whole before what needed the detach (read-only,
+        close) goes on."""
+        with self.lock:
+            wp = self._wp
+            if wp is None:
+                return
+            self._wp = None
+            wp.remove_volume(self.id)
+            self._drained += self._apply_native_entries(wp.drain(self.id))
+            self.nm.flush()
+
+    def drain_native(self) -> list:
+        """Apply completed native appends to the needle map and the
+        `.idx` (the pump's tick).  Returns every native append indexed
+        since the last call, whichever path indexed it, for the read
+        plane."""
+        if self._wp is None and not self._drained:
+            return []
+        with self.lock:
+            self._drain_if_pending()
+            out, self._drained = self._drained, []
+            if out:
+                self.nm.flush()
+            return out
+
+    def _drain_if_pending(self) -> None:
+        """The prologue of every operation that reads the index (the
+        caller holds the lock)."""
+        wp = self._wp
+        if wp is not None and wp.pending(self.id):
+            self._drained += self._apply_native_entries(wp.drain(self.id))
+
+    def _apply_native_entries(self, entries: list) -> list:
+        for e in entries:
+            self.nm.put(e.key, types.to_stored_offset(e.offset), e.size)
+            if e.append_ns > self.last_append_at_ns:
+                self.last_append_at_ns = e.append_ns
+        return entries
 
     # -- naming (volume.go FileName) -------------------------------------
 
@@ -76,6 +218,11 @@ class Volume:
     @property
     def version(self) -> int:
         return self.super_block.version
+
+    def dat_fd(self) -> int:
+        """The `.dat`'s file descriptor, for pread(2) of records that are
+        on the file (every acked write is)."""
+        return self._dat.fileno()
 
     def dat_size(self) -> int:
         with self.lock:
@@ -116,6 +263,7 @@ class Volume:
                 raise PermissionError(f"volume {self.id} is read-only")
             if not n.has_ttl() and self.super_block.ttl:
                 n.set_ttl(self.super_block.ttl)
+            self._drain_if_pending()
             existing = self.nm.get(n.id)
             if existing is not None:
                 old = self._read_at(existing[0], existing[1])
@@ -138,6 +286,19 @@ class Volume:
         return offset, len(n.data), False
 
     def _append(self, n: Needle) -> int:
+        wp = self._wp
+        if wp is not None:
+            # the plane owns the tail: the record goes through its
+            # per-volume mutex, so it never interleaves with a native
+            # append, and write(2) puts it in the page cache
+            off = wp.append(self.id, n.id, n.to_bytes(self.version),
+                            n.append_at_ns)
+            if off >= 0:
+                return off
+            # refused (a write error, or a stop racing this append):
+            # detach whole, so the plane stops acking and its journal is
+            # indexed before Python takes the tail back
+            self.detach_native()
         self._dat.seek(0, os.SEEK_END)
         offset = self._dat.tell()
         if offset % types.NEEDLE_PADDING_SIZE != 0:
@@ -156,6 +317,7 @@ class Volume:
         with self.lock:
             if self.read_only:
                 raise PermissionError(f"volume {self.id} is read-only")
+            self._drain_if_pending()
             existing = self.nm.get(n.id)
             if existing is None:
                 return 0
@@ -181,6 +343,7 @@ class Volume:
     def read_needle(self, needle_id: int, cookie: int | None = None
                     ) -> Needle:
         with self.lock:
+            self._drain_if_pending()
             got = self.nm.get(needle_id)
             if got is None:
                 raw = self.nm._m.get(needle_id)
@@ -201,11 +364,13 @@ class Volume:
 
     def sync(self) -> None:
         with self.lock:
+            self._drain_if_pending()   # callers read the .idx next
             self._dat.flush()
             os.fsync(self._dat.fileno())
             self.nm.flush()
 
     def close(self) -> None:
+        self.detach_native()
         with self.lock:
             self._dat.flush()
             self._dat.close()

@@ -693,3 +693,80 @@ def test_degraded_reads_on_a_card_server_launch_nothing(cuda, tmp_path):
         a.stop()
         b.stop()
         master.stop()
+
+
+def test_a_write_plane_fill_encodes_on_the_card(cuda, tmp_path,
+                                                monkeypatch):
+    """A port volume server on the card fills a volume through its native
+    write plane and encodes it with `gf_apply_words`: the shards' SHA-256s
+    equal those of the same needles written through Python and encoded on
+    the CPU, and the kernel ran once a staging window of the work list."""
+    import hashlib
+    import os
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage import types
+    from seaweedfs_tpu_torch.storage.erasure_coding import (ec_context,
+                                                            ec_encoder)
+    from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    monkeypatch.setattr(ec_context, "DEVICE_BATCH_SIZE", 1 << 20)
+    monkeypatch.setenv("SEAWEEDFS_TPU_H2D_WINDOW_MB", "1")
+    rng = np.random.default_rng(87)
+    master = MasterServer(pulse_seconds=1.0).start()
+    (tmp_path / "v").mkdir()
+    vs = VolumeServer([str(tmp_path / "v")], master=master.url,
+                      pulse_seconds=0.2).start()
+    try:
+        assert vs.write_plane is not None
+        fids = []
+        while sum(len(p) for _, p in fids) < 12 << 20:
+            data = rng.bytes(int(rng.integers(1000, 300_000)))
+            fids.append((operation.submit(master.url, data), data))
+        assert vs.write_plane.requests() == len(fids)
+        vid = types.parse_file_id(fids[0][0]).volume_id
+        v = vs.store.find_volume(vid)
+        base = v.file_name("")
+        http_json("POST", f"{vs.url}/admin/set_readonly",
+                  {"volumeId": vid, "readOnly": True}, timeout=10)
+        dat_size = os.path.getsize(base + ".dat")
+        want = sum(_launches_for(10, item[3]) for item in
+                   ec_encoder._encode_work_items(
+                       dat_size, ec_context.ECContext(device="cpu")))
+        before = rs_cuda.LAUNCHES
+        r = http_json("POST", f"{vs.url}/admin/ec/generate",
+                      {"volumeId": vid}, timeout=120)
+        assert "error" not in r, r
+        assert rs_cuda.LAUNCHES - before == want
+        # the same needles written through Python, each at its record's
+        # clock, encoded on the CPU
+        (tmp_path / "twin").mkdir()
+        twin = Volume(str(tmp_path / "twin"), vid)
+        with open(base + ".dat", "rb") as f:
+            for fid, data in fids:
+                key = types.parse_file_id(fid)
+                off, size = v.nm.get(key.key)
+                f.seek(types.to_actual_offset(off))
+                rec = Needle.from_bytes(
+                    f.read(get_actual_size(size, v.version)), v.version,
+                    expected_size=size)
+                assert rec.data == data
+                n = Needle(cookie=rec.cookie, id=rec.id, data=rec.data)
+                n.set_last_modified(rec.last_modified)
+                twin._next_append_at_ns = lambda ns=rec.append_at_ns: ns
+                twin.write_needle(n)
+        twin.close()
+        tbase = twin.file_name("")
+        ec_encoder.write_ec_files(tbase, ec_context.ECContext(device="cpu"))
+        for sid in range(14):
+            shas = []
+            for b in (base, tbase):
+                with open(f"{b}.ec{sid:02d}", "rb") as f:
+                    shas.append(hashlib.sha256(f.read()).hexdigest())
+            assert shas[0] == shas[1], sid
+    finally:
+        vs.stop()
+        master.stop()

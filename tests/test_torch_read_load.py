@@ -133,7 +133,7 @@ def test_native_threaded_tail_matches_reference():
 def test_native_builds_and_names_its_tier():
     assert rs_native.available()
     assert rs_native.gf_native_simd() in rs_native.SIMD_TIERS.values()
-    path = native.BUILD_INFO["path"]
+    path = native.BUILD_INFO["gf_rs"]["path"]
     assert path.startswith(native.BUILD_DIR) and os.path.exists(path)
 
 
