@@ -176,6 +176,33 @@ Phases, each printing one JSON line:
    of it acked by the write plane: the master's default replication is
    000) and each read pass, and the CRC32-C engine `sse4.2`.
 
+10. filer: the port's filer (`python3 -m seaweedfs_tpu_torch filer`, the
+   sqlite store, every mutation committed synchronously) over a `master
+   -volumeSizeLimitMB 1024` subprocess and 3 `volume -max 8` subprocesses
+   (their codec on the card), collection `filer`.  Through the filer's
+   HTTP API: 16,384 files of 1 KiB in 64 directories on 16 threads (`weed
+   benchmark`'s shape, n cut), 32 files of 8-24 MiB (2-6 chunks) and
+   config 1's needles on 8 writers until a 1 GiB volume seals (files/s,
+   GB/s, p50/p99); 4,096 chunkless creates, 4,096 lookups and a listing of
+   every directory (ops/s).  Every sealed volume `ec.encode`d RS(10,4) by
+   the port's shell (launches, read off the servers' /metrics, against
+   its work list's windows).  Four read passes on 16 threads, each a
+   seeded sample of 2,048 1 KiB files, 32 large needles and 8 multi-chunk
+   files, every body held to its SHA-256, plus a range across every chunk
+   boundary of the multi-chunk files and a listing of every directory:
+   all servers up, cold and again warm (every 1 KiB read a hit of the
+   filer's chunk cache); the server holding the most data shards of
+   those that hold at most 4 of a volume stopped (degraded reads, each
+   rebuilt on the host's native codec); after `ec.rebuild` on the card
+   (launches against its steps' windows, no degraded read).  Each pass:
+   reads/s, p50/p99/max ms, GB/s, degraded reads, the filer's meta- and
+   chunk-cache hits and 0 launches.  Then an overwrite of a multi-chunk
+   file (its old chunks no longer readable from their volumes), a
+   recursive delete of a directory (its chunks gone, a non-recursive
+   delete of its parent answered 409) and `fs.ls` / `fs.du` through the
+   port's shell, held to the namespace.  The filer's group commits' mean
+   batch at the store and the metalog.
+
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
 line.  Exits non-zero, with no result, when there is no CUDA device or
@@ -197,6 +224,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3.  The data sheet gives
@@ -245,6 +273,17 @@ READ_N = 16_384                  # 1 KiB files, cut from weed benchmark's
 READ_SMALL_SAMPLE = 4_096        # 1,048,576; sampled per read pass
 READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
 READ_C = 16                      # weed benchmark's concurrency
+# filer: the port's filer (sqlite store, synchronous commit) over volumes
+# that ec.encode encodes on the card
+FILER_SERVERS = 3
+FILER_COLLECTION = "filer"
+FILER_N = 16_384                 # 1 KiB files through the filer (weed
+FILER_DIRS = 64                  # benchmark's shape, n cut), in 64 dirs
+FILER_MULTI = 32                 # files of 8-24 MiB: 2-6 chunks each
+FILER_META_N = 4_096             # chunkless creates, then lookups
+FILER_SMALL_SAMPLE = 4_096       # 1 KiB files read per pass, and
+FILER_LARGE_SAMPLE = 64          # config 1's needles (read_load's)
+FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 10
 
 
 def emit(obj: dict) -> None:
@@ -2790,9 +2829,12 @@ def _read_pass(murl: str, urls, items, seeds: dict, what: str,
               f"{what} ({kind}): the reads launched the kernel "
               f"{d['launches']} times")
         nbytes = sum(it[2] for it in todo)
+        pcts = _pcts(ms)
+        if len(ms) < 2 * READ_C:
+            del pcts["p99_ms"]
         out[kind] = {"reads": len(todo), "bytes": nbytes, "seconds": wall,
                      "reads_per_s": len(todo) / wall,
-                     "gbps": nbytes / wall / 1e9, **_pcts(ms),
+                     "gbps": nbytes / wall / 1e9, **pcts,
                      "degraded_reads": d["degraded"],
                      "cache_hits": d["hits"], "cache_misses": d["misses"],
                      "failovers": d["failovers"], "engines": d["engines"],
@@ -3228,6 +3270,626 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
     return out
 
 
+# --- phase 10 --------------------------------------------------------------
+
+def _filer_counters(furl: str) -> dict:
+    """What the filer counted on its /metrics: meta-cache and chunk-cache
+    hits and misses, and each group-commit site's batches and writers."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    text = http_bytes("GET", f"{furl}/metrics", timeout=60)[1].decode()
+    out = {}
+    for cache in ("filer_meta", "filer_chunk"):
+        for which in ("hits", "misses"):
+            out[f"{cache}_{which}"] = sum(
+                v for lb, v in _samples(text, f"read_cache_{which}_total")
+                if lb.get("cache") == cache)
+    for site in ("filer.store", "filer.metalog"):
+        for part in ("sum", "count"):
+            out[f"{site}_{part}"] = sum(
+                v for lb, v in _samples(text, f"group_commit_batch_size_{part}")
+                if lb.get("site") == site)
+    return out
+
+
+def _filer_ranges(get, urls, items: list, what: str) -> int:
+    """A ranged GET across every 4 MiB chunk boundary of each multi-chunk
+    item, held to the payload's bytes; fails if the kernel launched."""
+    ranges = 0
+    before = _counters(urls)["launches"]
+    for path, _digest, size, _kind, nid, seed in items:
+        body = None
+        for edge in range(4 << 20, size, 4 << 20):
+            lo, hi = edge - 1000, min(edge + 999, size - 1)
+            st, got = get(path, {"Range": f"bytes={lo}-{hi}"})
+            if body is None:
+                body = _payload(seed, nid, size)
+            check(st == 206 and got == body[lo:hi + 1],
+                  f"filer {what}: {path} bytes={lo}-{hi} answered {st}, "
+                  f"not its bytes")
+            ranges += 1
+    check(_counters(urls)["launches"] == before,
+          f"filer {what}: the ranged reads launched the kernel")
+    return ranges
+
+
+def _filer_pass(furl: str, urls, items: list, what: str,
+                order=("small", "large", "multi")) -> dict:
+    """GET every item (path, sha256, size, kind) through the filer on
+    READ_C threads, each body held to its seeded SHA-256; each kind in a
+    sub-pass of its own, in `order`, with reads/s, GB/s, p50/p99/max ms
+    and what the volume servers and the filer counted meanwhile; the
+    multi-chunk sub-pass also reads a range across each of their chunk
+    boundaries (`_filer_ranges`).  A sub-pass of fewer reads than two
+    rounds of the pool reports no p99 (it would be its max).  Fails if
+    the kernel was launched."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    out = {}
+
+    def get(path, headers=None):
+        st, body, _ = http_bytes("GET", f"{furl}{path}", headers=headers,
+                                 timeout=120)
+        return st, body
+    for kind in order:
+        todo = [it for it in items if it[3] == kind]
+        if not todo:
+            continue
+
+        def read_one(it):
+            path, digest, size = it[:3]
+            t = time.perf_counter()
+            st, body = get(path)
+            ms = (time.perf_counter() - t) * 1e3
+            check(st == 200 and len(body) == size and
+                  hashlib.sha256(body).hexdigest() == digest,
+                  f"filer {what}: {path} answered {st}, {len(body)} bytes, "
+                  f"not its payload")
+            return ms
+        before, fbefore = _counters(urls), _filer_counters(furl)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            ms = list(pool.map(read_one, todo))
+        wall = time.perf_counter() - t
+        d = _delta(_counters(urls), before)
+        fafter = _filer_counters(furl)
+        check(d["launches"] == 0,
+              f"filer {what} ({kind}): the reads launched the kernel "
+              f"{d['launches']} times")
+        if kind == "multi":
+            # ranges across every chunk boundary, held to their bytes
+            # (in this sub-pass: their whole 4 MiB chunks pass through
+            # the filer's chunk cache and evict what it held)
+            out["ranges_across_chunks"] = _filer_ranges(get, urls, todo,
+                                                        what)
+        nbytes = sum(it[2] for it in todo)
+        pcts = _pcts(ms)
+        if len(ms) < 2 * READ_C:
+            del pcts["p99_ms"]
+        out[kind] = {"reads": len(todo), "bytes": nbytes, "seconds": wall,
+                     "reads_per_s": len(todo) / wall,
+                     "gbps": nbytes / wall / 1e9, **pcts,
+                     "degraded_reads": d["degraded"],
+                     "needle_cache_hits": d["hits"],
+                     "engines": d["engines"],
+                     "meta_cache_hits": fafter["filer_meta_hits"] -
+                     fbefore["filer_meta_hits"],
+                     "chunk_cache_hits": fafter["filer_chunk_hits"] -
+                     fbefore["filer_chunk_hits"],
+                     "chunk_cache_misses": fafter["filer_chunk_misses"] -
+                     fbefore["filer_chunk_misses"],
+                     "kernel_launches": d["launches"]}
+    return out
+
+
+def _filer_volumes(furl: str, dirs) -> "dict[str, set]":
+    """path -> the volume ids of its chunks, for every file in `dirs`,
+    read off the filer's listings (paged by lastFileName)."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+
+    def one(d):
+        got, last = {}, ""
+        while True:
+            r = http_json("GET", f"{furl}{d}/?limit=1000&lastFileName="
+                          f"{urllib.parse.quote(last)}", timeout=60)
+            check("error" not in r, f"listing {d}: {r}")
+            for e in r["entries"]:
+                got[e["fullPath"]] = {int(c["fileId"].split(",")[0])
+                                      for c in e["chunks"]}
+            if len(r["entries"]) < 1000:
+                return got
+            last = r["entries"][-1]["fullPath"].rsplit("/", 1)[-1]
+    out: dict = {}
+    with ThreadPoolExecutor(READ_C) as pool:
+        for got in pool.map(one, sorted(dirs)):
+            out.update(got)
+    return out
+
+
+def _filer_listing(furl: str, want: "dict[str, set]") -> dict:
+    """List every directory of `want` (dir -> names) through the filer,
+    paging by lastFileName, and hold each to its names."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+
+    def names(d):
+        got, last = [], ""
+        while True:
+            r = http_json("GET", f"{furl}{d}/?limit=1000&lastFileName="
+                          f"{urllib.parse.quote(last)}", timeout=60)
+            check("error" not in r, f"listing {d}: {r}")
+            batch = [e["fullPath"].rsplit("/", 1)[-1] for e in r["entries"]]
+            got += batch
+            if len(batch) < 1000:
+                return d, got
+            last = batch[-1]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(READ_C) as pool:
+        listed = dict(pool.map(names, sorted(want)))
+    wall = time.perf_counter() - t
+    for d, got in listed.items():
+        check(got == sorted(want[d]),
+              f"listing {d}: {len(got)} names, not its {len(want[d])}")
+    return {"directories": len(listed), "seconds": wall,
+            "lists_per_s": len(listed) / wall,
+            "entries": sum(len(v) for v in listed.values())}
+
+
+def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
+                n_multi: int = FILER_MULTI, limit_mb: int = WRITE_LIMIT_MB,
+                small_sample: int = FILER_SMALL_SAMPLE,
+                large_sample: int = FILER_LARGE_SAMPLE,
+                multi_sample: int = FILER_MULTI_SAMPLE,
+                meta_n: int = FILER_META_N,
+                device: str = "cuda") -> dict:
+    """The port's filer over volumes that ec.encode encodes on the card: a
+    `master -volumeSizeLimitMB 1024` subprocess, 3 `volume -max 8`
+    subprocesses (their codec on `device`) and one `filer` subprocess
+    (sqlite store, synchronous commit) over collection `filer`.  Through
+    the filer's HTTP API: `n_small` 1 KiB files in 64 directories on 16
+    threads (weed benchmark's shape), `n_multi` files of 8-24 MiB (2-6
+    chunks), and config 1's needles (256 KiB - 4 MiB) on 8 writers until
+    a volume reaches the limit; chunkless creates, lookups and listings.
+    Every sealed volume encoded RS(10,4) by the port's shell (launches
+    against the staging plan's windows).  Read passes on 16 threads, each
+    body held to its seeded SHA-256, each with ranges across chunk
+    boundaries and a listing of every directory: all servers up (cold,
+    then warm), the server holding the most data shards that a volume
+    can lose stopped (degraded, on the host's codec), and after
+    `ec.rebuild` (launches against its steps' windows).  Then an
+    overwrite (the old chunks gone from their volumes), a recursive
+    delete, and `fs.ls` / `fs.du` through the shell.  The reads launch
+    nothing."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        _encode_work_items, rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"f{i}") for i in range(FILER_SERVERS)]
+    procs: list = []
+    coll = FILER_COLLECTION
+    d, p = 10, 4
+    ctx = ECContext(d, p, device="cpu")
+    cuts = {"files_1k": {"run": n_small, "reference_default": 1 << 20,
+                         "why": "the run's time"},
+            "read_sample": {"small": small_sample, "large": large_sample,
+                            "multi": multi_sample,
+                            "why": "fresh files a pass (cold and warm "
+                                   "share one): 3 samples of the files "
+                                   "on the encoded volume"},
+            "servers": {"run": FILER_SERVERS, "why": "one host, loopback"}}
+    print(f"filer phase: {n_small} files of 1 KiB through the filer (weed "
+          f"benchmark's default 1,048,576, cut for the run's time)",
+          flush=True)
+    phase_t0 = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb)]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs,
+            "volume")
+        proc_of = dict(zip(urls, procs[1:]))
+        (furl,) = _start_procs(
+            [["filer", "-port", "0", "-master", murl, "-store",
+              os.path.join(tmp, "filer.db"), "-collection", coll]],
+            [os.path.join(tmp, "filer.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n")
+        env = commands.CommandEnv(murl, filer=furl)
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def normal_vids():
+            return {v["id"]: v for _n, v in
+                    iter_volume_list_volumes(get("/vol/list"))
+                    if v.get("collection", "") == coll}
+
+        def ec_locs(vid):
+            return {loc["url"]: loc["shardIds"] for loc in get(
+                f"/dir/ec_lookup?volumeId={vid}").get(
+                    "shardIdLocations", [])}
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "3 volume servers registered")
+        start_s = time.perf_counter() - t0
+        check(http_json("GET", f"{furl}/status", timeout=30).get("role") ==
+              "filer", "the filer's /status")
+
+        files: dict = {}            # path -> (sha256, size, kind, nid, seed)
+        lock = threading.Lock()
+
+        def put(path, body, kind, nid, sd):
+            t = time.perf_counter()
+            st, ans, _ = http_bytes("PUT", f"{furl}{path}", body,
+                                    timeout=120)
+            ms = (time.perf_counter() - t) * 1e3
+            check(st == 201 and json.loads(ans)["size"] == len(body),
+                  f"filer PUT {path}: {st} {ans[:200]!r}")
+            with lock:
+                files[path] = (hashlib.sha256(body).hexdigest(), len(body),
+                               kind, nid, sd)
+            return ms
+
+        # 1. weed benchmark's shape through the filer: 1 KiB files
+        small_seed = seed + 20
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            small_ms = list(pool.map(
+                lambda i: put(f"/small/d{i % FILER_DIRS:02d}/f{i:05d}",
+                              _payload(small_seed, i, BENCH_SIZE), "small",
+                              i, small_seed), range(n_small)))
+        small_s = time.perf_counter() - t
+
+        # 2. multi-chunk files of 8-24 MiB
+        multi_seed = seed + 21
+        mrng = np.random.default_rng([seed, 21])
+        multi_sizes = [int(mrng.integers(8 << 20, (24 << 20) + 1))
+                       for _ in range(n_multi)]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            multi_ms = list(pool.map(
+                lambda j: put(f"/multi/m{j:02d}",
+                              _payload(multi_seed, j, multi_sizes[j]),
+                              "multi", j, multi_seed), range(n_multi)))
+        multi_s = time.perf_counter() - t
+
+        # 3. config 1's needles until the limit seals a volume
+        fill_seed = seed + 22
+        frng = np.random.default_rng([seed, 22])
+        counter = itertools.count(1)
+        stop = threading.Event()
+        fill_ms: list = []
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                ms = put(f"/fill/n{nid:05d}",
+                         _payload(fill_seed, nid, size), "large", nid,
+                         fill_seed)
+                with lock:
+                    fill_ms.append(ms)
+
+        def sealed():
+            return any(os.path.getsize(os.path.join(dd, f)) >= limit_mb << 20
+                       for dd in dirs for f in os.listdir(dd)
+                       if f.startswith(f"{coll}_") and f.endswith(".dat"))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and not sealed():
+                    time.sleep(0.2)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        fill_bytes = sum(v[1] for v in files.values() if v[2] == "large")
+        multi_bytes = sum(multi_sizes)
+
+        # 4. metadata-only operations: creates, lookups, listings
+        def create(i):
+            st, ans, _ = http_bytes(
+                "POST", f"{furl}/__meta__/put_entry", json.dumps(
+                    {"fullPath": f"/meta/d{i % 16:02d}/e{i:05d}",
+                     "attributes": {"mode": 0o644}, "chunks": [],
+                     "extended": {"i": str(i)}}).encode(),
+                {"Content-Type": "application/json"}, timeout=60)
+            check(st == 200, f"put_entry {i}: {st} {ans[:200]!r}")
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            list(pool.map(create, range(meta_n)))
+        create_s = time.perf_counter() - t
+        small_paths = sorted(k for k, v in files.items() if v[2] == "small")
+        lrng = np.random.default_rng([seed, 23])
+        look = [small_paths[i] for i in
+                lrng.choice(len(small_paths), meta_n, replace=False)]
+
+        def find(path):
+            r = http_json("GET", "{}/__meta__/lookup?path={}".format(
+                furl, urllib.parse.quote(path)), timeout=60)
+            check(r.get("fullPath") == path and
+                  r["chunks"][0]["size"] == BENCH_SIZE,
+                  f"lookup {path}: {r}")
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            list(pool.map(find, look))
+        find_s = time.perf_counter() - t
+        want_dirs: dict = {}
+        for path in files:
+            parent, _, name = path.rpartition("/")
+            want_dirs.setdefault(parent, set()).add(name)
+        listing = _filer_listing(furl, want_dirs)
+        meta_ops = {"creates": meta_n, "creates_per_s": meta_n / create_s,
+                    "finds": meta_n, "finds_per_s": meta_n / find_s,
+                    "lists": listing["directories"],
+                    "lists_per_s": listing["lists_per_s"]}
+
+        vols = normal_vids()
+
+        def sizes_seen():
+            seen = {vid: (v["size"], [os.path.getsize(os.path.join(
+                dirs[urls.index(loc["url"])], f"{coll}_{vid}.dat"))
+                for loc in operation.lookup(murl, vid, use_cache=False)])
+                for vid, v in normal_vids().items()}
+            return all(want == [got] for got, want in seen.values())
+        poll(sizes_seen, "the master sees every volume's size")
+        vols = normal_vids()
+        sealed_vids = sorted(v for v, x in vols.items()
+                             if x["size"] >= limit_mb << 20)
+        check(sealed_vids, f"no volume of {coll} reached the limit: {vols}")
+
+        # 5. every sealed volume encoded RS(10,4) on the card
+        def launches_on_all():
+            return _counters(urls)["launches"]
+        encode = {}
+        for vid in sealed_vids:
+            size = vols[vid]["size"]
+            expect = sum(launches_for(d, item[3])
+                         for item in _encode_work_items(size, ctx))
+            before = launches_on_all()
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.encode -volumeId={vid} -collection={coll}; "
+                     f"unlock")
+            wall = time.perf_counter() - t
+            got = int(launches_on_all() - before)
+            check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+            check(got == expect, f"volume {vid}'s encode launched {got}, "
+                                 f"the windows of its work list are "
+                                 f"{expect}")
+            encode[vid] = {"bytes": size, "seconds": wall,
+                           "gbps": size / wall / 1e9, "launches": got,
+                           "expected_launches": expect, "output": out[1]}
+        poll(lambda: not set(sealed_vids) & set(normal_vids()) and all(
+            sorted(s for sids in ec_locs(v).values() for s in sids) ==
+            list(range(d + p)) for v in sealed_vids),
+            "every sealed volume's 14 shards listed and the volume gone")
+        placement = {v: ec_locs(v) for v in sealed_vids}
+
+        # 6. the read passes, over the files whose chunks all lie on the
+        # encoded volumes (a fill needle the master placed on a volume
+        # grown after the limit stays on a normal volume, which a stopped
+        # server takes offline)
+        vids_of = _filer_volumes(furl, want_dirs)
+        on_ec = {k for k, v in vids_of.items() if v <= set(sealed_vids)}
+        check(len(on_ec) >= 0.9 * len(files),
+              f"{len(on_ec)} of {len(files)} files lie on the encoded "
+              f"volumes {sealed_vids}")
+        rng = np.random.default_rng([seed, 24])
+        items = [(path, *v) for path, v in sorted(files.items())
+                 if path in on_ec]
+        by_kind = {k: [it for it in items if it[3] == k]
+                   for k in ("small", "large", "multi")}
+        take = {"small": small_sample, "large": large_sample,
+                "multi": multi_sample}
+        used: set = set()
+
+        def sample():
+            out = []
+            for k, its in by_kind.items():
+                fresh = [it for it in (its[i] for i in
+                                       rng.permutation(len(its)))
+                         if it[0] not in used][:take[k]]
+                out += fresh
+            used.update(it[0] for it in out)
+            return out
+        passes = {}
+        a = sample()
+        passes["cold"] = _filer_pass(furl, urls, a, "cold",
+                                     ("multi", "large", "small"))
+        passes["warm"] = _filer_pass(furl, urls, a, "warm")
+        check(passes["warm"]["small"]["chunk_cache_hits"] ==
+              passes["warm"]["small"]["reads"] and
+              passes["cold"]["small"]["degraded_reads"] == 0,
+              f"all servers up: {passes['cold']['small']} then "
+              f"{passes['warm']['small']}")
+        listings = {"all_up": _filer_listing(furl, want_dirs)}
+
+        data_held = {u: sum(1 for v in placement for s in
+                            placement[v].get(u, []) if s < d)
+                     for u in urls}
+        fits = [u for u in urls
+                if all(len(placement[v].get(u, [])) <= p for v in placement)]
+        check(fits, f"no server holds at most {p} shards of every volume: "
+                    f"{placement}")
+        victim = max(fits, key=lambda u: data_held[u])
+        check(data_held[victim] > 0, f"{victim} holds no data shard")
+        bad = _stop_peers([proc_of[victim]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        t = time.perf_counter()
+        poll(lambda: victim not in get("/cluster/status")["dataNodes"] and
+             all(victim not in ec_locs(v) for v in placement),
+             "the master drops the stopped server")
+        drop_s = time.perf_counter() - t
+        live = [u for u in urls if u != victim]
+        b = sample()
+        passes["degraded"] = _filer_pass(furl, live, b, "degraded",
+                                         ("multi", "large", "small"))
+        def sub(name):
+            return [v for v in passes[name].values() if isinstance(v, dict)]
+        deg = sum(v["degraded_reads"] for v in sub("degraded"))
+        check(deg > 0, f"the stopped server's loss made no degraded read: "
+                       f"{passes['degraded']}")
+        for v in sub("degraded"):
+            check(all(e.startswith("native/") for e in v["engines"]),
+                  f"degraded: rebuilt by {v['engines']}, not all native")
+        listings["degraded"] = _filer_listing(furl, want_dirs)
+
+        # 7. ec.rebuild of what the server held, on the card
+        rebuild = {}
+        for vid in sorted(placement):
+            lost = placement[vid].get(victim, [])
+            if not lost:
+                continue
+            holder = next(iter(ec_locs(vid)))
+            shard_size = int(http_json(
+                "GET", f"{holder}/admin/ec/info?volumeId={vid}",
+                timeout=30)["shardSize"])
+            step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+            expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+            before = _counters(live)["launches"]
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.rebuild -volumeId={vid} "
+                     f"-collection={coll}; unlock")
+            wall = time.perf_counter() - t
+            got = int(_counters(live)["launches"] - before)
+            check(f"rebuilt shards {sorted(lost)} on " in out[1],
+                  f"rebuild of {vid}: {out}")
+            check(got == expect, f"volume {vid}'s rebuild launched {got}, "
+                                 f"the windows of its steps are {expect}")
+            rebuild[vid] = {"lost": sorted(lost), "seconds": wall,
+                            "launches": got, "expected_launches": expect,
+                            "output": out[1]}
+        poll(lambda: all(sorted(s for sids in ec_locs(v).values()
+                                for s in sids) == list(range(d + p))
+                         for v in placement), "14 shards listed again")
+        for u in live:
+            for vid in placement:
+                http_json("POST", f"{u}/admin/ec/unmount",
+                          {"volumeId": vid, "shardIds": []}, timeout=30)
+        c = sample()
+        passes["rebuilt"] = _filer_pass(furl, live, c, "rebuilt")
+        check(all(v["degraded_reads"] == 0 for v in sub("rebuilt")),
+              f"degraded reads after the rebuild: {passes['rebuilt']}")
+        listings["rebuilt"] = _filer_listing(furl, want_dirs)
+
+        # 8. namespace changes: an overwrite, a recursive delete, the shell
+        target = by_kind["multi"][0][0]
+        old = [ch["fileId"] for ch in http_json(
+            "GET", f"{furl}/__meta__/lookup?path={target}",
+            timeout=30)["chunks"]]
+        new_body = _payload(seed + 25, 0, (9 << 20) + 7)
+        put(target, new_body, "multi", 0, seed + 25)
+        st, got, _ = http_bytes("GET", f"{furl}{target}", timeout=120)
+        check(st == 200 and got == new_body, f"overwrite of {target}")
+        operation._vid_cache = operation.VidCache()
+        gone = []
+        for fid in old:
+            try:
+                operation.read(murl, fid)
+            except (RuntimeError, OSError, LookupError):
+                gone.append(fid)
+        check(gone == old, f"overwrite of {target}: old chunks "
+                           f"{sorted(set(old) - set(gone))} still readable")
+        victim_dir = f"/small/d{FILER_DIRS - 1:02d}"
+        doomed = sorted(k for k in files if k.startswith(victim_dir + "/"))
+        doomed_fids = [http_json("GET", f"{furl}/__meta__/lookup?path={k}",
+                                 timeout=30)["chunks"][0]["fileId"]
+                       for k in doomed[:8]]
+        st, _, _ = http_bytes("DELETE", f"{furl}/small?recursive=false",
+                              timeout=60)
+        check(st == 409, f"a non-recursive delete of /small: {st}")
+        t = time.perf_counter()
+        st, _, _ = http_bytes("DELETE", f"{furl}{victim_dir}?recursive=true",
+                              timeout=300)
+        delete_s = time.perf_counter() - t
+        check(st == 204, f"recursive delete of {victim_dir}: {st}")
+        check(http_json("GET", f"{furl}{victim_dir}/", timeout=30)[
+            "entries"] == [], f"{victim_dir} still lists entries")
+        for fid in doomed_fids:
+            try:
+                operation.read(murl, fid)
+                check(False, f"{fid} of {victim_dir} still readable")
+            except (RuntimeError, OSError, LookupError):
+                pass
+        for k in doomed:
+            files.pop(k)
+        out = commands.run_script(env, "fs.ls /small; fs.du /small")
+        n_left = sum(1 for v in files.values() if v[2] == "small")
+        check(out[0].splitlines() == [f"d{i:02d}/" for i in
+                                      range(FILER_DIRS - 1)],
+              f"fs.ls /small: {out[0][:300]}")
+        check(out[1] == f"{n_left * BENCH_SIZE} bytes, {n_left} files under "
+                       f"/small", f"fs.du /small: {out[1]}")
+        fcount = _filer_counters(furl)
+        heartbeats = get("/cluster/status")["heartbeats"]
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"the master, a volume server or the filer did not stop "
+                   f"cleanly: {bad}")
+    out = {"phase": "filer", "seconds": time.perf_counter() - phase_t0,
+           "servers": FILER_SERVERS, "scheme": f"RS({d},{p})",
+           "collection": coll, "cuts": cuts, "cluster_start_seconds": start_s,
+           "writes": {
+               "small": {"files": n_small, "bytes": n_small * BENCH_SIZE,
+                         "seconds": small_s, "files_per_s": n_small / small_s,
+                         "gbps": n_small * BENCH_SIZE / small_s / 1e9,
+                         **_pcts(small_ms)},
+               "multi": {"files": n_multi, "bytes": multi_bytes,
+                         "seconds": multi_s, "files_per_s": n_multi / multi_s,
+                         "gbps": multi_bytes / multi_s / 1e9,
+                         **_pcts(multi_ms)},
+               "fill": {"writers": FILL_WRITERS, "files": len(fill_ms),
+                        "bytes": fill_bytes, "seconds": fill_s,
+                        "files_per_s": len(fill_ms) / fill_s,
+                        "gbps": fill_bytes / fill_s / 1e9, **_pcts(fill_ms),
+                        "volumes": {v: x["size"] for v, x in vols.items()},
+                        "limit_bytes": limit_mb << 20}},
+           "meta_ops": meta_ops, "listing": listings,
+           "group_commit_mean_batch": {
+               site: fcount[f"{site}_sum"] / max(fcount[f"{site}_count"], 1)
+               for site in ("filer.store", "filer.metalog")},
+           "encode": encode, "placement": placement,
+           "files_on_encoded_volumes": len(on_ec),
+           "stopped": {"url": victim, "data_shards": data_held[victim],
+                       "master_drop_seconds": drop_s},
+           "passes": passes, "rebuild": rebuild,
+           "overwrite": {"path": target, "old_chunks_gone": len(old)},
+           "recursive_delete": {"dir": victim_dir, "entries": len(doomed),
+                                "seconds": delete_s},
+           "filer_counters": fcount,
+           "launches": {"encode": sum(x["launches"] for x in encode.values()),
+                        "rebuild": sum(x["launches"]
+                                       for x in rebuild.values()),
+                        "reads": sum(pp[k]["kernel_launches"]
+                                     for pp in passes.values()
+                                     for k in pp if isinstance(pp[k], dict))},
+           "master_heartbeats": heartbeats}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -3264,6 +3926,7 @@ def main(argv=None) -> int:
         write = phase_write(os.path.join(work, "write"), args.seed)
         read_load = phase_read_load(os.path.join(work, "read_load"),
                                     args.seed)
+        filer = phase_filer(os.path.join(work, "filer"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -3284,7 +3947,10 @@ def main(argv=None) -> int:
               "write_reads": write["read_back"]["kernel_launches"],
               "rs63_encode": read_load["launches"]["encode"],
               "rs63_rebuild": read_load["launches"]["rebuild"],
-              "rs63_reads": read_load["launches"]["reads"]}),
+              "rs63_reads": read_load["launches"]["reads"],
+              "filer_encode": filer["launches"]["encode"],
+              "filer_rebuild": filer["launches"]["rebuild"],
+              "filer_reads": filer["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -6,8 +6,11 @@
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
         [-ip 127.0.0.1] [-mserver HOST:PORT] [-device cuda] [-max 8]
         [-dataCenter DC] [-rack RACK]
+    python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
+        [-master HOST:PORT] [-store filer.db] [-collection C]
+        [-replication 000]
     python3 -m seaweedfs_tpu_torch shell [-master HOST:PORT]
-        ["lock; ec.encode -volumeId=1; unlock"]
+        [-filer HOST:PORT] ["lock; ec.encode -volumeId=1; unlock"]
     python3 -m seaweedfs_tpu_torch admin [-ip 127.0.0.1] [-port 23646]
         [-master HOST:PORT] [-detectionInterval 30] [-dataDir DIR]
     python3 -m seaweedfs_tpu_torch worker [-admin HOST:PORT]
@@ -34,7 +37,16 @@ on the CUDA card, or on `-device cpu` when asked for.  A `-device cuda`
 given on the command line must find the card at start, or the command
 fails; left out, the card is first looked for by the first encode or
 rebuild, which fails without one.  `shell` runs one `;`-separated command line
-against `-master`, prints each command's output and exits.
+against `-master` (and `-filer`, for the `fs.*` commands), prints each
+command's output and exits.
+
+`filer` starts a filer (`server/filer_server.py`) over the sqlite store
+`-store` (a file, its metadata log in `<store>.metalog`, or `:memory:`)
+whose files' chunks go to `-collection` on `-master`'s volumes, and
+prints `filer listening on <ip>:<port>`.  It commits every mutation
+synchronously, in one process: `-metaPlane 1`, a `-storeType` other
+than sqlite, `-workers` above 1, `-notification`, `-lockPeers` and
+`-metricsAddress` are refused, not ported yet (ROADMAP).
 
 `admin` starts the maintenance admin (`plugin/admin.py`) and prints
 `admin listening on <ip>:<port>`; `worker` registers a maintenance
@@ -122,8 +134,35 @@ def main(argv=None) -> int:
     wk.add_argument("-capabilities", default="erasure_coding,ec_rebuild")
     wk.add_argument("-device", default=None,
                     help="codec device: cuda (the default) or cpu")
+    fl = sub.add_parser("filer", help="start a filer server")
+    fl.add_argument("-ip", default="127.0.0.1")
+    fl.add_argument("-port", type=int, default=8888)
+    fl.add_argument("-master", default="127.0.0.1:9333")
+    fl.add_argument("-store", default="filer.db",
+                    help="sqlite store path, or :memory:")
+    fl.add_argument("-storeType", dest="store_type", default="sqlite",
+                    choices=["sqlite", "lsm", "redis", "elastic"],
+                    help="metadata store; only sqlite is ported")
+    fl.add_argument("-collection", default="")
+    fl.add_argument("-replication", default="")
+    fl.add_argument("-notification", default="",
+                    help="metadata notification sink (not ported)")
+    fl.add_argument("-lockPeers", dest="lock_peers", default="",
+                    help="distributed-lock ring (not ported)")
+    fl.add_argument("-workers", type=int, default=None,
+                    help="pre-fork worker processes (only 1 is ported)")
+    fl.add_argument("-metaPlane", dest="meta_plane", default="",
+                    choices=["", "0", "1"],
+                    help="filer meta plane: 0 (and the default) commits "
+                         "synchronously; 1 is not ported")
+    fl.add_argument("-metricsAddress", dest="metrics_address",
+                    default="", help="Prometheus pushgateway (not ported)")
+    fl.add_argument("-metricsIntervalSec", dest="metrics_interval",
+                    type=int, default=15)
     sh = sub.add_parser("shell", help="run shell commands")
     sh.add_argument("-master", default="127.0.0.1:9333")
+    sh.add_argument("-filer", default="",
+                    help="filer host:port for the fs.* command family")
     sh.add_argument("command", nargs="*",
                     help="one `;`-separated command line")
     bm = sub.add_parser("benchmark",
@@ -190,6 +229,36 @@ def main(argv=None) -> int:
         return _serve(PluginWorker(args.admin, args.master, args.dir,
                                    handlers),
                       lambda w: f"worker {w.worker_id} polling {w.admin}")
+    if args.cmd == "filer":
+        from .server.filer_server import FilerServer
+        workers = args.workers
+        if workers is None:
+            try:
+                workers = int(os.environ.get(
+                    "SEAWEEDFS_TPU_FILER_WORKERS", "") or 1)
+            except ValueError:
+                workers = 1
+        refused = {
+            "-metaPlane 1": args.meta_plane == "1",
+            f"-storeType {args.store_type}": args.store_type != "sqlite",
+            f"-workers {workers}": workers != 1,
+            "-notification": bool(args.notification),
+            "-lockPeers": bool(args.lock_peers),
+            "-metricsAddress": bool(args.metrics_address)}
+        for flag, hit in refused.items():
+            if hit:
+                ap.error(f"filer {flag}: not ported yet (ROADMAP A, "
+                         f"\"the rest of the filer\")")
+        if args.meta_plane:
+            os.environ["SEAWEEDFS_TPU_FILER_META_PLANE"] = args.meta_plane
+        try:
+            fs = FilerServer(args.master, args.ip, args.port,
+                             store_path=args.store,
+                             collection=args.collection,
+                             replication=args.replication)
+        except ValueError as e:  # SEAWEEDFS_TPU_FILER_META_PLANE=1
+            ap.error(f"filer: {e}")
+        return _serve(fs, _listening("filer"))
     if args.cmd == "benchmark":
         import json
         from .benchmark import run_benchmark
@@ -208,7 +277,8 @@ def main(argv=None) -> int:
         return 0
     from .shell import CommandEnv
     from .shell.commands import run_script
-    for out in run_script(CommandEnv(args.master), " ".join(args.command)):
+    for out in run_script(CommandEnv(args.master, filer=args.filer),
+                          " ".join(args.command)):
         print(out, flush=True)
     return 0
 

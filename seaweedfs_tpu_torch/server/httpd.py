@@ -4,10 +4,12 @@ the port's master, volume server, shell, shard sinks and shard sources
 use.
 
 Handlers return (status, payload): a dict or list (JSON), bytes, or a
-(body, headers) tuple whose body may be a `FileSlice`, sent with
-sendfile(2).  Routes match the exact (method, path); a request that no
-route matches goes to the server's `fallback` when it has one (the
-volume server's `/<fid>` data path), else answers 404.  A HEAD response
+(body, headers) tuple whose body may be a file-like (a `FileSlice`,
+sent with sendfile(2), or any reader, closed when the response ends).
+Routes match the exact (method, path), then the longest registered path
+prefix (`route_prefix`); a request that no route matches goes to the
+server's `fallback` when it has one (the volume server's `/<fid>` data
+path, the filer's namespace), else answers 404.  A HEAD response
 carries the headers of its GET and no body.  Request bodies are read
 whole (`body`, `json()`) or a chunk at a time (`stream_body()`,
 Content-Length or chunked framing).
@@ -208,6 +210,8 @@ class HttpServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
         self.routes: dict[tuple[str, str], Route] = {}
+        # method -> [(prefix, route)], longest prefix first
+        self.prefix_routes: dict[str, list[tuple[str, Route]]] = {}
         self.fallback: "Route | None" = None
         self.role = ""
         outer = self
@@ -241,6 +245,7 @@ class HttpServer:
                 body = None
                 try:
                     route = outer.routes.get((req.method, req.path)) \
+                        or outer._prefix_route(req.method, req.path) \
                         or outer.fallback
                     try:
                         if dl is not None and dl.expired():
@@ -368,6 +373,21 @@ class HttpServer:
     def route(self, method: str, path: str, fn: Route) -> None:
         self.routes[(method, path)] = fn
 
+    def route_prefix(self, method: str, prefix: str, fn: Route) -> None:
+        """Register a handler for every path under `prefix`.  The
+        per-method table is kept longest-prefix-first so nested
+        prefixes resolve to the most specific handler."""
+        table = self.prefix_routes.setdefault(method, [])
+        table[:] = [(p, f) for p, f in table if p != prefix]
+        table.append((prefix, fn))
+        table.sort(key=lambda pf: -len(pf[0]))
+
+    def _prefix_route(self, method: str, path: str) -> "Route | None":
+        for prefix, fn in self.prefix_routes.get(method, ()):
+            if path.startswith(prefix):
+                return fn
+        return None
+
     def start(self) -> None:
         # a short poll keeps stop() from waiting out the default 0.5 s
         self._thread = threading.Thread(
@@ -387,6 +407,39 @@ class HttpServer:
     @property
     def url(self) -> str:
         return f"{self.host}:{self.port}"
+
+
+def parse_range(header: str, total: int
+                ) -> "tuple[int, int] | None | str":
+    """One shared parser for `Range: bytes=...` (RFC 9110 §14):
+    returns (offset, size), None for absent/malformed (serve the full
+    body), or "unsatisfiable" for a well-formed range beyond EOF.
+    Handles the suffix form bytes=-N (last N bytes)."""
+    if not header.startswith("bytes="):
+        return None
+    spec = header[6:]
+    if "," in spec:
+        return None            # multipart ranges: serve full body
+    lo, dash, hi = spec.partition("-")
+    if not dash:
+        return None
+    try:
+        if lo:
+            offset = int(lo)
+            if offset >= total > 0 or offset < 0:
+                return "unsatisfiable"
+            stop = min(int(hi) + 1, total) if hi else total
+            if stop <= offset:
+                return None
+            return offset, stop - offset
+        if hi:                 # suffix: last N bytes
+            size = min(int(hi), total)
+            if size <= 0:
+                return None    # bytes=-0 / bytes=--5: not a range
+            return total - size, size
+    except ValueError:
+        return None
+    return None
 
 
 # --- client calls ---------------------------------------------------------

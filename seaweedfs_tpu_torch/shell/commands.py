@@ -1,5 +1,6 @@
 """Shell commands (weed/shell/command_*.go): the EC part of
-`seaweedfs_tpu/shell/commands.py`.
+`seaweedfs_tpu/shell/commands.py` (the `fs.*` family is in
+`fs_commands.py`).
 
     lock, unlock, volume.list
     ec.encode   [-volumeId=N | -collection=C] [-mode=scatter|local]
@@ -36,9 +37,17 @@ def command(name):
 
 
 class CommandEnv:
-    def __init__(self, master: str):
+    def __init__(self, master: str, filer: str = ""):
         self.master = master
+        self.filer = filer  # host:port for the fs.* family
         self.admin_token: int | None = None
+
+    def require_filer(self) -> str:
+        if not self.filer:
+            raise RuntimeError(
+                "no filer configured; start the shell with -filer or "
+                "run `fs.configure -filer=host:port`")
+        return self.filer
 
     # -- admin lock (command_lock_unlock.go) ------------------------------
 

@@ -1,7 +1,7 @@
 """Tiered chunk cache (weed/util/chunk_cache/chunk_cache.go): a memory
 LRU in front of an optional bounded on-disk tier; the port's copy of
-`seaweedfs_tpu/util/chunk_cache.py`, the volume server's hot-needle
-cache.
+`seaweedfs_tpu/util/chunk_cache.py`: the volume server's hot-needle
+cache and the filer's chunk-body cache.
 
 Keys are opaque strings (the volume server's are
 "<vid>.g<gen>.<key>.<cookie>"); keys are tracked per group (a needle)

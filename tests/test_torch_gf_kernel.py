@@ -174,6 +174,13 @@ PORT_MODULES_OF_SLICE_7 = (
 PORT_MODULES_OF_SLICE_9 = (
     "seaweedfs_tpu_torch.sequence", "seaweedfs_tpu_torch.benchmark",
     "seaweedfs_tpu_torch.operation")
+PORT_MODULES_OF_SLICE_12 = tuple(
+    f"seaweedfs_tpu_torch.{m}" for m in (
+        "util.group_commit", "util.limiter", "filer", "filer.entry",
+        "filer.filechunks", "filer.filer_store", "filer.abstract_sql",
+        "filer.meta_log", "filer.meta_plane", "filer.meta_cache",
+        "filer.filer", "filer.client", "server.filer_server",
+        "shell.fs_commands"))
 
 
 def test_port_imports_neither_jax_nor_reference_package():
@@ -198,6 +205,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert set(PORT_MODULES_OF_SLICE_5) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_7) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_9) <= set(mods)
+    assert set(PORT_MODULES_OF_SLICE_12) <= set(mods)
     assert bad == []
 
 
