@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the seconds the kernel build took (the CUDA sources in
    seaweedfs_tpu_torch/csrc are compiled with nvcc at first use); the
-   host libraries every volume server loads (the native CRC32-C and the
-   read and write planes, seaweedfs_tpu_torch/native) built with g++,
-   once, before any server starts: one that does not build fails.
+   host libraries the servers load (the native CRC32-C, the volume read
+   and write planes, the filer's meta and read planes,
+   seaweedfs_tpu_torch/native) built with g++, once, before any server
+   starts: one that does not build fails.
 2. kernel: the CUDA GF(2^8) kernel's two entries against their plain
    PyTorch versions and the numpy twin, bit for bit, at the main paths'
    shapes (one 32 MiB staging window, [4,10] x 838,860 words, with the
@@ -176,8 +177,9 @@ Phases, each printing one JSON line:
    of it acked by the write plane: the master's default replication is
    000) and each read pass, and the CRC32-C engine `sse4.2`.
 
-10. filer: the port's filer (`python3 -m seaweedfs_tpu_torch filer`, the
-   sqlite store, every mutation committed synchronously) over a `master
+10. filer: the port's filer (`python3 -m seaweedfs_tpu_torch filer
+   -metaPlane 0`, the sqlite store, every mutation committed
+   synchronously, no native plane) over a `master
    -volumeSizeLimitMB 1024` subprocess and 3 `volume -max 8` subprocesses
    (their codec on the card), collection `filer`.  Through the filer's
    HTTP API: 16,384 files of 1 KiB in 64 directories on 16 threads (`weed
@@ -202,6 +204,33 @@ Phases, each printing one JSON line:
    delete of its parent answered 409) and `fs.ls` / `fs.du` through the
    port's shell, held to the namespace.  The filer's group commits' mean
    batch at the store and the metalog.
+11. filer_plane: the same cluster with the filer in its default
+   configuration (no `-metaPlane` flag: the meta plane over sqlite, the
+   metalog its WAL, and the native meta and read planes armed; both
+   ports on /status must be non-zero).  Clients find the planes' ports
+   on /status, one probe a thread, and send PUTs to the meta plane and
+   GETs to the read plane first, replaying a plane's 404 on the Python
+   port inside the same latency sample.  16,384 files of 1 KiB in 64
+   directories on 16 threads (the meta plane must ack more than half),
+   32 files of 8-24 MiB (too large for the plane: every one falls back)
+   and config 1's needles until a 1 GiB volume seals; the overlay must
+   drain to 0 and the checkpoint reach the log's last event.  A warm
+   pass of 4,096 1 KiB files (the read plane must serve more than half);
+   every sealed volume `ec.encode`d RS(10,4) on the card (launches
+   against its windows); the filer phase's passes (cold, warm, the
+   server with the most data shards stopped, after `ec.rebuild`, whose
+   launches match its steps' windows), each body held to its SHA-256,
+   with the read plane's share, fallbacks, stale and upstream misses and
+   stage split.  Then the filer is restarted with
+   `SEAWEEDFS_TPU_META_PLANE_INTERVAL_MS=600000` (its applier lags),
+   1,024 files are written, the filer is SIGKILLed and restarted with
+   the default tick, every acked file reads back equal, and the overlay
+   and checkpoint drain again.  Printed: files/s and p50/p99 of the
+   writes and each pass, the meta plane's share of acked writes, its
+   fallbacks, its ack p50/p99 (upper bucket bounds of its histogram) and
+   its stage split (parse, upload, wal); `filer_meta_sub_seconds`
+   (serialize, barrier, apply); the metalog's mean group-commit batch;
+   and the launches, 0 in every read pass.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -273,8 +302,9 @@ READ_N = 16_384                  # 1 KiB files, cut from weed benchmark's
 READ_SMALL_SAMPLE = 4_096        # 1,048,576; sampled per read pass
 READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
 READ_C = 16                      # weed benchmark's concurrency
-# filer: the port's filer (sqlite store, synchronous commit) over volumes
-# that ec.encode encodes on the card
+# filer and filer_plane: the port's filer (sqlite store; synchronous
+# commit, then its default planes) over volumes that ec.encode encodes on
+# the card
 FILER_SERVERS = 3
 FILER_COLLECTION = "filer"
 FILER_N = 16_384                 # 1 KiB files through the filer (weed
@@ -284,6 +314,7 @@ FILER_META_N = 4_096             # chunkless creates, then lookups
 FILER_SMALL_SAMPLE = 4_096       # 1 KiB files read per pass, and
 FILER_LARGE_SAMPLE = 64          # config 1's needles (read_load's)
 FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 10
+FILER_CRASH_N = 1_024            # filer_plane: files written, then SIGKILL
 
 
 def emit(obj: dict) -> None:
@@ -474,13 +505,16 @@ def phase_device(smi: str) -> dict:
     t0 = time.perf_counter()
     _build.load(rs_cuda.SOURCE)
     build_s = time.perf_counter() - t0
-    # the host libraries every volume server loads (the needle CRC32-C and
-    # the read and write planes), built here once before any server
-    # starts; one that does not build fails the run
+    # the host libraries the volume servers and the filer load (the
+    # needle CRC32-C, the volume read and write planes, the filer's meta
+    # and read planes), built here once before any server starts; one
+    # that does not build fails the run
     host_libs = {}
     for stem, load in (("crc32c", native.load_crc32c),
                        ("read_plane", native.load_read_plane),
-                       ("write_plane", native.load_write_plane)):
+                       ("write_plane", native.load_write_plane),
+                       ("meta_plane", native.load_meta_plane),
+                       ("filer_read_plane", native.load_filer_read_plane)):
         check(load() is not None, f"native {stem} did not build: "
               f"{native.BUILD_INFO[stem].get('error')}")
         host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
@@ -1114,19 +1148,21 @@ def phase_ec(volume_gib: float, seed: int, tmp: str
 # --- phase 4 ---------------------------------------------------------------
 
 def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
-                 procs: list, role: str, line: "str | None" = None
+                 procs: list, role: str, line: "str | None" = None,
+                 env_extra: "dict | None" = None, log_mode: str = "w"
                  ) -> "list[str]":
-    """`python3 -m seaweedfs_tpu_torch <argv>` for each argv, all started
-    together and appended to `procs` as they start (the caller stops
-    them), stderr to its log; returns the group of `line` (a regex; by
+    """`python3 -m seaweedfs_tpu_torch <argv>` for each argv (with
+    `env_extra` in its environment), all started together and appended
+    to `procs` as they start (the caller stops them), stderr to its log
+    (opened with `log_mode`); returns the group of `line` (a regex; by
     default `<role> server listening on <url>`, the url) once each has
     printed its first line (120 s), and fails if one does not."""
     line = line or rf"{role} server listening on (\S+:\d+)\n"
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo)
+    env = dict(os.environ, PYTHONPATH=repo, **(env_extra or {}))
     started = []
     for argv, log in zip(argvs, logs):
-        with open(log, "w") as err:
+        with open(log, log_mode) as err:
             p = subprocess.Popen(
                 [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
                 stdout=subprocess.PIPE, stderr=err, text=True, env=env)
@@ -3442,8 +3478,8 @@ def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
     """The port's filer over volumes that ec.encode encodes on the card: a
     `master -volumeSizeLimitMB 1024` subprocess, 3 `volume -max 8`
     subprocesses (their codec on `device`) and one `filer` subprocess
-    (sqlite store, synchronous commit) over collection `filer`.  Through
-    the filer's HTTP API: `n_small` 1 KiB files in 64 directories on 16
+    (sqlite store, synchronous commit: `-metaPlane 0`, and no native
+    plane) over collection `filer`.  Through the filer's HTTP API: `n_small` 1 KiB files in 64 directories on 16
     threads (weed benchmark's shape), `n_multi` files of 8-24 MiB (2-6
     chunks), and config 1's needles (256 KiB - 4 MiB) on 8 writers until
     a volume reaches the limit; chunkless creates, lookups and listings.
@@ -3501,9 +3537,11 @@ def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
         proc_of = dict(zip(urls, procs[1:]))
         (furl,) = _start_procs(
             [["filer", "-port", "0", "-master", murl, "-store",
-              os.path.join(tmp, "filer.db"), "-collection", coll]],
+              os.path.join(tmp, "filer.db"), "-collection", coll,
+              "-metaPlane", "0"]],
             [os.path.join(tmp, "filer.log")], procs, "filer",
-            line=r"filer listening on (\S+:\d+)\n")
+            line=r"filer listening on (\S+:\d+)\n",
+            env_extra={"SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE": "0"})
         env = commands.CommandEnv(murl, filer=furl)
 
         def get(path):
@@ -3890,6 +3928,722 @@ def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
     return out
 
 
+# --- phase 11 --------------------------------------------------------------
+
+_FULL_SAMPLE = re.compile(r"^(\w+?)(?:\{([^}]*)\})? (\S+)$", re.M)
+
+
+def _full_samples(text: str, name: str) -> "list[tuple[dict, float]]":
+    """Every sample of the metric named `name` in full on a Prometheus
+    text page: (labels, value)."""
+    out = []
+    for m in _FULL_SAMPLE.finditer(text):
+        if m.group(1) == name:
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2) or ""))
+            out.append((labels, float(m.group(3))))
+    return out
+
+
+def _hist_le(cum: "list[tuple[float, float]]", q: float) -> "float | None":
+    """The upper bound of the histogram bucket holding quantile `q`, from
+    its cumulative (le, count) cells; None when it is empty."""
+    total = cum[-1][1] if cum else 0
+    for le, n in cum:
+        if total and n >= q * total:
+            return le
+    return None
+
+
+def _plane_metrics(furl: str) -> dict:
+    """What the filer's /metrics says of its planes: the native meta
+    plane's and read plane's counters, stage walls and latency
+    histograms, the Python meta plane's sub-stages, overlay, applier and
+    checkpoint, and the metalog's group commits."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    text = http_bytes("GET", f"{furl}/metrics", timeout=60)[1].decode()
+
+    def one(name, **labels):
+        return sum(v for lb, v in _full_samples(text, name)
+                   if all(lb.get(k) == x for k, x in labels.items()))
+
+    def hist(name):
+        cells = [(float("inf") if lb["le"] == "+Inf" else float(lb["le"]),
+                  v) for lb, v in _full_samples(text, name + "_bucket")]
+        return sorted(cells)
+    out = {"mp": {k: one(f"filer_meta_plane_native_{k}_total") for k in (
+        "requests", "fallbacks", "fid_misses", "wal_errors",
+        "upstream_errors", "wal_batches", "wal_lines")},
+        "rp": {k: one(f"filer_read_plane_native_{k}_total") for k in (
+            "requests", "fallbacks", "stale_misses", "upstream_errors")}}
+    out["mp"]["stage_s"] = {s: one(
+        "filer_meta_plane_native_stage_seconds_total", stage=s)
+        for s in ("parse", "upload", "wal")}
+    out["rp"]["stage_s"] = {s: one(
+        "filer_read_plane_native_stage_seconds_total", stage=s)
+        for s in ("parse", "lookup", "fetch", "send")}
+    out["mp"]["ack_hist"] = hist("filer_meta_plane_native_ack_seconds")
+    out["rp"]["response_hist"] = hist(
+        "filer_read_plane_native_response_seconds")
+    out["sub"] = {s: (one("seaweedfs_tpu_filer_meta_sub_seconds_sum",
+                          stage=s),
+                      one("seaweedfs_tpu_filer_meta_sub_seconds_count",
+                          stage=s))
+                  for s in ("serialize", "barrier", "apply")}
+    out["metalog_batches"] = (
+        one("seaweedfs_tpu_group_commit_batch_size_sum",
+            site="filer.metalog"),
+        one("seaweedfs_tpu_group_commit_batch_size_count",
+            site="filer.metalog"))
+    out["overlay"] = one("filer_meta_plane_overlay_entries")
+    return out
+
+
+def _log_last_ts(log_dir: str) -> int:
+    """The newest stamp of a whole event in the metalog's segments (a torn
+    line, which the applier skips, is skipped here too)."""
+    last = 0
+    for day in sorted(os.listdir(log_dir)):
+        dd = os.path.join(log_dir, day)
+        if not os.path.isdir(dd):
+            continue
+        for seg in sorted(os.listdir(dd)):
+            if not seg.endswith(".log"):
+                continue
+            with open(os.path.join(dd, seg), "rb") as f:
+                for line in f.read().split(b"\n"):
+                    try:
+                        ev = json.loads(line)
+                    except ValueError:
+                        continue
+                    if isinstance(ev, dict):
+                        last = max(last, int(ev.get("tsNs", 0) or 0))
+    return last
+
+
+def _applier_state(furl: str, log_dir: str) -> dict:
+    """The overlay's size, the checkpoint's stamp and position, and how far
+    the checkpoint trails the log's last event."""
+    from seaweedfs_tpu_torch.filer.meta_plane import read_checkpoint
+    ck = read_checkpoint(log_dir)
+    last = _log_last_ts(log_dir)
+    return {"overlay": _plane_metrics(furl)["overlay"],
+            "checkpoint_ts_ns": ck[1] if ck else 0,
+            "checkpoint_pos": list(ck[0]) if ck else None,
+            "log_last_ts_ns": last,
+            "checkpoint_lag_ms": (last - (ck[1] if ck else 0)) / 1e6}
+
+
+def _drain_applier(furl: str, log_dir: str, timeout: float = 120.0) -> dict:
+    """Wait until the overlay is empty and the checkpoint covers the log's
+    last event; the state when the writes stopped and the seconds the
+    applier took to get there.  Fails on the timeout."""
+    at_stop = _applier_state(furl, log_dir)
+    t = time.perf_counter()
+    end = time.monotonic() + timeout
+    while True:
+        now = _applier_state(furl, log_dir)
+        if now["overlay"] == 0 and \
+                now["checkpoint_ts_ns"] == now["log_last_ts_ns"]:
+            break
+        check(time.monotonic() < end,
+              f"the applier did not catch up in {timeout} s: {now}")
+        time.sleep(0.1)
+    return {"at_stop": at_stop, "drained": now,
+            "drain_seconds": time.perf_counter() - t}
+
+
+class _PlaneClient:
+    """A client of one filer that sends plain PUTs to its native meta
+    plane and GETs to its native read plane first, over persistent
+    connections, and replays a plane's 404 on the Python port inside the
+    same latency sample (a fallback's cost is the client's).  The ports
+    come from the filer's /status, probed once a client; one client a
+    thread."""
+
+    def __init__(self, furl: str):
+        import http.client
+        from seaweedfs_tpu_torch.server.httpd import http_json
+        self._http = http.client
+        self.furl = furl.split("://")[-1]
+        st = http_json("GET", f"{self.furl}/status", timeout=30)
+        host = self.furl.rsplit(":", 1)[0]
+        self.meta = f"{host}:{st['metaPlanePort']}" \
+            if st.get("metaPlanePort") else None
+        self.read = f"{host}:{st['readPlanePort']}" \
+            if st.get("readPlanePort") else None
+        self._conns: dict = {}
+
+    def _req(self, addr: str, method: str, path: str, body=None):
+        c = self._conns.get(addr)
+        if c is None:
+            c = self._conns[addr] = self._http.HTTPConnection(
+                addr, timeout=120)
+        try:
+            c.request(method, urllib.parse.quote(path), body,
+                      {"Content-Type": "application/octet-stream"}
+                      if body is not None else {})
+            r = c.getresponse()
+            return r.status, r.read()
+        except (OSError, self._http.HTTPException):
+            c.close()
+            self._conns.pop(addr, None)
+            raise
+
+    def _first(self, plane, method, path, body, ok):
+        if plane is not None:
+            try:
+                st, ans = self._req(plane, method, path, body)
+                if st == ok:
+                    return "plane", st, ans
+            except (OSError, self._http.HTTPException):
+                pass
+        st, ans = self._req(self.furl, "PUT" if body is not None
+                            else "GET", path, body)
+        return "python", st, ans
+
+    def put(self, path: str, body: bytes):
+        """(route, status, answer): route "plane" when the meta plane
+        acked it, "python" when the Python port answered."""
+        return self._first(self.meta, "POST", path, body, 201)
+
+    def get(self, path: str):
+        return self._first(self.read, "GET", path, None, 200)
+
+
+def _plane_read_pass(client, furl: str, urls, items: list, what: str,
+                     order=("small", "large", "multi")) -> dict:
+    """GET every item (path, sha256, size, kind, ...) read plane first on
+    READ_C threads, every body held to its seeded SHA-256; each kind in a
+    sub-pass of its own, with reads/s, GB/s, p50/p99/max ms, the share
+    the read plane served, its fallbacks, stale and upstream misses and
+    stage walls, and the kernel launches, which must be 0."""
+    out = {}
+    for kind in order:
+        todo = [it for it in items if it[3] == kind]
+        if not todo:
+            continue
+        routes: list = []
+
+        def read_one(it):
+            path, digest, size = it[:3]
+            t = time.perf_counter()
+            route, st, body = client().get(path)
+            ms = (time.perf_counter() - t) * 1e3
+            check(st == 200 and len(body) == size and
+                  hashlib.sha256(body).hexdigest() == digest,
+                  f"filer_plane {what}: {path} answered {st} by {route}, "
+                  f"{len(body)} bytes, not its payload")
+            routes.append(route)
+            return ms
+        before, pbefore = _counters(urls), _plane_metrics(furl)["rp"]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            ms = list(pool.map(read_one, todo))
+        wall = time.perf_counter() - t
+        d = _delta(_counters(urls), before)
+        pafter = _plane_metrics(furl)["rp"]
+        check(d["launches"] == 0,
+              f"filer_plane {what} ({kind}): the reads launched the kernel "
+              f"{d['launches']} times")
+        nbytes = sum(it[2] for it in todo)
+        pcts = _pcts(ms)
+        if len(ms) < 2 * READ_C:
+            del pcts["p99_ms"]
+        served = routes.count("plane")
+        out[kind] = {"reads": len(todo), "bytes": nbytes, "seconds": wall,
+                     "reads_per_s": len(todo) / wall,
+                     "gbps": nbytes / wall / 1e9, **pcts,
+                     "read_plane_served": served,
+                     "read_plane_share": served / len(todo),
+                     **{f"read_plane_{k}": int(pafter[k] - pbefore[k])
+                        for k in ("requests", "fallbacks", "stale_misses",
+                                  "upstream_errors")},
+                     "read_plane_stage_s": {
+                         s: pafter["stage_s"][s] - pbefore["stage_s"][s]
+                         for s in pafter["stage_s"]},
+                     "degraded_reads": d["degraded"],
+                     "engines": d["engines"],
+                     "kernel_launches": d["launches"]}
+    return out
+
+
+def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
+                      n_multi: int = FILER_MULTI,
+                      limit_mb: int = WRITE_LIMIT_MB,
+                      warm_sample: int = FILER_SMALL_SAMPLE,
+                      small_sample: int = FILER_SMALL_SAMPLE,
+                      large_sample: int = FILER_LARGE_SAMPLE,
+                      multi_sample: int = FILER_MULTI_SAMPLE,
+                      crash_n: int = FILER_CRASH_N,
+                      device: str = "cuda") -> dict:
+    """The port's filer in its default configuration (no -metaPlane flag:
+    the meta plane over sqlite with the metalog as its WAL, and the native
+    meta and read planes armed) over volumes that ec.encode encodes on
+    the card: the filer phase's cluster, clients plane first.
+    `n_small` 1 KiB files in 64 directories on 16 threads, `n_multi` files
+    of 8-24 MiB (too large for the plane: each falls back) and config 1's
+    needles until a volume seals; the overlay drained and the checkpoint
+    at the log's last event; a warm pass of `warm_sample` 1 KiB files
+    through the read plane; every sealed volume encoded RS(10,4)
+    (launches against its windows); read passes as the filer phase's
+    (cold, warm, a server stopped, after ec.rebuild, which launches
+    against its steps' windows), every body held to its SHA-256; then the
+    filer restarted with its applier stalled, `crash_n` files written,
+    the filer SIGKILLed and restarted, every acked file read back equal,
+    and the applier drained again.  The reads launch nothing."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        _encode_work_items, rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    os.makedirs(tmp)
+    dirs = [os.path.join(tmp, f"f{i}") for i in range(FILER_SERVERS)]
+    procs: list = []
+    coll = FILER_COLLECTION
+    d, p = 10, 4
+    ctx = ECContext(d, p, device="cpu")
+    store = os.path.join(tmp, "filer.db")
+    log_dir = store + ".metalog"
+    cuts = {"files_1k": {"run": n_small, "reference_default": 1 << 20,
+                         "why": "the run's time"},
+            "read_sample": {"warm_before_encode": warm_sample,
+                            "small": small_sample, "large": large_sample,
+                            "multi": multi_sample,
+                            "why": "fresh files a pass (cold and warm "
+                                   "share one)"},
+            "crash_files": crash_n,
+            "servers": {"run": FILER_SERVERS, "why": "one host, loopback"}}
+    print(f"filer_plane phase: {n_small} files of 1 KiB through the filer's "
+          f"planes (weed benchmark's default 1,048,576, cut for the run's "
+          f"time)", flush=True)
+    phase_t0 = time.perf_counter()
+    local = threading.local()
+    filer_proc: list = []
+
+    def start_filer(env_extra=None) -> str:
+        (u,) = _start_procs(
+            [["filer", "-port", "0", "-master", murl, "-store", store,
+              "-collection", coll]],
+            [os.path.join(tmp, "filer.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n", env_extra=env_extra,
+            log_mode="a")
+        filer_proc[:] = [procs[-1]]
+        st = http_json("GET", f"{u}/status", timeout=30)
+        check(st.get("metaPlanePort") and st.get("readPlanePort"),
+              f"a plane port is 0 on the filer's /status: {st}")
+        return u
+
+    def client() -> _PlaneClient:
+        c = getattr(local, "client", None)
+        if c is None or c.furl != furl.split("://")[-1]:
+            c = local.client = _PlaneClient(furl)
+        return c
+
+    try:
+        t0 = time.perf_counter()
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb)]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs,
+            "volume")
+        proc_of = dict(zip(urls, procs[1:]))
+        furl = start_filer()
+        env = commands.CommandEnv(murl, filer=furl)
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < deadline, f"timed out: {what}")
+                time.sleep(0.05)
+
+        def normal_vids():
+            return {v["id"]: v for _n, v in
+                    iter_volume_list_volumes(get("/vol/list"))
+                    if v.get("collection", "") == coll}
+
+        def ec_locs(vid):
+            return {loc["url"]: loc["shardIds"] for loc in get(
+                f"/dir/ec_lookup?volumeId={vid}").get(
+                    "shardIdLocations", [])}
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "3 volume servers registered")
+        start_s = time.perf_counter() - t0
+
+        files: dict = {}            # path -> (sha256, size, kind, nid, seed)
+        routes: dict = {}           # kind -> [route of each acked write]
+        lock = threading.Lock()
+
+        def put(path, body, kind, nid, sd):
+            t = time.perf_counter()
+            route, st, ans = client().put(path, body)
+            ms = (time.perf_counter() - t) * 1e3
+            check(st == 201 and json.loads(ans)["size"] == len(body),
+                  f"filer PUT {path} by {route}: {st} {ans[:200]!r}")
+            with lock:
+                files[path] = (hashlib.sha256(body).hexdigest(), len(body),
+                               kind, nid, sd)
+                routes.setdefault(kind, []).append(route)
+            return ms
+
+        # 1. writes: weed benchmark's shape, then multi-chunk files, then
+        # config 1's needles until the limit seals a volume
+        m0 = _plane_metrics(furl)
+        small_seed = seed + 20
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            small_ms = list(pool.map(
+                lambda i: put(f"/small/d{i % FILER_DIRS:02d}/f{i:05d}",
+                              _payload(small_seed, i, BENCH_SIZE), "small",
+                              i, small_seed), range(n_small)))
+        small_s = time.perf_counter() - t
+        m1 = _plane_metrics(furl)
+
+        multi_seed = seed + 21
+        mrng = np.random.default_rng([seed, 21])
+        multi_sizes = [int(mrng.integers(8 << 20, (24 << 20) + 1))
+                       for _ in range(n_multi)]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            multi_ms = list(pool.map(
+                lambda j: put(f"/multi/m{j:02d}",
+                              _payload(multi_seed, j, multi_sizes[j]),
+                              "multi", j, multi_seed), range(n_multi)))
+        multi_s = time.perf_counter() - t
+        check(set(routes["multi"]) == {"python"},
+              f"a multi-chunk file was acked by the meta plane: "
+              f"{routes['multi'].count('plane')}")
+
+        fill_seed = seed + 22
+        frng = np.random.default_rng([seed, 22])
+        counter = itertools.count(1)
+        stop = threading.Event()
+        fill_ms: list = []
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                ms = put(f"/fill/n{nid:05d}",
+                         _payload(fill_seed, nid, size), "large", nid,
+                         fill_seed)
+                with lock:
+                    fill_ms.append(ms)
+
+        def sealed():
+            return any(os.path.getsize(os.path.join(dd, f)) >= limit_mb << 20
+                       for dd in dirs for f in os.listdir(dd)
+                       if f.startswith(f"{coll}_") and f.endswith(".dat"))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and not sealed():
+                    time.sleep(0.2)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        m2 = _plane_metrics(furl)
+        fill_bytes = sum(v[1] for v in files.values() if v[2] == "large")
+        writes_applier = _drain_applier(furl, log_dir)
+
+        def acked_share(kind):
+            rs = routes.get(kind, [])
+            return {"plane": rs.count("plane"), "python": rs.count("python"),
+                    "plane_share": rs.count("plane") / max(len(rs), 1)}
+        small_share = acked_share("small")
+        check(small_share["plane_share"] > 0.5,
+              f"the meta plane acked {small_share} of the 1 KiB writes, "
+              f"not more than half")
+        mp_small = {k: m1["mp"][k] - m0["mp"][k] for k in m1["mp"]
+                    if not isinstance(m1["mp"][k], (dict, list))}
+        check(mp_small["requests"] == small_share["plane"],
+              f"the meta plane counted {mp_small['requests']} acks, the "
+              f"clients {small_share['plane']}")
+
+        # 2. a warm pass through the read plane before the encode
+        small_paths = sorted(k for k, v in files.items() if v[2] == "small")
+        wrng = np.random.default_rng([seed, 26])
+        warm_items = [(path, *files[path]) for path in
+                      (small_paths[i] for i in wrng.choice(
+                          len(small_paths), warm_sample, replace=False))]
+        warm_pre = _plane_read_pass(client, furl, urls, warm_items,
+                                    "warm before the encode", ("small",))
+        check(warm_pre["small"]["read_plane_share"] > 0.5,
+              f"the read plane served {warm_pre['small']['read_plane_share']}"
+              f" of the warm pass, not more than half")
+
+        vols = normal_vids()
+
+        def sizes_seen():
+            seen = {vid: (v["size"], [os.path.getsize(os.path.join(
+                dirs[urls.index(loc["url"])], f"{coll}_{vid}.dat"))
+                for loc in operation.lookup(murl, vid, use_cache=False)])
+                for vid, v in normal_vids().items()}
+            return all(want == [got] for got, want in seen.values())
+        poll(sizes_seen, "the master sees every volume's size")
+        vols = normal_vids()
+        sealed_vids = sorted(v for v, x in vols.items()
+                             if x["size"] >= limit_mb << 20)
+        check(sealed_vids, f"no volume of {coll} reached the limit: {vols}")
+
+        # 3. every sealed volume encoded RS(10,4) on the card
+        encode = {}
+        for vid in sealed_vids:
+            size = vols[vid]["size"]
+            expect = sum(launches_for(d, item[3])
+                         for item in _encode_work_items(size, ctx))
+            before = _counters(urls)["launches"]
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.encode -volumeId={vid} -collection={coll}; "
+                     f"unlock")
+            wall = time.perf_counter() - t
+            got = int(_counters(urls)["launches"] - before)
+            check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+            check(got == expect, f"volume {vid}'s encode launched {got}, "
+                                 f"the windows of its work list are "
+                                 f"{expect}")
+            encode[vid] = {"bytes": size, "seconds": wall,
+                           "gbps": size / wall / 1e9, "launches": got,
+                           "expected_launches": expect}
+        poll(lambda: not set(sealed_vids) & set(normal_vids()) and all(
+            sorted(s for sids in ec_locs(v).values() for s in sids) ==
+            list(range(d + p)) for v in sealed_vids),
+            "every sealed volume's 14 shards listed and the volume gone")
+        placement = {v: ec_locs(v) for v in sealed_vids}
+
+        # 4. the filer phase's passes, read plane first, over the files
+        # whose chunks all lie on the encoded volumes
+        want_dirs: dict = {}
+        for path in files:
+            parent, _, name = path.rpartition("/")
+            want_dirs.setdefault(parent, set()).add(name)
+        vids_of = _filer_volumes(furl, want_dirs)
+        on_ec = {k for k, v in vids_of.items() if v <= set(sealed_vids)}
+        check(len(on_ec) >= 0.9 * len(files),
+              f"{len(on_ec)} of {len(files)} files lie on the encoded "
+              f"volumes {sealed_vids}")
+        rng = np.random.default_rng([seed, 24])
+        items = [(path, *v) for path, v in sorted(files.items())
+                 if path in on_ec]
+        by_kind = {k: [it for it in items if it[3] == k]
+                   for k in ("small", "large", "multi")}
+        take = {"small": small_sample, "large": large_sample,
+                "multi": multi_sample}
+        used: set = set()
+
+        def sample():
+            out = []
+            for k, its in by_kind.items():
+                fresh = [it for it in (its[i] for i in
+                                       rng.permutation(len(its)))
+                         if it[0] not in used][:take[k]]
+                out += fresh
+            used.update(it[0] for it in out)
+            return out
+        passes = {"warm_before_encode": warm_pre}
+        a = sample()
+        passes["cold"] = _plane_read_pass(client, furl, urls, a, "cold",
+                                          ("multi", "large", "small"))
+        passes["warm"] = _plane_read_pass(client, furl, urls, a, "warm")
+        check(passes["cold"]["small"]["degraded_reads"] == 0,
+              f"all servers up: {passes['cold']['small']}")
+
+        data_held = {u: sum(1 for v in placement for s in
+                            placement[v].get(u, []) if s < d)
+                     for u in urls}
+        fits = [u for u in urls
+                if all(len(placement[v].get(u, [])) <= p for v in placement)]
+        check(fits, f"no server holds at most {p} shards of every volume: "
+                    f"{placement}")
+        victim = max(fits, key=lambda u: data_held[u])
+        check(data_held[victim] > 0, f"{victim} holds no data shard")
+        bad = _stop_peers([proc_of[victim]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        poll(lambda: victim not in get("/cluster/status")["dataNodes"] and
+             all(victim not in ec_locs(v) for v in placement),
+             "the master drops the stopped server")
+        live = [u for u in urls if u != victim]
+        b = sample()
+        passes["degraded"] = _plane_read_pass(client, furl, live, b,
+                                              "degraded",
+                                              ("multi", "large", "small"))
+        deg = sum(v["degraded_reads"] for v in passes["degraded"].values())
+        check(deg > 0, f"the stopped server's loss made no degraded read: "
+                       f"{passes['degraded']}")
+        for v in passes["degraded"].values():
+            check(all(e.startswith("native/") for e in v["engines"]),
+                  f"degraded: rebuilt by {v['engines']}, not all native")
+
+        rebuild = {}
+        for vid in sorted(placement):
+            lost = placement[vid].get(victim, [])
+            if not lost:
+                continue
+            holder = next(iter(ec_locs(vid)))
+            shard_size = int(http_json(
+                "GET", f"{holder}/admin/ec/info?volumeId={vid}",
+                timeout=30)["shardSize"])
+            step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+            expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+            before = _counters(live)["launches"]
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"lock; ec.rebuild -volumeId={vid} "
+                     f"-collection={coll}; unlock")
+            wall = time.perf_counter() - t
+            got = int(_counters(live)["launches"] - before)
+            check(f"rebuilt shards {sorted(lost)} on " in out[1],
+                  f"rebuild of {vid}: {out}")
+            check(got == expect, f"volume {vid}'s rebuild launched {got}, "
+                                 f"the windows of its steps are {expect}")
+            rebuild[vid] = {"lost": sorted(lost), "seconds": wall,
+                            "launches": got, "expected_launches": expect}
+        poll(lambda: all(sorted(s for sids in ec_locs(v).values()
+                                for s in sids) == list(range(d + p))
+                         for v in placement), "14 shards listed again")
+        for u in live:
+            for vid in placement:
+                http_json("POST", f"{u}/admin/ec/unmount",
+                          {"volumeId": vid, "shardIds": []}, timeout=30)
+        c = sample()
+        passes["rebuilt"] = _plane_read_pass(client, furl, live, c,
+                                             "rebuilt")
+        check(all(v["degraded_reads"] == 0
+                  for v in passes["rebuilt"].values()),
+              f"degraded reads after the rebuild: {passes['rebuilt']}")
+        m3 = _plane_metrics(furl)
+
+        # 5. crash and restart: a clean stop, a restart with the applier
+        # stalled, crash_n writes, SIGKILL, a restart with the default tick
+        bad = _stop_peers(filer_proc)
+        check(not bad, f"the filer did not stop cleanly: {bad}")
+        procs.remove(filer_proc[0])
+        furl = start_filer({"SEAWEEDFS_TPU_META_PLANE_INTERVAL_MS":
+                            "600000"})
+        crash_seed = seed + 27
+        crash = {}
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            crash_ms = list(pool.map(
+                lambda i: put(f"/crash/d{i % 16:02d}/c{i:05d}",
+                              _payload(crash_seed, i, BENCH_SIZE), "crash",
+                              i, crash_seed), range(crash_n)))
+        crash["write_seconds"] = time.perf_counter() - t
+        crash["acked"] = acked_share("crash")
+        crash["at_kill"] = _applier_state(furl, log_dir)
+        m_crash = _plane_metrics(furl)
+        check(crash["at_kill"]["overlay"] > 0,
+              f"the applier did not lag: {crash['at_kill']}")
+        killed = filer_proc[0]
+        killed.kill()
+        killed.wait(30)
+        if killed.stdout is not None:
+            killed.stdout.close()
+        procs.remove(killed)
+        t = time.perf_counter()
+        furl = start_filer()
+        crash["restart_seconds"] = time.perf_counter() - t
+        crash_items = [(path, *v) for path, v in sorted(files.items())
+                       if v[2] == "crash"]
+        check(len(crash_items) == crash_n, f"{len(crash_items)} crash files")
+        crash["read_back"] = _plane_read_pass(client, furl, live,
+                                              crash_items,
+                                              "after the SIGKILL",
+                                              ("crash",))
+        crash["applier"] = _drain_applier(furl, log_dir)
+        crash["write"] = {"files": crash_n, **_pcts(crash_ms)}
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"the master, a volume server or the filer did not stop "
+                   f"cleanly: {bad}")
+
+    def mp_summary(b, a=None, acks=None):
+        """The native meta plane between two scrapes (`a` None: from the
+        process's start)."""
+        b = b["mp"]
+        a = a["mp"] if a is not None else {
+            "ack_hist": [], "stage_s": {}}
+        hist = [(le, n - dict(a["ack_hist"]).get(le, 0))
+                for le, n in b["ack_hist"]]
+        reqs = b["requests"] - a.get("requests", 0)
+        return {**{k: int(b[k] - a.get(k, 0)) for k in (
+            "requests", "fallbacks", "fid_misses", "wal_errors",
+            "upstream_errors", "wal_batches", "wal_lines")},
+            "acked_share": acks,
+            "ack_p50_le_s": _hist_le(hist, 0.5),
+            "ack_p99_le_s": _hist_le(hist, 0.99),
+            "stage_mean_ms": {s: (b["stage_s"][s] - a["stage_s"].get(s, 0))
+                              / max(reqs, 1) * 1e3 for s in b["stage_s"]}}
+    sub = {s: {"mean_ms": m3["sub"][s][0] / max(m3["sub"][s][1], 1) * 1e3,
+               "count": int(m3["sub"][s][1])}
+           for s in m3["sub"]}
+    out = {"phase": "filer_plane",
+           "seconds": time.perf_counter() - phase_t0,
+           "servers": FILER_SERVERS, "scheme": f"RS({d},{p})",
+           "collection": coll, "cuts": cuts,
+           "cluster_start_seconds": start_s,
+           "writes": {
+               "small": {"files": n_small, "seconds": small_s,
+                         "files_per_s": n_small / small_s,
+                         **_pcts(small_ms), **small_share},
+               "multi": {"files": n_multi, "bytes": sum(multi_sizes),
+                         "seconds": multi_s, "files_per_s": n_multi / multi_s,
+                         "gbps": sum(multi_sizes) / multi_s / 1e9,
+                         **_pcts(multi_ms), **acked_share("multi")},
+               "fill": {"writers": FILL_WRITERS, "files": len(fill_ms),
+                        "bytes": fill_bytes, "seconds": fill_s,
+                        "files_per_s": len(fill_ms) / fill_s,
+                        "gbps": fill_bytes / fill_s / 1e9, **_pcts(fill_ms),
+                        **acked_share("large"),
+                        "volumes": {v: x["size"] for v, x in vols.items()},
+                        "limit_bytes": limit_mb << 20}},
+           "meta_plane_native": {
+               "small_writes": mp_summary(m1, m0, small_share),
+               "all_writes": mp_summary(m2, m0)},
+           "meta_sub_seconds": sub,
+           "metalog_group_commit_mean_batch":
+               m3["metalog_batches"][0] / max(m3["metalog_batches"][1], 1),
+           "applier_after_writes": writes_applier,
+           "encode": encode, "placement": placement,
+           "files_on_encoded_volumes": len(on_ec),
+           "stopped": {"url": victim, "data_shards": data_held[victim]},
+           "passes": passes, "rebuild": rebuild,
+           "read_plane_native": {k: int(m3["rp"][k] - m0["rp"][k]) for k in (
+               "requests", "fallbacks", "stale_misses", "upstream_errors")},
+           "crash": {**crash, "meta_plane_native": mp_summary(
+               m_crash, acks=crash["acked"])},
+           "launches": {"encode": sum(x["launches"] for x in encode.values()),
+                        "rebuild": sum(x["launches"]
+                                       for x in rebuild.values()),
+                        "reads": sum(pp[k]["kernel_launches"]
+                                     for pp in passes.values() for k in pp)
+                        + sum(v["kernel_launches"]
+                              for v in crash["read_back"].values())}}
+    check(out["launches"]["reads"] == 0, "the filer_plane reads launched")
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -3927,6 +4681,8 @@ def main(argv=None) -> int:
         read_load = phase_read_load(os.path.join(work, "read_load"),
                                     args.seed)
         filer = phase_filer(os.path.join(work, "filer"), args.seed)
+        filer_plane = phase_filer_plane(os.path.join(work, "filer_plane"),
+                                        args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -3950,7 +4706,10 @@ def main(argv=None) -> int:
               "rs63_reads": read_load["launches"]["reads"],
               "filer_encode": filer["launches"]["encode"],
               "filer_rebuild": filer["launches"]["rebuild"],
-              "filer_reads": filer["launches"]["reads"]}),
+              "filer_reads": filer["launches"]["reads"],
+              "filer_plane_encode": filer_plane["launches"]["encode"],
+              "filer_plane_rebuild": filer_plane["launches"]["rebuild"],
+              "filer_plane_reads": filer_plane["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -43,8 +43,11 @@ command's output and exits.
 `filer` starts a filer (`server/filer_server.py`) over the sqlite store
 `-store` (a file, its metadata log in `<store>.metalog`, or `:memory:`)
 whose files' chunks go to `-collection` on `-master`'s volumes, and
-prints `filer listening on <ip>:<port>`.  It commits every mutation
-synchronously, in one process: `-metaPlane 1`, a `-storeType` other
+prints `filer listening on <ip>:<port>`.  Over a store file it runs the
+meta plane (metalog as WAL, the store an async checkpoint) and the
+native meta and read planes by default, in one process; `-metaPlane 0`
+commits every mutation synchronously, and `-metaPlane 1` over a store
+the plane cannot run on (`:memory:`) is refused.  A `-storeType` other
 than sqlite, `-workers` above 1, `-notification`, `-lockPeers` and
 `-metricsAddress` are refused, not ported yet (ROADMAP).
 
@@ -153,8 +156,11 @@ def main(argv=None) -> int:
                     help="pre-fork worker processes (only 1 is ported)")
     fl.add_argument("-metaPlane", dest="meta_plane", default="",
                     choices=["", "0", "1"],
-                    help="filer meta plane: 0 (and the default) commits "
-                         "synchronously; 1 is not ported")
+                    help="filer meta plane (metalog-as-WAL ack and async "
+                         "store checkpointing): 1 forces on, 0 forces the "
+                         "synchronous store commit; default auto (on for "
+                         "a sqlite file).  Sets "
+                         "SEAWEEDFS_TPU_FILER_META_PLANE")
     fl.add_argument("-metricsAddress", dest="metrics_address",
                     default="", help="Prometheus pushgateway (not ported)")
     fl.add_argument("-metricsIntervalSec", dest="metrics_interval",
@@ -239,7 +245,6 @@ def main(argv=None) -> int:
             except ValueError:
                 workers = 1
         refused = {
-            "-metaPlane 1": args.meta_plane == "1",
             f"-storeType {args.store_type}": args.store_type != "sqlite",
             f"-workers {workers}": workers != 1,
             "-notification": bool(args.notification),
@@ -256,7 +261,7 @@ def main(argv=None) -> int:
                              store_path=args.store,
                              collection=args.collection,
                              replication=args.replication)
-        except ValueError as e:  # SEAWEEDFS_TPU_FILER_META_PLANE=1
+        except ValueError as e:  # the meta plane over a :memory: store
             ap.error(f"filer: {e}")
         return _serve(fs, _listening("filer"))
     if args.cmd == "benchmark":

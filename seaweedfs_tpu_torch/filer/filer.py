@@ -1,13 +1,18 @@
 """The Filer: namespace operations over a FilerStore and chunked content
 on the volume cluster (weed/filer/filer.go), the port's copy of
-`seaweedfs_tpu/filer/filer.py` as the JAX package runs it with its meta
-plane off.
+`seaweedfs_tpu/filer/filer.py`.
 
-Every mutation commits synchronously: the store first (group-committed,
-`abstract_sql.AbstractSqlStore`), then the metadata log
-(`meta_log.MetaLog`, group-committed too), and only then do listeners
-see the event and the caller get its answer.  Subscribers resume from
-their last-seen tsNs and never silently skip events.
+Over a sqlite file with a metalog dir the meta plane runs by default
+(`meta_plane.MetaPlane`): a mutation is acked once its event clears the
+metalog barrier, the store is applied behind it, and reads merge the
+unapplied overlay over the store (`_store_find`, `_store_list`).  With
+`SEAWEEDFS_TPU_FILER_META_PLANE=0`, and over a store the plane cannot
+checkpoint, every mutation commits synchronously: the store first
+(group-committed, `abstract_sql.AbstractSqlStore`), then the metadata
+log (`meta_log.MetaLog`, group-committed too).  Either way listeners see
+the event, and the caller gets its answer, only after the log holds it.
+Subscribers resume from their last-seen tsNs and never silently skip
+events.
 
 Reads go through the metadata cache (`meta_cache.FilerMetaCache`) and
 the chunk-body cache (`util/chunk_cache.TieredChunkCache`); a chunk on
@@ -113,12 +118,6 @@ class Filer:
                  meta_log_dir: str | None = None,
                  meta_cache: "bool | None" = None,
                  chunk_cache_dir: "str | None" = None):
-        from .meta_plane import meta_plane_enabled, recover_sync
-        if meta_plane_enabled():
-            raise ValueError(
-                "SEAWEEDFS_TPU_FILER_META_PLANE=1: the filer meta plane "
-                "is not ported yet (ROADMAP); unset it or set 0 for the "
-                "synchronous store commit")
         self.master = master
         self.store = store or MemoryStore()
         self.collection = collection
@@ -128,14 +127,31 @@ class Filer:
         # memory-tail-only otherwise (tests, ephemeral filers)
         self.meta_log = MetaLog(meta_log_dir)
         self._listeners: list[Callable[[dict], None]] = []
-        # a planed JAX run over this store may have left acked events
-        # past its checkpoint: they reach the store before we serve
-        if self.meta_log.dir and \
-                getattr(self.store, "supports_meta_plane", False):
+        # meta plane (meta_plane.py): the metalog is this filer's WAL.
+        # Auto-on for a store it can checkpoint (a sqlite file) with a
+        # metalog dir; SEAWEEDFS_TPU_FILER_META_PLANE=0 restores the
+        # synchronous commit, whose boot replays any unapplied tail a
+        # planed run left behind.  Asked for by "1" over a store it
+        # cannot run on, the filer refuses rather than commit
+        # synchronously under the plane's name.
+        from .meta_plane import MetaPlane, meta_plane_enabled, recover_sync
+        supported = bool(self.meta_log.dir) and \
+            getattr(self.store, "supports_meta_plane", False)
+        asked = meta_plane_enabled()
+        if asked and not supported:
+            self.meta_log.close()
+            raise ValueError(
+                "the filer meta plane needs a sqlite file store and a "
+                "metalog dir; set SEAWEEDFS_TPU_FILER_META_PLANE=0 for "
+                "the synchronous store commit")
+        self.meta_plane = MetaPlane(self.store, self.meta_log) \
+            if (asked is not False and supported) else None
+        if self.meta_plane is None and supported:
             recover_sync(self.meta_log, self.store)
         # metadata cache (meta_cache.py): find/list served from memory,
-        # invalidated by this filer's own events synchronously and by
-        # sibling filers' metalog watermark.  Left unspecified (None),
+        # invalidated by this filer's own events synchronously, and by
+        # sibling filers' metalog watermark (the plane's follower, with
+        # the plane on).  Left unspecified (None),
         # it is on only where a coherence channel exists: a metalog dir
         # (the watermark files live there) or a MemoryStore (no one can
         # share it).  A dir-less Filer over a sqlite FILE could share
@@ -146,10 +162,13 @@ class Filer:
         if meta_cache is None:
             meta_cache = bool(meta_log_dir) or \
                 isinstance(self.store, MemoryStore)
-        self.meta_cache = FilerMetaCache(self.meta_log, cap) \
+        self.meta_cache = FilerMetaCache(
+            self.meta_log, cap, watermark=self.meta_plane is None) \
             if (meta_cache and cap > 0) else None
         if self.meta_cache is not None:
             self._listeners.append(self.meta_cache.on_event)
+        if self.meta_plane is not None:
+            self.meta_plane.cache = self.meta_cache
         # hot chunk-body cache on the proxy read path: chunk blobs are
         # immutable per fid (an overwrite mints new fids), so this tier
         # needs no invalidation, only a byte-bounded LRU
@@ -183,6 +202,57 @@ class Filer:
 
     _UNKNOWN = object()   # create_entry: "caller didn't pre-fetch"
 
+    def _store_find(self, path: str) -> Entry | None:
+        """Overlay-over-store point lookup WITHOUT the meta cache: the
+        internal read of every mutation path.  Overlay hits are cloned:
+        internal callers mutate entries in place (rename)."""
+        mp = self.meta_plane
+        if mp is not None:
+            from .meta_plane import _OMISS
+            hit = mp.lookup(path)
+            if hit is not _OMISS:
+                return hit.clone() if hit is not None else None
+        return self.store.find_entry(path)
+
+    _OV_UNKNOWN = object()
+
+    def _store_list(self, dir_path: str, start_file: str = "",
+                    include_start: bool = False, limit: int = 1000,
+                    prefix: str = "", overlay=_OV_UNKNOWN) -> list[Entry]:
+        """Overlay-merged directory listing WITHOUT the meta cache:
+        unapplied creates appear, tombstones hide the store's stale
+        rows.  The store is asked for `limit + |overlay(dir)|` rows so
+        tombstoned rows cannot shrink a full page.  `overlay` lets a
+        caller that already took the dir's overlay pass it in."""
+        mp = self.meta_plane
+        ov = overlay if overlay is not self._OV_UNKNOWN else (
+            mp.overlay_dir(dir_path) if mp is not None else None)
+        if not ov:
+            return self.store.list_directory_entries(
+                dir_path, start_file, include_start, limit, prefix)
+        rows = self.store.list_directory_entries(
+            dir_path, start_file, include_start, limit + len(ov),
+            prefix)
+        merged = {e.name: e for e in rows}
+        for name, ent in ov.items():
+            if prefix and not name.startswith(prefix):
+                continue
+            if start_file and (name < start_file or (
+                    name == start_file and not include_start)):
+                continue
+            if ent is None:
+                merged.pop(name, None)
+            else:
+                merged[name] = ent.clone()
+        return [merged[n] for n in sorted(merged)][:limit]
+
+    def _insert(self, entry: Entry) -> None:
+        """The store half of a synchronous commit; with the plane on,
+        durability is the metalog barrier inside _notify and the store
+        is applied behind it."""
+        if self.meta_plane is None:
+            self.store.insert_entry(entry)
+
     def create_entry(self, entry: Entry, create_parents: bool = True,
                      old_entry=_UNKNOWN) -> None:
         """`old_entry` lets a caller that already looked the path up
@@ -195,11 +265,11 @@ class Filer:
         mc = self.meta_cache
         wm = mc.watermark() if mc is not None and entry.is_directory \
             else None
-        old = self.store.find_entry(entry.full_path) \
+        old = self._store_find(entry.full_path) \
             if old_entry is self._UNKNOWN else old_entry
         if wm is not None and old is None:
             mc.mark_fresh_dir(entry.full_path, wm)
-        self.store.insert_entry(entry)
+        self._insert(entry)
         if entry.is_directory:
             self._note_dir(entry.full_path)
         self._notify("update" if old else "create", entry, old)
@@ -212,13 +282,13 @@ class Filer:
             return
         mc = self.meta_cache
         wm = mc.watermark() if mc is not None else None
-        if self.store.find_entry(parent) is None:
+        if self._store_find(parent) is None:
             e = Entry(parent, is_directory=True,
                       attributes=Attributes(mode=0o770))
             self._ensure_parents(parent)
             if wm is not None:
                 mc.mark_fresh_dir(parent, wm)
-            self.store.insert_entry(e)
+            self._insert(e)
             self._notify("create", e, None)
         self._note_dir(parent)
 
@@ -238,6 +308,18 @@ class Filer:
     def find_entry(self, path: str,
                    count_negative: bool = False) -> Entry | None:
         path = normalize_path(path)
+        mp = self.meta_plane
+        if mp is not None:
+            # coherence point: ingest any sibling event durably appended
+            # before this read began (one stat), then let the overlay
+            # override cache and store
+            mp.catch_up()
+            from .meta_plane import _OMISS
+            hit = mp.lookup(path)
+            if hit is not _OMISS:
+                if hit is None and count_negative:
+                    self._count_negative("hit")
+                return hit.clone() if hit is not None else None
         mc = self.meta_cache
         if mc is None:
             entry = self.store.find_entry(path)
@@ -270,17 +352,18 @@ class Filer:
     def delete_entry(self, path: str, recursive: bool = False,
                      delete_chunks: bool = True) -> None:
         path = normalize_path(path)
-        entry = self.store.find_entry(path)
+        entry = self._store_find(path)
         if entry is None:
             return
         if entry.is_directory:
-            children = self.store.list_directory_entries(path, limit=2)
+            children = self._store_list(path, limit=2)
             if children and not recursive:
                 raise IsADirectoryError(f"{path} not empty")
             self._delete_tree(path, delete_chunks)
         elif delete_chunks:
             self._delete_chunks(entry)
-        self.store.delete_entry(path)
+        if self.meta_plane is None:
+            self.store.delete_entry(path)
         if entry.is_directory:
             # wholesale, and AFTER the store delete: clearing before it
             # would let a concurrent _note_dir re-cache the doomed path
@@ -290,7 +373,7 @@ class Filer:
 
     def _delete_tree(self, path: str, delete_chunks: bool) -> None:
         while True:
-            children = self.store.list_directory_entries(path, limit=1000)
+            children = self._store_list(path, limit=1000)
             if not children:
                 break
             for child in children:
@@ -298,7 +381,8 @@ class Filer:
                     self._delete_tree(child.full_path, delete_chunks)
                 elif delete_chunks:
                     self._delete_chunks(child)
-                self.store.delete_entry(child.full_path)
+                if self.meta_plane is None:
+                    self.store.delete_entry(child.full_path)
                 self._notify("delete", None, child)
 
     def _delete_chunks(self, entry: Entry) -> None:
@@ -312,6 +396,19 @@ class Filer:
                        include_start: bool = False, limit: int = 1000,
                        prefix: str = "") -> list[Entry]:
         path = normalize_path(path)
+        mp = self.meta_plane
+        if mp is not None:
+            mp.catch_up()
+            ov = mp.overlay_dir(path)
+            if ov:
+                # the unapplied tail touches this directory: serve the
+                # overlay-merged listing and skip the cache (while the
+                # overlay masks the dir the cache cannot acquire a stale
+                # fill, and the event-time epoch bump killed any fill
+                # that raced the events)
+                return self._store_list(path, start_file,
+                                        include_start, limit, prefix,
+                                        overlay=ov)
         mc = self.meta_cache
         if mc is None:
             return self.store.list_directory_entries(
@@ -343,19 +440,19 @@ class Filer:
         directories move their whole subtree."""
         old_path = normalize_path(old_path)
         new_path = normalize_path(new_path)
-        entry = self.store.find_entry(old_path)
+        entry = self._store_find(old_path)
         if entry is None:
             raise FileNotFoundError(old_path)
         self._ensure_parents(new_path)
         if entry.is_directory:
-            for child in self.store.list_directory_entries(
-                    old_path, limit=1_000_000):
+            for child in self._store_list(old_path, limit=1_000_000):
                 self.rename(child.full_path,
                             new_path + "/" + child.name)
         old_entry = copy.copy(entry)  # event must carry the OLD path
         entry.full_path = new_path
-        self.store.insert_entry(entry)
-        self.store.delete_entry(old_path)
+        if self.meta_plane is None:
+            self.store.insert_entry(entry)
+            self.store.delete_entry(old_path)
         if entry.is_directory:
             self._known_dirs.clear()   # the old path left the tree
         self._notify("rename", entry, old_entry)
@@ -525,16 +622,22 @@ class Filer:
 
     def _notify(self, op: str, new_entry: Entry | None,
                 old_entry: Entry | None) -> None:
-        event = {
-            "op": op,
-            "tsNs": time.time_ns(),
-            "newEntry": new_entry.to_json() if new_entry else None,
-            "oldEntry": old_entry.to_json() if old_entry else None,
-        }
-        # MetaLog stamps (strictly monotonic) and persists BEFORE live
-        # listeners see the event, so a listener's recorded tsNs is
-        # always replayable after a disconnect
-        event = self.meta_log.append(event)
+        if self.meta_plane is not None:
+            # WAL path: ONE serialization, durable at the metalog
+            # barrier (this is the write's ack point), overlay ingested
+            # before any listener runs
+            event = self.meta_plane.commit(op, new_entry, old_entry)
+        else:
+            event = {
+                "op": op,
+                "tsNs": time.time_ns(),
+                "newEntry": new_entry.to_json() if new_entry else None,
+                "oldEntry": old_entry.to_json() if old_entry else None,
+            }
+            # MetaLog stamps (strictly monotonic) and persists BEFORE
+            # live listeners see the event, so a listener's recorded
+            # tsNs is always replayable after a disconnect
+            event = self.meta_log.append(event)
         with self._log_lock:
             listeners = list(self._listeners)
         for fn in listeners:
@@ -553,5 +656,9 @@ class Filer:
         return self.meta_log.events_since(ts_ns, limit)
 
     def close(self) -> None:
+        """The meta plane first (its final apply leaves the store a
+        complete checkpoint on a clean shutdown), then store and log."""
+        if self.meta_plane is not None:
+            self.meta_plane.close()
         self.store.close()
         self.meta_log.close()

@@ -29,6 +29,10 @@ both anchored on the metalog:
   foreign commits ride the watermark.)  First contact with a brand-new
   sibling is bounded by the probe's one-second listdir memo.
 
+With the filer's meta plane on (`watermark=False`), the watermark rule
+is off: the plane's log follower turns every sibling commit into a
+point invalidation before any read that could observe it.
+
 Fills are guarded by a global epoch so an in-flight fill racing an
 invalidation can never resurrect a stale value (classic
 fill/invalidate race): `begin_fill` snapshots the epoch *before* the
@@ -47,6 +51,10 @@ from .. import stats
 from ..util.chunk_cache import _CacheMeter
 
 _MISS = object()
+
+
+def _no_watermark() -> int:
+    return 0
 
 
 def meta_cache_entries(default: int = 4096) -> int:
@@ -69,9 +77,17 @@ class FilerMetaCache:
     MAX_LISTS = 512
 
     def __init__(self, meta_log, capacity: int = 4096,
-                 name: "str | None" = "filer_meta"):
+                 name: "str | None" = "filer_meta",
+                 watermark: bool = True):
         self._log = meta_log
-        self._probe = meta_log.foreign_watermark
+        # watermark=False: meta-plane mode.  The plane's log follower
+        # delivers every sibling commit as a POINT invalidation before
+        # any read that could observe it (Filer -> MetaPlane.catch_up on
+        # the read path), so the coarse "kill every fill at or before
+        # the foreign watermark" rule is neither needed nor wanted: it
+        # would void every fill within one sibling commit window.
+        self._probe = meta_log.foreign_watermark if watermark \
+            else _no_watermark
         self._cap = max(int(capacity), 1)
         self._lock = threading.Lock()
         # path -> (fill_watermark, entry-or-None)

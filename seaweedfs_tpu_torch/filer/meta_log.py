@@ -27,9 +27,16 @@ Each instance publishes its durable stamp in a `.watermark.<pid>.p<seq>`
 file, which a sibling's metadata cache reads to learn that someone else
 committed (`foreign_watermark`).  Readers of either package match the
 `.watermark.` prefix; the `p` keeps a port log and a JAX log in one
-process (whose `<seq>` counters are their own) from sharing a file.  `append_raw` composes a line around
-entry JSON the caller already serialized, with the `nl` and `wid`
-fields the JAX package's meta plane reads.
+process (whose `<seq>` counters are their own) from sharing a file.
+
+This log is the filer's WRITE-AHEAD LOG when the meta plane runs
+(filer/meta_plane.py): a namespace mutation is acked once its event
+clears the barrier, and the store is a checkpoint applied behind it.
+`append_raw` composes a line around entry JSON the caller already
+serialized, with an `nl` length field that lets the applier slice
+those exact bytes back out, and a `wid` that tells a follower its own
+lines from a sibling's; it returns the durable position that anchors
+the overlay's eviction.
 """
 
 from __future__ import annotations
@@ -86,8 +93,9 @@ def _segment_name(ts_ns: int) -> "tuple[str, str]":
 
 def alloc_writer_identity(dir_path: str) -> "tuple[str, str]":
     """Mint a (wid, watermark_path) pair for an EXTERNAL sibling
-    writer over `dir_path` (the JAX package's native meta plane appends
-    WAL lines as its own writer instance), with the same uniqueness
+    writer over `dir_path` (the native meta plane,
+    server/meta_plane_native.py, appends WAL lines as its own writer
+    instance), with the same uniqueness
     guarantees a MetaLog gives itself: the
     per-process seq (two writers in one pid must not clobber one
     watermark file) and the random wid suffix (pid recycling must not
@@ -148,6 +156,13 @@ class MetaLog:
         # batch this instance's barrier landed: append_raw's conservative
         # "my line is at or before here" cover
         self._durable_pos: "tuple[str, str, int]" = LOG_START
+        # own-batch extents [(day, minute, start, end)]: each barrier
+        # write is ONE contiguous kernel append of only OUR lines, so
+        # the meta plane's coherence follower can jump over it by
+        # arithmetic instead of reading and skip-scanning bytes it
+        # ingested at ack time.  Bounded; overflow just means the
+        # follower reads those bytes the slow way.
+        self._own_extents: deque = deque(maxlen=4096)
         # highest stamp whose line a barrier has flushed: the memory
         # tail may briefly lead the disk (stamped, queued, pre-flush),
         # and events_since must not serve an event a crash could still
@@ -319,6 +334,8 @@ class MetaLog:
             # (later sibling appends don't move it) — the exact cover
             end = os.lseek(self._open_fd, 0, os.SEEK_CUR)
             end_pos = (name[0], name[1], end)
+            self._own_extents.append(
+                (name[0], name[1], end - len(buf), end))
             i = j
         with self._lock:
             self._durable_ts = max(self._durable_ts, batch[-1][0])
@@ -420,7 +437,10 @@ class MetaLog:
 
     def end_pos(self) -> "tuple[str, str, int]":
         """Current end-of-log position (newest segment + size): where
-        recover_sync's boot replay must reach before the filer serves."""
+        recover_sync's boot replay must reach before the filer serves,
+        and the meta plane's checkpoint on first enablement, when
+        everything already in the log was committed synchronously and
+        so is in the store."""
         if not self.dir:
             return LOG_START
         try:
@@ -441,6 +461,30 @@ class MetaLog:
                     continue
                 return (day, minute[:-4], size)
         return LOG_START
+
+    def durable_pos(self) -> "tuple[str, str, int]":
+        with self._lock:
+            return self._durable_pos
+
+    def own_extent_at(self, day: str, minute: str,
+                      off: int) -> "int | None":
+        """If an own-batch extent STARTS exactly at (day, minute,
+        off), consume every contiguous own extent from there and
+        return the final end offset: the coherence follower's
+        fast-skip.  None when the next bytes were written by a
+        sibling (or the extent record was evicted): read normally."""
+        ext = self._own_extents
+        end = None
+        while ext:
+            d, m, start, e = ext[0]
+            if (d, m) != (day, minute) or e <= off:
+                ext.popleft()       # stale: the follower moved past
+                continue
+            if start > off:
+                break               # a sibling's bytes come first
+            off = end = e
+            ext.popleft()
+        return end
 
     # -- replay -----------------------------------------------------------
 

@@ -1,20 +1,21 @@
 """The host's native libraries, built with g++ at first use.
 
-Four C++ sources, each compiled into a shared library with a plain C
+Six C++ sources, each compiled into a shared library with a plain C
 interface and loaded with ctypes (the loader of
-`seaweedfs_tpu/native/__init__.py`, without its meta plane, filer read
-plane and volume tool):
+`seaweedfs_tpu/native/__init__.py`, without its volume tool):
 - `gf_rs.cc`, the GF(2^8) codec of degraded reads (`load`);
 - `crc32c.cc`, the needle CRC32-C where `google_crc32c` is absent
   (`load_crc32c`);
 - `read_plane.cc` and `write_plane.cc`, the volume server's epoll
-  needle planes (`load_read_plane`, `load_write_plane`).
-The planes include no other header (`plane_pool.h` serves only the meta
-and filer read planes, which the port leaves out).  Each library lands
-in `seaweedfs_tpu_torch/_build/` under a name that carries a hash of the
-source, the flags and the host CPU's feature flags, so an edited source
-is rebuilt, an unchanged one is loaded as it is, and a library built
-with `-march=native` on one CPU is never loaded on another.  Nothing is
+  needle planes (`load_read_plane`, `load_write_plane`);
+- `meta_plane.cc` and `filer_read_plane.cc`, the filer's epoll write
+  and read planes (`load_meta_plane`, `load_filer_read_plane`), which
+  both include `plane_pool.h`.
+Each library lands in `seaweedfs_tpu_torch/_build/` under a name that
+carries a hash of the source and the headers it includes, the flags
+and the host CPU's feature flags, so an edited source is rebuilt, an
+unchanged one is loaded as it is, and a library built with
+`-march=native` on one CPU is never loaded on another.  Nothing is
 built when the package is imported.  `BUILD_INFO[stem]` says what the
 last build or load of each did.
 """
@@ -55,16 +56,20 @@ def _cpu_flags() -> str:
     return ""
 
 
-def _build_if_stale(src_path: str, info: dict) -> "str | None":
-    """Build `src_path` with g++ unless a library of this exact source,
-    these flags and this CPU is already in BUILD_DIR: `-march=native`
+def _build_if_stale(src_path: str, info: dict,
+                    deps: "tuple[str, ...]" = ()) -> "str | None":
+    """Build `src_path` with g++ unless a library of this exact source
+    and `deps` (the headers it includes), these flags and this CPU is
+    already in BUILD_DIR: `-march=native`
     first, then without it.  Each attempt writes a per-process temp file
     renamed into place, so concurrent builders never publish half a
     library.  The library's path, or None when g++ is missing or fails
     (the reason in info["error"])."""
+    digest = hashlib.sha256()
     try:
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(f.read())
+        for path in (src_path, *deps):
+            with open(path, "rb") as f:
+                digest.update(f.read())
     except OSError as e:
         info["error"] = str(e)
         return None
@@ -102,7 +107,8 @@ def _build_if_stale(src_path: str, info: dict) -> "str | None":
     return None
 
 
-def _load(stem: str, bind) -> "ctypes.CDLL | None":
+def _load(stem: str, bind, deps: "tuple[str, ...]" = ()
+          ) -> "ctypes.CDLL | None":
     """Build (if needed) and load `<stem>.cc` once a process, with its
     signatures set by `bind`; None when it cannot be built or loaded.
     Callers must never see an exception from here."""
@@ -111,7 +117,8 @@ def _load(stem: str, bind) -> "ctypes.CDLL | None":
             return _libs[stem]
         _libs[stem] = None
         info = BUILD_INFO.setdefault(stem, {})
-        so = _build_if_stale(os.path.join(_DIR, stem + ".cc"), info)
+        so = _build_if_stale(os.path.join(_DIR, stem + ".cc"), info,
+                             tuple(os.path.join(_DIR, d) for d in deps))
         if so is None:
             return None
         try:
@@ -229,3 +236,55 @@ def _bind_write_plane(lib: ctypes.CDLL) -> None:
 def load_write_plane() -> "ctypes.CDLL | None":
     """The native epoll write plane; None where it does not build."""
     return _load("write_plane", _bind_write_plane)
+
+
+# -- the filer's meta plane (meta_plane.cc) ------------------------------
+
+def _bind_meta_plane(lib: ctypes.CDLL) -> None:
+    h, u64p = ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)
+    _sig(lib.mp_start, [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                        ctypes.c_char_p, ctypes.c_char_p,
+                        ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    _sig(lib.mp_stop, [h])
+    _sig(lib.mp_arm, [h, ctypes.c_int])
+    _sig(lib.mp_feed_fids, [h, ctypes.c_char_p], ctypes.c_int)
+    _sig(lib.mp_fid_level, [h], ctypes.c_int)
+    _sig(lib.mp_mark_dir, [h, ctypes.c_char_p])
+    _sig(lib.mp_mark_path, [h, ctypes.c_char_p])
+    _sig(lib.mp_clear_dirs, [h])
+    _sig(lib.mp_requests, [h], ctypes.c_ulonglong)
+    _sig(lib.mp_latency, [h, u64p], ctypes.c_int)
+    _sig(lib.mp_stats, [h, u64p], ctypes.c_int)
+
+
+def load_meta_plane() -> "ctypes.CDLL | None":
+    """The filer's native meta plane; None where it does not build (the
+    filer then serves every write from Python, and says why)."""
+    return _load("meta_plane", _bind_meta_plane, deps=("plane_pool.h",))
+
+
+# -- the filer's read plane (filer_read_plane.cc) ------------------------
+
+def _bind_filer_read_plane(lib: ctypes.CDLL) -> None:
+    h, u64p = ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)
+    _sig(lib.frp_start, [ctypes.c_char_p, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    _sig(lib.frp_stop, [h])
+    _sig(lib.frp_arm, [h, ctypes.c_int])
+    _sig(lib.frp_gen, [h], ctypes.c_ulonglong)
+    _sig(lib.frp_put_entry, [h, ctypes.c_char_p, ctypes.c_char_p,
+                             ctypes.c_char_p, ctypes.c_char_p,
+                             ctypes.c_ulonglong, ctypes.c_ulonglong],
+         ctypes.c_int)
+    _sig(lib.frp_invalidate, [h, ctypes.c_char_p])
+    _sig(lib.frp_entries, [h], ctypes.c_int)
+    _sig(lib.frp_requests, [h], ctypes.c_ulonglong)
+    _sig(lib.frp_latency, [h, u64p], ctypes.c_int)
+    _sig(lib.frp_stats, [h, u64p], ctypes.c_int)
+
+
+def load_filer_read_plane() -> "ctypes.CDLL | None":
+    """The filer's native read plane; None where it does not build (the
+    filer then serves every read from Python, and says why)."""
+    return _load("filer_read_plane", _bind_filer_read_plane,
+                 deps=("plane_pool.h",))

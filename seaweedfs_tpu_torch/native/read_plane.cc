@@ -500,21 +500,25 @@ void event_loop(Server* s) {
           dead = true;
           break;
         }
-        // process complete requests (pipelining-tolerant), but only
-        // while no body transfer is pending — responses must be
-        // emitted in order
+      }
+      // process complete requests (pipelining-tolerant), but only while
+      // no body transfer is pending: responses must be emitted in order.
+      // Also on an EPOLLOUT that finished a transfer: the requests
+      // pipelined behind it wait in c->in, and no EPOLLIN may ever come
+      // for them.
+      while (!dead) {
         while (!dead && c->file_left == 0) {
           size_t end = c->in.find("\r\n\r\n");
           if (end == std::string::npos) break;
           std::string req = c->in.substr(0, end);
           c->in.erase(0, end + 4);
-          if (!handle_one_request(s, c, req)) {
-            dead = true;
-            break;
-          }
+          if (!handle_one_request(s, c, req)) dead = true;
         }
+        if (!dead && !flush_out(s, c)) dead = true;
+        if (dead || c->file_left > 0 || !c->out.empty() ||
+            c->in.find("\r\n\r\n") == std::string::npos)
+          break;
       }
-      if (!dead && !flush_out(s, c)) dead = true;
       if (!dead && c->close_after && c->out.empty() &&
           c->file_left == 0) {
         dead = true;

@@ -1,6 +1,25 @@
 """Filer HTTP server (weed/server/filer_server.go + handlers), the port's
-copy of `seaweedfs_tpu/server/filer_server.py` with the JAX package's
-meta plane off, no native planes and one process.
+copy of `seaweedfs_tpu/server/filer_server.py`, one process.
+
+Over a sqlite file the Filer runs its meta plane (filer/meta_plane.py)
+by default, and this server arms two native planes beside the Python
+port, as the JAX filer does:
+- the meta plane (server/meta_plane_native.py): plain single-chunk PUTs
+  into provably fresh directories, parsed, uploaded to the volume write
+  plane, WAL-appended and acked by a C++ epoll loop;
+- the read plane (server/filer_read_plane_native.py): warm single-chunk
+  GETs served from a C-side entry map by a C++ epoll loop that fetches
+  from the volume read plane.
+Each answers what it does not own with 404 `{"error":"... plane
+fallback"}`, and the client replays it on this port.  `GET /status`
+advertises their ports (`metaPlanePort`, `readPlanePort`; 0 when
+disarmed), `POST /debug/meta_plane` and `POST /debug/read_plane`
+(`{"native": "on"|"off"}`) arm and disarm them, and `/metrics` renders
+their counters.  `SEAWEEDFS_TPU_FILER_META_PLANE_NATIVE=0` and
+`SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE=0` keep them off; the native meta
+plane needs the Python meta plane.  A plane that fails to build or start
+is logged and counted (`filer_native_plane_unavailable_total{plane}`),
+and this port serves its traffic.
 
 The reference's filer HTTP surface:
   POST/PUT /path/to/file     upload (auto-chunked; a trailing / = mkdir)
@@ -19,14 +38,16 @@ and `/status`, `/metrics`.
 
 The store is sqlite (a file, or ":memory:"); its metadata log lives in
 `<store>.metalog`, so two filers over one store file share one log dir
-and see each other's commits through its watermark files.  Not ported
-(ROADMAP): TUS uploads, the lock routes, follow mode, notification,
-remote mounts, gRPC, QoS, fault sites and the autopilot.
+and see each other's commits (through its watermark files, or the meta
+plane's log follower).  Not ported (ROADMAP): TUS uploads, the lock
+routes, follow mode, notification, remote mounts, gRPC, QoS, fault
+sites, the autopilot, and the planes' flight-record drains.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import urllib.parse
 
 from .. import stats
@@ -89,9 +110,47 @@ class FilerServer:
             raise
         self.metrics = stats.Metrics("filer")
         self.http.role = "filer"
+        # the planes bind the listener's address when it is numeric
+        plane_host = self.http.host if all(
+            c in "0123456789." for c in self.http.host) else "127.0.0.1"
+        self.native_meta = None
+        if self.filer.meta_plane is not None:
+            from .meta_plane_native import (NativeMetaPlane,
+                                            native_meta_plane_enabled)
+            if native_meta_plane_enabled() is not False:
+                self.native_meta = self._start_plane(
+                    "meta", lambda: NativeMetaPlane(
+                        self.filer.meta_log.dir, master, host=plane_host,
+                        collection=collection, replication=replication))
+        from .filer_read_plane_native import (NativeReadPlane,
+                                              native_read_plane_enabled)
+        self.native_read = None
+        if native_read_plane_enabled() is not False:
+            self.native_read = self._start_plane(
+                "read", lambda: NativeReadPlane(master, host=plane_host))
+        # entry truth flows in from both sides: this process's own
+        # Python-path mutations (the listener) and every sibling
+        # writer's WAL lines, the native meta plane's included (the
+        # meta plane's follower tap, fanned out to both planes)
+        taps = []
+        for plane in (self.native_meta, self.native_read):
+            if plane is not None:
+                self.filer.subscribe(plane.on_event)
+                taps.append(plane.on_follower_events)
+        if taps and self.filer.meta_plane is not None:
+            def _fan_sink(evs, _taps=tuple(taps)):
+                evs = list(evs)   # every tap sees the full batch
+                for t in _taps:
+                    t(evs)
+            self.filer.meta_plane.sink = _fan_sink
+        for plane in (self.native_meta, self.native_read):
+            if plane is not None:
+                plane.arm(True)
         r = self.http.route
         r("GET", "/status", self._status)
         r("GET", "/metrics", self._metrics)
+        r("POST", "/debug/meta_plane", self._debug_meta_plane)
+        r("POST", "/debug/read_plane", self._debug_read_plane)
         r("GET", "/__meta__/lookup", self._meta_lookup)
         r("POST", "/__meta__/rename", self._meta_rename)
         r("POST", "/__meta__/set_attrs", self._meta_set_attrs)
@@ -103,11 +162,34 @@ class FilerServer:
         self.http.route_prefix("POST", "/__chunk__/", self._chunk_route)
         self.http.fallback = self._dispatch
 
+    @staticmethod
+    def _start_plane(name: str, make):
+        """A native plane, or None when it does not build or start: the
+        cause goes to stderr and `filer_native_plane_unavailable_total`,
+        and the Python port serves the plane's traffic."""
+        try:
+            return make()
+        except (RuntimeError, OSError) as e:
+            print(f"filer: native {name} plane off: {e}", file=sys.stderr)
+            stats.PROCESS.counter_add(
+                "filer_native_plane_unavailable_total", 1.0,
+                help_text="native filer planes that failed to build or "
+                          "start (the Python port serves their traffic)",
+                plane=name)
+            return None
+
     def start(self) -> "FilerServer":
         self.http.start()
         return self
 
     def stop(self) -> None:
+        # the native planes before the Python listener: once a plane
+        # stops acking, clients retry here and must still find a
+        # server; the meta plane's final apply (Filer.close) last
+        if self.native_meta is not None:
+            self.native_meta.stop()
+        if self.native_read is not None:
+            self.native_read.stop()
         self.http.stop()
         self.filer.close()
 
@@ -122,15 +204,143 @@ class FilerServer:
         self.metrics.gauge_set(
             "meta_log_last_ts_ns", float(self.filer.meta_log.last_ts()),
             help_text="timestamp of the newest metadata log event")
+        if self.filer.meta_plane is not None:
+            mp = self.filer.meta_plane.snapshot()
+            self.metrics.gauge_set(
+                "meta_plane_overlay_entries", float(mp["overlay"]),
+                help_text="WAL-acked entries awaiting the async store "
+                          "checkpoint (the overlay index)")
+            self.metrics.gauge_set(
+                "meta_plane_applier", float(bool(mp["holder"])),
+                help_text="1 when this process holds the designated-"
+                          "applier lock for the shared metalog")
+            self.metrics.gauge_set(
+                "meta_plane_checkpoint_ts_ns",
+                float(mp["checkpointTsNs"]),
+                help_text="newest event stamp the store checkpoint "
+                          "covers")
         return 200, ((self.metrics.render() +
+                      self._native_meta_metrics_text() +
+                      self._native_read_metrics_text() +
                       stats.PROCESS.render()).encode(),
                      {"Content-Type": "text/plain; version=0.0.4"})
 
+    @staticmethod
+    def _plane_text(prefix: str, st: dict, counters, stages,
+                    gauge: "tuple[str, str, float]", hist_name: str,
+                    bounds, hist) -> str:
+        """One native plane's counters, stage walls, gauge and latency
+        histogram in the Prometheus text format, read from the C++
+        atomics at scrape time."""
+        out = []
+        for key, help_text in counters:
+            name = f"{prefix}_{key}_total"
+            out.append(f"# HELP {name} {help_text}\n"
+                       f"# TYPE {name} counter\n{name} {st[key]}\n")
+        name = f"{prefix}_stage_seconds_total"
+        out.append(f"# HELP {name} cumulative native-plane wall per "
+                   f"stage\n# TYPE {name} counter\n")
+        for stage in stages:
+            out.append(f'{name}{{stage="{stage}"}} '
+                       f"{st[stage + '_ns'] / 1e9}\n")
+        gname, ghelp, gvalue = gauge
+        out.append(f"# HELP {prefix}_{gname} {ghelp}\n"
+                   f"# TYPE {prefix}_{gname} gauge\n"
+                   f"{prefix}_{gname} {gvalue}\n")
+        buckets, count, total_s = hist
+        name = f"{prefix}_{hist_name}"
+        out.append(f"# HELP {name} native-plane latency\n"
+                   f"# TYPE {name} histogram\n")
+        for le, cum in zip(bounds, buckets):
+            out.append(f'{name}_bucket{{le="{le}"}} {cum}\n')
+        out.append(f'{name}_bucket{{le="+Inf"}} {count}\n'
+                   f"{name}_sum {total_s}\n{name}_count {count}\n")
+        return "".join(out)
+
+    def _native_meta_metrics_text(self) -> str:
+        """The native meta plane's requests, fallbacks and fid pool, its
+        ack latency histogram and its wall split (parse, upload, wal)."""
+        nm = self.native_meta
+        if nm is None:
+            return ""
+        from .meta_plane_native import ACK_BUCKETS_S
+        return self._plane_text(
+            "filer_meta_plane_native", nm.stats(), (
+                ("requests", "filer writes acked by the native meta "
+                             "plane"),
+                ("fallbacks", "native meta-plane requests answered 404 "
+                              "(the python filer owns them)"),
+                ("fid_misses", "native requests that fell back on an "
+                               "empty pre-assigned fid pool"),
+                ("wal_errors", "group-commit batches that failed the "
+                               "WAL append (every member fell back)"),
+                ("upstream_errors", "chunk uploads the volume write "
+                                    "plane refused or dropped"),
+                ("wal_batches", "group-commit barrier batches landed"),
+                ("wal_lines", "WAL lines landed by the native plane")),
+            ("parse", "upload", "wal"),
+            ("fid_level", "pre-assigned fids ready in the native pool",
+             max(nm.fid_level(), 0)),
+            "ack_seconds", ACK_BUCKETS_S, nm.ack_histogram())
+
+    def _native_read_metrics_text(self) -> str:
+        """The native read plane's requests, fallbacks, stale and
+        upstream misses, its entry map, its response latency histogram
+        and its wall split (parse, lookup, fetch, send)."""
+        nr = self.native_read
+        if nr is None:
+            return ""
+        from .filer_read_plane_native import RESPONSE_BUCKETS_S
+        return self._plane_text(
+            "filer_read_plane_native", nr.stats(), (
+                ("requests", "filer reads served by the native read "
+                             "plane"),
+                ("fallbacks", "native read-plane requests answered 404 "
+                              "(the python filer owns them)"),
+                ("stale_misses", "native fetches the volume plane "
+                                 "404'd (registration invalidated)"),
+                ("upstream_errors", "chunk fetches the volume read "
+                                    "plane refused or dropped")),
+            ("parse", "lookup", "fetch", "send"),
+            ("entries", "paths registered in the C-side entry map",
+             nr.entries()),
+            "response_seconds", RESPONSE_BUCKETS_S,
+            nr.response_histogram())
+
     def _status(self, req: Request):
-        """Plane discovery, as the JAX filer answers it: this filer runs
-        no native plane, so both ports are 0."""
+        """Plane discovery: clients probe this once and send their plain
+        PUTs and GETs to the armed planes' ports first."""
+        nm, nr = self.native_meta, self.native_read
         return 200, {"version": "seaweedfs-tpu/0.1", "role": "filer",
-                     "metaPlanePort": 0, "readPlanePort": 0}
+                     "metaPlanePort":
+                         nm.port if nm is not None and nm.armed else 0,
+                     "readPlanePort":
+                         nr.port if nr is not None and nr.armed else 0}
+
+    @staticmethod
+    def _lever(plane, req: Request, **extra):
+        """POST {"native": "on"|"off"}: arm or disarm a plane without
+        tearing down its listener (clients keep their sockets; every
+        request falls back to this port while it is off)."""
+        if plane is None:
+            return 404, {"error": "native plane not running"}
+        b = req.json() if req.body else {}
+        want = str(b.get("native", "")).lower()
+        if want in ("on", "1", "true"):
+            plane.arm(True)
+        elif want in ("off", "0", "false"):
+            plane.arm(False)
+        return 200, {"armed": plane.armed, "port": plane.port,
+                     **{k: f() for k, f in extra.items()},
+                     **plane.stats()}
+
+    def _debug_meta_plane(self, req: Request):
+        nm = self.native_meta
+        return self._lever(nm, req, fidLevel=lambda: max(nm.fid_level(), 0))
+
+    def _debug_read_plane(self, req: Request):
+        nr = self.native_read
+        return self._lever(nr, req, entries=lambda: nr.entries())
 
     # -- dispatch ---------------------------------------------------------
 
@@ -191,6 +401,11 @@ class FilerServer:
     def _get(self, req: Request, path: str):
         if path.endswith("/") or path == "":
             return self._list(req, path or "/")
+        # the read plane's fill fence: its generation token is taken
+        # BEFORE the lookup, so the warm fill below loses to any
+        # invalidation that raced it
+        nr = self.native_read
+        token = nr.begin_fill() if nr is not None else 0
         entry = self.filer.find_entry(path, count_negative=True)
         if entry is None:
             return 404, {"error": f"{path} not found"}
@@ -210,6 +425,10 @@ class FilerServer:
         # stream, never buffer: views are fetched lazily as the response
         # drains, so a multi-GB GET holds one chunk in memory
         body = self.filer.open_read_stream(entry, offset, size)
+        if nr is not None and not rng:
+            # warm fill: the NEXT read of this path can be served
+            # natively (fenced by the token above)
+            nr.warm_fill(path, entry, token)
         headers = {"Content-Type": mime, "Content-Length": str(size)}
         if rng:
             headers["Content-Range"] = \

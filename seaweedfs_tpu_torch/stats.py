@@ -15,6 +15,12 @@ from collections import defaultdict
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                    1.0, 2.5, 5.0, 10.0)
 
+# the filer meta plane's sub-stages (filer/meta_plane.py): serialize and
+# barrier live in the 50us..25ms band; the async apply's per-event share
+# sits near the bottom of it
+META_SUB_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+                    0.005, 0.01, 0.025, 0.05, 0.1, 0.25)
+
 
 def escape_label_value(v) -> str:
     """Prometheus text-format label escaping: backslash, double quote

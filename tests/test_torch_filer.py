@@ -23,8 +23,14 @@ numpy.
 - the clients crosswise, the `fs.*` shell commands against both filers;
 - EC: files in an encoded collection read back through the filer,
   direct and with a shard holder stopped, without calling the kernel;
-- the command line: `filer` serves `/status`, refuses what is not
-  ported; `shell -filer ... "fs.ls /d"` prints what the JAX shell does.
+- the command line: `filer` serves `/status` with its native planes'
+  ports, refuses what is not ported; `shell -filer ... "fs.ls /d"`
+  prints what the JAX shell does.
+
+The meta plane (the JAX filer's default) is held against the JAX package
+in tests/test_torch_meta_plane.py, and the native planes in
+tests/test_torch_native_meta_plane.py and
+tests/test_torch_filer_read_plane.py.
 
 Files of 1 KiB - 9 MiB, volume limits of 4-64 MiB.
 """
@@ -378,6 +384,8 @@ def test_port_boot_replays_a_jax_planed_tail(tmp_path, monkeypatch):
     want = _tree(f)
     _abandon(f)
     monkeypatch.delenv("SEAWEEDFS_TPU_META_PLANE_INTERVAL_MS")
+    # the port's kill switch: recover_sync applies the tail before serving
+    monkeypatch.setenv("SEAWEEDFS_TPU_FILER_META_PLANE", "0")
     g = Filer(MASTER, SqliteStore(db), meta_log_dir=db + ".metalog")
     try:
         assert g.store.find_entry("/t/k11") is not None
@@ -395,11 +403,25 @@ def test_port_boot_replays_a_jax_planed_tail(tmp_path, monkeypatch):
 
 
 def test_the_meta_plane_is_refused_not_downgraded(tmp_path, monkeypatch):
+    """SEAWEEDFS_TPU_FILER_META_PLANE=1 runs the plane over a store file;
+    over a store it cannot run on it is refused, never downgraded to the
+    synchronous commit (the JAX filer downgrades without a word)."""
     monkeypatch.setenv("SEAWEEDFS_TPU_FILER_META_PLANE", "1")
-    with pytest.raises(ValueError, match="not ported"):
+    monkeypatch.setenv("SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE", "0")
+    monkeypatch.setenv("SEAWEEDFS_TPU_FILER_META_PLANE_NATIVE", "0")
+    with pytest.raises(ValueError, match="meta plane needs"):
         Filer(MASTER, SqliteStore(":memory:"))
-    with pytest.raises(ValueError, match="not ported"):
-        FilerServer(MASTER, store_path=str(tmp_path / "f.db"))
+    with pytest.raises(ValueError, match="meta plane needs"):
+        FilerServer(MASTER, store_path=":memory:")
+    db = str(tmp_path / "f.db")
+    fs = FilerServer(MASTER, store_path=db)
+    try:
+        assert fs.filer.meta_plane is not None
+        fs.filer.create_entry(Entry("/mp/a"))
+        assert fs.filer.find_entry("/mp/a") is not None
+    finally:
+        fs.stop()
+    assert SqliteStore(db).find_entry("/mp/a") is not None
 
 
 # --- the meta cache --------------------------------------------------------
@@ -437,7 +459,7 @@ def test_meta_cache_fence_and_sibling_watermark(kind, tmp_path):
 
 
 def test_negative_entries_skip_the_store_only_for_unseen_names(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, sync_commit):
     """A directory this filer created fresh answers its never-created
     children absent without a store SELECT; a name it saw created,
     deleted or renamed goes to the store; a sibling's commit voids the
@@ -1021,17 +1043,28 @@ def _start(argv, env=None):
 
 
 def test_filer_command_serves_and_stops(tmp_path):
+    """The default configuration: the meta plane and both native planes,
+    their ports on /status."""
+    from seaweedfs_tpu_torch import native
     c = Cluster(tmp_path, "port", racks=("r1",))
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "SEAWEEDFS_TPU_FILER_META_PLANE",
+        "SEAWEEDFS_TPU_FILER_META_PLANE_NATIVE",
+        "SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE")}
     p, line = _start(["filer", "-port", "0", "-master", c.url,
                       "-store", str(tmp_path / "filer.db"),
-                      "-collection", "cli"])
+                      "-collection", "cli"], env=env)
     try:
         assert line.startswith("filer listening on 127.0.0.1:"), \
             line + p.stderr.read()
         u = line.split()[-1]
-        assert http_json("GET", f"{u}/status") == {
-            "version": "seaweedfs-tpu/0.1", "role": "filer",
-            "metaPlanePort": 0, "readPlanePort": 0}
+        st = http_json("GET", f"{u}/status")
+        assert {k: st[k] for k in ("version", "role")} == {
+            "version": "seaweedfs-tpu/0.1", "role": "filer"}
+        built = native.load_meta_plane() is not None and \
+            native.load_filer_read_plane() is not None
+        assert (st["metaPlanePort"] > 0 and st["readPlanePort"] > 0) \
+            == built, st
         assert http_bytes("PUT", f"{u}/d/x", b"abc")[0] == 201
         assert http_bytes("GET", f"{u}/d/x")[1] == b"abc"
         assert os.path.isdir(str(tmp_path / "filer.db.metalog"))
@@ -1043,11 +1076,15 @@ def test_filer_command_serves_and_stops(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["-metaPlane", "1"], {}), (["-storeType", "lsm"], {}),
+    (["-metaPlane", "1", "-workers", "2"], {}), (["-storeType", "lsm"], {}),
     (["-workers", "2"], {}),
-    ([], {"SEAWEEDFS_TPU_FILER_META_PLANE": "1"})],
-    ids=["metaPlane", "storeType", "workers", "meta_plane_env"])
+    (["-workers", "2"], {"SEAWEEDFS_TPU_FILER_META_PLANE": "1"}),
+    (["-notification", "log"], {}), (["-lockPeers", "127.0.0.1:1"], {})],
+    ids=["metaPlane", "storeType", "workers", "meta_plane_env",
+         "notification", "lockPeers"])
 def test_filer_command_refuses_what_is_not_ported(argv, env, tmp_path):
+    """What the port has not ported is refused with exit 2, the meta
+    plane's pre-fork workers included (`-metaPlane 1 -workers 2`)."""
     p = subprocess.run(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port", "0",
          "-master", MASTER, "-store", str(tmp_path / "f.db")] + argv,
