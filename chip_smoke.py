@@ -231,6 +231,35 @@ Phases, each printing one JSON line:
    its stage split (parse, upload, wal); `filer_meta_sub_seconds`
    (serialize, barrier, apply); the metalog's mean group-commit batch;
    and the launches, 0 in every read pass.
+12. fsync_tier: config 1 on the `-fsync` tier.  A `master
+   -volumeSizeLimitMB 1024 -defaultReplication 001`, 3 `volume -max 8
+   -fsync` subprocesses in one rack (every needle has two locations;
+   their directories on a disk filesystem, its type and one writer's
+   fsync rate printed: a tmpfs work directory moves the phase under the
+   checkout's gitignored `_work/`) and a filer in its default
+   configuration, which follows the master's location pushes.  Writes:
+   `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 8,192) at 001,
+   the same shape at 000 (4,096: the write plane parks each ack until
+   the epoch handshake ran the volume's barrier), 1,024 1 KiB needles
+   and config 1's needles into one volume until it seals; writes/s,
+   p50/p99, the native share, the epochs, the barrier's mean batch and
+   fsyncs per ack.  A holder of the sealed
+   volume SIGKILLed right after the last ack and restarted on its
+   directory and port; two passes over every acked needle from each of
+   its replicas, each location's ladder (read plane, UDS, HTTP), every
+   body equal to its seeded payload, with each plane's share.  4,096
+   benchmark reads under a 100 ms deadline: a warm pass of 1,024 with
+   every replica up, then the replica that is their first location
+   SIGSTOPped for a pass hedging on (the token pool's burst set to the
+   pass's size and the hedge workers' cap to 256; 0 reads may miss the
+   budget; the client's full collections in the pass are counted) and
+   one with
+   `SEAWEEDFS_TPU_HEDGE_READS=0`.  The filer's `/dir/lookup` RPCs during
+   two read passes of 1,024 1 KiB files (the master's `/metrics`), and the seconds until its pushed map drops the
+   killed server, holds it again, and holds a grown volume.
+   `ec.encode` of the sealed volume on the card (launches against its
+   windows; shard SHA-256s equal to the host's native codec's on the
+   same `.dat`), then its 1 KiB needles read back with 0 launches.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -241,6 +270,7 @@ the package is not beside this script; any failed check fails the run.
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import itertools
 import json
@@ -519,6 +549,10 @@ def phase_device(smi: str) -> dict:
               f"{native.BUILD_INFO[stem].get('error')}")
         host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
                            for k in ("seconds", "march_native")}
+    # the -fsync tier's epoch handshake: without it the write plane takes
+    # no -fsync volume
+    check(native.load_write_plane().epoch_handshake,
+          "the write plane does not bind the epoch handshake")
     log = _build.BUILD_INFO[rs_cuda.SOURCE]["log"]
     regs = sorted({int(line.split("Used ")[1].split()[0])
                    for line in log.splitlines() if "Used " in line})
@@ -4644,6 +4678,766 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
     return out
 
 
+# --- phase 12 --------------------------------------------------------------
+
+# the fsync_tier phase (config 1 on the -fsync tier): the write phase's
+# shapes on 3 `volume -fsync` servers of replication 001
+FSYNC_SERVERS = 3
+FSYNC_COLLECTION = "fsync"        # the fill, encoded on the card
+FSYNC_BENCH_N = 8_192             # the benchmark at 001: the Python path
+#                                   acks ~360 writes/s on the card's host
+#                                   (PERF.md), so BENCH_N would take 90 s
+FSYNC_NATIVE_N = 4_096            # 1 KiB writes of replication 000: the
+#                                   write plane's epoch handshake
+FSYNC_SMALL_FILL = 1_024          # 1 KiB needles in the fill volume, read
+#                                   after its encode
+FSYNC_HEDGE_N = 4_096             # 1 KiB reads a hedged pass
+FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
+FSYNC_BUDGET_S = 0.1              # their deadline
+FSYNC_FILER_N = 1_024             # 1 KiB files through the filer
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fs_type(path: str) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", path],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip() or f"unknown ({out.stderr.strip()})"
+
+
+def _fsync_counters(urls) -> dict:
+    """The -fsync tier's counters on each server's /metrics, summed:
+    fsyncs, the volume barrier's batches and members, native acks, the
+    write plane's epochs (released, failed) and refused -fsync volumes,
+    and the reads of each plane (read plane, UDS, Python port)."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    out = {"fsyncs": 0.0, "batches": 0.0, "members": 0.0,
+           "native_writes": 0.0, "epochs": 0.0, "epoch_failures": 0.0,
+           "fsync_refused": 0.0, "read_plane_reads": 0.0,
+           "uds_reads": 0.0, "python_reads": 0.0}
+    plane = {"write_plane_requests_total": "native_writes",
+             "write_plane_epochs_total": "epochs",
+             "write_plane_epoch_failures_total": "epoch_failures",
+             "write_plane_fsync_refused_total": "fsync_refused",
+             "read_plane_requests_total": "read_plane_reads",
+             "uds_reads_total": "uds_reads"}
+    for u in urls:
+        text = http_bytes("GET", f"{u}/metrics", timeout=60)[1].decode()
+        for m in _PLANE_LINE.finditer(text):
+            if m.group(1) in plane:
+                out[plane[m.group(1)]] += float(m.group(3))
+        out["fsyncs"] += sum(v for _, v in _samples(
+            text, "volume_fsyncs_total"))
+        for key, name in (("batches", "group_commit_batch_size_count"),
+                          ("members", "group_commit_batch_size_sum")):
+            out[key] += sum(v for lb, v in _samples(text, name)
+                            if lb.get("site") == "volume.needle")
+        out["python_reads"] += sum(
+            v for _, v in _samples(text, "read_plane_fallbacks_total"))
+    return out
+
+
+def _fsync_delta(after: dict, before: dict, client_acks: int) -> dict:
+    """What the servers counted between two `_fsync_counters`: the
+    writes they acked (Python-path barrier members less the epoch
+    handshakes, plus native acks), fsyncs per server-side ack and per
+    client ack, and the barrier's mean batch."""
+    d = {k: int(after[k] - before[k]) for k in after}
+    server_acks = d["members"] - d["epochs"] + d["native_writes"]
+    d.update(client_acks=client_acks, server_acks=server_acks,
+             fsyncs_per_server_ack=d["fsyncs"] / max(server_acks, 1),
+             fsyncs_per_client_ack=d["fsyncs"] / max(client_acks, 1),
+             native_share=d["native_writes"] / max(server_acks, 1),
+             mean_batch=d["members"] / max(d["batches"], 1))
+    return d
+
+
+def _replica_read(url: str, fid: str) -> "tuple[bytes, str]":
+    """One needle from one replica, down the client's ladder for that
+    location alone: its native read plane, then UDS, then its HTTP
+    port.  (bytes, the route that served them)."""
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    f = parse_file_id(fid)
+    loc = [{"url": url}]
+    data = operation._read_via_read_plane(loc, fid)
+    if data is not None:
+        return data, "read_plane"
+    data = operation._read_via_uds(loc, f.volume_id, f.key, f.cookie)
+    if data is not None:
+        return data, "uds"
+    st, body, _ = http_bytes("GET", f"{url}/{fid}", timeout=60)
+    check(st == 200, f"{fid} on {url}: {st} {body[:200]!r}")
+    return body, "http"
+
+
+def _fsync_rate(path: str, seconds: float = 1.0) -> float:
+    """1 KiB appends with an fsync each, one writer, a second: the
+    filesystem's fsync rate under the phase's volumes."""
+    p = os.path.join(path, ".fsync_probe")
+    fd = os.open(p, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    n, t0 = 0, time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            os.write(fd, b"x" * 1024)
+            os.fsync(fd)
+            n += 1
+    finally:
+        os.close(fd)
+        os.remove(p)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
+                     native_n: int = FSYNC_NATIVE_N,
+                     small_fill: int = FSYNC_SMALL_FILL,
+                     limit_mb: int = WRITE_LIMIT_MB,
+                     hedge_n: int = FSYNC_HEDGE_N,
+                     hedge_warm: int = FSYNC_HEDGE_WARM,
+                     filer_n: int = FSYNC_FILER_N,
+                     device: str = "cuda") -> dict:
+    """Config 1 on the `-fsync` tier: a `master -volumeSizeLimitMB 1024
+    -defaultReplication 001`, 3 `volume -max 8 -fsync` servers (one rack,
+    so every needle has two locations) and a filer in its default
+    configuration, all on this host, their directories on a disk
+    filesystem (its type printed; tmpfs is refused).  Writes: `weed
+    benchmark`'s shape (1 KiB, 16 threads, `bench_n`) at replication 001,
+    the same shape at 000 (`native_n`, the write plane's -fsync arm),
+    `small_fill` 1 KiB needles and config 1's needles into one volume
+    until the limit seals it; writes/s, p50/p99, the native share, the
+    epoch handshakes, the barrier's mean batch and fsyncs per ack.  One
+    volume server SIGKILLed right after the last ack and restarted on
+    its directory and port.  Two passes over every acked needle, read
+    from each of its replicas through that location's ladder (read
+    plane, UDS, HTTP), each plane's share; every body equal to its
+    seeded payload.  A warm pass, then two passes of `hedge_n` reads
+    under a `FSYNC_BUDGET_S` deadline with one replica SIGSTOPped,
+    hedging on and off.  The filer's `/dir/lookup` RPCs during its read
+    passes; the seconds from the SIGKILL until the filer's pushed map
+    drops the server, from its restart until the map holds it again,
+    and from a volume's growth until the map holds it.  `ec.encode` of
+    the sealed volume on the card: launches against its windows, shard
+    SHA-256s against the host's native codec on the same `.dat`, then
+    the 1 KiB needles of the encoded volume read back, 0 launches."""
+    import signal
+    import types as pytypes
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch import benchmark, operation, stats
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+    from seaweedfs_tpu_torch.util import deadline, hedge
+
+    # the client's heap after the earlier phases: a full collection of it
+    # stalls every reader thread for longer than a read's budget, so the
+    # objects alive now are kept out of the collector for the phase
+    gc.collect()
+    gc.freeze()
+    fs_type = _fs_type(os.path.dirname(tmp))
+    if fs_type in ("tmpfs", "ramfs"):
+        # an fsync on memory proves nothing: put the phase on the disk
+        # under the checkout (gitignored, removed at the end)
+        tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_work", "fsync_tier")
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    fs_type = _fs_type(tmp)
+    fsync_rate = _fsync_rate(tmp)
+    print(f"fsync_tier phase: volume directories on {fs_type} ({tmp}, "
+          f"{fsync_rate:.1f} fsyncs/s of 1 KiB appends, one writer); "
+          f"benchmark n = {bench_n} (the write phase's {BENCH_N}, cut for "
+          f"the phase's time)", flush=True)
+    check(fs_type not in ("tmpfs", "ramfs"),
+          f"the -fsync volumes would live on {fs_type}")
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(FSYNC_SERVERS)]
+    ports = [_free_port() for _ in dirs]
+    store = os.path.join(tmp, "filer.db")
+    procs: list = []
+    coll, filer_coll, native_coll = FSYNC_COLLECTION, "fsyncfiler", \
+        "fsyncnative"
+    d, p = 10, 4
+    cuts = {"benchmark_n": {"run": bench_n, "write_phase": BENCH_N,
+                            "reference_default": 1 << 20,
+                            "why": "the phase's time: ~360 acks/s at 001 "
+                                   "on the Python path"},
+            "native_n": native_n, "small_fill": small_fill,
+            "hedge_warm": hedge_warm, "filer_files": filer_n,
+            "servers": {"run": FSYNC_SERVERS, "why": "one host, UDS"}}
+    phase_t0 = time.perf_counter()
+    real_ttl = operation._vid_cache.TTL
+
+    def volume_argv(i):
+        return ["volume", "-dir", dirs[i], "-port", str(ports[i]),
+                "-mserver", murl, "-max", str(WRITE_MAX_VOLUMES),
+                "-rack", "r1", "-fsync", "-device", device]
+
+    try:
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb),
+              "-defaultReplication", "001"]],
+            [os.path.join(tmp, "master.log")], procs, "master")
+        urls = _start_procs([volume_argv(i) for i in range(len(dirs))],
+                            [dd + ".log" for dd in dirs], procs, "volume")
+        proc_of = dict(zip(urls, procs[1:]))
+        (furl,) = _start_procs(
+            [["filer", "-port", "0", "-master", murl, "-store", store,
+              "-collection", filer_coll]],
+            [os.path.join(tmp, "filer.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n")
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            end = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < end, f"timed out: {what}")
+                time.sleep(0.02)
+
+        def holders() -> "dict[int, list[str]]":
+            out: dict = {}
+            for node, v in iter_volume_list_volumes(get("/vol/list")):
+                out.setdefault(v["id"], []).append(node["url"])
+            return out
+
+        def pushed() -> "dict[int, list[str]]":
+            st = http_json("GET", f"{furl}/debug/follow", timeout=30)
+            return {int(k): v for k, v in
+                    (st.get("volumes") or {}).items()}
+
+        def lookup_rpcs() -> float:
+            text = http_bytes("GET", f"{murl}/metrics", timeout=30)[1]
+            m = re.search(rb'^master_route_requests_total\{path="/dir/'
+                          rb'lookup"\} (\S+)$', text, re.M)
+            return float(m.group(1)) if m else 0.0
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "3 volume servers registered")
+        start_s = time.perf_counter() - phase_t0
+        status = {u: http_json("GET", f"{u}/status", timeout=30)
+                  for u in urls}
+        for u, st in status.items():
+            check(st.get("udsPath") and os.path.exists(st["udsPath"]) and
+                  st.get("readPlanePort") and st.get("writePlanePort"),
+                  f"{u} runs without UDS or a native plane: {st}")
+        poll(lambda: http_json("GET", f"{furl}/debug/follow").get(
+            "synced"), "the filer's follow stream syncs")
+
+        # 1. weed benchmark's shape at 001: the Python path, every write
+        # acked after the barrier's fsync on both replicas
+        payload_b = None
+        bench_fids: list = []
+        real_read = operation.read
+
+        def recording_read(master, fid, *a, **kw):
+            data = real_read(master, fid, *a, **kw)
+            bench_fids.append(fid)
+            return data
+        c0 = _fsync_counters(urls)
+        operation.read = recording_read
+        try:
+            bench = benchmark.run_benchmark(murl, bench_n, BENCH_SIZE,
+                                            BENCH_C)
+        finally:
+            operation.read = real_read
+        c1 = _fsync_counters(urls)
+        import random
+        rng0 = random.Random(0)
+        payload_b = bytes(rng0.getrandbits(8) for _ in range(BENCH_SIZE))
+        check(len(set(bench_fids)) == bench_n,
+              f"the benchmark read {len(set(bench_fids))} of {bench_n}")
+        w_bench = _fsync_delta(c1, c0, bench_n)
+        check(w_bench["fsyncs"] > 0 and w_bench["fsyncs_per_server_ack"]
+              <= 1.0, f"the benchmark's fsyncs: {w_bench}")
+
+        # 2. the same shape at 000: the write plane parks each ack on a
+        # flush epoch until the barrier's fsync ran
+        lock = threading.Lock()
+        native_fids: list = []
+
+        def write_native(i):
+            body = _payload(seed + 30, i, BENCH_SIZE)
+            t = time.perf_counter()
+            a, _r = operation.assign_and_upload(
+                murl, body, collection=native_coll, replication="000")
+            ms = (time.perf_counter() - t) * 1e3
+            with lock:
+                native_fids.append((a.fid, i))
+            return ms
+        t = time.perf_counter()
+        with ThreadPoolExecutor(BENCH_C) as pool:
+            native_ms = list(pool.map(write_native, range(native_n)))
+        native_s = time.perf_counter() - t
+        c2 = _fsync_counters(urls)
+        w_native = _fsync_delta(c2, c1, native_n)
+        check(w_native["native_share"] > 0.9 and w_native["epochs"] > 0
+              and not w_native["epoch_failures"]
+              and not w_native["fsync_refused"],
+              f"the write plane's -fsync arm: {w_native}")
+
+        # 3. the fill: 1 KiB needles, then config 1's needles until the
+        # limit seals the volume
+        small = {}
+
+        def write_small(i):
+            body = _payload(seed + 31, i, BENCH_SIZE)
+            fid = operation.submit(murl, body, collection=coll)
+            with lock:
+                small[fid] = i
+        t = time.perf_counter()
+        with ThreadPoolExecutor(BENCH_C) as pool:
+            list(pool.map(write_small, range(small_fill)))
+        small_s = time.perf_counter() - t
+        (first,) = {parse_file_id(f).volume_id for f in small}
+        frng = np.random.default_rng(seed)
+        counter = itertools.count(1)
+        stop = threading.Event()
+        fill: list = []             # (fid, nid, size, ms)
+        fill_sizes: dict = {}
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    nid = next(counter)
+                    fill_sizes[nid] = int(frng.integers(256 << 10, 4 << 20))
+                body = _payload(seed, nid, fill_sizes[nid])
+                t = time.perf_counter()
+                fid = operation.submit(murl, body, collection=coll)
+                ms = (time.perf_counter() - t) * 1e3
+                with lock:
+                    fill.append((fid, nid, len(body), ms))
+
+        def sealed():
+            return any(os.path.getsize(os.path.join(dd, f)) >=
+                       limit_mb << 20 for dd in dirs for f in os.listdir(dd)
+                       if f == f"{coll}_{first}.dat")
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(writer) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and not sealed():
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        c3 = _fsync_counters(urls)
+        w_fill = _fsync_delta(c3, c2, small_fill + len(fill))
+        fill_bytes = sum(w[2] for w in fill)
+        check(sealed(), f"volume {first} did not reach the limit")
+        in_first = [w for w in fill if parse_file_id(w[0]).volume_id == first]
+
+        # 4. SIGKILL a holder of the fill right after the last ack; the
+        # filer's pushed map drops it; restart on its directory and port
+        locs = holders()
+        victim = locs[first][0]
+        vi = urls.index(victim)
+        t_kill = time.perf_counter()
+        proc_of[victim].send_signal(signal.SIGKILL)
+        proc_of[victim].wait(30)
+        poll(lambda: all(victim not in us for us in pushed().values()),
+             "the filer's pushed map drops the killed server", 30)
+        depart_s = time.perf_counter() - t_kill
+        t_restart = time.perf_counter()
+        procs.remove(proc_of[victim])
+        (again,) = _start_procs([volume_argv(vi)], [dirs[vi] + ".log"],
+                                procs, "volume", log_mode="a")
+        check(again == victim, f"restarted at {again}, not {victim}")
+        proc_of[victim] = procs[-1]
+        restart_s = time.perf_counter() - t_restart
+        operation._invalidate_status(victim)
+        poll(lambda: all(victim in pushed().get(v, [])
+                         for v, us in locs.items() if victim in us),
+             "the filer's pushed map holds the restarted server", 30)
+        return_s = time.perf_counter() - t_restart
+
+        # 5. two passes over every acked needle from each of its replicas
+        locs = holders()
+        items = ([(f, payload_b) for f in bench_fids] +
+                 [(f, ("native", i)) for f, i in native_fids] +
+                 [(f, ("small", i)) for f, i in small.items()] +
+                 [(w[0], ("fill", w[1])) for w in fill])
+        reads = [(u, fid, want) for fid, want in items
+                 for u in locs[parse_file_id(fid).volume_id]]
+        check(all(len(locs[parse_file_id(f).volume_id]) ==
+                  (1 if isinstance(w, tuple) and w[0] == "native" else 2)
+                  for f, w in items), "a needle's replica count")
+
+        def body_of(want):
+            if isinstance(want, bytes):
+                return want
+            kind, i = want
+            return {"native": lambda: _payload(seed + 30, i, BENCH_SIZE),
+                    "small": lambda: _payload(seed + 31, i, BENCH_SIZE),
+                    "fill": lambda: _payload(seed, i, fill_sizes[i])}[kind]()
+
+        def read_pass(what):
+            routes: dict = {}
+            by_server: dict = {}
+            before = _fsync_counters(urls)
+
+            def one(item):
+                u, fid, want = item
+                t = time.perf_counter()
+                data, route = _replica_read(u, fid)
+                ms = (time.perf_counter() - t) * 1e3
+                check(data == body_of(want),
+                      f"{what}: {fid} on {u} by {route}: {len(data)} "
+                      f"bytes, not its payload")
+                return u, route, ms
+            t = time.perf_counter()
+            with ThreadPoolExecutor(READ_C) as pool:
+                got = list(pool.map(one, reads))
+            secs = time.perf_counter() - t
+            after = _fsync_counters(urls)
+            for u, route, _ms in got:
+                routes[route] = routes.get(route, 0) + 1
+                srv = "restarted" if u == victim else "others"
+                by_server.setdefault(srv, {}).setdefault(route, 0)
+                by_server[srv][route] += 1
+            srv = {k: int(after[k] - before[k]) for k in
+                   ("read_plane_reads", "uds_reads", "python_reads")}
+            out = {"reads": len(got), "seconds": secs,
+                   "reads_per_s": len(got) / secs,
+                   **_pcts([g[2] for g in got]),
+                   "share": {k: v / len(got) for k, v in routes.items()},
+                   "by_server": by_server, "servers_counted": srv}
+            print(f"fsync_tier {what}: {json.dumps(out)}", flush=True)
+            return out
+        pass_a = read_pass("after the restart")
+        pass_b = read_pass("the same pass again")
+        check(pass_a["share"].get("uds", 0) > 0,
+              "UDS served no read of the pass after the restart")
+
+        # 6. hedged reads under a deadline past a stopped replica: the
+        # benchmark's needles whose first location is the stopped one.
+        # Lookups: the client's vid cache, filled before the stop and
+        # held for the passes (the master drops a node after 3 missed
+        # pulses, and the passes would otherwise read its answer)
+        operation._vid_cache.TTL = 3600.0
+        bvids = sorted({parse_file_id(f).volume_id for f in bench_fids})
+        for v in bvids:
+            operation.lookup(murl, v, use_cache=False)
+        stopped = operation.lookup(murl, bvids[0])[0]["url"]
+        sample_pool = [f for f in bench_fids if operation.lookup(
+            murl, parse_file_id(f).volume_id)[0]["url"] == stopped]
+        hrng = np.random.default_rng([seed, 32])
+        hsample = [sample_pool[i] for i in hrng.choice(
+            len(sample_pool), min(hedge_n, len(sample_pool)),
+            replace=False)]
+        check(len(hsample) == min(hedge_n, len(sample_pool)) >=
+              min(hedge_n, bench_n // 2), f"{len(hsample)} hedge samples")
+        # every read's primary is the stopped replica: the default budget
+        # (16 tokens, 10% of primary successes) would hedge ~16 of them,
+        # and the default 64 workers are all parked on primaries that
+        # wait out their 100 ms (16 readers x 100 ms / ~25 ms a read)
+        hedge_knobs = {"SEAWEEDFS_TPU_HEDGE_BURST": str(hedge_n),
+                       "SEAWEEDFS_TPU_HEDGE_WORKERS": "256"}
+
+        def hedge_pass(what, stop_replica: bool, env: dict, sample,
+                       budget: "float | None" = FSYNC_BUDGET_S):
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            won0 = _metric(stats.PROCESS.render(),
+                           'seaweedfs_tpu_hedges_won_total{kind="read"}')
+            iss0 = _metric(stats.PROCESS.render(),
+                           'seaweedfs_tpu_hedges_issued_total{kind="read"}')
+            hedge._tokens.reset()
+
+            def one(fid):
+                t = time.perf_counter()
+                try:
+                    if budget is None:
+                        data = operation.read(murl, fid)
+                    else:
+                        with deadline.scope(budget):
+                            data = operation.read(murl, fid)
+                except (deadline.DeadlineExceeded, RuntimeError):
+                    data = None
+                ms = (time.perf_counter() - t) * 1e3
+                ok = data == payload_b
+                check(data is None or ok, f"{what}: {fid} not its bytes")
+                return ms, ok and (budget is None or ms <= budget * 1e3)
+            threshold = hedge.read_threshold()
+            pid = proc_of[stopped].pid
+            got: list = [None] * len(sample)
+            errs: list = []
+
+            def reader(first: int) -> None:
+                try:
+                    for i in range(first, len(sample), READ_C):
+                        got[i] = one(sample[i])
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errs.append(e)
+            readers = [threading.Thread(target=reader, args=(i,))
+                       for i in range(READ_C)]
+            # what the phase has built since its start (the acked
+            # needles, the read passes' records) leaves the collector
+            # too, and the readers take their fids by stride, not from a
+            # pool's queue of a future a read: a full collection stalls
+            # every reader, and its time grows with what it scans
+            gc.collect()
+            gc.freeze()
+            full_gc: list = []        # the client's full collections
+
+            def on_gc(phase, info):
+                if info["generation"] == 2:
+                    full_gc.append(time.perf_counter() if phase == "start"
+                                   else time.perf_counter() - full_gc.pop())
+            gc.callbacks.append(on_gc)
+            t = time.perf_counter()
+            try:
+                if stop_replica:
+                    os.kill(pid, signal.SIGSTOP)
+                for r in readers:
+                    r.start()
+                for r in readers:
+                    r.join()
+            finally:
+                gc.callbacks.remove(on_gc)
+                if stop_replica:
+                    os.kill(pid, signal.SIGCONT)
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            secs = time.perf_counter() - t
+            if errs:
+                raise errs[0]
+            out = {"reads": len(got), "seconds": secs,
+                   "reads_per_s": len(got) / secs,
+                   **_pcts([g[0] for g in got]),
+                   "over_budget": sum(1 for g in got if not g[1]),
+                   "budget_ms": None if budget is None else budget * 1e3,
+                   "client_full_collections": len(full_gc),
+                   "client_full_collection_max_ms":
+                       max(full_gc, default=0.0) * 1e3,
+                   "threshold_ms": None if threshold is None
+                   else threshold * 1e3, "env": env,
+                   "hedges_issued": int(_metric(
+                       stats.PROCESS.render(),
+                       'seaweedfs_tpu_hedges_issued_total{kind="read"}')
+                       - iss0),
+                   "hedges_won": int(_metric(
+                       stats.PROCESS.render(),
+                       'seaweedfs_tpu_hedges_won_total{kind="read"}')
+                       - won0)}
+            print(f"fsync_tier {what}: {json.dumps(out)}", flush=True)
+            return out
+        hedge.reset()
+        # the tracker learns what a primary read takes from reads that
+        # carry no deadline (they never hedge), as the JAX chaos test's
+        warm = hedge_pass("hedge warm-up, every replica up, no deadline",
+                          False, hedge_knobs, hsample[:hedge_warm], None)
+        check(hedge.read_threshold() is not None, "the tracker is cold")
+        hedged = hedge_pass("hedged, one replica stopped", True,
+                            hedge_knobs, hsample)
+        poll(lambda: stopped in get("/cluster/status")["dataNodes"],
+             "the stopped replica is back", 30)
+        unhedged = hedge_pass("unhedged, one replica stopped", True,
+                              {"SEAWEEDFS_TPU_HEDGE_READS": "0"}, hsample)
+        operation._vid_cache.TTL = real_ttl
+        check(hedged["over_budget"] == 0,
+              f"{hedged['over_budget']} hedged reads missed the budget")
+        check(hedged["hedges_won"] > 0, "no hedge won")
+        poll(lambda: stopped in get("/cluster/status")["dataNodes"] and
+             all(stopped in pushed().get(v, []) for v in bvids),
+             "the stopped replica is back in the filer's map", 30)
+
+        # 7. the filer: 1 KiB files, two read passes; its /dir/lookup RPCs
+        ffiles = {f"/f/d{i % 16:02d}/f{i:05d}": _payload(seed + 33, i,
+                                                           BENCH_SIZE)
+                  for i in range(filer_n)}
+
+        def fput(item):
+            path, body = item
+            st, ans, _ = http_bytes("PUT", f"{furl}{path}", body,
+                                    timeout=60)
+            check(st == 201, f"filer PUT {path}: {st} {ans[:200]!r}")
+        with ThreadPoolExecutor(BENCH_C) as pool:
+            list(pool.map(fput, ffiles.items()))
+        fvids = {v["id"] for _n, v in iter_volume_list_volumes(
+            get("/vol/list")) if v.get("collection") == filer_coll}
+        poll(lambda: all(v in pushed() for v in fvids),
+             "the filer's map holds its volumes", 30)
+
+        def fget(path):
+            t = time.perf_counter()
+            st, body, _ = http_bytes("GET", f"{furl}{path}", timeout=60)
+            check(st == 200 and body == ffiles[path],
+                  f"filer GET {path}: {st}")
+            return (time.perf_counter() - t) * 1e3
+        filer_passes = {}
+        for what in ("cold", "warm"):
+            l0 = lookup_rpcs()
+            t = time.perf_counter()
+            with ThreadPoolExecutor(READ_C) as pool:
+                ms = list(pool.map(fget, sorted(ffiles)))
+            secs = time.perf_counter() - t
+            filer_passes[what] = {"reads": len(ms), "seconds": secs,
+                                  "reads_per_s": len(ms) / secs,
+                                  **_pcts(ms),
+                                  "lookup_rpcs": int(lookup_rpcs() - l0)}
+
+        # 8. a volume's growth until the filer's map holds it
+        t = time.perf_counter()
+        grown = http_json("POST", f"{murl}/vol/grow",
+                          {"collection": "fsyncgrow", "replication": "001",
+                           "count": 1}, timeout=60)["volumeIds"]
+        check(grown, "no volume grew")
+        poll(lambda: all(len(pushed().get(v, [])) == 2 for v in grown),
+             "the filer's map holds the grown volume", 30)
+        grow_s = time.perf_counter() - t
+        follow_state = http_json("GET", f"{furl}/debug/follow")
+
+        # 9. ec.encode of the sealed volume on the card; its shards held
+        # to the host's native codec on the same .dat
+        size = max(os.path.getsize(os.path.join(dd, f"{coll}_{first}.dat"))
+                   for dd in dirs if os.path.exists(
+                       os.path.join(dd, f"{coll}_{first}.dat")))
+        poll(lambda: all(v["size"] == size for n_, v in
+                         iter_volume_list_volumes(get("/vol/list"))
+                         if v["id"] == first), "the master sees the size")
+        source = operation.lookup(murl, first, use_cache=False)[0]["url"]
+        twin = os.path.join(tmp, "twin")
+        os.makedirs(twin)
+        src_base = os.path.join(dirs[urls.index(source)], f"{coll}_{first}")
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(src_base + ext, os.path.join(
+                twin, f"{coll}_{first}{ext}"))
+        host = rs_native.ReedSolomonNative(d, p)
+
+        class _HostCtx(ECContext):
+            def create_codec(self):
+                return pytypes.SimpleNamespace(parity_lazy=host.parity)
+        t = time.perf_counter()
+        ec_encoder.write_ec_files(os.path.join(twin, f"{coll}_{first}"),
+                                  _HostCtx(d, p, device="cpu"))
+        twin_s = time.perf_counter() - t
+        twin_sha = [sha256_file(os.path.join(twin, f"{coll}_{first}" +
+                                             ECContext().to_ext(i)))
+                    for i in range(d + p)]
+        ctx = ECContext(d, p, device="cpu")
+        expect = sum(launches_for(d, item[3]) for item in
+                     ec_encoder._encode_work_items(size, ctx))
+        env = commands.CommandEnv(murl)
+        before = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={first} -collection={coll}; "
+                 f"unlock")
+        enc_s = time.perf_counter() - t
+        enc_launches = int(_counters(urls)["launches"] - before)
+        check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+        check(enc_launches == expect,
+              f"the fsync volume's encode launched {enc_launches}, the "
+              f"windows of its work list are {expect}")
+        poll(lambda: first not in holders() and sorted(
+            s for loc in get(f"/dir/ec_lookup?volumeId={first}").get(
+                "shardIdLocations", []) for s in loc["shardIds"]) ==
+            list(range(d + p)), "14 shards listed and the volume gone")
+        shard_sha = []
+        for i in range(d + p):
+            name = f"{coll}_{first}" + ECContext().to_ext(i)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_sha.append(sha256_file(path))
+        check(shard_sha == twin_sha,
+              "the card's shards differ from the host codec's: " + str(
+                  [i for i in range(d + p) if shard_sha[i] != twin_sha[i]]))
+        shutil.rmtree(twin, ignore_errors=True)
+
+        # 10. the encoded volume's 1 KiB needles read back: 0 launches
+        before = _counters(urls)["launches"]
+
+        def ec_read(item):
+            fid, i = item
+            t = time.perf_counter()
+            data = operation.read(murl, fid)
+            check(data == _payload(seed + 31, i, BENCH_SIZE),
+                  f"EC read of {fid}: not its payload")
+            return (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        with ThreadPoolExecutor(READ_C) as pool:
+            ec_ms = list(pool.map(ec_read, sorted(small.items())))
+        ec_s = time.perf_counter() - t
+        ec_launches = int(_counters(urls)["launches"] - before)
+        check(ec_launches == 0,
+              f"the reads of the encoded volume launched {ec_launches}")
+    finally:
+        gc.unfreeze()
+        operation._vid_cache.TTL = real_ttl
+        for pr in procs:        # a stopped replica must take its SIGTERM
+            if pr.poll() is None:
+                try:
+                    os.kill(pr.pid, signal.SIGCONT)
+                except OSError:
+                    pass
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a server of the phase did not stop cleanly: {bad}")
+    fill_ms = [w[3] for w in fill]
+    out = {"phase": "fsync_tier", "filesystem": fs_type,
+           "fsyncs_per_s_one_writer": fsync_rate,
+           "servers": FSYNC_SERVERS, "cuts": cuts,
+           "cluster_start_seconds": start_s,
+           "writes": {
+               "benchmark_001": {"ops": bench, **w_bench},
+               "native_000": {"writes": native_n, "seconds": native_s,
+                              "writes_per_s": native_n / native_s,
+                              **_pcts(native_ms), **w_native},
+               "fill_001": {"small": small_fill, "small_seconds": small_s,
+                            "needles": len(fill),
+                            "in_sealed_volume": len(in_first),
+                            "bytes": fill_bytes, "seconds": fill_s,
+                            "gbps": fill_bytes / fill_s / 1e9,
+                            **_pcts(fill_ms), **w_fill}},
+           "sigkill": {"server": victim, "depart_to_map_seconds": depart_s,
+                       "restart_seconds": restart_s,
+                       "restart_to_map_seconds": return_s,
+                       "acked_needles": len(items),
+                       "replica_reads": len(reads),
+                       "every_acked_needle_equal_on_every_replica": True},
+           "read_passes": {"after_restart": pass_a, "again": pass_b},
+           "hedged": {"stopped": stopped, "knobs": hedge_knobs,
+                      "lookups": "the client's vid cache, filled before "
+                                 "the stop and held for the passes",
+                      "warm": warm, "hedging_on": hedged,
+                      "hedging_off": unhedged},
+           "follow": {"filer_passes": filer_passes,
+                      "grow_to_map_seconds": grow_s,
+                      "grown": grown, "filer_state": {
+                          k: v for k, v in follow_state.items()
+                          if k != "volumes"}},
+           "encode": {"volume": first, "bytes": size, "seconds": enc_s,
+                      "gbps": size / enc_s / 1e9, "launches": enc_launches,
+                      "expected_launches": expect,
+                      "host_codec": rs_native.gf_native_simd(),
+                      "host_codec_seconds": twin_s,
+                      "shards_sha256_equal_host_codec": True},
+           "ec_reads": {"reads": len(ec_ms), "seconds": ec_s,
+                        "reads_per_s": len(ec_ms) / ec_s, **_pcts(ec_ms),
+                        "kernel_launches": ec_launches},
+           "launches": {"encode": enc_launches, "reads": ec_launches},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -4683,6 +5477,8 @@ def main(argv=None) -> int:
         filer = phase_filer(os.path.join(work, "filer"), args.seed)
         filer_plane = phase_filer_plane(os.path.join(work, "filer_plane"),
                                         args.seed)
+        fsync = phase_fsync_tier(os.path.join(work, "fsync_tier"),
+                                 args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -4709,7 +5505,9 @@ def main(argv=None) -> int:
               "filer_reads": filer["launches"]["reads"],
               "filer_plane_encode": filer_plane["launches"]["encode"],
               "filer_plane_rebuild": filer_plane["launches"]["rebuild"],
-              "filer_plane_reads": filer_plane["launches"]["reads"]}),
+              "filer_plane_reads": filer_plane["launches"]["reads"],
+              "fsync_encode": fsync["launches"]["encode"],
+              "fsync_reads": fsync["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -5,7 +5,7 @@
         [-telemetry -telemetryUrl URL]
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
         [-ip 127.0.0.1] [-mserver HOST:PORT] [-device cuda] [-max 8]
-        [-dataCenter DC] [-rack RACK]
+        [-dataCenter DC] [-rack RACK] [-fsync]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
         [-master HOST:PORT] [-store filer.db] [-collection C]
         [-replication 000]
@@ -25,7 +25,9 @@
 volume server (`server/volume_server.py`) that heartbeats to
 `-mserver` (without it, the server has no master), reporting `-max`
 volume slots and its `-dataCenter` and `-rack`, which the master's
-placement of new volumes reads.  The master grows volumes of
+placement of new volumes reads.  `-fsync` puts the volume server on
+the power-loss tier: a write or delete is acked after an fsync of its
+`.dat`, one fsync a group-commit window.  The master grows volumes of
 `-defaultReplication` for assigns that name none.  Each prints
 `<role> server listening on <ip>:<port>` on its first line (`-port 0`
 takes a free port) and serves until SIGTERM or SIGINT, when it stops
@@ -69,6 +71,7 @@ and prints its fid; `download` writes a fid's bytes to standard output.
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import signal
 import sys
@@ -78,7 +81,8 @@ import threading
 
 def _serve(server, line, then=None) -> int:
     """Start `server`, print `line(server)`, call `then(server)` if
-    given, and serve until SIGTERM or SIGINT."""
+    given, freeze the heap so far out of the cycle collector, and serve
+    until SIGTERM or SIGINT."""
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
@@ -86,6 +90,11 @@ def _serve(server, line, then=None) -> int:
     print(line(server), flush=True)
     if then is not None:
         then(server)
+    # the startup heap (torch and the other modules, the loaded indexes)
+    # leaves the cycle collector: a full collection of it takes tens of
+    # milliseconds, and every request thread waits behind one
+    gc.collect()
+    gc.freeze()
     try:
         stop.wait()
     finally:
@@ -120,6 +129,9 @@ def main(argv=None) -> int:
     v.add_argument("-max", type=int, default=8)
     v.add_argument("-dataCenter", default="")
     v.add_argument("-rack", default="")
+    v.add_argument("-fsync", action="store_true",
+                   help="fsync acked writes (the power-loss tier; one "
+                        "fsync a group-commit window)")
     ad = sub.add_parser("admin", help="start the maintenance admin")
     ad.add_argument("-ip", default="127.0.0.1")
     ad.add_argument("-port", type=int, default=23646)
@@ -213,7 +225,7 @@ def main(argv=None) -> int:
             args.dir.split(","), host=args.ip, port=args.port,
             device=args.device or "cuda", master=args.mserver,
             data_center=args.dataCenter, rack=args.rack,
-            max_volume_count=args.max),
+            max_volume_count=args.max, fsync=args.fsync),
             _listening("volume server"))
     if args.cmd == "admin":
         from .plugin.admin import AdminServer

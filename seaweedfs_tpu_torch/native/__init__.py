@@ -231,6 +231,18 @@ def _bind_write_plane(lib: ctypes.CDLL) -> None:
     _sig(lib.wp_fallbacks, [h], ctypes.c_ulonglong)
     _sig(lib.wp_latency, [h, ctypes.POINTER(ctypes.c_ulonglong)],
          ctypes.c_int)
+    # the -fsync tier's epoch handshake: the plane parks an ack until
+    # Python has run the volume's barrier for its epoch.  A library
+    # without it still serves the default tier (`epoch_handshake`
+    # False: server/write_plane.py then refuses -fsync volumes)
+    try:
+        _sig(lib.wp_wait_epoch, [h, ctypes.c_int, ctypes.POINTER(vid),
+                                 ctypes.POINTER(ctypes.c_ulonglong)],
+             ctypes.c_int)
+        _sig(lib.wp_epoch_done, [h, vid, ctypes.c_ulonglong])
+        lib.epoch_handshake = True
+    except AttributeError:
+        lib.epoch_handshake = False
 
 
 def load_write_plane() -> "ctypes.CDLL | None":

@@ -1,7 +1,6 @@
 """Client verbs of the port (weed/operation/; `seaweedfs_tpu/operation.py`):
 `master_json`, `assign`, `upload`, `assign_and_upload` / `submit`,
-`lookup` through a TTL'd vid cache (weed/wdclient/vid_map.go), `read`
-with failover over a volume's locations, and `delete`.
+`lookup`, `read` with failover over a volume's locations, and `delete`.
 
 The port's master is a single node, so there is no leader to follow:
 the seeds of a comma-separated list are tried in order and the first
@@ -11,14 +10,23 @@ budget and forward it (the HTTP client stamps `X-Weed-Deadline-Ms`); a
 spent budget raises `DeadlineExceeded` and is never taken for a failed
 location.
 
+`lookup` resolves from the follow stream's pushed map when
+`enable_follow(master)` runs one (`wdclient.MasterFollower`, refcounted
+a master), then from a TTL'd vid cache (weed/wdclient/vid_map.go), then
+by asking the master.
+
 A plain upload (no name, no mime) goes to the server's native write
-plane and a whole-needle read to its native read plane, over a lean
-persistent socket a thread (`_plane_request`), at the ports the
-server's `/status` gives (cached per server).  A 404 or an unreachable
-plane falls through to the server's HTTP port, byte for byte the path
+plane, over a lean persistent socket a thread (`_plane_request`), at the
+port the server's `/status` gives (cached per server).  A whole-needle
+read takes the JAX package's ladder: a hedged read across the first two
+locations when the request carries a deadline (`util/hedge`: each leg
+runs its location's UDS, read plane and HTTP port in turn); then the
+native read plane of each location; then the same-host UDS zero-copy
+plane (`server/uds_reader.py`, at `/status`'s `udsPath`); then the HTTP
+ports.  Every primary read that succeeds feeds the hedge's threshold.
+A 404 or an unreachable plane falls through, byte for byte the path
 without planes; everything else goes over the pooled keep-alive client
-of `server/httpd.py`.  No JWTs, UDS reader, hedged reads or follow-mode
-lookups (ROADMAP).  It imports no torch.
+of `server/httpd.py`.  No JWTs (ROADMAP).  It imports no torch.
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ from dataclasses import dataclass
 
 from . import tracing
 from .server.httpd import http_bytes, http_json
+from .server.uds_reader import uds_read_needle
 from .storage import types
-from .util import deadline
+from .util import deadline, hedge
 
 
 def master_json(master: str, method: str, path: str,
@@ -270,10 +279,52 @@ def submit(master: str, data: bytes, name: str = "", mime: str = "",
     return a.fid
 
 
+_followers: "dict[str, object]" = {}
+_follower_refs: "dict[str, int]" = {}
+_followers_lock = threading.Lock()
+
+
+def enable_follow(master: str) -> None:
+    """Start the follow stream of `master` (a pushed vid map over its
+    /cluster/watch, masterclient.go:471 KeepConnectedToMaster), or join
+    the one running: refcounted, one a master spec in the process.  Each
+    call is paired with one `disable_follow`; the stream stops when its
+    last user leaves."""
+    from .wdclient import MasterFollower
+    with _followers_lock:
+        _follower_refs[master] = _follower_refs.get(master, 0) + 1
+        if master not in _followers:
+            _followers[master] = MasterFollower(master).start()
+
+
+def disable_follow(master: str) -> None:
+    with _followers_lock:
+        refs = _follower_refs.get(master, 0) - 1
+        if refs > 0:
+            _follower_refs[master] = refs
+            return
+        _follower_refs.pop(master, None)
+        f = _followers.pop(master, None)
+    if f is not None:
+        f.stop()
+
+
+def follower(master: str):
+    """The running follow stream of `master`, or None."""
+    return _followers.get(master)
+
+
 def lookup(master: str, vid: int, use_cache: bool = True) -> list[dict]:
-    """operation/lookup.go Lookup -> [{url, publicUrl}], from the TTL'd
-    cache unless `use_cache` is False, else from the master."""
+    """operation/lookup.go Lookup -> [{url, publicUrl}]: from the follow
+    stream's pushed map when one runs, then the TTL'd cache, then the
+    master.  `use_cache=False` asks the master (a caller that needs the
+    current locations: the push may trail a volume that just moved)."""
     if use_cache:
+        f = _followers.get(master)
+        if f is not None:
+            locs = f.get_locations(vid)
+            if locs is not None:
+                return locs
         cached = _vid_cache.get(master, vid)
         if cached is not None:
             return cached
@@ -287,21 +338,40 @@ def lookup(master: str, vid: int, use_cache: bool = True) -> list[dict]:
 
 def read(master: str, fid: str, offset: int = 0,
          size: int | None = None) -> bytes:
-    """A whole or ranged needle read: each location in turn; when all
-    fail, the locations are looked up afresh and tried once more."""
+    """A whole or ranged needle read down the ladder of the module's
+    docstring; when every location fails, the locations are looked up
+    afresh and tried once more."""
     vid = int(fid.split(",", 1)[0])
     locs = lookup(master, vid)
     headers = {}
+    key = cookie = -1
     if offset or size is not None:
         end = f"{offset + size - 1}" if size is not None else ""
         headers["Range"] = f"bytes={offset}-{end}"
     else:
+        try:
+            part = fid.split(",", 1)[1]
+            key, cookie = int(part[:-8], 16), int(part[-8:], 16)
+        except (IndexError, ValueError):
+            key = cookie = -1
+    if len(locs) >= 2:
+        # a deadline-carrying read past a slow replica: the first of two
+        # legs to answer wins (None: not armed, or no success)
+        body = _maybe_hedged_read(locs, fid, headers, vid, key, cookie)
+        if body is not None:
+            return body
+    if key >= 0:
+        t0 = time.monotonic()
         data = _read_via_read_plane(locs, fid)
+        if data is None:
+            data = _read_via_uds(locs, vid, key, cookie)
         if data is not None:
+            hedge.note_primary(time.monotonic() - t0)
             return data
     last_err = None
     for attempt in range(2):
         for loc in locs:
+            t0 = time.monotonic()
             try:
                 status, body, _ = http_bytes(
                     "GET", f"{loc['url']}/{fid}", None, headers,
@@ -315,6 +385,7 @@ def read(master: str, fid: str, offset: int = 0,
                 last_err = f"{loc['url']} -> {e}"
                 continue
             if status in (200, 206):
+                hedge.note_primary(time.monotonic() - t0)
                 return body
             last_err = f"{loc['url']} -> {status}"
         _vid_cache.invalidate(master, vid)
@@ -538,6 +609,125 @@ def _read_via_read_plane(locs: "list[dict]", fid: str
         if status == 200:
             return body
     return None
+
+
+def _uds_path_for(url: str) -> "str | None":
+    """The server's UDS read socket when this host can reach it (the
+    same machine, or a shared filesystem namespace), else None."""
+    p = _server_status(url).get("udsPath") or ""
+    return p if p and os.path.exists(p) else None
+
+
+def _uds_read_one(loc: dict, vid: int, key: int, cookie: int
+                  ) -> "tuple[bytes | None, bool]":
+    """One location's UDS attempt: (data, stop).  Data on a success;
+    stop when the needle's meaning lives on the server (compressed,
+    a chunk manifest or TTL'd: the HTTP port must serve it, and every
+    replica would answer alike); (None, False) when this location did
+    not serve it (no socket here, a transport error, a miss, a cookie
+    mismatch): the caller tries its next location or plane."""
+    misses = _uds_vid_misses()
+    until = misses.get((loc["url"], vid))
+    if until is not None:
+        if time.monotonic() < until:
+            return None, False
+        del misses[(loc["url"], vid)]
+    p = _uds_path_for(loc["url"])
+    if not p:
+        return None, False
+    try:
+        n = uds_read_needle(p, vid, key,
+                            timeout=deadline.io_timeout(10.0,
+                                                        site="uds.read"))
+    except deadline.DeadlineExceeded:
+        raise
+    except LookupError as e:
+        if str(e).startswith("volume "):
+            # no normal volume `vid` there (an EC volume, say): every
+            # read of it would miss, so skip the socket for 2 s
+            misses[(loc["url"], vid)] = time.monotonic() + 2.0
+        return None, False
+    except (OSError, ValueError):
+        return None, False
+    if n.cookie != cookie:
+        return None, False
+    if n.is_compressed() or n.is_chunked_manifest() or n.has_ttl():
+        return None, True
+    return bytes(n.data), False
+
+
+def _uds_vid_misses() -> dict:
+    """This thread's (server url, vid) -> monotonic time until which the
+    UDS reader is skipped for a vid the server does not hold as a normal
+    volume (the JAX client asks every location on every read)."""
+    m = getattr(_plane_local, "uds_misses", None)
+    if m is None:
+        m = _plane_local.uds_misses = {}
+    return m
+
+
+def _read_via_uds(locs: "list[dict]", vid: int, key: int, cookie: int
+                  ) -> "bytes | None":
+    """The same-host zero-copy read: the raw record over the server's
+    Unix socket, checked here.  None where it does not apply (no local
+    socket, or a needle whose meaning lives on the server)."""
+    for loc in locs:
+        data, stop = _uds_read_one(loc, vid, key, cookie)
+        if data is not None:
+            return data
+        if stop:
+            return None
+    return None
+
+
+def _maybe_hedged_read(locs: "list[dict]", fid: str, headers: dict,
+                       vid: int = -1, key: int = -1, cookie: int = -1
+                       ) -> "bytes | None":
+    """A first-wins read of `fid` across the first two locations
+    (`util/hedge`), for requests that carry a deadline only, once the
+    tracker knows what slow is and the budget leaves room for a second
+    leg.  Each leg runs its location's whole ladder: for a whole needle
+    (`key` >= 0) UDS first, the read plane second, then the HTTP port,
+    so one wedged replica costs about the p95 whichever plane it is
+    wedged on.  None: not armed, or no leg succeeded."""
+    d = deadline.get()
+    if d is None or not hedge.reads_enabled():
+        return None
+    threshold = hedge.read_threshold()
+    if threshold is None:
+        return None                       # a cold tracker
+    if d.remaining() <= threshold + deadline.MIN_TIMEOUT:
+        return None                       # no room for a second leg
+
+    def fetch(loc):
+        if key >= 0:
+            data, _stop = _uds_read_one(loc, vid, key, cookie)
+            if data is not None:
+                return 200, data
+            addr = _plane_addr(loc["url"], "readPlanePort")
+            if addr:
+                try:
+                    status, pbody = _plane_request(
+                        addr, "GET", f"/{fid}",
+                        timeout=deadline.io_timeout(10.0,
+                                                    site="plane.read"))
+                    if status == 200:
+                        return 200, pbody
+                except deadline.DeadlineExceeded:
+                    raise
+                except OSError:
+                    # a raced leg: the HTTP port next, and the status
+                    # cache is the sequential path's to drop
+                    pass
+        status, body, _ = http_bytes(
+            "GET", f"{loc['url']}/{fid}", None, headers,
+            timeout=deadline.io_timeout(60.0, site="volume.read"))
+        return status, body
+
+    val, _hedged = hedge.hedged_fetch(
+        lambda: fetch(locs[0]), lambda: fetch(locs[1]), threshold,
+        lambda sv: sv[0] in (200, 206), kind="read")
+    return val[1] if val is not None else None
 
 
 def delete(master: str, fid: str) -> None:

@@ -20,8 +20,10 @@ cheaply do itself:
   refused by the C side, so the map can only under-serve (fallback),
   never serve a pre-overwrite chunk.
 * FILLS: a background thread resolves each fill's volume read-plane
-  address (vid -> a fresh master lookup -> the server's `/status`
-  readPlanePort, memoized for `_ADDR_TTL_S`) and registers the entry.
+  address (vid -> its locations from the follow stream's pushed map, or
+  a fresh master lookup where no stream is synced -> the server's
+  `/status` readPlanePort, memoized for `_ADDR_TTL_S`) and registers the
+  entry.
   Fills come from mutation events (the write told us the geometry) and
   from the Python read path (a warm read that passed the eligibility
   rule registers the path it just served).
@@ -252,12 +254,19 @@ class NativeReadPlane:
             return hit[0]
         addr = None
         try:
+            # the pushed map carries no EC shards: ask the master
             ec = operation.master_json(
                 self.master, "GET", f"/dir/ec_lookup?volumeId={vid}",
                 timeout=5.0)
             if "error" in ec:
-                for loc in operation.lookup(self.master, vid,
-                                            use_cache=False):
+                # the pushed map is current (a moved or encoded volume
+                # leaves it at its heartbeat); the TTL'd cache is not
+                f = operation.follower(self.master)
+                locs = f.get_locations(vid) if f is not None else None
+                if locs is None:
+                    locs = operation.lookup(self.master, vid,
+                                            use_cache=False)
+                for loc in locs:
                     addr = operation._plane_addr(loc["url"],
                                                  "readPlanePort")
                     if addr is not None:

@@ -19,7 +19,10 @@ their counters.  `SEAWEEDFS_TPU_FILER_META_PLANE_NATIVE=0` and
 `SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE=0` keep them off; the native meta
 plane needs the Python meta plane.  A plane that fails to build or start
 is logged and counted (`filer_native_plane_unavailable_total{plane}`),
-and this port serves its traffic.
+and this port serves its traffic.  A started filer follows the master's
+location pushes (`operation.enable_follow`), so its chunk lookups and
+the read plane's fills resolve without a lookup RPC; `GET
+/debug/follow` shows the stream's state and pushed map.
 
 The reference's filer HTTP surface:
   POST/PUT /path/to/file     upload (auto-chunked; a trailing / = mkdir)
@@ -40,7 +43,7 @@ The store is sqlite (a file, or ":memory:"); its metadata log lives in
 `<store>.metalog`, so two filers over one store file share one log dir
 and see each other's commits (through its watermark files, or the meta
 plane's log follower).  Not ported (ROADMAP): TUS uploads, the lock
-routes, follow mode, notification, remote mounts, gRPC, QoS, fault
+routes, notification, remote mounts, gRPC, QoS, fault
 sites, the autopilot, and the planes' flight-record drains.
 """
 
@@ -50,7 +53,7 @@ import os
 import sys
 import urllib.parse
 
-from .. import stats
+from .. import operation, stats
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import SqliteStore
@@ -148,6 +151,7 @@ class FilerServer:
                 plane.arm(True)
         r = self.http.route
         r("GET", "/status", self._status)
+        r("GET", "/debug/follow", self._follow_state)
         r("GET", "/metrics", self._metrics)
         r("POST", "/debug/meta_plane", self._debug_meta_plane)
         r("POST", "/debug/read_plane", self._debug_read_plane)
@@ -180,6 +184,9 @@ class FilerServer:
 
     def start(self) -> "FilerServer":
         self.http.start()
+        # the follow stream: chunk lookups and the read plane's fills
+        # resolve from the master's pushes (masterclient.go:471)
+        operation.enable_follow(self.filer.master)
         return self
 
     def stop(self) -> None:
@@ -191,6 +198,7 @@ class FilerServer:
         if self.native_read is not None:
             self.native_read.stop()
         self.http.stop()
+        operation.disable_follow(self.filer.master)
         self.filer.close()
 
     @property
@@ -316,6 +324,14 @@ class FilerServer:
                          nm.port if nm is not None and nm.armed else 0,
                      "readPlanePort":
                          nr.port if nr is not None and nr.armed else 0}
+
+    def _follow_state(self, req: Request):
+        """The follow stream's state (the port's own route): synced, the
+        snapshots and event batches applied, the pushed vid -> urls."""
+        f = operation.follower(self.filer.master)
+        if f is None:
+            return 404, {"error": "no follow stream"}
+        return 200, f.state()
 
     @staticmethod
     def _lever(plane, req: Request, **extra):

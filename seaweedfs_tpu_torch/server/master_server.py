@@ -12,15 +12,29 @@ over the port's `HttpServer`:
     GET  /dir/status, /vol/list        <- master.proto:28 VolumeList
     POST /vol/grow                     <- VolumeGrow
     GET  /cluster/status
+    GET  /cluster/watch                <- master.proto:14 KeepConnected
+    GET  /metrics
     POST /cluster/lease_admin_token    <- master.proto:44 LeaseAdminToken
     POST /cluster/release_admin_token  <- master.proto:46 ReleaseAdminToken
 
 The replies carry the reference's keys.  One node, so it is always the
-leader: no raft log, no /cluster/watch, /metrics or per-fid JWT
-(ROADMAP).  Without a log, the file-id sequencer is floored by each
-heartbeat's `maxFileKey`, so a master that restarts never issues a key a
-volume server holds.  `/cluster/status` also counts the heartbeats
-received (`heartbeats`).  It imports no torch.
+leader: no raft log or per-fid JWT (ROADMAP).  Without a log, the
+file-id sequencer is floored by each heartbeat's `maxFileKey`, so a
+master that restarts never issues a key a volume server holds.
+`/cluster/status` also counts the heartbeats received (`heartbeats`).
+`/metrics` renders the JAX master's gauges (`master_data_nodes`,
+`master_volumes_total`, `master_sequence`) and, the port's own, the
+requests of each route (`master_route_requests_total{path}`), with the
+process registry.
+
+`/cluster/watch` is the follow stream's long-poll (the JAX master's, on
+a `LocationHub`): `snapshot=1` answers the `/vol/list` tree with the
+hub's cursor, `since=C&timeout=T` the location deltas after C.  Each
+heartbeat that changes a node's volume or EC-shard set publishes the
+delta.  A node that misses 3 pulses leaves every view of the port's
+master, so a reaper publishes its departure too (all its vids in
+`deletedVids` and `deletedEcVids`), and a node that comes back publishes
+everything it holds again.  It imports no torch.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import threading
 import time
 import uuid
 
+from .. import stats
 from ..sequence import MemorySequencer
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import read_ttl
@@ -36,6 +51,7 @@ from ..storage.types import FileId, check_path_fields
 from ..topology import Topology
 from ..topology.topology import VolumeInfo
 from .httpd import HttpServer, Request, http_json
+from .location_hub import LocationHub
 
 
 class _AllocateRefused(Exception):
@@ -65,7 +81,17 @@ class MasterServer:
         self._admin_lock_name = ""
         self.http = HttpServer(host, port)
         self.http.role = "master"
-        r = self.http.route
+        # the follow stream: the deltas published, and each node's
+        # volume and EC sets as the stream last told them
+        self.hub = LocationHub()
+        self._hub_lock = threading.Lock()
+        self._published: "dict[str, tuple[dict, set, set]]" = {}
+        self._reaper_stop = threading.Event()
+        self._reaper: "threading.Thread | None" = None
+        self.metrics = stats.Metrics("master")
+
+        def r(method, path, fn):
+            self.http.route(method, path, self._counted(path, fn))
         r("POST", "/heartbeat", self._heartbeat)
         r("GET", "/dir/assign", self._assign)
         r("POST", "/dir/assign", self._assign)
@@ -75,15 +101,98 @@ class MasterServer:
         r("GET", "/vol/list", self._vol_list)
         r("POST", "/vol/grow", self._vol_grow)
         r("GET", "/cluster/status", self._cluster_status)
+        r("GET", "/cluster/watch", self._watch)
+        r("GET", "/metrics", self._metrics)
         r("POST", "/cluster/lease_admin_token", self._lease_admin)
         r("POST", "/cluster/release_admin_token", self._release_admin)
 
     def start(self) -> "MasterServer":
         self.http.start()
+        self._reaper = threading.Thread(target=self._reap_loop,
+                                        name="master-reaper", daemon=True)
+        self._reaper.start()
         return self
 
     def stop(self) -> None:
+        self._reaper_stop.set()
+        if self._reaper is not None:
+            self._reaper.join(timeout=5)
         self.http.stop()
+
+    def _counted(self, path: str, fn):
+        def handler(req: Request):
+            self.metrics.counter_add(
+                "route_requests_total", 1.0, path=path,
+                help_text="requests of each route")
+            return fn(req)
+        return handler
+
+    def _metrics(self, req: Request):
+        nodes = self.topology.alive_nodes()
+        self.metrics.gauge_set("data_nodes", len(nodes),
+                               help_text="alive volume servers")
+        self.metrics.gauge_set("volumes_total",
+                               sum(len(n.volumes) for n in nodes))
+        self.metrics.gauge_set("sequence", self.sequencer.peek())
+        return 200, ((self.metrics.render() +
+                      stats.PROCESS.render()).encode(),
+                     {"Content-Type": "text/plain; version=0.0.4"})
+
+    # -- the follow stream (master_server.go KeepConnected) ---------------
+
+    def _publish_node(self, url: str, node) -> None:
+        """Publish the change between what the stream last said of `url`
+        and `node` (None: the node left every view); the caller holds
+        `_hub_lock`."""
+        old_loc, old_vids, old_ec = self._published.get(
+            url, ({}, set(), set()))
+        if node is None:
+            new_vids, new_ec, loc = set(), set(), old_loc
+        else:
+            new_vids, new_ec = set(node.volumes), set(node.ec_shards)
+            loc = {"url": url, "publicUrl": node.public_url or url}
+        if (new_vids, new_ec) == (old_vids, old_ec):
+            return
+        if node is None:
+            self._published.pop(url, None)
+        else:
+            self._published[url] = (loc, new_vids, new_ec)
+        self.hub.publish({
+            "url": url, "publicUrl": loc.get("publicUrl", url),
+            "newVids": sorted(new_vids - old_vids),
+            "deletedVids": sorted(old_vids - new_vids),
+            "newEcVids": sorted(new_ec - old_ec),
+            "deletedEcVids": sorted(old_ec - new_ec)})
+
+    def _reap_departed(self) -> None:
+        """Publish the departure of every node that left the views (3
+        missed pulses, or marked dead) since the stream last spoke of
+        it."""
+        alive = {n.url for n in self.topology.alive_nodes()}
+        with self._hub_lock:
+            for url in [u for u in self._published if u not in alive]:
+                self._publish_node(url, None)
+
+    def _reap_loop(self) -> None:
+        period = max(0.05, self.topology.pulse_seconds / 4)
+        while not self._reaper_stop.wait(period):
+            self._reap_departed()
+
+    def _watch(self, req: Request):
+        """The follow stream's long-poll: `snapshot=1` gives the full
+        topology with the cursor read before it (what is published while
+        it is built replays on the next poll); `since=<cursor>` waits up
+        to `timeout` seconds (at most 55) for the events after it."""
+        timeout = min(float(req.query.get("timeout", 25)), 55.0)
+        if req.query.get("snapshot") == "1":
+            cursor = self.hub.cursor
+            return 200, {"events": [], "cursor": cursor,
+                         "snapshot": self.topology.to_volume_list(),
+                         "leader": self.url}
+        since = int(req.query.get("since", 0))
+        events, cursor, lagged = self.hub.events_since(since, timeout)
+        return 200, {"events": events, "cursor": cursor,
+                     "lagged": lagged, "leader": self.url}
 
     @property
     def url(self) -> str:
@@ -98,7 +207,10 @@ class MasterServer:
         mfk = int(hb.get("maxFileKey", 0))
         if mfk:
             self.sequencer.set_max(mfk)
-        self.topology.register_heartbeat(hb)
+        url = f"{hb['ip']}:{hb['port']}"
+        with self._hub_lock:
+            self.topology.register_heartbeat(hb)
+            self._publish_node(url, self.topology.nodes.get(url))
         with self._lock:
             self.heartbeats += 1
         return 200, {"volumeSizeLimit": self.topology.volume_size_limit,

@@ -20,8 +20,9 @@ a master, and the public data path for reads and deletes.
   mount, unmount, delete or decode that changes what a volume id serves
   drops the volume's generation.
 - `POST` / `PUT /<vid>,<key><cookie>`: write a needle (`name` and `ts`
-  in the query, the mime type in `Content-Type`), flushed to the OS
-  before the answer, then on every other replica of a replicated volume
+  in the query, the mime type in `Content-Type`), answered after the
+  volume's group commit (and its fsync on the `-fsync` tier), then on
+  every other replica of a replicated volume
   with `?type=replicate` and the stamped `ts`, so that every replica
   holds the same needle record.  A replica that fails the write fails
   the request (500, no ack).
@@ -36,6 +37,17 @@ a master, and the public data path for reads and deletes.
   the read plane, and the heartbeat ticks it first; `/metrics` carries
   their counters.  Anything a plane does not own answers 404 there, and
   the client comes to the HTTP port.
+- The UDS zero-copy read plane (`server/uds_reader.py`): a same-host
+  reader fetches a raw needle record over a Unix socket, given in
+  `/status` as `udsPath`; each record it serves warms the native read
+  plane.  The socket lives in a private temporary directory, removed at
+  stop (the JAX server puts `uds.sock` in its first data directory),
+  so a data directory holds only volume and shard files.
+- The `-fsync` tier (`fsync=True`): every volume's group-commit barrier
+  fsyncs its `.dat` before a write or delete is acked.  The write plane
+  parks its acks of such a volume until the handshake thread has run
+  the volume's barrier for their epoch (`_wp_epoch`); a plane without
+  the handshake leaves the volume on the Python path.
 - `/admin/allocate_volume`: a new empty volume, for the master's
   growth.
 
@@ -67,8 +79,8 @@ to the master's `/heartbeat` at start, every `pulse_seconds`, and at
 once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
-remote shard.  No TLS, JWTs, fault sites, QoS throttle, resize-on-read,
-group commit, `-fsync` tier or UDS reader (ROADMAP C).  Counters go to
+remote shard.  No TLS, JWTs, fault sites, QoS throttle or
+resize-on-read (ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts and the planes' counters.
@@ -78,7 +90,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import shutil
 import sys
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -119,7 +133,8 @@ class VolumeServer:
                  port: int = 0, public_url: str = "",
                  device: str = "cuda", master: str = "",
                  pulse_seconds: float = 1.0, data_center: str = "",
-                 rack: str = "", max_volume_count: int = 8):
+                 rack: str = "", max_volume_count: int = 8,
+                 fsync: bool = False):
         self.device = device
         self.master = master
         self.pulse_seconds = pulse_seconds
@@ -128,7 +143,8 @@ class VolumeServer:
         self.http = HttpServer(host, port)
         self.http.role = "volume"
         self.store = Store(directories, ip=host, port=self.http.port,
-                           public_url=public_url or self.http.url)
+                           public_url=public_url or self.http.url,
+                           fsync=fsync)
         for loc in self.store.locations:
             loc.max_volume_count = max_volume_count
         self.metrics = stats.PROCESS
@@ -185,6 +201,7 @@ class VolumeServer:
         # .dat the read plane has open
         self.read_plane = None
         self.write_plane = None
+        self.uds_server = None
         self._rp_volumes: set[int] = set()
         self._rp_lock = threading.Lock()
         # staged scatter uploads awaiting commit:
@@ -216,12 +233,25 @@ class VolumeServer:
         return self
 
     def _start_planes(self) -> None:
-        """The native read plane, and the write plane unless
-        `SEAWEEDFS_TPU_WRITE_PLANE` is 0 or false.  A plane that does not
-        build or start leaves the server on its Python port, as the JAX
-        server does, with one line on stderr."""
+        """The UDS reader, the native read plane, and the write plane
+        unless `SEAWEEDFS_TPU_WRITE_PLANE` is 0 or false.  A plane that
+        does not build or start leaves the server on its Python port, as
+        the JAX server does, with one line on stderr."""
         from .read_plane import ReadPlane
+        from .uds_reader import UdsNeedleServer
         from .write_plane import WritePlane
+        try:
+            sock_dir = tempfile.mkdtemp(prefix="swfs-uds-")
+            try:
+                self.uds_server = UdsNeedleServer(
+                    self.store, os.path.join(sock_dir, "uds.sock"),
+                    on_read=self._rp_sync_needle).start()
+            except OSError:
+                os.rmdir(sock_dir)
+                raise
+        except OSError as e:       # no AF_UNIX, or a path too long
+            print(f"volume server {self.url}: no UDS reader: {e}",
+                  file=sys.stderr)
         try:
             self.read_plane = ReadPlane(self.http.host)
         except (RuntimeError, OSError) as e:
@@ -232,7 +262,8 @@ class VolumeServer:
             return
         try:
             self.write_plane = WritePlane(self.http.host,
-                                          on_tick=self._wp_tick)
+                                          on_tick=self._wp_tick,
+                                          on_epoch=self._wp_epoch)
         except (RuntimeError, OSError) as e:
             print(f"volume server {self.url}: no write plane: {e}",
                   file=sys.stderr)
@@ -249,6 +280,10 @@ class VolumeServer:
             rp, self.read_plane = self.read_plane, None
         if rp is not None:
             rp.stop()
+        if self.uds_server is not None:
+            self.uds_server.stop()
+            shutil.rmtree(os.path.dirname(self.uds_server.sock_path),
+                          ignore_errors=True)
         self.http.stop()
         self.ec_reader.close()
         # closing the store detaches every volume from the write plane
@@ -538,7 +573,8 @@ class VolumeServer:
         """Make the read plane's entry for a needle of a normal volume the
         record the index points at now, if it is plain, else none: after
         a Python write or delete and before its answer, and on a read
-        through Python.  The index is read and the entry set in one step
+        through Python or over UDS (the UDS server's `on_read`, so a
+        needle read only there reaches the plane too).  The index is read and the entry set in one step
         under `_rp_lock`, which drops and the pump take too, so no racing
         registration binds a replaced record.  (The JAX server registers
         the needle object it was handed, from a queue, so it can serve
@@ -586,10 +622,21 @@ class VolumeServer:
 
     def _wp_sync_volume(self, vid: int) -> None:
         """Offer a volume to the write plane after a change of its state;
-        an ineligible or failed one stays on the Python port."""
+        an ineligible or failed one stays on the Python port (an -fsync
+        volume too, where the plane has no epoch handshake: the plane
+        logs and counts that)."""
         v = self.store.find_volume(vid)
         if self.write_plane is not None and v is not None:
             v.attach_native(self.write_plane)
+
+    def _wp_epoch(self, vid: int, epoch: int) -> None:
+        """The -fsync handshake: the acks parked on a flush epoch of
+        `vid` wait for the volume's barrier, one fsync for the whole
+        window (group commit across the C++ boundary).  A volume gone
+        since has no bytes to fsync here."""
+        v = self.store.find_volume(vid)
+        if v is not None:
+            v._barrier.commit()
 
     def _wp_tick(self) -> None:
         """Drain every attached volume's completed native appends into
@@ -623,6 +670,8 @@ class VolumeServer:
         for a plane that is off), with the heartbeat's fields."""
         return 200, {
             "version": "seaweedfs-tpu/0.1",
+            "udsPath": self.uds_server.sock_path if self.uds_server
+            else "",
             "readPlanePort": self.read_plane.port if self.read_plane
             else 0,
             "writePlanePort": self.write_plane.port if self.write_plane
@@ -1416,11 +1465,18 @@ class VolumeServer:
 
     def _plane_metrics_text(self) -> str:
         """The planes' counters, read from their C++ atomics at scrape
-        time (no Python runs on a plane's request): reads the read plane
-        served, writes the write plane acked and handed back to Python,
-        and its ack latency histogram."""
+        time (no Python runs on a plane's request): records the UDS
+        plane sent, reads the read plane served, writes the write plane
+        acked and handed back to Python, its -fsync epochs, and its ack
+        latency histogram."""
         out = []
         rp, wp = self.read_plane, self.write_plane
+        if self.uds_server is not None:
+            out.append(
+                "# HELP volume_server_uds_reads_total needle records "
+                "served over the UDS zero-copy plane\n"
+                "# TYPE volume_server_uds_reads_total counter\n"
+                f"volume_server_uds_reads_total {self.uds_server.served}\n")
         if rp is not None:
             out.append(
                 "# HELP volume_server_read_plane_requests_total needle "
@@ -1438,6 +1494,21 @@ class VolumeServer:
             "writes answered 404 (the Python port takes them)\n"
             "# TYPE volume_server_write_plane_fallbacks_total counter\n"
             f"volume_server_write_plane_fallbacks_total {wp.fallbacks()}\n"
+            "# HELP volume_server_write_plane_epochs_total -fsync epoch "
+            "handshakes released after the volume's barrier\n"
+            "# TYPE volume_server_write_plane_epochs_total counter\n"
+            f"volume_server_write_plane_epochs_total {wp.epochs}\n"
+            "# HELP volume_server_write_plane_epoch_failures_total -fsync "
+            "epochs whose barrier failed (their acks stay parked)\n"
+            "# TYPE volume_server_write_plane_epoch_failures_total "
+            "counter\n"
+            "volume_server_write_plane_epoch_failures_total "
+            f"{wp.epoch_failures}\n"
+            "# HELP volume_server_write_plane_fsync_refused_total -fsync "
+            "volumes the plane refused for want of the epoch handshake\n"
+            "# TYPE volume_server_write_plane_fsync_refused_total counter\n"
+            "volume_server_write_plane_fsync_refused_total "
+            f"{wp.fsync_refused}\n"
             "# HELP volume_server_write_plane_ack_seconds native write "
             "plane ack latency\n"
             "# TYPE volume_server_write_plane_ack_seconds histogram\n")

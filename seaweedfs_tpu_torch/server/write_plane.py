@@ -13,12 +13,17 @@ its own fd and acks it, with no Python on the request's path.
 - Anything not plain (a named or mimed upload, an overwrite of a key the
   plane has seen, a volume it does not own) answers 404, and the client
   falls back to the server's HTTP port.
-- Durability: the plane acks after write(2), so an acked record is in
-  the page cache and survives the process being killed, the guarantee
-  the port's Python `write_needle` gives by flushing to the OS before
-  its ack.  The port has no `-fsync` tier and no group commit (ROADMAP
-  A5): volumes attach with `fsync` false, and the plane's epoch
-  handshake is left unwired.
+- Durability: on the default tier the plane acks after write(2), so an
+  acked record is in the page cache and survives the process being
+  killed, the guarantee the Python `write_needle` gives with its
+  barrier's flush.  On the `-fsync` tier the plane parks each ack on the
+  volume's open flush epoch; the handshake thread (`_epoch_loop`) takes
+  the epoch (`wp_wait_epoch`), runs `on_epoch(vid, epoch)` (the volume
+  server's: the volume's `CommitBarrier`, whose flush fsyncs the
+  `.dat`) and releases the parked acks (`wp_epoch_done`): group commit
+  across the language boundary.  A plane without the handshake (no
+  `on_epoch`, or a library without `wp_wait_epoch`) refuses `-fsync`
+  volumes, which stay on the Python path.
 - The plane keeps a ring of per-request records that overwrites its
   oldest entry; the port has no flight recorder to feed, so the ring is
   left undrained (ROADMAP A), which never blocks an ack.
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import sys
 import threading
 from collections import namedtuple
 
@@ -45,12 +51,17 @@ NativeWrite = namedtuple(
 class WritePlane:
     """One native write-plane server bound to <host>:<ephemeral>.
     `on_tick` runs on a pump thread every `TICK_S` seconds (and once
-    more at stop) to drain the attached volumes' journals."""
+    more at stop) to drain the attached volumes' journals;
+    `on_epoch(vid, epoch)` runs on the handshake thread and must make
+    the volume's acked bytes as durable as its barrier promises; the
+    acks parked on the epoch are released only when it returns."""
 
     _DRAIN_CAP = 4096
     TICK_S = 0.025
+    EPOCH_WAIT_MS = 200
 
-    def __init__(self, host: str = "127.0.0.1", on_tick=None):
+    def __init__(self, host: str = "127.0.0.1", on_tick=None,
+                 on_epoch=None):
         self._lib = native.load_write_plane()
         if self._lib is None:
             raise RuntimeError(
@@ -63,20 +74,57 @@ class WritePlane:
         self.host = host
         self.port = port.value
         self._on_tick = on_tick
+        self._on_epoch = on_epoch
         self._stop = threading.Event()
-        self._pump: "threading.Thread | None" = None
+        self._threads: "list[threading.Thread]" = []
+        self._epoch_lock = threading.Lock()
+        self._epoch_started = False
+        # epochs released, epochs whose barrier failed, and -fsync
+        # volumes refused for want of a handshake
+        self.epochs = 0
+        self.epoch_failures = 0
+        self.fsync_refused = 0
         if on_tick is not None:
-            self._pump = threading.Thread(
-                target=self._pump_loop, name="write-plane-pump",
-                daemon=True)
-            self._pump.start()
+            t = threading.Thread(target=self._pump_loop,
+                                 name="write-plane-pump", daemon=True)
+            t.start()
+            self._threads.append(t)
 
     # -- attachment (called by storage.Volume under its lock) -------------
 
+    def can_handshake(self) -> bool:
+        """Whether this plane can run the -fsync tier's epoch handshake:
+        the library binds it and the owner gave an `on_epoch`."""
+        return self._on_epoch is not None and \
+            bool(getattr(self._lib, "epoch_handshake", False))
+
     def add_volume(self, vid: int, dat_path: str, tail: int,
-                   last_append_ns: int) -> bool:
+                   last_append_ns: int, fsync: bool = False) -> bool:
+        """Attach a volume's `.dat`.  An -fsync volume needs the epoch
+        handshake: without it the plane refuses the volume (logged and
+        counted in `fsync_refused`), never attaching it as a volume
+        whose acks skip the fsync."""
+        if fsync:
+            if not self.can_handshake():
+                self.fsync_refused += 1
+                print(f"write plane: -fsync volume {vid} stays on the "
+                      f"Python path: no epoch handshake", file=sys.stderr)
+                return False
+            # the handshake thread starts with the first -fsync volume
+            self._ensure_epoch_thread()
         return self._lib.wp_add_volume(self._h, vid, dat_path.encode(),
-                                       tail, last_append_ns, 0) == 0
+                                       tail, last_append_ns,
+                                       1 if fsync else 0) == 0
+
+    def _ensure_epoch_thread(self) -> None:
+        with self._epoch_lock:
+            if self._epoch_started:
+                return
+            self._epoch_started = True
+            t = threading.Thread(target=self._epoch_loop,
+                                 name="write-plane-epoch", daemon=True)
+            t.start()
+            self._threads.append(t)
 
     def mark_keys(self, vid: int, keys) -> None:
         """Seed the plane's seen-key set (every one falls back to
@@ -146,13 +194,38 @@ class WritePlane:
         except Exception:  # noqa: BLE001
             pass
 
+    def _epoch_loop(self) -> None:
+        """The -fsync handshake: take a volume's flush epoch, run its
+        barrier, release the acks parked on it.  An epoch whose barrier
+        raised is not released (logged and counted in `epoch_failures`):
+        its acks wait for the volume's next epoch, whose barrier covers
+        their bytes too, or their client times out unacked.  (The JAX
+        plane releases them after a failed barrier.)"""
+        vid = ctypes.c_uint(0)
+        epoch = ctypes.c_ulonglong(0)
+        while not self._stop.is_set():
+            if not self._lib.wp_wait_epoch(self._h, self.EPOCH_WAIT_MS,
+                                           ctypes.byref(vid),
+                                           ctypes.byref(epoch)):
+                continue
+            try:
+                self._on_epoch(vid.value, epoch.value)
+            except Exception as e:  # noqa: BLE001 — the loop must live
+                self.epoch_failures += 1
+                print(f"write plane: epoch flush of volume {vid.value} "
+                      f"failed, its acks stay parked: {e!r}",
+                      file=sys.stderr)
+                continue
+            self.epochs += 1
+            self._lib.wp_epoch_done(self._h, vid.value, epoch.value)
+
     def stop(self) -> None:
-        """The pump first, then the native server: wp_stop frees it, so
-        no thread may still be inside a wp_* call."""
+        """The threads first, then the native server: wp_stop frees it,
+        so no thread may still be inside a wp_* call."""
         if self._h < 0:
             return
         self._stop.set()
-        if self._pump is not None:
-            self._pump.join(timeout=5)
+        for t in self._threads:
+            t.join(timeout=5)
         self._lib.wp_stop(self._h)
         self._h = -1

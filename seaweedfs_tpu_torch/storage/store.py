@@ -29,9 +29,11 @@ _EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec00$")
 class DiskLocation:
     """One storage directory (weed/storage/disk_location.go)."""
 
-    def __init__(self, directory: str, max_volume_count: int = 8):
+    def __init__(self, directory: str, max_volume_count: int = 8,
+                 fsync: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_volume_count = max_volume_count
+        self.fsync = fsync
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
         os.makedirs(self.directory, exist_ok=True)
@@ -42,7 +44,8 @@ class DiskLocation:
             if m:
                 vid = int(m.group("vid"))
                 self.volumes[vid] = Volume(self.directory, vid,
-                                           collection=m.group("col") or "")
+                                           collection=m.group("col") or "",
+                                           fsync=self.fsync)
         for path in glob.glob(os.path.join(self.directory, "*.ec00")):
             m = _EC_RE.match(os.path.basename(path))
             if m:
@@ -55,11 +58,14 @@ class Store:
     """storage/store.go:88 NewStore."""
 
     def __init__(self, directories: list[str], ip: str = "localhost",
-                 port: int = 0, public_url: str = ""):
+                 port: int = 0, public_url: str = "", fsync: bool = False):
         self.ip = ip
         self.port = port
         self.public_url = public_url or f"{ip}:{port}"
-        self.locations = [DiskLocation(d) for d in directories]
+        # -fsync: every volume's group-commit barrier also fsyncs (the
+        # power-loss tier, one fsync a commit window)
+        self.fsync = fsync
+        self.locations = [DiskLocation(d, fsync=fsync) for d in directories]
         self.lock = threading.RLock()
         for loc in self.locations:
             loc.load_existing()
@@ -102,7 +108,7 @@ class Store:
             v = Volume(
                 loc.directory, vid, collection=collection,
                 replica_placement=ReplicaPlacement.from_string(replication),
-                ttl=read_ttl(ttl) if ttl else EMPTY_TTL)
+                ttl=read_ttl(ttl) if ttl else EMPTY_TTL, fsync=loc.fsync)
             loc.volumes[vid] = v
             return v
 
@@ -130,7 +136,8 @@ class Store:
                 name = (f"{collection}_" if collection else "") + f"{vid}"
                 if os.path.exists(os.path.join(loc.directory,
                                                name + ".dat")):
-                    v = Volume(loc.directory, vid, collection=collection)
+                    v = Volume(loc.directory, vid, collection=collection,
+                               fsync=loc.fsync)
                     loc.volumes[vid] = v
                     return v
             raise KeyError(f"volume {vid} files not found")

@@ -7,8 +7,14 @@ volume's TTL on needles without one, read-only refused), reads,
 tombstone deletes, the heartbeat's counts, sync, read-only, close and
 destroy.  Byte-compatible with the
 reference package, so either package reads the other's volumes.  One
-process, one writer: a lock serialises appends, and each acknowledged
-write is flushed to the OS before write_needle returns.
+process, one writer: a lock serialises appends.  Each acknowledged
+write or delete reaches the OS before it returns, through a group
+commit (`util/group_commit.CommitBarrier`, site `volume.needle`): the
+append happens under the lock, the barrier outside it, and one flush
+of the `.dat` and `.idx` covers every writer that appended before it
+started.  On the `-fsync` tier (`fsync=True`) that flush also runs
+`os.fsync` on the `.dat`, so an acked write survives power loss: one
+fsync for each commit window, not for each write.
 
 The native write plane (`server/write_plane.py`) can own the `.dat`
 tail (`attach_native`): Python appends then go through the plane's
@@ -25,12 +31,14 @@ import struct
 import threading
 import time
 
+from .. import stats
 from . import types
 from .needle import Needle, get_actual_size, needle_body_length
 from .needle_map import NeedleMap
 from .replica_placement import ReplicaPlacement
 from .super_block import SuperBlock
 from .ttl import EMPTY_TTL, TTL
+from ..util.group_commit import CommitBarrier
 
 
 class NeedleNotFound(KeyError):
@@ -51,13 +59,20 @@ class Volume:
     def __init__(self, directory: str, volume_id: int, collection: str = "",
                  replica_placement: ReplicaPlacement | None = None,
                  ttl: TTL = EMPTY_TTL,
-                 version: int = types.CURRENT_VERSION):
+                 version: int = types.CURRENT_VERSION,
+                 fsync: bool = False):
         self.dir = directory
         self.id = volume_id
         self.collection = collection
         self.lock = threading.RLock()
         self.last_append_at_ns = 0
         self.read_only = False
+        # the -fsync tier: the barrier's flush also fsyncs the .dat
+        self.fsync = bool(fsync)
+        # the .dat + .idx durability barrier, shared by the writers of a
+        # commit window
+        self._barrier = CommitBarrier(self._group_commit_flush,
+                                      site="volume.needle")
         dat_path = self.file_name(".dat")
         if os.path.exists(dat_path):
             self._dat = open(dat_path, "r+b")
@@ -152,8 +167,12 @@ class Volume:
             # must be in the file before the plane takes its offset
             self._dat.flush()
             self._dat.seek(0, os.SEEK_END)
+            # on the -fsync tier the plane parks each ack until the
+            # barrier (fsync included) has run for its epoch: a plane
+            # that cannot run that handshake refuses the volume
             if not wp.add_volume(self.id, self.file_name(".dat"),
-                                 self._dat.tell(), self.last_append_at_ns):
+                                 self._dat.tell(), self.last_append_at_ns,
+                                 self.fsync):
                 return False
             # every key ever mapped, live or tombstoned, falls back to
             # Python, where the overwrite's cookie and dedup rules are;
@@ -279,11 +298,29 @@ class Volume:
             offset = self._append(n)
             if types.size_is_valid(n.size):
                 self.nm.put(n.id, types.to_stored_offset(offset), n.size)
-            # ack after the append reaches the OS: a killed process
-            # must not lose an acknowledged write
-            self._dat.flush()
-            self.nm.flush()
+        # ack after the append reaches the OS (and the platter on the
+        # -fsync tier), through the barrier it shares with the other
+        # writers of its window: a killed process must not lose an
+        # acknowledged write
+        self._barrier.commit()
         return offset, len(n.data), False
+
+    def _group_commit_flush(self) -> None:
+        """The barrier's flush (one leader at a time), without the
+        volume's lock: the buffered handles serialise each call, so
+        writers keep appending while the leader flushes and, on the
+        -fsync tier, fsyncs.  A native append is in the file already;
+        the fsync of this fd covers it too.  A handle closed under the
+        flush fails the batch (the port's volume never swaps its
+        handles: no compaction)."""
+        self._dat.flush()
+        self.nm.flush()
+        if self.fsync:
+            os.fsync(self._dat.fileno())
+            stats.PROCESS.counter_add(
+                "volume_fsyncs_total", 1.0,
+                help_text="fsyncs of -fsync volumes' .dat, one a group "
+                          "commit window")
 
     def _append(self, n: Needle) -> int:
         wp = self._wp
@@ -310,6 +347,13 @@ class Volume:
         self._dat.write(n.to_bytes(self.version))
         return offset
 
+    def flush(self) -> None:
+        """Flush buffered `.dat` appends to the OS file, for readers
+        through another fd (the UDS plane's sendfile); near free when
+        nothing is pending."""
+        with self.lock:
+            self._dat.flush()
+
     def delete_needle(self, n: Needle) -> int:
         """Append a zero-data tombstone record, then tombstone the map
         (volume_write.go:222 doDeleteRequest).  Returns the freed size,
@@ -325,8 +369,8 @@ class Volume:
             tomb.append_at_ns = self._next_append_at_ns()
             self._append(tomb)
             self.nm.delete(n.id)
-            self._dat.flush()
-            self.nm.flush()
+        # an acked delete survives as an acked write does
+        self._barrier.commit()
         return existing[1]
 
     # -- read path (volume_read.go:21 readNeedle) ------------------------
