@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
    admin and the worker in this process (`EcEncodeHandler(device=
    "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
    benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
-   32,768 for the run's time, printed), every read held against the
+   16,384 for the run's time, printed), every read held against the
    payload, and the volumes the assigns grew; 256 seeded needles of
    1 KiB - 1 MiB under each of 001 and 010, each read back from every
    location `/dir/lookup` gives and its record on each replica (bytes,
@@ -260,6 +260,43 @@ Phases, each printing one JSON line:
    `ec.encode` of the sealed volume on the card (launches against its
    windows; shard SHA-256s equal to the host's native codec's on the
    same `.dat`), then its 1 KiB needles read back with 0 launches.
+13. secure_s3: a secured cluster as `security.toml` configures it, with
+   the S3 gateway on it.  Certificates minted at the phase's start
+   (`tls.generate_cluster_certs`, or the `openssl` command where the
+   `cryptography` package is missing, which the phase prints); a
+   security.toml with a write key (10 s tokens), a read key, an admin
+   key and `[tls] mtls = true`; a `master -volumeSizeLimitMB 1024`, 3
+   `volume -max 8` subprocesses, a filer in its default configuration
+   and `s3 -filer` with `-iamConfig` identities `admin` (Admin) and
+   `reader` (Read, List), each under `-securityToml`, and this client
+   configured from the same file (it dials https with its certificate
+   and signs as the roles do).  The volume servers and the filer run
+   with `SEAWEEDFS_TPU_READ_CACHE_MB=0`, so every read pass reaches the
+   volumes.  Through the gateway, as `admin`, on 16 threads: 2,048
+   objects of 4 KiB over 4 buckets (half in the first, so its listing
+   pages), 64 of 10 MiB (warp's default object size), one multipart
+   upload of 64 MiB in 8 MiB parts, 16 streaming-chunked PUTs of 1 MiB
+   and, with `cryptography`, 16 SSE-C PUTs of 64 KiB.  The volume holding
+   the most of the objects' chunks is filled with config 1's needles,
+   each signed with its fid's write JWT, until the 1 GiB limit seals it;
+   `ec.encode` of it on the card through the port's shell over mTLS with
+   the admin JWT (launches against its windows; shard SHA-256s equal to
+   the host's native codec on the same `.dat`).  Every object read back
+   as `reader`, each body its seeded payload, and ListObjectsV2 paged at
+   1,000 listing every key (0 launches).  Refusals, each checked:
+   `reader`'s PUT (403 AccessDenied), an unsigned GET (403), a
+   plain-text request to every listener, a TLS client without a
+   certificate at every listener, a volume GET without a read JWT (401),
+   a volume POST with another fid's token (401), admin paths and a
+   heartbeat without the admin JWT (401), and no plane port open (the
+   stand-downs counted on `/metrics`).  The server with the most data
+   shards of those holding at most 4 stopped; the encoded objects read
+   degraded (the host's native codec); `ec.rebuild` on the card
+   (launches against its steps' windows); the objects read again with
+   no degraded read.  Then a second cluster without security.toml: 2,048
+   objects of 4 KiB PUT and GET through its gateway, and the volume
+   planes' shares.  PUT and GET objects/s, MB/s and p50/p99 of each
+   size, the multipart wall, the launches and the phase's seconds.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -4696,6 +4733,23 @@ FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
 FSYNC_BUDGET_S = 0.1              # their deadline
 FSYNC_FILER_N = 1_024             # 1 KiB files through the filer
 
+SECURE_SERVERS = 3
+SECURE_COLLECTION = "s3"
+SECURE_BUCKETS = 4
+SECURE_SMALL_N = 2_048           # 4 KiB objects over the 4 buckets
+SECURE_SMALL_SIZE = 4 << 10
+SECURE_LARGE_N = 64              # objects of warp's default --obj.size
+SECURE_LARGE_SIZE = 10 << 20
+SECURE_MP_SIZE = 64 << 20        # one multipart upload, in the AWS
+SECURE_MP_PART = 8 << 20         # CLI's default 8 MiB parts
+SECURE_CHUNKED_N = 16            # STREAMING-AWS4-HMAC-SHA256-PAYLOAD
+SECURE_CHUNKED_SIZE = 1 << 20
+SECURE_SSE_N = 16                # SSE-C objects, when `cryptography` is
+SECURE_SSE_SIZE = 64 << 10       # installed
+SECURE_C = 16
+S3_ADMIN = ("SECUREADMINKEY", "secure-admin-secret")
+S3_READER = ("SECUREREADERKEY", "secure-reader-secret")
+
 
 def _free_port() -> int:
     import socket
@@ -5438,6 +5492,762 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
     return out
 
 
+def _openssl_certs(directory: str) -> dict:
+    """A cluster CA and one node certificate (IP 127.0.0.1 and
+    localhost, server and client use) with the `openssl` command, the
+    layout `tls.generate_cluster_certs` writes: where the `cryptography`
+    package is missing."""
+    os.makedirs(directory, exist_ok=True)
+
+    def j(name):
+        return os.path.join(directory, name)
+
+    def run(*argv):
+        out = subprocess.run(["openssl", *argv], capture_output=True,
+                             text=True, timeout=60)
+        check(out.returncode == 0, f"openssl {argv[0]}: {out.stderr}")
+    run("ecparam", "-name", "prime256v1", "-genkey", "-noout",
+        "-out", j("ca.key"))
+    run("req", "-x509", "-new", "-key", j("ca.key"), "-sha256", "-days",
+        "3650", "-subj", "/CN=seaweedfs-tpu CA", "-addext",
+        "basicConstraints=critical,CA:TRUE,pathlen:0", "-addext",
+        "keyUsage=critical,keyCertSign,cRLSign", "-out", j("ca.crt"))
+    run("ecparam", "-name", "prime256v1", "-genkey", "-noout",
+        "-out", j("node.key"))
+    run("req", "-new", "-key", j("node.key"), "-subj",
+        "/CN=seaweedfs-tpu node", "-out", j("node.csr"))
+    with open(j("node.ext"), "w") as f:
+        f.write("subjectAltName=IP:127.0.0.1,DNS:localhost\n"
+                "extendedKeyUsage=serverAuth,clientAuth\n")
+    run("x509", "-req", "-in", j("node.csr"), "-CA", j("ca.crt"),
+        "-CAkey", j("ca.key"), "-CAcreateserial", "-days", "825",
+        "-sha256", "-extfile", j("node.ext"), "-out", j("node.crt"))
+    os.chmod(j("node.key"), 0o600)
+    return {"ca": j("ca.crt"), "cert": j("node.crt"), "key": j("node.key")}
+
+
+def _s3_client(url: str, keys: "tuple[str, str]"):
+    """send(method, path, query, body, headers) -> (status, body,
+    headers): SigV4 with `keys` (None: unsigned) over the port's pooled
+    client (https with the cluster CA and this node's certificate under
+    the process's `[tls]`)."""
+    from seaweedfs_tpu_torch.s3 import auth
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+
+    def send(method, path, query=None, body=b"", headers=None,
+             signed=True):
+        query = query or {}
+        headers = dict(headers or {})
+        if signed and keys is not None:
+            headers = auth.sign_request(method, url, path, query, headers,
+                                        body, *keys)
+        qs = urllib.parse.urlencode(query)
+        return http_bytes(method, f"{url}{auth.uri_encode(path, False)}" +
+                          (f"?{qs}" if qs else ""), body or None, headers,
+                          timeout=120)
+    return send
+
+
+def _chunked_put(url: str, path: str, payload: bytes,
+                 keys: "tuple[str, str]", chunk: int = 64 << 10):
+    """A STREAMING-AWS4-HMAC-SHA256-PAYLOAD PUT as an SDK signs it: the
+    seed signature over the streaming constant, then every chunk signed
+    after the one before it."""
+    import hmac as hmac_mod
+
+    from seaweedfs_tpu_torch.s3 import auth, chunked
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+    hl = {"x-amz-content-sha256": auth.STREAMING_PAYLOAD,
+          "content-encoding": "aws-chunked",
+          "x-amz-decoded-content-length": str(len(payload)),
+          "x-amz-date": amz_date, "host": url}
+    signed = sorted(h for h in hl if h in ("host", "content-type") or
+                    h.startswith("x-amz-"))
+    creq = auth.canonical_request("PUT", auth.uri_encode(path, False), {},
+                                  hl, signed, auth.STREAMING_PAYLOAD)
+    key = auth.signing_key(keys[1], amz_date[:8], "us-east-1")
+    seed = hmac_mod.new(key, auth.string_to_sign(amz_date, scope, creq)
+                        .encode(), "sha256").hexdigest()
+    hl["authorization"] = (f"{auth.ALGORITHM} Credential={keys[0]}/{scope}, "
+                           f"SignedHeaders={';'.join(signed)}, "
+                           f"Signature={seed}")
+    ctx = auth.AuthContext(keys[0], seed, key, amz_date, scope,
+                           auth.STREAMING_PAYLOAD)
+    body = chunked.encode_streaming_body(payload, ctx, chunk)
+    return http_bytes("PUT", f"{url}{path}", body, hl, timeout=120)
+
+
+def _refused_plain(url: str) -> bool:
+    """A plain-text HTTP request to a TLS listener: True when no HTTP
+    answer comes back (the handshake fails on it)."""
+    import socket
+    host, port = url.rsplit(":", 1)
+    try:
+        with socket.create_connection((host, int(port)), timeout=10) as s:
+            s.sendall(f"GET /status HTTP/1.1\r\nHost: {url}\r\n\r\n"
+                      .encode())
+            got = s.recv(64)
+    except OSError:
+        return True
+    return not got.startswith(b"HTTP/")
+
+
+def _tls_status(url: str, ctx, method: str, path: str,
+                headers: "dict | None" = None) -> "int | str":
+    """One request with the given client context and headers only (no
+    admin JWT added): the status, or the error that refused it."""
+    import http.client
+    host, port = url.rsplit(":", 1)
+    conn = http.client.HTTPSConnection(host, int(port), timeout=10,
+                                       context=ctx)
+    try:
+        conn.request(method, path, body=b"{}" if method == "POST" else None,
+                     headers=headers or {})
+        return conn.getresponse().status
+    except (OSError, http.client.HTTPException) as e:
+        return type(e).__name__
+    finally:
+        conn.close()
+
+
+def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
+                    large_n: int = SECURE_LARGE_N,
+                    mp_size: int = SECURE_MP_SIZE,
+                    chunked_n: int = SECURE_CHUNKED_N,
+                    limit_mb: int = WRITE_LIMIT_MB,
+                    plain_n: int = SECURE_SMALL_N,
+                    device: str = "cuda") -> dict:
+    """A secured cluster as `security.toml` configures it, with the S3
+    gateway on it: per-fid write JWTs (10 s), read JWTs, the admin JWT
+    and mTLS on every listener, from certificates minted at the phase's
+    start (`tls.generate_cluster_certs`, or the `openssl` command where
+    `cryptography` is missing); a `master -volumeSizeLimitMB 1024`, 3
+    `volume -max 8` servers, a filer in its default configuration (its
+    native planes standing down, counted) and `s3 -filer` with an
+    `-iamConfig` of two identities (`admin`: Admin; `reader`: Read and
+    List), every process under `-securityToml` on this host and this
+    client under the same file.  Through the gateway, as `admin`, on 16
+    threads: 4 KiB objects over 4 buckets, 10 MiB objects, one multipart
+    upload of 64 MiB in 8 MiB parts, streaming-chunked PUTs and SSE-C
+    PUTs (when `cryptography` is installed).  The volume holding the
+    most of the objects' chunks is filled with config 1's needles, each
+    with its write JWT, until the limit seals it, and `ec.encode`d on
+    the card through the port's shell over mTLS with the admin JWT
+    (launches against its windows; shard SHA-256s against the host's
+    native codec on the same `.dat`).  Every object read back as
+    `reader`, each body its seeded payload, ListObjectsV2 paged at 1,000
+    (0 launches); the refusals, each counted; a server holding shards of
+    the encoded volume stopped, the encoded objects read degraded (the
+    host codec), `ec.rebuild` on the card (launches against its steps'
+    windows), the objects read again.  Then a short unsecured arm: a
+    second cluster without `security.toml`, 4 KiB objects PUT and GET
+    through its gateway, the volume planes' shares printed."""
+    import base64
+    import types as pytypes
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation, security
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.storage.types import FileId
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = SECURE_COLLECTION
+    try:
+        import cryptography  # noqa: F401
+        have_crypto = True
+    except ImportError:
+        have_crypto = False
+    if have_crypto:
+        from seaweedfs_tpu_torch.tls import generate_cluster_certs
+        pki = generate_cluster_certs(os.path.join(tmp, "pki"))
+        pki_by = "tls.generate_cluster_certs"
+    else:
+        pki = _openssl_certs(os.path.join(tmp, "pki"))
+        pki_by = "openssl"
+        print("secure_s3: `cryptography` is not installed: the PEMs come "
+              "from the openssl command; the SSE-C step is not run",
+              flush=True)
+    keys = {"write": "secure-write-key", "read": "secure-read-key",
+            "admin": "secure-admin-key"}
+    toml = os.path.join(tmp, "security.toml")
+    with open(toml, "w") as f:
+        f.write(f'[jwt.signing]\nkey = "{keys["write"]}"\n'
+                f'expires_after_seconds = 10\n\n'
+                f'[jwt.signing.read]\nkey = "{keys["read"]}"\n\n'
+                f'[admin]\nkey = "{keys["admin"]}"\n\n'
+                f'[tls]\nca = "{pki["ca"]}"\ncert = "{pki["cert"]}"\n'
+                f'key = "{pki["key"]}"\nmtls = true\n')
+    iam = os.path.join(tmp, "s3.json")
+    with open(iam, "w") as f:
+        json.dump({"identities": [
+            {"name": "admin", "actions": ["Admin"], "credentials": [
+                {"accessKey": S3_ADMIN[0], "secretKey": S3_ADMIN[1]}]},
+            {"name": "reader", "actions": ["Read", "List"], "credentials": [
+                {"accessKey": S3_READER[0], "secretKey": S3_READER[1]}]}]},
+            f)
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(SECURE_SERVERS)]
+    for dd in dirs:
+        os.makedirs(dd)
+    procs: list = []
+    sec = ["-securityToml", toml]
+    # every read pass reaches the volumes: no hot-needle or chunk cache
+    nocache = {"SEAWEEDFS_TPU_READ_CACHE_MB": "0"}
+    cuts = {"caches": "SEAWEEDFS_TPU_READ_CACHE_MB=0 on the filer and "
+                      "the volume servers, so each pass reads the store",
+            "servers": {"run": SECURE_SERVERS, "why": "one host"},
+            "small_objects": small_n, "large_objects": large_n,
+            "plain_arm_objects": plain_n}
+    security.configure(security.load_security_toml(toml))
+    try:
+        (murl,) = _start_procs(
+            [[*sec, "master", "-port", "0", "-volumeSizeLimitMB",
+              str(limit_mb)]], [os.path.join(tmp, "master.log")], procs,
+            "master")
+        urls = _start_procs(
+            [[*sec, "volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs, "volume",
+            env_extra=nocache)
+        proc_of = dict(zip(urls, procs[1:]))
+        (furl,) = _start_procs(
+            [[*sec, "filer", "-port", "0", "-master", murl, "-store",
+              os.path.join(tmp, "filer.db"), "-collection", coll]],
+            [os.path.join(tmp, "filer.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n", env_extra=nocache)
+        (s3url,) = _start_procs(
+            [[*sec, "s3", "-port", "0", "-filer", furl, "-iamConfig", iam]],
+            [os.path.join(tmp, "s3.log")], procs, "s3",
+            line=r"s3 gateway listening on (\S+:\d+).*\n")
+
+        def get(path):
+            return http_json("GET", f"{murl}{path}", timeout=30)
+
+        def poll(cond, what, timeout=60.0):
+            end = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < end, f"timed out: {what}")
+                time.sleep(0.05)
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "3 volume servers registered over mTLS")
+        start_s = time.perf_counter() - phase_t0
+        admin = _s3_client(s3url, S3_ADMIN)
+        reader = _s3_client(s3url, S3_READER)
+
+        # 1. writes through the gateway as admin
+        buckets = [f"bucket{i}" for i in range(SECURE_BUCKETS)]
+        for b in buckets:
+            st, body, _ = admin("PUT", f"/{b}")
+            check(st == 200, f"create {b}: {st} {body[:200]!r}")
+        objects: dict = {}          # path -> (seed, nid, size, sse key)
+
+        def put_all(kind, items):
+            def one(item):
+                path, (sd, nid, size) = item
+                body = _payload(sd, nid, size)
+                t = time.perf_counter()
+                st, ans, _ = admin("PUT", path, body=body)
+                ms = (time.perf_counter() - t) * 1e3
+                check(st == 200, f"PUT {path}: {st} {ans[:200]!r}")
+                return ms
+            t = time.perf_counter()
+            with ThreadPoolExecutor(SECURE_C) as pool:
+                ms = list(pool.map(one, items))
+            secs = time.perf_counter() - t
+            nbytes = sum(x[1][2] for x in items)
+            for path, (sd, nid, size) in items:
+                objects[path] = (sd, nid, size, None)
+            return {"objects": len(items), "seconds": secs,
+                    "objects_per_s": len(items) / secs,
+                    "mb_per_s": nbytes / secs / 1e6, **_pcts(ms)}
+        writes = {}
+        # half of them in the first bucket, so its listing pages
+        small = [(f"/{buckets[0 if i % 2 == 0 else 1 + (i // 2) % 3]}"
+                  f"/small/o{i:05d}", (seed + 50, i, SECURE_SMALL_SIZE))
+                 for i in range(small_n)]
+        writes["4KiB"] = put_all("4KiB", small)
+        large = [(f"/{buckets[i % SECURE_BUCKETS]}/large/o{i:03d}",
+                  (seed + 51, i, SECURE_LARGE_SIZE)) for i in range(large_n)]
+        writes["10MiB"] = put_all("10MiB", large)
+        # one multipart upload of 8 MiB parts
+        mp_path = f"/{buckets[0]}/multipart/object.bin"
+        mp_body = _payload(seed + 52, 0, mp_size)
+        t = time.perf_counter()
+        st, ans, _ = admin("POST", mp_path, {"uploads": ""})
+        upload = re.search(rb"<UploadId>([^<]+)</UploadId>", ans)
+        check(st == 200 and upload, f"initiate multipart: {st} {ans!r}")
+        upload = upload.group(1).decode()
+
+        def part(n):
+            piece = mp_body[(n - 1) * SECURE_MP_PART:n * SECURE_MP_PART]
+            pst, pans, ph = admin("PUT", mp_path, {"partNumber": str(n),
+                                                   "uploadId": upload},
+                                  body=piece)
+            check(pst == 200, f"part {n}: {pst} {pans[:200]!r}")
+            return n, ph.get("ETag", "")
+        n_parts = -(-mp_size // SECURE_MP_PART)
+        with ThreadPoolExecutor(SECURE_C) as pool:
+            etags = dict(pool.map(part, range(1, n_parts + 1)))
+        done = ("<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{n}</PartNumber><ETag>{etags[n]}</ETag>"
+            f"</Part>" for n in sorted(etags)) +
+            "</CompleteMultipartUpload>").encode()
+        st, ans, _ = admin("POST", mp_path, {"uploadId": upload}, body=done)
+        check(st == 200, f"complete multipart: {st} {ans[:300]!r}")
+        mp_s = time.perf_counter() - t
+        objects[mp_path] = (seed + 52, 0, mp_size, None)
+        writes["multipart"] = {"bytes": mp_size, "parts": n_parts,
+                               "seconds": mp_s,
+                               "mb_per_s": mp_size / mp_s / 1e6}
+        # streaming-chunked PUTs
+        t = time.perf_counter()
+        for i in range(chunked_n):
+            path = f"/{buckets[1]}/chunked/o{i:02d}"
+            body = _payload(seed + 53, i, SECURE_CHUNKED_SIZE)
+            st, ans, _ = _chunked_put(s3url, path, body, S3_ADMIN)
+            check(st == 200, f"chunked PUT {path}: {st} {ans[:200]!r}")
+            objects[path] = (seed + 53, i, SECURE_CHUNKED_SIZE, None)
+        writes["streaming_chunked"] = {
+            "objects": chunked_n, "seconds": time.perf_counter() - t}
+        # SSE-C
+        sse_keys = {}
+        if have_crypto:
+            t = time.perf_counter()
+            for i in range(SECURE_SSE_N):
+                key = _payload(seed + 54, i, 32)
+                hdr = {"x-amz-server-side-encryption-customer-algorithm":
+                       "AES256",
+                       "x-amz-server-side-encryption-customer-key":
+                       base64.b64encode(key).decode(),
+                       "x-amz-server-side-encryption-customer-key-md5":
+                       base64.b64encode(hashlib.md5(key).digest())
+                       .decode()}
+                path = f"/{buckets[2]}/sse/o{i:02d}"
+                st, ans, _ = admin("PUT", path,
+                                   body=_payload(seed + 55, i,
+                                                 SECURE_SSE_SIZE),
+                                   headers=hdr)
+                check(st == 200, f"SSE-C PUT {path}: {st} {ans[:200]!r}")
+                objects[path] = (seed + 55, i, SECURE_SSE_SIZE, None)
+                sse_keys[path] = hdr
+            writes["sse_c"] = {"objects": SECURE_SSE_N,
+                               "seconds": time.perf_counter() - t}
+        else:
+            print("secure_s3: SSE-C step not run (no `cryptography`)",
+                  flush=True)
+
+        # 2. which volume holds the most of the objects' chunks
+        def chunk_fids(path):
+            r = http_json("GET", f"{furl}/__meta__/lookup?path="
+                                 f"{urllib.parse.quote('/buckets' + path)}",
+                          timeout=30)
+            check("error" not in r, f"lookup {path}: {r}")
+            return path, [c["fileId"] for c in r.get("chunks", [])]
+        with ThreadPoolExecutor(SECURE_C) as pool:
+            fids_of = dict(pool.map(chunk_fids, sorted(objects)))
+        per_vid: dict = {}
+        for fids in fids_of.values():
+            for fid in fids:
+                vid = int(fid.split(",")[0])
+                per_vid[vid] = per_vid.get(vid, 0) + 1
+        target = max(per_vid, key=per_vid.get)
+        encoded = sorted(path for path, fids in fids_of.items()
+                         if any(int(f.split(",")[0]) == target
+                                for f in fids))
+        (loc,) = operation.lookup(murl, target, use_cache=False)
+        tdir = dirs[urls.index(loc["url"])]
+        dat = os.path.join(tdir, f"{coll}_{target}.dat")
+
+        # 3. the seal: config 1's needles into that volume, each with its
+        # write JWT (signed here with the cluster's write key)
+        frng = np.random.default_rng(seed)
+        lock = threading.Lock()
+        fill: list = []
+        stop = threading.Event()
+        counter = itertools.count(1)
+
+        def filler():
+            while not stop.is_set():
+                a = operation.assign(murl, collection=coll)
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                fid = str(FileId(target, int(a.fid.split(",")[1][:-8], 16),
+                                 _cookie(nid)))
+                body = _payload(seed, nid, size)
+                operation.upload(loc["url"], fid, body)
+                with lock:
+                    fill.append((fid, nid, size))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(filler) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and \
+                        os.path.getsize(dat) < limit_mb << 20:
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        size = os.path.getsize(dat)
+        check(size >= limit_mb << 20, f"volume {target}: {size} bytes")
+        poll(lambda: all(v["size"] == size for _n, v in
+                         iter_volume_list_volumes(get("/vol/list"))
+                         if v["id"] == target), "the master sees the size")
+
+        # 4. ec.encode on the card, over mTLS with the admin JWT; the
+        # shards held to the host's native codec on the same .dat
+        twin = os.path.join(tmp, "twin")
+        os.makedirs(twin)
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(dat[:-4] + ext,
+                            os.path.join(twin, f"{coll}_{target}{ext}"))
+        host = rs_native.ReedSolomonNative(d, p)
+
+        class _HostCtx(ECContext):
+            def create_codec(self):
+                return pytypes.SimpleNamespace(parity_lazy=host.parity)
+        ec_encoder.write_ec_files(os.path.join(twin, f"{coll}_{target}"),
+                                  _HostCtx(d, p, device="cpu"))
+        twin_sha = [sha256_file(os.path.join(twin, f"{coll}_{target}" +
+                                             ECContext().to_ext(i)))
+                    for i in range(d + p)]
+        shutil.rmtree(twin, ignore_errors=True)
+        ctx = ECContext(d, p, device="cpu")
+        enc_expect = sum(launches_for(d, item[3]) for item in
+                         ec_encoder._encode_work_items(size, ctx))
+        env = commands.CommandEnv(murl)
+        before = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={target} -collection={coll}; "
+                 f"unlock")
+        enc_s = time.perf_counter() - t
+        enc_launches = int(_counters(urls)["launches"] - before)
+        check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+        check(enc_launches == enc_expect,
+              f"the encode launched {enc_launches}, the windows of its "
+              f"work list are {enc_expect}")
+
+        def ec_locs():
+            return {x["url"]: x["shardIds"] for x in get(
+                f"/dir/ec_lookup?volumeId={target}").get(
+                    "shardIdLocations", [])}
+        poll(lambda: sorted(s for ids in ec_locs().values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed")
+        shard_sha = []
+        for i in range(d + p):
+            name = f"{coll}_{target}" + ECContext().to_ext(i)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_sha.append(sha256_file(path))
+        check(shard_sha == twin_sha,
+              "the card's shards differ from the host codec's: " + str(
+                  [i for i in range(d + p) if shard_sha[i] != twin_sha[i]]))
+
+        # 5. every object read back as reader; ListObjectsV2 paged at 1,000
+        def get_one(path, client=reader):
+            sd, nid, n, _ = objects[path]
+            t = time.perf_counter()
+            st, body, _ = client("GET", path,
+                                 headers=sse_keys.get(path))
+            ms = (time.perf_counter() - t) * 1e3
+            check(st == 200 and body == _payload(sd, nid, n),
+                  f"GET {path} as reader: {st}, {len(body)} bytes")
+            return ms
+
+        def read_pass(paths, what):
+            c0 = _counters([u for u in urls if u in live])
+            t = time.perf_counter()
+            with ThreadPoolExecutor(SECURE_C) as pool:
+                ms = list(pool.map(get_one, paths))
+            secs = time.perf_counter() - t
+            c1 = _counters([u for u in urls if u in live])
+            dlt = _delta(c1, c0)
+            check(dlt["launches"] == 0,
+                  f"{what}: the reads launched {dlt['launches']}")
+            nbytes = sum(objects[x][2] for x in paths)
+            return {"objects": len(paths), "seconds": secs,
+                    "objects_per_s": len(paths) / secs,
+                    "mb_per_s": nbytes / secs / 1e6, **_pcts(ms),
+                    "degraded_reads": dlt["degraded"],
+                    "engines": dlt["engines"],
+                    "kernel_launches": int(dlt["launches"])}
+        live = set(urls)
+        kinds = {"4KiB": [x for x, _ in small], "10MiB": [x for x, _ in large],
+                 "other": sorted(set(objects) - {x for x, _ in small} -
+                                 {x for x, _ in large})}
+        reads = {k: read_pass(v, f"read {k}") for k, v in kinds.items()}
+        listed = 0
+        page_counts: dict = {}
+        for b in buckets:
+            token, keys_seen, pages = "", [], 0
+            while True:
+                q = {"list-type": "2", "max-keys": "1000"}
+                if token:
+                    q["continuation-token"] = token
+                st, body, _ = reader("GET", f"/{b}", q)
+                check(st == 200, f"list {b}: {st}")
+                keys_seen += [k.decode() for k in
+                              re.findall(rb"<Key>([^<]+)</Key>", body)]
+                pages += 1
+                m = re.search(rb"<NextContinuationToken>([^<]+)<", body)
+                if b"<IsTruncated>true</IsTruncated>" not in body or not m:
+                    break
+                token = m.group(1).decode()
+            want = sorted(x.split("/", 2)[2] for x in objects
+                          if x.split("/")[1] == b)
+            check(sorted(keys_seen) == want,
+                  f"list {b}: {len(keys_seen)} keys, want {len(want)}")
+            check(pages == -(-max(len(want), 1) // 1000),
+                  f"list {b}: {pages} pages for {len(want)} keys")
+            listed += len(keys_seen)
+            page_counts[b] = pages
+        reads["listing"] = {"keys": listed, "max_keys": 1000,
+                            "pages": page_counts}
+
+        # 6. the refusals, each counted
+        refusals: dict = {}
+        st, body, _ = reader("PUT", f"/{buckets[0]}/denied", body=b"x")
+        refusals["reader_put_403"] = st == 403 and b"AccessDenied" in body
+        st, _, _ = reader("GET", encoded[0], signed=False)
+        refusals["unsigned_get_403"] = st == 403
+        roles = {"master": murl, "filer": furl, "s3": s3url,
+                 **{f"volume{i}": u for i, u in enumerate(urls)}}
+        refusals["plain_http_refused"] = {
+            r: _refused_plain(u) for r, u in roles.items()}
+        import ssl
+        nocert = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        nocert.load_verify_locations(pki["ca"])
+        refusals["tls_without_cert_refused"] = {
+            r: not isinstance(_tls_status(u, nocert, "GET", "/status"), int)
+            for r, u in roles.items()}
+        full = security.current().tls.client_context()
+        sample_fid = fids_of[encoded[0]][0]
+        vloc = operation.lookup(murl, int(sample_fid.split(",")[0]))[0]["url"]
+        refusals["volume_get_without_read_jwt_401"] = _tls_status(
+            vloc, full, "GET", f"/{sample_fid}") == 401
+        other = security.gen_jwt(keys["write"], {"fid": "999,deadbeef01"},
+                                 10)
+        a = operation.assign(murl, collection=coll)
+        refusals["volume_post_other_fid_jwt_401"] = _tls_status(
+            a.url, full, "POST", f"/{a.fid}",
+            {"Authorization": f"Bearer {other}"}) == 401
+        refusals["admin_without_jwt_401"] = {
+            "volume /admin/ec/info": _tls_status(
+                urls[0], full, "GET", f"/admin/ec/info?volumeId={target}"),
+            "master /heartbeat": _tls_status(murl, full, "POST",
+                                             "/heartbeat"),
+            "master /vol/grow": _tls_status(murl, full, "POST",
+                                            "/vol/grow"),
+            "filer /debug/read_plane": _tls_status(
+                furl, full, "POST", "/debug/read_plane")}
+        refusals["admin_without_jwt_401"] = {
+            k: v == 401 for k, v in refusals["admin_without_jwt_401"].items()}
+        planes = {u: http_json("GET", f"{u}/status", timeout=30)
+                  for u in urls + [furl]}
+        refusals["no_plane_port_open"] = all(
+            not st.get("readPlanePort") and not st.get("writePlanePort")
+            and not st.get("metaPlanePort") and not st.get("udsPath")
+            for st in planes.values())
+        failed = [k for k, v in refusals.items()
+                  if not (all(v.values()) if isinstance(v, dict) else v)]
+        check(not failed, f"refusals not met: {failed}: {refusals}")
+        standdown = {}
+        for u in urls + [furl]:
+            text = http_bytes("GET", f"{u}/metrics", timeout=30)[1].decode()
+            for m in re.finditer(r'^(?:seaweedfs_tpu_)?(volume_server_plane_'
+                                 r'stood_down_total|filer_native_plane_stood'
+                                 r'_down_total)\{plane="(\w+)",reason="(\w+)"'
+                                 r'\} (\S+)$', text, re.M):
+                k = f"{m.group(1).split('_')[0]}:{m.group(2)}:{m.group(3)}"
+                standdown[k] = standdown.get(k, 0) + int(float(m.group(4)))
+            hs = _samples(text, "tls_handshake_failures_total")
+            standdown.setdefault("tls_handshake_failures", 0)
+            standdown["tls_handshake_failures"] += int(sum(v for _, v in hs))
+        check(standdown.get("volume:read:tls") == SECURE_SERVERS and
+              standdown.get("volume:write:tls") == SECURE_SERVERS and
+              standdown.get("volume:uds:tls") == SECURE_SERVERS and
+              standdown.get("filer:meta:tls") and
+              standdown.get("filer:read:tls"),
+              f"the planes' stand-downs: {standdown}")
+
+        # 7. loss and rebuild: a server holding shards of the encoded
+        # volume stopped (the one with the most data shards of those
+        # holding at most 4), the encoded objects read degraded
+        placement = ec_locs()
+        fits = [u for u, ids in placement.items() if len(ids) <= p]
+        check(fits, f"no server holds at most {p} shards: {placement}")
+        victim = max(fits, key=lambda u: sum(1 for s in placement[u]
+                                             if s < d))
+        lost = sorted(placement[victim])
+        bad = _stop_peers([proc_of[victim]])
+        check(not bad, f"{victim} did not stop: {bad}")
+        live.discard(victim)
+        poll(lambda: victim not in get("/cluster/status")["dataNodes"] and
+             victim not in ec_locs(), "the master drops the stopped server")
+        degraded = read_pass(encoded, "degraded")
+        check(degraded["degraded_reads"] > 0,
+              f"the loss of {lost} made no degraded read: {degraded}")
+        check(all(e.startswith("native/") for e in degraded["engines"]),
+              f"degraded reads rebuilt by {degraded['engines']}")
+        shard_size = int(http_json(
+            "GET", f"{next(iter(ec_locs()))}/admin/ec/info?volumeId="
+                   f"{target}", timeout=30)["shardSize"])
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        before = _counters(sorted(live))["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={target} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        reb_launches = int(_counters(sorted(live))["launches"] - before)
+        check(f"rebuilt shards {lost} on " in out[1],
+              f"rebuild of {target}: {out}")
+        check(reb_launches == reb_expect,
+              f"the rebuild launched {reb_launches}, the windows of its "
+              f"steps are {reb_expect}")
+        poll(lambda: sorted(s for ids in ec_locs().values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed again")
+        for u in sorted(live):
+            http_json("POST", f"{u}/admin/ec/unmount",
+                      {"volumeId": target, "shardIds": []}, timeout=30)
+        rebuilt = read_pass(encoded, "rebuilt")
+        check(rebuilt["degraded_reads"] == 0,
+              f"degraded reads after the rebuild: {rebuilt}")
+    finally:
+        security.configure(None)
+        bad = _stop_peers(procs)
+    check(not bad, f"a server of the secured cluster did not stop: {bad}")
+    secured_s = time.perf_counter() - phase_t0
+
+    # 8. the unsecured arm: the same roles without security.toml
+    t_plain = time.perf_counter()
+    procs = []
+    pdirs = [os.path.join(tmp, f"p{i}") for i in range(SECURE_SERVERS)]
+    try:
+        (pm,) = _start_procs([["master", "-port", "0"]],
+                             [os.path.join(tmp, "pmaster.log")], procs,
+                             "master")
+        purls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", pm, "-max",
+              str(WRITE_MAX_VOLUMES), "-device", device] for dd in pdirs],
+            [dd + ".log" for dd in pdirs], procs, "volume")
+        (pf,) = _start_procs(
+            [["filer", "-port", "0", "-master", pm, "-store",
+              os.path.join(tmp, "pfiler.db"), "-collection", coll]],
+            [os.path.join(tmp, "pfiler.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n")
+        (ps3,) = _start_procs(
+            [["s3", "-port", "0", "-filer", pf, "-accessKey", S3_ADMIN[0],
+              "-secretKey", S3_ADMIN[1]]], [os.path.join(tmp, "ps3.log")],
+            procs, "s3", line=r"s3 gateway listening on (\S+:\d+).*\n")
+        end = time.monotonic() + 60
+        while len(http_json("GET", f"{pm}/cluster/status")["dataNodes"]) < \
+                len(purls):
+            check(time.monotonic() < end, "the unsecured volume servers")
+            time.sleep(0.05)
+        pstatus = {u: http_json("GET", f"{u}/status") for u in purls + [pf]}
+        check(all(st.get("readPlanePort") and st.get("writePlanePort")
+                  for u, st in pstatus.items() if u != pf) and
+              pstatus[pf].get("metaPlanePort") and
+              pstatus[pf].get("readPlanePort"),
+              f"the unsecured cluster's planes: {pstatus}")
+        client = _s3_client(ps3, S3_ADMIN)
+        check(client("PUT", "/plain")[0] == 200, "create /plain")
+        pobjs = [(f"/plain/o{i:05d}", i) for i in range(plain_n)]
+        c0 = _plane_counters(purls)
+
+        def pput(item):
+            path, i = item
+            t = time.perf_counter()
+            st, _, _ = client("PUT", path,
+                              body=_payload(seed + 56, i, SECURE_SMALL_SIZE))
+            check(st == 200, f"unsecured PUT {path}: {st}")
+            return (time.perf_counter() - t) * 1e3
+
+        def pget(item):
+            path, i = item
+            t = time.perf_counter()
+            st, body, _ = client("GET", path)
+            check(st == 200 and body == _payload(seed + 56, i,
+                                                 SECURE_SMALL_SIZE),
+                  f"unsecured GET {path}: {st}")
+            return (time.perf_counter() - t) * 1e3
+        plain = {}
+        for what, fn in (("put", pput), ("get", pget)):
+            t = time.perf_counter()
+            with ThreadPoolExecutor(SECURE_C) as pool:
+                ms = list(pool.map(fn, pobjs))
+            secs = time.perf_counter() - t
+            plain[what] = {"objects": len(ms), "seconds": secs,
+                           "objects_per_s": len(ms) / secs,
+                           "mb_per_s": len(ms) * SECURE_SMALL_SIZE / secs
+                           / 1e6, **_pcts(ms)}
+        pd = _plane_delta(_plane_counters(purls), c0)
+        writes_all = pd["native_writes"] + pd["write_fallbacks"]
+        reads_all = pd["native_reads"] + pd["python_reads"]
+        plain["planes"] = {**pd, "write_plane_share":
+                           pd["native_writes"] / writes_all
+                           if writes_all else 0.0,
+                           "read_plane_share": pd["native_reads"] / reads_all
+                           if reads_all else 0.0}
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a server of the unsecured cluster did not stop: {bad}")
+    fill_bytes = sum(x[2] for x in fill)
+    out = {"phase": "secure_s3", "pki": pki_by, "sse_c": have_crypto,
+           "servers": SECURE_SERVERS, "cuts": cuts,
+           "cluster_start_seconds": start_s,
+           "writes": writes,
+           "seal": {"volume": target, "gateway_chunks_in_it":
+                    per_vid[target], "needles": len(fill),
+                    "bytes": fill_bytes, "seconds": fill_s,
+                    "gbps": fill_bytes / fill_s / 1e9},
+           "encode": {"volume": target, "bytes": size, "seconds": enc_s,
+                      "gbps": size / enc_s / 1e9, "launches": enc_launches,
+                      "windows": enc_expect,
+                      "shards_sha256_equal_host_codec": True,
+                      "host_codec": rs_native.gf_native_simd()},
+           "reads": reads, "encoded_objects": len(encoded),
+           "refusals": refusals, "stood_down": standdown,
+           "loss": {"server": victim, "lost_shards": lost,
+                    "degraded": degraded},
+           "rebuild": {"seconds": reb_s, "launches": reb_launches,
+                       "windows": reb_expect, "after": rebuilt},
+           "unsecured": plain,
+           "launches": {"encode": enc_launches, "rebuild": reb_launches,
+                        "reads": sum(reads[k]["kernel_launches"]
+                                     for k in kinds) +
+                        degraded["kernel_launches"] +
+                        rebuilt["kernel_launches"]},
+           "secured_seconds": secured_s,
+           "unsecured_seconds": time.perf_counter() - t_plain,
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -5479,6 +6289,8 @@ def main(argv=None) -> int:
                                         args.seed)
         fsync = phase_fsync_tier(os.path.join(work, "fsync_tier"),
                                  args.seed)
+        secure = phase_secure_s3(os.path.join(work, "secure_s3"),
+                                 args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -5507,7 +6319,10 @@ def main(argv=None) -> int:
               "filer_plane_rebuild": filer_plane["launches"]["rebuild"],
               "filer_plane_reads": filer_plane["launches"]["reads"],
               "fsync_encode": fsync["launches"]["encode"],
-              "fsync_reads": fsync["launches"]["reads"]}),
+              "fsync_reads": fsync["launches"]["reads"],
+              "secure_s3_encode": secure["launches"]["encode"],
+              "secure_s3_rebuild": secure["launches"]["rebuild"],
+              "secure_s3_reads": secure["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -1,5 +1,6 @@
 """Command line of the port.
 
+    python3 -m seaweedfs_tpu_torch [-securityToml security.toml] ROLE ...
     python3 -m seaweedfs_tpu_torch master [-ip 127.0.0.1] [-port 9333]
         [-volumeSizeLimitMB 1024] [-defaultReplication 000]
         [-telemetry -telemetryUrl URL]
@@ -20,6 +21,24 @@
         [-n 1000] [-size 1024] [-c 16]
     python3 -m seaweedfs_tpu_torch upload [-master HOST:PORT] FILE
     python3 -m seaweedfs_tpu_torch download [-master HOST:PORT] FID
+    python3 -m seaweedfs_tpu_torch s3 [-ip 127.0.0.1] [-port 8333]
+        [-filer HOST:PORT | -master HOST:PORT -store filer.db]
+        [-accessKey AK -secretKey SK] [-iamConfig s3.json]
+        [-kmsFile keys.json]
+    python3 -m seaweedfs_tpu_torch cert [-dir certs]
+        [-hosts 127.0.0.1,localhost]
+    python3 -m seaweedfs_tpu_torch scaffold [-config security]
+
+`-securityToml` (before the role) loads the reference's security.toml
+into the process (`security.py`): `[jwt.signing]` and
+`[jwt.signing.read]` keys gate needle writes and reads with per-fid
+JWTs, `[admin] key` (or `[access] admin_key`) the admin paths,
+`[access] white_list` admits IPs to them, and `[tls]` (`ca`, `cert`,
+`key`, `mtls`) puts every listener and dial on TLS.  A `[qos]` section
+is refused (exit 2): QoS admission is not ported.  `cert` mints a
+cluster CA and one node certificate for `[tls]` (it needs the
+`cryptography` package); `scaffold -config security` prints a
+commented security.toml.
 
 `master` starts the master (`server/master_server.py`) and `volume` a
 volume server (`server/volume_server.py`) that heartbeats to
@@ -61,6 +80,16 @@ pulled volumes on its `-device` (the card by default; `-device cuda`
 must find it at start), and both `erasure_coding` and `ec_rebuild`
 bring the rebuild handler.  Both serve until SIGTERM or SIGINT, stop
 and exit 0.
+
+`s3` starts the S3 gateway (`s3/s3_server.py`) over a running filer
+(`-filer`, through `filer/client.py`) or an in-process filer over
+`-master` and the sqlite `-store`, and prints `s3 gateway listening on
+<ip>:<port>`.  Requests are signed with SigV4 against `-accessKey` /
+`-secretKey` (every key acts as admin) or the identities of
+`-iamConfig` (the reference's s3.json shape); `-kmsFile` is a local KMS
+keystore that enables SSE-KMS.  `-stsKey`, `-rolesFile`,
+`-kmsEndpoint`, `-kmsCloud`, `-metricsPort` and `-metricsAddress` are
+refused (exit 2), not ported yet (ROADMAP A9).
 
 `benchmark` writes `-n` files of `-size` bytes through `-master` on
 `-c` threads, then reads each back, and prints one JSON line of
@@ -106,8 +135,91 @@ def _listening(role: str):
     return lambda server: f"{role} listening on {server.url}"
 
 
+SECURITY_SCAFFOLD = """\
+# security.toml: pass it as -securityToml before the role
+# (command/scaffold/security.toml layout)
+
+[jwt.signing]
+# per-fid write tokens minted by the master on assign
+key = ""
+expires_after_seconds = 10
+
+[jwt.signing.read]
+# optional read-token gate on the volume data path
+key = ""
+expires_after_seconds = 10
+
+[admin]
+# admin-plane key: guards /admin/*, /debug/*, heartbeats, grow, lock
+key = ""
+
+[access]
+# IPs and CIDRs admitted to the admin plane without the admin JWT
+white_list = []
+
+# [tls]
+# cluster-wide TLS/mTLS (security/tls.go; mint a PKI with
+# `python3 -m seaweedfs_tpu_torch cert -dir certs`)
+# ca = "certs/ca.crt"
+# cert = "certs/node.crt"
+# key = "certs/node.key"
+# mtls = true"""
+
+
+def _load_security(path: str) -> "str | None":
+    """Configure the process from security.toml; an error message when
+    the file cannot be used (a `[qos]` section: QoS is not ported)."""
+    from . import security
+    try:
+        import tomllib
+    except ModuleNotFoundError:      # py<3.11: the tomli backport
+        import tomli as tomllib
+    try:
+        with open(path, "rb") as f:
+            if "qos" in tomllib.load(f):
+                return (f"{path}: the [qos] section is not ported "
+                        f"(ROADMAP A10); remove it to start")
+        security.configure(security.load_security_toml(path))
+    except (OSError, ValueError) as e:
+        return f"-securityToml {path}: {e}"
+    return None
+
+
+def _s3(ap, args) -> int:
+    """`s3`: the gateway over a running filer or an in-process one."""
+    for flag in ("stsKey", "rolesFile", "kmsEndpoint", "kmsCloud",
+                 "metricsPort", "metricsAddress"):
+        if getattr(args, "refused_" + flag) is not None:
+            print(f"s3 -{flag}: not ported yet (ROADMAP A9)",
+                  file=sys.stderr)
+            return 2
+    from .s3 import S3ApiServer
+    creds = {args.accessKey: args.secretKey} if args.accessKey else None
+    iam_store = kms = None
+    if args.iam_config:
+        from .iam import IdentityStore
+        iam_store = IdentityStore(args.iam_config)
+    if args.kms_file:
+        from .iam.kms import LocalKms
+        kms = LocalKms(args.kms_file)
+    if args.filer:
+        from .filer.client import FilerClient
+        backend = FilerClient(args.filer)
+    else:
+        from .filer import Filer
+        from .filer.filer_store import SqliteStore
+        backend = Filer(args.master, SqliteStore(args.store))
+    suffix = f" (filer {args.filer})" if args.filer else ""
+    return _serve(S3ApiServer(backend, args.ip, args.port,
+                              credentials=creds, iam=iam_store, kms=kms),
+                  lambda gw: f"s3 gateway listening on {gw.url}{suffix}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m seaweedfs_tpu_torch")
+    ap.add_argument("-securityToml", default="",
+                    help="security.toml: JWT signing keys, admin key, "
+                         "IP whitelist, TLS")
     sub = ap.add_subparsers(dest="cmd", required=True)
     m = sub.add_parser("master", help="start a master server")
     m.add_argument("-ip", default="127.0.0.1")
@@ -195,7 +307,60 @@ def main(argv=None) -> int:
     down = sub.add_parser("download", help="download a fid")
     down.add_argument("-master", default="127.0.0.1:9333")
     down.add_argument("fid")
+    s3p = sub.add_parser("s3", help="start the S3 gateway on a filer")
+    s3p.add_argument("-ip", default="127.0.0.1")
+    s3p.add_argument("-port", type=int, default=8333)
+    s3p.add_argument("-master", default="127.0.0.1:9333")
+    s3p.add_argument("-filer", default="",
+                     help="attach to a running filer's namespace; "
+                          "overrides -master and -store")
+    s3p.add_argument("-store", default="filer.db")
+    s3p.add_argument("-accessKey", default="")
+    s3p.add_argument("-secretKey", default="")
+    s3p.add_argument("-iamConfig", dest="iam_config", default="",
+                     help="identities JSON (the s3.json shape); "
+                          "supersedes -accessKey")
+    s3p.add_argument("-kmsFile", dest="kms_file", default="",
+                     help="local KMS keystore (enables SSE-KMS)")
+    for flag in ("-stsKey", "-rolesFile", "-kmsEndpoint", "-kmsCloud",
+                 "-metricsPort", "-metricsAddress"):
+        s3p.add_argument(flag, dest="refused_" + flag[1:], default=None,
+                         help="not ported (refused)")
+    crt = sub.add_parser("cert", help="mint a cluster CA and node "
+                         "certificate for the TLS plane")
+    crt.add_argument("-dir", default="certs")
+    crt.add_argument("-hosts", default="127.0.0.1,localhost",
+                     help="comma-separated SAN hosts and IPs")
+    sc = sub.add_parser("scaffold", help="print a commented template "
+                        "config")
+    sc.add_argument("-config", default="security", choices=["security"])
     args = ap.parse_args(argv)
+
+    if args.securityToml:
+        err = _load_security(args.securityToml)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+    if args.cmd == "cert":
+        try:
+            from .tls import generate_cluster_certs
+            paths = generate_cluster_certs(
+                args.dir, [h.strip() for h in args.hosts.split(",")
+                           if h.strip()])
+        except ModuleNotFoundError as e:
+            print(f"cert: needs the {e.name!r} module, which is not "
+                  f"installed", file=sys.stderr)
+            return 2
+        print(f"wrote {paths['ca']}, {paths['cert']}, {paths['key']}")
+        print("enable via security.toml:\n[tls]\n"
+              f'ca = "{paths["ca"]}"\ncert = "{paths["cert"]}"\n'
+              f'key = "{paths["key"]}"\nmtls = true')
+        return 0
+    if args.cmd == "scaffold":
+        print(SECURITY_SCAFFOLD)
+        return 0
+    if args.cmd == "s3":
+        return _s3(ap, args)
 
     if args.cmd == "master":
         from .server.master_server import MasterServer

@@ -26,7 +26,14 @@ plane (`server/uds_reader.py`, at `/status`'s `udsPath`); then the HTTP
 ports.  Every primary read that succeeds feeds the hedge's threshold.
 A 404 or an unreachable plane falls through, byte for byte the path
 without planes; everything else goes over the pooled keep-alive client
-of `server/httpd.py`.  No JWTs (ROADMAP).  It imports no torch.
+of `server/httpd.py`.
+
+Security (`security.py`): an upload carries the assign's per-fid write
+JWT, else one minted here with the write key; a read carries a read JWT
+minted with the read key, and a delete a write JWT.  The native planes
+and the UDS plane carry no JWT and no TLS, so the client tries them only
+where neither the key of the operation nor `[tls]` is configured, as
+the servers start them only there.  It imports no torch.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import time
 import urllib.parse
 from dataclasses import dataclass
 
-from . import tracing
+from . import security, tracing
 from .server.httpd import http_bytes, http_json
 from .server.uds_reader import uds_read_needle
 from .storage import types
@@ -98,7 +105,7 @@ class Assignment:
     url: str
     public_url: str
     count: int
-    auth: str = ""  # a per-fid JWT: the port's master mints none
+    auth: str = ""  # the per-fid write JWT the master minted
 
 
 def assign(master: str, count: int = 1, collection: str = "",
@@ -130,8 +137,12 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
     """operation/upload_content.go Upload: POST the needle to a volume
     server; its JSON answer (`name`, `size`, `eTag`, `unchanged`), or
     UploadError with the status.  A plain upload tries the server's
-    native write plane first."""
-    if not name and not mime and not auth and data:
+    native write plane first, where no write key and no TLS are
+    configured.  `auth` is the assign's per-fid write JWT; without it
+    the upload is signed here when this process holds the write key
+    (the derived fids of an assign batch)."""
+    if not name and not mime and not auth and data and \
+            _planes_allowed(write=True):
         r = _write_via_write_plane(url, fid, data)
         if r is not None:
             return r
@@ -141,6 +152,8 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
     # of the same fid, cookie and bytes "unchanged"), so the pooled
     # client may send it again when a reused socket died under it
     headers["X-Idempotent"] = "1"
+    if not auth:
+        auth = security.current().write_jwt(fid)
     if auth:
         headers["Authorization"] = f"Bearer {auth}"
     status, body, _ = http_bytes(
@@ -345,10 +358,14 @@ def read(master: str, fid: str, offset: int = 0,
     locs = lookup(master, vid)
     headers = {}
     key = cookie = -1
+    read_auth = security.current().read_jwt(fid)
+    if read_auth:
+        headers["Authorization"] = f"Bearer {read_auth}"
     if offset or size is not None:
         end = f"{offset + size - 1}" if size is not None else ""
         headers["Range"] = f"bytes={offset}-{end}"
-    else:
+    elif _planes_allowed(write=False):
+        # the planes' shape: a whole needle, where reads need no JWT
         try:
             part = fid.split(",", 1)[1]
             key, cookie = int(part[:-8], 16), int(part[-8:], 16)
@@ -539,6 +556,15 @@ def _plane_addr(url: str, key: str) -> "str | None":
     if not port:
         return None
     return f"{url.split('://')[-1].rsplit(':', 1)[0]}:{port}"
+
+
+def _planes_allowed(write: bool) -> bool:
+    """Whether the client may use the native and UDS planes: they carry
+    no JWT and no TLS, so not where the operation's key or `[tls]` is
+    configured (the servers do not start them there either)."""
+    sec = security.current()
+    key = sec.volume_write_key if write else sec.volume_read_key
+    return not key and sec.tls is None
 
 
 def _plane_vid_misses() -> dict:
@@ -742,10 +768,11 @@ def delete(master: str, fid: str) -> None:
     # a fresh lookup: all-404 means gone only over current locations
     locs = lookup(master, vid, use_cache=False)
     answered = 0
+    headers = security.current().write_headers(fid)
     for loc in locs:
         try:
             status, body, _ = http_bytes("DELETE", f"{loc['url']}/{fid}",
-                                         timeout=60.0)
+                                         headers=headers, timeout=60.0)
         except OSError as e:
             last = f"{loc['url']}: {e}"
             continue

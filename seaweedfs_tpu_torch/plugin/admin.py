@@ -36,7 +36,7 @@ import uuid
 from dataclasses import dataclass, field
 
 from .. import tracing
-from ..server.httpd import HttpServer, Request
+from ..server.httpd import HttpServer, Request, admin_guard
 
 
 def _trace_ctx() -> "tuple[str, str]":
@@ -143,6 +143,10 @@ class AdminServer:
                 self._load_state()
         self.http = HttpServer(host, port)
         self.http.role = "admin"
+        # the admin JWT on `/debug/*`, as every role has it; the JAX
+        # admin's browser UI, whose writes it also gates before their
+        # CSRF check, is not ported
+        self.http.guard = admin_guard
         r = self.http.route
         r("POST", "/worker/register", self._register)
         r("POST", "/worker/poll", self._poll)

@@ -48,7 +48,8 @@ import sys
 import threading
 import time
 
-from .. import native, operation
+from .. import native, operation, security
+from .meta_plane_native import note_stood_down
 from ..filer.filer import CHUNK_SIZE
 
 # response latency histogram bucket bounds (filer_read_plane.cc
@@ -229,6 +230,11 @@ class NativeReadPlane:
 
     def _enqueue_fill(self, path: str, fill, token: int) -> None:
         if not path or not _path_bytes_ok(path):
+            return
+        if security.current().volume_read_key:
+            # a read-JWT cluster: the plane's bare volume GET would 401,
+            # so it holds no entry and every GET falls back
+            note_stood_down("read", "jwt")
             return
         try:
             self._fills.put_nowait((path, fill[0], fill[1], fill[2],

@@ -19,7 +19,13 @@ their counters.  `SEAWEEDFS_TPU_FILER_META_PLANE_NATIVE=0` and
 `SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE=0` keep them off; the native meta
 plane needs the Python meta plane.  A plane that fails to build or start
 is logged and counted (`filer_native_plane_unavailable_total{plane}`),
-and this port serves its traffic.  A started filer follows the master's
+and this port serves its traffic.  Under `security.toml` the planes
+stand down, logged and counted in
+`filer_native_plane_stood_down_total{plane,reason}`: neither starts
+under `[tls]` (they speak plain text), the meta plane's fid pool stays
+dry when assigns carry a write JWT, and the read plane takes no entry
+when a read key is set; the admin paths (`/debug/*`) need the admin
+JWT.  A started filer follows the master's
 location pushes (`operation.enable_follow`), so its chunk lookups and
 the read plane's fills resolve without a lookup RPC; `GET
 /debug/follow` shows the stream's state and pushed map.
@@ -53,12 +59,14 @@ import os
 import sys
 import urllib.parse
 
-from .. import operation, stats
+from .. import operation, security, stats
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import SqliteStore
 from ..util.chunk_cache import read_cache_disk
-from .httpd import HttpServer, Request, http_json, parse_range
+from .httpd import (HttpServer, Request, admin_guard, http_json,
+                    parse_range)
+from .meta_plane_native import note_stood_down
 
 
 def cluster_statistics(master: str, collection: str = "") -> dict:
@@ -117,7 +125,11 @@ class FilerServer:
         plane_host = self.http.host if all(
             c in "0123456789." for c in self.http.host) else "127.0.0.1"
         self.native_meta = None
-        if self.filer.meta_plane is not None:
+        tls_on = security.current().tls is not None
+        if tls_on:
+            for name in ("meta", "read"):
+                note_stood_down(name, "tls")
+        if self.filer.meta_plane is not None and not tls_on:
             from .meta_plane_native import (NativeMetaPlane,
                                             native_meta_plane_enabled)
             if native_meta_plane_enabled() is not False:
@@ -128,7 +140,7 @@ class FilerServer:
         from .filer_read_plane_native import (NativeReadPlane,
                                               native_read_plane_enabled)
         self.native_read = None
-        if native_read_plane_enabled() is not False:
+        if native_read_plane_enabled() is not False and not tls_on:
             self.native_read = self._start_plane(
                 "read", lambda: NativeReadPlane(master, host=plane_host))
         # entry truth flows in from both sides: this process's own
@@ -165,6 +177,7 @@ class FilerServer:
         r("GET", "/__meta__/statistics", self._meta_statistics)
         self.http.route_prefix("POST", "/__chunk__/", self._chunk_route)
         self.http.fallback = self._dispatch
+        self.http.guard = admin_guard
 
     @staticmethod
     def _start_plane(name: str, make):

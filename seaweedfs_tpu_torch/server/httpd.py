@@ -27,7 +27,14 @@ forwards the remaining budget in the same header.
 connection per thread and peer, the JAX package's `_pooled_request`);
 the streaming calls keep a connection of their own for the transfer.
 
-Plain HTTP, bound to 127.0.0.1 by default: no TLS, no admin JWT, no QoS
+Security (`security.py`, `tls.py`): an owner's `guard` runs before the
+route and answers 401 for an admin path without the admin JWT.  Under
+`[tls]` every listener handshakes in its connection's handler thread
+(10 s at most; a failed handshake is counted in
+`tls_handshake_failures_total{reason}` and never reaches dispatch),
+with mTLS when the configuration asks, and every client call here dials
+https with the cluster CA pinned; `_auth_for` attaches the process's
+admin JWT to admin paths.  Bound to 127.0.0.1 by default; no QoS
 admission and no fault sites (ROADMAP C).
 """
 
@@ -38,6 +45,7 @@ import json
 import secrets
 import select
 import socket
+import ssl
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -167,14 +175,21 @@ Route = Callable[[Request], "tuple[int, object]"]
 
 def normalize_payload(payload) -> "tuple[object, str, dict]":
     """(body or file-like, content type, extra headers) of a handler's
-    payload: a dict or list (JSON), bytes, or a (body, headers) tuple."""
+    payload: a dict or list (JSON), bytes or str, or a (body, headers)
+    or (body, content type) tuple."""
     if isinstance(payload, (dict, list)):
         return json.dumps(payload).encode(), "application/json", {}
     if isinstance(payload, tuple):
         body, extra = payload
+        if isinstance(body, str):
+            body = body.encode()
+        if not isinstance(extra, dict):
+            return body, extra, {}
         extra = dict(extra)
         return body, extra.pop("Content-Type",
                                "application/octet-stream"), extra
+    if isinstance(payload, str):
+        payload = payload.encode()
     return payload, "application/octet-stream", {}
 
 
@@ -213,6 +228,9 @@ class HttpServer:
         # method -> [(prefix, route)], longest prefix first
         self.prefix_routes: dict[str, list[tuple[str, Route]]] = {}
         self.fallback: "Route | None" = None
+        # the owner's auth hook (security/guard.go Guard): None to go on,
+        # or the (status, payload) that answers instead of the route
+        self.guard: "Route | None" = None
         self.role = ""
         outer = self
 
@@ -251,6 +269,9 @@ class HttpServer:
                         if dl is not None and dl.expired():
                             status, payload = deadline.expired_response(
                                 f"{site}.ingress")
+                        elif outer.guard is not None and \
+                                (denied := outer.guard(req)) is not None:
+                            status, payload = denied
                         elif route is None:
                             status, payload = 404, {"error": "not found"}
                         else:
@@ -312,7 +333,8 @@ class HttpServer:
                         break
                     self.wfile.write(chunk)
 
-            do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _dispatch
+            do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = \
+                do_OPTIONS = _dispatch
 
             def log_message(self, *args):  # quiet
                 pass
@@ -332,15 +354,43 @@ class HttpServer:
                 # sever them: shutdown() only ends the accept loop
                 self._conns: set = set()
                 self._conns_lock = threading.Lock()
+                self.ssl_context: "ssl.SSLContext | None" = None
 
             def finish_request(self, request, client_address):
+                # the TLS handshake runs here, in the connection's own
+                # handler thread: in the accept loop one silent client
+                # would stall every other.  The raw socket is tracked
+                # before the handshake, so stop() severs a connection
+                # parked in it too.
+                raw = request
                 with self._conns_lock:
-                    self._conns.add(request)
+                    self._conns.add(raw)
                 try:
+                    if self.ssl_context is not None:
+                        try:
+                            request.settimeout(HANDSHAKE_TIMEOUT)
+                            request = self.ssl_context.wrap_socket(
+                                request, server_side=True)
+                            request.settimeout(None)
+                        except (ssl.SSLError, OSError) as e:
+                            stats.PROCESS.counter_add(
+                                "tls_handshake_failures_total", 1.0,
+                                help_text="inbound TLS handshakes that "
+                                          "never completed",
+                                reason=type(e).__name__)
+                            try:
+                                request.close()
+                            except OSError:
+                                pass
+                            return
+                        with self._conns_lock:
+                            self._conns.discard(raw)
+                            self._conns.add(request)
                     super().finish_request(request, client_address)
                 finally:
                     with self._conns_lock:
                         self._conns.discard(request)
+                        self._conns.discard(raw)
 
             def close_established(self):
                 with self._conns_lock:
@@ -389,6 +439,9 @@ class HttpServer:
         return None
 
     def start(self) -> None:
+        tls = _tls_config()
+        if tls is not None:
+            self._httpd.ssl_context = tls.server_context()
         # a short poll keeps stop() from waiting out the default 0.5 s
         self._thread = threading.Thread(
             target=lambda: self._httpd.serve_forever(poll_interval=0.02),
@@ -444,30 +497,96 @@ def parse_range(header: str, total: int
 
 # --- client calls ---------------------------------------------------------
 
-def _dial(url: str) -> str:
-    """The full URL of a `host:port/path` address (plain http)."""
-    return url if url.startswith("http") else "http://" + url
+# a peer that opens a connection and sends nothing holds its handler
+# thread this long at most
+HANDSHAKE_TIMEOUT = 10.0
+
+
+def _tls_config():
+    from .. import security
+    return security.current().tls
+
+
+def _dial(url: str) -> "tuple[str, ssl.SSLContext | None]":
+    """(full URL, client SSL context) of a `host:port/path` address:
+    https with the cluster CA pinned when the TLS plane is on, plain
+    http otherwise."""
+    tls = _tls_config()
+    if url.startswith("http"):
+        return url, (tls.client_context() if tls is not None and
+                     url.startswith("https") else None)
+    if tls is not None:
+        return "https://" + url, tls.client_context()
+    return "http://" + url, None
+
+
+def _new_connection(parsed, ctx: "ssl.SSLContext | None",
+                    timeout: float) -> http.client.HTTPConnection:
+    if parsed.scheme == "https":
+        return http.client.HTTPSConnection(parsed.netloc, timeout=timeout,
+                                           context=ctx)
+    if parsed.scheme != "http":
+        raise ValueError(f"{parsed.geturl()}: unsupported scheme")
+    return http.client.HTTPConnection(parsed.netloc, timeout=timeout)
 
 
 def _connect(url: str, timeout: float
              ) -> "tuple[http.client.HTTPConnection, str]":
     """A fresh connection to the url's host and the request target."""
-    parsed = urllib.parse.urlsplit(_dial(url))
-    if parsed.scheme != "http":
-        raise ValueError(f"{url}: only plain http is supported")
+    full, ctx = _dial(url)
+    parsed = urllib.parse.urlsplit(full)
     target = parsed.path or "/"
     if parsed.query:
         target += "?" + parsed.query
-    return http.client.HTTPConnection(parsed.netloc,
-                                      timeout=timeout), target
+    return _new_connection(parsed, ctx, timeout), target
 
 
-def _with_trace(headers: "dict | None") -> dict:
-    """The caller's headers plus the active request id and span, so the
-    receiver's server span joins the caller's trace, and the remaining
-    budget of the active deadline, so the receiver cannot out-wait the
-    caller."""
-    headers = dict(deadline.stamp_headers(headers or {}))
+def is_admin_path(path: str) -> bool:
+    """The admin and maintenance plane: `/admin/*`, the master's grow,
+    lock and raft routes, `/debug/*` and heartbeats (gRPC-only surfaces
+    in the reference, gated there by its credentials)."""
+    return path.startswith(("/admin/", "/cluster/raft/",
+                            "/debug/")) or path in (
+        "/vol/grow", "/cluster/lease_admin_token",
+        "/cluster/release_admin_token", "/heartbeat")
+
+
+def admin_guard(req: Request, sec=None):
+    """The admin plane's gate (guard.go: the whitelist, then the admin
+    JWT), for an owner's `guard`: 401 on an admin path that fails
+    `sec` (the process's `security.current()` when None)."""
+    if not is_admin_path(req.path):
+        return None
+    if sec is None:
+        from .. import security
+        sec = security.current()
+    err = sec.check_admin(req.query, req.headers, req.remote_ip)
+    return (401, {"error": err}) if err else None
+
+
+def _auth_for(url: str, headers: "dict | None") -> dict:
+    """The caller's headers plus the process's admin JWT on an admin
+    path (the reference's gRPC dial applying the global security
+    configuration), unless the caller set its own Authorization."""
+    from .. import security
+    sec = security.current()
+    if not sec.admin_key:
+        return headers or {}
+    path = urllib.parse.urlsplit(
+        url if url.startswith("http") else "http://" + url).path
+    if not is_admin_path(path):
+        return headers or {}
+    headers = dict(headers or {})
+    headers.setdefault("Authorization", f"Bearer {sec.admin_jwt()}")
+    return headers
+
+
+def _with_trace(headers: "dict | None", url: str = "") -> dict:
+    """The caller's headers plus the admin JWT where the path needs it,
+    the active request id and span, so the receiver's server span joins
+    the caller's trace, and the remaining budget of the active deadline,
+    so the receiver cannot out-wait the caller."""
+    headers = dict(deadline.stamp_headers(_auth_for(url, headers)))
     rid = tracing.get_request_id()
     if rid:
         headers.setdefault(tracing.REQUEST_ID_HEADER, rid)
@@ -501,22 +620,26 @@ def _pool() -> dict:
 
 
 def _peer_closed(sock: socket.socket) -> bool:
-    """True when an idle pooled socket is readable: the peer closed it
-    (an idle keep-alive connection has nothing else to read)."""
+    """True when an idle pooled socket is readable, or a TLS socket
+    holds decrypted bytes: the peer closed it or sent a close_notify (an
+    idle keep-alive connection has nothing else to read).  Either way
+    the socket is replaced before anything is sent on it."""
     try:
+        if isinstance(sock, ssl.SSLSocket) and sock.pending():
+            return True
         return bool(select.select([sock], [], [], 0)[0])
     except (OSError, ValueError):
         return True
 
 
 def _one_pooled_request(method: str, full_url: str, body,
-                        headers: dict, timeout: float
+                        headers: dict, timeout: float,
+                        ctx: "ssl.SSLContext | None" = None
                         ) -> "tuple[int, bytes, dict]":
     """One request over the thread's connection to the url's peer:
-    (status, body, headers)."""
+    (status, body, headers).  Under TLS each pooled socket is an
+    SSLSocket made with `ctx`."""
     parsed = urllib.parse.urlsplit(full_url)
-    if parsed.scheme != "http":
-        raise ValueError(f"{full_url}: only plain http is supported")
     target = parsed.path or "/"
     if parsed.query:
         target += "?" + parsed.query
@@ -540,8 +663,7 @@ def _one_pooled_request(method: str, full_url: str, body,
                 "pool_connections_opened_total", 1.0,
                 help_text="fresh sockets dialed by the pooled client",
                 peer=parsed.netloc)
-            conn = pool[key] = http.client.HTTPConnection(
-                parsed.netloc, timeout=timeout)
+            conn = pool[key] = _new_connection(parsed, ctx, timeout)
         if conn.sock is not None:
             conn.sock.settimeout(timeout)
         try:
@@ -579,8 +701,9 @@ def http_bytes(method: str, url: str, body: bytes | None = None,
                ) -> "tuple[int, bytes, dict]":
     """One request over the pooled keep-alive client: (status, body,
     headers).  Transport failures raise OSError."""
-    return _one_pooled_request(method, _dial(url), body,
-                               _with_trace(headers), timeout)
+    full, ctx = _dial(url)
+    return _one_pooled_request(method, full, body,
+                               _with_trace(headers, url), timeout, ctx)
 
 
 def http_json(method: str, url: str, payload: dict | None = None,
@@ -610,7 +733,7 @@ def http_open_stream(url: str, headers: dict | None = None,
     survivor."""
     conn, target = _connect(url, timeout)
     try:
-        conn.request("GET", target, headers=_with_trace(headers))
+        conn.request("GET", target, headers=_with_trace(headers, url))
         return conn, conn.getresponse()
     except (OSError, http.client.HTTPException) as e:
         conn.close()
@@ -634,7 +757,7 @@ def http_stream_request(method: str, url: str, chunks,
         # header + chunk + trailer into a fresh buffer per window; three
         # sends straight off the caller's memoryview copy nothing
         conn.putrequest(method, target, skip_accept_encoding=True)
-        for hk, hv in _with_trace(headers).items():
+        for hk, hv in _with_trace(headers, url).items():
             conn.putheader(hk, hv)
         conn.putheader("Transfer-Encoding", "chunked")
         conn.endheaders()
@@ -687,7 +810,7 @@ def http_download(url: str, dest_path: str, headers: dict | None = None,
     conn, target = _connect(url, timeout)
     tmp = f"{dest_path}.download.{uuid.uuid4().hex}"
     try:
-        conn.request("GET", target, headers=_with_trace(headers))
+        conn.request("GET", target, headers=_with_trace(headers, url))
         resp = conn.getresponse()
         if resp.status // 100 != 2:
             return resp.status, dict(resp.headers)
@@ -724,7 +847,7 @@ def http_upload(method: str, url: str, src_path: str,
     import os
     conn, target = _connect(url, timeout)
     conn.blocksize = 4 << 20
-    headers = _with_trace(headers)
+    headers = _with_trace(headers, url)
     headers["Content-Length"] = str(os.path.getsize(src_path))
     try:
         with open(src_path, "rb") as f:
@@ -748,7 +871,7 @@ def http_relay(src_url: str, dst_method: str, dst_url: str,
     sees a broken chunked stream and never a clean short file."""
     src, target = _connect(src_url, timeout)
     try:
-        src.request("GET", target, headers=_with_trace(headers))
+        src.request("GET", target, headers=_with_trace(headers, src_url))
         resp = src.getresponse()
         if resp.status != 200:
             return resp.status, 0, b""

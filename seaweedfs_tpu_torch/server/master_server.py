@@ -17,8 +17,11 @@ over the port's `HttpServer`:
     POST /cluster/lease_admin_token    <- master.proto:44 LeaseAdminToken
     POST /cluster/release_admin_token  <- master.proto:46 ReleaseAdminToken
 
-The replies carry the reference's keys.  One node, so it is always the
-leader: no raft log or per-fid JWT (ROADMAP).  Without a log, the
+The replies carry the reference's keys.  Under `security.toml` the
+assign reply carries the fid's write JWT (`auth`), the admin paths
+(heartbeats, `/vol/grow`, the admin token) answer 401 without the admin
+JWT, and the master's own calls to volume servers carry it.  One node,
+so it is always the leader: no raft log (ROADMAP).  Without a log, the
 file-id sequencer is floored by each heartbeat's `maxFileKey`, so a
 master that restarts never issues a key a volume server holds.
 `/cluster/status` also counts the heartbeats received (`heartbeats`).
@@ -43,14 +46,14 @@ import threading
 import time
 import uuid
 
-from .. import stats
+from .. import security, stats
 from ..sequence import MemorySequencer
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import read_ttl
 from ..storage.types import FileId, check_path_fields
 from ..topology import Topology
 from ..topology.topology import VolumeInfo
-from .httpd import HttpServer, Request, http_json
+from .httpd import HttpServer, Request, admin_guard, http_json
 from .location_hub import LocationHub
 
 
@@ -64,7 +67,9 @@ class MasterServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  volume_size_limit_mb: int = 1024,
                  default_replication: str = "000",
-                 pulse_seconds: float = 1.0):
+                 pulse_seconds: float = 1.0,
+                 security_config: "security.SecurityConfig | None" = None):
+        self._security_override = security_config
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -81,6 +86,7 @@ class MasterServer:
         self._admin_lock_name = ""
         self.http = HttpServer(host, port)
         self.http.role = "master"
+        self.http.guard = lambda req: admin_guard(req, self.security)
         # the follow stream: the deltas published, and each node's
         # volume and EC sets as the stream last told them
         self.hub = LocationHub()
@@ -118,6 +124,13 @@ class MasterServer:
         if self._reaper is not None:
             self._reaper.join(timeout=5)
         self.http.stop()
+
+    @property
+    def security(self) -> "security.SecurityConfig":
+        # late-bound, so a configure() after construction applies.  The
+        # override governs what this master checks and mints; its own
+        # calls carry the process's admin JWT (httpd._auth_for)
+        return self._security_override or security.current()
 
     def _counted(self, path: str, fn):
         def handler(req: Request):
@@ -257,14 +270,21 @@ class MasterServer:
         key = self.sequencer.next_file_id(count)
         cookie = uuid.uuid4().int & 0xFFFFFFFF
         node = nodes[0]
-        return 200, {
-            "fid": str(FileId(vid, key, cookie)),
+        fid = str(FileId(vid, key, cookie))
+        resp = {
+            "fid": fid,
             "url": node.url,
             "publicUrl": node.public_url,
             "count": count,
             "replicas": [{"url": n.url, "publicUrl": n.public_url}
                          for n in nodes[1:]],
         }
+        # the fid's write token, presented to the volume server
+        # (master_grpc_server_assign.go GenJwtForVolumeServer)
+        auth = self.security.write_jwt(fid)
+        if auth:
+            resp["auth"] = auth
+        return 200, resp
 
     def _grow_volume(self, collection: str, replication: str, ttl: str,
                      count: int = 1,

@@ -42,7 +42,7 @@ import os
 import sys
 import threading
 
-from .. import native, operation
+from .. import native, operation, stats
 from ..filer.meta_log import alloc_writer_identity
 from ..storage.types import FileId, parse_needle_id_cookie
 
@@ -73,6 +73,25 @@ def native_meta_plane_enabled() -> "bool | None":
         return True
     return None
 
+
+
+_stood_down: set = set()
+
+
+def note_stood_down(plane: str, reason: str) -> None:
+    """Count a native filer plane the security configuration keeps out
+    of the path (`filer_native_plane_stood_down_total{plane,reason}`),
+    with one line on stderr the first time in the process: a secured
+    filer is seen serving from Python."""
+    stats.PROCESS.counter_add(
+        "filer_native_plane_stood_down_total", 1.0,
+        help_text="native filer plane requests or starts refused by the "
+                  "security configuration (JWT keys or TLS)",
+        plane=plane, reason=reason)
+    if (plane, reason) not in _stood_down:
+        _stood_down.add((plane, reason))
+        print(f"filer: native {plane} plane stands down ({reason})",
+              file=sys.stderr)
 
 class NativeMetaPlane:
     """One native meta-plane server bound to <host>:<ephemeral>,
@@ -184,6 +203,7 @@ class NativeMetaPlane:
     # -- fid feeder -----------------------------------------------------
 
     def _feed_once(self) -> None:
+        """Top the C++ fid pool up from `/dir/assign` when it runs low."""
         level = self._lib.mp_fid_level(self._h)
         if level < 0 or level >= _POOL_LOW or not self._armed:
             return
@@ -192,6 +212,12 @@ class NativeMetaPlane:
             a = operation.assign(self.master, count=_ASSIGN_N,
                                  collection=self.collection,
                                  replication=self.replication)
+            if a.auth:
+                # a JWT-gated cluster: the volume would refuse the bare
+                # native upload, so the pool stays dry and every request
+                # falls back to the signed Python path
+                note_stood_down("meta", "jwt")
+                return
             addr = operation._plane_addr(a.url, "writePlanePort")
             if addr is None:
                 return  # no volume plane to pipe into; stay dry

@@ -79,8 +79,22 @@ to the master's `/heartbeat` at start, every `pulse_seconds`, and at
 once after every change of what it serves.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
-remote shard.  No TLS, JWTs, fault sites, QoS throttle or
-resize-on-read (ROADMAP C).  Counters go to
+remote shard.
+
+Under `security.toml` (`security.py`): `/<fid>` needs a JWT for that fid
+signed with the read key (GET, HEAD) or the write key (POST, PUT,
+DELETE) when the key is set; the admin paths need the admin JWT (401
+otherwise); the heartbeat and every call this server makes to another
+(scatter, sidecars, commits, rebuild survivors, remote EC reads, copies)
+carry the admin JWT, which `httpd._auth_for` adds on every admin path,
+and the replica and EC-delete fan-outs a write JWT signed afresh.  The
+native planes and the UDS plane carry no JWT and
+no TLS, so they are not started where a key for what they serve is set
+(the UDS and read planes under the read key, the write plane under the
+write key) or `[tls]` is on: `/status` shows their ports as 0 (and no
+`udsPath`), and `volume_server_plane_stood_down_total{plane,reason}`
+counts each.  No fault sites, QoS throttle or resize-on-read
+(ROADMAP C).  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts and the planes' counters.
@@ -100,7 +114,7 @@ import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-from .. import stats
+from .. import security, stats
 from ..storage import types
 from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
@@ -110,7 +124,7 @@ from ..storage.types import check_path_fields
 from ..util.chunk_cache import (TieredChunkCache, read_cache_disk,
                                 read_cache_mb)
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
-                    http_download, http_json)
+                    admin_guard, http_download, http_json)
 from .read_plane import DATA_OFFSET_IN_RECORD, plain_record
 from .write_plane import ACK_BUCKETS_S
 from .store_ec import EcReader
@@ -177,6 +191,8 @@ class VolumeServer:
         r("GET", "/metrics", self._metrics)
         r("GET", "/status", self._status)
         self.http.fallback = self._data_path
+        # the data path checks its per-fid JWTs itself
+        self.http.guard = admin_guard
         self.ec_reader = EcReader(master, self.http.url)
         # hot-needle cache: a repeated read skips the index lookup and
         # the .dat read (for an EC volume, the interval resolution and
@@ -232,33 +248,47 @@ class VolumeServer:
             self._hb_thread.start()
         return self
 
+    def _plane_stand_down(self, plane: str, key: str) -> bool:
+        """True when the configuration keeps `plane` down: the key of
+        what it serves is set, or `[tls]` is on (the planes speak plain
+        text and check no JWT).  A stand-down is printed once and
+        counted; it is the configuration's, never a fallback."""
+        sec = security.current()
+        reason = "tls" if sec.tls is not None else \
+            ("jwt" if key else "")
+        if not reason:
+            return False
+        stats.PROCESS.counter_add(
+            "volume_server_plane_stood_down_total", 1.0,
+            help_text="native or UDS planes not started because "
+                      "security.toml keys or TLS are configured",
+            plane=plane, reason=reason)
+        print(f"volume server {self.url}: {plane} plane stands down "
+              f"({reason})", file=sys.stderr)
+        return True
+
     def _start_planes(self) -> None:
         """The UDS reader, the native read plane, and the write plane
-        unless `SEAWEEDFS_TPU_WRITE_PLANE` is 0 or false.  A plane that
-        does not build or start leaves the server on its Python port, as
-        the JAX server does, with one line on stderr."""
+        unless `SEAWEEDFS_TPU_WRITE_PLANE` is 0 or false, each unless the
+        security configuration keeps it down (`_plane_stand_down`).  A
+        plane that does not build or start leaves the server on its
+        Python port, as the JAX server does, with one line on stderr."""
         from .read_plane import ReadPlane
-        from .uds_reader import UdsNeedleServer
         from .write_plane import WritePlane
-        try:
-            sock_dir = tempfile.mkdtemp(prefix="swfs-uds-")
+        read_key = security.current().volume_read_key
+        if not self._plane_stand_down("uds", read_key):
+            self._start_uds()
+        if not self._plane_stand_down("read", read_key):
             try:
-                self.uds_server = UdsNeedleServer(
-                    self.store, os.path.join(sock_dir, "uds.sock"),
-                    on_read=self._rp_sync_needle).start()
-            except OSError:
-                os.rmdir(sock_dir)
-                raise
-        except OSError as e:       # no AF_UNIX, or a path too long
-            print(f"volume server {self.url}: no UDS reader: {e}",
-                  file=sys.stderr)
-        try:
-            self.read_plane = ReadPlane(self.http.host)
-        except (RuntimeError, OSError) as e:
-            print(f"volume server {self.url}: no read plane: {e}",
-                  file=sys.stderr)
+                self.read_plane = ReadPlane(self.http.host)
+            except (RuntimeError, OSError) as e:
+                print(f"volume server {self.url}: no read plane: {e}",
+                      file=sys.stderr)
         if os.environ.get("SEAWEEDFS_TPU_WRITE_PLANE",
                           "1") in ("0", "false"):
+            return
+        if self._plane_stand_down("write",
+                                  security.current().volume_write_key):
             return
         try:
             self.write_plane = WritePlane(self.http.host,
@@ -271,6 +301,22 @@ class VolumeServer:
         for loc in self.store.locations:
             for vid in list(loc.volumes):
                 self._wp_sync_volume(vid)
+
+    def _start_uds(self) -> None:
+        """The UDS reader on a socket in a private temporary directory."""
+        from .uds_reader import UdsNeedleServer
+        try:
+            sock_dir = tempfile.mkdtemp(prefix="swfs-uds-")
+            try:
+                self.uds_server = UdsNeedleServer(
+                    self.store, os.path.join(sock_dir, "uds.sock"),
+                    on_read=self._rp_sync_needle).start()
+            except OSError:
+                os.rmdir(sock_dir)
+                raise
+        except OSError as e:       # no AF_UNIX, or a path too long
+            print(f"volume server {self.url}: no UDS reader: {e}",
+                  file=sys.stderr)
 
     def stop(self) -> None:
         self._hb_stop.set()
@@ -375,6 +421,15 @@ class VolumeServer:
             fid = types.parse_file_id(fid_str)
         except ValueError:
             return 404, {"error": f"bad file id {fid_str!r}"}
+        # the per-fid JWT gate (volume_server_handlers_write.go
+        # maybeCheckJwtAuthorization): the read key for reads, the write
+        # key for writes and deletes, when set
+        sec = security.current()
+        key = sec.volume_read_key if req.method in ("GET", "HEAD") \
+            else sec.volume_write_key
+        err = sec.check_fid_jwt(key, req.query, req.headers, str(fid))
+        if err:
+            return 401, {"error": err}
         if req.method in ("GET", "HEAD"):
             return self._get_needle(fid, req.headers.get("Range", ""))
         if req.method in ("POST", "PUT"):
@@ -517,7 +572,9 @@ class VolumeServer:
             if url in (self.url, self.store.public_url):
                 continue
             status, data, _ = http_bytes(
-                "DELETE", f"{url}/{fid}?type=replicate", timeout=60)
+                "DELETE", f"{url}/{fid}?type=replicate",
+                headers=security.current().write_headers(str(fid)),
+                timeout=60)
             if status >= 300 and status != 404:
                 return f"{url} -> {status}: {data[:200]!r}"
         return None
@@ -550,9 +607,14 @@ class VolumeServer:
             return (f"replicating operations [{len(locs)}] is less than "
                     f"volume {fid.volume_id} replication copy count "
                     f"[{copies}]")
-        query = {k: val for k, val in req.query.items() if k != "type"}
+        query = {k: val for k, val in req.query.items()
+                 if k not in ("type", "jwt")}
         query.update(extra_query or {})
         qs = urllib.parse.urlencode(query)
+        # signed afresh for the replicas: forwarding the request's token
+        # could carry an expired one on a slow fan-out
+        headers = {**(headers or {}),
+                   **security.current().write_headers(str(fid))}
         for loc in locs:
             if loc["url"] in (self.url, self.store.public_url):
                 continue
