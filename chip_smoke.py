@@ -152,14 +152,14 @@ Phases, each printing one JSON line:
    streaming ec.decode read path under weed benchmark load", through
    the front door of the port's own cluster: a `master
    -volumeSizeLimitMB 1024` subprocess and 4 `volume -max 8`
-   subprocesses (their codec on the card).  16,384 files of 1 KiB in
+   subprocesses (their codec on the card).  8,192 files of 1 KiB in
    `weed benchmark`'s shape (assign and upload on 16 threads; n cut from
    1,048,576 for the run's time) and config 1's needles on 8 writers, all
    in collection `rs63`, until the 1 GiB limit seals a volume; every
    volume of the collection `ec.encode -dataShards=6 -parityShards=3`
    through the port's shell (launches, read off each server's
    /metrics, against the sum of `launches_for` over its batches).  Six
-   read passes on 16 threads, each a seeded sample of 4,096 of the 1 KiB
+   read passes on 16 threads, each a seeded sample of 2,048 of the 1 KiB
    files and 64 of the large needles, every byte compared: all shards
    up, cold and again warm (every 1 KiB read a hit of the hot-needle
    cache); the server holding the most data shards stopped (at most 3
@@ -182,7 +182,7 @@ Phases, each printing one JSON line:
    synchronously, no native plane) over a `master
    -volumeSizeLimitMB 1024` subprocess and 3 `volume -max 8` subprocesses
    (their codec on the card), collection `filer`.  Through the filer's
-   HTTP API: 16,384 files of 1 KiB in 64 directories on 16 threads (`weed
+   HTTP API: 8,192 files of 1 KiB in 64 directories on 16 threads (`weed
    benchmark`'s shape, n cut), 32 files of 8-24 MiB (2-6 chunks) and
    config 1's needles on 8 writers until a 1 GiB volume seals (files/s,
    GB/s, p50/p99); 4,096 chunkless creates, 4,096 lookups and a listing of
@@ -210,12 +210,12 @@ Phases, each printing one JSON line:
    ports on /status must be non-zero).  Clients find the planes' ports
    on /status, one probe a thread, and send PUTs to the meta plane and
    GETs to the read plane first, replaying a plane's 404 on the Python
-   port inside the same latency sample.  16,384 files of 1 KiB in 64
+   port inside the same latency sample.  8,192 files of 1 KiB in 64
    directories on 16 threads (the meta plane must ack more than half),
    32 files of 8-24 MiB (too large for the plane: every one falls back)
    and config 1's needles until a 1 GiB volume seals; the overlay must
    drain to 0 and the checkpoint reach the log's last event.  A warm
-   pass of 4,096 1 KiB files (the read plane must serve more than half);
+   pass of 2,048 1 KiB files (the read plane must serve more than half);
    every sealed volume `ec.encode`d RS(10,4) on the card (launches
    against its windows); the filer phase's passes (cold, warm, the
    server with the most data shards stopped, after `ec.rebuild`, whose
@@ -238,7 +238,7 @@ Phases, each printing one JSON line:
    fsync rate printed: a tmpfs work directory moves the phase under the
    checkout's gitignored `_work/`) and a filer in its default
    configuration, which follows the master's location pushes.  Writes:
-   `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 8,192) at 001,
+   `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 4,096) at 001,
    the same shape at 000 (4,096: the write plane parks each ack until
    the epoch handshake ran the volume's barrier), 1,024 1 KiB needles
    and config 1's needles into one volume until it seals; writes/s,
@@ -247,7 +247,7 @@ Phases, each printing one JSON line:
    volume SIGKILLed right after the last ack and restarted on its
    directory and port; two passes over every acked needle from each of
    its replicas, each location's ladder (read plane, UDS, HTTP), every
-   body equal to its seeded payload, with each plane's share.  4,096
+   body equal to its seeded payload, with each plane's share.  2,048
    benchmark reads under a 100 ms deadline: a warm pass of 1,024 with
    every replica up, then the replica that is their first location
    SIGSTOPped for a pass hedging on (the token pool's burst set to the
@@ -272,9 +272,9 @@ Phases, each printing one JSON line:
    configured from the same file (it dials https with its certificate
    and signs as the roles do).  The volume servers and the filer run
    with `SEAWEEDFS_TPU_READ_CACHE_MB=0`, so every read pass reaches the
-   volumes.  Through the gateway, as `admin`, on 16 threads: 2,048
+   volumes.  Through the gateway, as `admin`, on 16 threads: 1,024
    objects of 4 KiB over 4 buckets (half in the first, so its listing
-   pages), 64 of 10 MiB (warp's default object size), one multipart
+   pages), 32 of 10 MiB (warp's default object size), one multipart
    upload of 64 MiB in 8 MiB parts, 16 streaming-chunked PUTs of 1 MiB
    and, with `cryptography`, 16 SSE-C PUTs of 64 KiB.  The volume holding
    the most of the objects' chunks is filled with config 1's needles,
@@ -293,15 +293,38 @@ Phases, each printing one JSON line:
    shards of those holding at most 4 stopped; the encoded objects read
    degraded (the host's native codec); `ec.rebuild` on the card
    (launches against its steps' windows); the objects read again with
-   no degraded read.  Then a second cluster without security.toml: 2,048
+   no degraded read.  Then a second cluster without security.toml: 1,024
    objects of 4 KiB PUT and GET through its gateway, and the volume
    planes' shares.  PUT and GET objects/s, MB/s and p50/p99 of each
    size, the multipart wall, the launches and the phase's seconds.
+14. filer_fleet: the filer fleet.  A `master -volumeSizeLimitMB 1024`,
+   3 `volume -max 8` subprocesses and the filer in its default
+   configuration over one sqlite store, run three ways (each an arm of
+   16 client threads on the shared port, the read caches off): 1
+   process on the threaded front, `-workers 4` (a pre-fork fleet on one
+   port, SO_REUSEPORT) and `-workers 4` on the asyncio front
+   (`SEAWEEDFS_TPU_ASYNC_FRONT=filer`).  Each arm POSTs 1,024 files of
+   1 KiB and 128 of 64 KiB and GETs them back (files/s, p50/p99).  In
+   the fleets: each sibling's view on one keep-alive connection (the
+   write track's stage shares, a GET's and a POST's CPU share of its
+   wall, the flight records, the plane drains' records against the
+   planes' requests after a plane-first pass, the process tree), the
+   sampler on every sibling during the GETs with the folded stacks
+   merged, `cluster.top` once, and a sibling SIGKILLed under load: every
+   acked file reads back equal at once and the parent respawns it.  The
+   volume holding the most of the files is filled with config 1's
+   needles to the 1 GiB seal and `ec.encode`d on the card (launches
+   against its windows; shards equal to the host codec's); data shards
+   1, 4, 7 and 9 deleted; every file read degraded through the fleet (0
+   launches); `ec.rebuild` on the card (launches against its steps'
+   windows); every file read again.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
 line.  Exits non-zero, with no result, when there is no CUDA device or
 the package is not beside this script; any failed check fails the run.
+The script is the subreaper of every process it starts, and a phase
+that leaves one running fails (the process killed and named).
 """
 
 from __future__ import annotations
@@ -314,6 +337,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -353,7 +377,7 @@ WRITE_MAX_VOLUMES = 8
 WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
 # cut from weed benchmark's 1,048,576: at 65,536 the write phase took 426 s
 # of a 900 s run once read_load joined it (PERF.md §4)
-BENCH_N = 32_768
+BENCH_N = 16_384
 BENCH_SIZE = 1024                # weed benchmark's file size and
 BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
 REPLICATED = 256                 # seeded needles under each of 001 and 010
@@ -365,8 +389,8 @@ SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 RS63 = (6, 3)
 READ_SERVERS = 4
 READ_COLLECTION = "rs63"
-READ_N = 16_384                  # 1 KiB files, cut from weed benchmark's
-READ_SMALL_SAMPLE = 4_096        # 1,048,576; sampled per read pass
+READ_N = 8_192                   # 1 KiB files, cut from weed benchmark's
+READ_SMALL_SAMPLE = 2_048        # 1,048,576; sampled per read pass
 READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
 READ_C = 16                      # weed benchmark's concurrency
 # filer and filer_plane: the port's filer (sqlite store; synchronous
@@ -374,11 +398,11 @@ READ_C = 16                      # weed benchmark's concurrency
 # the card
 FILER_SERVERS = 3
 FILER_COLLECTION = "filer"
-FILER_N = 16_384                 # 1 KiB files through the filer (weed
+FILER_N = 8_192                  # 1 KiB files through the filer (weed
 FILER_DIRS = 64                  # benchmark's shape, n cut), in 64 dirs
 FILER_MULTI = 32                 # files of 8-24 MiB: 2-6 chunks each
 FILER_META_N = 4_096             # chunkless creates, then lookups
-FILER_SMALL_SAMPLE = 4_096       # 1 KiB files read per pass, and
+FILER_SMALL_SAMPLE = 2_048       # 1 KiB files read per pass, and
 FILER_LARGE_SAMPLE = 64          # config 1's needles (read_load's)
 FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 10
 FILER_CRASH_N = 1_024            # filer_plane: files written, then SIGKILL
@@ -391,6 +415,62 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+PR_SET_CHILD_SUBREAPER = 36      # prctl(2)
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts: one
+    whose parent exits (a filer sibling whose parent is gone) is
+    re-parented here, not to init, so `sweep_children` still sees it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _own_children() -> "list[tuple[int, bytes, str]]":
+    """This process's children, each (pid, state, command line)."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", "rb") as f:
+                parts = f.read().rsplit(b") ", 1)[1].split()
+            if int(parts[1]) != me:
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError, ValueError):
+            continue
+        out.append((int(d), parts[0], cmd.strip()))
+    return out
+
+
+def sweep_children() -> "list[str]":
+    """Every process a phase started must be gone when it ends: reap
+    this process's exited children, and SIGKILL and reap the live ones
+    (rounds until none is left, for what a killed one leaves
+    re-parented here).  The live ones found, described."""
+    left: "list[str]" = []
+    for _ in range(10):
+        kids = _own_children()
+        if not kids:
+            break
+        for pid, state, cmd in kids:
+            if state not in (b"Z", b"X"):
+                left.append(f"pid {pid} ({state.decode()}): {cmd[:300]}")
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            try:
+                os.waitpid(pid, 0)
+            except ChildProcessError:
+                pass
+    return left
 
 
 def time_ms(fn, reps: int, trials: int = 10) -> float:
@@ -1534,8 +1614,10 @@ def _read_step(server, nids, ec: dict, what: str) -> dict:
               f"{what}: needle {nid} read {st}, {len(body)} bytes, "
               f"not its payload")
         nbytes += len(body)
-    check((rs_cuda.LAUNCHES, rs_cuda.LAUNCHES_BATCHED) == launches,
-          f"{what}: the reads launched the kernel")
+    measured = (rs_cuda.LAUNCHES - launches[0]) + \
+        (rs_cuda.LAUNCHES_BATCHED - launches[1])
+    check(measured == 0, f"{what}: the reads launched the kernel "
+                         f"{measured} times")
     deg = (stats.PROCESS.counter_value("ec_degraded_reads_total", vid=1)
            or 0.0) - deg0
     ordered = sorted(ms)
@@ -1548,7 +1630,7 @@ def _read_step(server, nids, ec: dict, what: str) -> dict:
             "max_ms": ordered[-1], "degraded_reads": int(deg),
             "failovers": int(stats.PROCESS.counter_sum(
                 "ec_read_source_failovers_total") - fo0),
-            "kernel_launches": 0}
+            "kernel_launches": measured}
 
 
 def phase_cluster(ec: dict, tmp: str) -> dict:
@@ -4721,14 +4803,14 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
 # shapes on 3 `volume -fsync` servers of replication 001
 FSYNC_SERVERS = 3
 FSYNC_COLLECTION = "fsync"        # the fill, encoded on the card
-FSYNC_BENCH_N = 8_192             # the benchmark at 001: the Python path
+FSYNC_BENCH_N = 4_096             # the benchmark at 001: the Python path
 #                                   acks ~360 writes/s on the card's host
 #                                   (PERF.md), so BENCH_N would take 90 s
 FSYNC_NATIVE_N = 4_096            # 1 KiB writes of replication 000: the
 #                                   write plane's epoch handshake
 FSYNC_SMALL_FILL = 1_024          # 1 KiB needles in the fill volume, read
 #                                   after its encode
-FSYNC_HEDGE_N = 4_096             # 1 KiB reads a hedged pass
+FSYNC_HEDGE_N = 2_048             # 1 KiB reads a hedged pass
 FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
 FSYNC_BUDGET_S = 0.1              # their deadline
 FSYNC_FILER_N = 1_024             # 1 KiB files through the filer
@@ -4736,9 +4818,9 @@ FSYNC_FILER_N = 1_024             # 1 KiB files through the filer
 SECURE_SERVERS = 3
 SECURE_COLLECTION = "s3"
 SECURE_BUCKETS = 4
-SECURE_SMALL_N = 2_048           # 4 KiB objects over the 4 buckets
+SECURE_SMALL_N = 1_024           # 4 KiB objects over the 4 buckets
 SECURE_SMALL_SIZE = 4 << 10
-SECURE_LARGE_N = 64              # objects of warp's default --obj.size
+SECURE_LARGE_N = 32              # objects of warp's default --obj.size
 SECURE_LARGE_SIZE = 10 << 20
 SECURE_MP_SIZE = 64 << 20        # one multipart upload, in the AWS
 SECURE_MP_PART = 8 << 20         # CLI's default 8 MiB parts
@@ -6248,6 +6330,631 @@ def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
     return out
 
 
+FLEET_SERVERS = 3
+FLEET_COLLECTION = "fleet"
+FLEET_WORKERS = 4
+FLEET_C = 16                     # client threads an arm
+FLEET_SMALL_N = 1_024            # 1 KiB files an arm
+FLEET_LARGE_N = 128              # 64 KiB files an arm
+FLEET_KILL_S = 0.25              # load before a sibling's SIGKILL
+FLEET_LOST = (1, 4, 7, 9)        # data shards deleted before the reads
+# (name, -workers, SEAWEEDFS_TPU_ASYNC_FRONT)
+FLEET_ARMS = (("w1_threaded", 1, ""), ("w4_threaded", FLEET_WORKERS, ""),
+              ("w4_async", FLEET_WORKERS, "filer"))
+
+
+def _children(pid: int) -> "list[int]":
+    """The live children of `pid` (a filer fleet's siblings)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", "rb") as f:
+                parts = f.read().rsplit(b") ", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(parts[1]) == pid and parts[0] not in (b"Z", b"X"):
+            out.append(int(d))
+    return sorted(out)
+
+
+def _prom(text: str) -> dict:
+    """A whole Prometheus page, namespaced names kept:
+    {name: [(labels, value)]}."""
+    from seaweedfs_tpu_torch import profiling
+    return profiling.parse_prom_text(text)
+
+
+def _sibling_views(furl: str, want: int, tries: int = 200) -> dict:
+    """Each sibling of the fleet behind `furl`, as one keep-alive
+    connection sees it: GET /status, /debug/slow (which drains the
+    native planes' rings first) and /metrics on the same connection,
+    keyed by the sibling's native plane ports (unique to each process).
+    New connections until `want` distinct siblings answered."""
+    import http.client
+    host, port = furl.split(":")
+    views: dict = {}
+    for _ in range(tries):
+        if len(views) >= want:
+            break
+        conn = http.client.HTTPConnection(host, int(port), timeout=30)
+        try:
+            got = {}
+            for path in ("/status", "/debug/slow", "/metrics"):
+                conn.request("GET", path)
+                resp = conn.getresponse()
+                got[path] = resp.read()
+                check(resp.status == 200, f"{furl}{path}: {resp.status}")
+        finally:
+            conn.close()
+        st = json.loads(got["/status"])
+        key = (st.get("metaPlanePort", 0), st.get("readPlanePort", 0))
+        check(all(key), f"a sibling without its native planes: {st}")
+        views[key] = {"slow": json.loads(got["/debug/slow"]),
+                      "metrics": _prom(got["/metrics"].decode())}
+    return views
+
+
+def _fleet_instruments(views: dict) -> dict:
+    """What a fleet's siblings say, summed over them: the write track's
+    stage shares and wall/CPU means, a GET's and a POST's CPU share of
+    its wall, each sibling's flight records, the plane drains' records
+    against the planes' requests, and the process tree one sibling
+    reports."""
+    def csum(m, name, match=None):
+        return sum(v for lb, v in m.get(name, [])
+                   if all(lb.get(k) == x for k, x in (match or {}).items()))
+    stage_wall: dict = {}
+    stage_cpu: dict = {}
+    req: dict = {}
+    siblings = []
+    for key, v in sorted(views.items()):
+        m = v["metrics"]
+        for lb, val in m.get("filer_write_stage_seconds_sum", []):
+            stage_wall[lb["stage"]] = stage_wall.get(lb["stage"], 0.0) + val
+        for lb, val in m.get("filer_write_stage_cpu_seconds_sum", []):
+            c = csum(m, "filer_write_stage_cpu_seconds_count",
+                     {"stage": lb["stage"]})
+            acc = stage_cpu.setdefault(lb["stage"], [0.0, 0.0])
+            acc[0] += val
+            acc[1] += c
+        for method in ("GET", "POST"):
+            acc = req.setdefault(method, [0.0, 0.0, 0.0, 0.0])
+            acc[0] += csum(m, "filer_request_seconds_sum",
+                           {"method": method})
+            acc[1] += csum(m, "filer_request_seconds_count",
+                           {"method": method})
+            acc[2] += csum(m, "filer_request_cpu_seconds_sum",
+                           {"method": method})
+            acc[3] += csum(m, "filer_request_cpu_seconds_count",
+                           {"method": method})
+        slow = v["slow"]
+        siblings.append({
+            "plane_ports": list(key),
+            "slow_records": len(slow["records"]),
+            "slow_captured": slow["captured"],
+            "slow_threshold_ms": slow["thresholdMs"],
+            "plane_records": {lb["plane"]: int(val) for lb, val in
+                              m.get("seaweedfs_tpu_plane_records_total",
+                                    [])},
+            "plane_requests": {
+                "meta": int(csum(m,
+                                 "filer_meta_plane_native_requests_total")),
+                "meta_fallbacks": int(csum(
+                    m, "filer_meta_plane_native_fallbacks_total")),
+                "filer_read": int(csum(
+                    m, "filer_read_plane_native_requests_total")),
+                "filer_read_fallbacks": int(csum(
+                    m, "filer_read_plane_native_fallbacks_total"))},
+            "gil_wait_ratio": csum(m, "seaweedfs_tpu_gil_wait_ratio"),
+            "tree_procs": int(csum(m, "seaweedfs_tpu_process_tree_procs")),
+            "tree_rss_mb": csum(m, "seaweedfs_tpu_process_tree_rss_bytes")
+            / (1 << 20)})
+    total = stage_wall.pop("total", 0.0)
+    shares = {s: w / total for s, w in sorted(stage_wall.items())} \
+        if total else {}
+    cpu = {s: {"cpu_ms_mean": c[0] / c[1] * 1e3} for s, c in
+           sorted(stage_cpu.items()) if c[1]}
+    methods = {}
+    for method, (ws, wc, cs, cc) in req.items():
+        if wc and cc:
+            methods[method] = {"wall_ms_mean": ws / wc * 1e3,
+                               "cpu_ms_mean": cs / cc * 1e3,
+                               "cpu_share": (cs / cc) / (ws / wc),
+                               "requests": int(wc), "cpu_sampled": int(cc)}
+    return {"siblings_seen": len(views), "write_stage_shares": shares,
+            "write_stage_cpu": cpu, "request_cpu": methods,
+            "per_sibling": siblings}
+
+
+def phase_filer_fleet(tmp: str, seed: int, small_n: int = FLEET_SMALL_N,
+                      large_n: int = FLEET_LARGE_N,
+                      limit_mb: int = WRITE_LIMIT_MB,
+                      device: str = "cuda") -> dict:
+    """The filer fleet: a `master -volumeSizeLimitMB 1024`, 3 `volume -max
+    8` subprocesses and the filer in its default configuration (the meta
+    plane over one sqlite store, the native meta and read planes armed)
+    run three ways over that one store, each for an arm of 16 client
+    threads: 1 process on the threaded front, `-workers 4` (a pre-fork
+    fleet on one port, SO_REUSEPORT) on the threaded front, and
+    `-workers 4` with `SEAWEEDFS_TPU_ASYNC_FRONT=filer`.  Each arm POSTs
+    1 KiB and 64 KiB files and GETs them back through the shared port,
+    each body its seeded payload (files/s, p50/p99).  The read caches are
+    off (`SEAWEEDFS_TPU_READ_CACHE_MB=0`), so every read reaches the
+    volumes.  In each 4-worker arm: each sibling's view on one keep-alive
+    connection (its plane ports, `/debug/slow`, `/metrics`): the write
+    track's stage shares, a GET's and a POST's CPU share of its wall, the
+    flight records, the plane drains' records against the planes'
+    requests (after a pass sent plane-first: creates to each sibling's
+    meta plane, reads to its read plane), the process tree; the sampler
+    armed on every sibling during the GETs and the folded stacks merged
+    (`profiling.merge_folded`, as `cluster.profile` merges nodes);
+    `cluster.top` once.  Then a sibling is SIGKILLed under load: every
+    acked file reads back equal through the shared port at once, and the
+    parent respawns the sibling.  The last fleet stays up: the volume
+    holding the most of the collection's files is filled with config 1's
+    needles until the limit seals it, `ec.encode`d on the card (launches
+    against its windows; shards equal to the host's native codec's);
+    data shards 1, 4, 7 and 9 deleted; every file of every arm read
+    degraded through the fleet (0 launches); `ec.rebuild` on the card
+    (launches against its steps' windows); every file read again."""
+    import http.client
+    import types as pytypes
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation, profiling
+    from seaweedfs_tpu_torch.ops import rs_native
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.storage.types import FileId
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = FLEET_COLLECTION
+    store = os.path.join(tmp, "filer.db")
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(FLEET_SERVERS)]
+    for dd in dirs:
+        os.makedirs(dd)
+    nocache = {"SEAWEEDFS_TPU_READ_CACHE_MB": "0"}
+    procs: list = []
+    fleet: list = []            # the running filer (its parent process)
+    files: dict = {}            # path -> (seed, nid, size)
+
+    def get(path):
+        return http_json("GET", f"{murl}{path}", timeout=30)
+
+    def poll(cond, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < end, f"timed out: {what}")
+            time.sleep(0.05)
+
+    def start_filer(workers: int, front: str, log: str) -> str:
+        env = dict(nocache)
+        if front:
+            env["SEAWEEDFS_TPU_ASYNC_FRONT"] = front
+        (url,) = _start_procs(
+            [["filer", "-port", "0", "-master", murl, "-store", store,
+              "-collection", coll, "-workers", str(workers)]],
+            [os.path.join(tmp, log)], fleet, "filer",
+            line=r"filer listening on (\S+:\d+)\n", env_extra=env)
+        parent = fleet[-1]
+        if workers > 1:
+            # poll for the siblings, never a fixed sleep: they re-exec
+            # the command line and each takes seconds to listen
+            poll(lambda: len(_children(parent.pid)) == workers - 1 and
+                 len(_sibling_views(url, workers, tries=4 * workers))
+                 == workers, f"{workers - 1} siblings of {url}", 120.0)
+        return url
+
+    def stop_filer() -> None:
+        bad = _stop_peers(fleet)
+        fleet.clear()
+        check(not bad, f"the filer fleet did not stop: {bad}")
+
+    def put(furl, item):
+        path, (sd, nid, size) = item
+        t = time.perf_counter()
+        st, ans, _ = http_bytes("POST", f"{furl}{path}",
+                                _payload(sd, nid, size),
+                                {"Content-Type": "application/octet-stream"},
+                                timeout=60)
+        ms = (time.perf_counter() - t) * 1e3
+        check(st == 201, f"POST {path}: {st} {ans[:200]!r}")
+        return ms
+
+    def read(furl, path):
+        sd, nid, size = files[path]
+        t = time.perf_counter()
+        st, body, _ = http_bytes("GET", f"{furl}{path}", timeout=120)
+        ms = (time.perf_counter() - t) * 1e3
+        check(st == 200 and body == _payload(sd, nid, size),
+              f"GET {path}: {st}, {len(body)} bytes")
+        return ms
+
+    def run(fn, items):
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FLEET_C) as pool:
+            ms = list(pool.map(fn, items))
+        secs = time.perf_counter() - t
+        return {"files": len(ms), "seconds": secs,
+                "files_per_s": len(ms) / secs, **_pcts(ms)}
+
+    def plane_pass(furl, views, tag) -> dict:
+        """Creates sent to each sibling's meta plane and reads to its
+        read plane (a plane's 404 replayed on the shared port), so the
+        drains have plane records to count."""
+        host = furl.split(":")[0]
+        acked = native_reads = 0
+        for n, (mport, rport) in enumerate(sorted(views)):
+            paths = [f"/{tag}/plane{n}/f{i:03d}" for i in range(64)]
+            for i, path in enumerate(paths):
+                body = _payload(seed + 70, n * 1000 + i, 1024)
+                st, _, _ = http_bytes("POST", f"{host}:{mport}{path}",
+                                      body, timeout=30)
+                if st == 201:
+                    acked += 1
+                else:
+                    check(st == 404, f"meta plane {path}: {st}")
+                    st, _, _ = http_bytes("POST", f"{furl}{path}", body,
+                                          timeout=30)
+                    check(st == 201, f"replayed {path}: {st}")
+                files[path] = (seed + 70, n * 1000 + i, 1024)
+            for path in paths:
+                want = _payload(*files[path])
+                st, body, _ = http_bytes("GET", f"{host}:{rport}{path}",
+                                         timeout=30)
+                if st == 200:
+                    check(body == want, f"read plane {path}: bytes differ")
+                    native_reads += 1
+                else:
+                    check(st == 404, f"read plane {path}: {st}")
+                    check(read(furl, path) >= 0, path)
+        return {"meta_plane_acked": acked, "read_plane_served":
+                native_reads, "files": 64 * len(views)}
+
+    def kill_sibling(furl, tag) -> dict:
+        """A sibling SIGKILLed mid-load; every acked file read back."""
+        parent = fleet[-1]
+        kids = _children(parent.pid)
+        acked: dict = {}
+        lock = threading.Lock()
+        stop = threading.Event()
+        counter = itertools.count()
+
+        def writer():
+            while not stop.is_set():
+                i = next(counter)
+                path = f"/{tag}/kill/f{i:05d}"
+                body = _payload(seed + 71, i, 1024)
+                try:
+                    st, _, _ = http_bytes("POST", f"{furl}{path}", body,
+                                          timeout=30)
+                except OSError:
+                    continue
+                if st == 201:
+                    with lock:
+                        acked[path] = (seed + 71, i, 1024)
+        threads = [threading.Thread(target=writer) for _ in range(FLEET_C)]
+        for t in threads:
+            t.start()
+        time.sleep(FLEET_KILL_S)
+        victim = kids[0]
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        check(acked, "no file was acked before the kill")
+        files.update(acked)
+        reads = run(lambda pth: read(furl, pth), sorted(acked))
+        poll(lambda: len(_children(parent.pid)) == len(kids) and
+             victim not in _children(parent.pid),
+             f"the parent respawns sibling {victim}", 60.0)
+        poll(lambda: len(_sibling_views(furl, FLEET_WORKERS,
+                                        tries=4 * FLEET_WORKERS))
+             == FLEET_WORKERS, "the respawned sibling serves", 120.0)
+        return {"killed_pid": victim, "acked": len(acked),
+                "read_back_equal": len(acked), "read_back": reads,
+                "respawn_seconds": time.perf_counter() - t_kill}
+
+    try:
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB",
+              str(limit_mb)]], [os.path.join(tmp, "master.log")], procs,
+            "master")
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs, "volume",
+            env_extra=nocache)
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "3 volume servers registered")
+        start_s = time.perf_counter() - phase_t0
+
+        arms = {}
+        for n_arm, (name, workers, front) in enumerate(FLEET_ARMS):
+            if fleet:
+                stop_filer()
+            t_arm = time.perf_counter()
+            furl = start_filer(workers, front, f"filer_{name}.log")
+            boot_s = time.perf_counter() - t_arm
+            small = [(f"/{name}/small/f{i:05d}",
+                      (seed + 60 + n_arm, i, 1024)) for i in range(small_n)]
+            large = [(f"/{name}/large/f{i:04d}",
+                      (seed + 60 + n_arm, 100_000 + i, 64 << 10))
+                     for i in range(large_n)]
+            for path, spec in small + large:
+                files[path] = spec
+            arm = {"workers": workers, "front": front or "threaded",
+                   "boot_seconds": boot_s}
+            arm["post_1KiB"] = run(lambda it: put(furl, it), small)
+            arm["post_64KiB"] = run(lambda it: put(furl, it), large)
+            profile = None
+            top = None
+            if workers > 1:
+                # the sampler on every sibling while the GETs run: one
+                # keep-alive connection a sibling, found by plane port
+                host, port = furl.split(":")
+                conns = {}
+                for _ in range(20 * workers):
+                    if len(conns) == workers:
+                        break
+                    c = http.client.HTTPConnection(host, int(port),
+                                                   timeout=30)
+                    c.request("GET", "/status")
+                    st = json.loads(c.getresponse().read())
+                    key = (st["metaPlanePort"], st["readPlanePort"])
+                    if key in conns:
+                        c.close()
+                        continue
+                    c.request("POST", "/debug/pprof",
+                              json.dumps({"action": "start",
+                                          "hz": 100}).encode(),
+                              {"Content-Type": "application/json"})
+                    armed = json.loads(c.getresponse().read())
+                    check(armed.get("running"), f"pprof start: {armed}")
+                    conns[key] = c
+                check(len(conns) == workers,
+                      f"the sampler armed on {len(conns)} siblings")
+                tops = []
+                tt = threading.Thread(target=lambda: tops.append(
+                    commands.run_script(commands.CommandEnv(
+                        murl, filer=furl), "cluster.top -interval=1")[0]))
+                tt.start()
+            arm["get_1KiB"] = run(lambda it: read(furl, it[0]), small)
+            arm["get_64KiB"] = run(lambda it: read(furl, it[0]), large)
+            if workers > 1:
+                tt.join(timeout=60)
+                top = tops[0] if tops else None
+                tables, per = [], {}
+                for key, c in conns.items():
+                    c.request("POST", "/debug/pprof",
+                              json.dumps({"action": "stop"}).encode(),
+                              {"Content-Type": "application/json"})
+                    snap = json.loads(c.getresponse().read())
+                    c.close()
+                    tables.append(snap.get("folded") or {})
+                    per[str(key)] = {"samples": snap["samples"],
+                                     "overhead": snap["overhead"]}
+                merged = profiling.merge_folded(tables)
+                total = sum(merged.values()) or 1
+                profile = {"siblings": per, "stacks": len(merged),
+                           "top": [[round(n / total * 100, 2),
+                                    ";".join(s.split(";")[-3:])]
+                                   for s, n in sorted(
+                                       merged.items(),
+                                       key=lambda kv: -kv[1])[:5]]}
+                views = _sibling_views(furl, workers)
+                arm["plane_pass"] = plane_pass(furl, views, name)
+            views = _sibling_views(furl, workers)
+            check(len(views) == workers,
+                  f"{name}: {len(views)} of {workers} siblings answered")
+            arm["instruments"] = _fleet_instruments(views)
+            arm["profile"] = profile
+            arm["cluster_top"] = top.splitlines() if top else None
+            if workers > 1:
+                check(all(s["tree_procs"] >= workers for s in
+                          arm["instruments"]["per_sibling"]),
+                      f"{name}: the process tree "
+                      f"{arm['instruments']['per_sibling']}")
+                arm["sigkill"] = kill_sibling(furl, name)
+            arms[name] = arm
+            print(json.dumps({"filer_fleet_arm": name, **{
+                k: arm[k] for k in ("post_1KiB", "post_64KiB", "get_1KiB",
+                                    "get_64KiB")}}), flush=True)
+        # the last fleet (4 workers, the asyncio front) stays up
+        furl_ec = furl
+
+        # the seal: the volume holding the most of the collection's files
+        vols = [v for _n, v in iter_volume_list_volumes(get("/vol/list"))
+                if v.get("collection") == coll]
+        target = max(vols, key=lambda v: v.get("fileCount", 0))["id"]
+        (loc,) = operation.lookup(murl, target, use_cache=False)
+        tdir = dirs[urls.index(loc["url"])]
+        dat = os.path.join(tdir, f"{coll}_{target}.dat")
+        frng = np.random.default_rng(seed)
+        lock = threading.Lock()
+        fill: list = []
+        stop = threading.Event()
+        counter = itertools.count(1)
+
+        def filler():
+            while not stop.is_set():
+                a = operation.assign(murl, collection=coll)
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                fid = str(FileId(target, int(a.fid.split(",")[1][:-8], 16),
+                                 _cookie(nid)))
+                operation.upload(loc["url"], fid, _payload(seed, nid, size))
+                with lock:
+                    fill.append((fid, nid, size))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(filler) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and \
+                        os.path.getsize(dat) < limit_mb << 20:
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        fill_s = time.perf_counter() - t
+        size = os.path.getsize(dat)
+        check(size >= limit_mb << 20, f"volume {target}: {size} bytes")
+        poll(lambda: all(v["size"] == size for _n, v in
+                         iter_volume_list_volumes(get("/vol/list"))
+                         if v["id"] == target), "the master sees the size")
+
+        # ec.encode on the card; the shards held to the host codec's
+        twin = os.path.join(tmp, "twin")
+        os.makedirs(twin)
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(dat[:-4] + ext,
+                            os.path.join(twin, f"{coll}_{target}{ext}"))
+        host = rs_native.ReedSolomonNative(d, p)
+
+        class _HostCtx(ECContext):
+            def create_codec(self):
+                return pytypes.SimpleNamespace(parity_lazy=host.parity)
+        ec_encoder.write_ec_files(os.path.join(twin, f"{coll}_{target}"),
+                                  _HostCtx(d, p, device="cpu"))
+        twin_sha = [sha256_file(os.path.join(twin, f"{coll}_{target}" +
+                                             ECContext().to_ext(i)))
+                    for i in range(d + p)]
+        shutil.rmtree(twin, ignore_errors=True)
+        ctx = ECContext(d, p, device="cpu")
+        enc_expect = sum(launches_for(d, item[3]) for item in
+                         ec_encoder._encode_work_items(size, ctx))
+        env = commands.CommandEnv(murl)
+        before = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={target} -collection={coll}; "
+                 f"unlock")
+        enc_s = time.perf_counter() - t
+        enc_launches = int(_counters(urls)["launches"] - before)
+        check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+        check(enc_launches == enc_expect,
+              f"the encode launched {enc_launches}, the windows of its "
+              f"work list are {enc_expect}")
+
+        def ec_locs():
+            return {x["url"]: x["shardIds"] for x in get(
+                f"/dir/ec_lookup?volumeId={target}").get(
+                    "shardIdLocations", [])}
+        poll(lambda: sorted(s for ids in ec_locs().values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed")
+        shard_sha = []
+        for i in range(d + p):
+            name = f"{coll}_{target}" + ECContext().to_ext(i)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_sha.append(sha256_file(path))
+        check(shard_sha == twin_sha,
+              "the card's shards differ from the host codec's: " + str(
+                  [i for i in range(d + p) if shard_sha[i] != twin_sha[i]]))
+
+        def read_all(what):
+            c0 = _counters(urls)
+            r = run(lambda pth: read(furl_ec, pth), sorted(files))
+            dlt = _delta(_counters(urls), c0)
+            check(dlt["launches"] == 0,
+                  f"{what}: the reads launched {dlt['launches']}")
+            return {**r, "degraded_reads": dlt["degraded"],
+                    "engines": dlt["engines"],
+                    "kernel_launches": int(dlt["launches"])}
+
+        # four data shards lost; every file read through the fleet
+        placement = ec_locs()
+        for u, ids in placement.items():
+            gone = [s for s in ids if s in FLEET_LOST]
+            if gone:
+                _post(f"{u}/admin/ec/delete_shards",
+                      {"volumeId": target, "collection": coll,
+                       "shardIds": gone}, f"fleet-loss-{u}")
+        poll(lambda: sorted(s for ids in ec_locs().values()
+                            for s in ids) ==
+             [s for s in range(d + p) if s not in FLEET_LOST],
+             "the master lists 10 shards")
+        degraded = read_all("degraded")
+        check(degraded["degraded_reads"] > 0,
+              f"the loss of {FLEET_LOST} made no degraded read: {degraded}")
+        check(all(e.startswith("native/") for e in degraded["engines"]),
+              f"degraded reads rebuilt by {degraded['engines']}")
+        shard_size = int(http_json(
+            "GET", f"{next(iter(ec_locs()))}/admin/ec/info?volumeId="
+                   f"{target}", timeout=30)["shardSize"])
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        before = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={target} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        reb_launches = int(_counters(urls)["launches"] - before)
+        check(f"rebuilt shards {list(FLEET_LOST)} on " in out[1],
+              f"rebuild of {target}: {out}")
+        check(reb_launches == reb_expect,
+              f"the rebuild launched {reb_launches}, the windows of its "
+              f"steps are {reb_expect}")
+        poll(lambda: sorted(s for ids in ec_locs().values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed again")
+        for u in urls:
+            http_json("POST", f"{u}/admin/ec/unmount",
+                      {"volumeId": target, "shardIds": []}, timeout=30)
+        rebuilt = read_all("rebuilt")
+        check(rebuilt["degraded_reads"] == 0,
+              f"degraded reads after the rebuild: {rebuilt}")
+    finally:
+        bad = _stop_peers(fleet) + _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a server of the fleet's cluster did not stop: {bad}")
+    fill_bytes = sum(x[2] for x in fill)
+    out = {"phase": "filer_fleet", "servers": FLEET_SERVERS,
+           "workers": FLEET_WORKERS, "client_threads": FLEET_C,
+           "cuts": {"files_an_arm": small_n + large_n,
+                    "servers": {"run": FLEET_SERVERS, "why": "one host"},
+                    "caches": "SEAWEEDFS_TPU_READ_CACHE_MB=0 on the filer "
+                              "and the volume servers"},
+           "cluster_start_seconds": start_s, "arms": arms,
+           "seal": {"volume": target, "needles": len(fill),
+                    "bytes": fill_bytes, "seconds": fill_s,
+                    "gbps": fill_bytes / fill_s / 1e9},
+           "encode": {"volume": target, "bytes": size, "seconds": enc_s,
+                      "gbps": size / enc_s / 1e9, "launches": enc_launches,
+                      "windows": enc_expect,
+                      "shards_sha256_equal_host_codec": True,
+                      "host_codec": rs_native.gf_native_simd()},
+           "loss": {"lost_shards": list(FLEET_LOST), "degraded": degraded},
+           "rebuild": {"seconds": reb_s, "launches": reb_launches,
+                       "windows": reb_expect, "after": rebuilt},
+           "launches": {"encode": enc_launches, "rebuild": reb_launches,
+                        "reads": degraded["kernel_launches"] +
+                        rebuilt["kernel_launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -6272,25 +6979,47 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    walls = {}    # each main-path phase's wall, seconds
+    adopt_orphans()
+    check(not sweep_children(), "a process was running before the phases")
+
+    def timed(name, fn, *fargs):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*fargs)
+        finally:
+            walls[name] = time.perf_counter() - t0
+            left = sweep_children()
+            if left:
+                emit({"phase": name, "left_running": left})
+        check(not left, f"phase {name} left {len(left)} processes running")
+        return out
+
     try:
-        ec, ec_state = phase_ec(args.volume_gib, args.seed,
-                                os.path.join(work, "ec"))
-        remote = phase_remote(ec_state, os.path.join(work, "remote"))
-        cluster = phase_cluster(ec_state, os.path.join(work, "cluster"))
-        batch, batch_state = phase_batch(args.batch_gib, args.seed,
-                                         os.path.join(work, "batch"))
-        worker = phase_worker(ec_state, batch_state,
-                              os.path.join(work, "worker"))
-        write = phase_write(os.path.join(work, "write"), args.seed)
-        read_load = phase_read_load(os.path.join(work, "read_load"),
-                                    args.seed)
-        filer = phase_filer(os.path.join(work, "filer"), args.seed)
-        filer_plane = phase_filer_plane(os.path.join(work, "filer_plane"),
-                                        args.seed)
-        fsync = phase_fsync_tier(os.path.join(work, "fsync_tier"),
-                                 args.seed)
-        secure = phase_secure_s3(os.path.join(work, "secure_s3"),
-                                 args.seed)
+        ec, ec_state = timed("ec", phase_ec, args.volume_gib, args.seed,
+                             os.path.join(work, "ec"))
+        remote = timed("remote", phase_remote, ec_state,
+                       os.path.join(work, "remote"))
+        cluster = timed("cluster", phase_cluster, ec_state,
+                        os.path.join(work, "cluster"))
+        batch, batch_state = timed("batch", phase_batch, args.batch_gib,
+                                   args.seed, os.path.join(work, "batch"))
+        worker = timed("worker", phase_worker, ec_state, batch_state,
+                       os.path.join(work, "worker"))
+        write = timed("write", phase_write, os.path.join(work, "write"),
+                      args.seed)
+        read_load = timed("read_load", phase_read_load,
+                          os.path.join(work, "read_load"), args.seed)
+        filer = timed("filer", phase_filer, os.path.join(work, "filer"),
+                      args.seed)
+        filer_plane = timed("filer_plane", phase_filer_plane,
+                            os.path.join(work, "filer_plane"), args.seed)
+        fsync = timed("fsync_tier", phase_fsync_tier,
+                      os.path.join(work, "fsync_tier"), args.seed)
+        secure = timed("secure_s3", phase_secure_s3,
+                       os.path.join(work, "secure_s3"), args.seed)
+        fleet = timed("filer_fleet", phase_filer_fleet,
+                      os.path.join(work, "filer_fleet"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -6322,7 +7051,10 @@ def main(argv=None) -> int:
               "fsync_reads": fsync["launches"]["reads"],
               "secure_s3_encode": secure["launches"]["encode"],
               "secure_s3_rebuild": secure["launches"]["rebuild"],
-              "secure_s3_reads": secure["launches"]["reads"]}),
+              "secure_s3_reads": secure["launches"]["reads"],
+              "filer_fleet_encode": fleet["launches"]["encode"],
+              "filer_fleet_rebuild": fleet["launches"]["rebuild"],
+              "filer_fleet_reads": fleet["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],
@@ -6345,6 +7077,7 @@ def main(argv=None) -> int:
             "waves": case["launch"]["waves"],
             "shape": f"[{case['V']},{case['R']},{case['K']}] x "
                      f"{case['words']} words"})
+    emit({"phase_walls_s": walls})
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@
         [-dataCenter DC] [-rack RACK] [-fsync]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
         [-master HOST:PORT] [-store filer.db] [-collection C]
-        [-replication 000]
+        [-replication 000] [-workers N] [-metaPlane 0|1]
     python3 -m seaweedfs_tpu_torch shell [-master HOST:PORT]
         [-filer HOST:PORT] ["lock; ec.encode -volumeId=1; unlock"]
     python3 -m seaweedfs_tpu_torch admin [-ip 127.0.0.1] [-port 23646]
@@ -68,9 +68,15 @@ prints `filer listening on <ip>:<port>`.  Over a store file it runs the
 meta plane (metalog as WAL, the store an async checkpoint) and the
 native meta and read planes by default, in one process; `-metaPlane 0`
 commits every mutation synchronously, and `-metaPlane 1` over a store
-the plane cannot run on (`:memory:`) is refused.  A `-storeType` other
-than sqlite, `-workers` above 1, `-notification`, `-lockPeers` and
-`-metricsAddress` are refused, not ported yet (ROADMAP).
+the plane cannot run on (`:memory:`) is refused.  `-workers N` (or
+`SEAWEEDFS_TPU_FILER_WORKERS`) above 1 pre-forks N-1 sibling processes
+on the same port (SO_REUSEPORT) and prints `filer pre-forked N-1
+sibling workers on port P` after its listening line; a sibling that
+exits is respawned (20 times at most), and SIGTERM stops the fleet.
+`SEAWEEDFS_TPU_ASYNC_FRONT=filer` serves the filer on the asyncio front
+(`server/async_front.py`).  A `-storeType` other than sqlite,
+`-notification`, `-lockPeers` and `-metricsAddress` are refused, not
+ported yet (ROADMAP).
 
 `admin` starts the maintenance admin (`plugin/admin.py`) and prints
 `admin listening on <ip>:<port>`; `worker` registers a maintenance
@@ -108,10 +114,11 @@ import tempfile
 import threading
 
 
-def _serve(server, line, then=None) -> int:
+def _serve(server, line, then=None, before_stop=None) -> int:
     """Start `server`, print `line(server)`, call `then(server)` if
     given, freeze the heap so far out of the cycle collector, and serve
-    until SIGTERM or SIGINT."""
+    until SIGTERM or SIGINT; then call `before_stop()` if given, and stop
+    the server."""
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
@@ -127,7 +134,11 @@ def _serve(server, line, then=None) -> int:
     try:
         stop.wait()
     finally:
-        server.stop()
+        try:
+            if before_stop is not None:
+                before_stop()
+        finally:
+            server.stop()
     return 0
 
 
@@ -215,6 +226,138 @@ def _s3(ap, args) -> int:
                   lambda gw: f"s3 gateway listening on {gw.url}{suffix}")
 
 
+# a sibling that keeps exiting is respawned this many times at most
+WORKER_RESPAWNS = 20
+
+
+def _filer(ap, args, argv: "list[str]") -> int:
+    """`filer`, with its pre-fork fleet: `-workers N` (or
+    `SEAWEEDFS_TPU_FILER_WORKERS`) above 1 re-executes this command line
+    N-1 times as siblings (`-workers 0`) on the resolved port, every
+    process binding it with SO_REUSEPORT, so the kernel spreads the
+    connections.  The parent exports `SEAWEEDFS_TPU_TREE_ROOT` first, so
+    any sibling's `/metrics` reports the fleet's process tree.  A
+    sibling exits when its parent (that pid) is gone; the parent
+    respawns a sibling that exited, `WORKER_RESPAWNS` times at most,
+    and on SIGTERM stops them all, and respawns none, before its own
+    server stops."""
+    import subprocess
+    import time
+    from .server.filer_server import FilerServer
+    workers = args.workers
+    if workers is None:
+        try:
+            workers = int(os.environ.get(
+                "SEAWEEDFS_TPU_FILER_WORKERS", "") or 1)
+        except ValueError:
+            workers = 1
+    refused = {
+        f"-storeType {args.store_type}": args.store_type != "sqlite",
+        "-notification": bool(args.notification),
+        "-lockPeers": bool(args.lock_peers),
+        "-metricsAddress": bool(args.metrics_address)}
+    for flag, hit in refused.items():
+        if hit:
+            ap.error(f"filer {flag}: not ported yet (ROADMAP A, "
+                     f"\"the rest of the filer\")")
+    if workers < 0:
+        ap.error(f"filer -workers {workers}: must be 0 or more")
+    if args.meta_plane:
+        # through the environment, so the siblings run the same mode
+        os.environ["SEAWEEDFS_TPU_FILER_META_PLANE"] = args.meta_plane
+    is_worker = workers == 0          # a spawned sibling
+
+    def orphan_watch() -> None:
+        # the parent that spawned this sibling exported its pid as the
+        # tree's root; a sibling started by hand watches its own parent
+        ppid = int(os.environ.get("SEAWEEDFS_TPU_TREE_ROOT", "")
+                   or os.getppid())
+        while os.getppid() == ppid:
+            time.sleep(1.0)
+        os._exit(0)
+
+    if is_worker:
+        # watched from the start: a sibling whose parent is gone by now
+        # (or before the watch's first look) must not serve on
+        threading.Thread(target=orphan_watch, daemon=True,
+                         name="filer-orphan-watch").start()
+    try:
+        fs = FilerServer(args.master, args.ip, args.port,
+                         store_path=args.store,
+                         collection=args.collection,
+                         replication=args.replication,
+                         reuse_port=is_worker or workers > 1)
+    except ValueError as e:  # the meta plane over a :memory: store
+        ap.error(f"filer: {e}")
+    procs: list = []
+    stopping = threading.Event()
+    # held by a respawn and by the stop: once the stop has set
+    # `stopping`, no sibling is started that it would not stop
+    spawn_lock = threading.Lock()
+    respawns = [0]
+    # the command line of a sibling: this one, on the resolved port
+    sibling = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("-port", "-workers"):
+            skip = True
+            continue
+        sibling.append(a)
+    sibling += ["-port", str(fs.http.port), "-workers", "0"]
+    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch"] + sibling
+
+    def monitor() -> None:
+        while not stopping.wait(2.0):
+            with spawn_lock:
+                if stopping.is_set():
+                    return
+                for i, p in enumerate(procs):
+                    rc = p.poll()
+                    if rc is None:
+                        continue
+                    print(f"filer worker pid={p.pid} exited rc={rc}",
+                          file=sys.stderr, flush=True)
+                    if respawns[0] >= WORKER_RESPAWNS:
+                        continue
+                    respawns[0] += 1
+                    procs[i] = subprocess.Popen(cmd)
+
+    def fleet(server) -> None:
+        if is_worker or workers <= 1:
+            return
+        os.environ["SEAWEEDFS_TPU_TREE_ROOT"] = str(os.getpid())
+        with spawn_lock:
+            if stopping.is_set():
+                return
+            for _ in range(workers - 1):
+                procs.append(subprocess.Popen(cmd))
+        print(f"filer pre-forked {workers - 1} sibling workers on port "
+              f"{server.http.port}", flush=True)
+        threading.Thread(target=monitor, daemon=True,
+                         name="filer-worker-monitor").start()
+
+    def stop_fleet() -> None:
+        with spawn_lock:
+            stopping.set()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    try:
+        return _serve(fs, _listening("filer"), fleet, stop_fleet)
+    finally:
+        stop_fleet()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m seaweedfs_tpu_torch")
     ap.add_argument("-securityToml", default="",
@@ -277,7 +420,9 @@ def main(argv=None) -> int:
     fl.add_argument("-lockPeers", dest="lock_peers", default="",
                     help="distributed-lock ring (not ported)")
     fl.add_argument("-workers", type=int, default=None,
-                    help="pre-fork worker processes (only 1 is ported)")
+                    help="pre-fork worker processes on one port "
+                         "(SO_REUSEPORT); default "
+                         "SEAWEEDFS_TPU_FILER_WORKERS, else 1")
     fl.add_argument("-metaPlane", dest="meta_plane", default="",
                     choices=["", "0", "1"],
                     help="filer meta plane (metalog-as-WAL ack and async "
@@ -413,34 +558,8 @@ def main(argv=None) -> int:
                                    handlers),
                       lambda w: f"worker {w.worker_id} polling {w.admin}")
     if args.cmd == "filer":
-        from .server.filer_server import FilerServer
-        workers = args.workers
-        if workers is None:
-            try:
-                workers = int(os.environ.get(
-                    "SEAWEEDFS_TPU_FILER_WORKERS", "") or 1)
-            except ValueError:
-                workers = 1
-        refused = {
-            f"-storeType {args.store_type}": args.store_type != "sqlite",
-            f"-workers {workers}": workers != 1,
-            "-notification": bool(args.notification),
-            "-lockPeers": bool(args.lock_peers),
-            "-metricsAddress": bool(args.metrics_address)}
-        for flag, hit in refused.items():
-            if hit:
-                ap.error(f"filer {flag}: not ported yet (ROADMAP A, "
-                         f"\"the rest of the filer\")")
-        if args.meta_plane:
-            os.environ["SEAWEEDFS_TPU_FILER_META_PLANE"] = args.meta_plane
-        try:
-            fs = FilerServer(args.master, args.ip, args.port,
-                             store_path=args.store,
-                             collection=args.collection,
-                             replication=args.replication)
-        except ValueError as e:  # the meta plane over a :memory: store
-            ap.error(f"filer: {e}")
-        return _serve(fs, _listening("filer"))
+        return _filer(ap, args,
+                      sys.argv[1:] if argv is None else list(argv))
     if args.cmd == "benchmark":
         import json
         from .benchmark import run_benchmark

@@ -28,7 +28,7 @@ import threading
 import time
 from typing import Callable
 
-from .. import operation, stats
+from .. import operation, profiling, stats
 from ..util import deadline
 from ..util.limiter import bounded_parallel
 from .entry import Attributes, Entry, FileChunk, normalize_path
@@ -263,12 +263,12 @@ class Filer:
         if create_parents:
             self._ensure_parents(entry.full_path)
         mc = self.meta_cache
-        wm = mc.watermark() if mc is not None and entry.is_directory \
+        tok = mc.fresh_token() if mc is not None and entry.is_directory \
             else None
         old = self._store_find(entry.full_path) \
             if old_entry is self._UNKNOWN else old_entry
-        if wm is not None and old is None:
-            mc.mark_fresh_dir(entry.full_path, wm)
+        if tok is not None and old is None:
+            mc.mark_fresh_dir(entry.full_path, tok)
         self._insert(entry)
         if entry.is_directory:
             self._note_dir(entry.full_path)
@@ -281,13 +281,13 @@ class Filer:
         if parent in self._known_dirs:
             return
         mc = self.meta_cache
-        wm = mc.watermark() if mc is not None else None
+        tok = mc.fresh_token() if mc is not None else None
         if self._store_find(parent) is None:
             e = Entry(parent, is_directory=True,
                       attributes=Attributes(mode=0o770))
             self._ensure_parents(parent)
-            if wm is not None:
-                mc.mark_fresh_dir(parent, wm)
+            if tok is not None:
+                mc.mark_fresh_dir(parent, tok)
             self._insert(e)
             self._notify("create", e, None)
         self._note_dir(parent)
@@ -470,15 +470,18 @@ class Filer:
         committed: a failed commit leaves the old file readable."""
         # contextvars do not follow the pool's threads: each piece
         # re-binds the handler's deadline, so its hops keep deriving
-        # their timeouts from this request's shrinking budget
+        # their timeouts from this request's shrinking budget, and the
+        # handler's stage track, so its assign and upload stages (and
+        # their thread CPU) are charged to this request
         dl = deadline.get()
+        trk = profiling.current_track()
 
         def upload_piece(off: int) -> FileChunk:
             piece = data[off:off + CHUNK_SIZE]
             # fresh-assign retry on volume-state races (an ec.encode
             # making the assigned volume read-only mid-write costs a
             # retry, not a 500)
-            with deadline.use(dl):
+            with deadline.use(dl), profiling.use_track(trk):
                 a, r = operation.assign_and_upload(
                     self.master, piece, collection=self.collection,
                     replication=self.replication)
@@ -487,13 +490,18 @@ class Filer:
 
         chunks = bounded_parallel(
             upload_piece, range(0, len(data), CHUNK_SIZE), limit=4)
+        if len(chunks) > 1:
+            profiling.flight_note("chunks", len(chunks))
         entry = Entry(normalize_path(path), is_directory=False,
                       attributes=Attributes(mime=mime, mode=mode),
                       chunks=chunks)
-        old = self.find_entry(path)
-        self.create_entry(entry, old_entry=old)
+        with profiling.stage("meta"):
+            old = self.find_entry(path)
+            self.create_entry(entry, old_entry=old)
         if old is not None and not old.is_directory:
-            self._delete_chunks(old)
+            # volume DELETE round trips, not metadata work
+            with profiling.stage("gc"):
+                self._delete_chunks(old)
         return entry
 
     def append_chunks(self, path: str, offset: int, data: bytes,

@@ -114,6 +114,8 @@ class FilerMetaCache:
         # late record never hears of, and a second create of the same
         # directory reset its set, so an acked file read as absent.)
         self._fresh_dirs: "OrderedDict[str, tuple]" = OrderedDict()
+        # sibling events invalidated so far (the fresh-dir guard)
+        self._foreign = 0
 
     # -- fill protocol -----------------------------------------------
 
@@ -165,18 +167,27 @@ class FilerMetaCache:
     MAX_FRESH_DIRS = 512
     MAX_FRESH_CHILDREN = 65536
 
-    def watermark(self) -> int:
-        """The foreign watermark now: a fresh-dir record's stamp, probed
-        before the store read that proves the directory absent."""
-        return self._probe()
+    def fresh_token(self) -> "tuple[int, int]":
+        """(foreign watermark, sibling-invalidation count), taken BEFORE
+        the store read that proves a directory absent."""
+        wm = self._probe()
+        with self._lock:
+            return wm, self._foreign
 
-    def mark_fresh_dir(self, path: str, wm: int) -> None:
+    def mark_fresh_dir(self, path: str, token: "tuple[int, int]") -> None:
         """`path` is about to be created as a brand-new directory (the
-        store had no entry at watermark `wm`): track it as provably
+        store had no entry when `token` was taken): track it as provably
         empty except for what we see.  A directory already tracked
         keeps its record: a concurrent create of the same directory
-        must not forget the children seen since the first."""
+        must not forget the children seen since the first.  A sibling's
+        event ingested since the token (a pre-fork fleet's other
+        process created the directory and wrote into it) refuses the
+        record: its children's invalidations ran before the record
+        existed, so it could not learn them."""
+        wm, foreign = token
         with self._lock:
+            if foreign != self._foreign:
+                return
             if path in self._fresh_dirs:
                 self._fresh_dirs.move_to_end(path)
                 return
@@ -257,14 +268,19 @@ class FilerMetaCache:
 
     # -- invalidation --------------------------------------------------
 
-    def invalidate(self, path: str, keep_fresh: bool = False) -> None:
+    def invalidate(self, path: str, keep_fresh: bool = False,
+                   foreign: bool = False) -> None:
         """Drop one path's entry, its parent's listings, and its own
         listings (when it is a directory); bump the epoch so racing
         fills die.  `keep_fresh` keeps the path's own fresh-dir record
-        (its create)."""
+        (its create).  `foreign`: a sibling process's event (the meta
+        plane's follower), which also refuses fresh-dir records whose
+        token predates it (`mark_fresh_dir`)."""
         parent = path.rsplit("/", 1)[0] or "/"
         with self._lock:
             self._epoch += 1
+            if foreign:
+                self._foreign += 1
             self._entries.pop(path, None)
             self._note_child_locked(path, keep_own=keep_fresh)
             for d in (parent, path):

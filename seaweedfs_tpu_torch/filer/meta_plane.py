@@ -603,7 +603,7 @@ class MetaPlane:
     def _invalidate(self, paths) -> None:
         if paths and self.cache is not None:
             for p in paths:
-                self.cache.invalidate(p)
+                self.cache.invalidate(p, foreign=True)
 
     def _ingest_events_locked(self, batch: list) -> list:
         """Sibling events -> overlay + point cache invalidations (own

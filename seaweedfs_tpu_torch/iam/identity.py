@@ -456,12 +456,19 @@ class IdentityStore:
         inline user policies, so a grant means the same thing
         whichever path attached it."""
         derived: dict[str, set] = {}
-        if self._groups:
+        groups = self._groups
+        if groups:
             try:
                 from .policy_actions import IamError, policy_to_actions
-            except Exception:
-                return
-            for gname, g in self._groups.items():
+            except Exception as e:  # noqa: BLE001 — fail closed
+                # no translation, no grant: every identity's derived
+                # group actions are cleared below, never left stale
+                # (a deleted group or policy must not keep granting)
+                import sys
+                print(f"iam group grants dropped: policy translation "
+                      f"unavailable: {e}", file=sys.stderr)
+                groups = {}
+            for gname, g in groups.items():
                 # FAIL CLOSED per group: a malformed entry (non-dict
                 # group, non-list members/policyNames, unhashable
                 # member...) drops THAT group's grant and logs —

@@ -173,6 +173,140 @@ def load_crc32c() -> "ctypes.CDLL | None":
     return _load("crc32c", _bind_crc32c)
 
 
+# -- the planes' flight records (PlaneRec in the four plane sources) -----
+
+class PlaneRecord(ctypes.Structure):
+    """One request's flight record drained from a C++ plane's ring (the
+    112-byte PlaneRec that read_plane.cc, write_plane.cc, meta_plane.cc
+    and filer_read_plane.cc share; only their stage and fallback label
+    tables differ)."""
+
+    _fields_ = [("rid", ctypes.c_char * 40),
+                ("start_unix_ns", ctypes.c_uint64),
+                ("stage_ns", ctypes.c_uint64 * 4),
+                ("bytes", ctypes.c_uint64),
+                ("deadline_ms", ctypes.c_int64),
+                ("status", ctypes.c_int32),
+                ("fallback", ctypes.c_int32),
+                ("flags", ctypes.c_uint32),
+                ("_pad", ctypes.c_uint32)]
+
+
+PLANE_RECORD_CLIENT_RID = 0x1  # the rid arrived on the wire (not minted)
+# the wire rid has the plane-minted shape: a sibling plane's upstream
+# hop forwarded it, no client set it; the drain treats such records as
+# lean unless they are interesting on their own (an error, over the
+# slow threshold)
+PLANE_RECORD_MINTED_UPSTREAM = 0x2
+
+_PLANE_RECORD_DTYPE = None
+
+
+def plane_record_dtype():
+    """The numpy structured dtype of `PlaneRecord`, for the vectorised
+    drain (`profiling.PlaneRecordSink.feed_buffer`)."""
+    global _PLANE_RECORD_DTYPE
+    if _PLANE_RECORD_DTYPE is None:
+        import numpy as np
+        dt = np.dtype([
+            ("rid", "S40"), ("start_unix_ns", "<u8"),
+            ("stage_ns", "<u8", (4,)), ("bytes", "<u8"),
+            ("deadline_ms", "<i8"), ("status", "<i4"),
+            ("fallback", "<i4"), ("flags", "<u4"),
+            ("_pad", "<u4")])
+        if dt.itemsize != ctypes.sizeof(PlaneRecord):
+            raise AssertionError(
+                f"PlaneRecord dtype drift: {dt.itemsize} != "
+                f"{ctypes.sizeof(PlaneRecord)}")
+        _PLANE_RECORD_DTYPE = dt
+    return _PLANE_RECORD_DTYPE
+
+
+def _bind_record_drain(lib: ctypes.CDLL, prefix: str) -> None:
+    """The `{rp,wp,mp,frp}_drain_records` / `_records_dropped` pair."""
+    _sig(getattr(lib, f"{prefix}_drain_records"),
+         [ctypes.c_int, ctypes.POINTER(PlaneRecord), ctypes.c_int],
+         ctypes.c_int)
+    _sig(getattr(lib, f"{prefix}_records_dropped"), [ctypes.c_int],
+         ctypes.c_ulonglong)
+
+
+def drain_plane_records(lib: ctypes.CDLL, prefix: str, handle: int,
+                        sink=None, cap: int = 512):
+    """Pull one plane's flight ring dry.  With `sink`, feed each batch
+    to `sink.feed_buffer` (the reused buffer, never retained) and return
+    the count; without, return copies of the records."""
+    drain = getattr(lib, f"{prefix}_drain_records")
+    buf = (PlaneRecord * cap)()
+    out: "list | None" = [] if sink is None else None
+    total = 0
+    while True:
+        n = drain(handle, buf, cap)
+        if n > 0:
+            total += n
+            if sink is None:
+                out.extend(PlaneRecord.from_buffer_copy(buf[i])
+                           for i in range(n))
+            else:
+                sink.feed_buffer(buf, n)
+        if n < cap:
+            return out if sink is None else total
+
+
+class RecordDrain:
+    """The flight-record half of a plane wrapper (mixed into ReadPlane,
+    WritePlane, NativeMetaPlane and NativeReadPlane).  The class names
+    its ring (`_REC`: the C prefix, the role, the plane label and the
+    method its records get) and its label tables (`RECORD_STAGES`,
+    `RECORD_FALLBACKS`); the instance has `_lib` and `_h`.  The ring is
+    single-consumer: every pull goes through the drainer's lock."""
+
+    _REC: "tuple[str, str, str, str]" = ("", "", "", "")
+    RECORD_STAGES: "tuple[str, ...]" = ()
+    RECORD_FALLBACKS: "tuple[str, ...]" = ()
+    _drainer = None
+
+    def drain_records(self, sink=None, cap: int = 512):
+        """Pull the ring (`drain_plane_records`); nothing once the plane
+        stopped."""
+        if self._h < 0:
+            return [] if sink is None else 0
+        return drain_plane_records(self._lib, self._REC[0], self._h,
+                                   sink, cap)
+
+    def records_dropped(self) -> int:
+        if self._h < 0:
+            return 0
+        return int(getattr(self._lib,
+                           f"{self._REC[0]}_records_dropped")(self._h))
+
+    def _default_tracker(self):
+        return None
+
+    def start_record_drain(self, tracker=None, metrics=None):
+        """Start the drainer thread and its scrape hook, once; returns
+        the `profiling.PlaneRecordDrainer`."""
+        if self._drainer is not None:
+            return self._drainer
+        from .. import profiling
+        _prefix, role, plane, method = self._REC
+        sink = profiling.PlaneRecordSink(
+            role, plane, method, self.RECORD_STAGES, self.RECORD_FALLBACKS,
+            tracker=tracker if tracker is not None
+            else self._default_tracker(), metrics=metrics)
+        self._drainer = profiling.PlaneRecordDrainer(
+            sink, lambda s: self.drain_records(sink=s),
+            self.records_dropped).start()
+        return self._drainer
+
+    def _stop_record_drain(self) -> None:
+        """Before the native stop: the drain dereferences the handle.
+        The drainer's last pass leaves nothing undrained."""
+        d, self._drainer = self._drainer, None
+        if d is not None:
+            d.stop()
+
+
 # -- the read plane (read_plane.cc) --------------------------------------
 
 def _bind_read_plane(lib: ctypes.CDLL) -> None:
@@ -187,6 +321,7 @@ def _bind_read_plane(lib: ctypes.CDLL) -> None:
          ctypes.c_int)
     _sig(lib.rp_del, [ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong])
     _sig(lib.rp_served, [ctypes.c_int], ctypes.c_ulonglong)
+    _bind_record_drain(lib, "rp")
 
 
 def load_read_plane() -> "ctypes.CDLL | None":
@@ -243,6 +378,7 @@ def _bind_write_plane(lib: ctypes.CDLL) -> None:
         lib.epoch_handshake = True
     except AttributeError:
         lib.epoch_handshake = False
+    _bind_record_drain(lib, "wp")
 
 
 def load_write_plane() -> "ctypes.CDLL | None":
@@ -267,6 +403,7 @@ def _bind_meta_plane(lib: ctypes.CDLL) -> None:
     _sig(lib.mp_requests, [h], ctypes.c_ulonglong)
     _sig(lib.mp_latency, [h, u64p], ctypes.c_int)
     _sig(lib.mp_stats, [h, u64p], ctypes.c_int)
+    _bind_record_drain(lib, "mp")
 
 
 def load_meta_plane() -> "ctypes.CDLL | None":
@@ -293,6 +430,7 @@ def _bind_filer_read_plane(lib: ctypes.CDLL) -> None:
     _sig(lib.frp_requests, [h], ctypes.c_ulonglong)
     _sig(lib.frp_latency, [h, u64p], ctypes.c_int)
     _sig(lib.frp_stats, [h, u64p], ctypes.c_int)
+    _bind_record_drain(lib, "frp")
 
 
 def load_filer_read_plane() -> "ctypes.CDLL | None":

@@ -46,7 +46,7 @@ import time
 import urllib.parse
 from dataclasses import dataclass
 
-from . import security, tracing
+from . import profiling, security, tracing
 from .server.httpd import http_bytes, http_json
 from .server.uds_reader import uds_read_needle
 from .storage import types
@@ -118,8 +118,10 @@ def assign(master: str, count: int = 1, collection: str = "",
         qs += f"&replication={replication}"
     if ttl:
         qs += f"&ttl={ttl}"
-    r = master_json(master, "GET", f"/dir/assign?{qs}",
-                    timeout=deadline.io_timeout(30.0, site="master.assign"))
+    with profiling.stage("assign"):
+        r = master_json(master, "GET", f"/dir/assign?{qs}",
+                        timeout=deadline.io_timeout(30.0,
+                                                    site="master.assign"))
     if "error" in r:
         raise RuntimeError(f"assign: {r['error']}")
     return Assignment(r["fid"], r["url"], r.get("publicUrl", r["url"]),
@@ -143,8 +145,11 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
     (the derived fids of an assign batch)."""
     if not name and not mime and not auth and data and \
             _planes_allowed(write=True):
-        r = _write_via_write_plane(url, fid, data)
+        with profiling.stage("upload"):
+            r = _write_via_write_plane(url, fid, data)
         if r is not None:
+            # the flight record: the C++ plane acked this write
+            profiling.flight_note("nativePlane", "write")
             return r
     qs = "?" + urllib.parse.urlencode({"name": name}) if name else ""
     headers = {"Content-Type": mime} if mime else {}
@@ -156,9 +161,10 @@ def upload(url: str, fid: str, data: bytes, name: str = "",
         auth = security.current().write_jwt(fid)
     if auth:
         headers["Authorization"] = f"Bearer {auth}"
-    status, body, _ = http_bytes(
-        "POST", f"{url}/{fid}{qs}", data, headers,
-        timeout=deadline.io_timeout(60.0, site="volume.upload"))
+    with profiling.stage("upload"):
+        status, body, _ = http_bytes(
+            "POST", f"{url}/{fid}{qs}", data, headers,
+            timeout=deadline.io_timeout(60.0, site="volume.upload"))
     if status >= 300:
         raise UploadError(f"upload {fid} -> {status}: {body[:200]!r}",
                           status)
@@ -380,10 +386,13 @@ def read(master: str, fid: str, offset: int = 0,
     if key >= 0:
         t0 = time.monotonic()
         data = _read_via_read_plane(locs, fid)
+        route = "read-cpp"
         if data is None:
             data = _read_via_uds(locs, vid, key, cookie)
+            route = "read-uds"
         if data is not None:
             hedge.note_primary(time.monotonic() - t0)
+            profiling.flight_note("nativePlane", route)
             return data
     last_err = None
     for attempt in range(2):

@@ -36,7 +36,8 @@ drops the entry and answers the fallback body without having promised
 any bytes.  The miss also empties the address memo, so the Python
 replay's refill resolves its volume afresh, and a volume the master
 serves as EC shards gets no fill: its files stay on the Python front.
-The plane's per-request record ring is left undrained.
+The plane's per-request record ring is drained by `start_record_drain`
+into `plane_stage_seconds{plane="filer_read"}` and the flight recorder.
 """
 
 from __future__ import annotations
@@ -58,6 +59,11 @@ from ..filer.filer import CHUNK_SIZE
 RESPONSE_BUCKETS_S = (1e-6, 2e-6, 5e-6, 1e-5, 2e-5, 5e-5, 1e-4, 2e-4,
                       5e-4, 1e-3, 2e-3, 5e-3, 1e-2, 2e-2, 5e-2, 1e-1,
                       1.0)
+
+# the flight ring's label tables
+RECORD_STAGES = ("parse", "lookup", "fetch", "send")
+RECORD_FALLBACKS = ("none", "ineligible", "unknown_path", "stale",
+                    "upstream")
 
 STATS_KEYS = ("requests", "fallbacks", "stale_misses",
               "upstream_errors", "parse_ns", "lookup_ns", "fetch_ns",
@@ -87,9 +93,15 @@ def _path_bytes_ok(path: str) -> bool:
                for ch in path)
 
 
-class NativeReadPlane:
+class NativeReadPlane(native.RecordDrain):
     """One native filer read plane bound to <host>:<ephemeral>, fetching
     chunks from volume read planes located through `master`."""
+
+    # plane label "filer_read": the volume read plane has "read", and
+    # the two share stage names
+    _REC = ("frp", "filer", "filer_read", "GET")
+    RECORD_STAGES = RECORD_STAGES
+    RECORD_FALLBACKS = RECORD_FALLBACKS
 
     def __init__(self, master: str, host: str = "127.0.0.1"):
         self._lib = native.load_filer_read_plane()
@@ -336,5 +348,6 @@ class NativeReadPlane:
             return
         self._stop_evt.set()
         self._filler.join(timeout=5)
+        self._stop_record_drain()
         self._lib.frp_stop(self._h)
         self._h = -1

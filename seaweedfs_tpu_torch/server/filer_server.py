@@ -48,9 +48,22 @@ and `/status`, `/metrics`.
 The store is sqlite (a file, or ":memory:"); its metadata log lives in
 `<store>.metalog`, so two filers over one store file share one log dir
 and see each other's commits (through its watermark files, or the meta
-plane's log follower).  Not ported (ROADMAP): TUS uploads, the lock
-routes, notification, remote mounts, gRPC, QoS, fault
-sites, the autopilot, and the planes' flight-record drains.
+plane's log follower).
+
+A pre-fork fleet (`filer -workers N`, __main__.py) runs N such
+processes over one store on one port (`reuse_port`: SO_REUSEPORT).  In
+a sibling the meta cache stays off when the meta plane is off (the
+shared watermark advances at the fleet's commit rate, so a fill would
+live one sibling commit), and the native read plane runs only with the
+meta plane, whose log-follower tap tells it of every sibling's writes.
+
+Observability: the server spans, `filer_request_seconds` and
+`filer_request_cpu_seconds` (httpd's middleware, either front), a write
+track a PUT (`filer_write_stage_seconds{stage}`: recv, assign, upload,
+meta, gc), the flight recorder and the debug routes (server/debug.py),
+and the native planes' record drains.  Not ported (ROADMAP): TUS
+uploads, the lock routes, notification, remote mounts, gRPC, QoS, fault
+sites and the autopilot.
 """
 
 from __future__ import annotations
@@ -59,13 +72,14 @@ import os
 import sys
 import urllib.parse
 
-from .. import operation, security, stats
+from .. import operation, profiling, security, stats
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import SqliteStore
 from ..util.chunk_cache import read_cache_disk
 from .httpd import (HttpServer, Request, admin_guard, http_json,
                     parse_range)
+from .debug import install_debug_routes, start_process_probes
 from .meta_plane_native import note_stood_down
 
 
@@ -95,10 +109,11 @@ class FilerServer:
     def __init__(self, master: str, host: str = "127.0.0.1",
                  port: int = 0, store_path: str = ":memory:",
                  collection: str = "", replication: str = "",
-                 meta_log_dir: str | None = None):
+                 meta_log_dir: str | None = None,
+                 reuse_port: bool = False):
         # bind the listener FIRST: it fails fast on a taken port,
         # before any store file is touched
-        self.http = HttpServer(host, port)
+        self.http = HttpServer(host, port, reuse_port=reuse_port)
         try:
             if meta_log_dir is None and store_path != ":memory:":
                 # the metadata log persists beside the store:
@@ -107,11 +122,22 @@ class FilerServer:
                 meta_log_dir = store_path + ".metalog"
             # the disk tier of the chunk cache, when one is configured,
             # gets a directory of this filer's own
+            from ..filer.meta_plane import meta_plane_enabled
+            # will the meta plane run here?  (Filer decides; this is its
+            # gate, for the fleet's cache decision)
+            plane_on = store_path != ":memory:" and \
+                meta_plane_enabled() is not False
+            # a sibling of a fleet without the meta plane: the shared
+            # watermark moves at the fleet's commit rate, and every fill
+            # would be invalidated at once; with the plane, sibling
+            # commits arrive as per-path invalidations and fills survive
+            coherent = plane_on or not reuse_port or os.environ.get(
+                "SEAWEEDFS_TPU_FILER_META_CACHE") == "force"
             cache_dir, _ = read_cache_disk()
             self.filer = Filer(
                 master, SqliteStore(store_path), collection=collection,
                 replication=replication, meta_log_dir=meta_log_dir,
-                meta_cache=True,
+                meta_cache=coherent,
                 chunk_cache_dir=(os.path.join(cache_dir,
                                               f"filer{self.http.port}")
                                  if cache_dir else None))
@@ -121,6 +147,7 @@ class FilerServer:
             raise
         self.metrics = stats.Metrics("filer")
         self.http.role = "filer"
+        self.http.metrics = self.metrics
         # the planes bind the listener's address when it is numeric
         plane_host = self.http.host if all(
             c in "0123456789." for c in self.http.host) else "127.0.0.1"
@@ -140,7 +167,11 @@ class FilerServer:
         from .filer_read_plane_native import (NativeReadPlane,
                                               native_read_plane_enabled)
         self.native_read = None
-        if native_read_plane_enabled() is not False and not tls_on:
+        # the read plane's entry map needs an event of every writer of
+        # the namespace: this process's own, and in a fleet the
+        # siblings' through the meta plane's log follower
+        if native_read_plane_enabled() is not False and not tls_on and \
+                (self.filer.meta_plane is not None or not reuse_port):
             self.native_read = self._start_plane(
                 "read", lambda: NativeReadPlane(master, host=plane_host))
         # entry truth flows in from both sides: this process's own
@@ -161,6 +192,9 @@ class FilerServer:
         for plane in (self.native_meta, self.native_read):
             if plane is not None:
                 plane.arm(True)
+                # the plane's flight ring, drained into the stage
+                # histograms and the recorder on a tick and at scrapes
+                plane.start_record_drain()
         r = self.http.route
         r("GET", "/status", self._status)
         r("GET", "/debug/follow", self._follow_state)
@@ -175,6 +209,7 @@ class FilerServer:
         r("POST", "/__meta__/patch_extended", self._meta_patch_extended)
         r("GET", "/__meta__/events", self._meta_events)
         r("GET", "/__meta__/statistics", self._meta_statistics)
+        install_debug_routes(self.http)
         self.http.route_prefix("POST", "/__chunk__/", self._chunk_route)
         self.http.fallback = self._dispatch
         self.http.guard = admin_guard
@@ -196,6 +231,7 @@ class FilerServer:
             return None
 
     def start(self) -> "FilerServer":
+        start_process_probes()
         self.http.start()
         # the follow stream: chunk lookups and the read plane's fills
         # resolve from the master's pushes (masterclient.go:471)
@@ -243,7 +279,7 @@ class FilerServer:
         return 200, ((self.metrics.render() +
                       self._native_meta_metrics_text() +
                       self._native_read_metrics_text() +
-                      stats.PROCESS.render()).encode(),
+                      stats.render_process()).encode(),
                      {"Content-Type": "text/plain; version=0.0.4"})
 
     @staticmethod
@@ -424,7 +460,14 @@ class FilerServer:
         mime = req.headers.get("Content-Type", "")
         if mime == "application/x-www-form-urlencoded":
             mime = ""
-        entry = self.filer.write_file(path, req.body, mime=mime)
+        # the write's decomposition: recv here, assign and upload in
+        # operation (on the chunk pool, re-bound), meta and gc in
+        # Filer.write_file
+        with profiling.track("write", role="filer",
+                             metrics=self.metrics):
+            with profiling.stage("recv"):
+                body = req.body
+            entry = self.filer.write_file(path, body, mime=mime)
         return 201, {"name": entry.name, "size": entry.total_size()}
 
     def _get(self, req: Request, path: str):

@@ -35,24 +35,42 @@ route and answers 401 for an admin path without the admin JWT.  Under
 with mTLS when the configuration asks, and every client call here dials
 https with the cluster CA pinned; `_auth_for` attaches the process's
 admin JWT to admin paths.  Bound to 127.0.0.1 by default; no QoS
-admission and no fault sites (ROADMAP C).
+admission and no fault sites (ROADMAP A4).
+
+Observability, the same on both fronts: each request's server span; the
+owner's registry (`metrics`) gets `requests_in_flight`,
+`request_seconds{method,code}` and, for the requests that draw the CPU
+sample (`profiling.cpu_attr_front`), `request_cpu_seconds`; the flight
+recorder (`profiling.flight_recorder`) sees every finished request with
+its verdict, deadline, stage summary and flight notes.
+
+Fronts: the threaded server, or for the roles `async_front_roles()`
+names (`SEAWEEDFS_TPU_ASYNC_FRONT`) the asyncio front
+(`async_front.py`), which takes over the listener bound here.  A
+`reuse_port` server binds with SO_REUSEPORT, so a pre-fork filer fleet
+shares one port.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import logging
+import os
 import secrets
 import select
 import socket
 import ssl
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
-from .. import stats, tracing
+from .. import profiling, stats, tracing
 from ..util import deadline
+
+_log = logging.getLogger("seaweedfs_tpu_torch.httpd")
 
 
 class Request:
@@ -223,7 +241,8 @@ class HttpServer:
     (or a fresh one) and whose parent is the caller's X-Trace-Parent,
     and under the deadline its X-Weed-Deadline-Ms grants."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 reuse_port: bool = False):
         self.routes: dict[tuple[str, str], Route] = {}
         # method -> [(prefix, route)], longest prefix first
         self.prefix_routes: dict[str, list[tuple[str, Route]]] = {}
@@ -231,7 +250,15 @@ class HttpServer:
         # the owner's auth hook (security/guard.go Guard): None to go on,
         # or the (status, payload) that answers instead of the route
         self.guard: "Route | None" = None
+        # the owner's role labels the server spans; its registry, when
+        # set, gets requests_in_flight, request_seconds and
+        # request_cpu_seconds from this one middleware (either front)
         self.role = ""
+        self.metrics = None
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        # (method, code) -> pre-resolved observers of the two histograms
+        self._req_obs: dict = {}
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -254,6 +281,13 @@ class HttpServer:
                     req.headers.get(deadline.HEADER), site=site,
                     allow_default=not req.path.startswith(
                         ("/admin/", "/debug/")))
+                # the flight recorder: the request's notes dict, and its
+                # thread CPU when it draws the attribution sample
+                flight_on = profiling.recorder_enabled()
+                if flight_on:
+                    profiling.arm_flight_notes()
+                cpu0 = time.thread_time() \
+                    if profiling.cpu_attr_front(dl is not None) else None
                 sp = tracing.start_span(f"{req.method} {req.path}",
                                         role=outer.role, parent=parent,
                                         trace_id=rid)
@@ -261,30 +295,10 @@ class HttpServer:
                     sp.set("deadlineMs", int(dl.remaining() * 1e3))
                 status = 0
                 body = None
+                verdict = "ok"
+                outer._enter()
                 try:
-                    route = outer.routes.get((req.method, req.path)) \
-                        or outer._prefix_route(req.method, req.path) \
-                        or outer.fallback
-                    try:
-                        if dl is not None and dl.expired():
-                            status, payload = deadline.expired_response(
-                                f"{site}.ingress")
-                        elif outer.guard is not None and \
-                                (denied := outer.guard(req)) is not None:
-                            status, payload = denied
-                        elif route is None:
-                            status, payload = 404, {"error": "not found"}
-                        else:
-                            status, payload = route(req)
-                    except deadline.DeadlineExceeded as e:
-                        # the budget ran out on an outbound hop
-                        status, payload = \
-                            deadline.handler_exceeded_response()
-                        sp.set_error(e)
-                    except Exception as e:  # noqa: BLE001 — the server
-                        # must answer, and the error is the answer
-                        status, payload = 500, {"error": str(e)}
-                        sp.set_error(e)
+                    status, payload, verdict = outer._answer(req, dl, sp)
                     try:
                         req.drain()
                     except OSError:
@@ -311,6 +325,19 @@ class HttpServer:
                         body.close()
                     sp.set("status", status)
                     sp.finish()
+                    # this thread's CPU for the request, response write
+                    # included; None when it drew no sample
+                    cpu = (time.thread_time() - cpu0) \
+                        if cpu0 is not None else None
+                    outer._leave(req.method, status, sp, cpu)
+                    # the finished track's summary is taken whether or
+                    # not the recorder is armed, so a reused thread never
+                    # hands it to a later request
+                    summary = profiling.take_last_summary()
+                    if flight_on:
+                        outer._observe(req, status, sp, cpu, verdict,
+                                       rid, dl, summary,
+                                       profiling.take_flight_notes())
 
             def _send_file(self, body) -> None:
                 """sendfile(2) for a FileSlice over a real file, a read
@@ -342,6 +369,15 @@ class HttpServer:
         class Server(ThreadingHTTPServer):
             daemon_threads = True
             allow_reuse_address = True
+            # a pre-fork filer fleet binds one port in every sibling
+            reuse_port = False
+
+            def server_bind(self):
+                if self.reuse_port:
+                    self.socket.setsockopt(socket.SOL_SOCKET,
+                                           socket.SO_REUSEPORT, 1)
+                super().server_bind()
+
             # a burst of clients dialing at once (each thread of each
             # client opens its own keep-alive connection) overflows the
             # default backlog of 5, and a dropped SYN waits out a 1 s
@@ -415,10 +451,105 @@ class HttpServer:
                     return
                 super().handle_error(request, client_address)
 
+        Server.reuse_port = bool(reuse_port)
         self._httpd = Server((host, port), Handler)
         self.host = host
         self.port = self._httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        self._async = None   # the asyncio front, when selected (start)
+
+    # -- the middleware both fronts share ---------------------------------
+
+    def _answer(self, req, dl, sp) -> "tuple[int, object, str]":
+        """(status, payload, verdict) of a request: a spent budget
+        answers 504 before anything else, then the guard, then the
+        route (exact, prefix, fallback).  A budget that runs out on an
+        outbound hop answers 504, any other error 500."""
+        route = self.routes.get((req.method, req.path)) \
+            or self._prefix_route(req.method, req.path) or self.fallback
+        try:
+            if dl is not None and dl.expired():
+                return (*deadline.expired_response(
+                    f"{self.role or 'server'}.ingress"), "deadline")
+            if self.guard is not None and \
+                    (denied := self.guard(req)) is not None:
+                return (*denied, "ok")
+            if route is None:
+                return 404, {"error": "not found"}, "ok"
+            return (*route(req), "ok")
+        except deadline.DeadlineExceeded as e:
+            sp.set_error(e)
+            return (*deadline.handler_exceeded_response(), "deadline")
+        except Exception as e:  # noqa: BLE001 — the server must answer,
+            # and the error is the answer
+            sp.set_error(e)
+            return 500, {"error": str(e)}, "error"
+
+    def _enter(self) -> None:
+        with self._inflight_lock:
+            self._inflight += 1
+            inflight = self._inflight
+        if self.metrics is not None:
+            self.metrics.gauge_set(
+                "requests_in_flight", inflight,
+                help_text="requests currently being handled")
+
+    def _leave_unanswered(self) -> None:
+        """A request that never reached its handler's answer (the
+        connection died first): the in-flight gauge only."""
+        with self._inflight_lock:
+            self._inflight -= 1
+            inflight = self._inflight
+        if self.metrics is not None:
+            self.metrics.gauge_set("requests_in_flight", inflight)
+
+    def _leave(self, method: str, status: int, sp,
+               cpu: "float | None") -> None:
+        """The request is answered: the in-flight gauge, its wall into
+        request_seconds and its sampled CPU into request_cpu_seconds."""
+        with self._inflight_lock:
+            self._inflight -= 1
+            inflight = self._inflight
+        if self.metrics is None:
+            return
+        self.metrics.gauge_set("requests_in_flight", inflight)
+        cell = (method, status)
+        obs = self._req_obs.get(cell)
+        if obs is None:
+            obs = self._req_obs[cell] = (
+                self.metrics.observer(
+                    "request_seconds",
+                    help_text="HTTP request handling latency",
+                    method=method, code=str(status)),
+                self.metrics.observer(
+                    "request_cpu_seconds",
+                    buckets=profiling.STAGE_BUCKETS,
+                    help_text="handler-thread CPU per request "
+                              "(thread_time, sampled — see SEAWEEDFS_"
+                              "TPU_CPU_SAMPLE); request_seconds minus "
+                              "this is GIL/lock/IO wait",
+                    method=method, code=str(status)))
+        obs[0](sp.duration)
+        if cpu is not None:
+            obs[1](cpu)
+
+    def _observe(self, req, status: int, sp, cpu: "float | None",
+                 verdict: str, rid: str, dl, summary, notes) -> None:
+        """Feed the finished request to the flight recorder, after the
+        server span finished (the capture pulls the trace's spans)."""
+        dl_doc = None
+        if dl is not None:
+            dl_doc = {"budgetMs": int(dl.budget * 1e3),
+                      "remainingMs": int(dl.remaining() * 1e3)}
+        try:
+            profiling.flight_recorder().observe(
+                role=self.role or "server", method=req.method,
+                path=req.path, status=status, wall_s=sp.duration,
+                cpu_s=cpu, verdict=verdict, trace_id=rid,
+                deadline=dl_doc, stages=summary, notes=notes)
+        except Exception as e:  # noqa: BLE001 — observability must
+            # never break a reply
+            _log.warning("flight capture failed: %s", e)
 
     def route(self, method: str, path: str, fn: Route) -> None:
         self.routes[(method, path)] = fn
@@ -440,6 +571,17 @@ class HttpServer:
 
     def start(self) -> None:
         tls = _tls_config()
+        if self.role and self.role in async_front_roles():
+            # the asyncio front (async_front.py): one event loop for
+            # every connection of this role, the same routes, guard,
+            # spans and metrics; it takes over the bound listener, so
+            # the advertised port stays the port served
+            from .async_front import AsyncFront
+            self._async = AsyncFront(
+                self, ssl_context=(tls.server_context()
+                                   if tls is not None else None))
+            self._async.start(self._httpd.socket)
+            return
         if tls is not None:
             self._httpd.ssl_context = tls.server_context()
         # a short poll keeps stop() from waiting out the default 0.5 s
@@ -451,6 +593,11 @@ class HttpServer:
     def stop(self) -> None:
         """Stop accepting, close the listener, and sever established
         connections: a stopped server answers nothing more."""
+        front, self._async = self._async, None
+        if front is not None:
+            front.stop()
+            self._httpd.server_close()   # the shared socket
+            return
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join(timeout=10)
@@ -460,6 +607,18 @@ class HttpServer:
     @property
     def url(self) -> str:
         return f"{self.host}:{self.port}"
+
+
+def async_front_roles() -> "set[str]":
+    """The roles served by the asyncio front (SEAWEEDFS_TPU_ASYNC_FRONT):
+    "1" or "true" selects the filer; a comma list names roles ("filer,
+    s3"); empty or "0" keeps every role on the threaded server."""
+    v = os.environ.get("SEAWEEDFS_TPU_ASYNC_FRONT", "").strip().lower()
+    if v in ("", "0", "false"):
+        return set()
+    if v in ("1", "true"):
+        return {"filer"}
+    return {r.strip() for r in v.split(",") if r.strip()}
 
 
 def parse_range(header: str, total: int

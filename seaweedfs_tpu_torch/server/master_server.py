@@ -26,9 +26,11 @@ file-id sequencer is floored by each heartbeat's `maxFileKey`, so a
 master that restarts never issues a key a volume server holds.
 `/cluster/status` also counts the heartbeats received (`heartbeats`).
 `/metrics` renders the JAX master's gauges (`master_data_nodes`,
-`master_volumes_total`, `master_sequence`) and, the port's own, the
-requests of each route (`master_route_requests_total{path}`), with the
-process registry.
+`master_volumes_total`, `master_sequence`), `master_request_seconds`
+and `master_request_cpu_seconds` (httpd's middleware) and, the port's
+own, the requests of each route (`master_route_requests_total{path}`),
+with the process registry.  The debug routes (server/debug.py) are
+installed too.
 
 `/cluster/watch` is the follow stream's long-poll (the JAX master's, on
 a `LocationHub`): `snapshot=1` answers the `/vol/list` tree with the
@@ -53,6 +55,7 @@ from ..storage.ttl import read_ttl
 from ..storage.types import FileId, check_path_fields
 from ..topology import Topology
 from ..topology.topology import VolumeInfo
+from .debug import install_debug_routes
 from .httpd import HttpServer, Request, admin_guard, http_json
 from .location_hub import LocationHub
 
@@ -67,9 +70,7 @@ class MasterServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  volume_size_limit_mb: int = 1024,
                  default_replication: str = "000",
-                 pulse_seconds: float = 1.0,
-                 security_config: "security.SecurityConfig | None" = None):
-        self._security_override = security_config
+                 pulse_seconds: float = 1.0):
         self.topology = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds)
@@ -86,7 +87,7 @@ class MasterServer:
         self._admin_lock_name = ""
         self.http = HttpServer(host, port)
         self.http.role = "master"
-        self.http.guard = lambda req: admin_guard(req, self.security)
+        self.http.guard = admin_guard
         # the follow stream: the deltas published, and each node's
         # volume and EC sets as the stream last told them
         self.hub = LocationHub()
@@ -95,6 +96,7 @@ class MasterServer:
         self._reaper_stop = threading.Event()
         self._reaper: "threading.Thread | None" = None
         self.metrics = stats.Metrics("master")
+        self.http.metrics = self.metrics
 
         def r(method, path, fn):
             self.http.route(method, path, self._counted(path, fn))
@@ -111,6 +113,7 @@ class MasterServer:
         r("GET", "/metrics", self._metrics)
         r("POST", "/cluster/lease_admin_token", self._lease_admin)
         r("POST", "/cluster/release_admin_token", self._release_admin)
+        install_debug_routes(self.http)
 
     def start(self) -> "MasterServer":
         self.http.start()
@@ -124,13 +127,6 @@ class MasterServer:
         if self._reaper is not None:
             self._reaper.join(timeout=5)
         self.http.stop()
-
-    @property
-    def security(self) -> "security.SecurityConfig":
-        # late-bound, so a configure() after construction applies.  The
-        # override governs what this master checks and mints; its own
-        # calls carry the process's admin JWT (httpd._auth_for)
-        return self._security_override or security.current()
 
     def _counted(self, path: str, fn):
         def handler(req: Request):
@@ -148,7 +144,7 @@ class MasterServer:
                                sum(len(n.volumes) for n in nodes))
         self.metrics.gauge_set("sequence", self.sequencer.peek())
         return 200, ((self.metrics.render() +
-                      stats.PROCESS.render()).encode(),
+                      stats.render_process()).encode(),
                      {"Content-Type": "text/plain; version=0.0.4"})
 
     # -- the follow stream (master_server.go KeepConnected) ---------------
@@ -281,7 +277,8 @@ class MasterServer:
         }
         # the fid's write token, presented to the volume server
         # (master_grpc_server_assign.go GenJwtForVolumeServer)
-        auth = self.security.write_jwt(fid)
+        # late-bound: a configure() after construction applies
+        auth = security.current().write_jwt(fid)
         if auth:
             resp["auth"] = auth
         return 200, resp

@@ -32,7 +32,9 @@ answers the 404 fallback and the client retries on the Python port.
 SIGKILL at any instant leaves acked lines durable (the ack is queued
 only after write(2) returned) and unacked lines absent or torn; a torn
 tail is the WAL's normal crash debris, which the follower and the
-applier skip.  The plane's per-request record ring is left undrained.
+applier skip.  The plane's per-request record ring is drained by
+`start_record_drain` into `plane_stage_seconds` and the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -56,6 +58,11 @@ ACK_BUCKETS_S = (1e-6, 2e-6, 5e-6, 1e-5, 2e-5, 5e-5, 1e-4, 2e-4,
 _POOL_LOW = 192
 _POOL_HIGH = 512
 _ASSIGN_N = 256
+
+# the flight ring's label tables
+RECORD_STAGES = ("parse", "upload", "wal", "ack")
+RECORD_FALLBACKS = ("none", "ineligible", "fid_dry", "upstream",
+                    "wal", "oversize", "chunked")
 
 STATS_KEYS = ("requests", "fallbacks", "fid_misses", "wal_errors",
               "upstream_errors", "parse_ns", "upload_ns", "wal_ns",
@@ -93,9 +100,13 @@ def note_stood_down(plane: str, reason: str) -> None:
         print(f"filer: native {plane} plane stands down ({reason})",
               file=sys.stderr)
 
-class NativeMetaPlane:
+class NativeMetaPlane(native.RecordDrain):
     """One native meta-plane server bound to <host>:<ephemeral>,
     appending into `meta_log_dir` as its own writer instance."""
+
+    _REC = ("mp", "filer", "meta", "POST")
+    RECORD_STAGES = RECORD_STAGES
+    RECORD_FALLBACKS = RECORD_FALLBACKS
 
     def __init__(self, meta_log_dir: str, master: str,
                  host: str = "127.0.0.1", collection: str = "",
@@ -279,5 +290,6 @@ class NativeMetaPlane:
             return
         self._stop.set()
         self._feeder.join(timeout=5)
+        self._stop_record_drain()
         self._lib.mp_stop(self._h)
         self._h = -1

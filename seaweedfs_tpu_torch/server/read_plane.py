@@ -14,9 +14,9 @@ answer (which drops the entry when the record is gone or not plain),
 and on a read through Python; a volume dropped whole (unmount, delete,
 EC conversion) registers again as it is read.
 
-The plane keeps a ring of per-request records that overwrites its oldest
-entry; the port has no flight recorder to feed, so the ring is left
-undrained (ROADMAP A), which never blocks a request.
+The plane keeps a ring of per-request records; the volume server drains
+it (`start_record_drain`) into `plane_stage_seconds{plane="read"}`, the
+hedge's read tracker and the flight recorder, off the request's path.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ from ..storage.needle import Needle
 # byte offset of the data payload inside a needle record: the header
 # (cookie 4 + id 8 + size 4) and the DataSize field (4)
 DATA_OFFSET_IN_RECORD = types.NEEDLE_HEADER_SIZE + 4
+
+# the flight ring's label tables (read_plane.cc)
+RECORD_STAGES = ("parse", "lookup", "send", "ack")
+RECORD_FALLBACKS = ("none", "method", "bad_request", "not_found")
 
 
 def needle_is_plain(n) -> bool:
@@ -58,8 +62,17 @@ def plain_record(fd: int, offset: int) -> "tuple[int, int] | None":
     return cookie, data_len
 
 
-class ReadPlane:
+class ReadPlane(native.RecordDrain):
     """One native read-plane server bound to <host>:<ephemeral>."""
+
+    _REC = ("rp", "volume", "read", "GET")
+    RECORD_STAGES = RECORD_STAGES
+    RECORD_FALLBACKS = RECORD_FALLBACKS
+
+    def _default_tracker(self):
+        # plane-served reads train the hedged reads' threshold too
+        from ..util import hedge
+        return hedge.read_tracker
 
     def __init__(self, host: str = "127.0.0.1"):
         self._lib = native.load_read_plane()
@@ -99,5 +112,6 @@ class ReadPlane:
 
     def stop(self) -> None:
         if self._h >= 0:
+            self._stop_record_drain()
             self._lib.rp_stop(self._h)
             self._h = -1

@@ -18,7 +18,8 @@ Deadlines (`util/deadline`): the shard read (site `ec.shard_read`) and
 the master lookup (`master.ec_lookup`) derive their timeouts from the
 request's remaining budget and re-raise a spent one instead of taking
 the peer for dead; the survivor fetch threads run under the caller's
-deadline.  No flight-recorder notes (ROADMAP C).
+deadline.  A degraded read leaves an `ecDegraded` flight note on the
+request (`profiling.flight_note`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .. import stats
+from .. import profiling, stats
 from ..ops import rs_cpu, rs_matrix, rs_native
 from ..storage.erasure_coding.ec_volume import EcVolume, NotFoundError
 from ..storage.erasure_coding.ec_context import (LARGE_BLOCK_SIZE,
@@ -142,6 +143,10 @@ class EcReader:
             "ec_degraded_reads_total", 1.0,
             help_text="needle reads served by interval reconstruction "
                       "instead of a direct shard read", vid=ev.id)
+        # a slow read that reconstructed is another incident than a
+        # slow direct shard read: the flight record says which
+        profiling.flight_note(
+            "ecDegraded", {"vid": ev.id, "shard": sid, "bytes": iv.size})
         t0 = time.perf_counter()
         try:
             data = None

@@ -114,7 +114,7 @@ import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-from .. import security, stats
+from .. import profiling, security, stats
 from ..storage import types
 from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
@@ -125,6 +125,7 @@ from ..util.chunk_cache import (TieredChunkCache, read_cache_disk,
                                 read_cache_mb)
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     admin_guard, http_download, http_json)
+from .debug import install_debug_routes, start_process_probes
 from .read_plane import DATA_OFFSET_IN_RECORD, plain_record
 from .write_plane import ACK_BUCKETS_S
 from .store_ec import EcReader
@@ -162,6 +163,11 @@ class VolumeServer:
         for loc in self.store.locations:
             loc.max_volume_count = max_volume_count
         self.metrics = stats.PROCESS
+        # the role's own registry: requests_in_flight, request_seconds
+        # and request_cpu_seconds (httpd's middleware) and the write
+        # track's stages, under the JAX volume server's namespace
+        self.role_metrics = stats.Metrics("volume_server")
+        self.http.metrics = self.role_metrics
         self._hb_stop = threading.Event()
         self._hb_thread: "threading.Thread | None" = None
         self._hb_lock = threading.Lock()
@@ -190,6 +196,7 @@ class VolumeServer:
         r("POST", "/admin/ec/scrub", self._ec_scrub)
         r("GET", "/metrics", self._metrics)
         r("GET", "/status", self._status)
+        install_debug_routes(self.http)
         self.http.fallback = self._data_path
         # the data path checks its per-fid JWTs itself
         self.http.guard = admin_guard
@@ -240,6 +247,7 @@ class VolumeServer:
         # the planes start before the HTTP port, so /status never shows
         # a client plane ports of 0 that it would keep
         self._start_planes()
+        start_process_probes()
         self.http.start()
         if self.master:
             self._heartbeat_once()
@@ -284,6 +292,10 @@ class VolumeServer:
             except (RuntimeError, OSError) as e:
                 print(f"volume server {self.url}: no read plane: {e}",
                       file=sys.stderr)
+            else:
+                # plane-served reads train the hedge's threshold and
+                # reach the flight recorder
+                self.read_plane.start_record_drain()
         if os.environ.get("SEAWEEDFS_TPU_WRITE_PLANE",
                           "1") in ("0", "false"):
             return
@@ -298,6 +310,7 @@ class VolumeServer:
             print(f"volume server {self.url}: no write plane: {e}",
                   file=sys.stderr)
             return
+        self.write_plane.start_record_drain()
         for loc in self.store.locations:
             for vid in list(loc.volumes):
                 self._wp_sync_volume(vid)
@@ -493,19 +506,29 @@ class VolumeServer:
         """volume_server_handlers_write.go: write the needle here, then
         on the other replicas (topology/store_replicate.go:27
         ReplicatedWrite).  201 with the reference's keys; 404 for a
-        volume not here, 409 for a read-only one."""
-        body = req.body
-        n = Needle(cookie=fid.cookie, id=fid.key, data=body)
-        name = req.query.get("name", "")
-        if name:
-            n.set_name(name.encode())
-        mime = req.headers.get("Content-Type", "")
-        if mime and mime not in ("application/octet-stream",
-                                 "multipart/form-data"):
-            n.set_mime(mime.encode())
-        ts = req.query.get("ts")
-        ts_val = int(ts) if ts else int(time.time())
-        n.set_last_modified(ts_val)
+        volume not here, 409 for a read-only one.  The request's stages
+        (recv, prep, the volume's lock, index, append and flush,
+        register, replicate) land in `volume_server_write_stage_seconds`
+        and its trace."""
+        with profiling.track("write", role="volume",
+                             metrics=self.role_metrics):
+            return self._put_needle_tracked(fid, req)
+
+    def _put_needle_tracked(self, fid: types.FileId, req: Request):
+        with profiling.stage("recv"):
+            body = req.body
+        with profiling.stage("prep"):
+            n = Needle(cookie=fid.cookie, id=fid.key, data=body)
+            name = req.query.get("name", "")
+            if name:
+                n.set_name(name.encode())
+            mime = req.headers.get("Content-Type", "")
+            if mime and mime not in ("application/octet-stream",
+                                     "multipart/form-data"):
+                n.set_mime(mime.encode())
+            ts = req.query.get("ts")
+            ts_val = int(ts) if ts else int(time.time())
+            n.set_last_modified(ts_val)
         try:
             size, unchanged = self.store.write_needle(fid.volume_id, n)
         except KeyError:
@@ -513,15 +536,21 @@ class VolumeServer:
         except PermissionError as e:
             return 409, {"error": str(e)}
         self._nc_invalidate_needle(fid.volume_id, fid.key)
-        self._rp_sync_needle(fid.volume_id, fid.key)
+        with profiling.stage("register"):
+            self._rp_sync_needle(fid.volume_id, fid.key)
         if req.query.get("type") != "replicate":
             # the stamped ts and the original Content-Type (always set:
             # "" would store no mime, a missing header likewise) make
             # every replica write the same needle record
-            err = self._replicate(
-                fid, req, "POST", body, extra_query={"ts": str(ts_val)},
-                headers={"Content-Type": mime or "application/octet-stream"})
+            with profiling.stage("replicate"):
+                err = self._replicate(
+                    fid, req, "POST", body,
+                    extra_query={"ts": str(ts_val)},
+                    headers={"Content-Type":
+                             mime or "application/octet-stream"})
             if err:
+                # the flight record of a failed write names the fan-out
+                profiling.flight_note("replicate", {"error": str(err)})
                 return 500, {"error": f"replication: {err}"}
         return 201, {"name": name, "size": size, "eTag": n.etag(),
                      "unchanged": unchanged}
@@ -1505,10 +1534,12 @@ class VolumeServer:
             help_text="volume-bytes/s of the last streaming rebuild")
 
     def _metrics(self, req: Request):
-        """Prometheus text of `stats.PROCESS` (device, staging, kernel
-        and EC route metrics), with this server's volume gauges and the
-        launches the GF(2^8) kernel's wrappers have counted in this
-        process (`rs_cuda.LAUNCHES` and `LAUNCHES_BATCHED`)."""
+        """Prometheus text: the role's registry (`volume_server_`
+        request and write-stage histograms), then `stats.PROCESS`
+        (device, staging, kernel and EC route metrics, the process
+        tree), with this server's volume gauges and the launches the
+        GF(2^8) kernel's wrappers have counted in this process
+        (`rs_cuda.LAUNCHES` and `LAUNCHES_BATCHED`)."""
         from ..ops import rs_cuda
         for entry, n in (("gf_apply_words", rs_cuda.LAUNCHES),
                          ("gf_apply_words_batched",
@@ -1521,7 +1552,8 @@ class VolumeServer:
                                help_text="mounted volumes")
         self.metrics.gauge_set("ec_volumes", len(hb["ecShards"]))
         self.metrics.gauge_set("max_volume_count", hb["maxVolumeCount"])
-        return 200, ((self.metrics.render() +
+        return 200, ((self.role_metrics.render() +
+                      stats.render_process() +
                       self._plane_metrics_text()).encode(),
                      {"Content-Type": "text/plain; version=0.0.4"})
 

@@ -24,9 +24,9 @@ its own fd and acks it, with no Python on the request's path.
   across the language boundary.  A plane without the handshake (no
   `on_epoch`, or a library without `wp_wait_epoch`) refuses `-fsync`
   volumes, which stay on the Python path.
-- The plane keeps a ring of per-request records that overwrites its
-  oldest entry; the port has no flight recorder to feed, so the ring is
-  left undrained (ROADMAP A), which never blocks an ack.
+- The plane keeps a ring of per-request records; the volume server
+  drains it (`start_record_drain`) into `plane_stage_seconds{plane=
+  "write"}` and the flight recorder, off the ack's path.
 """
 
 from __future__ import annotations
@@ -44,11 +44,16 @@ from .. import native
 ACK_BUCKETS_S = (1e-6, 2e-6, 5e-6, 1e-5, 2e-5, 5e-5, 1e-4, 2e-4,
                  5e-4, 1e-3, 2e-3, 5e-3, 1e-2, 2e-2, 5e-2, 1e-1, 1.0)
 
+# the flight ring's label tables (write_plane.cc)
+RECORD_STAGES = ("recv", "append", "index", "ack")
+RECORD_FALLBACKS = ("none", "not_plain", "unregistered", "seen_key",
+                    "journal_full", "io_error")
+
 NativeWrite = namedtuple(
     "NativeWrite", "key offset append_ns vid cookie size data_len")
 
 
-class WritePlane:
+class WritePlane(native.RecordDrain):
     """One native write-plane server bound to <host>:<ephemeral>.
     `on_tick` runs on a pump thread every `TICK_S` seconds (and once
     more at stop) to drain the attached volumes' journals;
@@ -56,6 +61,9 @@ class WritePlane:
     the volume's acked bytes as durable as its barrier promises; the
     acks parked on the epoch are released only when it returns."""
 
+    _REC = ("wp", "volume", "write", "POST")
+    RECORD_STAGES = RECORD_STAGES
+    RECORD_FALLBACKS = RECORD_FALLBACKS
     _DRAIN_CAP = 4096
     TICK_S = 0.025
     EPOCH_WAIT_MS = 200
@@ -227,5 +235,6 @@ class WritePlane:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=5)
+        self._stop_record_drain()
         self._lib.wp_stop(self._h)
         self._h = -1

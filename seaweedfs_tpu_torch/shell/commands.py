@@ -1,4 +1,5 @@
-"""Shell commands (weed/shell/command_*.go): the EC part of
+"""Shell commands (weed/shell/command_*.go): the EC part and the
+`cluster.top` / `cluster.slow` / `cluster.profile` views of
 `seaweedfs_tpu/shell/commands.py` (the `fs.*` family is in
 `fs_commands.py`).
 
@@ -8,6 +9,11 @@
     ec.rebuild  [-volumeId=N] [-mode=stream|copy]
     ec.decode   -volumeId=N
     ec.scrub    [-mode=local|index]
+    cluster.top      [-interval=2] [-nodes=host:port,...]
+    cluster.slow     [-top=5] [-verdict=slow|error|deadline]
+                     [-nodes=...] [-clear]
+    cluster.profile  [-duration=10] [-hz=100] [-top=25] [-out=FILE]
+                     [-nodes=...]
 
 Commands run against a CommandEnv holding the master address and the
 cluster admin lock token; the EC commands need the lock
@@ -19,9 +25,11 @@ device work and imports no torch.
 from __future__ import annotations
 
 import json
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 from ..operation import master_json
-from ..server.httpd import http_json, http_relay
+from ..server.httpd import http_bytes, http_json, http_relay
 from ..storage.erasure_coding.ec_context import to_ext
 from ..util import retry
 
@@ -562,6 +570,808 @@ def cmd_ec_scrub(env: CommandEnv, args: list[str]) -> str:
                 out.append(f"volume {vid} @ {url}: checked "
                            f"{r['checked']} entries, {status}")
     return "\n".join(out) if out else "no ec volumes"
+
+
+# --- the observability plane's views (profiling.py, server/debug.py) ----
+#
+# cluster.top samples every node's /metrics twice and renders the delta;
+# cluster.slow merges the flight recorders' rings by trace id;
+# cluster.profile arms the sampling profiler everywhere and merges the
+# folded stacks.  A node that does not answer is noted and skipped.
+
+def _cluster_debug_nodes(env: CommandEnv) -> list[str]:
+    """Every node that may hold spans of a trace: master(s), every
+    volume server, and the filer when the shell knows one."""
+    r = master_json(env.master, "GET", "/cluster/status", timeout=30)
+    nodes = [env.master]
+    nodes += [p for p in r.get("peers", []) if p not in nodes]
+    nodes += r.get("dataNodes", [])
+    if env.filer and env.filer not in nodes:
+        nodes.append(env.filer)
+    return nodes
+
+
+def render_trace(spans: "list[dict]") -> str:
+    """Time-aligned tree: children indent under their parent, each
+    line shows offset from the trace's first span, duration, role@node
+    and attrs — one request id becomes a cross-node flame view."""
+    if not spans:
+        return "no spans found (buffer rolled over, or wrong id?)"
+    t0 = min(s["start"] for s in spans)
+    by_parent: dict[str, list] = {}
+    ids = {s["spanId"] for s in spans}
+    for s in spans:
+        parent = s.get("parentId") or ""
+        if parent not in ids:
+            parent = ""          # orphan (parent not collected): root
+        by_parent.setdefault(parent, []).append(s)
+    lines = [f"trace {spans[0]['traceId']}: {len(spans)} span(s), "
+             f"{len({s.get('role') or '?' for s in spans})} role(s)"]
+
+    def walk(parent: str, depth: int) -> None:
+        for s in sorted(by_parent.get(parent, []),
+                        key=lambda x: x["start"]):
+            off = (s["start"] - t0) * 1e3
+            attrs = s.get("attrs") or {}
+            extra = " ".join(f"{k}={v}" for k, v in attrs.items())
+            mark = " ERROR" if s.get("error") else ""
+            lines.append(
+                f"{'  ' * depth}+{off:8.1f}ms {s['name']}  "
+                f"[{s.get('role') or '?'}@{s.get('node', '?')}] "
+                f"{s['durationMs']}ms{mark}"
+                + (f"  {extra}" if extra else ""))
+            walk(s["spanId"], depth + 1)
+
+    walk("", 0)
+    return "\n".join(lines)
+
+
+_ROLE_NAMESPACES = ("master", "volume_server", "filer", "s3")
+
+
+def _top_nodes(env: CommandEnv, opts: dict) -> "list[str]":
+    """Fan-out target list: the topology's debug planes plus any
+    `-nodes=` extras (a standalone S3 gateway, the admin server)."""
+    try:
+        nodes = _cluster_debug_nodes(env)
+    except OSError:
+        nodes = [env.master]
+    for n in (opts.get("nodes", "") or "").split(","):
+        n = n.strip()
+        if n and n not in nodes:
+            nodes.append(n)
+    return nodes
+
+
+def _fetch_metrics(url: str) -> "dict[str, list] | None":
+    """One node's /metrics, parsed (profiling.parse_prom_text);
+    None when unreachable."""
+    from .. import profiling
+    try:
+        st, body, _ = http_bytes("GET", f"{url}/metrics", timeout=3)
+    except OSError:
+        return None
+    if st >= 300:
+        return None
+    return profiling.parse_prom_text(body.decode("utf-8", "replace"))
+
+
+def _node_role(metrics: "dict[str, list]") -> str:
+    """Which role registry this listener renders (each role's Metrics
+    namespace prefixes its request_seconds histogram)."""
+    for ns in _ROLE_NAMESPACES:
+        if f"{ns}_request_seconds_count" in metrics:
+            return ns
+    return "?"
+
+
+def _gauge(metrics: "dict[str, list]", name: str,
+           match: "dict | None" = None) -> "float | None":
+    match = match or {}
+    for labels, value in metrics.get(name, []):
+        if all(labels.get(k) == v for k, v in match.items()):
+            return value
+    return None
+
+
+def _counter_sum(metrics: "dict[str, list]", name: str,
+                 match: "dict | None" = None) -> float:
+    match = match or {}
+    return sum(v for l, v in metrics.get(name, [])
+               if all(l.get(k) == mv for k, mv in match.items()))
+
+
+def _read_cache_report(before: "dict[str, list]",
+                       after: "dict[str, list]") -> str:
+    """Per-cache hot-read-cache view over the sampling window: hit
+    ratio + bytes served from cache (util/chunk_cache meters on the
+    shared registry).  Empty when no instrumented cache was touched."""
+    caches = {l.get("cache", "") for name in
+              ("seaweedfs_tpu_read_cache_hits_total",
+               "seaweedfs_tpu_read_cache_misses_total")
+              for l, _v in after.get(name, [])}
+    parts = []
+    for c in sorted(caches):
+        hits = _counter_sum(
+            after, "seaweedfs_tpu_read_cache_hits_total",
+            {"cache": c}) - _counter_sum(
+            before, "seaweedfs_tpu_read_cache_hits_total",
+            {"cache": c})
+        misses = _counter_sum(
+            after, "seaweedfs_tpu_read_cache_misses_total",
+            {"cache": c}) - _counter_sum(
+            before, "seaweedfs_tpu_read_cache_misses_total",
+            {"cache": c})
+        if hits + misses <= 0:
+            continue
+        served = _counter_sum(
+            after, "seaweedfs_tpu_read_cache_bytes_served_total",
+            {"cache": c}) - _counter_sum(
+            before, "seaweedfs_tpu_read_cache_bytes_served_total",
+            {"cache": c})
+        parts.append(f"{c} {hits / (hits + misses) * 100:.0f}% "
+                     f"({served / (1 << 20):.1f}MB served)")
+    if not parts:
+        return ""
+    return "read-cache: " + "  ".join(parts)
+
+
+def _stage_report(before: "dict[str, list]", after: "dict[str, list]",
+                  ns: str) -> str:
+    """Per-stage share of write-path wall time over the sampling
+    window, from the write_stage_seconds decomposition (profiling.py),
+    with each stage's cpu/wall mean beside it (write_stage_cpu_seconds
+    ): `upload 45% cpu=0.12/1.30ms` reads "45% of write
+    wall, of which each call burned 0.12ms CPU out of 1.30ms wall —
+    the other 1.18ms was GIL/lock/IO wait".  Empty string when no
+    write landed in the window."""
+    from .. import profiling
+    name = f"{ns}_write_stage_seconds"
+    cpu_name = f"{ns}_write_stage_cpu_seconds"
+    stages: dict[str, tuple] = {}
+    total = 0.0
+    seen = {l.get("stage", "") for l, _v in
+            after.get(f"{name}_count", [])}
+    for stage in sorted(seen):
+        h = profiling.histogram_delta(
+            profiling.prom_histogram(after, name, {"stage": stage}),
+            profiling.prom_histogram(before, name, {"stage": stage}))
+        if not h or h["count"] <= 0:
+            continue
+        c = profiling.histogram_delta(
+            profiling.prom_histogram(after, cpu_name,
+                                     {"stage": stage}),
+            profiling.prom_histogram(before, cpu_name,
+                                     {"stage": stage}))
+        cpu_mean = (c["sum"] / c["count"]) if c and c["count"] else None
+        if stage == "total":
+            total = h["sum"]
+        else:
+            stages[stage] = (h["sum"], h["sum"] / h["count"], cpu_mean)
+    if not stages or total <= 0:
+        return ""
+    parts = []
+    for s, (secs, wall_mean, cpu_mean) in sorted(
+            stages.items(), key=lambda kv: -kv[1][0]):
+        p = f"{s} {secs / total * 100.0:.0f}%"
+        if cpu_mean is not None:
+            p += (f" cpu={cpu_mean * 1e3:.2f}/"
+                  f"{wall_mean * 1e3:.2f}ms")
+        parts.append(p)
+    return "write stages: " + " ".join(parts)
+
+
+def _cpu_report(before: "dict[str, list]", after: "dict[str, list]",
+                ns: str, req: "dict | None", window: float) -> str:
+    """The node's cost-attribution line: mean CPU vs wall
+    per request from request_cpu_seconds/request_seconds, the
+    scheduler-probe gil_wait_ratio, and the /proc process-TREE CPU
+    burn + RSS (pre-fork workers and native plane children included).
+    Empty when the window saw no requests and no tree gauges."""
+    from .. import profiling
+    parts = []
+    c = profiling.histogram_delta(
+        profiling.prom_histogram(after, f"{ns}_request_cpu_seconds"),
+        profiling.prom_histogram(before, f"{ns}_request_cpu_seconds"))
+    if c and c["count"] > 0 and req and req["count"] > 0:
+        cpu_ms = c["sum"] / c["count"] * 1e3
+        wall_ms = req["sum"] / req["count"] * 1e3
+        if wall_ms > 0:
+            parts.append(
+                f"{cpu_ms:.2f}ms cpu of {wall_ms:.2f}ms wall/req "
+                f"(wait {max(1.0 - cpu_ms / wall_ms, 0.0) * 100:.0f}%)")
+    gil = _gauge(after, "seaweedfs_tpu_gil_wait_ratio")
+    if gil is not None:
+        parts.append(f"gil-wait={gil * 100:.0f}%")
+    tree_a = _gauge(after, "seaweedfs_tpu_process_tree_cpu_seconds")
+    tree_b = _gauge(before, "seaweedfs_tpu_process_tree_cpu_seconds")
+    if tree_a is not None and tree_b is not None and window > 0:
+        burn = max(tree_a - tree_b, 0.0) / window
+        procs = _gauge(after, "seaweedfs_tpu_process_tree_procs") or 1
+        rss = _gauge(after, "seaweedfs_tpu_process_tree_rss_bytes") \
+            or 0.0
+        parts.append(f"tree={burn:.2f} cores/{procs:.0f} procs "
+                     f"rss={rss / (1 << 20):.0f}MB")
+    if not parts:
+        return ""
+    return "cpu: " + "  ".join(parts)
+
+
+def _group_commit_report(before: "dict[str, list]",
+                         after: "dict[str, list]") -> str:
+    """Per-site group-commit view over the sampling window: mean
+    batch (writers covered per shared durability barrier) and
+    barrier-wait p99, from the util/group_commit metrics on the
+    shared process registry.  Empty when no barrier fired."""
+    from .. import profiling
+    batch = "seaweedfs_tpu_group_commit_batch_size"
+    wait = "seaweedfs_tpu_group_commit_wait_seconds"
+    sites = {l.get("site", "") for l, _v in
+             after.get(f"{batch}_count", [])}
+    parts = []
+    for site in sorted(sites):
+        h = profiling.histogram_delta(
+            profiling.prom_histogram(after, batch, {"site": site}),
+            profiling.prom_histogram(before, batch, {"site": site}))
+        if not h or h["count"] <= 0:
+            continue
+        w = profiling.histogram_delta(
+            profiling.prom_histogram(after, wait, {"site": site}),
+            profiling.prom_histogram(before, wait, {"site": site}))
+        p99 = profiling.histogram_quantile(w, 0.99) if w else 0.0
+        parts.append(f"{site} batch={h['sum'] / h['count']:.1f} "
+                     f"wait-p99={p99 * 1e3:.2f}ms")
+    if not parts:
+        return ""
+    return "group-commit: " + "  ".join(parts)
+
+
+def _native_plane_report(before: "dict[str, list]",
+                         after: "dict[str, list]") -> str:
+    """Native read/write/meta plane view over the sampling window:
+    acks and fallbacks per plane plus the native ack-latency p99 (C++
+    atomics rendered by the volume server's and filer's /metrics).
+    Empty when the node runs no native plane."""
+    from .. import profiling
+    parts = []
+    wname = "volume_server_write_plane_ack_seconds"
+    wr = _counter_sum(
+        after, "volume_server_write_plane_requests_total") - \
+        _counter_sum(before, "volume_server_write_plane_requests_total")
+    wf = _counter_sum(
+        after, "volume_server_write_plane_fallbacks_total") - \
+        _counter_sum(before,
+                     "volume_server_write_plane_fallbacks_total")
+    if f"{wname}_count" in after:
+        h = profiling.histogram_delta(
+            profiling.prom_histogram(after, wname),
+            profiling.prom_histogram(before, wname))
+        p99 = profiling.histogram_quantile(h, 0.99) \
+            if h and h.get("count") else 0.0
+        parts.append(f"write {wr:.0f} acked/{wf:.0f} fallback"
+                     f" ack-p99={p99 * 1e3:.2f}ms")
+    rr = _counter_sum(
+        after, "volume_server_read_plane_requests_total") - \
+        _counter_sum(before,
+                     "volume_server_read_plane_requests_total")
+    rf = _counter_sum(
+        after, "volume_server_read_plane_fallbacks_total") - \
+        _counter_sum(before,
+                     "volume_server_read_plane_fallbacks_total")
+    if "volume_server_read_plane_requests_total" in after:
+        parts.append(f"read {rr:.0f} served/{rf:.0f} fallback")
+    # the filer's native READ plane: warm GETs served with
+    # zero Python, coherence misses surfaced beside the fallbacks
+    fr = _counter_sum(
+        after, "filer_read_plane_native_requests_total") - \
+        _counter_sum(before, "filer_read_plane_native_requests_total")
+    ff = _counter_sum(
+        after, "filer_read_plane_native_fallbacks_total") - \
+        _counter_sum(before,
+                     "filer_read_plane_native_fallbacks_total")
+    if "filer_read_plane_native_requests_total" in after:
+        fstale = _counter_sum(
+            after, "filer_read_plane_native_stale_misses_total") - \
+            _counter_sum(before,
+                         "filer_read_plane_native_stale_misses_total")
+        seg = f"filer-read {fr:.0f} served/{ff:.0f} fallback"
+        if fstale > 0:
+            seg += f" stale={fstale:.0f}"
+        parts.append(seg)
+    # the filer's native META plane: creates acked with
+    # zero Python, plus its ack-latency p99 and mean WAL batch
+    mname = "filer_meta_plane_native_ack_seconds"
+    mr = _counter_sum(
+        after, "filer_meta_plane_native_requests_total") - \
+        _counter_sum(before, "filer_meta_plane_native_requests_total")
+    mf = _counter_sum(
+        after, "filer_meta_plane_native_fallbacks_total") - \
+        _counter_sum(before,
+                     "filer_meta_plane_native_fallbacks_total")
+    if f"{mname}_count" in after:
+        h = profiling.histogram_delta(
+            profiling.prom_histogram(after, mname),
+            profiling.prom_histogram(before, mname))
+        p99 = profiling.histogram_quantile(h, 0.99) \
+            if h and h.get("count") else 0.0
+        batches = _counter_sum(
+            after, "filer_meta_plane_native_wal_batches_total") - \
+            _counter_sum(before,
+                         "filer_meta_plane_native_wal_batches_total")
+        lines = _counter_sum(
+            after, "filer_meta_plane_native_wal_lines_total") - \
+            _counter_sum(before,
+                         "filer_meta_plane_native_wal_lines_total")
+        seg = (f"meta {mr:.0f} acked/{mf:.0f} fallback"
+               f" ack-p99={p99 * 1e3:.2f}ms")
+        if batches > 0:
+            seg += f" wal-batch={lines / batches:.1f}"
+        parts.append(seg)
+    # per-stage tails from the drained flight records: the
+    # plane_stage_seconds family is fed by the Python drainer, so each
+    # plane's stage decomposition shows up windowed, like every other
+    # cluster.top figure
+    sname = "seaweedfs_tpu_plane_stage_seconds"
+    planes = sorted({l.get("plane", "") for l, _v in
+                     after.get(f"{sname}_count", []) if l.get("plane")})
+    from ..server.filer_read_plane_native import (
+        RECORD_STAGES as _FILER_READ_STAGES)
+    from ..server.meta_plane_native import (
+        RECORD_STAGES as _META_STAGES)
+    from ..server.read_plane import RECORD_STAGES as _READ_STAGES
+    from ..server.write_plane import RECORD_STAGES as _WRITE_STAGES
+    stage_order = {"meta": _META_STAGES, "write": _WRITE_STAGES,
+                   "read": _READ_STAGES,
+                   "filer_read": _FILER_READ_STAGES}
+    for plane in planes:
+        segs = []
+        for stg in stage_order.get(plane, ()):
+            h = profiling.histogram_delta(
+                profiling.prom_histogram(
+                    after, sname, {"plane": plane, "stage": stg}),
+                profiling.prom_histogram(
+                    before, sname, {"plane": plane, "stage": stg}))
+            if h and h.get("count"):
+                p99 = profiling.histogram_quantile(h, 0.99)
+                segs.append(f"{stg}-p99={p99 * 1e3:.2f}ms")
+        dropped = _counter_sum(
+            after, "seaweedfs_tpu_plane_ring_dropped_total",
+            {"plane": plane}) - _counter_sum(
+            before, "seaweedfs_tpu_plane_ring_dropped_total",
+            {"plane": plane})
+        if dropped > 0:
+            segs.append(f"ring-dropped={dropped:.0f}")
+        if segs:
+            parts.append(f"{plane}-stages " + " ".join(segs))
+    if not parts:
+        return ""
+    return "native-planes: " + "  ".join(parts)
+
+
+def _deadline_report(before: "dict[str, list]",
+                     after: "dict[str, list]") -> str:
+    """Deadline-plane view over the sampling window: budgets refused
+    (per fail-fast site) and hedged replica reads issued/won
+    (util/deadline + util/hedge meter on the shared registry).  Empty
+    when the window saw neither — the common healthy state."""
+    exceeded = _counter_sum(
+        after, "seaweedfs_tpu_deadline_exceeded_total") - \
+        _counter_sum(before, "seaweedfs_tpu_deadline_exceeded_total")
+    issued = _counter_sum(
+        after, "seaweedfs_tpu_hedges_issued_total") - \
+        _counter_sum(before, "seaweedfs_tpu_hedges_issued_total")
+    won = _counter_sum(
+        after, "seaweedfs_tpu_hedges_won_total") - \
+        _counter_sum(before, "seaweedfs_tpu_hedges_won_total")
+    parts = []
+    if exceeded > 0:
+        sites = {l.get("site", "") for l, _v in after.get(
+            "seaweedfs_tpu_deadline_exceeded_total", [])}
+        worst = []
+        for s in sorted(sites):
+            d = _counter_sum(
+                after, "seaweedfs_tpu_deadline_exceeded_total",
+                {"site": s}) - _counter_sum(
+                before, "seaweedfs_tpu_deadline_exceeded_total",
+                {"site": s})
+            if d > 0:
+                worst.append((d, s))
+        worst.sort(reverse=True)
+        top = " ".join(f"{s}={d:.0f}" for d, s in worst[:3])
+        parts.append(f"exceeded={exceeded:.0f} ({top})")
+    if issued > 0:
+        parts.append(f"hedges={issued:.0f} issued/{won:.0f} won")
+    if not parts:
+        return ""
+    return "deadline: " + "  ".join(parts)
+
+
+@command("cluster.top")
+def cmd_cluster_top(env: CommandEnv, args: list[str]) -> str:
+    """Live one-screen cluster view: every node's /metrics sampled
+    twice `-interval=N` seconds apart (default 2), the delta rendered
+    as per-role req/s, windowed p99, in-flight requests, pooled-client
+    connection reuse, breaker state, device telemetry where the
+    node has touched the card, the write-path stage decomposition and
+    group-commit batching (mean batch size, barrier-wait p99) when
+    writes landed in the window, and the top profiler stacks on any
+    node whose sampler is armed.  The operator's answer to "what is
+    this cluster doing RIGHT NOW"."""
+    from .. import profiling
+    opts = _parse_flags(args)
+    try:
+        window = max(0.2, float(opts.get("interval", 2.0)))
+    except ValueError:
+        return "bad -interval"
+    nodes = _top_nodes(env, opts)
+
+    with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+        before = dict(zip(nodes, ex.map(_fetch_metrics, nodes)))
+        time.sleep(window)
+        after = dict(zip(nodes, ex.map(_fetch_metrics, nodes)))
+
+    out = [f"cluster.top — {len(nodes)} nodes, "
+           f"{window:.1f}s window"]
+    for url in nodes:
+        b, a = before.get(url), after.get(url)
+        if a is None:
+            out.append(f"{url}: unreachable")
+            continue
+        if b is None:
+            # no baseline sample: rendering cumulative-since-boot
+            # counters as this window's delta would show a day-old
+            # node at absurd req/s
+            out.append(f"{url}: no baseline sample this window")
+            continue
+        try:
+            out.extend(_render_node_top(url, b, a, window))
+        except Exception as e:  # noqa: BLE001 — one node's partial or
+            # malformed mid-interval scrape must cost that node a
+            # note, never the whole cluster view
+            out.append(f"{url}: render failed: {e}")
+    return "\n".join(out)
+
+
+def _render_node_top(url: str, b: "dict[str, list]",
+                     a: "dict[str, list]",
+                     window: float) -> "list[str]":
+    """One node's cluster.top block, split out so the caller can
+    contain a render failure (a node restarting mid-interval hands
+    back truncated metrics; a role skew hands back unexpected label
+    shapes) to that node's line."""
+    from .. import profiling
+    out: list[str] = []
+    ns = _node_role(a)
+    req = profiling.histogram_delta(
+        profiling.prom_histogram(a, f"{ns}_request_seconds"),
+        profiling.prom_histogram(b, f"{ns}_request_seconds"))
+    rate = (req["count"] / window) if req else 0.0
+    p99 = profiling.histogram_quantile(req, 0.99) if req else 0.0
+    inflight = _gauge(a, f"{ns}_requests_in_flight") or 0
+    line = (f"{url} [{ns}] {rate:7.1f} req/s  "
+            f"p99={p99 * 1e3:7.1f}ms  in-flight={inflight:.0f}")
+    reused = _counter_sum(
+        a, "seaweedfs_tpu_pool_connections_reused_total")
+    opened = _counter_sum(
+        a, "seaweedfs_tpu_pool_connections_opened_total")
+    if reused + opened > 0:
+        line += (f"  pool-reuse={reused / (reused + opened) * 100:.0f}%"
+                 f" ({opened:.0f} dials)")
+    open_breakers = sum(
+        1 for _l, v in a.get("seaweedfs_tpu_peer_breaker_state", [])
+        if v != 0)
+    if open_breakers:
+        line += f"  breakers:{open_breakers} non-closed"
+    out.append(line)
+    kern = _gauge(a, "seaweedfs_tpu_device_kernel_last_ms",
+                  {"kernel": "gf_apply_matrix"})
+    if kern is not None:
+        h2d = _gauge(a, "seaweedfs_tpu_device_h2d_gbps") or 0.0
+        d2h = _gauge(a, "seaweedfs_tpu_device_d2h_gbps") or 0.0
+        line = (f"  device: kernel={kern:.2f}ms "
+                f"h2d={h2d:.2f}GB/s d2h={d2h:.2f}GB/s")
+        # windowed staging figures (ops.staging): window count
+        # since the previous sample + how overlapped the last
+        # launch's h2d/d2h planes actually ran
+        ov = _gauge(a, "seaweedfs_tpu_device_h2d_overlap_fraction",
+                    {"op": "encode"})
+        if ov is None:  # rebuild-only workload stages too
+            ov = _gauge(a,
+                        "seaweedfs_tpu_device_h2d_overlap_fraction",
+                        {"op": "rebuild"})
+        wins = _counter_sum(
+            a, "seaweedfs_tpu_device_staged_windows_total") - \
+            _counter_sum(
+                b, "seaweedfs_tpu_device_staged_windows_total")
+        if ov is not None:
+            line += f"  overlap={ov * 100:.0f}%"
+        if wins > 0:
+            line += f"  windows={wins:.0f}"
+        out.append(line)
+    cpu = _cpu_report(b, a, ns, req, window)
+    if cpu:
+        out.append("  " + cpu)
+    cache_line = _read_cache_report(b, a)
+    degraded = _counter_sum(
+        a, "seaweedfs_tpu_ec_degraded_reads_total") - \
+        _counter_sum(b, "seaweedfs_tpu_ec_degraded_reads_total")
+    if degraded > 0:
+        cache_line += ("  " if cache_line else "") + \
+            f"degraded-reads={degraded:.0f}"
+    if cache_line:
+        out.append("  " + cache_line)
+    stages = _stage_report(b, a, ns)
+    if stages:
+        out.append("  " + stages)
+    planes = _native_plane_report(b, a)
+    if planes:
+        out.append("  " + planes)
+    gc = _group_commit_report(b, a)
+    if gc:
+        out.append("  " + gc)
+    dl = _deadline_report(b, a)
+    if dl:
+        out.append("  " + dl)
+    try:
+        prof = http_json("GET", f"{url}/debug/pprof?top=3",
+                         timeout=3)
+    except OSError:
+        prof = None
+    if isinstance(prof, dict) and prof.get("stacks"):
+        total = max(1, prof["stacks"])
+        for stack, n in sorted(prof.get("folded", {}).items(),
+                               key=lambda kv: -kv[1]):
+            leaf = stack.rsplit(";", 2)[-2:]
+            out.append(f"  prof {n / total * 100:4.1f}% "
+                       f"{';'.join(leaf)}")
+    return out
+
+
+def _render_slow_hop(url: str, rec: dict) -> "list[str]":
+    """One flight record as an indented hop block: the wall/cpu/wait
+    split, the deadline budget+verdict, the stage decomposition
+    (wall/cpu per stage) and the hedge/QoS/plane flight notes."""
+    wall = rec.get("wallMs", 0.0)
+    cpu = rec.get("cpuMs")     # absent = request didn't draw the
+    # CPU-attribution sample (SEAWEEDFS_TPU_CPU_SAMPLE): wall only,
+    # never a fake 0ms cpu
+    head = (f"  {rec.get('role', '?')}@{url}: "
+            f"{rec.get('method', '?')} {rec.get('path', '?')} "
+            f"status={rec.get('status', 0)}")
+    if wall > 0 and cpu is not None:
+        wait = rec.get("waitMs", max(wall - cpu, 0.0))
+        line = (f"{head} {wall:.1f}ms wall / {cpu:.2f}ms cpu "
+                f"(wait {wait / wall * 100:.0f}%)")
+    elif wall > 0:
+        line = f"{head} {wall:.1f}ms wall (cpu unsampled)"
+    else:
+        line = head
+    dl = rec.get("deadline")
+    if dl:
+        line += (f"  deadline={dl.get('budgetMs', 0)}ms"
+                 f"->{dl.get('remainingMs', 0)}ms left")
+    if rec.get("verdict") not in (None, "slow"):
+        line += f"  verdict={rec['verdict']}"
+    out = [line]
+    stages = (rec.get("stages") or {}).get("stages") or {}
+    if stages:
+        with_cpu = any("cpuMs" in d for d in stages.values())
+        parts = [(f"{s} {d.get('wallMs', 0):.1f}/"
+                  f"{d.get('cpuMs', 0):.2f}ms" if "cpuMs" in d else
+                  f"{s} {d.get('wallMs', 0):.1f}ms")
+                 for s, d in sorted(stages.items(),
+                                    key=lambda kv:
+                                    -kv[1].get("wallMs", 0))]
+        out.append(("    stages (wall/cpu): " if with_cpu else
+                    "    stages (wall): ") + " ".join(parts))
+    notes = dict(rec.get("notes") or {})
+    notes.update((rec.get("stages") or {}).get("notes") or {})
+    if notes:
+        out.append("    notes: " + " ".join(
+            f"{k}={json.dumps(v, separators=(',', ':'))}"
+            if isinstance(v, (dict, list)) else f"{k}={v}"
+            for k, v in sorted(notes.items())))
+    return out
+
+
+@command("cluster.slow")
+def cmd_cluster_slow(env: CommandEnv, args: list[str]) -> str:
+    """The cluster's tail, after the fact: every node's flight
+    recorder ring (/debug/slow, profiling.FlightRecorder) fanned out,
+    merged by trace id, and rendered as the top-N slowest END-TO-END
+    requests — one block per request with each hop's wall/cpu/wait
+    split, stage decomposition, deadline budget+verdict and
+    hedge/QoS/native-plane notes, then the merged cross-role span
+    tree, time-aligned like trace.show.  `-top=N` blocks (default 5),
+    `-verdict=slow|error|deadline|shed` filters on any hop's verdict,
+    `-nodes=host:port,...` adds listeners the topology doesn't know,
+    `-clear` empties every ring instead (chaos runs reset between
+    scenarios).  A node whose scrape fails mid-fan-out is noted and
+    skipped — mid-incident is exactly when one wedged node must not
+    take the whole view down."""
+    opts = _parse_flags(args)
+    try:
+        top = max(1, int(opts.get("top", 5)))
+    except ValueError:
+        return "bad -top"
+    want = opts.get("verdict", "")
+    nodes = _top_nodes(env, opts)
+
+    if "clear" in opts:
+        def clear(url: str) -> "tuple[str, bool]":
+            try:
+                r = http_json("POST", f"{url}/debug/slow",
+                              {"clear": True}, timeout=5)
+                return url, isinstance(r, dict) and "error" not in r
+            except OSError:
+                return url, False
+        with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+            results = dict(ex.map(clear, nodes))
+        ok = sum(1 for v in results.values() if v)
+        out = [f"cluster.slow — cleared {ok}/{len(nodes)} rings"]
+        out.extend(f"  {u}: unreachable" for u, v in results.items()
+                   if not v)
+        return "\n".join(out)
+
+    def fetch(url: str) -> "tuple[str, dict | None]":
+        try:
+            r = http_json("GET", f"{url}/debug/slow", timeout=5)
+        except OSError:
+            return url, None
+        return url, r if isinstance(r, dict) and "records" in r \
+            else None
+
+    with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+        snaps = dict(ex.map(fetch, nodes))
+
+    # merge by trace id: the same end-to-end request appears in each
+    # hop's ring under one id; records with no id stand alone
+    groups: "dict[str, list[tuple[str, dict]]]" = {}
+    captured = 0
+    skipped: list[str] = []
+    loose = 0
+    seen_recs: "set[str]" = set()
+    for url in nodes:
+        snap = snaps.get(url)
+        if snap is None:
+            skipped.append(f"  {url}: scrape failed, skipped")
+            continue
+        for rec in snap.get("records", []):
+            if not isinstance(rec, dict):
+                continue
+            # one recorder answering under two addresses (a node
+            # listed both by the topology and -nodes=, or an
+            # in-process multi-role rig sharing one ring) must not
+            # double every hop of every request it captured
+            fp = json.dumps(rec, sort_keys=True,
+                            separators=(",", ":"))
+            if fp in seen_recs:
+                continue
+            seen_recs.add(fp)
+            captured += 1
+            tid = rec.get("traceId") or ""
+            if not tid:
+                loose += 1
+                tid = f"(no-trace-{loose})"
+            groups.setdefault(tid, []).append((url, rec))
+    if want:
+        groups = {tid: hops for tid, hops in groups.items()
+                  if any(r.get("verdict") == want for _u, r in hops)}
+
+    # end-to-end wall = the slowest hop's wall (the edge's record
+    # covers its downstream hops); rank the groups by it
+    def group_wall(hops: "list[tuple[str, dict]]") -> float:
+        return max(r.get("wallMs", 0.0) for _u, r in hops)
+
+    ranked = sorted(groups.items(), key=lambda kv: -group_wall(kv[1]))
+    out = [f"cluster.slow — {captured} records on "
+           f"{sum(1 for u in nodes if snaps.get(u) is not None)}"
+           f"/{len(nodes)} nodes, "
+           f"{len(groups)} distinct requests"
+           + (f" (verdict={want})" if want else "")
+           + f", top {min(top, len(ranked))}"]
+    out.extend(skipped)
+    for tid, hops in ranked[:top]:
+        # a hop with a terminal verdict names the incident better
+        # than "slow"; surface the worst one in the header
+        verdicts = {r.get("verdict", "slow") for _u, r in hops}
+        headline = next((v for v in ("deadline", "error", "shed")
+                         if v in verdicts), "slow")
+        out.append(f"{group_wall(hops):9.1f}ms  trace={tid}  "
+                   f"verdict={headline}  {len(hops)} hop(s)")
+        spans: "dict[str, dict]" = {}
+        for url, rec in sorted(hops,
+                               key=lambda ur: -ur[1].get("wallMs", 0)):
+            try:
+                out.extend(_render_slow_hop(url, rec))
+            except Exception as e:  # noqa: BLE001 — one malformed
+                # record must not hide the rest of the request
+                out.append(f"  {url}: record render failed: {e}")
+            for s in rec.get("spans") or []:
+                if isinstance(s, dict) and s.get("spanId"):
+                    s.setdefault("node", url)
+                    spans.setdefault(s["spanId"], s)
+        if spans:
+            tree = render_trace(
+                sorted(spans.values(), key=lambda s: s["start"]))
+            out.extend("  " + t for t in tree.splitlines())
+    if len(out) == 1 + len(skipped):
+        out.append("  (no records — rings empty or filtered out)")
+    return "\n".join(out)
+
+
+@command("cluster.profile")
+def cmd_cluster_profile(env: CommandEnv, args: list[str]) -> str:
+    """Arm the sampling profiler on every node, wait
+    `-duration=N` seconds (default 10), disarm, and merge the folded
+    stacks into one cluster-wide flame view (`-hz=N` sampling rate,
+    `-top=N` lines shown, `-out=FILE` writes the full merged
+    collapsed-stack file for flamegraph.pl).  A node whose sampler
+    was already armed keeps its window but is still collected and
+    disarmed — two operators profiling at once merge, not clobber."""
+    from .. import profiling
+    opts = _parse_flags(args)
+    try:
+        duration = max(0.2, float(opts.get("duration", 10.0)))
+        hz = float(opts.get("hz", 100.0))
+        top = int(opts.get("top", 25))
+    except ValueError:
+        return "bad -duration/-hz/-top"
+    nodes = _top_nodes(env, opts)
+
+    def arm(url: str) -> "tuple[str, bool]":
+        try:
+            r = http_json("POST", f"{url}/debug/pprof",
+                          {"action": "start", "hz": hz}, timeout=5)
+            return url, isinstance(r, dict) and "error" not in r
+        except OSError:
+            return url, False
+
+    def disarm(url: str) -> "tuple[str, dict | None]":
+        try:
+            r = http_json("POST", f"{url}/debug/pprof",
+                          {"action": "stop"}, timeout=10)
+            return url, r if isinstance(r, dict) else None
+        except OSError:
+            return url, None
+
+    with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+        armed = dict(ex.map(arm, nodes))
+        time.sleep(duration)
+        snaps = dict(ex.map(disarm, nodes))
+
+    tables, per_node = [], []
+    for url in nodes:
+        snap = snaps.get(url)
+        if snap is None:
+            per_node.append(f"  {url}: unreachable"
+                            if not armed.get(url) else
+                            f"  {url}: armed but no snapshot")
+            continue
+        tables.append(snap.get("folded") or {})
+        per_node.append(
+            f"  {url}: {snap.get('samples', 0)} passes, "
+            f"{snap.get('stacks', 0)} stacks, "
+            f"overhead={snap.get('overhead', 0.0) * 100:.2f}%")
+    merged = profiling.merge_folded(tables)
+    total = sum(merged.values()) or 1
+    out = [f"cluster.profile — {duration:.1f}s @ {hz:.0f}Hz, "
+           f"{len(tables)}/{len(nodes)} nodes, "
+           f"{len(merged)} distinct stacks"]
+    out.extend(per_node)
+    if "out" in opts:
+        with open(opts["out"], "w", encoding="utf-8") as f:
+            for stack, n in sorted(merged.items(),
+                                   key=lambda kv: -kv[1]):
+                f.write(f"{stack} {n}\n")
+        out.append(f"full collapsed-stack file: {opts['out']} "
+                   f"(flamegraph.pl input)")
+    for stack, n in sorted(merged.items(),
+                           key=lambda kv: -kv[1])[:top]:
+        frames = stack.split(";")
+        tail = ";".join(frames[-3:]) if len(frames) > 3 else stack
+        out.append(f"{n:6d} {n / total * 100:4.1f}%  {tail}")
+    return "\n".join(out)
 
 
 # --- helpers -------------------------------------------------------------

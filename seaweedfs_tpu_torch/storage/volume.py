@@ -31,7 +31,7 @@ import struct
 import threading
 import time
 
-from .. import stats
+from .. import profiling, stats
 from . import types
 from .needle import Needle, get_actual_size, needle_body_length
 from .needle_map import NeedleMap
@@ -276,14 +276,21 @@ class Volume:
 
         Cookie semantics follow doWriteRequest (volume_write.go:141): an
         overwrite must present the existing needle's cookie unless
-        check_cookie is False, which adopts it."""
-        with self.lock:
+        check_cookie is False, which adopts it.  Under the volume
+        server's write track the lock wait, the index lookup and update,
+        the append and the barrier's flush are its `lock`, `index`,
+        `append` and `flush` stages (`profiling.stage`: no-ops without a
+        track)."""
+        with profiling.stage("lock"):
+            self.lock.acquire()
+        try:
             if self.read_only:
                 raise PermissionError(f"volume {self.id} is read-only")
             if not n.has_ttl() and self.super_block.ttl:
                 n.set_ttl(self.super_block.ttl)
             self._drain_if_pending()
-            existing = self.nm.get(n.id)
+            with profiling.stage("index"):
+                existing = self.nm.get(n.id)
             if existing is not None:
                 old = self._read_at(existing[0], existing[1])
                 if old.data == n.data and old.cookie == n.cookie:
@@ -295,14 +302,20 @@ class Volume:
                     raise CookieMismatch(
                         f"mismatching cookie {n.cookie:x}")
             n.append_at_ns = self._next_append_at_ns()
-            offset = self._append(n)
+            with profiling.stage("append"):
+                offset = self._append(n)
             if types.size_is_valid(n.size):
-                self.nm.put(n.id, types.to_stored_offset(offset), n.size)
+                with profiling.stage("index"):
+                    self.nm.put(n.id, types.to_stored_offset(offset),
+                                n.size)
+        finally:
+            self.lock.release()
         # ack after the append reaches the OS (and the platter on the
         # -fsync tier), through the barrier it shares with the other
         # writers of its window: a killed process must not lose an
         # acknowledged write
-        self._barrier.commit()
+        with profiling.stage("flush"):
+            self._barrier.commit()
         return offset, len(n.data), False
 
     def _group_commit_flush(self) -> None:

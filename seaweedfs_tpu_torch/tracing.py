@@ -180,23 +180,29 @@ class Span:
         self.finish()
 
 
-def _record(doc: dict) -> None:
-    """Slow-log the span (whatever the sampling), then keep it if
-    sampled in."""
-    threshold = slow_ms()
+def _slow_log_and_sample(doc: dict, threshold: float,
+                         rate: float) -> bool:
+    """Slow-log the span (whatever the sampling); True when the sample
+    keeps it."""
     if threshold > 0 and doc["durationMs"] >= threshold:
         _log.warning("slow span %s (%s) %.1fms trace=%s span=%s attrs=%s",
                      doc["name"], doc["role"] or "-", doc["durationMs"],
                      doc["traceId"], doc["spanId"], doc.get("attrs") or {})
-    rate = sample_rate()
-    if rate < 1.0 and random.random() >= rate:
-        return
+    return not (rate < 1.0 and random.random() >= rate)
+
+
+def _buffer_extend(docs) -> None:
     global _buffer
     with _buffer_lock:
         if _buffer.maxlen != buffer_size():
             # the knob changed since import: keep the newest spans
             _buffer = deque(_buffer, maxlen=buffer_size())
-        _buffer.append(doc)
+        _buffer.extend(docs)
+
+
+def _record(doc: dict) -> None:
+    if _slow_log_and_sample(doc, slow_ms(), sample_rate()):
+        _buffer_extend((doc,))
 
 
 def start_span(name: str, role: str = "", parent: "str | None" = None,
@@ -248,6 +254,62 @@ def emit_span(name: str, start: float, duration: float,
         doc["attrs"] = dict(attrs)
     _record(doc)
     return doc
+
+
+def emit_span_batch(items: "list[dict]") -> None:
+    """`emit_span` for many spans at once (a stage track's siblings):
+    the knobs are read once a batch, not once a span.  Each item carries
+    emit_span's keywords (name, start, duration, role, parent, trace_id,
+    attrs, error)."""
+    if not items:
+        return
+    cur = _current.get()
+    threshold = slow_ms()
+    rate = sample_rate()
+    out = []
+    for it in items:
+        doc = {
+            "traceId": it.get("trace_id") or (cur[0] if cur else "")
+            or get_request_id() or secrets.token_hex(8),
+            "spanId": new_span_id(),
+            "parentId": it.get("parent") or (cur[1] if cur else ""),
+            "role": it.get("role") or (cur[2] if cur else ""),
+            "name": it["name"], "start": it["start"],
+            "durationMs": round(it["duration"] * 1e3, 3)}
+        if it.get("error"):
+            doc["error"] = True
+        attrs = it.get("attrs")
+        if attrs:
+            doc["attrs"] = dict(attrs)
+        if _slow_log_and_sample(doc, threshold, rate):
+            out.append(doc)
+    if out:
+        _buffer_extend(out)
+
+
+def emit_plane_hop(name: str, role: str, trace_id: str,
+                   start: float, duration: float,
+                   stages: "list[tuple[str, float]]",
+                   attrs: "dict | None" = None,
+                   error: bool = False) -> dict:
+    """One native-plane hop as a span tree: the hop's span and one child
+    a non-zero stage, laid back to back from the hop's start (the planes
+    time stages as consecutive windows of one pass).  The drainer calls
+    it after the fact, so a plane-served request joins the trace of the
+    Python hops that share its request id."""
+    hop = emit_span(name, start, duration, role=role, parent="",
+                    trace_id=trace_id, attrs=attrs, error=error)
+    items = []
+    at = start
+    for stage_name, stage_s in stages:
+        if stage_s <= 0.0:
+            continue
+        items.append({"name": f"plane.{stage_name}", "start": at,
+                      "duration": stage_s, "role": role,
+                      "parent": hop["spanId"], "trace_id": trace_id})
+        at += stage_s
+    emit_span_batch(items)
+    return hop
 
 
 def current_ids() -> "tuple[str, str, str] | None":

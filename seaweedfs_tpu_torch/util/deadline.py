@@ -18,7 +18,8 @@ fixed timeout.  The vocabulary:
   the server answers 504 with `Retry-After` before its handler runs.
 
 Contextvars do not follow worker threads: code that fans a request out
-onto threads captures `get()` and re-binds it there with `use(...)`.
+onto threads captures `get()` and re-binds it there with `use(...)`, as
+it re-binds the request's stage track with `profiling.use_track`.
 
 Metrics on `stats.PROCESS`: `deadline_exceeded_total{site}` counts each
 fail-fast, `deadline_remaining_seconds{site}` is the budget left at each

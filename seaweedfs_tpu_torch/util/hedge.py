@@ -24,9 +24,11 @@ dropped).
   (with a token), where the JAX hedge returns no result.
 
 `hedges_issued_total` and `hedges_won_total` (`kind="read"`) go to
-`stats.PROCESS`.  The port has no SLO autopilot, so the JAX package's
-runtime overrides of the ratio and the floor are not here, and no
-flight recorder, so a hedge leaves no flight note.
+`stats.PROCESS`, and each hedge issued or won leaves a `hedge` flight
+note on the request (`profiling.flight_note`).  `LatencyTracker.
+note_many` is the native planes' record drain's feed.  The port has no
+SLO autopilot, so the JAX package's runtime overrides of the ratio and
+the floor are not here.
 """
 
 from __future__ import annotations
@@ -79,6 +81,24 @@ class LatencyTracker:
             else:
                 self._ring[self._i] = seconds
                 self._i = (self._i + 1) % self.size
+
+    def note_many(self, seconds_batch: "list[float]") -> None:
+        """`note` for a whole batch in one lock round (the native
+        planes' record drain feeds thousands a second); a batch at least
+        `size` long becomes the ring."""
+        if not seconds_batch:
+            return
+        with self._lock:
+            if len(seconds_batch) >= self.size:
+                self._ring = list(seconds_batch[-self.size:])
+                self._i = 0
+                return
+            for s in seconds_batch:
+                if len(self._ring) < self.size:
+                    self._ring.append(s)
+                else:
+                    self._ring[self._i] = s
+                    self._i = (self._i + 1) % self.size
 
     def quantile(self, q: float = 0.95) -> "float | None":
         with self._lock:
@@ -249,7 +269,11 @@ def hedged_fetch(primary, secondary, threshold_s: float, is_success,
             "hedges_issued_total", 1.0,
             help_text="secondary replica fetches issued past the latency "
                       "threshold", kind=kind)
-        _flight_note("hedge", {"kind": kind, "issued": True})
+        # the note rides the caller's context: this loop runs on the
+        # request's thread, only the fetches are pooled
+        _flight_note("hedge", {
+            "kind": kind, "issued": True, "won": False,
+            "thresholdMs": round(threshold_s * 1e3, 2)})
         run(1, secondary)
         outstanding += 1
         return True
@@ -276,6 +300,9 @@ def hedged_fetch(primary, secondary, threshold_s: float, is_success,
                     "hedges_won_total", 1.0,
                     help_text="hedged fetches that answered first",
                     kind=kind)
+                _flight_note("hedge", {
+                    "kind": kind, "issued": True, "won": True,
+                    "thresholdMs": round(threshold_s * 1e3, 2)})
             return val, hedged
         # the primary failed before the threshold: its replica is down,
         # not slow, so the secondary goes at once (the JAX hedge returns
@@ -286,5 +313,5 @@ def hedged_fetch(primary, secondary, threshold_s: float, is_success,
 
 
 def _flight_note(key: str, value) -> None:
-    """A no-op: the port has no flight recorder (ROADMAP A3.6), where
-    the JAX package notes each hedge."""
+    from .. import profiling
+    profiling.flight_note(key, value)

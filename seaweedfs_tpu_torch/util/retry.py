@@ -66,6 +66,16 @@ def peer_available(peer: str) -> bool:
     return peer_state(peer) != OPEN
 
 
+def health_snapshot() -> "dict[str, dict]":
+    """Every peer whose breaker is not closed or has failures counted,
+    for `GET /debug/health`."""
+    with _lock:
+        peers = {p: b.failures for p, b in _breakers.items()
+                 if b.state != CLOSED or b.failures}
+    return {p: {"state": peer_state(p), "consecutiveFailures": n}
+            for p, n in sorted(peers.items())}
+
+
 def reset(peer: "str | None" = None) -> None:
     with _lock:
         if peer is None:

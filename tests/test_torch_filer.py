@@ -1076,15 +1076,22 @@ def test_filer_command_serves_and_stops(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["-metaPlane", "1", "-workers", "2"], {}), (["-storeType", "lsm"], {}),
-    (["-workers", "2"], {}),
-    (["-workers", "2"], {"SEAWEEDFS_TPU_FILER_META_PLANE": "1"}),
+    (["-metaPlane", "1", "-workers", "2", "-storeType", "lsm"], {}),
+    (["-storeType", "lsm"], {}),
+    (["-workers", "2", "-storeType", "redis"], {}),
+    (["-workers", "2", "-storeType", "elastic"],
+     {"SEAWEEDFS_TPU_FILER_META_PLANE": "1"}),
     (["-notification", "log"], {}), (["-lockPeers", "127.0.0.1:1"], {})],
     ids=["metaPlane", "storeType", "workers", "meta_plane_env",
          "notification", "lockPeers"])
 def test_filer_command_refuses_what_is_not_ported(argv, env, tmp_path):
-    """What the port has not ported is refused with exit 2, the meta
-    plane's pre-fork workers included (`-metaPlane 1 -workers 2`)."""
+    """What the port has not ported is refused with exit 2, before any
+    process starts.  Pre-fork `-workers` and the meta plane are ported, so
+    the `metaPlane`, `workers` and `meta_plane_env` cases now check that
+    the refusal of a store other than sqlite holds when a fleet or the
+    meta plane is asked for too: no sibling is forked first (the JAX
+    filer warns and runs one process there).  `-workers 2` over sqlite
+    is accepted and runs a fleet: tests/test_torch_workers.py."""
     p = subprocess.run(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port", "0",
          "-master", MASTER, "-store", str(tmp_path / "f.db")] + argv,

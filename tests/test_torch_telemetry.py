@@ -22,6 +22,7 @@ from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 from seaweedfs_tpu_torch.storage.erasure_coding import (ec_decoder,
                                                         ec_encoder)
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import ECContext
+from test_torch_profiling import stop_background_probes
 
 STAGES = ("encode.read", "encode.codec", "encode.write",
           "rebuild.fetch", "rebuild.codec", "rebuild.write")
@@ -29,12 +30,36 @@ STAGES = ("encode.read", "encode.codec", "encode.write",
 
 @pytest.fixture
 def registries(monkeypatch):
-    """Fresh process registries in both packages."""
+    """Fresh process registries in both packages, with no background
+    thread of either package writing into them."""
+    # each package's filer and volume server start a scheduler probe a
+    # process, and neither stops it: a probe left by an earlier file's
+    # servers writes `gil_wait_ratio` into whatever `stats.PROCESS` is
+    # when it ticks, so into the fresh registries below
+    stop_background_probes()
     port = stats.Metrics("seaweedfs_tpu")
     ref = ref_stats.Metrics("seaweedfs_tpu")
     monkeypatch.setattr(stats, "PROCESS", port)
     monkeypatch.setattr(ref_stats, "PROCESS", ref)
     return port, ref
+
+
+def _families(text: str, prefixes) -> str:
+    """The lines of `text` (HELP, TYPE and samples) of the metric
+    families whose names start with one of `prefixes`."""
+    keep = []
+    for line in text.splitlines():
+        name = line.split()[2] if line.startswith("#") else \
+            line.split("{")[0].split()[0]
+        if name.startswith(tuple(f"seaweedfs_tpu_{p}" for p in prefixes)):
+            keep.append(line)
+    return "\n".join(keep)
+
+
+# every family the notes write
+NOTE_FAMILIES = ("device_transfer_", "device_h2d_gbps", "device_d2h_gbps",
+                 "device_kernel_", "device_h2d_overlap_fraction",
+                 "device_staged_windows_total")
 
 
 def _notes(mod):
@@ -65,10 +90,26 @@ def test_notes_land_in_process_registry(registries):
 
 
 def test_render_equals_reference_for_same_notes(registries):
+    """The notes' families compare in full (every HELP, TYPE and sample
+    line); another thread of the reference package that writes its
+    process registry while this runs (a pooled client's retry counter)
+    cannot touch them.  The port's registry holds the notes' families
+    alone."""
     port, ref = registries
     _notes(profiling)
     _notes(ref_profiling)
-    assert port.render() == ref.render()
+    port_text = port.render()
+    assert _families(port_text, NOTE_FAMILIES) == \
+        _families(ref.render(), NOTE_FAMILIES)
+    assert _families(port_text, NOTE_FAMILIES).count("\n") + 1 == \
+        len(port_text.rstrip("\n").splitlines())
+    for family in ("device_transfer_bytes_total", "device_h2d_gbps",
+                   "device_d2h_gbps", "device_kernel_seconds",
+                   "device_kernel_last_ms", "device_kernel_bytes_total",
+                   "device_h2d_overlap_fraction",
+                   "device_staged_windows_total",
+                   "device_transfer_seconds"):
+        assert f"# TYPE seaweedfs_tpu_{family} " in port_text
 
 
 def test_seconds_none_records_bytes_only(registries):
