@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
    admin and the worker in this process (`EcEncodeHandler(device=
    "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
    benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
-   16,384 for the run's time, printed), every read held against the
+   8,192 for the run's time, printed), every read held against the
    payload, and the volumes the assigns grew; 256 seeded needles of
    1 KiB - 1 MiB under each of 001 and 010, each read back from every
    location `/dir/lookup` gives and its record on each replica (bytes,
@@ -152,14 +152,14 @@ Phases, each printing one JSON line:
    streaming ec.decode read path under weed benchmark load", through
    the front door of the port's own cluster: a `master
    -volumeSizeLimitMB 1024` subprocess and 4 `volume -max 8`
-   subprocesses (their codec on the card).  8,192 files of 1 KiB in
+   subprocesses (their codec on the card).  4,096 files of 1 KiB in
    `weed benchmark`'s shape (assign and upload on 16 threads; n cut from
    1,048,576 for the run's time) and config 1's needles on 8 writers, all
    in collection `rs63`, until the 1 GiB limit seals a volume; every
    volume of the collection `ec.encode -dataShards=6 -parityShards=3`
    through the port's shell (launches, read off each server's
    /metrics, against the sum of `launches_for` over its batches).  Six
-   read passes on 16 threads, each a seeded sample of 2,048 of the 1 KiB
+   read passes on 16 threads, each a seeded sample of 1,024 of the 1 KiB
    files and 64 of the large needles, every byte compared: all shards
    up, cold and again warm (every 1 KiB read a hit of the hot-needle
    cache); the server holding the most data shards stopped (at most 3
@@ -182,14 +182,14 @@ Phases, each printing one JSON line:
    synchronously, no native plane) over a `master
    -volumeSizeLimitMB 1024` subprocess and 3 `volume -max 8` subprocesses
    (their codec on the card), collection `filer`.  Through the filer's
-   HTTP API: 8,192 files of 1 KiB in 64 directories on 16 threads (`weed
-   benchmark`'s shape, n cut), 32 files of 8-24 MiB (2-6 chunks) and
+   HTTP API: 4,096 files of 1 KiB in 64 directories on 16 threads (`weed
+   benchmark`'s shape, n cut), 16 files of 8-24 MiB (2-6 chunks) and
    config 1's needles on 8 writers until a 1 GiB volume seals (files/s,
-   GB/s, p50/p99); 4,096 chunkless creates, 4,096 lookups and a listing of
+   GB/s, p50/p99); 2,048 chunkless creates, 2,048 lookups and a listing of
    every directory (ops/s).  Every sealed volume `ec.encode`d RS(10,4) by
    the port's shell (launches, read off the servers' /metrics, against
    its work list's windows).  Four read passes on 16 threads, each a
-   seeded sample of 2,048 1 KiB files, 32 large needles and 8 multi-chunk
+   seeded sample of 1,024 1 KiB files, 32 large needles and 8 multi-chunk
    files, every body held to its SHA-256, plus a range across every chunk
    boundary of the multi-chunk files and a listing of every directory:
    all servers up, cold and again warm (every 1 KiB read a hit of the
@@ -210,12 +210,12 @@ Phases, each printing one JSON line:
    ports on /status must be non-zero).  Clients find the planes' ports
    on /status, one probe a thread, and send PUTs to the meta plane and
    GETs to the read plane first, replaying a plane's 404 on the Python
-   port inside the same latency sample.  8,192 files of 1 KiB in 64
+   port inside the same latency sample.  4,096 files of 1 KiB in 64
    directories on 16 threads (the meta plane must ack more than half),
-   32 files of 8-24 MiB (too large for the plane: every one falls back)
+   16 files of 8-24 MiB (too large for the plane: every one falls back)
    and config 1's needles until a 1 GiB volume seals; the overlay must
    drain to 0 and the checkpoint reach the log's last event.  A warm
-   pass of 2,048 1 KiB files (the read plane must serve more than half);
+   pass of 1,024 1 KiB files (the read plane must serve more than half);
    every sealed volume `ec.encode`d RS(10,4) on the card (launches
    against its windows); the filer phase's passes (cold, warm, the
    server with the most data shards stopped, after `ec.rebuild`, whose
@@ -238,9 +238,9 @@ Phases, each printing one JSON line:
    fsync rate printed: a tmpfs work directory moves the phase under the
    checkout's gitignored `_work/`) and a filer in its default
    configuration, which follows the master's location pushes.  Writes:
-   `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 4,096) at 001,
-   the same shape at 000 (4,096: the write plane parks each ack until
-   the epoch handshake ran the volume's barrier), 1,024 1 KiB needles
+   `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 2,048) at 001,
+   the same shape at 000 (2,048: the write plane parks each ack until
+   the epoch handshake ran the volume's barrier), 512 1 KiB needles
    and config 1's needles into one volume until it seals; writes/s,
    p50/p99, the native share, the epochs, the barrier's mean batch and
    fsyncs per ack.  A holder of the sealed
@@ -272,9 +272,9 @@ Phases, each printing one JSON line:
    configured from the same file (it dials https with its certificate
    and signs as the roles do).  The volume servers and the filer run
    with `SEAWEEDFS_TPU_READ_CACHE_MB=0`, so every read pass reaches the
-   volumes.  Through the gateway, as `admin`, on 16 threads: 1,024
+   volumes.  Through the gateway, as `admin`, on 16 threads: 512
    objects of 4 KiB over 4 buckets (half in the first, so its listing
-   pages), 32 of 10 MiB (warp's default object size), one multipart
+   pages), 16 of 10 MiB (warp's default object size), one multipart
    upload of 64 MiB in 8 MiB parts, 16 streaming-chunked PUTs of 1 MiB
    and, with `cryptography`, 16 SSE-C PUTs of 64 KiB.  The volume holding
    the most of the objects' chunks is filled with config 1's needles,
@@ -303,8 +303,8 @@ Phases, each printing one JSON line:
    16 client threads on the shared port, the read caches off): 1
    process on the threaded front, `-workers 4` (a pre-fork fleet on one
    port, SO_REUSEPORT) and `-workers 4` on the asyncio front
-   (`SEAWEEDFS_TPU_ASYNC_FRONT=filer`).  Each arm POSTs 1,024 files of
-   1 KiB and 128 of 64 KiB and GETs them back (files/s, p50/p99).  In
+   (`SEAWEEDFS_TPU_ASYNC_FRONT=filer`).  Each arm POSTs 512 files of
+   1 KiB and 64 of 64 KiB and GETs them back (files/s, p50/p99).  In
    the fleets: each sibling's view on one keep-alive connection (the
    write track's stage shares, a GET's and a POST's CPU share of its
    wall, the flight records, the plane drains' records against the
@@ -318,6 +318,18 @@ Phases, each printing one JSON line:
    1, 4, 7 and 9 deleted; every file read degraded through the fleet (0
    launches); `ec.rebuild` on the card (launches against its steps'
    windows); every file read again.
+15. qos_chaos: the QoS plane, the fault sites and the retry policy.  A
+   master, 7 `volume` servers and a filer under one `-securityToml` that
+   carries only `[qos]`; 16 threads of 1 KiB GETs over 4,096 files for
+   the whole phase.  Volume A (1 GiB) `ec.encode`d with the SLO at 0,
+   volume B with the SLO at half the source's throttle signal during A's
+   encode (the SLO loop must pace its windows); A's shards 1, 4, 7 and 9
+   rebuilt on the card through donors armed to truncate (a failover, the
+   shards equal); volumes C and D (256 MiB) scattered with a dropped and a
+   truncated destination (re-planned, nothing on the victim, the short
+   commit refused); lookups through counted retries; a noisy tenant at
+   twice its rate (503 with Retry-After) while the anonymous foreground
+   sees none.  Launches against windows in every encode and rebuild.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -377,7 +389,7 @@ WRITE_MAX_VOLUMES = 8
 WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
 # cut from weed benchmark's 1,048,576: at 65,536 the write phase took 426 s
 # of a 900 s run once read_load joined it (PERF.md §4)
-BENCH_N = 16_384
+BENCH_N = 8_192
 BENCH_SIZE = 1024                # weed benchmark's file size and
 BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
 REPLICATED = 256                 # seeded needles under each of 001 and 010
@@ -389,8 +401,8 @@ SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 RS63 = (6, 3)
 READ_SERVERS = 4
 READ_COLLECTION = "rs63"
-READ_N = 8_192                   # 1 KiB files, cut from weed benchmark's
-READ_SMALL_SAMPLE = 2_048        # 1,048,576; sampled per read pass
+READ_N = 4_096                   # 1 KiB files, cut from weed benchmark's
+READ_SMALL_SAMPLE = 1_024        # 1,048,576; sampled per read pass
 READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
 READ_C = 16                      # weed benchmark's concurrency
 # filer and filer_plane: the port's filer (sqlite store; synchronous
@@ -398,13 +410,13 @@ READ_C = 16                      # weed benchmark's concurrency
 # the card
 FILER_SERVERS = 3
 FILER_COLLECTION = "filer"
-FILER_N = 8_192                  # 1 KiB files through the filer (weed
+FILER_N = 4_096                  # 1 KiB files through the filer (weed
 FILER_DIRS = 64                  # benchmark's shape, n cut), in 64 dirs
-FILER_MULTI = 32                 # files of 8-24 MiB: 2-6 chunks each
-FILER_META_N = 4_096             # chunkless creates, then lookups
-FILER_SMALL_SAMPLE = 2_048       # 1 KiB files read per pass, and
+FILER_MULTI = 16                 # files of 8-24 MiB: 2-6 chunks each
+FILER_META_N = 2_048             # chunkless creates, then lookups
+FILER_SMALL_SAMPLE = 1_024       # 1 KiB files read per pass, and
 FILER_LARGE_SAMPLE = 64          # config 1's needles (read_load's)
-FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 10
+FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 5
 FILER_CRASH_N = 1_024            # filer_plane: files written, then SIGKILL
 
 
@@ -4803,24 +4815,24 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
 # shapes on 3 `volume -fsync` servers of replication 001
 FSYNC_SERVERS = 3
 FSYNC_COLLECTION = "fsync"        # the fill, encoded on the card
-FSYNC_BENCH_N = 4_096             # the benchmark at 001: the Python path
+FSYNC_BENCH_N = 2_048             # the benchmark at 001: the Python path
 #                                   acks ~360 writes/s on the card's host
 #                                   (PERF.md), so BENCH_N would take 90 s
-FSYNC_NATIVE_N = 4_096            # 1 KiB writes of replication 000: the
+FSYNC_NATIVE_N = 2_048            # 1 KiB writes of replication 000: the
 #                                   write plane's epoch handshake
-FSYNC_SMALL_FILL = 1_024          # 1 KiB needles in the fill volume, read
+FSYNC_SMALL_FILL = 512            # 1 KiB needles in the fill volume, read
 #                                   after its encode
 FSYNC_HEDGE_N = 2_048             # 1 KiB reads a hedged pass
 FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
 FSYNC_BUDGET_S = 0.1              # their deadline
-FSYNC_FILER_N = 1_024             # 1 KiB files through the filer
+FSYNC_FILER_N = 512               # 1 KiB files through the filer
 
 SECURE_SERVERS = 3
 SECURE_COLLECTION = "s3"
 SECURE_BUCKETS = 4
-SECURE_SMALL_N = 1_024           # 4 KiB objects over the 4 buckets
+SECURE_SMALL_N = 512             # 4 KiB objects over the 4 buckets
 SECURE_SMALL_SIZE = 4 << 10
-SECURE_LARGE_N = 32              # objects of warp's default --obj.size
+SECURE_LARGE_N = 16              # objects of warp's default --obj.size
 SECURE_LARGE_SIZE = 10 << 20
 SECURE_MP_SIZE = 64 << 20        # one multipart upload, in the AWS
 SECURE_MP_PART = 8 << 20         # CLI's default 8 MiB parts
@@ -6334,8 +6346,8 @@ FLEET_SERVERS = 3
 FLEET_COLLECTION = "fleet"
 FLEET_WORKERS = 4
 FLEET_C = 16                     # client threads an arm
-FLEET_SMALL_N = 1_024            # 1 KiB files an arm
-FLEET_LARGE_N = 128              # 64 KiB files an arm
+FLEET_SMALL_N = 512              # 1 KiB files an arm
+FLEET_LARGE_N = 64               # 64 KiB files an arm
 FLEET_KILL_S = 0.25              # load before a sibling's SIGKILL
 FLEET_LOST = (1, 4, 7, 9)        # data shards deleted before the reads
 # (name, -workers, SEAWEEDFS_TPU_ASYNC_FRONT)
@@ -6955,6 +6967,605 @@ def phase_filer_fleet(tmp: str, seed: int, small_n: int = FLEET_SMALL_N,
     return out
 
 
+QOS_SERVERS = 7
+QOS_COLLECTION = "qos"               # volumes A-D: config 1's needles
+QOS_FG_COLLECTION = "fg"             # the foreground's 1 KiB files
+QOS_FG_N = 4_096
+QOS_FG_C = 16                        # foreground client threads
+QOS_BIG_MB = 1024                    # volumes A and B (config 1's volume)
+QOS_SMALL_MB = 256                   # volumes C and D, cut (PERF.md §4)
+QOS_LOST = (1, 4, 7, 9)              # A's shards deleted before ec.rebuild
+QOS_NOISY_RPS = 20                   # [qos.tenants.noisy]
+QOS_QUIET_S = 2.0                    # foreground alone before an encode
+QOS_SAMPLE = 32                      # C's and D's needles read back
+QOS_TOML = """[qos]
+slo_p99_ms = 1000
+pace_min_ms = 25
+pace_max_ms = 200
+check_interval_ms = 250
+[qos.tenants.noisy]
+rps = {rps}
+burst = {rps}
+"""
+
+
+def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
+                    big_mb: int = QOS_BIG_MB, small_mb: int = QOS_SMALL_MB,
+                    device: str = "cuda") -> dict:
+    """The QoS plane, the fault sites and the retry policy on the card's
+    encode and rebuild.  A master, 7 `volume` servers and a filer, all
+    started with one `-securityToml` that carries only `[qos]` (an SLO,
+    `pace_min_ms = 25`, `pace_max_ms = 200`, `check_interval_ms = 250`
+    and a `[qos.tenants.noisy]` rate limit).  A foreground runs for the
+    whole phase: 16 threads GET 4,096 1 KiB needles with the pooled
+    client, from each volume's native read plane (a fallback 404 replayed
+    on its Python port).  Steps, each printed on its JSON line:
+    1. the unpaced arm: volume A filled with config 1's needles to
+       1 GiB, the SLO set to 0 on every volume server (`POST /debug/qos`),
+       `ec.encode` on the card under the foreground (wall, launches
+       against windows, the foreground's p50/p99 before and during, the
+       source's throttle signal during);
+    2. the paced arm: volume B the same, with the SLO at half the
+       source's throttle signal of step 1: `qos_ec_paced_total{kind=
+       "encode"}` must move by the SLO loop alone (no `paceMs` is ever
+       set), and the pace's peak is read off `/debug/qos`;
+    3. A's shards 1, 4, 7 and 9 deleted, `volume.shard_read.serve=
+       truncate,n=1` armed on every donor, `ec.rebuild` on the card: at
+       least one failover, launches equal to the windows, every rebuilt
+       shard equal to the lost one;
+    4. volume C (256 MiB) encoded with `ec.encode.window=drop,n=1,match=
+       <victim>` on its source: the scatter is re-planned (counted), no
+       shard lands on the victim, a sample of C's needles reads back;
+    5. volume D (256 MiB) with `ec.encode.window=truncate,n=1,match=
+       <victim>`: re-planned, nothing of D on the victim, no temp file
+       left, and a short upload committed with its promised count is
+       refused (409, "mismatch");
+    6. lookups through the retries: `httpd.pool.request=error,n=3` to
+       the master armed in this process and `master.lookup=delay` on the
+       master; the reads succeed, the retries are counted, the budget
+       drops; then `master.lookup=error,n=2` answers two lookups with an
+       error (not retried: an answer, not a transport failure);
+    7. `X-Tenant: noisy` at twice its rate against the filer: 503 with
+       `Retry-After`, counted in `qos_rejected_total{reason="rate"}`,
+       while the anonymous foreground sees no 503.
+    Every step clears the faults on every role."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import faults, operation, stats
+    from seaweedfs_tpu_torch.server.httpd import (http_bytes, http_json,
+                                                  http_stream_request)
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.storage.types import FileId
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+    from seaweedfs_tpu_torch.util import retry
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = QOS_COLLECTION
+    toml = os.path.join(tmp, "security.toml")
+    with open(toml, "w") as f:
+        f.write(QOS_TOML.format(rps=QOS_NOISY_RPS))
+    sec = ["-securityToml", toml]
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(QOS_SERVERS)]
+    for dd in dirs:
+        os.makedirs(dd)
+    procs: list = []
+    steps: dict = {}
+    fg_log: list = []             # (start, ms, status) of every fg GET
+    fg_lock = threading.Lock()
+    fg_stop = threading.Event()
+    ctx = ECContext(d, p, device="cpu")
+
+    def get(path):
+        return http_json("GET", f"{murl}{path}", timeout=30)
+
+    def poll(cond, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < end, f"timed out: {what}")
+            time.sleep(0.05)
+
+    def lever(url, route, body):
+        r = http_json("POST", f"{url}/debug/{route}", body, timeout=30)
+        check("error" not in r, f"{url}/debug/{route} {body}: {r}")
+        return r
+
+    def clear_faults():
+        for u in [murl, furl, *urls]:
+            lever(u, "faults", {"clear": True})
+        faults.reset()
+
+    def metric(url, name, **labels):
+        text = http_bytes("GET", f"{url}/metrics", timeout=60)[1].decode()
+        return sum(v for lb, v in _full_samples(text, name)
+                   if all(lb.get(k) == w for k, w in labels.items()))
+
+    def fg_window(t0, t1) -> dict:
+        with fg_lock:
+            got = [(ms, st) for t, ms, st in fg_log if t0 <= t < t1]
+        ms = [m for m, _ in got]
+        check(ms, "the foreground made no request in a window")
+        with fg_lock:
+            span = min(t1, fg_log[-1][0]) - max(t0, fg_log[0][0])
+        return {"requests": len(ms),
+                "rps": len(ms) / max(span, 1e-9),
+                "status_503": sum(st == 503 for _, st in got),
+                "errors": sum(st not in (200, 503) for _, st in got),
+                **_pcts(ms)}
+
+    def foreground(fids, planes, rng_seed):
+        rng = np.random.default_rng(rng_seed)
+        while not fg_stop.is_set():
+            fid, url = fids[int(rng.integers(len(fids)))]
+            host = url.rsplit(":", 1)[0]
+            t = time.perf_counter()
+            try:
+                st, body, _ = http_bytes(
+                    "GET", f"{host}:{planes[url]}/{fid}", timeout=30)
+                if st == 404:
+                    st, body, _ = http_bytes("GET", f"{url}/{fid}",
+                                             timeout=30)
+            except OSError:
+                st = -1
+            ms = (time.perf_counter() - t) * 1e3
+            with fg_lock:
+                fg_log.append((t, ms, st))
+
+    def fill(vid, url, target_mb, seed_off):
+        ddir = dirs[urls.index(url)]
+        dat = os.path.join(ddir, f"{coll}_{vid}.dat")
+        frng = np.random.default_rng([seed, seed_off])
+        lock = threading.Lock()
+        out: list = []
+        stop = threading.Event()
+        counter = itertools.count(1)
+
+        def filler():
+            while not stop.is_set():
+                a = operation.assign(murl, collection=coll)
+                with lock:
+                    nid = next(counter)
+                    size = int(frng.integers(256 << 10, 4 << 20))
+                fid = str(FileId(vid, int(a.fid.split(",")[1][:-8], 16),
+                                 _cookie(nid)))
+                operation.upload(url, fid, _payload(seed + seed_off, nid,
+                                                    size))
+                with lock:
+                    out.append((fid, nid, size))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            futs = [pool.submit(filler) for _ in range(FILL_WRITERS)]
+            try:
+                while not any(f.done() for f in futs) and \
+                        os.path.getsize(dat) < target_mb << 20:
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+            for f in futs:
+                f.result()
+        size = os.path.getsize(dat)
+        poll(lambda: all(v["size"] == size for _n, v in
+                         iter_volume_list_volumes(get("/vol/list"))
+                         if v["id"] == vid), f"the master sees {vid}'s size")
+        return {"volume": vid, "needles": len(out), "bytes": size,
+                "seconds": time.perf_counter() - t}, out
+
+    def enc_windows(size):
+        return sum(launches_for(d, item[3]) for item in
+                   ec_encoder._encode_work_items(size, ctx))
+
+    def ec_locs(vid):
+        return {x["url"]: x["shardIds"] for x in get(
+            f"/dir/ec_lookup?volumeId={vid}").get("shardIdLocations", [])}
+
+    def encode(vid, what):
+        before = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={vid} -collection={coll}; "
+                 f"unlock")
+        secs = time.perf_counter() - t
+        launches = int(_counters(urls)["launches"] - before)
+        check("scatter-encoded 14 shards" in out[1], f"{what}: {out}")
+        poll(lambda: sorted(s for ids in ec_locs(vid).values()
+                            for s in ids) == list(range(d + p)),
+             f"{what}: 14 shards listed")
+        return secs, launches, out[1].strip()
+
+    def watch_source(url, samples, stop):
+        while not stop.is_set():
+            try:
+                th = http_json("GET", f"{url}/debug/qos",
+                               timeout=10)["throttle"]
+                samples.append((time.perf_counter(), th["lastP99Ms"],
+                                th["paceMs"]))
+            except OSError:
+                pass
+            stop.wait(0.1)
+
+    def encode_arm(vid, url, what):
+        samples: list = []
+        stop = threading.Event()
+        paced0 = metric(url, "seaweedfs_tpu_qos_ec_paced_total",
+                        kind="encode")
+        time.sleep(QOS_QUIET_S)
+        t_enc = time.perf_counter()
+        w = threading.Thread(target=watch_source, args=(url, samples, stop))
+        w.start()
+        try:
+            secs, launches, msg = encode(vid, what)
+        finally:
+            stop.set()
+            w.join(timeout=30)
+        t_end = time.perf_counter()
+        sig = [s[1] for s in samples if t_enc <= s[0] <= t_end and s[1] > 0]
+        return {"volume": vid, "source": url, "seconds": secs,
+                "launches": launches, "message": msg,
+                "foreground_before": fg_window(t_enc - QOS_QUIET_S, t_enc),
+                "foreground_during": fg_window(t_enc, t_end),
+                "source_signal_p99_ms": {
+                    "samples": len(sig),
+                    "median": statistics.median(sig) if sig else 0.0,
+                    "max": max(sig) if sig else 0.0},
+                "pace_ms_peak": max((s[2] for s in samples), default=0.0),
+                "paced_windows": int(metric(
+                    url, "seaweedfs_tpu_qos_ec_paced_total",
+                    kind="encode") - paced0)}
+
+    furl = ""
+    try:
+        (murl,) = _start_procs(
+            [[*sec, "master", "-port", "0", "-volumeSizeLimitMB",
+              str(big_mb)]], [os.path.join(tmp, "master.log")], procs,
+            "master")
+        urls = _start_procs(
+            [[*sec, "volume", "-dir", dd, "-port", "0", "-mserver", murl,
+              "-max", str(WRITE_MAX_VOLUMES), "-device", device]
+             for dd in dirs], [dd + ".log" for dd in dirs], procs, "volume")
+        (furl,) = _start_procs(
+            [[*sec, "filer", "-port", "0", "-master", murl, "-store",
+              os.path.join(tmp, "filer.db")]],
+            [os.path.join(tmp, "filer.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n")
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "7 volume servers registered")
+        for u in [murl, furl, *urls]:
+            snap = http_json("GET", f"{u}/debug/qos", timeout=30)
+            check(snap["config"]["tenants"].get("noisy", {}).get("rps") ==
+                  QOS_NOISY_RPS and snap["config"]["sloP99Ms"] == 1000,
+                  f"{u} did not load [qos]: {snap['config']}")
+        env = commands.CommandEnv(murl)
+        start_s = time.perf_counter() - phase_t0
+
+        # the foreground's files, and each server's read plane
+        t = time.perf_counter()
+        with ThreadPoolExecutor(QOS_FG_C) as pool:
+            fg_fids = list(pool.map(
+                lambda i: operation.submit(murl, _payload(seed + 90, i, 1024),
+                                           collection=QOS_FG_COLLECTION),
+                range(fg_n)))
+        fg_write_s = time.perf_counter() - t
+        planes = {u: http_json("GET", f"{u}/status", timeout=30).get(
+            "readPlanePort") or int(u.rsplit(":", 1)[1]) for u in urls}
+        locs = {}
+        fids = []
+        for fid in fg_fids:
+            vid = int(fid.split(",")[0])
+            if vid not in locs:
+                locs[vid] = operation.lookup(murl, vid)[0]["url"]
+            fids.append((fid, locs[vid]))
+        for fid, _u in fids[:64]:
+            check(operation.read(murl, fid) ==
+                  _payload(seed + 90, fg_fids.index(fid), 1024),
+                  f"foreground file {fid}")
+        fg_threads = [threading.Thread(target=foreground,
+                                       args=(fids, planes, seed + i))
+                      for i in range(QOS_FG_C)]
+        for th in fg_threads:
+            th.start()
+
+        # volumes A-D: a growth of 7, one on each server
+        _post(f"{murl}/vol/grow", {"collection": coll, "count": QOS_SERVERS},
+              "qos-grow")
+        vols = sorted((v["id"], n) for n, v in
+                      iter_volume_list_volumes(get("/vol/list"))
+                      if v.get("collection") == coll)
+        check(len(vols) >= 4, f"the {coll} collection grew {vols}")
+        by_vid = {}
+        for vid, _n in vols:
+            (loc,) = operation.lookup(murl, vid, use_cache=False)
+            by_vid[vid] = loc["url"]
+        picked, seen_urls = [], set()
+        for vid in sorted(by_vid):
+            if by_vid[vid] not in seen_urls and len(picked) < 4:
+                picked.append(vid)
+                seen_urls.add(by_vid[vid])
+        check(len(picked) == 4, f"four volumes on four servers: {by_vid}")
+        va, vb, vc, vd = picked
+
+        # 1. the unpaced arm
+        fill_a, _ = fill(va, by_vid[va], big_mb, 1)
+        for u in urls:
+            lever(u, "qos", {"sloP99Ms": 0})
+        arm1 = encode_arm(va, by_vid[va], "unpaced encode of A")
+        arm1["windows"] = enc_windows(fill_a["bytes"])
+        arm1["fill"] = fill_a
+        check(arm1["launches"] == arm1["windows"],
+              f"A: {arm1['launches']} launches, {arm1['windows']} windows")
+        check(arm1["paced_windows"] == 0, f"the unpaced arm paced: {arm1}")
+        steps["unpaced"] = arm1
+        emit({"phase": "qos_chaos", "step": "unpaced", **arm1})
+
+        # 2. the paced arm: the SLO at half the source's signal in step 1
+        fill_b, _ = fill(vb, by_vid[vb], big_mb, 2)
+        slo = arm1["source_signal_p99_ms"]["median"] / 2
+        check(slo > 0, f"step 1 saw no foreground signal: {arm1}")
+        for u in urls:
+            lever(u, "qos", {"sloP99Ms": slo})
+        arm2 = encode_arm(vb, by_vid[vb], "paced encode of B")
+        for u in urls:
+            lever(u, "qos", {"sloP99Ms": 0})
+        arm2["windows"] = enc_windows(fill_b["bytes"])
+        arm2["fill"] = fill_b
+        arm2["slo_p99_ms"] = slo
+        check(arm2["launches"] == arm2["windows"],
+              f"B: {arm2['launches']} launches, {arm2['windows']} windows")
+        check(arm2["paced_windows"] > 0 and arm2["pace_ms_peak"] > 0,
+              f"the SLO loop never paced B's windows: {arm2}")
+        steps["paced"] = arm2
+        emit({"phase": "qos_chaos", "step": "paced", **arm2})
+
+        # 3. a rebuild of A whose donors truncate their first serve
+        t3 = time.perf_counter()
+        shard_paths = {}
+        for i in QOS_LOST:
+            name = f"{coll}_{va}" + ECContext().to_ext(i)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_paths[i] = (path, sha256_file(path))
+        for u, ids in ec_locs(va).items():
+            gone = [s for s in ids if s in QOS_LOST]
+            if gone:
+                _post(f"{u}/admin/ec/delete_shards",
+                      {"volumeId": va, "collection": coll,
+                       "shardIds": gone}, f"qos-loss-{u}")
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) ==
+             [s for s in range(d + p) if s not in QOS_LOST],
+             "the master lists 10 shards of A")
+        for u in urls:
+            lever(u, "faults", {"spec": "volume.shard_read.serve="
+                                        "truncate,n=1"})
+        shard_size = int(http_json(
+            "GET", f"{next(iter(ec_locs(va)))}/admin/ec/info?volumeId="
+                   f"{va}", timeout=30)["shardSize"])
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_expect = sum(launches_for(d, min(step, shard_size - pos))
+                         for pos in range(0, shard_size, step))
+        c0 = _counters(urls)
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={va} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        dlt = _delta(_counters(urls), c0)
+        check(f"rebuilt shards {list(QOS_LOST)} on " in out[1],
+              f"rebuild of A: {out}")
+        fired = sum(http_json("GET", f"{u}/debug/faults", timeout=30)
+                    ["triggered"].get("volume.shard_read.serve", 0)
+                    for u in urls)
+        clear_faults()
+        check(dlt["failovers"] >= 1 and fired >= 1,
+              f"no failover in the rebuild: {dlt}, {fired} truncations")
+        check(dlt["launches"] == reb_expect,
+              f"the rebuild launched {dlt['launches']}, its windows are "
+              f"{reb_expect}")
+        for i, (path, sha) in shard_paths.items():
+            name = os.path.basename(path)
+            (now,) = [os.path.join(dd, name) for dd in dirs
+                      if os.path.exists(os.path.join(dd, name))]
+            check(sha256_file(now) == sha, f"rebuilt shard {i} differs")
+        steps["rebuild"] = {
+            "volume": va, "lost": list(QOS_LOST), "seconds": reb_s,
+            "launches": dlt["launches"], "windows": reb_expect,
+            "failovers": dlt["failovers"], "truncations": fired,
+            "rebuilt_equal": len(QOS_LOST),
+            "foreground": fg_window(t, t + reb_s)}
+        emit({"phase": "qos_chaos", "step": "rebuild", **steps["rebuild"]})
+
+        def faulted_scatter(vid, fill_seed, directive, what):
+            meta, needles = fill(vid, by_vid[vid], small_mb, fill_seed)
+            source = by_vid[vid]
+            victim = next(u for u in urls if u != source)
+            lever(source, "faults", {"spec": f"ec.encode.window={directive},"
+                                             f"n=1,match={victim}"})
+            replans0 = metric(source, "volume_server_ec_scatter_replans_total")
+            secs, launches, msg = encode(vid, what)
+            fired = http_json("GET", f"{source}/debug/faults",
+                              timeout=30)["triggered"].get(
+                                  "ec.encode.window", 0)
+            clear_faults()
+            placed = ec_locs(vid)
+            windows = enc_windows(meta["bytes"])
+            replans = int(metric(
+                source, "volume_server_ec_scatter_replans_total") - replans0)
+            check(fired >= 1, f"{what}: the {directive} never fired")
+            check(victim not in placed, f"{what}: a shard on the victim "
+                                        f"{victim}: {placed}")
+            check(replans >= 1, f"{what}: no replan counted")
+            check(launches >= windows,
+                  f"{what}: {launches} launches under {windows} windows")
+            vdir = dirs[urls.index(victim)]
+            check(not any(n.startswith(f"{coll}_{vid}.")
+                          for n in os.listdir(vdir)),
+                  f"{what}: files of {vid} on the victim")
+            for fid, nid, size in needles[:QOS_SAMPLE]:
+                check(operation.read(murl, fid) ==
+                      _payload(seed + fill_seed, nid, size),
+                      f"{what}: {fid} reads back different")
+            return {"volume": vid, "source": source, "victim": victim,
+                    "fill": meta, "seconds": secs, "launches": launches,
+                    "windows": windows, "replans": replans,
+                    "generate_calls": replans + 1,
+                    "codec_reruns": launches / max(windows, 1),
+                    "fired": fired, "read_back_equal": QOS_SAMPLE,
+                    "message": msg}
+
+        # 4. a destination dropped mid-scatter
+        steps["scatter_drop"] = faulted_scatter(vc, 3, "drop",
+                                                "scatter of C")
+        emit({"phase": "qos_chaos", "step": "scatter_drop",
+              **steps["scatter_drop"]})
+
+        # 5. a truncated stream, then the commit handshake itself
+        trunc = faulted_scatter(vd, 4, "truncate", "scatter of D")
+        victim = trunc["victim"]
+        st, _ = http_stream_request(
+            "POST", f"{victim}/admin/ec/shard_write?volumeId=9999&shardId=0"
+                    f"&collection={coll}&uploadId=qoschaos0",
+            iter([b"x" * 1024]), timeout=30)
+        check(st == 200, f"the short upload: {st}")
+        st, body, _ = http_bytes(
+            "POST", f"{victim}/admin/ec/shard_write_commit",
+            json.dumps({"volumeId": 9999, "collection": coll,
+                        "uploadId": "qoschaos0", "shardId": 0, "crc32": 1,
+                        "bytes": 4096, "mount": True}).encode(),
+            {"Content-Type": "application/json"}, timeout=30)
+        check(st == 409 and b"mismatch" in body,
+              f"the short shard was not refused: {st} {body[:200]!r}")
+        check("error" in http_json("GET", f"{victim}/admin/ec/info?"
+                                          f"volumeId=9999", timeout=30),
+              "the refused shard was mounted")
+        left = [n for dd in dirs for n in os.listdir(dd)
+                if ".scatter." in n or ".recv." in n]
+        check(not left, f"temp files left: {left}")
+        trunc.update({"commit_refused": {"status": st,
+                                         "body": body[:120].decode()},
+                      "temp_files_left": 0})
+        steps["scatter_truncate"] = trunc
+        emit({"phase": "qos_chaos", "step": "scatter_truncate", **trunc})
+
+        # 6. lookups through the retry policy
+        operation._vid_cache._m.clear()
+        retry.reset()
+        r0 = stats.PROCESS.counter_sum("retry_attempts_total",
+                                       site="httpd.pool")
+        faults.arm_spec(f"httpd.pool.request=error,n=3,"
+                        f"match={murl}/dir/lookup")
+        lever(murl, "faults", {"spec": "master.lookup=delay,ms=100,n=2"})
+        t = time.perf_counter()
+        sample = fids[:8]
+        for fid, _u in sample:
+            operation._vid_cache._m.clear()
+            check(operation.read(murl, fid) ==
+                  _payload(seed + 90, fg_fids.index(fid), 1024),
+                  f"lookup retry read {fid}")
+        retries = stats.PROCESS.counter_sum("retry_attempts_total",
+                                            site="httpd.pool") - r0
+        budget = retry.budget_remaining()
+        lookup_faults = http_json("GET", f"{murl}/debug/faults",
+                                  timeout=30)["triggered"]
+        client_fired = faults.triggered().get("httpd.pool.request", 0)
+        clear_faults()
+        lever(murl, "faults", {"spec": "master.lookup=error,n=2"})
+        refused = 0
+        for _ in range(3):
+            try:
+                operation.lookup(murl, va, use_cache=False)
+            except LookupError:
+                refused += 1
+        clear_faults()
+        check(client_fired == 3 and retries >= 1,
+              f"the lookups rode no retry: {retries}, {client_fired}")
+        check(budget < 64, f"the retry budget did not move: {budget}")
+        check(refused == 2, f"master.lookup=error,n=2 refused {refused}")
+        steps["lookups"] = {"reads": len(sample), "retries": int(retries),
+                            "client_faults": client_fired,
+                            "master_lookup_delays":
+                                lookup_faults.get("master.lookup", 0),
+                            "retry_budget_remaining": budget,
+                            "lookup_errors_answered": refused,
+                            "seconds": time.perf_counter() - t}
+        emit({"phase": "qos_chaos", "step": "lookups", **steps["lookups"]})
+
+        # 7. the noisy tenant at twice its rate against the filer
+        path = "/qos/noisy.bin"
+        st, _, _ = http_bytes("POST", f"{furl}{path}", b"q" * 1024,
+                              timeout=30)
+        check(st == 201, f"filer POST: {st}")
+        codes = []
+        retry_after = set()
+        t7 = time.perf_counter()
+        n7 = 4 * QOS_NOISY_RPS          # two seconds at twice the rate
+        for i in range(n7):
+            target = t7 + i / (2 * QOS_NOISY_RPS)
+            time.sleep(max(0.0, target - time.perf_counter()))
+            st, _, hdrs = http_bytes("GET", f"{furl}{path}",
+                                     headers={"X-Tenant": "noisy"},
+                                     timeout=30)
+            codes.append(st)
+            if st == 503:
+                retry_after.add(hdrs.get("Retry-After"))
+        t7e = time.perf_counter()
+        anon = [http_bytes("GET", f"{furl}{path}", timeout=30)[0]
+                for _ in range(32)]
+        rejected = metric(furl, "seaweedfs_tpu_qos_rejected_total",
+                          tenant="noisy", reason="rate")
+        fgw = fg_window(t7, t7e)
+        check(codes.count(503) > 0 and codes.count(200) > 0,
+              f"the noisy tenant's codes: {codes}")
+        check(all(ra and int(ra) >= 1 for ra in retry_after),
+              f"Retry-After: {retry_after}")
+        check(rejected >= codes.count(503),
+              f"qos_rejected_total {rejected} < {codes.count(503)}")
+        check(all(c == 200 for c in anon), f"anonymous filer GETs: {anon}")
+        steps["tenant"] = {"noisy_requests": n7,
+                           "noisy_rps": n7 / (t7e - t7),
+                           "limit_rps": QOS_NOISY_RPS,
+                           "admitted": codes.count(200),
+                           "rejected_503": codes.count(503),
+                           "retry_after": sorted(retry_after),
+                           "qos_rejected_total": rejected,
+                           "anonymous_filer_503": anon.count(503),
+                           "foreground": fgw}
+        emit({"phase": "qos_chaos", "step": "tenant", **steps["tenant"]})
+    finally:
+        fg_stop.set()
+        for th in locals().get("fg_threads", []):
+            th.join(timeout=60)
+        faults.reset()
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a server of the qos cluster did not stop: {bad}")
+    whole = fg_window(0.0, float("inf"))
+    check(whole["status_503"] == 0 and whole["errors"] == 0,
+          f"the anonymous foreground saw 503s or errors: {whole}")
+    out = {"phase": "qos_chaos", "servers": QOS_SERVERS,
+           "client_threads": QOS_FG_C, "foreground_files": fg_n,
+           "cuts": {"volumes_a_b_mb": big_mb, "volumes_c_d_mb": small_mb,
+                    "servers": {"run": QOS_SERVERS, "why": "one host"}},
+           "cluster_start_seconds": start_s,
+           "foreground_write_seconds": fg_write_s,
+           "foreground": whole, "steps": steps,
+           "launches": {
+               "encode": steps["unpaced"]["launches"] +
+               steps["paced"]["launches"],
+               "rebuild": steps["rebuild"]["launches"],
+               "scatter": steps["scatter_drop"]["launches"] +
+               steps["scatter_truncate"]["launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -7020,6 +7631,8 @@ def main(argv=None) -> int:
                        os.path.join(work, "secure_s3"), args.seed)
         fleet = timed("filer_fleet", phase_filer_fleet,
                       os.path.join(work, "filer_fleet"), args.seed)
+        qchaos = timed("qos_chaos", phase_qos_chaos,
+                       os.path.join(work, "qos_chaos"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -7054,7 +7667,10 @@ def main(argv=None) -> int:
               "secure_s3_reads": secure["launches"]["reads"],
               "filer_fleet_encode": fleet["launches"]["encode"],
               "filer_fleet_rebuild": fleet["launches"]["rebuild"],
-              "filer_fleet_reads": fleet["launches"]["reads"]}),
+              "filer_fleet_reads": fleet["launches"]["reads"],
+              "qos_chaos_encode": qchaos["launches"]["encode"],
+              "qos_chaos_rebuild": qchaos["launches"]["rebuild"],
+              "qos_chaos_scatter": qchaos["launches"]["scatter"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

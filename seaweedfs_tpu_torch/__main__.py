@@ -178,21 +178,18 @@ white_list = []
 
 
 def _load_security(path: str) -> "str | None":
-    """Configure the process from security.toml; an error message when
-    the file cannot be used (a `[qos]` section: QoS is not ported)."""
-    from . import security
+    """Configure the process from security.toml, and QoS from its `[qos]`
+    section (tenant admission limits and the EC throttle's foreground
+    SLO); an error message when the file cannot be used (a malformed
+    `[qos]` included)."""
+    from . import qos, security
     try:
-        import tomllib
-    except ModuleNotFoundError:      # py<3.11: the tomli backport
-        import tomli as tomllib
-    try:
-        with open(path, "rb") as f:
-            if "qos" in tomllib.load(f):
-                return (f"{path}: the [qos] section is not ported "
-                        f"(ROADMAP A10); remove it to start")
         security.configure(security.load_security_toml(path))
+        qos_cfg = qos.load_qos_toml(path)
     except (OSError, ValueError) as e:
         return f"-securityToml {path}: {e}"
+    if qos_cfg is not None:
+        qos.configure(qos_cfg)
     return None
 
 

@@ -584,6 +584,9 @@ class Filer:
         the blob is cache-worthy: the WHOLE chunk is fetched once and
         the view sliced out of it, since the next read usually wants
         another slice of the same blob."""
+        # an armed fault fires before the cache answers; keyed by the fid
+        from .. import faults
+        faults.fire("filer.chunk.fetch", key=view.file_id)
         cc = self.chunk_cache
         if cc is not None and 0 < view.chunk_size <= \
                 self.CHUNK_CACHE_ITEM_MAX:

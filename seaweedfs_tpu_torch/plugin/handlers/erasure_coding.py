@@ -212,9 +212,15 @@ class EcEncodeHandler(JobHandler):
         ctx = self._make_ctx(params, collection, vid)
         urls = self._lookup_urls(worker, vid)
         base = os.path.join(worker.work_dir, f"{vid}")
+        # the worker serves no foreground of its own: for the job's
+        # length its throttle watches the volume servers it hammers (a
+        # no-op unless an SLO is configured)
+        from ... import qos
         try:
-            placement = self._encode_and_distribute(
-                worker, job_id, vid, collection, ctx, urls, urls[0], base)
+            with qos.remote_slo_watch(urls):
+                placement = self._encode_and_distribute(
+                    worker, job_id, vid, collection, ctx, urls, urls[0],
+                    base)
         except Exception:
             self._unwind_volumes(worker, collection, ctx, {vid: urls})
             raise
@@ -230,7 +236,9 @@ class EcEncodeHandler(JobHandler):
         a placement), planned and driven by the port shell's
         `_do_ec_encode` under the cluster admin lease, so placement
         cannot interleave with an operator's balance.  Volume bytes go
-        from the source to the destinations, never through here."""
+        from the source to the destinations, never through here, and
+        the source's own throttle (which samples its foreground) paces
+        its windows."""
         from ...shell.commands import _do_ec_encode
         from .balance import _LockedShellRun
         vid = int(params["volumeId"])

@@ -1053,6 +1053,15 @@ class PlaneRecordSink:
                 "plane_stage_seconds", _PLANE_STAGE_BUCKETS,
                 plane=plane, stage=s)
             for s in stage_names]
+        # each record's wall on request_seconds' buckets: the foreground
+        # signal the QoS throttle samples beside the Python front's
+        from .stats import DEFAULT_BUCKETS
+        self._wall_obs = self.metrics.observer(
+            "plane_request_seconds", DEFAULT_BUCKETS,
+            help_text="native-plane request wall (sum of its stages), "
+                      "drained from the C++ flight ring", plane=plane)
+        self._wall_batch_obs = self.metrics.batch_observer(
+            "plane_request_seconds", DEFAULT_BUCKETS, plane=plane)
         self.records = 0
         self.captures = 0
 
@@ -1117,6 +1126,7 @@ class PlaneRecordSink:
             for obs, s in zip(self._stage_obs, stage_s):
                 if s > 0.0:
                     obs(s)
+            self._wall_obs(wall)
             if self.tracker is not None:
                 self.tracker.note(wall)
             if not rec_on:
@@ -1166,6 +1176,7 @@ class PlaneRecordSink:
         for i, obs_b in enumerate(self._stage_batch_obs):
             col = stage_s[:, i]
             obs_b(col[col > 0.0])
+        self._wall_batch_obs(wall)
         if self.tracker is not None:
             self.tracker.note_many(wall.tolist())
         self.records += n

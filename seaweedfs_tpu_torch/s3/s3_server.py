@@ -140,6 +140,13 @@ class S3ApiServer:
             lambda req: (200, (self.metrics.render().encode(),
                                {"Content-Type":
                                 "text/plain; version=0.0.4"})))
+        # QoS: tenant admission at the tenant-facing edge (the tenant is
+        # the SigV4 access key), and this gateway's request_seconds is a
+        # foreground source of the process's EC throttle
+        from .. import qos
+        qos.install(self.http, "s3")
+        qos.throttle().add_metrics(f"s3:{self.http.port}", self.metrics)
+        qos.throttle().maybe_start()
 
     def _path_lock(self, path: str) -> "threading.Lock":
         return self._stripes[hash(path) % len(self._stripes)]
@@ -149,6 +156,8 @@ class S3ApiServer:
         return self
 
     def stop(self):
+        from .. import qos
+        qos.throttle().remove_source(f"s3:{self.http.port}")
         self.http.stop()
 
     @property
@@ -1324,7 +1333,11 @@ class S3ApiServer:
                 return 416, (b"", {"Content-Range":
                                    f"bytes */{total}"})
             start, size = parsed if parsed is not None else (0, total)
-            body = stream_open(entry, start, size)
+            from .. import qos
+            release, deny = qos.charge_response(req, size, "s3")
+            if deny is not None:
+                return deny
+            body = stream_open(entry, start, size, on_close=release)
             headers["Content-Length"] = str(size)
             if parsed is not None:
                 headers["Content-Range"] = \
@@ -1353,7 +1366,13 @@ class S3ApiServer:
             # the server — full ciphertext + plaintext resident — so
             # it must spend the same in-flight-byte budget the
             # streamed path does, not evade it
+            from .. import qos
+            release, deny = qos.charge_response(req, len(data), "s3")
+            if deny is not None:
+                return deny
             headers["Content-Length"] = str(len(data))
+            if release is not None:
+                return status, (qos.MeteredBody(data, release), headers)
             return status, (data, headers)
         return 200, (data, headers)
 

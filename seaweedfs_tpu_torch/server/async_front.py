@@ -11,9 +11,10 @@ guard (`admin_guard`), the deadline plane, tracing and the request id,
 `requests_in_flight`, `request_seconds` and `request_cpu_seconds`, the
 flight recorder, the `(body, headers)` and `(body, content type)`
 payload forms and any method (OPTIONS included), and under `[tls]` the
-server context.  `SEAWEEDFS_TPU_ASYNC_FRONT=filer` (or `1`) selects it
-for the filer (`httpd.async_front_roles`); the threaded server stays
-the default.  There is no QoS admission hook (QoS is not ported).
+server context, and its QoS `admission` hook (`qos.install`), whose
+release runs once the response was written.
+`SEAWEEDFS_TPU_ASYNC_FRONT=filer` (or `1`) selects it for the filer
+(`httpd.async_front_roles`); the threaded server stays the default.
 
 Handler-facing requests duck-type httpd.Request: `.method`, `.path`,
 `.query`, `.headers` (case-insensitive), `.body` (read on the loop
@@ -38,7 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from .. import profiling, tracing
 from ..util import deadline
-from .httpd import HANDSHAKE_TIMEOUT, normalize_payload
+from .httpd import HANDSHAKE_TIMEOUT, _run_release, normalize_payload
 
 _MAX_HEADER = 64 << 10
 
@@ -298,7 +299,7 @@ class AsyncFront:
         """Everything between the framing and the response write, on a
         pool thread, in the threaded server's order: the request id, the
         deadline (504 for a spent budget before anything else), the
-        server span, the guard, the route.  It runs inside the request's
+        server span, QoS admission, the guard, the route.  It runs inside the request's
         own context (`_dispatch`), so the deadline, request id, flight
         notes and stage track it binds are the request's alone; the
         flight-recorder material comes back with the answer."""
@@ -322,7 +323,7 @@ class AsyncFront:
                                 trace_id=rid)
         if dl is not None:
             sp.set("deadlineMs", int(dl.remaining() * 1e3))
-        status, payload, verdict = outer._answer(req, dl, sp)
+        status, payload, verdict, release = outer._answer(req, dl, sp)
         # the CPU and the track's summary are taken whether or not the
         # recorder is armed (request_cpu_seconds does not depend on it,
         # and a summary left behind would go to a later request)
@@ -331,7 +332,7 @@ class AsyncFront:
         flight = None
         if flight_on:
             flight = (verdict, dl, summary, profiling.take_flight_notes())
-        return status, payload, sp, rid, cpu, flight
+        return status, payload, sp, rid, cpu, flight, release
 
     async def _dispatch(self, req: AsyncRequest,
                         writer: asyncio.StreamWriter) -> bool:
@@ -344,13 +345,14 @@ class AsyncFront:
         stream_body = None
         cpu = None
         flight = None
+        release = None
         # one context per request, for the handler and for every read of
         # a streamed body: a filer GET fetches its chunks inside `read`,
         # under the request's deadline and notes, not under those that
         # the pool thread's last request left behind
         ctx = contextvars.copy_context()
         try:
-            status, payload, sp, rid, cpu, flight = \
+            status, payload, sp, rid, cpu, flight, release = \
                 await loop.run_in_executor(self._pool, ctx.run,
                                            self._sync_process, req)
             body, ctype, extra = normalize_payload(payload)
@@ -392,6 +394,7 @@ class AsyncFront:
                     stream_body.close()
                 except OSError:
                     pass
+            _run_release(release)
             if sp is not None:
                 sp.set("status", status)
                 sp.finish()

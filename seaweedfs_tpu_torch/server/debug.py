@@ -8,7 +8,8 @@ pprof endpoint).  Every `/debug/` path is an admin path: the owner's
   GET /debug/profile?seconds=N a one-off sampling profile (text, N <= 30)
   GET /debug/traces?request_id=R  the spans of one trace in this
       process's ring, or the newest (?limit=N, default 200)
-  GET /debug/health            the per-peer breakers (util/retry)
+  GET /debug/health            the per-peer breakers and the retry
+      budget left (util/retry)
   GET/POST /debug/pprof        the sampling profiler (profiling.Sampler):
       POST {"action": "start", "hz": N} arms it, {"action": "stop"}
       disarms it and answers the final snapshot, {"action": "reset"}
@@ -23,8 +24,21 @@ pprof endpoint).  Every `/debug/` path is an admin path: the owner's
       CPU sampling and recorder ({"disarmed": bool, "scope":
       "all"|"plane"|"drain"}).
 
-`/debug/faults` and `/debug/qos` are not ported: the fault sites and
-QoS are not (they answer 404).
+  GET/POST /debug/faults       the failpoint plane (faults.py): GET lists
+      the arms and the trigger counts; POST {"spec": "site=action,..."},
+      {"site": ..., "action": ..., "p"/"n"/"ms"/"seed"/"match"} arms,
+      {"clear": true} (or a site name) disarms.  A malformed spec
+      answers 400.
+  GET/POST /debug/qos          the QoS plane (qos.py): GET the admission
+      config, the in-flight bytes and the throttle; POST sets a tenant's
+      limits ({"tenant", "rps", "burst", "inflightMb"}; "default" or "*"
+      for the default; {"remove": name}), {"enabled": bool}, the
+      throttle's {"sloP99Ms", "paceMinMs", "paceMaxMs",
+      "checkIntervalMs"}, a forced {"paceMs"}, or {"clear": true}, and
+      answers what GET does.
+
+Arms, the budget and the QoS controller are per process: a lever moves
+the process that serves it.
 """
 
 from __future__ import annotations
@@ -52,6 +66,10 @@ def install_debug_routes(http: HttpServer) -> None:
     http.route("POST", "/debug/slow", _slow_post)
     http.route("GET", "/debug/attribution", _attr_get)
     http.route("POST", "/debug/attribution", _attr_post)
+    http.route("GET", "/debug/faults", _faults_get)
+    http.route("POST", "/debug/faults", _faults_post)
+    http.route("GET", "/debug/qos", _qos_get)
+    http.route("POST", "/debug/qos", _qos_post)
 
 
 def start_process_probes() -> None:
@@ -139,9 +157,80 @@ def _attr_post(req: Request):
 
 def _health(req: Request):
     from ..util import retry
-    # the port has no retry budget (only the breakers): null
     return 200, {"peers": retry.health_snapshot(),
-                 "retryBudgetRemaining": None}
+                 "retryBudgetRemaining": retry.budget_remaining()}
+
+
+def _faults_get(req: Request):
+    from .. import faults
+    return 200, {"armed": faults.armed(), "triggered": faults.triggered()}
+
+
+def _faults_post(req: Request):
+    from .. import faults
+    b = req.json()
+    clear = b.get("clear")
+    if clear:
+        faults.disarm(None if clear is True else str(clear))
+        return 200, {"armed": faults.armed()}
+    try:
+        if "spec" in b:
+            n = faults.arm_spec(str(b["spec"]))
+        elif "site" in b:
+            faults.arm(
+                str(b["site"]), str(b.get("action", "error")),
+                p=float(b.get("p", 1.0)),
+                n=None if b.get("n") is None else int(b["n"]),
+                ms=float(b.get("ms", 0.0)),
+                seed=None if b.get("seed") is None else int(b["seed"]),
+                match=str(b.get("match", "")))
+            n = 1
+        else:
+            return 400, {"error": "body needs spec/site/clear"}
+    except ValueError as e:
+        return 400, {"error": str(e)}
+    return 200, {"armedCount": n, "armed": faults.armed()}
+
+
+def _qos_get(req: Request):
+    from .. import qos
+    snap = qos.controller().snapshot()
+    snap["throttle"] = qos.throttle().snapshot()
+    return 200, snap
+
+
+def _qos_post(req: Request):
+    from .. import qos
+    b = req.json()
+    ctl = qos.controller()
+    try:
+        if b.get("clear"):
+            qos.configure(None)
+            # a forced pace has no watcher to decay it once the config
+            # is inert
+            qos.throttle().set_pace(0.0)
+        if "enabled" in b:
+            ctl.set_enabled(bool(b["enabled"]))
+        if b.get("remove"):
+            ctl.set_tenant(str(b["remove"]), None)
+        if b.get("tenant"):
+            ctl.set_tenant(str(b["tenant"]), qos.TenantLimit.from_json(b))
+        cfg = ctl.config()
+        for key, attr in (("sloP99Ms", "slo_p99_ms"),
+                          ("paceMinMs", "pace_min_ms"),
+                          ("paceMaxMs", "pace_max_ms"),
+                          ("checkIntervalMs", "check_interval_ms")):
+            if key in b:
+                setattr(cfg, attr, float(b[key]))
+        if "sloP99Ms" in b:
+            if cfg.slo_p99_ms <= 0:
+                qos.throttle().set_pace(0.0)
+            qos.throttle().maybe_start()
+        if "paceMs" in b:
+            qos.throttle().set_pace(float(b["paceMs"]) / 1e3)
+    except (TypeError, ValueError) as e:
+        return 400, {"error": str(e)}
+    return _qos_get(req)
 
 
 def _traces(req: Request):

@@ -22,7 +22,9 @@ is logged and counted (`filer_native_plane_unavailable_total{plane}`),
 and this port serves its traffic.  Under `security.toml` the planes
 stand down, logged and counted in
 `filer_native_plane_stood_down_total{plane,reason}`: neither starts
-under `[tls]` (they speak plain text), the meta plane's fid pool stays
+under `[tls]` (they speak plain text) or under a `[qos.default]` limit
+(reason "qos": they serve anonymous requests without admission; a
+tenant-tagged request goes to this port), the meta plane's fid pool stays
 dry when assigns carry a write JWT, and the read plane takes no entry
 when a read key is set; the admin paths (`/debug/*`) need the admin
 JWT.  A started filer follows the master's
@@ -72,7 +74,7 @@ import os
 import sys
 import urllib.parse
 
-from .. import operation, profiling, security, stats
+from .. import faults, operation, profiling, qos, security, stats
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import SqliteStore
@@ -153,10 +155,14 @@ class FilerServer:
             c in "0123456789." for c in self.http.host) else "127.0.0.1"
         self.native_meta = None
         tls_on = security.current().tls is not None
-        if tls_on:
+        # the native planes serve anonymous requests without admission:
+        # under a `[qos.default]` limit they would serve what admission
+        # refuses, so they stand down as they do under TLS
+        planes_down = tls_on or qos.anonymous_limited()
+        if planes_down:
             for name in ("meta", "read"):
-                note_stood_down(name, "tls")
-        if self.filer.meta_plane is not None and not tls_on:
+                note_stood_down(name, "tls" if tls_on else "qos")
+        if self.filer.meta_plane is not None and not planes_down:
             from .meta_plane_native import (NativeMetaPlane,
                                             native_meta_plane_enabled)
             if native_meta_plane_enabled() is not False:
@@ -170,7 +176,8 @@ class FilerServer:
         # the read plane's entry map needs an event of every writer of
         # the namespace: this process's own, and in a fleet the
         # siblings' through the meta plane's log follower
-        if native_read_plane_enabled() is not False and not tls_on and \
+        if native_read_plane_enabled() is not False and \
+                not planes_down and \
                 (self.filer.meta_plane is not None or not reuse_port):
             self.native_read = self._start_plane(
                 "read", lambda: NativeReadPlane(master, host=plane_host))
@@ -213,6 +220,15 @@ class FilerServer:
         self.http.route_prefix("POST", "/__chunk__/", self._chunk_route)
         self.http.fallback = self._dispatch
         self.http.guard = admin_guard
+        # QoS: tenant admission at the filer's edge, and this filer's
+        # foreground (its request_seconds and its planes' walls) feeds
+        # the process's EC throttle
+        qos.install(self.http, "filer")
+        qos.throttle().add_metrics(f"filer:{self.http.port}", self.metrics)
+        qos.throttle().add_metrics(f"filer:{self.http.port}:planes",
+                                   stats.PROCESS,
+                                   names=("plane_request_seconds",))
+        qos.throttle().maybe_start()
 
     @staticmethod
     def _start_plane(name: str, make):
@@ -247,6 +263,8 @@ class FilerServer:
         if self.native_read is not None:
             self.native_read.stop()
         self.http.stop()
+        qos.throttle().remove_source(f"filer:{self.http.port}")
+        qos.throttle().remove_source(f"filer:{self.http.port}:planes")
         operation.disable_follow(self.filer.master)
         self.filer.close()
 
@@ -460,6 +478,8 @@ class FilerServer:
         mime = req.headers.get("Content-Type", "")
         if mime == "application/x-www-form-urlencoded":
             mime = ""
+        # an armed fault fails the write before any chunk is assigned
+        faults.fire("filer.entry.put", key=path)
         # the write's decomposition: recv here, assign and upload in
         # operation (on the chunk pool, re-bound), meta and gc in
         # Filer.write_file
@@ -494,9 +514,15 @@ class FilerServer:
         else:
             offset, size = parsed
         mime = entry.attributes.mime or "application/octet-stream"
+        # the tenant's in-flight bytes are charged for the whole
+        # response write, cache hits included
+        release, deny = qos.charge_response(req, size, "filer")
+        if deny is not None:
+            return deny
         # stream, never buffer: views are fetched lazily as the response
         # drains, so a multi-GB GET holds one chunk in memory
-        body = self.filer.open_read_stream(entry, offset, size)
+        body = self.filer.open_read_stream(entry, offset, size,
+                                           on_close=release)
         if nr is not None and not rng:
             # warm fill: the NEXT read of this path can be served
             # natively (fenced by the token above)

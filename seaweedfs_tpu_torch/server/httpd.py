@@ -34,8 +34,24 @@ route and answers 401 for an admin path without the admin JWT.  Under
 `tls_handshake_failures_total{reason}` and never reaches dispatch),
 with mTLS when the configuration asks, and every client call here dials
 https with the cluster CA pinned; `_auth_for` attaches the process's
-admin JWT to admin paths.  Bound to 127.0.0.1 by default; no QoS
-admission and no fault sites (ROADMAP A4).
+admin JWT to admin paths.  Bound to 127.0.0.1 by default.
+
+QoS (`qos.install`): an owner's `admission` hook runs after a spent
+budget's 504 and before the guard, as the reference's does; it answers
+503 with `Retry-After` for an over-limit tenant, or admits with a
+release that runs on the response's finally path, after the body was
+written.
+
+Retries (`util/retry`): `http_bytes` and `http_json` run each request
+under `retry_call`, with the peer's breaker consulted before every
+attempt; only idempotent requests (RFC 9110's methods, or a POST that
+declares `X-Idempotent: 1`) are re-issued, under backoff and the
+process's retry budget.  A POST keeps the pool's one rule: it is re-sent
+only when it provably never reached the wire.
+
+Fault sites (`faults.py`): `httpd.pool.connect` and `httpd.pool.request`
+in the pooled client, `httpd.stream.chunk`, `httpd.relay.chunk` and
+`httpd.download.chunk` in the streaming calls.
 
 Observability, the same on both fronts: each request's server span; the
 owner's registry (`metrics`) gets `requests_in_flight`,
@@ -67,7 +83,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
-from .. import profiling, stats, tracing
+from .. import faults, profiling, stats, tracing
 from ..util import deadline
 
 _log = logging.getLogger("seaweedfs_tpu_torch.httpd")
@@ -250,6 +266,10 @@ class HttpServer:
         # the owner's auth hook (security/guard.go Guard): None to go on,
         # or the (status, payload) that answers instead of the route
         self.guard: "Route | None" = None
+        # the QoS admission hook (qos.install): None to go on, or
+        # (deny_response | None, release | None); release runs once the
+        # response was written
+        self.admission: "Callable[[Request], tuple] | None" = None
         # the owner's role labels the server spans; its registry, when
         # set, gets requests_in_flight, request_seconds and
         # request_cpu_seconds from this one middleware (either front)
@@ -296,9 +316,11 @@ class HttpServer:
                 status = 0
                 body = None
                 verdict = "ok"
+                release = None
                 outer._enter()
                 try:
-                    status, payload, verdict = outer._answer(req, dl, sp)
+                    status, payload, verdict, release = \
+                        outer._answer(req, dl, sp)
                     try:
                         req.drain()
                     except OSError:
@@ -323,6 +345,7 @@ class HttpServer:
                 finally:
                     if hasattr(body, "close"):
                         body.close()
+                    _run_release(release)
                     sp.set("status", status)
                     sp.finish()
                     # this thread's CPU for the request, response write
@@ -460,30 +483,40 @@ class HttpServer:
 
     # -- the middleware both fronts share ---------------------------------
 
-    def _answer(self, req, dl, sp) -> "tuple[int, object, str]":
-        """(status, payload, verdict) of a request: a spent budget
-        answers 504 before anything else, then the guard, then the
-        route (exact, prefix, fallback).  A budget that runs out on an
-        outbound hop answers 504, any other error 500."""
+    def _answer(self, req, dl, sp) -> "tuple[int, object, str, object]":
+        """(status, payload, verdict, release) of a request: a spent
+        budget answers 504 before anything else, then QoS admission (503
+        for an over-limit tenant), then the guard, then the route
+        (exact, prefix, fallback).  A budget that runs out on an
+        outbound hop answers 504, any other error 500.  `release` is the
+        admission's, for the front to run once the response is
+        written."""
         route = self.routes.get((req.method, req.path)) \
             or self._prefix_route(req.method, req.path) or self.fallback
+        release = None
         try:
             if dl is not None and dl.expired():
                 return (*deadline.expired_response(
-                    f"{self.role or 'server'}.ingress"), "deadline")
+                    f"{self.role or 'server'}.ingress"), "deadline",
+                    None)
+            if self.admission is not None:
+                throttled, release = self.admission(req)
+                if throttled is not None:
+                    return (*throttled, "shed", None)
             if self.guard is not None and \
                     (denied := self.guard(req)) is not None:
-                return (*denied, "ok")
+                return (*denied, "ok", release)
             if route is None:
-                return 404, {"error": "not found"}, "ok"
-            return (*route(req), "ok")
+                return 404, {"error": "not found"}, "ok", release
+            return (*route(req), "ok", release)
         except deadline.DeadlineExceeded as e:
             sp.set_error(e)
-            return (*deadline.handler_exceeded_response(), "deadline")
+            return (*deadline.handler_exceeded_response(), "deadline",
+                    release)
         except Exception as e:  # noqa: BLE001 — the server must answer,
             # and the error is the answer
             sp.set_error(e)
-            return 500, {"error": str(e)}, "error"
+            return 500, {"error": str(e)}, "error", release
 
     def _enter(self) -> None:
         with self._inflight_lock:
@@ -607,6 +640,16 @@ class HttpServer:
     @property
     def url(self) -> str:
         return f"{self.host}:{self.port}"
+
+
+def _run_release(release) -> None:
+    """Run an admission's release; accounting never breaks a reply."""
+    if release is None:
+        return
+    try:
+        release()
+    except Exception as e:  # noqa: BLE001
+        _log.warning("qos release failed: %s", e)
 
 
 def async_front_roles() -> "set[str]":
@@ -818,6 +861,7 @@ def _one_pooled_request(method: str, full_url: str, body,
                 help_text="pooled requests served over a kept-alive "
                           "socket", peer=parsed.netloc)
         else:
+            faults.fire("httpd.pool.connect", key=parsed.netloc)
             stats.PROCESS.counter_add(
                 "pool_connections_opened_total", 1.0,
                 help_text="fresh sockets dialed by the pooled client",
@@ -826,6 +870,8 @@ def _one_pooled_request(method: str, full_url: str, body,
         if conn.sock is not None:
             conn.sock.settimeout(timeout)
         try:
+            faults.fire("httpd.pool.request",
+                        key=f"{parsed.netloc}{target}")
             conn.request(method, target, body=body, headers=headers)
         except (http.client.HTTPException, OSError) as e:
             # the send failed: the request never ran
@@ -859,10 +905,22 @@ def http_bytes(method: str, url: str, body: bytes | None = None,
                headers: dict | None = None, timeout: float = 60.0
                ) -> "tuple[int, bytes, dict]":
     """One request over the pooled keep-alive client: (status, body,
-    headers).  Transport failures raise OSError."""
+    headers), under `retry.retry_call` (the peer's breaker, and for
+    idempotent requests backoff and the retry budget).  Each attempt
+    stamps the budget remaining then.  Transport failures raise
+    OSError (BreakerOpen for a peer whose breaker is open)."""
+    from ..util import retry
     full, ctx = _dial(url)
-    return _one_pooled_request(method, full, body,
-                               _with_trace(headers, url), timeout, ctx)
+    idempotent = method in _IDEMPOTENT or \
+        (headers or {}).get("X-Idempotent") == "1"
+
+    def attempt():
+        return _one_pooled_request(method, full, body,
+                                   _with_trace(headers, url), timeout, ctx)
+
+    return retry.retry_call(attempt, site="httpd.pool",
+                            peer=urllib.parse.urlsplit(full).netloc,
+                            idempotent=idempotent)
 
 
 def http_json(method: str, url: str, payload: dict | None = None,
@@ -924,12 +982,24 @@ def http_stream_request(method: str, url: str, chunks,
             # small size-line sends between multi-MB payload sends must
             # not wait behind delayed ACKs
             conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        fault_key = f"{conn.host}:{conn.port}{target}"
         it = iter(chunks)
         while True:
             # a producer error propagates from here, and the finally
             # tears the connection down mid-body
             chunk = next(it, None)
             try:
+                if chunk is not None:
+                    directive = faults.fire("httpd.stream.chunk",
+                                            key=fault_key)
+                    if directive == "truncate":
+                        # end the stream early but cleanly: the commit
+                        # handshake must catch the short body
+                        chunk = None
+                    elif directive == "drop":
+                        conn.sock.close()
+                        raise OSError(
+                            f"stream to {url}: fault-injected drop")
                 if chunk is None:
                     conn.send(b"0\r\n\r\n")
                     break
@@ -937,6 +1007,11 @@ def http_stream_request(method: str, url: str, chunks,
                     conn.send(b"%X\r\n" % len(chunk))
                     conn.send(chunk)
                     conn.send(b"\r\n")
+            except faults.FaultInjected:
+                # an armed error stands in for the wire dying, not for
+                # the receiver answering: no verdict probe (it would
+                # wait on a receiver that still wants chunks)
+                raise
             except OSError:
                 # the receiver may have rejected the upload mid-body
                 # (4xx/5xx and close): its verdict, if readable, is the
@@ -975,8 +1050,15 @@ def http_download(url: str, dest_path: str, headers: dict | None = None,
             return resp.status, dict(resp.headers)
         expected = resp.length
         got = 0
+        fault_key = f"{conn.host}:{conn.port}{target}"
         with open(tmp, "wb") as f:
             while True:
+                if faults.fire("httpd.download.chunk",
+                               key=fault_key) is not None:
+                    # truncate and drop both mean the source died
+                    # mid-body: never rename a short file into place
+                    raise OSError(f"download {url}: fault-injected "
+                                  f"mid-body failure")
                 chunk = resp.read(chunk_size)
                 if not chunk:
                     break
@@ -1039,6 +1121,14 @@ def http_relay(src_url: str, dst_method: str, dst_url: str,
         def chunks():
             sent = 0
             while True:
+                directive = faults.fire("httpd.relay.chunk", key=dst_url)
+                if directive is not None:
+                    # the source died mid-body: raising keeps the rule
+                    # that the destination never sees a clean short file
+                    if directive == "drop":
+                        resp.close()
+                    raise OSError(f"relay {src_url}: fault-injected "
+                                  f"{directive} at {sent} bytes")
                 chunk = resp.read(chunk_size)
                 if not chunk:
                     if expected is not None and sent != expected:

@@ -48,7 +48,7 @@ import threading
 import time
 import uuid
 
-from .. import security, stats
+from .. import faults, security, stats
 from ..sequence import MemorySequencer
 from ..storage.replica_placement import ReplicaPlacement
 from ..storage.ttl import read_ttl
@@ -378,6 +378,8 @@ class MasterServer:
         vid_str = req.query.get("volumeId", "")
         if "," in vid_str:  # a full fid
             vid_str = vid_str.split(",", 1)[0]
+        # an armed fault: a master alive but failing its lookups
+        faults.fire("master.lookup", key=vid_str)
         locations = self.topology.lookup(int(vid_str))
         if not locations:
             return 404, {"volumeId": vid_str, "error": "volume not found"}

@@ -93,7 +93,8 @@ def note_stood_down(plane: str, reason: str) -> None:
     stats.PROCESS.counter_add(
         "filer_native_plane_stood_down_total", 1.0,
         help_text="native filer plane requests or starts refused by the "
-                  "security configuration (JWT keys or TLS)",
+                  "security configuration (JWT keys or TLS) or by QoS "
+                  "tenant limits",
         plane=plane, reason=reason)
     if (plane, reason) not in _stood_down:
         _stood_down.add((plane, reason))

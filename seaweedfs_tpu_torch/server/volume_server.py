@@ -93,8 +93,14 @@ no TLS, so they are not started where a key for what they serve is set
 (the UDS and read planes under the read key, the write plane under the
 write key) or `[tls]` is on: `/status` shows their ports as 0 (and no
 `udsPath`), and `volume_server_plane_stood_down_total{plane,reason}`
-counts each.  No fault sites, QoS throttle or resize-on-read
-(ROADMAP C).  Counters go to
+counts each.  QoS (`qos.install`) admits the `/admin/*` maintenance
+plane by tenant, and the EC throttle's foreground is this server's
+`request_seconds` and its planes' drained walls; a needle GET is
+charged to its tenant's in-flight bytes and resized on `?width=` /
+`?height=` (`images.resized`).  The fault sites `master.heartbeat`,
+`volume.read.serve`, `volume.write.serve`, `volume.receive_file.recv`,
+`volume.shard_write.recv` and `volume.shard_read.serve` fire where the
+reference's do.  Counters go to
 `stats.PROCESS`, which `GET /metrics` renders (the opt-in `telemetry`
 report reads its EC totals there), with this process's kernel launch
 counts and the planes' counters.
@@ -114,7 +120,7 @@ import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-from .. import profiling, security, stats
+from .. import faults, profiling, qos, security, stats
 from ..storage import types
 from ..storage.erasure_coding import ec_decoder, ec_encoder
 from ..storage.erasure_coding.ec_context import ECContext, to_ext
@@ -200,6 +206,17 @@ class VolumeServer:
         self.http.fallback = self._data_path
         # the data path checks its per-fid JWTs itself
         self.http.guard = admin_guard
+        # QoS: tenant admission on the maintenance plane only (the
+        # foreground needle traffic is protected by the EC throttle);
+        # the throttle's foreground signal is this role's request_seconds
+        # and the native planes' drained walls (plane_request_seconds)
+        qos.install(self.http, "volume", path_prefix="/admin/")
+        qos.throttle().add_metrics(f"volume:{self.http.port}",
+                                   self.role_metrics)
+        qos.throttle().add_metrics(f"volume:{self.http.port}:planes",
+                                   stats.PROCESS,
+                                   names=("plane_request_seconds",))
+        qos.throttle().maybe_start()
         self.ec_reader = EcReader(master, self.http.url)
         # hot-needle cache: a repeated read skips the index lookup and
         # the .dat read (for an EC volume, the interval resolution and
@@ -335,6 +352,8 @@ class VolumeServer:
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10)
+        qos.throttle().remove_source(f"volume:{self.http.port}")
+        qos.throttle().remove_source(f"volume:{self.http.port}:planes")
         with self._rp_lock:         # no index call runs into a stopped plane
             rp, self.read_plane = self.read_plane, None
         if rp is not None:
@@ -374,6 +393,8 @@ class VolumeServer:
             if self.rack:
                 hb["rack"] = self.rack
             try:
+                # an armed delay stalls this pulse, an error skips it
+                faults.fire("master.heartbeat", key=self.url)
                 r = master_json(self.master, "POST", "/heartbeat", hb,
                                 timeout=5)
             except OSError:
@@ -444,17 +465,24 @@ class VolumeServer:
         if err:
             return 401, {"error": err}
         if req.method in ("GET", "HEAD"):
-            return self._get_needle(fid, req.headers.get("Range", ""))
+            return self._get_needle(fid, req.headers.get("Range", ""),
+                                    req)
         if req.method in ("POST", "PUT"):
             return self._put_needle(fid, req)
         if req.method == "DELETE":
             return self._delete_needle(fid, req)
         return 405, {"error": "method not allowed"}
 
-    def _get_needle(self, fid: types.FileId, rng: str = ""):
+    def _get_needle(self, fid: types.FileId, rng: str = "",
+                    req: "Request | None" = None):
         """volume_server_handlers_read.go: the needle's data with its
         mime type, or the `Range` asked for (206), from the hot-needle
-        cache when it holds the needle."""
+        cache when it holds the needle; resized when the query asks
+        (`width`, `height`, `mode`), and charged to the tenant's
+        in-flight bytes (`qos.charge_response`, cache hits included)."""
+        # an armed delay wedges this replica, an error kills it; keyed
+        # by this server's url, so `match` picks one replica
+        faults.fire("volume.read.serve", key=f"{self.http.url}/{fid}")
         cached = self._nc_get(fid)
         if cached is not None:
             mime, data = cached
@@ -483,6 +511,28 @@ class VolumeServer:
             mime = n.mime.decode() if n.mime \
                 else "application/octet-stream"
             data = n.data
+        query = req.query if req is not None else {}
+        if "width" in query or "height" in query:
+            # resize-on-read (volume_server_handlers_read.go:353)
+            from .. import images
+            try:
+                w = int(query.get("width", 0))
+                h = int(query.get("height", 0))
+            except ValueError:
+                w = h = 0
+            data = images.resized(data, mime, w, h, query.get("mode", ""))
+
+        def serve(status: int, body: bytes, headers: dict):
+            if req is not None:
+                release, deny = qos.charge_response(req, len(body),
+                                                    "volume")
+                if deny is not None:
+                    return deny
+                if release is not None:
+                    return status, (qos.MeteredBody(body, release), {
+                        **headers, "Content-Length": str(len(body))})
+            return status, (body, headers)
+
         if rng.startswith("bytes="):
             try:
                 lo, _, hi = rng[6:].partition("-")
@@ -494,13 +544,13 @@ class VolumeServer:
                     start = total - min(int(hi), total)
                     stop = total
                 part = data[start:stop]
-                return 206, (part, {
+                return serve(206, part, {
                     "Content-Type": mime,
                     "Content-Range":
                         f"bytes {start}-{start + len(part) - 1}/{total}"})
             except ValueError:
                 pass
-        return 200, (data, {"Content-Type": mime})
+        return serve(200, data, {"Content-Type": mime})
 
     def _put_needle(self, fid: types.FileId, req: Request):
         """volume_server_handlers_write.go: write the needle here, then
@@ -510,6 +560,8 @@ class VolumeServer:
         (recv, prep, the volume's lock, index, append and flush,
         register, replicate) land in `volume_server_write_stage_seconds`
         and its trace."""
+        # the write side's sibling of volume.read.serve
+        faults.fire("volume.write.serve", key=f"{self.http.url}/{fid}")
         with profiling.track("write", role="volume",
                              metrics=self.role_metrics):
             return self._put_needle_tracked(fid, req)
@@ -872,6 +924,10 @@ class VolumeServer:
         try:
             with open(tmp, "wb") as f:
                 for chunk in req.stream_body():
+                    if faults.fire("volume.receive_file.recv",
+                                   key=f"{vid}{ext}") is not None:
+                        raise IOError(f"receive_file {vid}{ext}: "
+                                      f"fault-injected mid-stream failure")
                     f.write(chunk)
                     n += len(chunk)
             os.replace(tmp, base + ext)
@@ -961,6 +1017,14 @@ class VolumeServer:
         placement = b.get("placement")
         with self._codec_device():
             if placement is not None:
+                replan = int(b.get("replan") or 0)
+                if replan:
+                    # the shell re-planned a failed stripe around dead
+                    # destinations and retries here
+                    self.role_metrics.counter_add(
+                        "ec_scatter_replans_total", float(replan),
+                        help_text="scatter encodes re-planned around "
+                                  "failed destinations")
                 return self._ec_scatter_generate(
                     v, ctx, collection, base, dat_size, placement)
             ec_encoder.write_sorted_file_from_idx(base)      # .ecx first
@@ -1205,6 +1269,14 @@ class VolumeServer:
         try:
             with open(tmp, "wb") as f:
                 for chunk in req.stream_body():
+                    directive = faults.fire("volume.shard_write.recv",
+                                            key=f"{vid}.{sid}")
+                    if directive is not None:
+                        # the stream dies here: the temp goes, nothing
+                        # registers, the sender errors
+                        raise IOError(f"shard_write {vid}.{sid}: "
+                                      f"fault-injected {directive} "
+                                      f"mid-stream")
                     f.write(chunk)
                     crc = zlib.crc32(chunk, crc)
                     n += len(chunk)
@@ -1630,8 +1702,18 @@ class VolumeServer:
             return 404, {"error": f"shard {vid}.{shard_id} not found"}
         shard = ev.shards[shard_id]
         n = max(0, min(size, shard.size - offset))
+        directive = faults.fire("volume.shard_read.serve",
+                                key=f"{vid}.{shard_id}")
         f = open(shard.path, "rb")
         f.seek(offset)
+        if directive in ("truncate", "drop"):
+            # a donor dying mid-serve: promise n bytes, send fewer (half,
+            # or none for drop) and close, so the reader sees EOF short
+            # of the Content-Length, which its failover treats as a dead
+            # donor, never as a short shard
+            req._handler.close_connection = True
+            served = n // 2 if directive == "truncate" else 0
+            return 200, (FileSlice(f, served), {"Content-Length": str(n)})
         return 200, (FileSlice(f, n), {"Content-Length": str(n)})
 
     def _ec_scrub(self, req: Request):

@@ -29,7 +29,7 @@ import time
 import uuid
 import zlib
 
-from ... import tracing
+from ... import faults, qos, tracing
 
 
 def scatter_window_bytes() -> int:
@@ -251,6 +251,7 @@ class RemoteShardSink(ShardSink):
         self._committed = False
         self._finished = False
         self._stats: "ScatterStats | None" = None
+        self._truncated = False   # an armed truncate ended the stream
         # the caller's span: the send thread emits one stream span, and
         # contextvars do not follow threading.Thread
         self._trace_ctx = tracing.current_ids()
@@ -328,6 +329,27 @@ class RemoteShardSink(ShardSink):
             if item is None:
                 return
             buf, n = item
+            # background priority: while the foreground p99 is over its
+            # SLO each window waits the throttle's pace before it
+            # touches the wire, and the bounded queue pushes back on
+            # the staging writer behind it
+            qos.ec_pace("encode")
+            directive = faults.fire("ec.encode.window", key=self.url)
+            if directive == "truncate":
+                # end the shard early with clean framing: the receiver
+                # banks a short stream, which the send loop reports as
+                # this destination's failure (and the commit handshake
+                # would refuse)
+                self._truncated = True
+                self._pool.put(buf)
+                return
+            if directive == "drop":
+                # FaultInjected, so http_stream_request skips the
+                # receiver-verdict probe and tears the connection down
+                self._pool.put(buf)
+                raise faults.FaultInjected(
+                    f"shard_write {self.vid}.{self.sid} -> {self.url}: "
+                    f"fault-injected drop")
             t0 = time.perf_counter()
             yield memoryview(buf)[:n]
             if self._stats is not None:
@@ -361,6 +383,13 @@ class RemoteShardSink(ShardSink):
                 raise OSError(
                     f"shard_write {self.vid}.{self.sid} -> {self.url}: "
                     f"HTTP {status} {self._response.get('error', '')}")
+            if self._truncated:
+                # the armed truncation: this destination's failure now,
+                # not a mismatch found at finish()
+                raise OSError(
+                    f"shard_write {self.vid}.{self.sid} -> {self.url}: "
+                    f"stream truncated at "
+                    f"{self._response.get('bytes')} bytes")
         except _SinkAborted:
             pass
         except BaseException as e:  # noqa: BLE001 — re-raised by the

@@ -23,7 +23,7 @@ import threading
 import time
 
 from ... import stats as _stats
-from ... import tracing
+from ... import faults, qos, tracing
 from ...util import deadline
 
 
@@ -218,6 +218,9 @@ class RemoteShardSource(ShardSource):
                     yield None, 0
                     i += 1
                     continue
+                # background priority, as the encode's windows: outside
+                # the wire timer, so a pace is never billed to a donor
+                qos.ec_pace("rebuild")
                 wire = 0.0
                 if resp is None:
                     url = self._urls[failures % len(self._urls)]
@@ -243,6 +246,15 @@ class RemoteShardSource(ShardSource):
                     buf = take_buf(n)
                 t0 = time.perf_counter()
                 try:
+                    # an armed fault rides the real failover: error and
+                    # drop read as a dead donor, truncate as one that
+                    # closed early
+                    directive = faults.fire("ec.rebuild.slice",
+                                            key=self.label)
+                    if directive is not None:
+                        raise OSError(f"shard_read {self.label}: "
+                                      f"fault-injected {directive} "
+                                      f"mid-stream")
                     got = self._read_exact_into(resp, buf, expect)
                     if got < expect:
                         raise OSError(

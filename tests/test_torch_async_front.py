@@ -44,14 +44,14 @@ def _load_suite() -> dict:
         src = re.sub(rf"\b{re.escape(mod)}\b",
                      mod.replace("seaweedfs_tpu.", "seaweedfs_tpu_torch.",
                                  1), src)
+    src = src.replace("from seaweedfs_tpu import qos",
+                      "from seaweedfs_tpu_torch import qos")
     module = types.ModuleType("ported_test_async_front")
     module.__file__ = path
     exec(compile(src, path, "exec"), module.__dict__)
-    # QoS admission is not ported: that test has no port counterpart
-    skip = {"test_qos_admission_enforced_through_the_front"}
     return {f"test_async_front__{k[5:]}": v
             for k, v in module.__dict__.items()
-            if k.startswith("test_") and callable(v) and k not in skip}
+            if k.startswith("test_") and callable(v)}
 
 
 globals().update(_load_suite())

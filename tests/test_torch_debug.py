@@ -71,9 +71,9 @@ def test_every_role_serves_the_debug_routes(cluster):
             st, body, _ = http_bytes("GET", f"{server.url}{route}",
                                      timeout=30)
             assert st == 200, (server.url, route, body[:200])
-        # the fault and QoS levers are not ported: 404, as before
+        # the fault and QoS levers answer on every role
         for route in ("/debug/faults", "/debug/qos"):
-            assert http_bytes("GET", f"{server.url}{route}")[0] == 404
+            assert http_bytes("GET", f"{server.url}{route}")[0] == 200
     st, body, _ = http_bytes("GET", f"{cluster[2].url}/debug/vars")
     assert json.loads(body)["threads"] > 1
 

@@ -15,8 +15,8 @@ cases hold a read's wall to its deadline.
   leg is freed by reference counting, with no cycle for the collector;
 - a cluster read under a deadline meets its budget past a stalled
   replica with hedging on and misses it with hedging off
-  (tests/test_chaos_cluster.py scenarios 8; the port has no fault
-  sites, so the test stalls the replica's handler itself).
+  (tests/test_chaos_cluster.py scenarios 8: an armed
+  `volume.read.serve` delay, matched to the replica's url).
 """
 
 import gc
@@ -31,7 +31,7 @@ import pytest
 from seaweedfs_tpu import stats as ref_stats
 from seaweedfs_tpu.util import deadline as ref_deadline
 from seaweedfs_tpu.util import hedge as ref_hedge
-from seaweedfs_tpu_torch import operation, stats
+from seaweedfs_tpu_torch import faults, operation, stats
 from seaweedfs_tpu_torch.server.httpd import http_json
 from seaweedfs_tpu_torch.server.master_server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
@@ -248,8 +248,8 @@ def test_the_pool_grows_past_parked_primaries(pkg):
 class _Cluster:
     """A port master and two volume servers; reads of 001 volumes have
     two locations.  The planes are parked (the client's status cache
-    says none), so reads reach the HTTP port, where the test stalls
-    one server's needle handler."""
+    says none), so reads reach the HTTP port, where the fault site
+    `volume.read.serve` stalls one server's needle GETs."""
 
     def __init__(self, tmp):
         self.master = MasterServer(pulse_seconds=1.0,
@@ -269,18 +269,11 @@ class _Cluster:
                 operation._status_cache[vs.url] = {}
 
     def stall(self, url: str, seconds: float):
-        vs = next(s for s in self.servers if s.url == url)
-        real = vs._get_needle
-        hits = []
-
-        def slow(fid, rng=""):
-            hits.append(fid)
-            time.sleep(seconds)
-            return real(fid, rng)
-        vs._get_needle = slow
-        return hits
+        faults.arm("volume.read.serve", "delay", ms=seconds * 1e3,
+                   match=url)
 
     def close(self):
+        faults.reset()
         for vs in self.servers:
             with operation._status_lock:
                 operation._status_cache.pop(vs.url, None)
@@ -314,7 +307,7 @@ def test_a_hedged_read_meets_its_budget_past_a_stalled_replica(stalled):
     targets = [f for f in blobs if operation.lookup(
         c.url, int(f.split(",")[0]))[0]["url"] == slow_url]
     assert targets
-    hits = c.stall(slow_url, 2.0)
+    c.stall(slow_url, 2.0)
     won = _counter(stats, "seaweedfs_tpu_hedges_won_total")
     budget = 1.2
     walls = []
@@ -324,7 +317,8 @@ def test_a_hedged_read_meets_its_budget_past_a_stalled_replica(stalled):
             assert operation.read(c.url, fid) == blobs[fid]
             walls.append(time.monotonic() - t0)
     assert max(walls) < budget, walls
-    assert hits, "the stall never ran"
+    assert faults.triggered().get("volume.read.serve"), \
+        "the stall never ran"
     assert _counter(stats, "seaweedfs_tpu_hedges_won_total") > won
 
 

@@ -242,6 +242,10 @@ def test_plane_sink_feed_buffer_equals_reference(registries, monkeypatch):
                         profiling.FlightRecorder(size=64))
     monkeypatch.setattr(ref_profiling, "_recorder",
                         ref_profiling.FlightRecorder(size=64))
+    # one pinned clock for both rate caps: a real 1 s window that rolls
+    # over between the two sinks on a loaded host splits their captures
+    for m in (profiling, ref_profiling):
+        m._recorder._now = lambda: 1000.0
     port, ref = registries
     stages = ("parse", "lookup", "send", "ack")
     fbs = ("none", "method", "bad_request", "not_found")
@@ -259,9 +263,15 @@ def test_plane_sink_feed_buffer_equals_reference(registries, monkeypatch):
     assert sinks[0].records == sinks[1].records == 600
 
     def families(m):
+        # plane_request_seconds is the port's own (the QoS throttle's
+        # plane signal), checked below
         return [line for line in m.render().splitlines()
-                if "plane_" in line or "flight_records" in line]
+                if ("plane_" in line or "flight_records" in line)
+                and "plane_request_seconds" not in line]
     assert families(port) == families(ref)
+    walls = port.histogram_merged("plane_request_seconds")
+    assert walls["count"] == 600
+    assert ref.histogram_merged("plane_request_seconds") is None
     assert native.plane_record_dtype().itemsize == 112
 
 
