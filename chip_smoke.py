@@ -123,8 +123,8 @@ Phases, each printing one JSON line:
    admin and the worker in this process (`EcEncodeHandler(device=
    "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
    benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
-   8,192 for the run's time, printed), every read held against the
-   payload, and the volumes the assigns grew; 256 seeded needles of
+   4,096 for the run's time, printed), every read held against the
+   payload, and the volumes the assigns grew; 128 seeded needles of
    1 KiB - 1 MiB under each of 001 and 010, each read back from every
    location `/dir/lookup` gives and its record on each replica (bytes,
    flags, ts, ETag against the ack's) compared; the second holder of a
@@ -152,15 +152,15 @@ Phases, each printing one JSON line:
    streaming ec.decode read path under weed benchmark load", through
    the front door of the port's own cluster: a `master
    -volumeSizeLimitMB 1024` subprocess and 4 `volume -max 8`
-   subprocesses (their codec on the card).  4,096 files of 1 KiB in
+   subprocesses (their codec on the card).  2,048 files of 1 KiB in
    `weed benchmark`'s shape (assign and upload on 16 threads; n cut from
    1,048,576 for the run's time) and config 1's needles on 8 writers, all
    in collection `rs63`, until the 1 GiB limit seals a volume; every
    volume of the collection `ec.encode -dataShards=6 -parityShards=3`
    through the port's shell (launches, read off each server's
    /metrics, against the sum of `launches_for` over its batches).  Six
-   read passes on 16 threads, each a seeded sample of 1,024 of the 1 KiB
-   files and 64 of the large needles, every byte compared: all shards
+   read passes on 16 threads, each a seeded sample of 512 of the 1 KiB
+   files and 32 of the large needles, every byte compared: all shards
    up, cold and again warm (every 1 KiB read a hit of the hot-needle
    cache); the server holding the most data shards stopped (at most 3
    of 9), a fresh sample degraded (every rebuilt interval on the host's
@@ -182,14 +182,14 @@ Phases, each printing one JSON line:
    synchronously, no native plane) over a `master
    -volumeSizeLimitMB 1024` subprocess and 3 `volume -max 8` subprocesses
    (their codec on the card), collection `filer`.  Through the filer's
-   HTTP API: 4,096 files of 1 KiB in 64 directories on 16 threads (`weed
+   HTTP API: 2,048 files of 1 KiB in 64 directories on 16 threads (`weed
    benchmark`'s shape, n cut), 16 files of 8-24 MiB (2-6 chunks) and
    config 1's needles on 8 writers until a 1 GiB volume seals (files/s,
-   GB/s, p50/p99); 2,048 chunkless creates, 2,048 lookups and a listing of
+   GB/s, p50/p99); 1,024 chunkless creates, 1,024 lookups and a listing of
    every directory (ops/s).  Every sealed volume `ec.encode`d RS(10,4) by
    the port's shell (launches, read off the servers' /metrics, against
    its work list's windows).  Four read passes on 16 threads, each a
-   seeded sample of 1,024 1 KiB files, 32 large needles and 8 multi-chunk
+   seeded sample of 512 1 KiB files, 32 large needles and 8 multi-chunk
    files, every body held to its SHA-256, plus a range across every chunk
    boundary of the multi-chunk files and a listing of every directory:
    all servers up, cold and again warm (every 1 KiB read a hit of the
@@ -210,12 +210,12 @@ Phases, each printing one JSON line:
    ports on /status must be non-zero).  Clients find the planes' ports
    on /status, one probe a thread, and send PUTs to the meta plane and
    GETs to the read plane first, replaying a plane's 404 on the Python
-   port inside the same latency sample.  4,096 files of 1 KiB in 64
+   port inside the same latency sample.  2,048 files of 1 KiB in 64
    directories on 16 threads (the meta plane must ack more than half),
    16 files of 8-24 MiB (too large for the plane: every one falls back)
    and config 1's needles until a 1 GiB volume seals; the overlay must
    drain to 0 and the checkpoint reach the log's last event.  A warm
-   pass of 1,024 1 KiB files (the read plane must serve more than half);
+   pass of 512 1 KiB files (the read plane must serve more than half);
    every sealed volume `ec.encode`d RS(10,4) on the card (launches
    against its windows); the filer phase's passes (cold, warm, the
    server with the most data shards stopped, after `ec.rebuild`, whose
@@ -239,7 +239,7 @@ Phases, each printing one JSON line:
    checkout's gitignored `_work/`) and a filer in its default
    configuration, which follows the master's location pushes.  Writes:
    `weed benchmark`'s shape (1 KiB, 16 threads, n cut to 2,048) at 001,
-   the same shape at 000 (2,048: the write plane parks each ack until
+   the same shape at 000 (1,024: the write plane parks each ack until
    the epoch handshake ran the volume's barrier), 512 1 KiB needles
    and config 1's needles into one volume until it seals; writes/s,
    p50/p99, the native share, the epochs, the barrier's mean batch and
@@ -272,9 +272,9 @@ Phases, each printing one JSON line:
    configured from the same file (it dials https with its certificate
    and signs as the roles do).  The volume servers and the filer run
    with `SEAWEEDFS_TPU_READ_CACHE_MB=0`, so every read pass reaches the
-   volumes.  Through the gateway, as `admin`, on 16 threads: 512
+   volumes.  Through the gateway, as `admin`, on 16 threads: 256
    objects of 4 KiB over 4 buckets (half in the first, so its listing
-   pages), 16 of 10 MiB (warp's default object size), one multipart
+   pages), 8 of 10 MiB (warp's default object size), one multipart
    upload of 64 MiB in 8 MiB parts, 16 streaming-chunked PUTs of 1 MiB
    and, with `cryptography`, 16 SSE-C PUTs of 64 KiB.  The volume holding
    the most of the objects' chunks is filled with config 1's needles,
@@ -320,16 +320,35 @@ Phases, each printing one JSON line:
    windows); every file read again.
 15. qos_chaos: the QoS plane, the fault sites and the retry policy.  A
    master, 7 `volume` servers and a filer under one `-securityToml` that
-   carries only `[qos]`; 16 threads of 1 KiB GETs over 4,096 files for
+   carries only `[qos]`; 16 threads of 1 KiB GETs over 2,048 files for
    the whole phase.  Volume A (1 GiB) `ec.encode`d with the SLO at 0,
    volume B with the SLO at half the source's throttle signal during A's
    encode (the SLO loop must pace its windows); A's shards 1, 4, 7 and 9
    rebuilt on the card through donors armed to truncate (a failover, the
-   shards equal); volumes C and D (256 MiB) scattered with a dropped and a
+   shards equal); volumes C and D (128 MiB) scattered with a dropped and a
    truncated destination (re-planned, nothing on the victim, the short
    commit refused); lookups through counted retries; a noisy tenant at
    twice its rate (503 with Retry-After) while the anonymous foreground
    sees none.  Launches against windows in every encode and rebuild.
+16. maintenance: the volume maintenance plane.  A master, 4 `volume`
+   servers, the admin and a worker with `-capabilities erasure_coding,
+   vacuum,volume_balance,ec_balance`, all subprocesses, on 2 racks (4
+   and 3 servers at the end).  Volume A filled to 1 GiB with config 1's
+   needles, 8 small volumes of 1 KiB needles, 40% of A's bytes deleted;
+   the vacuum job that detection proposes, under 4 threads writing and
+   deleting in A (every acked needle read back over HTTP and the read plane, every
+   deleted one 404, the `.dat` shrunk by 95% of the deleted bytes at
+   least, the `.idx` entries replayed counted); A's `ec.encode` by the
+   worker's job on the source's card (launches against the compacted
+   `.dat`'s windows, parity equal to the host codec's); 3 more servers,
+   then the `ec_balance` and `volume_balance` jobs (at most ceil(14 / 7)
+   of A's shards a server, which leaves the ec_balance detection nothing
+   to propose, and a volume count spread of at most 2); a server
+   with 2 of A's shards stopped and `ec.rebuild` on the card (launches
+   against its [2,10] windows, the shards equal, every needle read back);
+   `volume.check.disk` on a 001 volume one replica lost needles of,
+   `volume.fix.replication` after that replica's server stopped, and a
+   `volume.scrub` with no error.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -342,6 +361,7 @@ that leaves one running fails (the process killed and named).
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import hashlib
 import itertools
@@ -389,10 +409,10 @@ WRITE_MAX_VOLUMES = 8
 WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
 # cut from weed benchmark's 1,048,576: at 65,536 the write phase took 426 s
 # of a 900 s run once read_load joined it (PERF.md §4)
-BENCH_N = 8_192
+BENCH_N = 4_096
 BENCH_SIZE = 1024                # weed benchmark's file size and
 BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
-REPLICATED = 256                 # seeded needles under each of 001 and 010
+REPLICATED = 128                 # seeded needles under each of 001 and 010
 FILL_WRITERS = 8
 FILL_READERS = 8
 SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
@@ -401,21 +421,21 @@ SPIN_CYCLES = 10_000_000         # ~5 ms of device spin ahead of a timed run
 RS63 = (6, 3)
 READ_SERVERS = 4
 READ_COLLECTION = "rs63"
-READ_N = 4_096                   # 1 KiB files, cut from weed benchmark's
-READ_SMALL_SAMPLE = 1_024        # 1,048,576; sampled per read pass
-READ_LARGE_SAMPLE = 64           # config 1's needles sampled per pass
+READ_N = 2_048                   # 1 KiB files, cut from weed benchmark's
+READ_SMALL_SAMPLE = 512          # 1,048,576; sampled per read pass
+READ_LARGE_SAMPLE = 32           # config 1's needles sampled per pass
 READ_C = 16                      # weed benchmark's concurrency
 # filer and filer_plane: the port's filer (sqlite store; synchronous
 # commit, then its default planes) over volumes that ec.encode encodes on
 # the card
 FILER_SERVERS = 3
 FILER_COLLECTION = "filer"
-FILER_N = 4_096                  # 1 KiB files through the filer (weed
+FILER_N = 2_048                  # 1 KiB files through the filer (weed
 FILER_DIRS = 64                  # benchmark's shape, n cut), in 64 dirs
 FILER_MULTI = 16                 # files of 8-24 MiB: 2-6 chunks each
-FILER_META_N = 2_048             # chunkless creates, then lookups
-FILER_SMALL_SAMPLE = 1_024       # 1 KiB files read per pass, and
-FILER_LARGE_SAMPLE = 64          # config 1's needles (read_load's)
+FILER_META_N = 1_024             # chunkless creates, then lookups
+FILER_SMALL_SAMPLE = 512         # 1 KiB files read per pass, and
+FILER_LARGE_SAMPLE = 32          # config 1's needles (read_load's)
 FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 5
 FILER_CRASH_N = 1_024            # filer_plane: files written, then SIGKILL
 
@@ -427,6 +447,15 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def poll(cond, what: str, timeout: float = 60.0,
+         interval: float = 0.05) -> None:
+    """Wait until cond() holds; fail the run after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out: {what}")
+        time.sleep(interval)
 
 
 PR_SET_CHILD_SUBREAPER = 36      # prctl(2)
@@ -661,23 +690,29 @@ def phase_device(smi: str) -> dict:
 
     from seaweedfs_tpu_torch import native
     from seaweedfs_tpu_torch.ops import _build, rs_cuda
-    t0 = time.perf_counter()
-    _build.load(rs_cuda.SOURCE)
-    build_s = time.perf_counter() - t0
-    # the host libraries the volume servers and the filer load (the
-    # needle CRC32-C, the volume read and write planes, the filer's meta
-    # and read planes), built here once before any server starts; one
-    # that does not build fails the run
+
+    def build_kernel() -> float:
+        t0 = time.perf_counter()
+        _build.load(rs_cuda.SOURCE)
+        return time.perf_counter() - t0
+    # nvcc runs beside the g++ builds of the host libraries the volume
+    # servers and the filer load (the needle CRC32-C, the volume read and
+    # write planes, the filer's meta and read planes), all built here once
+    # before any server starts; one that does not build fails the run
     host_libs = {}
-    for stem, load in (("crc32c", native.load_crc32c),
-                       ("read_plane", native.load_read_plane),
-                       ("write_plane", native.load_write_plane),
-                       ("meta_plane", native.load_meta_plane),
-                       ("filer_read_plane", native.load_filer_read_plane)):
-        check(load() is not None, f"native {stem} did not build: "
-              f"{native.BUILD_INFO[stem].get('error')}")
-        host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
-                           for k in ("seconds", "march_native")}
+    with ThreadPoolExecutor(1) as pool:
+        kernel_build = pool.submit(build_kernel)
+        for stem, load in (("crc32c", native.load_crc32c),
+                           ("read_plane", native.load_read_plane),
+                           ("write_plane", native.load_write_plane),
+                           ("meta_plane", native.load_meta_plane),
+                           ("filer_read_plane",
+                            native.load_filer_read_plane)):
+            check(load() is not None, f"native {stem} did not build: "
+                  f"{native.BUILD_INFO[stem].get('error')}")
+            host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
+                               for k in ("seconds", "march_native")}
+        build_s = kernel_build.result()
     # the -fsync tier's epoch handshake: without it the write plane takes
     # no -fsync volume
     check(native.load_write_plane().epoch_handshake,
@@ -1696,11 +1731,6 @@ def phase_cluster(ec: dict, tmp: str) -> dict:
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def normal_vids():
             return {v["id"] for n in iter_volume_list_nodes(
@@ -2212,11 +2242,6 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def normal_vids():
             return {v["id"] for n in iter_volume_list_nodes(
@@ -2646,11 +2671,6 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def volumes():
             out: dict = {}
@@ -3111,11 +3131,6 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def normal_vids():
             return {v["id"]: v for _n, v in
@@ -3712,11 +3727,6 @@ def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def normal_vids():
             return {v["id"]: v for _n, v in
@@ -4429,11 +4439,6 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            deadline = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < deadline, f"timed out: {what}")
-                time.sleep(0.05)
 
         def normal_vids():
             return {v["id"]: v for _n, v in
@@ -4815,10 +4820,10 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
 # shapes on 3 `volume -fsync` servers of replication 001
 FSYNC_SERVERS = 3
 FSYNC_COLLECTION = "fsync"        # the fill, encoded on the card
-FSYNC_BENCH_N = 2_048             # the benchmark at 001: the Python path
-#                                   acks ~360 writes/s on the card's host
-#                                   (PERF.md), so BENCH_N would take 90 s
-FSYNC_NATIVE_N = 2_048            # 1 KiB writes of replication 000: the
+FSYNC_BENCH_N = 2_048             # the benchmark at 001 (the Python path
+#                                   acks ~360 writes/s on the card's
+#                                   host): the hedged passes read its files
+FSYNC_NATIVE_N = 1_024            # 1 KiB writes of replication 000: the
 #                                   write plane's epoch handshake
 FSYNC_SMALL_FILL = 512            # 1 KiB needles in the fill volume, read
 #                                   after its encode
@@ -4830,9 +4835,9 @@ FSYNC_FILER_N = 512               # 1 KiB files through the filer
 SECURE_SERVERS = 3
 SECURE_COLLECTION = "s3"
 SECURE_BUCKETS = 4
-SECURE_SMALL_N = 512             # 4 KiB objects over the 4 buckets
+SECURE_SMALL_N = 256             # 4 KiB objects over the 4 buckets
 SECURE_SMALL_SIZE = 4 << 10
-SECURE_LARGE_N = 16              # objects of warp's default --obj.size
+SECURE_LARGE_N = 8               # objects of warp's default --obj.size
 SECURE_LARGE_SIZE = 10 << 20
 SECURE_MP_SIZE = 64 << 20        # one multipart upload, in the AWS
 SECURE_MP_PART = 8 << 20         # CLI's default 8 MiB parts
@@ -5049,11 +5054,7 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            end = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < end, f"timed out: {what}")
-                time.sleep(0.02)
+        poll_fine = functools.partial(poll, interval=0.02)
 
         def holders() -> "dict[int, list[str]]":
             out: dict = {}
@@ -5071,8 +5072,8 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
             m = re.search(rb'^master_route_requests_total\{path="/dir/'
                           rb'lookup"\} (\S+)$', text, re.M)
             return float(m.group(1)) if m else 0.0
-        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
-             "3 volume servers registered")
+        poll_fine(lambda: len(get("/cluster/status")["dataNodes"]) ==
+                  len(urls), "3 volume servers registered")
         start_s = time.perf_counter() - phase_t0
         status = {u: http_json("GET", f"{u}/status", timeout=30)
                   for u in urls}
@@ -5080,7 +5081,7 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
             check(st.get("udsPath") and os.path.exists(st["udsPath"]) and
                   st.get("readPlanePort") and st.get("writePlanePort"),
                   f"{u} runs without UDS or a native plane: {st}")
-        poll(lambda: http_json("GET", f"{furl}/debug/follow").get(
+        poll_fine(lambda: http_json("GET", f"{furl}/debug/follow").get(
             "synced"), "the filer's follow stream syncs")
 
         # 1. weed benchmark's shape at 001: the Python path, every write
@@ -5196,8 +5197,8 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         t_kill = time.perf_counter()
         proc_of[victim].send_signal(signal.SIGKILL)
         proc_of[victim].wait(30)
-        poll(lambda: all(victim not in us for us in pushed().values()),
-             "the filer's pushed map drops the killed server", 30)
+        poll_fine(lambda: all(victim not in us for us in pushed().values()),
+                  "the filer's pushed map drops the killed server", 30)
         depart_s = time.perf_counter() - t_kill
         t_restart = time.perf_counter()
         procs.remove(proc_of[victim])
@@ -5207,9 +5208,9 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         proc_of[victim] = procs[-1]
         restart_s = time.perf_counter() - t_restart
         operation._invalidate_status(victim)
-        poll(lambda: all(victim in pushed().get(v, [])
-                         for v, us in locs.items() if victim in us),
-             "the filer's pushed map holds the restarted server", 30)
+        poll_fine(lambda: all(victim in pushed().get(v, [])
+                              for v, us in locs.items() if victim in us),
+                  "the filer's pushed map holds the restarted server", 30)
         return_s = time.perf_counter() - t_restart
 
         # 5. two passes over every acked needle from each of its replicas
@@ -5394,17 +5395,17 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         check(hedge.read_threshold() is not None, "the tracker is cold")
         hedged = hedge_pass("hedged, one replica stopped", True,
                             hedge_knobs, hsample)
-        poll(lambda: stopped in get("/cluster/status")["dataNodes"],
-             "the stopped replica is back", 30)
+        poll_fine(lambda: stopped in get("/cluster/status")["dataNodes"],
+                  "the stopped replica is back", 30)
         unhedged = hedge_pass("unhedged, one replica stopped", True,
                               {"SEAWEEDFS_TPU_HEDGE_READS": "0"}, hsample)
         operation._vid_cache.TTL = real_ttl
         check(hedged["over_budget"] == 0,
               f"{hedged['over_budget']} hedged reads missed the budget")
         check(hedged["hedges_won"] > 0, "no hedge won")
-        poll(lambda: stopped in get("/cluster/status")["dataNodes"] and
-             all(stopped in pushed().get(v, []) for v in bvids),
-             "the stopped replica is back in the filer's map", 30)
+        poll_fine(lambda: stopped in get("/cluster/status")["dataNodes"] and
+                  all(stopped in pushed().get(v, []) for v in bvids),
+                  "the stopped replica is back in the filer's map", 30)
 
         # 7. the filer: 1 KiB files, two read passes; its /dir/lookup RPCs
         ffiles = {f"/f/d{i % 16:02d}/f{i:05d}": _payload(seed + 33, i,
@@ -5420,8 +5421,8 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
             list(pool.map(fput, ffiles.items()))
         fvids = {v["id"] for _n, v in iter_volume_list_volumes(
             get("/vol/list")) if v.get("collection") == filer_coll}
-        poll(lambda: all(v in pushed() for v in fvids),
-             "the filer's map holds its volumes", 30)
+        poll_fine(lambda: all(v in pushed() for v in fvids),
+                  "the filer's map holds its volumes", 30)
 
         def fget(path):
             t = time.perf_counter()
@@ -5447,8 +5448,8 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
                           {"collection": "fsyncgrow", "replication": "001",
                            "count": 1}, timeout=60)["volumeIds"]
         check(grown, "no volume grew")
-        poll(lambda: all(len(pushed().get(v, [])) == 2 for v in grown),
-             "the filer's map holds the grown volume", 30)
+        poll_fine(lambda: all(len(pushed().get(v, [])) == 2 for v in grown),
+                  "the filer's map holds the grown volume", 30)
         grow_s = time.perf_counter() - t
         follow_state = http_json("GET", f"{furl}/debug/follow")
 
@@ -5457,7 +5458,7 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         size = max(os.path.getsize(os.path.join(dd, f"{coll}_{first}.dat"))
                    for dd in dirs if os.path.exists(
                        os.path.join(dd, f"{coll}_{first}.dat")))
-        poll(lambda: all(v["size"] == size for n_, v in
+        poll_fine(lambda: all(v["size"] == size for n_, v in
                          iter_volume_list_volumes(get("/vol/list"))
                          if v["id"] == first), "the master sees the size")
         source = operation.lookup(murl, first, use_cache=False)[0]["url"]
@@ -5494,7 +5495,7 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         check(enc_launches == expect,
               f"the fsync volume's encode launched {enc_launches}, the "
               f"windows of its work list are {expect}")
-        poll(lambda: first not in holders() and sorted(
+        poll_fine(lambda: first not in holders() and sorted(
             s for loc in get(f"/dir/ec_lookup?volumeId={first}").get(
                 "shardIdLocations", []) for s in loc["shardIds"]) ==
             list(range(d + p)), "14 shards listed and the volume gone")
@@ -5831,11 +5832,6 @@ def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
 
-        def poll(cond, what, timeout=60.0):
-            end = time.monotonic() + timeout
-            while not cond():
-                check(time.monotonic() < end, f"timed out: {what}")
-                time.sleep(0.05)
         poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
              "3 volume servers registered over mTLS")
         start_s = time.perf_counter() - phase_t0
@@ -6347,7 +6343,7 @@ FLEET_COLLECTION = "fleet"
 FLEET_WORKERS = 4
 FLEET_C = 16                     # client threads an arm
 FLEET_SMALL_N = 512              # 1 KiB files an arm
-FLEET_LARGE_N = 64               # 64 KiB files an arm
+FLEET_LARGE_N = 32               # 64 KiB files an arm
 FLEET_KILL_S = 0.25              # load before a sibling's SIGKILL
 FLEET_LOST = (1, 4, 7, 9)        # data shards deleted before the reads
 # (name, -workers, SEAWEEDFS_TPU_ASYNC_FRONT)
@@ -6546,11 +6542,6 @@ def phase_filer_fleet(tmp: str, seed: int, small_n: int = FLEET_SMALL_N,
     def get(path):
         return http_json("GET", f"{murl}{path}", timeout=30)
 
-    def poll(cond, what, timeout=60.0):
-        end = time.monotonic() + timeout
-        while not cond():
-            check(time.monotonic() < end, f"timed out: {what}")
-            time.sleep(0.05)
 
     def start_filer(workers: int, front: str, log: str) -> str:
         env = dict(nocache)
@@ -6970,10 +6961,10 @@ def phase_filer_fleet(tmp: str, seed: int, small_n: int = FLEET_SMALL_N,
 QOS_SERVERS = 7
 QOS_COLLECTION = "qos"               # volumes A-D: config 1's needles
 QOS_FG_COLLECTION = "fg"             # the foreground's 1 KiB files
-QOS_FG_N = 4_096
+QOS_FG_N = 2_048
 QOS_FG_C = 16                        # foreground client threads
 QOS_BIG_MB = 1024                    # volumes A and B (config 1's volume)
-QOS_SMALL_MB = 256                   # volumes C and D, cut (PERF.md §4)
+QOS_SMALL_MB = 128                   # volumes C and D, cut (PERF.md §4)
 QOS_LOST = (1, 4, 7, 9)              # A's shards deleted before ec.rebuild
 QOS_NOISY_RPS = 20                   # [qos.tenants.noisy]
 QOS_QUIET_S = 2.0                    # foreground alone before an encode
@@ -6997,7 +6988,7 @@ def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
     started with one `-securityToml` that carries only `[qos]` (an SLO,
     `pace_min_ms = 25`, `pace_max_ms = 200`, `check_interval_ms = 250`
     and a `[qos.tenants.noisy]` rate limit).  A foreground runs for the
-    whole phase: 16 threads GET 4,096 1 KiB needles with the pooled
+    whole phase: 16 threads GET 2,048 1 KiB needles with the pooled
     client, from each volume's native read plane (a fallback 404 replayed
     on its Python port).  Steps, each printed on its JSON line:
     1. the unpaced arm: volume A filled with config 1's needles to
@@ -7013,10 +7004,10 @@ def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
        truncate,n=1` armed on every donor, `ec.rebuild` on the card: at
        least one failover, launches equal to the windows, every rebuilt
        shard equal to the lost one;
-    4. volume C (256 MiB) encoded with `ec.encode.window=drop,n=1,match=
+    4. volume C (128 MiB) encoded with `ec.encode.window=drop,n=1,match=
        <victim>` on its source: the scatter is re-planned (counted), no
        shard lands on the victim, a sample of C's needles reads back;
-    5. volume D (256 MiB) with `ec.encode.window=truncate,n=1,match=
+    5. volume D (128 MiB) with `ec.encode.window=truncate,n=1,match=
        <victim>`: re-planned, nothing of D on the victim, no temp file
        left, and a short upload committed with its promised count is
        refused (409, "mismatch");
@@ -7067,11 +7058,6 @@ def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
     def get(path):
         return http_json("GET", f"{murl}{path}", timeout=30)
 
-    def poll(cond, what, timeout=60.0):
-        end = time.monotonic() + timeout
-        while not cond():
-            check(time.monotonic() < end, f"timed out: {what}")
-            time.sleep(0.05)
 
     def lever(url, route, body):
         r = http_json("POST", f"{url}/debug/{route}", body, timeout=30)
@@ -7566,6 +7552,595 @@ def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
     return out
 
 
+MAINT_SERVERS = 4
+MAINT_MORE = 3                       # config 4's 7 servers after these
+MAINT_COLLECTION = "maint"
+MAINT_MB = 1024                      # volume A: config 1's volume
+MAINT_SMALL = 8                      # small volumes of 1 KiB needles
+MAINT_SMALL_N = 64                   # needles in each
+MAINT_DELETE = 0.4                   # of A's bytes deleted before vacuum
+MAINT_WRITERS = 4                    # threads writing A during the vacuum
+MAINT_BIG_DELETES = 16               # large needles they delete at most
+MAINT_REPAIR_N = 64                  # 1 KiB needles of the 001 volume
+MAINT_REPAIR_DROP = 8                # of them deleted on one replica
+
+
+def _parity_matches(shards: "list[str]", d: int, p: int,
+                    chunk: int = 8 << 20) -> int:
+    """Bytes of each parity shard file equal to the host codec's parity
+    of the data shard files (the plain version of the kernel's apply,
+    `ops/rs_native`, else `ops/rs_cpu`); fails on the first mismatch."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import rs_cpu, rs_native
+    codec = rs_native.ReedSolomonNative(d, p) if rs_native.available() \
+        else rs_cpu.ReedSolomonCPU(d, p)
+    size = os.path.getsize(shards[0])
+    check(all(os.path.getsize(f) == size for f in shards),
+          "the shard files differ in size")
+    files = [open(f, "rb") for f in shards]
+    try:
+        for off in range(0, size, chunk):
+            rows = [np.frombuffer(f.read(chunk), dtype=np.uint8)
+                    for f in files]
+            want = codec.parity(np.stack(rows[:d]))
+            check(np.array_equal(want, np.stack(rows[d:])),
+                  f"parity differs at byte {off} of the shards")
+    finally:
+        for f in files:
+            f.close()
+    return size
+
+
+def phase_maintenance(tmp: str, seed: int, big_mb: int = MAINT_MB,
+                      small_n: int = MAINT_SMALL_N, device: str = "cuda"
+                      ) -> dict:
+    """The volume maintenance plane around an ec.encode and an
+    ec.rebuild on the card.  A master, 4 `volume` servers, the admin and
+    one worker with `-capabilities erasure_coding,vacuum,volume_balance,
+    ec_balance`, all `python -m seaweedfs_tpu_torch` processes, on 2
+    racks (2 and 2 servers, then 4 and 3).
+    Steps, each printed on its JSON line:
+    1. volume A filled to 1 GiB with config 1's needles (256 KiB-4 MiB),
+       8 small volumes of 1 KiB needles on the first two servers, 40% of
+       A's bytes deleted (chosen by seed);
+    2. detection proposes the vacuum of A, which runs on the worker while
+       4 threads append 1 KiB needles to A and delete older ones; every
+       acked needle reads back equal over HTTP and the read plane, every
+       deleted one answers 404, and the `.dat` shrank by 95% of the
+       deleted bytes at least;
+    3. A encoded on the card by the worker's `erasure_coding` job (the
+       source's scatter-encode): launches equal to the compacted `.dat`'s
+       [4,10] windows, parity equal to the host codec's;
+    4. 3 more servers; detection proposes `ec_balance` (no server left
+       with more than 2 of A's shards, and the ec_balance detection rule
+       proposes nothing more: ROADMAP C19) and `volume_balance` (a
+       max-min volume count of at most 2);
+    5. a server holding 2 of A's shards stopped, `ec.rebuild` on the
+       card: launches equal to the [2,10] windows, the rebuilt shards
+       equal to the lost ones, every live needle of A read back from the
+       EC volume and the moved volumes' needles from their new servers;
+    6. repair: `volume.check.disk` after `/admin/delete_needle` took
+       needles from one replica of a 001 volume, `volume.fix.replication`
+       after that replica's server was stopped, and `volume.scrub` with
+       no error."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.plugin.handlers.balance import EcBalanceHandler
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.storage.types import FileId, parse_file_id
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = MAINT_COLLECTION
+    va, repair_vid = 1, 200
+    small_vids = list(range(100, 100 + MAINT_SMALL))
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(MAINT_SERVERS +
+                                                       MAINT_MORE)]
+    for dd in dirs:
+        os.makedirs(dd)
+    procs: list = []
+    proc_of: dict = {}
+    steps: dict = {}
+    ctx = ECContext(d, p, device="cpu")
+
+    def get(path):
+        return http_json("GET", f"{murl}{path}", timeout=30)
+
+
+    def admin(method, path, payload=None):
+        r = http_json(method, f"{aurl}{path}", payload, timeout=60)
+        check("error" not in r, f"admin {path}: {r}")
+        return r
+
+    def jobs_of(types_, submit=None, timeout=900.0):
+        """Trigger detection (or submit a job) and wait for one new job of
+        each type to end, done; their records by type."""
+        before = {j["jobId"] for j in admin("GET", "/maintenance/queue")[
+            "jobs"]}
+        t = time.perf_counter()
+        if submit is not None:
+            admin("POST", "/maintenance/submit_job", submit)
+        else:
+            admin("POST", "/maintenance/trigger_detection")
+        found: dict = {}
+
+        def new():
+            for j in admin("GET", "/maintenance/queue")["jobs"]:
+                if j["jobId"] not in before and j["jobType"] in types_:
+                    check(j["jobType"] not in found or
+                          found[j["jobType"]] == j["jobId"],
+                          f"two {j['jobType']} jobs proposed")
+                    found[j["jobType"]] = j["jobId"]
+            return len(found) == len(types_)
+        poll(new, f"jobs {types_} proposed")
+        out = {}
+        for jt, jid in found.items():
+            poll(lambda: admin("GET", f"/maintenance/job?id={jid}")[
+                "status"] in ("done", "failed"), f"job {jid} ends", timeout)
+            job = admin("GET", f"/maintenance/job?id={jid}")
+            check(job["status"] == "done",
+                  f"{jt} job: {job['message']} {job['trace'][-3:]}")
+            job["wall_s"] = time.perf_counter() - t
+            out[jt] = job
+        return out
+
+    def metric(url, name):
+        text = http_bytes("GET", f"{url}/metrics", timeout=60)[1].decode()
+        return sum(v for _lb, v in _full_samples(text, name))
+
+    def ec_locs(vid):
+        return {x["url"]: x["shardIds"] for x in get(
+            f"/dir/ec_lookup?volumeId={vid}").get("shardIdLocations", [])}
+
+    def volume_counts(live):
+        counts = {u: 0 for u in live}
+        for n, _v in iter_volume_list_volumes(get("/vol/list")):
+            if n["url"] in counts:
+                counts[n["url"]] += 1
+        return counts
+
+    def plane_get(url, fid):
+        """A needle through the server's native read plane; a plane 404
+        is replayed on the Python port (which registers it) and asked
+        again."""
+        host = url.rsplit(":", 1)[0]
+        port = planes[url]
+        st, body, _ = http_bytes("GET", f"{host}:{port}/{fid}", timeout=60)
+        if st == 404:
+            http_bytes("GET", f"{url}/{fid}", timeout=60)
+            st, body, _ = http_bytes("GET", f"{host}:{port}/{fid}",
+                                     timeout=60)
+        return st, body
+
+    def read_all(pairs, fn, what):
+        """fn(fid) == data for each (fid, data), on 8 threads."""
+        with ThreadPoolExecutor(8) as pool:
+            bad = [fid for fid, ok in zip(
+                [f for f, _ in pairs],
+                pool.map(lambda fd: fn(fd[0]) == fd[1], pairs)) if not ok]
+        check(not bad, f"{what}: {len(bad)} needles differ, first {bad[:3]}")
+        return len(pairs)
+
+    try:
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB",
+              str(2 * big_mb)]], [os.path.join(tmp, "master.log")], procs,
+            "master")
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl, "-max",
+              str(WRITE_MAX_VOLUMES), "-rack", f"r{i % 2}", "-device", device]
+             for i, dd in enumerate(dirs[:MAINT_SERVERS])],
+            [dd + ".log" for dd in dirs[:MAINT_SERVERS]], procs, "volume")
+        proc_of.update(zip(urls, procs[1:]))
+        (aurl,) = _start_procs(
+            [["admin", "-port", "0", "-master", murl,
+              "-detectionInterval", "3600",
+              "-dataDir", os.path.join(tmp, "admin")]],
+            [os.path.join(tmp, "admin.log")], procs, "admin",
+            r"admin listening on (\S+:\d+)\n")
+        _start_procs(
+            [["worker", "-admin", aurl, "-master", murl,
+              "-dir", os.path.join(tmp, "worker"), "-capabilities",
+              "erasure_coding,vacuum,volume_balance,ec_balance",
+              "-device", device]],
+            [os.path.join(tmp, "worker.log")], procs, "worker",
+            rf"worker (\w+) polling {re.escape(aurl)}\n")
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "4 volume servers registered")
+        poll(lambda: {"erasure_coding", "vacuum", "volume_balance",
+                      "ec_balance"} <= set(admin(
+                          "GET", "/maintenance/config")["jobTypes"]),
+             "the worker's schemas")
+        # the encode runs on the source server's card (its launches are
+        # on its /metrics); the volume balance waits for step 4
+        admin("POST", "/maintenance/config",
+              {"jobType": "erasure_coding",
+               "values": {"encodeMode": "scatter"}})
+        admin("POST", "/maintenance/config",
+              {"jobType": "volume_balance",
+               "values": {"imbalanceThreshold": 1000}})
+        env = commands.CommandEnv(murl)
+        planes = {u: http_json("GET", f"{u}/status", timeout=30)[
+            "readPlanePort"] or int(u.rsplit(":", 1)[1]) for u in urls}
+        start_s = time.perf_counter() - phase_t0
+
+        # 1. fill and delete
+        ua = urls[0]
+        _post(f"{ua}/admin/allocate_volume",
+              {"volumeId": va, "collection": coll}, "maint-alloc")
+        dat_a = os.path.join(dirs[0], f"{coll}_{va}.dat")
+        rng = np.random.default_rng([seed, 77])
+        sizes = []
+        total = 0
+        while total < big_mb << 20:
+            sizes.append(int(rng.integers(256 << 10, 4 << 20)))
+            total += sizes[-1]
+        big = {}                       # fid -> (nid, size)
+
+        def put(nid, size):
+            fid = str(FileId(va, nid, _cookie(nid)))
+            operation.upload(ua, fid, _payload(seed + 7, nid, size))
+            return fid, (nid, size)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            big.update(pool.map(lambda a: put(*a), enumerate(sizes, 1)))
+        fill_s = time.perf_counter() - t
+        small = {}                     # fid -> data, by volume
+        for i, vid in enumerate(small_vids):
+            u = urls[i % 2]
+            _post(f"{u}/admin/allocate_volume",
+                  {"volumeId": vid, "collection": coll}, "maint-small")
+            for nid in range(1, small_n + 1):
+                fid = str(FileId(vid, nid, _cookie(nid)))
+                data = _payload(seed + vid, nid, 1024)
+                operation.upload(u, fid, data)
+                small[fid] = data
+        order = rng.permutation(sorted(big))
+        deleted, deleted_bytes = [], 0
+        for fid in order:
+            if deleted_bytes >= MAINT_DELETE * total:
+                break
+            st, _, _ = http_bytes("DELETE", f"{ua}/{fid}", timeout=60)
+            check(st == 202, f"delete {fid}: {st}")
+            deleted.append(fid)
+            deleted_bytes += big[fid][1]
+        live = {f: _payload(seed + 7, *big[f]) for f in big
+                if f not in set(deleted)}
+        poll(lambda: any(v["id"] == va and v.get("deletedByteCount", 0) >=
+                         deleted_bytes for _n, v in
+                         iter_volume_list_volumes(get("/vol/list"))),
+             "the master sees A's garbage")
+        steps["fill"] = {"volume": va, "needles": len(big),
+                         "bytes": os.path.getsize(dat_a),
+                         "fill_seconds": fill_s,
+                         "small_volumes": len(small_vids),
+                         "small_needles": len(small),
+                         "deleted_needles": len(deleted),
+                         "deleted_bytes": deleted_bytes,
+                         "garbage_ratio": deleted_bytes /
+                         (total - deleted_bytes)}
+        emit({"phase": "maintenance", "step": "fill", **steps["fill"]})
+
+        # 2. the vacuum, found by detection, under writes and deletes
+        before = os.path.getsize(dat_a)
+        replayed0 = metric(ua, "seaweedfs_tpu_volume_server_vacuum_"
+                               "replayed_entries_total")
+        stop = threading.Event()
+        lock = threading.Lock()
+        acked: dict = {}
+        gone: list = []
+        counter = itertools.count(1_000_000)
+        during = {"writes": 0, "deletes": 0, "bytes": 0, "big_deletes": 0}
+        big_live = sorted(live)
+
+        def writer(w):
+            mine = []
+            i = 0
+            while not stop.is_set():
+                nid = next(counter)
+                fid = str(FileId(va, nid, _cookie(nid)))
+                data = _payload(seed + 8, nid, 1024)
+                operation.upload(ua, fid, data)
+                with lock:
+                    acked[fid] = data
+                    during["writes"] += 1
+                    during["bytes"] += len(data)
+                mine.append(fid)
+                i += 1
+                victim = None
+                if i % 4 == 0:
+                    victim = mine.pop(0)
+                elif i % 16 == 3:
+                    with lock:         # a few of the large ones too
+                        if big_live and during["big_deletes"] < \
+                                MAINT_BIG_DELETES:
+                            victim = big_live.pop()
+                            during["big_deletes"] += 1
+                if victim is not None:
+                    st, _, _ = http_bytes("DELETE", f"{ua}/{victim}",
+                                          timeout=60)
+                    check(st == 202, f"delete {victim}: {st}")
+                    with lock:
+                        acked.pop(victim, None)
+                        live.pop(victim, None)
+                        gone.append(victim)
+                        during["deletes"] += 1
+        threads = [threading.Thread(target=writer, args=(w,))
+                   for w in range(MAINT_WRITERS)]
+        for th in threads:
+            th.start()
+        try:
+            job = jobs_of(["vacuum"])["vacuum"]
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=120)
+        check(job["params"] == {"volumeId": va},
+              f"the vacuum job is not A's: {job['params']}")
+        after = os.path.getsize(dat_a)
+        replayed = int(metric(ua, "seaweedfs_tpu_volume_server_vacuum_"
+                                  "replayed_entries_total") - replayed0)
+        live.update(acked)
+        t = time.perf_counter()
+        n_http = read_all(list(live.items()), lambda f: http_bytes(
+            "GET", f"{ua}/{f}", timeout=60)[1], "A over HTTP")
+        n_plane = read_all(list(live.items()), lambda f: plane_get(ua, f)[1],
+                           "A through the read plane")
+        dead = deleted + gone
+        codes = [http_bytes("GET", f"{ua}/{f}", timeout=60)[0] for f in dead]
+        check(all(c == 404 for c in codes),
+              f"deleted needles answered {sorted(set(codes))}")
+        shrink = before - after + during["bytes"]
+        check(shrink >= 0.95 * deleted_bytes,
+              f"A shrank {shrink} bytes for {deleted_bytes} deleted")
+        check(replayed > 0, "the diff replayed nothing")
+        steps["vacuum"] = {"volume": va, "wall_s": job["wall_s"],
+                           "dat_before": before, "dat_after": after,
+                           "reclaimed": before - after,
+                           "deleted_bytes": deleted_bytes,
+                           "records_replayed": replayed,
+                           "writes_during": during["writes"],
+                           "deletes_during": during["deletes"],
+                           "read_back_http": n_http,
+                           "read_back_plane": n_plane,
+                           "deleted_404": len(dead),
+                           "read_back_seconds": time.perf_counter() - t,
+                           "stages": job["trace"][-3:]}
+        emit({"phase": "maintenance", "step": "vacuum", **steps["vacuum"]})
+
+        # 3. the encode of the compacted volume on the card
+        size_a = os.path.getsize(dat_a)
+        windows = sum(launches_for(d, item[3]) for item in
+                      ec_encoder._encode_work_items(size_a, ctx))
+        c0 = _counters(urls)
+        job = jobs_of(["erasure_coding"], submit={
+            "jobType": "erasure_coding",
+            "params": {"volumeId": va, "collection": coll,
+                       "encodeMode": "scatter"}})["erasure_coding"]
+        enc = _delta(_counters(urls), c0)
+        check(enc["launches"] == windows,
+              f"the encode launched {enc['launches']}, the compacted .dat's "
+              f"windows are {windows}")
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards of A listed")
+        shard_files = []
+        for sid in range(d + p):
+            name = f"{coll}_{va}" + ctx.to_ext(sid)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_files.append(path)
+        t = time.perf_counter()
+        checked = _parity_matches(shard_files, d, p)
+        steps["encode"] = {"volume": va, "dat_bytes": size_a,
+                           "wall_s": job["wall_s"], "launches":
+                           enc["launches"], "windows": windows,
+                           "parity_bytes_checked": checked * p,
+                           "parity_check_seconds": time.perf_counter() - t,
+                           "spread": {u: len(s) for u, s in
+                                      ec_locs(va).items()},
+                           "message": job["message"][:200],
+                           "stages": [(t["event"][:60], t["ts"])
+                                      for t in job["trace"]]}
+        emit({"phase": "maintenance", "step": "encode", **steps["encode"]})
+
+        # 4. three more servers, then both balances
+        more = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", murl, "-max",
+              str(WRITE_MAX_VOLUMES), "-rack", f"r{(MAINT_SERVERS + i) % 2}",
+              "-device", device]
+             for i, dd in enumerate(dirs[MAINT_SERVERS:])],
+            [dd + ".log" for dd in dirs[MAINT_SERVERS:]], procs, "volume")
+        proc_of.update(zip(more, procs[-MAINT_MORE:]))
+        urls += more
+        for u in more:
+            planes[u] = http_json("GET", f"{u}/status", timeout=30)[
+                "readPlanePort"] or int(u.rsplit(":", 1)[1])
+        poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
+             "7 volume servers registered")
+        counts0 = volume_counts(urls)
+        admin("POST", "/maintenance/config",
+              {"jobType": "volume_balance",
+               "values": {"imbalanceThreshold": 2}})
+        c0 = _counters(urls)
+        bal = jobs_of(["ec_balance", "volume_balance"])
+        fair = -(-(d + p) // len(urls))
+        poll(lambda: sum(len(s) for s in ec_locs(va).values()) == d + p and
+             max(len(s) for s in ec_locs(va).values()) <= fair,
+             f"no server with more than {fair} of A's shards")
+        spread = {u: len(s) for u, s in ec_locs(va).items()}
+        racks = {u: f"r{i % 2}" for i, u in enumerate(urls)}
+        rack_spread = {r: sum(n for u, n in spread.items() if racks[u] == r)
+                       for r in sorted(set(racks.values()))}
+        again = EcBalanceHandler().detect(
+            type("Worker", (), {"master": murl})())
+        check(again == [], f"ec_balance proposed again after its run: "
+                           f"{again} (spread {spread})")
+        poll(lambda: max(volume_counts(urls).values()) -
+             min(volume_counts(urls).values()) <= 2,
+             "a volume count spread of at most 2")
+        counts = volume_counts(urls)
+        moved_shards = int(re.search(r"moved (\d+) shards",
+                                     bal["ec_balance"]["message"]).group(1))
+        moved_vols = int(re.search(r"moved (\d+) volumes",
+                                   bal["volume_balance"]["message"]).group(1))
+        check(_delta(_counters(urls), c0)["launches"] == 0,
+              "the balances launched the kernel")
+        steps["balance"] = {"servers": len(urls), "fair_share": fair,
+                            "shards_moved": moved_shards,
+                            "shard_spread": spread,
+                            "rack_spread": rack_spread,
+                            "ec_balance_proposes_again": bool(again),
+                            "ec_balance_wall_s": bal["ec_balance"]["wall_s"],
+                            "volumes_moved": moved_vols,
+                            "volume_counts_before": list(counts0.values()),
+                            "volume_counts_after": list(counts.values()),
+                            "volume_balance_wall_s":
+                                bal["volume_balance"]["wall_s"]}
+        emit({"phase": "maintenance", "step": "balance", **steps["balance"]})
+
+        # 5. a server with 2 of A's shards stopped, and the rebuild
+        locs = ec_locs(va)
+        victim = min((u for u in urls if len(locs.get(u, [])) == 2),
+                     key=lambda u: counts[u])
+        lost = sorted(locs[victim])
+        vdir = dirs[urls.index(victim)]
+        lost_files = {s: os.path.join(vdir, f"{coll}_{va}" + ctx.to_ext(s))
+                      for s in lost}
+        lost_sha = {s: sha256_file(f) for s, f in lost_files.items()}
+        pv = proc_of[victim]
+        pv.terminate()
+        check(pv.wait(timeout=60) == 0, f"{victim} did not stop cleanly")
+        urls.remove(victim)
+        poll(lambda: victim not in get("/cluster/status")["dataNodes"],
+             "the master dropped the stopped server")
+        shard_size = os.path.getsize(lost_files[lost[0]])
+        stepb = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_windows = sum(launches_for(d, min(stepb, shard_size - pos))
+                          for pos in range(0, shard_size, stepb))
+        c0 = _counters(urls)
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={va} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        reb = _delta(_counters(urls), c0)
+        check(f"rebuilt shards {lost} on " in out[1], f"rebuild: {out}")
+        check(reb["launches"] == reb_windows,
+              f"the rebuild launched {reb['launches']}, its [2,10] windows "
+              f"are {reb_windows}")
+        for sid, sha in lost_sha.items():
+            name = os.path.basename(lost_files[sid])
+            (now,) = [os.path.join(dd, name) for dd in dirs
+                      if dd != vdir and os.path.exists(os.path.join(dd, name))]
+            check(sha256_file(now) == sha, f"rebuilt shard {sid} differs")
+        operation._vid_cache._m.clear()
+        t = time.perf_counter()
+        n_ec = read_all(list(live.items()),
+                        lambda f: operation.read(murl, f), "A from EC")
+        moved = {f: b for f, b in small.items()
+                 if any(loc["url"] != victim for loc in
+                        operation.lookup(murl, int(f.split(",")[0]),
+                                         use_cache=False))}
+        n_small = read_all(list(moved.items()),
+                           lambda f: operation.read(murl, f),
+                           "the small volumes")
+        steps["rebuild"] = {"volume": va, "stopped": victim, "lost": lost,
+                            "wall_s": reb_s, "launches": reb["launches"],
+                            "windows": reb_windows,
+                            "rebuilt_equal": len(lost),
+                            "read_back_a": n_ec, "read_back_small": n_small,
+                            "read_back_seconds": time.perf_counter() - t}
+        emit({"phase": "maintenance", "step": "rebuild", **steps["rebuild"]})
+
+        # 6. replica repair, then the scrub
+        t6 = time.perf_counter()
+        u1, u2 = urls[0], urls[1]
+        for u in (u1, u2):
+            _post(f"{u}/admin/allocate_volume",
+                  {"volumeId": repair_vid, "collection": coll,
+                   "replication": "001"}, "maint-repair")
+        poll(lambda: len(operation.lookup(murl, repair_vid,
+                                          use_cache=False)) == 2,
+             "both replicas of the 001 volume listed")
+        rep = {}
+        for nid in range(1, MAINT_REPAIR_N + 1):
+            fid = str(FileId(repair_vid, nid, _cookie(nid)))
+            rep[fid] = _payload(seed + repair_vid, nid, 1024)
+            st, body, _ = http_bytes("POST", f"{u1}/{fid}", rep[fid],
+                                     timeout=60)
+            check(st == 201, f"replicated write {fid}: {st} {body[:100]!r}")
+        for fid in list(rep)[:MAINT_REPAIR_DROP]:
+            r = http_json("POST", f"{u2}/admin/delete_needle",
+                          {"volumeId": repair_vid,
+                           "key": parse_file_id(fid).key}, timeout=60)
+            check(r.get("freed", 0) > 0, f"delete_needle on {u2}: {r}")
+        out = commands.run_script(
+            env, f"lock; volume.check.disk -volumeId={repair_vid}; unlock")
+        check(f"{MAINT_REPAIR_DROP} needles synced" in out[1],
+              f"volume.check.disk: {out}")
+        read_all(list(rep.items()), lambda f: http_bytes(
+            "GET", f"{u2}/{f}", timeout=60)[1], "the synced replica")
+        check_disk_s = time.perf_counter() - t6
+        p2 = proc_of[u2]
+        p2.terminate()
+        check(p2.wait(timeout=60) == 0, f"{u2} did not stop cleanly")
+        urls.remove(u2)
+        poll(lambda: [x["url"] for x in operation.lookup(
+            murl, repair_vid, use_cache=False)] == [u1],
+            "the master lists one replica")
+        t = time.perf_counter()
+        out = commands.run_script(env,
+                                  "lock; volume.fix.replication; unlock")
+        fix_s = time.perf_counter() - t
+        check(out[1].startswith("fixed replicas: ['200->"),
+              f"volume.fix.replication: {out}")
+        new = out[1].split("->")[1].split("'")[0]
+        poll(lambda: len(operation.lookup(murl, repair_vid,
+                                          use_cache=False)) == 2,
+             "two replicas again")
+        read_all(list(rep.items()), lambda f: http_bytes(
+            "GET", f"{new}/{f}", timeout=60)[1], "the new replica")
+        out = commands.run_script(env, "volume.scrub")
+        lines = out[0].splitlines()
+        errors = [ln for ln in lines if not ln.endswith(", ok")]
+        check(lines and not errors, f"volume.scrub: {errors[:3]}")
+        steps["repair"] = {"volume": repair_vid, "synced": MAINT_REPAIR_DROP,
+                           "check_disk_s": check_disk_s,
+                           "stopped": u2, "new_replica": new,
+                           "fix_replication_s": fix_s,
+                           "scrubbed_replicas": len(lines),
+                           "scrub_errors": 0}
+        emit({"phase": "maintenance", "step": "repair", **steps["repair"]})
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a process of the maintenance cluster did not stop: "
+                   f"{bad}")
+    out = {"phase": "maintenance",
+           "servers": {"start": MAINT_SERVERS,
+                       "after": MAINT_SERVERS + MAINT_MORE},
+           "cuts": {"volume_a_mb": big_mb, "small_needles": small_n},
+           "cluster_start_seconds": start_s, "steps": steps,
+           "launches": {"encode": steps["encode"]["launches"],
+                        "rebuild": steps["rebuild"]["launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -7633,6 +8208,8 @@ def main(argv=None) -> int:
                       os.path.join(work, "filer_fleet"), args.seed)
         qchaos = timed("qos_chaos", phase_qos_chaos,
                        os.path.join(work, "qos_chaos"), args.seed)
+        maint = timed("maintenance", phase_maintenance,
+                      os.path.join(work, "maintenance"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -7670,7 +8247,9 @@ def main(argv=None) -> int:
               "filer_fleet_reads": fleet["launches"]["reads"],
               "qos_chaos_encode": qchaos["launches"]["encode"],
               "qos_chaos_rebuild": qchaos["launches"]["rebuild"],
-              "qos_chaos_scatter": qchaos["launches"]["scatter"]}),
+              "qos_chaos_scatter": qchaos["launches"]["scatter"],
+              "maintenance_encode": maint["launches"]["encode"],
+              "maintenance_rebuild": maint["launches"]["rebuild"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -16,7 +16,9 @@
         [-master HOST:PORT] [-detectionInterval 30] [-dataDir DIR]
     python3 -m seaweedfs_tpu_torch worker [-admin HOST:PORT]
         [-master HOST:PORT] [-dir DIR]
-        [-capabilities erasure_coding,ec_rebuild] [-device cuda]
+        [-capabilities erasure_coding,vacuum] [-device cuda]
+    python3 -m seaweedfs_tpu_torch fix|compact|export -dir DIR
+        -volumeId N [-collection C] [-o OUT.tar]
     python3 -m seaweedfs_tpu_torch benchmark [-master HOST:PORT]
         [-n 1000] [-size 1024] [-c 16]
     python3 -m seaweedfs_tpu_torch upload [-master HOST:PORT] FILE
@@ -35,7 +37,7 @@ into the process (`security.py`): `[jwt.signing]` and
 JWTs, `[admin] key` (or `[access] admin_key`) the admin paths,
 `[access] white_list` admits IPs to them, and `[tls]` (`ca`, `cert`,
 `key`, `mtls`) puts every listener and dial on TLS.  A `[qos]` section
-is refused (exit 2): QoS admission is not ported.  `cert` mints a
+configures QoS (a malformed one exits 2).  `cert` mints a
 cluster CA and one node certificate for `[tls]` (it needs the
 `cryptography` package); `scaffold -config security` prints a
 commented security.toml.
@@ -81,11 +83,19 @@ ported yet (ROADMAP).
 `admin` starts the maintenance admin (`plugin/admin.py`) and prints
 `admin listening on <ip>:<port>`; `worker` registers a maintenance
 worker (`plugin/worker.py`) with `-admin` and prints `worker <id>
-polling <admin>`.  The worker's `erasure_coding` capability encodes
-pulled volumes on its `-device` (the card by default; `-device cuda`
-must find it at start), and both `erasure_coding` and `ec_rebuild`
-bring the rebuild handler.  Both serve until SIGTERM or SIGINT, stop
-and exit 0.
+polling <admin>`.  Its `-capabilities` default to the JAX worker's,
+`erasure_coding,vacuum`.  `erasure_coding` (or `ec`) encodes pulled
+volumes on its `-device` (the card by default; `-device cuda` must find
+it at start); `erasure_coding` and `ec_rebuild` bring the rebuild
+handler; `vacuum` compacts volumes whose garbage passed 0.3;
+`volume_balance` (or `balance`) and `ec_balance` even out volume counts
+and EC shards across the servers.  Both serve until SIGTERM or SIGINT,
+stop and exit 0.
+
+`fix`, `compact` and `export` work on the files of a volume that no
+server has open (weed fix, compact, export): `fix` rebuilds the `.idx`
+from a scan of the `.dat`, `compact` vacuums it offline, and `export`
+lists its live files, or writes them to the tar file `-o`.
 
 `s3` starts the S3 gateway (`s3/s3_server.py`) over a running filer
 (`-filer`, through `filer/client.py`) or an in-process filer over
@@ -398,7 +408,7 @@ def main(argv=None) -> int:
     wk.add_argument("-dir", default=os.path.join(tempfile.gettempdir(),
                                                  "seaweedfs_tpu_worker"),
                     help="where pulled volumes are encoded")
-    wk.add_argument("-capabilities", default="erasure_coding,ec_rebuild")
+    wk.add_argument("-capabilities", default="erasure_coding,vacuum")
     wk.add_argument("-device", default=None,
                     help="codec device: cuda (the default) or cpu")
     fl = sub.add_parser("filer", help="start a filer server")
@@ -476,6 +486,18 @@ def main(argv=None) -> int:
     sc = sub.add_parser("scaffold", help="print a commented template "
                         "config")
     sc.add_argument("-config", default="security", choices=["security"])
+    for name, what in (("fix", "rebuild a volume's .idx from its .dat"),
+                       ("compact", "vacuum a volume's files offline"),
+                       ("export", "list or tar a volume's live files")):
+        off = sub.add_parser(name, help=f"{what} (stop its volume server "
+                                        f"first)")
+        off.add_argument("-dir", required=True)
+        off.add_argument("-volumeId", dest="volume_id", type=int,
+                         required=True)
+        off.add_argument("-collection", default="")
+        if name == "export":
+            off.add_argument("-o", dest="out", default="",
+                             help="output .tar path (omit to list)")
     args = ap.parse_args(argv)
 
     if args.securityToml:
@@ -541,19 +563,18 @@ def main(argv=None) -> int:
             detection_interval=args.detectionInterval,
             data_dir=args.dataDir or None), _listening("admin"))
     if args.cmd == "worker":
-        from .plugin import EcEncodeHandler, EcRebuildHandler, PluginWorker
-        caps = args.capabilities.split(",")
-        handlers = []
-        if "erasure_coding" in caps:
-            handlers.append(EcEncodeHandler(device=args.device or "cuda"))
-        if {"erasure_coding", "ec_rebuild"} & set(caps):
-            handlers.append(EcRebuildHandler())
+        from .plugin import PluginWorker
+        handlers = _worker_handlers(args.capabilities.split(","),
+                                    args.device or "cuda")
         if not handlers:
             ap.error(f"no handler for -capabilities {args.capabilities}; "
-                     f"known: erasure_coding, ec_rebuild")
+                     f"known: erasure_coding, ec_rebuild, vacuum, "
+                     f"volume_balance, ec_balance")
         return _serve(PluginWorker(args.admin, args.master, args.dir,
                                    handlers),
                       lambda w: f"worker {w.worker_id} polling {w.admin}")
+    if args.cmd in ("fix", "compact", "export"):
+        return _offline_tool(args)
     if args.cmd == "filer":
         return _filer(ap, args,
                       sys.argv[1:] if argv is None else list(argv))
@@ -579,6 +600,95 @@ def main(argv=None) -> int:
                           " ".join(args.command)):
         print(out, flush=True)
     return 0
+
+
+def _worker_handlers(caps: "list[str]", device: str) -> list:
+    """The handlers of a worker's capabilities, in the JAX worker's order
+    (seaweedfs_tpu/__main__.py:893-913)."""
+    from .plugin.handlers import (EcBalanceHandler, EcEncodeHandler,
+                                  EcRebuildHandler, VacuumHandler,
+                                  VolumeBalanceHandler)
+    want = set(caps)
+    handlers = []
+    if {"erasure_coding", "ec"} & want:
+        handlers.append(EcEncodeHandler(device=device))
+    if {"erasure_coding", "ec", "ec_rebuild"} & want:
+        handlers.append(EcRebuildHandler())
+    if "vacuum" in want:
+        handlers.append(VacuumHandler())
+    if {"volume_balance", "balance"} & want:
+        handlers.append(VolumeBalanceHandler())
+    if "ec_balance" in want:
+        handlers.append(EcBalanceHandler())
+    return handlers
+
+
+def _offline_tool(args) -> int:
+    """weed fix / compact / export over the files of an unmounted volume:
+    pure Python over `Volume` and `walk_dat`, as in the JAX package."""
+    from .storage.volume import Volume
+    name = (f"{args.collection}_" if args.collection else "") + \
+        f"{args.volume_id}"
+    base = os.path.join(args.dir, name)
+    if not os.path.exists(base + ".dat"):
+        # Volume() would create an empty volume there
+        print(f"no {base}.dat", file=sys.stderr)
+        return 1
+    if args.cmd == "fix":
+        # replay the .dat into a fresh .idx: writes put, tombstones delete
+        from .storage import idx as idxmod
+        from .storage import types
+        from .storage.volume import walk_dat
+        tmp = base + ".idx.fix"
+        n_writes = n_dels = 0
+        with open(tmp, "wb") as f:
+            for needle, off in walk_dat(base + ".dat"):
+                if needle.data:
+                    f.write(idxmod.entry_bytes(
+                        needle.id, types.to_stored_offset(off), needle.size))
+                    n_writes += 1
+                else:
+                    f.write(idxmod.entry_bytes(
+                        needle.id, 0, types.TOMBSTONE_FILE_SIZE))
+                    n_dels += 1
+        os.replace(tmp, base + ".idx")
+        print(f"fixed {base}.idx: {n_writes} writes, {n_dels} tombstones")
+        return 0
+    v = Volume(args.dir, args.volume_id, collection=args.collection)
+    try:
+        if args.cmd == "compact":
+            before, garbage = v.dat_size(), v.garbage_level()
+            v.vacuum()
+            print(f"compacted volume {args.volume_id}: {before} -> "
+                  f"{v.dat_size()} bytes (garbage was {garbage:.0%})")
+            return 0
+        import io
+        import tarfile
+        tar = tarfile.open(args.out, "w") if args.out else None
+        count = 0
+        for key, stored_off, size in sorted(v.nm.items()):
+            n = v._read_at(stored_off, size)
+            fname = f"{key:x}"
+            if n.has_name():
+                fname += "_" + n.name.decode("utf-8", "replace")
+            if tar is None:
+                mime = n.mime.decode("utf-8", "replace") \
+                    if n.has_mime() else "-"
+                print(f"{fname}\t{len(n.data)}\t{mime}")
+            else:
+                info = tarfile.TarInfo(fname)
+                info.size = len(n.data)
+                info.mtime = n.last_modified or 0
+                tar.addfile(info, io.BytesIO(n.data))
+            count += 1
+        if tar is not None:
+            tar.close()
+            print(f"exported {count} files to {args.out}")
+        else:
+            print(f"{count} live files in volume {args.volume_id}")
+        return 0
+    finally:
+        v.close()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Admin server: the worker registry, detection scheduling and job
-dispatch of the maintenance plane (the counterpart of
-`seaweedfs_tpu/plugin/admin.py` without its browser UI; reference
+dispatch of the maintenance plane, and its browser UI (`admin_ui.py`)
+(the counterpart of `seaweedfs_tpu/plugin/admin.py`; reference
 weed/admin/maintenance/maintenance_manager.go and admin/plugin/:
 PluginRegistry, DetectorScheduler, JobDispatcher, SchemaCoordinator,
 ConfigStore).
@@ -17,6 +17,8 @@ progress, completion).
     GET  /maintenance/job?id=, /maintenance/queue
     GET/POST /maintenance/config
     GET  /debug/traces?request_id=   the spans workers reported
+    GET  /, /ui/volumes, /ui/ec, /ui/jobs, /ui/config; POST /ui/config,
+         /ui/actions                 the UI (CSRF token, admin key)
 
 With `data_dir` the plane persists under `<data_dir>/plugin/`:
 `jobs.jsonl` (an append-only log of job states, folded at load and
@@ -143,9 +145,8 @@ class AdminServer:
                 self._load_state()
         self.http = HttpServer(host, port)
         self.http.role = "admin"
-        # the admin JWT on `/debug/*`, as every role has it; the JAX
-        # admin's browser UI, whose writes it also gates before their
-        # CSRF check, is not ported
+        # the admin JWT on `/debug/*`, as every role has it; the UI's
+        # writes check it themselves, before their CSRF token
         self.http.guard = admin_guard
         r = self.http.route
         r("POST", "/worker/register", self._register)
@@ -160,6 +161,8 @@ class AdminServer:
         r("POST", "/maintenance/trigger_detection", self._trigger)
         r("POST", "/maintenance/submit_job", self._submit_job)
         r("GET", "/debug/traces", self._traces)
+        from .admin_ui import AdminUI
+        self.ui = AdminUI(self)
         self._detect_thread: threading.Thread | None = None
         self._pending_detection: list[str] = []  # worker ids to ask
 

@@ -48,6 +48,9 @@ class JobHandler:
     :61 Descriptor, :187 Detect, :445 Execute)."""
 
     job_type = "base"
+    # other job type names this handler answers (a job of the type
+    # "balance" runs on the volume balance handler)
+    aliases: "list[str]" = []
 
     def capability(self) -> dict:
         return {"jobType": self.job_type, "canDetect": True,
@@ -83,7 +86,11 @@ class PluginWorker:
         self.admin = admin
         self.master = master
         self.work_dir = work_dir
+        self._registered = list(handlers)
         self.handlers = {h.job_type: h for h in handlers}
+        for h in handlers:
+            for alias in h.aliases:
+                self.handlers.setdefault(alias, h)
         self.poll_wait = poll_wait
         self.worker_id = ""
         self._stop = threading.Event()
@@ -97,10 +104,8 @@ class PluginWorker:
 
     def start(self) -> "PluginWorker":
         r = must(http_json("POST", f"{self.admin}/worker/register", {
-            "capabilities": [h.capability() for h in
-                             self.handlers.values()],
-            "descriptors": [h.descriptor() for h in
-                            self.handlers.values()],
+            "capabilities": [h.capability() for h in self._registered],
+            "descriptors": [h.descriptor() for h in self._registered],
             "maxConcurrent": 1,
         }), f"register with {self.admin}")
         self.worker_id = r["workerId"]
@@ -138,7 +143,7 @@ class PluginWorker:
                         "POST", f"{self.admin}/worker/register", {
                             "workerId": self.worker_id,
                             "capabilities": [h.capability() for h in
-                                             self.handlers.values()],
+                                             self._registered],
                             "maxConcurrent": 1})
                     self.worker_id = r.get("workerId", self.worker_id)
                 except OSError:
@@ -167,7 +172,7 @@ class PluginWorker:
 
     def _run_detection(self) -> None:
         proposals = []
-        for h in self.handlers.values():
+        for h in self._registered:
             try:
                 proposals.extend(h.detect(self))
             except Exception:  # noqa: BLE001 — detection must not end

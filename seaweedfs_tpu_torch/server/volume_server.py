@@ -73,6 +73,9 @@ a master, and the public data path for reads and deletes.
   `/admin/delete_volume`, `/admin/mount_volume`,
   `/admin/unmount_volume`, `/admin/set_readonly` and
   `/admin/receive_file`.
+- `/admin/volume/hold`: a copy's lease on its source volume, which
+  `/admin/vacuum`, `/admin/volume/merge` and `/admin/ec/generate` answer
+  with 409 while it lasts (the JAX server has no such hold).
 
 With a `master` (host:port), the server posts `Store.collect_heartbeat()`
 to the master's `/heartbeat` at start, every `pulse_seconds`, and at
@@ -181,11 +184,22 @@ class VolumeServer:
         r = self.http.route
         r("POST", "/admin/allocate_volume", self._allocate_volume)
         r("POST", "/admin/set_readonly", self._set_readonly)
+        r("POST", "/admin/volume/hold", self._hold_volume)
         r("POST", "/admin/receive_file", self._receive_file)
         r("GET", "/admin/volume_file", self._read_volume_file)
         r("POST", "/admin/delete_volume", self._delete_volume)
         r("POST", "/admin/mount_volume", self._mount_volume)
         r("POST", "/admin/unmount_volume", self._unmount_volume)
+        r("POST", "/admin/configure_volume", self._configure_volume)
+        r("POST", "/admin/vacuum", self._vacuum)
+        r("POST", "/admin/vacuum_toggle", self._vacuum_toggle)
+        r("POST", "/admin/leave", self._leave)
+        r("POST", "/admin/scrub", self._scrub)
+        r("POST", "/admin/volume/merge", self._merge_volume)
+        r("GET", "/admin/volume_index", self._volume_index)
+        r("GET", "/admin/needle_raw", self._needle_raw)
+        r("POST", "/admin/write_needle_raw", self._write_needle_raw)
+        r("POST", "/admin/delete_needle", self._admin_delete_needle)
         r("POST", "/admin/ec/copy", self._ec_copy)
         r("POST", "/admin/ec/to_volume", self._ec_to_volume)
         r("POST", "/admin/ec/generate", self._ec_generate)
@@ -248,6 +262,14 @@ class VolumeServer:
         # uploadId -> {path, crc, bytes, vid, sid, collection, stamp}
         self._pending_shard_writes: dict[str, dict] = {}
         self._pending_lock = threading.Lock()
+        # volumes a compaction, a merge, an EC generate or a copy is
+        # rewriting or reading whole: one at a time a volume (409 for the
+        # second); a copy's hold spans requests, so it is a lease:
+        # vid -> (token, monotonic deadline)
+        self._busy: dict[int, str] = {}
+        self._holds: dict[int, tuple[str, float]] = {}
+        self._busy_lock = threading.Lock()
+        self._vacuum_disabled = False
 
     # -- lifecycle --------------------------------------------------------
 
@@ -990,6 +1012,281 @@ class VolumeServer:
         self._heartbeat_once()
         return 200, {}
 
+    # -- volume maintenance (vacuum, merge, scrub, replica repair) ---------
+
+    @contextlib.contextmanager
+    def _exclusive(self, vid: int, what: str):
+        """Hold `vid` for one whole-volume operation; yields None, or
+        the operation that holds it already (the caller answers 409):
+        a compaction must not swap the `.dat` under an EC generate that
+        reads it, nor two rewrites race."""
+        with self._busy_lock:
+            self._expire_hold(vid)
+            holder = self._busy.get(vid)
+            if holder is None:
+                self._busy[vid] = what
+        if holder is not None:
+            yield holder
+            return
+        try:
+            yield None
+        finally:
+            with self._busy_lock:
+                self._busy.pop(vid, None)
+
+    def _expire_hold(self, vid: int) -> None:
+        """Free a copy's hold whose lease ran out (its copier died);
+        `_busy_lock` held."""
+        held = self._holds.get(vid)
+        if held is not None and held[1] < time.monotonic():
+            self._holds.pop(vid, None)
+            self._busy.pop(vid, None)
+
+    def _hold_volume(self, req: Request):
+        """A whole-volume copy's hold on its source across the requests
+        that pull `.dat` then `.idx`: while it lasts `/admin/vacuum`, a
+        merge and an EC generate answer 409, so no compaction commits
+        between the two pulls.  `seconds` > 0 takes or renews the lease
+        of `token`, 0 releases it; 409 while another operation holds the
+        volume."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        token = str(b["token"])
+        seconds = float(b.get("seconds", 600))
+        with self._busy_lock:
+            self._expire_hold(vid)
+            held = self._holds.get(vid)
+            mine = held is not None and held[0] == token
+            if seconds <= 0:
+                if mine:
+                    self._holds.pop(vid, None)
+                    self._busy.pop(vid, None)
+                return 200, {"held": False}
+            holder = self._busy.get(vid)
+            if holder is not None and not mine:
+                return 409, {"error": f"volume {vid} is busy: {holder}"}
+            self._busy[vid] = "copy"
+            self._holds[vid] = (token, time.monotonic() + seconds)
+        return 200, {"held": True}
+
+    @contextlib.contextmanager
+    def _swap_guard(self, vid: int):
+        """Around the rename of a compaction or merge (taken before the
+        volume's lock): no read plane registration runs while the files
+        change, and the plane forgets the volume before any can run
+        again.  A read during the copy may have re-added the volume with
+        an fd on the old `.dat`; new-layout offsets must never be read
+        through it.  The hot-needle cache's generation drops too (a
+        merge changes what a needle id holds)."""
+        with self._rp_lock:
+            try:
+                yield
+            finally:
+                if self.read_plane is not None:
+                    self.read_plane.remove_volume(vid)
+                self._rp_volumes.discard(vid)
+        self._nc_drop_volume(vid)
+
+    def _configure_volume(self, req: Request):
+        """volume_server.proto VolumeConfigure: the replica placement
+        byte rewritten in the superblock and the volume info."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        try:
+            v.configure_replication(str(b.get("replication", "000")))
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        # a replicated volume leaves the write plane (its writes fan out)
+        v.detach_native()
+        self._wp_sync_volume(vid)
+        self._heartbeat_once()
+        return 200, {"replication": str(v.super_block.replica_placement)}
+
+    def _leave(self, req: Request):
+        """volume.server.leave (VolumeServerLeave): stop heartbeating, so
+        the master forgets this server after its pulse timeout; volumes
+        stay served until the process exits."""
+        self._hb_stop.set()
+        return 200, {"left": True}
+
+    def _vacuum_toggle(self, req: Request):
+        """volume.vacuum.enable / disable: the gate `/admin/vacuum`
+        honours."""
+        self._vacuum_disabled = not bool(req.json().get("enabled", True))
+        return 200, {"vacuumEnabled": not self._vacuum_disabled}
+
+    def _vacuum(self, req: Request):
+        """volume_server.proto VacuumVolume{Check,Compact,Commit}: the
+        copy without the volume's lock, the diff replay and the swap
+        under it and `_swap_guard`; the write plane is offered the
+        volume again after."""
+        if self._vacuum_disabled:
+            return 409, {"error": "vacuum disabled on this server "
+                                  "(volume.vacuum.enable to resume)"}
+        vid = int(req.json()["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": "volume not found"}
+        with self._exclusive(vid, "vacuum") as busy:
+            if busy:
+                return 409, {"error": f"volume {vid} is busy: {busy}"}
+            garbage = v.garbage_level()
+            before = v.dat_size()
+            t0 = time.perf_counter()
+            try:
+                v.compact()
+                t1 = time.perf_counter()
+                replayed = v.commit_compact(
+                    guard=lambda: self._swap_guard(vid))
+            finally:
+                self._wp_sync_volume(vid)
+            t2 = time.perf_counter()
+        for name, value, what in (
+                ("volume_server_vacuum_total", 1.0,
+                 "volumes compacted by /admin/vacuum"),
+                ("volume_server_vacuum_replayed_entries_total", replayed,
+                 ".idx entries the vacuum's diff replay applied (writes "
+                 "and deletes that landed during the copy)"),
+                ("volume_server_vacuum_reclaimed_bytes_total",
+                 max(before - v.dat_size(), 0),
+                 ".dat bytes the vacuum reclaimed")):
+            self.metrics.counter_add(name, float(value), help_text=what)
+        self._heartbeat_once()
+        return 200, {"garbageRatio": garbage, "datBytesBefore": before,
+                     "datBytes": v.dat_size(), "replayed": replayed,
+                     "compactSeconds": t1 - t0, "commitSeconds": t2 - t1}
+
+    def _merge_volume(self, req: Request):
+        """volume.merge's server side: pull the peers' `.dat` files and
+        rewrite this read-only copy as the AppendAtNs-ordered union
+        (`Volume.merge_from`)."""
+        b = req.json()
+        vid = int(b["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": "volume not found"}
+        if not v.read_only:
+            return 409, {"error": f"volume {vid} must be readonly "
+                                  "before merging"}
+        with self._exclusive(vid, "merge") as busy:
+            if busy:
+                return 409, {"error": f"volume {vid} is busy: {busy}"}
+            tmp_paths: list = []
+            try:
+                for peer in b.get("peers", []):
+                    fd, tmp = tempfile.mkstemp(
+                        suffix=".dat", dir=os.path.dirname(v.file_name("")))
+                    os.close(fd)
+                    tmp_paths.append(tmp)
+                    status, _hdrs = http_download(
+                        f"{peer}/admin/volume_file?volumeId={vid}"
+                        f"&collection={v.collection}&ext=.dat", tmp,
+                        timeout=600)
+                    if status != 200:
+                        return 500, {"error":
+                                     f"pull .dat from {peer}: {status}"}
+                merged = v.merge_from(tmp_paths,
+                                      guard=lambda: self._swap_guard(vid))
+            except (OSError, ValueError, PermissionError) as e:
+                return 500, {"error": f"merge: {e}"}
+            finally:
+                for tmp in tmp_paths:
+                    try:
+                        os.remove(tmp)
+                    except FileNotFoundError:
+                        pass
+        self._heartbeat_once()
+        return 200, {"mergedNeedles": merged, "datBytes": v.dat_size()}
+
+    def _scrub(self, req: Request):
+        """volume_grpc_scrub.go ScrubVolume: every live needle re-read
+        and CRC-checked."""
+        vid = int(req.json()["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        count, errors = v.scrub()
+        return 200, {"checked": count, "errors": errors}
+
+    def _volume_index(self, req: Request):
+        """The live [key, size] pairs of one volume, the `.idx` replayed
+        with its deletes: what volume.check.disk and volume.fsck diff."""
+        from ..storage import idx as idxmod
+        vid = int(req.query["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        v.sync()
+        with open(v.file_name(".idx"), "rb") as f:
+            live = idxmod.live_entries(f.read())
+        return 200, {"volumeId": vid,
+                     "entries": sorted((k, s) for k, (_o, s) in live.items())}
+
+    def _admin_delete_needle(self, req: Request):
+        """Tombstone one needle by key, without its cookie (the admin
+        plane): the purge of volume.fsck -reallyDeleteFromVolume."""
+        b = req.json()
+        vid, key = int(b["volumeId"]), int(b["key"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        try:
+            n = v.read_needle(key)
+        except KeyError:
+            self._rp_sync_needle(vid, key)
+            self._nc_invalidate_needle(vid, key)
+            return 200, {"freed": 0}
+        try:
+            freed = v.delete_needle(n)
+        except PermissionError as e:
+            return 409, {"error": str(e)}
+        self._rp_sync_needle(vid, key)
+        self._nc_invalidate_needle(vid, key)
+        return 200, {"freed": freed}
+
+    def _needle_raw(self, req: Request):
+        """One needle's whole record (header to padding): the unit that
+        replica repair copies (command_volume_check_disk.go)."""
+        vid, key = int(req.query["volumeId"]), int(req.query["key"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        try:
+            n = v.read_needle(key)
+        except KeyError as e:
+            return 404, {"error": str(e)}
+        return 200, (n.to_bytes(v.version),
+                     {"Content-Type": "application/octet-stream",
+                      "X-Needle-Version": str(v.version)})
+
+    def _write_needle_raw(self, req: Request):
+        """Append a record pulled from a healthy replica (the receiving
+        side of replica repair)."""
+        import struct
+        vid = int(req.query["volumeId"])
+        version = int(req.query.get("version") or types.CURRENT_VERSION)
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        body = req.body
+        if len(body) < types.NEEDLE_HEADER_SIZE:
+            return 400, {"error": "needle record shorter than header"}
+        try:
+            n = Needle.parse_header(body[:types.NEEDLE_HEADER_SIZE])
+            n.parse_body(body[types.NEEDLE_HEADER_SIZE:], version)
+        except (ValueError, struct.error) as e:
+            return 400, {"error": f"bad needle record: {e}"}
+        try:
+            size, _ = self.store.write_needle(vid, n)
+        except PermissionError as e:
+            return 409, {"error": str(e)}
+        self._nc_invalidate_needle(vid, n.id)
+        self._rp_sync_needle(vid, n.id)
+        return 200, {"size": size}
+
     # -- EC generate (volume_grpc_erasure_coding.go:43) -------------------
 
     def _ec_generate(self, req: Request):
@@ -1011,6 +1308,13 @@ class VolumeServer:
                                   f"not {collection!r}"}
         if not v.read_only:
             return 409, {"error": "volume must be readonly before encode"}
+        with self._exclusive(vid, "ec.generate") as busy:
+            if busy:
+                return 409, {"error": f"volume {vid} is busy: {busy}"}
+            return self._ec_generate_locked(b, v, vid, collection, ctx)
+
+    def _ec_generate_locked(self, b: dict, v, vid: int, collection: str,
+                            ctx: ECContext):
         v.sync()
         base = v.file_name("")
         dat_size = v.dat_size()

@@ -1,14 +1,27 @@
-"""Shell commands (weed/shell/command_*.go): the EC part and the
-`cluster.top` / `cluster.slow` / `cluster.profile` views of
-`seaweedfs_tpu/shell/commands.py` (the `fs.*` family is in
-`fs_commands.py`).
+"""Shell commands (weed/shell/command_*.go): the EC and volume
+maintenance verbs and the observability views of
+`seaweedfs_tpu/shell/commands.py` (the `fs.*` family and the repair
+plane are in `fs_commands.py`, the volume and cluster administration
+verbs in `admin_commands.py`).
 
-    lock, unlock, volume.list
+    lock, unlock, volume.list, cluster.check
     ec.encode   [-volumeId=N | -collection=C] [-mode=scatter|local]
                 [-dataShards=10 -parityShards=4]
     ec.rebuild  [-volumeId=N] [-mode=stream|copy]
     ec.decode   -volumeId=N
     ec.scrub    [-mode=local|index]
+    ec.balance  [-collection=C]
+    volume.vacuum [-volumeId=N]     volume.scrub [-volumeId=N]
+    volume.balance                  volume.fix.replication
+    volume.copy  -volumeId=N -target=URL [-source=URL]
+    volume.move  -volumeId=N -source=URL -target=URL
+    volume.grow  [-collection=C] [-replication=XYZ] [-count=1]
+    volume.merge -volumeId=N
+    collection.list                 collection.delete -collection=C -force
+    trace.show  REQUEST_ID [-nodes=...] [-health]
+    qos.status  [-nodes=...]
+    qos.set     -tenant=AK -rps=N [-burst=N] [-inflightMb=N]
+                | -sloP99Ms=N | -clear
     cluster.top      [-interval=2] [-nodes=host:port,...]
     cluster.slow     [-top=5] [-verdict=slow|error|deadline]
                      [-nodes=...] [-clear]
@@ -26,6 +39,7 @@ from __future__ import annotations
 
 import json
 import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 
 from ..operation import master_json
@@ -105,6 +119,31 @@ def cmd_unlock(env: CommandEnv, args: list[str]) -> str:
 def cmd_volume_list(env: CommandEnv, args: list[str]) -> str:
     """shell/command_volume_list.go."""
     return json.dumps(env.volume_list(), indent=2)
+
+
+@command("cluster.check")
+def cmd_cluster_check(env: CommandEnv, args: list[str]) -> str:
+    r = master_json(env.master, "GET", "/cluster/status", timeout=30)
+    return json.dumps(r, indent=2)
+
+
+@command("volume.vacuum")
+def cmd_volume_vacuum(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_vacuum.go: compact every volume (or
+    -volumeId) on each of its servers."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    target_vid = int(opts["volumeId"]) if "volumeId" in opts else None
+    done = []
+    for vid, urls in _volumes_by_id(env).items():
+        if target_vid is not None and vid != target_vid:
+            continue
+        for url in urls:
+            _must(http_json("POST", f"{url}/admin/vacuum",
+                            {"volumeId": vid}, timeout=3600),
+                  f"vacuum {vid} on {url}")
+        done.append(vid)
+    return f"vacuumed volumes: {sorted(done)}"
 
 
 # --- EC commands (command_ec_encode.go:86) -------------------------------
@@ -240,7 +279,7 @@ def _plan_ec_placement(env: CommandEnv, vid: int, total: int,
                        exclude: "frozenset | set" = frozenset()
                        ) -> "dict[int, str]":
     """Shard -> server before the encode, by the rules
-    `_balance_ec_volume` applies after it: toward ceil(total/racks)
+    `_balance_ec_volume` applies after it: toward `_rack_caps`
     shards a rack, even counts within a rack, ties broken by placement
     score.  Nodes in `exclude` and nodes whose breaker is open are never
     chosen."""
@@ -252,12 +291,12 @@ def _plan_ec_placement(env: CommandEnv, vid: int, total: int,
     rack_of = _rack_of_nodes(env, vl)
     score = _ec_placement_scores(env, vid, vl)
     racks = sorted({rack_of.get(n, "?") for n in nodes})
-    per_rack_cap = max(1, -(-total // len(racks)))  # ceil
+    caps = _rack_caps(nodes, rack_of, total)
     rack_load: dict[str, int] = {r: 0 for r in racks}
     node_load: dict[str, int] = {n: 0 for n in nodes}
     placement: dict[int, str] = {}
     for sid in range(total):
-        open_racks = [r for r in racks if rack_load[r] < per_rack_cap] \
+        open_racks = [r for r in racks if rack_load[r] < caps[r]] \
             or racks
         rack = min(open_racks, key=lambda r: rack_load[r])
         members = [n for n in nodes if rack_of.get(n, "?") == rack]
@@ -266,6 +305,27 @@ def _plan_ec_placement(env: CommandEnv, vid: int, total: int,
         rack_load[rack] += 1
         node_load[dst] += 1
     return placement
+
+
+def _rack_caps(nodes: list[str], rack_of: dict[str, str],
+               total: int) -> dict[str, int]:
+    """The shards of one EC volume each rack may hold: ceil(total /
+    racks), but no more than its servers hold at ceil(total / servers)
+    each, and raised evenly where that leaves racks short of `total`.
+    On equal racks this is ceil(total / racks), as upstream; on racks
+    of unequal size upstream's cap leaves more than ceil(total /
+    servers) on a server of the smaller rack, which the ec_balance
+    detection then proposes again after every run (ROADMAP C19)."""
+    members: dict[str, int] = {}
+    for n in nodes:
+        r = rack_of.get(n, "?")
+        members[r] = members.get(r, 0) + 1
+    per_server = -(-total // len(nodes))
+    room = {r: m * per_server for r, m in members.items()}
+    cap = max(1, -(-total // len(members)))
+    while sum(min(room[r], cap) for r in room) < total:
+        cap += 1
+    return {r: min(room[r], cap) for r in room}
 
 
 def _rack_of_nodes(env: CommandEnv, vl: "dict | None" = None
@@ -308,8 +368,9 @@ def _ec_placement_scores(env: CommandEnv, vid: int,
 def _balance_ec_volume(env: CommandEnv, vid: int, collection: str,
                        total: int) -> int:
     """command_ec_common.go:59-124: (1) drop duplicate shard copies,
-    (2) spread shards across racks toward total/racks a rack, (3) even
-    out the counts within each rack.  Returns the moves made."""
+    (2) spread shards across racks toward `_rack_caps` (total/racks a
+    rack on equal racks), (3) even out the counts within each rack.
+    Returns the moves made."""
     shard_locs = _ec_shard_locations(env, vid)
     nodes = _all_node_urls(env)
     if not nodes:
@@ -340,9 +401,11 @@ def _balance_ec_volume(env: CommandEnv, vid: int, collection: str,
         owner[sid] = dst
         moved += 1
 
-    # (2) across racks; only racks with an alive member receive
+    # (2) across racks, toward `_rack_caps`; only racks with an alive
+    # member receive
     racks = sorted({rack_of.get(n, "?") for n in nodes})
     avg_per_rack = max(1, -(-total // max(len(racks), 1)))  # ceil
+    caps = _rack_caps(nodes, rack_of, total)
 
     def rack_load() -> dict[str, list[int]]:
         rl: dict[str, list[int]] = {r: [] for r in racks}
@@ -351,14 +414,12 @@ def _balance_ec_volume(env: CommandEnv, vid: int, collection: str,
         return rl
     rl = rack_load()
     for rack in sorted(rl, key=lambda r: -len(rl[r])):
-        while len(rl[rack]) > avg_per_rack:
+        while len(rl[rack]) > caps.get(rack, avg_per_rack):
             receivable = [r for r in rl if r != rack and
-                          any(rack_of.get(n, "?") == r for n in nodes)]
+                          len(rl[r]) < caps.get(r, 0)]
             if not receivable:
                 break
             dest_rack = min(receivable, key=lambda r: len(rl[r]))
-            if len(rl[dest_rack]) + 1 > avg_per_rack:
-                break
             load = load_by_url()
             dst = min((n for n in nodes
                        if rack_of.get(n, "?") == dest_rack),
@@ -572,6 +633,378 @@ def cmd_ec_scrub(env: CommandEnv, args: list[str]) -> str:
     return "\n".join(out) if out else "no ec volumes"
 
 
+def _ec_info(env: CommandEnv, vid: int) -> "dict | None":
+    """The first holder's `/admin/ec/info` of an EC volume."""
+    for url in _ec_shard_locations(env, vid):
+        r = http_json("GET", f"{url}/admin/ec/info?volumeId={vid}",
+                      timeout=30)
+        if "error" not in r:
+            return r
+    return None
+
+
+@command("ec.balance")
+def cmd_ec_balance(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_ec_balance.go: `_balance_ec_volume` on every EC
+    volume (of -collection, when given), its shard count and collection
+    read off a holder's `/admin/ec/info`.  (The JAX command moves every
+    volume's shards under the -collection flag's name, "" without it: a
+    volume of another collection fails its first move, ROADMAP C20.)"""
+    env.confirm_is_locked()
+    want = _parse_flags(args).get("collection")
+    out = []
+    for vid in _ec_volumes(env):
+        info = _ec_info(env, vid) or {}
+        collection = info.get("collection", want or "")
+        if want is not None and collection != want:
+            continue
+        total = info.get("dataShards", 10) + info.get("parityShards", 4)
+        moved = _balance_ec_volume(env, vid, collection, total)
+        out.append(f"volume {vid}: moved {moved} shards")
+    return "\n".join(out) if out else "no ec volumes"
+
+
+# --- volume placement: copy, move, balance, repair ----------------------
+
+# a copy's lease on its source volume, renewed before each file's pull
+COPY_HOLD_SECONDS = 600.0
+
+
+def _copy_volume_files(env: CommandEnv, vid: int, collection: str,
+                       src: str, dst: str) -> None:
+    """The `.dat`, `.idx` and `.vif` (where present) of a volume from src
+    to dst (CopyFile / ReceiveFile, volume_server.proto:69-101), each
+    relayed a chunk at a time: the push starts at the first chunk, and
+    no file is held whole here.  The source holds the volume for the
+    copy (`/admin/volume/hold`), so no vacuum commits between the `.dat`
+    and the `.idx` pulls (the JAX command takes no hold: a compaction
+    there can give the copy the old `.dat` with the new `.idx`)."""
+    token = uuid.uuid4().hex
+
+    def hold(seconds: float) -> dict:
+        return http_json("POST", f"{src}/admin/volume/hold",
+                         {"volumeId": vid, "token": token,
+                          "seconds": seconds}, timeout=30)
+    try:
+        for ext in (".dat", ".idx", ".vif"):
+            _must(hold(COPY_HOLD_SECONDS), f"hold {vid} on {src} for a copy")
+            _copy_volume_file(vid, collection, src, dst, ext)
+    finally:
+        try:
+            hold(0)
+        except OSError:
+            pass
+
+
+def _copy_volume_file(vid: int, collection: str, src: str, dst: str,
+                      ext: str) -> None:
+    src_status, dst_status, body = http_relay(
+        f"{src}/admin/volume_file?volumeId={vid}"
+        f"&collection={collection}&ext={ext}",
+        "POST", f"{dst}/admin/receive_file?volumeId={vid}"
+        f"&collection={collection}&ext={ext}", timeout=600)
+    if src_status != 200:
+        if ext == ".vif":
+            return
+        raise RuntimeError(f"copy {ext} from {src}: {src_status}")
+    if dst_status != 200:
+        raise RuntimeError(
+            f"push {ext} to {dst}: {dst_status} {body[:200]!r}")
+
+
+def _set_readonly(url: str, vid: int, read_only: bool) -> None:
+    _must(http_json("POST", f"{url}/admin/set_readonly",
+                    {"volumeId": vid, "readOnly": read_only}, timeout=30),
+          f"set readonly={read_only} of {vid} on {url}")
+
+
+def _move_volume(env: CommandEnv, vid: int, collection: str,
+                 src: str, dst: str, delete_source: bool = True) -> None:
+    """shell/command_volume_move.go: freeze, copy, mount on dst, then
+    delete the source (or thaw it, for a copy)."""
+    _set_readonly(src, vid, True)
+    _copy_volume_files(env, vid, collection, src, dst)
+    _must(http_json("POST", f"{dst}/admin/mount_volume",
+                    {"volumeId": vid, "collection": collection}, timeout=30),
+          f"mount on {dst}")
+    if delete_source:
+        _must(http_json("POST", f"{src}/admin/delete_volume",
+                        {"volumeId": vid}, timeout=30),
+              f"delete source on {src}")
+    else:
+        _set_readonly(src, vid, False)
+
+
+@command("volume.balance")
+def cmd_volume_balance(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_balance.go: move volumes from the fullest
+    servers to the emptiest until none holds more than ceil(volumes /
+    servers)."""
+    env.confirm_is_locked()
+    from ..topology import iter_volume_list_volumes
+    per_node: dict[str, list[dict]] = {}
+    for node, v in iter_volume_list_volumes(env.volume_list()):
+        per_node.setdefault(node["url"], []).append(v)
+    for url in _all_node_urls(env):
+        per_node.setdefault(url, [])
+    if not per_node:
+        return "no volume servers"
+    total = sum(len(v) for v in per_node.values())
+    avg = max(1, -(-total // len(per_node)))
+    moved = 0
+    for donor in sorted(per_node, key=lambda u: -len(per_node[u])):
+        while len(per_node[donor]) > avg:
+            recv = min(per_node, key=lambda u: len(per_node[u]))
+            if recv == donor or len(per_node[recv]) + 1 > avg:
+                break
+            recv_vids = {v["id"] for v in per_node[recv]}
+            movable = [v for v in per_node[donor]
+                       if v["id"] not in recv_vids]
+            if not movable:
+                break
+            v = movable[-1]
+            _move_volume(env, v["id"], v.get("collection", ""), donor, recv)
+            per_node[donor].remove(v)
+            per_node[recv].append(v)
+            moved += 1
+    return f"moved {moved} volumes"
+
+
+@command("volume.fix.replication")
+def cmd_volume_fix_replication(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_fix_replication.go: copy each volume with
+    fewer replicas than its placement asks for to servers that lack it.
+    Every holder is frozen while the files are copied (the JAX command
+    copies a writable volume as it is, so its `.idx` may name records
+    past the `.dat` it copied) and thawed after, the new copy too."""
+    env.confirm_is_locked()
+    from ..storage.replica_placement import ReplicaPlacement
+    from ..topology import iter_volume_list_volumes
+    locations: dict[int, list[str]] = {}
+    meta: dict[int, dict] = {}
+    for node, v in iter_volume_list_volumes(env.volume_list()):
+        locations.setdefault(v["id"], []).append(node["url"])
+        meta[v["id"]] = v
+    nodes = _all_node_urls(env)
+    fixed = []
+    for vid, locs in sorted(locations.items()):
+        v = meta[vid]
+        want = ReplicaPlacement.from_byte(
+            v.get("replicaPlacement", 0)).copy_count()
+        missing = want - len(locs)
+        if missing <= 0:
+            continue
+        collection = v.get("collection", "")
+        writable = not v.get("readOnly", False)
+        targets = [n for n in nodes if n not in locs][:missing]
+        if not targets:
+            continue
+        for url in locs:
+            _set_readonly(url, vid, True)
+        try:
+            for dst in targets:
+                _copy_volume_files(env, vid, collection, locs[0], dst)
+                _must(http_json("POST", f"{dst}/admin/mount_volume",
+                                {"volumeId": vid, "collection": collection},
+                                timeout=30), f"mount on {dst}")
+                if not writable:
+                    _set_readonly(dst, vid, True)
+                fixed.append(f"{vid}->{dst}")
+        finally:
+            if writable:
+                for url in locs:
+                    _set_readonly(url, vid, False)
+    return f"fixed replicas: {fixed}" if fixed else \
+        "all volumes sufficiently replicated"
+
+
+@command("volume.scrub")
+def cmd_volume_scrub(env: CommandEnv, args: list[str]) -> str:
+    """Every needle of every volume (or -volumeId) re-read and
+    CRC-checked on each of its servers."""
+    opts = _parse_flags(args)
+    target = int(opts["volumeId"]) if "volumeId" in opts else None
+    out = []
+    for vid, urls in sorted(_volumes_by_id(env).items()):
+        if target is not None and vid != target:
+            continue
+        for url in urls:
+            r = http_json("POST", f"{url}/admin/scrub", {"volumeId": vid},
+                          timeout=600)
+            if r.get("error"):
+                out.append(f"volume {vid} @ {url}: ERROR {r['error']}")
+            else:
+                status = "ok" if not r["errors"] else r["errors"][:3]
+                out.append(f"volume {vid} @ {url}: checked "
+                           f"{r['checked']}, {status}")
+    return "\n".join(out) if out else "no volumes"
+
+
+def _volume_meta(env: CommandEnv, vid: int) -> "dict | None":
+    """A volume's /vol/list entry (the lookup gives urls only)."""
+    from ..topology import iter_volume_list_volumes
+    for _node, v in iter_volume_list_volumes(env.volume_list()):
+        if v["id"] == vid:
+            return v
+    return None
+
+
+@command("volume.copy")
+def cmd_volume_copy(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_copy.go: one more copy of a volume on
+    -target, through `_move_volume` without the delete."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    vid = int(opts["volumeId"])
+    dst = opts["target"]
+    locs = env.volume_locations(vid)
+    if not locs:
+        return f"volume {vid} not found"
+    src = opts.get("source", locs[0]["url"])
+    if any(loc["url"] == dst for loc in locs):
+        return f"volume {vid} already on {dst}"
+    meta = _volume_meta(env, vid) or {}
+    _move_volume(env, vid, meta.get("collection", ""), src, dst,
+                 delete_source=False)
+    return f"copied volume {vid}: {src} -> {dst}"
+
+
+@command("volume.move")
+def cmd_volume_move(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_move.go: freeze, copy to -target, mount,
+    delete at -source; readable at every step."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    vid = int(opts["volumeId"])
+    src, dst = opts["source"], opts["target"]
+    if src == dst:
+        return "source and target are the same server"
+    locs = env.volume_locations(vid)
+    if not any(loc["url"] == src for loc in locs):
+        return f"volume {vid} is not on {src}"
+    collection = (_volume_meta(env, vid) or {}).get("collection", "")
+    if any(loc["url"] == dst for loc in locs):
+        # the target holds a replica already: drop the source's
+        _must(http_json("POST", f"{src}/admin/delete_volume",
+                        {"volumeId": vid, "collection": collection},
+                        timeout=30), f"delete on {src}")
+    else:
+        _move_volume(env, vid, collection, src, dst, delete_source=True)
+    return f"moved volume {vid}: {src} -> {dst}"
+
+
+@command("volume.grow")
+def cmd_volume_grow(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_grow.go: the master's VolumeGrow."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    r = master_json(env.master, "POST", "/vol/grow", {
+        "collection": opts.get("collection", ""),
+        "replication": opts.get("replication", ""),
+        "count": int(opts.get("count", 1))}, timeout=30)
+    if "volumeIds" not in r:
+        return f"grow failed: {r}"
+    return f"grew volumes: {r['volumeIds']}"
+
+
+@command("collection.list")
+def cmd_collection_list(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_collection_list.go: each collection's distinct
+    volumes."""
+    from ..topology import iter_volume_list_volumes
+    vols: dict[str, set] = {}
+    for _node, v in iter_volume_list_volumes(env.volume_list()):
+        vols.setdefault(v.get("collection", ""), set()).add(v["id"])
+    return "\n".join(f"{name or '(default)'}: {len(ids)} volumes"
+                     for name, ids in sorted(vols.items())) or "no volumes"
+
+
+@command("collection.delete")
+def cmd_collection_delete(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_collection_delete.go: every volume and EC volume of
+    -collection on every server (the lock and -force needed)."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    name = opts.get("collection", "")
+    if not name:
+        return "need -collection=<name>"
+    if "force" not in opts:
+        return ("this deletes EVERY volume of the collection; "
+                "re-run with -force")
+    from ..topology import iter_volume_list_ec_shards, iter_volume_list_volumes
+    vl = env.volume_list()
+    deleted = []
+    for node, v in list(iter_volume_list_volumes(vl)):
+        if v.get("collection", "") != name:
+            continue
+        _must(http_json("POST", f"{node['url']}/admin/delete_volume",
+                        {"volumeId": v["id"], "collection": name},
+                        timeout=30), f"delete {v['id']} on {node['url']}")
+        deleted.append(v["id"])
+    ec_deleted = []
+    for node, e in list(iter_volume_list_ec_shards(vl)):
+        if e.get("collection", "") != name:
+            continue
+        shard_ids = [i for i in range(32) if e.get("shardBits", 0) >> i & 1]
+        _must(http_json("POST", f"{node['url']}/admin/ec/delete_shards",
+                        {"volumeId": e["volumeId"], "collection": name,
+                         "shardIds": shard_ids}, timeout=30),
+              f"delete ec {e['volumeId']} on {node['url']}")
+        ec_deleted.append(e["volumeId"])
+    out = f"deleted collection {name!r}: volumes {sorted(set(deleted))}"
+    if ec_deleted:
+        out += f", ec volumes {sorted(set(ec_deleted))}"
+    return out
+
+
+@command("volume.merge")
+def cmd_volume_merge(env: CommandEnv, args: list[str]) -> str:
+    """shell/command_volume_merge.go (-volumeId=N): diverged replicas
+    merged in AppendAtNs order on the first, which then replaces the
+    others: every replica frozen, the merge, the others replaced, the
+    writable state restored."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    if "volumeId" not in opts:
+        return "usage: volume.merge -volumeId=N"
+    vid = int(opts["volumeId"])
+    urls = _volumes_by_id(env).get(vid)
+    if not urls:
+        raise RuntimeError(f"volume {vid} not found")
+    meta = _volume_meta(env, vid) or {}
+    collection = meta.get("collection", "")
+    was_writable = not meta.get("readOnly", False)
+    primary, others = urls[0], urls[1:]
+    for url in urls:
+        _set_readonly(url, vid, True)
+    try:
+        r = _must(http_json(
+            "POST", f"{primary}/admin/volume/merge",
+            {"volumeId": vid, "collection": collection, "peers": others},
+            timeout=3600), f"merge on {primary}")
+        for url in others:
+            _must(http_json("POST", f"{url}/admin/delete_volume",
+                            {"volumeId": vid}, timeout=30),
+                  f"drop stale replica on {url}")
+            _copy_volume_files(env, vid, collection, primary, url)
+            _must(http_json("POST", f"{url}/admin/mount_volume",
+                            {"volumeId": vid, "collection": collection},
+                            timeout=30), f"mount merged on {url}")
+            _set_readonly(url, vid, True)
+    finally:
+        if was_writable:
+            for url in urls:
+                try:
+                    http_json("POST", f"{url}/admin/set_readonly",
+                              {"volumeId": vid, "readOnly": False},
+                              timeout=30)
+                except OSError:
+                    pass
+    return (f"volume {vid}: merged {len(urls)} replicas "
+            f"({r['mergedNeedles']} live needles, {r['datBytes']} bytes) "
+            f"on {primary}; replaced {len(others)} peer copies")
+
+
 # --- the observability plane's views (profiling.py, server/debug.py) ----
 #
 # cluster.top samples every node's /metrics twice and renders the delta;
@@ -624,6 +1057,177 @@ def render_trace(spans: "list[dict]") -> str:
 
     walk("", 0)
     return "\n".join(lines)
+
+
+def collect_trace(env: CommandEnv, request_id: str,
+                  extra_nodes: "list[str] | None" = None) -> "list[dict]":
+    """Every node's `/debug/traces?request_id=` merged (deduped by span
+    id; a node that does not answer adds nothing).  The fan-out runs
+    under a fresh request id, so it is not traced into the trace it
+    reads."""
+    import secrets
+
+    from .. import tracing
+    token = tracing.set_request_id(secrets.token_hex(8))
+    try:
+        nodes = _cluster_debug_nodes(env)
+    finally:
+        tracing.reset_request_id(token)
+    for n in extra_nodes or []:
+        if n not in nodes:
+            nodes.append(n)
+
+    def fetch(url: str) -> list:
+        try:
+            r = http_json("GET", f"{url}/debug/traces?request_id="
+                                 f"{request_id}", timeout=10)
+        except OSError:
+            return []
+        spans = r.get("spans", []) if isinstance(r, dict) else []
+        for sp in spans:
+            sp["node"] = url
+        return spans
+
+    merged: dict[str, dict] = {}
+    with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+        for spans in ex.map(fetch, nodes):
+            for sp in spans:
+                merged.setdefault(sp["spanId"], sp)
+    return sorted(merged.values(), key=lambda sp: sp["start"])
+
+
+def collect_peer_health(env: CommandEnv,
+                        extra_nodes: "list[str] | None" = None
+                        ) -> "list[str]":
+    """Every node's `/debug/health` (the retry policy's breakers), one
+    line per breaker that is not closed or has tripped."""
+    try:
+        nodes = _cluster_debug_nodes(env)
+    except OSError:
+        nodes = [env.master]
+    for n in extra_nodes or []:
+        if n not in nodes:
+            nodes.append(n)
+
+    def fetch(url: str):
+        # mid-incident a wedged node must not stall the command
+        try:
+            r = http_json("GET", f"{url}/debug/health", timeout=3)
+        except OSError:
+            return url, None
+        return url, r if isinstance(r, dict) else None
+
+    lines: list[str] = []
+    with ThreadPoolExecutor(max_workers=min(8, len(nodes))) as ex:
+        for url, r in ex.map(fetch, nodes):
+            if not r:
+                continue
+            for peer, h in (r.get("peers") or {}).items():
+                if h.get("state") == "closed" and not h.get("trips"):
+                    continue
+                lines.append(
+                    f"  {url}: peer {peer} {h.get('state')} "
+                    f"(consecutive failures "
+                    f"{h.get('consecutiveFailures', 0)}, trips "
+                    f"{h.get('trips', 0)})"
+                    + (f" last: {h['lastError']}"
+                       if h.get("lastError") else ""))
+    return lines
+
+
+@command("trace.show")
+def cmd_trace_show(env: CommandEnv, args: list[str]) -> str:
+    """One request's spans from every node's `/debug/traces`, as a
+    time-aligned tree; `-nodes=` adds debug planes the topology does not
+    know (the admin, which holds the workers' job spans).  A trace with
+    retry or error spans, or `-health`, gets the peer health section."""
+    rids = [a for a in args if not a.startswith("-")]
+    opts = _parse_flags(args)
+    extra = [n.strip() for n in opts.get("nodes", "").split(",")
+             if n.strip()]
+    if not rids:
+        return "usage: trace.show <request_id> [-nodes=host:port,...]" \
+               " [-health]"
+    traces = [collect_trace(env, rid, extra_nodes=extra) for rid in rids]
+    out = [render_trace(spans) for spans in traces]
+    if "health" in opts or any(
+            str(sp.get("name", "")).startswith("retry.") or sp.get("error")
+            for spans in traces for sp in spans):
+        health = collect_peer_health(env, extra_nodes=extra)
+        if health:
+            out.append("peer health (non-closed breakers):")
+            out.extend(health)
+        else:
+            out.append("peer health: all breakers closed")
+    return "\n".join(out)
+
+
+@command("qos.status")
+def cmd_qos_status(env: CommandEnv, args: list[str]) -> str:
+    """Every node's `/debug/qos`: admission, the tenants' limits and
+    in-flight bytes, and the EC throttle's pace and p99."""
+    out = []
+    for url in _top_nodes(env, _parse_flags(args)):
+        try:
+            r = http_json("GET", f"{url}/debug/qos", timeout=3)
+        except OSError:
+            out.append(f"{url}: unreachable")
+            continue
+        if not isinstance(r, dict) or "config" not in r:
+            out.append(f"{url}: {r.get('error', 'no qos plane')}"
+                       if isinstance(r, dict) else f"{url}: ?")
+            continue
+        cfg = r["config"]
+        th = r.get("throttle", {})
+        tenants = cfg.get("tenants", {})
+        out.append(
+            f"{url}: enabled={cfg.get('enabled')} "
+            f"tenants={len(tenants)} "
+            f"slo_p99={cfg.get('sloP99Ms', 0):.0f}ms "
+            f"pace={th.get('paceMs', 0):.0f}ms "
+            f"p99={th.get('lastP99Ms', 0):.1f}ms")
+        for t, lim in sorted(tenants.items()):
+            inflight = r.get("inflightBytes", {}).get(t, 0)
+            out.append(f"  {t}: rps={lim.get('rps')} "
+                       f"burst={lim.get('burst')} "
+                       f"inflight_mb={lim.get('inflightMb')} "
+                       f"(in flight now: {inflight}B)")
+    return "\n".join(out)
+
+
+@command("qos.set")
+def cmd_qos_set(env: CommandEnv, args: list[str]) -> str:
+    """One tenant's limits (`*` the default) pushed to every node's
+    `/debug/qos`, or `-sloP99Ms=N` for the EC throttle, or `-clear`."""
+    opts = _parse_flags(args)
+    body: dict = {}
+    if "clear" in opts:
+        body["clear"] = True
+    if "tenant" in opts:
+        body["tenant"] = opts["tenant"]
+        for k in ("rps", "burst", "inflightMb"):
+            if k in opts:
+                body[k] = float(opts[k])
+    if "sloP99Ms" in opts:
+        body["sloP99Ms"] = float(opts["sloP99Ms"])
+    if not body:
+        return ("usage: qos.set -tenant=<access-key|*> -rps=N "
+                "[-burst=N] [-inflightMb=N] | -sloP99Ms=N | -clear")
+    try:
+        nodes = _cluster_debug_nodes(env)
+    except OSError:
+        nodes = [env.master]
+    ok, failed = 0, []
+    for url in nodes:
+        try:
+            r = http_json("POST", f"{url}/debug/qos", body, timeout=5)
+            if isinstance(r, dict) and "error" in r:
+                failed.append(f"{url}: {r['error']}")
+            else:
+                ok += 1
+        except OSError as e:
+            failed.append(f"{url}: {e}")
+    return "\n".join([f"qos updated on {ok}/{len(nodes)} nodes", *failed])
 
 
 _ROLE_NAMESPACES = ("master", "volume_server", "filer", "s3")
@@ -1391,6 +1995,14 @@ def _parse_flags(args: list[str]) -> dict:
             out[k] = v
         elif a.startswith("-"):
             out[a[1:]] = "true"
+    return out
+
+
+def _volumes_by_id(env: CommandEnv) -> dict[int, list[str]]:
+    from ..topology import iter_volume_list_volumes
+    out: dict[int, list[str]] = {}
+    for node, v in iter_volume_list_volumes(env.volume_list()):
+        out.setdefault(v["id"], []).append(node["url"])
     return out
 
 

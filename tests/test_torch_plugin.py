@@ -881,7 +881,9 @@ def test_admin_and_worker_on_the_command_line(tmp_path):
                             str(tmp_path)))
         wid = first_line(procs[-1], rf"worker (\w+) polling {aurl}\n")
         r = http_json("GET", f"{aurl}/maintenance/config", timeout=10)
-        assert sorted(r["jobTypes"]) == ["ec_rebuild", "erasure_coding"]
+        # the JAX worker's default capabilities: erasure_coding,vacuum
+        assert sorted(r["jobTypes"]) == ["ec_rebuild", "erasure_coding",
+                                         "vacuum"]
         assert os.path.exists(tmp_path / "a" / "plugin" / "workers.json")
         assert wid
         # the admin first: its stop ends the worker's long poll
