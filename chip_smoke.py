@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
    admin and the worker in this process (`EcEncodeHandler(device=
    "cuda")`).  `benchmark.run_benchmark` in the reference's `weed
    benchmark` shape (1 KiB files, 16 threads; n cut from 1,048,576 to
-   4,096 for the run's time, printed), every read held against the
+   2,048 for the run's time, printed), every read held against the
    payload, and the volumes the assigns grew; 128 seeded needles of
    1 KiB - 1 MiB under each of 001 and 010, each read back from every
    location `/dir/lookup` gives and its record on each replica (bytes,
@@ -245,8 +245,10 @@ Phases, each printing one JSON line:
    p50/p99, the native share, the epochs, the barrier's mean batch and
    fsyncs per ack.  A holder of the sealed
    volume SIGKILLed right after the last ack and restarted on its
-   directory and port; two passes over every acked needle from each of
-   its replicas, each location's ladder (read plane, UDS, HTTP), every
+   directory and port; two passes over every second acked needle of
+   each kind, each read from every one of its replicas, the restarted
+   server among them, through each location's ladder (read plane, UDS,
+   HTTP), every
    body equal to its seeded payload, with each plane's share.  2,048
    benchmark reads under a 100 ms deadline: a warm pass of 1,024 with
    every replica up, then the replica that is their first location
@@ -349,6 +351,27 @@ Phases, each printing one JSON line:
    `volume.check.disk` on a 001 volume one replica lost needles of,
    `volume.fix.replication` after that replica's server stopped, and a
    `volume.scrub` with no error.
+17. master_ha: the master's raft and the SLO autopilot.  3 `master
+   -peers m1,m2,m3 -mdir D`, 4 `volume -mserver m1,m2,m3`, a filer in
+   its default configuration, the admin and a worker with
+   `-capabilities erasure_coding`, all subprocesses.  One leader within
+   5 s, named by every master, followers answering /dir/assign 503 with
+   the hint, `cluster.raft.ps` with commit = applied; volume A (1 GiB,
+   config 1's needles) filled through a seed list with a follower first
+   and 512 1 KiB files through the filer; A's `ec.encode` by the
+   worker's job with the leader SIGKILLed once A's server launches the
+   kernel (a new leader, the kill-to-assign gap, launches against A's
+   windows, parity equal, 14 shards listed within 3 pulses); 256 assigns
+   above every key issued before the kill, no held vid grown again; the
+   killed master back as a follower, A's largest shard holder (of those
+   with no filer file) SIGKILLed, `ec.rebuild` on the card (launches
+   against its windows, shards equal, A read back); a leader transfer to
+   a named follower that the filer's follow stream names within 2 s,
+   under 1 KiB reads that all answer 200 and equal; all three masters
+   restarted on their -mdir (the topologyId kept, 256 assigns above every
+   key, the servers registered again); the autopilot's knobs and guards,
+   and the filer's read plane disarmed by its guard when the server of
+   some files is down and re-armed once it is back.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -409,7 +432,7 @@ WRITE_MAX_VOLUMES = 8
 WRITE_LIMIT_MB = 1024            # the master's size limit: it seals the fill
 # cut from weed benchmark's 1,048,576: at 65,536 the write phase took 426 s
 # of a 900 s run once read_load joined it (PERF.md §4)
-BENCH_N = 4_096
+BENCH_N = 2_048
 BENCH_SIZE = 1024                # weed benchmark's file size and
 BENCH_C = 16                     # concurrency (seaweedfs_tpu/benchmark.py)
 REPLICATED = 128                 # seeded needles under each of 001 and 010
@@ -3090,9 +3113,11 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
     from seaweedfs_tpu_torch.shell import commands
     from seaweedfs_tpu_torch.storage import types
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
-        ECContext, to_ext)
+        LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, ECContext, to_ext)
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
         _encode_work_items, rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
+        EcVolume)
     from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
         rebuild_slice_bytes)
     from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
@@ -3337,10 +3362,35 @@ def phase_read_load(tmp: str, seed: int, n_small: int = READ_N,
                     if lb.get("site") == "volume")
             return got
         seen = {x[0] for x in a} | {x[0] for x in b}
+        # the candidates whose interval lies on a shard of the stopped
+        # server, read from the volume's .ecx on disk: in write order
+        # the 1 KiB files fill shard 0's first small block, so a trial
+        # read of each (five /metrics scrapes) ran ~1,000 times when the
+        # stopped server held no shard 0
+        ecvs: dict = {}
+
+        def on_stopped(fid) -> bool:
+            f = types.parse_file_id(fid)
+            lost = set(placement.get(f.volume_id, {}).get(victim, []))
+            if not lost:
+                return False
+            if f.volume_id not in ecvs:
+                name = f"{coll}_{f.volume_id}.ecx"
+                dd = next(dd for dd in [dirs[urls.index(victim)]] + dirs
+                          if os.path.exists(os.path.join(dd, name)))
+                ecvs[f.volume_id] = EcVolume(dd, f.volume_id, coll, ctx)
+            _off, _size, ivs = ecvs[f.volume_id].locate_needle(f.key)
+            return any(iv.to_shard_id_and_offset(
+                LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, d)[0] in lost
+                for iv in ivs)
+        try:
+            candidates = [w for w in small
+                          if w[0] not in seen and on_stopped(w[0])]
+        finally:
+            for ev in ecvs.values():
+                ev.close()
         forwarded = None
-        for fid, _nid, _size, _ms in small:
-            if fid in seen:
-                continue
+        for fid, _nid, _size, _ms in candidates:
             vid = types.parse_file_id(fid).volume_id
             reader = operation.lookup(murl, vid)[0]["url"]
             holders = [u for u in ec_locs(vid) if u != reader]
@@ -4828,6 +4878,8 @@ FSYNC_NATIVE_N = 1_024            # 1 KiB writes of replication 000: the
 FSYNC_SMALL_FILL = 512            # 1 KiB needles in the fill volume, read
 #                                   after its encode
 FSYNC_HEDGE_N = 2_048             # 1 KiB reads a hedged pass
+FSYNC_PASS_STRIDE = 2             # the read passes take every 2nd needle
+#                                   of each kind, on each of its replicas
 FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
 FSYNC_BUDGET_S = 0.1              # their deadline
 FSYNC_FILER_N = 512               # 1 KiB files through the filer
@@ -4835,7 +4887,7 @@ FSYNC_FILER_N = 512               # 1 KiB files through the filer
 SECURE_SERVERS = 3
 SECURE_COLLECTION = "s3"
 SECURE_BUCKETS = 4
-SECURE_SMALL_N = 256             # 4 KiB objects over the 4 buckets
+SECURE_SMALL_N = 128             # 4 KiB objects over the 4 buckets
 SECURE_SMALL_SIZE = 4 << 10
 SECURE_LARGE_N = 8               # objects of warp's default --obj.size
 SECURE_LARGE_SIZE = 10 << 20
@@ -4966,10 +5018,11 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
     until the limit seals it; writes/s, p50/p99, the native share, the
     epoch handshakes, the barrier's mean batch and fsyncs per ack.  One
     volume server SIGKILLed right after the last ack and restarted on
-    its directory and port.  Two passes over every acked needle, read
-    from each of its replicas through that location's ladder (read
-    plane, UDS, HTTP), each plane's share; every body equal to its
-    seeded payload.  A warm pass, then two passes of `hedge_n` reads
+    its directory and port.  Two passes over every `FSYNC_PASS_STRIDE`th
+    acked needle of each kind, read from each of its replicas through
+    that location's ladder (read plane, UDS, HTTP), each plane's share;
+    every body equal to its seeded payload, and both the restarted
+    server and the other replicas serving reads in each pass.  A warm pass, then two passes of `hedge_n` reads
     under a `FSYNC_BUDGET_S` deadline with one replica SIGSTOPped,
     hedging on and off.  The filer's `/dir/lookup` RPCs during its read
     passes; the seconds from the SIGKILL until the filer's pushed map
@@ -5213,12 +5266,15 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
                   "the filer's pushed map holds the restarted server", 30)
         return_s = time.perf_counter() - t_restart
 
-        # 5. two passes over every acked needle from each of its replicas
+        # 5. two passes over every second acked needle of each kind, each
+        # read from every one of its replicas
         locs = holders()
-        items = ([(f, payload_b) for f in bench_fids] +
-                 [(f, ("native", i)) for f, i in native_fids] +
-                 [(f, ("small", i)) for f, i in small.items()] +
-                 [(w[0], ("fill", w[1])) for w in fill])
+        items = ([(f, payload_b) for f in bench_fids[::FSYNC_PASS_STRIDE]] +
+                 [(f, ("native", i))
+                  for f, i in native_fids[::FSYNC_PASS_STRIDE]] +
+                 [(f, ("small", i))
+                  for f, i in list(small.items())[::FSYNC_PASS_STRIDE]] +
+                 [(w[0], ("fill", w[1])) for w in fill[::FSYNC_PASS_STRIDE]])
         reads = [(u, fid, want) for fid, want in items
                  for u in locs[parse_file_id(fid).volume_id]]
         check(all(len(locs[parse_file_id(f).volume_id]) ==
@@ -5265,6 +5321,9 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
                    "share": {k: v / len(got) for k, v in routes.items()},
                    "by_server": by_server, "servers_counted": srv}
             print(f"fsync_tier {what}: {json.dumps(out)}", flush=True)
+            check(by_server.get("restarted") and by_server.get("others"),
+                  f"{what}: the restarted server and the other replicas "
+                  f"must each serve reads: {by_server}")
             return out
         pass_a = read_pass("after the restart")
         pass_b = read_pass("the same pass again")
@@ -8141,6 +8200,648 @@ def phase_maintenance(tmp: str, seed: int, big_mb: int = MAINT_MB,
     return out
 
 
+HA_MASTERS = 3
+HA_SERVERS = 4
+HA_COLLECTION = "ha"                 # volume A: config 1's volume
+HA_AFTER = "ha2"                     # what the set grows after a failover
+HA_FILER_COLLECTION = "hafiler"
+HA_MB = 1024
+HA_FILES = 512                       # 1 KiB files through the filer
+HA_ASSIGNS = 256                     # assigns checked after each fence
+HA_SPIKE = 32                        # files read while their server is down
+HA_ELECTION_S = 5.0                  # one leader within, of the last start
+
+
+def _ha_status(urls) -> dict:
+    """Each master's /cluster/status (a follower's "not leader" answer
+    with its hint; {} for one that does not answer)."""
+    from seaweedfs_tpu_torch.server.httpd import http_json
+    out = {}
+    for u in urls:
+        try:
+            out[u] = http_json("GET", f"{u}/cluster/status", timeout=5)
+        except OSError:
+            out[u] = {}
+    return out
+
+
+def _ha_leader(urls) -> "str | None":
+    """The one master that leads and that every live master names."""
+    st = _ha_status(urls)
+    leaders = [u for u, r in st.items() if r.get("isLeader")]
+    if len(leaders) != 1:
+        return None
+    named = [r.get("leader") for r in st.values() if r]
+    return leaders[0] if all(n == leaders[0] for n in named) else None
+
+
+def _start_master_set(tmp: str, procs: list, ports=None, which=None
+                      ) -> "tuple[list[str], list, str]":
+    """`master -peers m1,m2,m3 -mdir <own dir>` processes: all three, or
+    those of `which` (indexes) on `ports`.  Fresh ports are taken until a
+    set starts whose ports were all free (a master must know its peers
+    before it binds, so a taken port is retried, never reused)."""
+    which = list(range(HA_MASTERS)) if which is None else which
+    for attempt in range(5):
+        ps = ports or [_free_port() for _ in range(HA_MASTERS)]
+        peers = ",".join(f"127.0.0.1:{p}" for p in ps)
+        started: list = []
+        try:
+            urls = _start_procs(
+                [["master", "-port", str(ps[i]), "-peers", peers,
+                  "-mdir", os.path.join(tmp, f"m{i}"),
+                  "-volumeSizeLimitMB", str(2 * HA_MB)] for i in which],
+                [os.path.join(tmp, f"m{i}.log") for i in which], started,
+                "master", log_mode="a")
+        except RuntimeError:
+            for p in started:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                p.stdout.close()
+            if attempt == 4:
+                raise
+            time.sleep(0.5)
+            continue
+        procs.extend(started)
+        return urls, started, peers
+    raise RuntimeError("unreachable")
+
+
+def _retire(procs: list, p, sig) -> "int | None":
+    """Send `sig` to a process of the phase and take it off `procs`; its
+    exit code."""
+    p.send_signal(sig)
+    rc = p.wait(timeout=60)
+    procs.remove(p)
+    if p.stdout is not None:
+        p.stdout.close()
+    return rc
+
+
+def phase_master_ha(tmp: str, seed: int, big_mb: int = HA_MB,
+                    n_files: int = HA_FILES, n_assigns: int = HA_ASSIGNS,
+                    device: str = "cuda") -> dict:
+    """The master's raft and the SLO autopilot around an ec.encode and an
+    ec.rebuild on the card.  3 `master -peers -mdir`, 4 `volume -mserver
+    m1,m2,m3`, a filer in its default configuration (meta plane, native
+    planes, autopilot), the admin and a worker with `-capabilities
+    erasure_coding`, all `python -m seaweedfs_tpu_torch` processes.
+    Steps, each printed on its JSON line:
+    1. election: one leader within 5 s of the last start, named by every
+       master; each follower answers /dir/assign 503 with the hint;
+       `cluster.raft.ps` lists 3 peers with commit = applied;
+    2. fill: volume A to 1 GiB with config 1's needles (256 KiB-4 MiB)
+       through a client given the seed list with a follower first, every
+       key recorded; 512 files of 1 KiB through the filer;
+    3. encode across a failover: the worker's `erasure_coding` job on A,
+       the leader SIGKILLed once A's server launches the kernel; a new
+       leader, the gap from the kill to its first answered assign, the
+       job done, launches equal to A's [4,10] windows, the parity equal
+       to the host codec's, 14 shards in the new leader's /dir/ec_lookup
+       within 3 pulses;
+    4. no reuse: 256 assigns above every key issued before the kill; no
+       volume grown by the new leader on a vid a server held;
+    5. rebuild: the killed master rejoins as a follower; the server with
+       the most of A's shards SIGKILLed; `ec.rebuild` from the shell on
+       the seed list: launches equal to the windows, the shards equal,
+       every needle of A read back;
+    6. transfer: `cluster.raft.leader.transfer` to a named follower, the
+       filer's follow stream names it within 2 s, the 1 KiB files read
+       back 200 and equal throughout;
+    7. restart: all three SIGTERMed and started on their -mdir: the same
+       topologyId, 256 assigns above every key before, the 3 surviving
+       servers registered again;
+    8. autopilot: the filer's /debug/autopilot lists its five knobs and
+       both guards, each volume server's `cache.needle`, all ticking; the
+       server of some 1 KiB files stopped, their reads through the read
+       plane trip its guard (the plane's port leaves /status, the action
+       counted); the server back, probation over, the guard re-arms and
+       the plane serves them again."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = HA_COLLECTION
+    ctx = ECContext(d, p, device="cpu")
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(HA_SERVERS)]
+    for dd in dirs:
+        os.makedirs(dd)
+    procs: list = []
+    steps: dict = {}
+    keys: "list[int]" = []
+
+    def key_of(fid: str) -> int:
+        return int(fid.split(",")[1][:-8], 16)
+
+    def vid_of(fid: str) -> int:
+        return int(fid.split(",")[0])
+
+    def admin(method, path, payload=None):
+        r = http_json(method, f"{aurl}{path}", payload, timeout=60)
+        check("error" not in r, f"admin {path}: {r}")
+        return r
+
+    def assigns(n: int, spec: str, collection: str) -> "list[str]":
+        out = []
+        for _ in range(n):
+            a = operation.assign(spec, collection=collection)
+            out.append(a.fid)
+        return out
+
+    def first_assign(spec: str, collection: str, timeout: float = 60.0
+                     ) -> "tuple[str, float]":
+        """The first assign that a leader answers, and when."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                a = operation.assign(spec, collection=collection)
+                return a.fid, time.perf_counter()
+            except (RuntimeError, OSError):
+                check(time.monotonic() < deadline, "no assign answered")
+                time.sleep(0.02)
+
+    def ec_locs(vid) -> dict:
+        r = operation.master_json(seeds, "GET",
+                                  f"/dir/ec_lookup?volumeId={vid}",
+                                  timeout=30)
+        return {x["url"]: x["shardIds"]
+                for x in r.get("shardIdLocations", [])}
+
+    def alive() -> "list[str]":
+        return operation.master_json(seeds, "GET", "/cluster/status",
+                                     timeout=30).get("dataNodes", [])
+
+    def metric(url, name):
+        text = http_bytes("GET", f"{url}/metrics", timeout=60)[1].decode()
+        return sum(v for _lb, v in _full_samples(text, name))
+
+    def launches(url) -> float:
+        return metric(url, "seaweedfs_tpu_gf_kernel_launches")
+
+    def read_all(pairs, fn, what):
+        with ThreadPoolExecutor(8) as pool:
+            bad = [f for (f, want), got in zip(
+                pairs, pool.map(lambda fd: fn(fd[0]), pairs)) if got != want]
+        check(not bad, f"{what}: {len(bad)} differ, first {bad[:3]}")
+        return len(pairs)
+
+    try:
+        # 1. the election
+        murls, mprocs, seeds = _start_master_set(tmp, procs)
+        mproc = dict(zip(murls, mprocs))
+        t_up = time.perf_counter()
+        poll(lambda: _ha_leader(murls) is not None, "one agreed leader",
+             timeout=30, interval=0.02)
+        election_s = time.perf_counter() - t_up
+        check(election_s <= HA_ELECTION_S,
+              f"the election took {election_s:.2f} s")
+        leader = _ha_leader(murls)
+        followers = [u for u in murls if u != leader]
+        for u in followers:
+            st, body, _ = http_bytes("GET", f"{u}/dir/assign", timeout=10)
+            hint = json.loads(body)
+            check(st == 503 and hint == {"error": "not leader",
+                                         "leader": leader},
+                  f"follower {u} answered {st} {hint}")
+        env = commands.CommandEnv(seeds)
+        poll(lambda: re.search(r"commit=(\d+) applied=\1 ",
+                               commands.run_script(
+                                   env, "cluster.raft.ps")[0]) is not None,
+             "commit = applied", timeout=30)
+        ps = commands.run_script(env, "cluster.raft.ps")[0]
+        check(all(u in ps for u in murls) and
+              len(re.findall(r"^  [* ] \S+$", ps, re.M)) == HA_MASTERS,
+              f"cluster.raft.ps: {ps}")
+        steps["election"] = {"seconds": election_s, "leader": leader,
+                             "masters": murls, "raft_ps": ps.splitlines()}
+        emit({"phase": "master_ha", "step": "election",
+              **steps["election"]})
+
+        urls = _start_procs(
+            [["volume", "-dir", dd, "-port", "0", "-mserver", seeds, "-max",
+              str(WRITE_MAX_VOLUMES), "-device", device] for dd in dirs],
+            [dd + ".log" for dd in dirs], procs, "volume")
+        vproc = dict(zip(urls, procs[-HA_SERVERS:]))
+        vdir = dict(zip(urls, dirs))
+        (furl,) = _start_procs(
+            [["filer", "-port", "0", "-master", seeds, "-store",
+              os.path.join(tmp, "filer.db"), "-collection",
+              HA_FILER_COLLECTION]], [os.path.join(tmp, "filer.log")],
+            procs, "filer", line=r"filer listening on (\S+:\d+)\n")
+        (aurl,) = _start_procs(
+            [["admin", "-port", "0", "-master", seeds,
+              "-detectionInterval", "3600",
+              "-dataDir", os.path.join(tmp, "admin")]],
+            [os.path.join(tmp, "admin.log")], procs, "admin",
+            r"admin listening on (\S+:\d+)\n")
+        _start_procs(
+            [["worker", "-admin", aurl, "-master", seeds,
+              "-dir", os.path.join(tmp, "worker"), "-capabilities",
+              "erasure_coding", "-device", device]],
+            [os.path.join(tmp, "worker.log")], procs, "worker",
+            rf"worker (\w+) polling {re.escape(aurl)}\n")
+        poll(lambda: len(alive()) == HA_SERVERS, "4 volume servers")
+        poll(lambda: "erasure_coding" in admin(
+            "GET", "/maintenance/config")["jobTypes"], "the worker")
+        admin("POST", "/maintenance/config",
+              {"jobType": "erasure_coding",
+               "values": {"encodeMode": "scatter"}})
+
+        # 2. the fill, through the seed list with a follower first
+        spec = ",".join(followers + [leader])
+        r = operation.master_json(spec, "POST", "/vol/grow",
+                                  {"collection": coll, "count": 1},
+                                  timeout=60)
+        check(len(r.get("volumeIds", [])) == 1, f"/vol/grow: {r}")
+        (va,) = r["volumeIds"]
+        ua = operation.lookup(spec, va, use_cache=False)[0]["url"]
+        rng = np.random.default_rng([seed, 91])
+        sizes, total = [], 0
+        while total < big_mb << 20:
+            sizes.append(int(rng.integers(256 << 10, 4 << 20)))
+            total += sizes[-1]
+        big: dict = {}
+
+        def put(nid, size):
+            a = operation.assign(spec, collection=coll)
+            check(vid_of(a.fid) == va, f"assign gave {a.fid}, not A")
+            operation.upload(a.url, a.fid, _payload(seed + 19, nid, size))
+            return a.fid, (nid, size)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(FILL_WRITERS) as pool:
+            big.update(pool.map(lambda x: put(*x), enumerate(sizes, 1)))
+        fill_s = time.perf_counter() - t
+        keys += [key_of(f) for f in big]
+        files = {f"/ha/d{i % 16}/f{i}": _payload(seed + 23, i, 1024)
+                 for i in range(n_files)}
+        for path, data in files.items():
+            st, body, _ = http_bytes("PUT", f"{furl}{path}", data,
+                                     timeout=60)
+            check(st in (200, 201), f"filer PUT {path}: {st} {body[:100]!r}")
+        dat_a = os.path.join(vdir[ua], f"{coll}_{va}.dat")
+        steps["fill"] = {"volume": va, "server": ua, "needles": len(big),
+                         "bytes": os.path.getsize(dat_a),
+                         "fill_seconds": fill_s, "filer_files": len(files),
+                         "client_seeds": spec}
+        emit({"phase": "master_ha", "step": "fill", **steps["fill"]})
+
+        # 3. the encode, its leader SIGKILLed once the kernel runs
+        size_a = os.path.getsize(dat_a)
+        windows = sum(launches_for(d, item[3]) for item in
+                      ec_encoder._encode_work_items(size_a, ctx))
+        vids_before = {v["id"] for _n, v in iter_volume_list_volumes(
+            operation.master_json(seeds, "GET", "/vol/list", timeout=30))}
+        l0 = {u: launches(u) for u in urls}
+        job = admin("POST", "/maintenance/submit_job", {
+            "jobType": "erasure_coding",
+            "params": {"volumeId": va, "collection": coll,
+                       "encodeMode": "scatter"}})
+        jid = job.get("jobId") or job.get("id")
+        t_job = time.perf_counter()
+
+        def job_status():
+            return admin("GET", f"/maintenance/job?id={jid}")["status"]
+        # the kill as soon as the kernel runs (a host codec, in a
+        # rehearsal off the card, counts nothing: there the job's end)
+        poll(lambda: launches(ua) > l0[ua] or
+             job_status() in ("done", "failed"),
+             "A's server launches the kernel", timeout=300, interval=0.01)
+        during = launches(ua) > l0[ua] and job_status() not in (
+            "done", "failed")
+        check(during or device != "cuda",
+              "the encode ended before the leader was killed")
+        t_kill = time.perf_counter()
+        old = leader
+        mproc[old].kill()
+        mproc[old].wait(timeout=60)
+        procs.remove(mproc[old])
+        mproc[old].stdout.close()
+        live_m = [u for u in murls if u != old]
+        poll(lambda: _ha_leader(live_m) is not None, "a new leader",
+             timeout=30, interval=0.02)
+        new = _ha_leader(live_m)
+        elected_s = time.perf_counter() - t_kill
+        gap_fid, t_first = first_assign(seeds, HA_AFTER)
+        gap_s = t_first - t_kill
+        keys_after = [key_of(gap_fid)]
+        poll(lambda: job_status() in ("done", "failed"),
+             "the encode job ends", 900)
+        jrec = admin("GET", f"/maintenance/job?id={jid}")
+        check(jrec["status"] == "done",
+              f"the encode job: {jrec['message']} {jrec['trace'][-3:]}")
+        job_s = time.perf_counter() - t_job
+        t_done = time.monotonic()
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards of A on the new leader", timeout=3.0, interval=0.02)
+        listed_s = time.monotonic() - t_done
+        enc = int(sum(launches(u) - l0[u] for u in urls))
+        check(enc == windows, f"the encode launched {enc}, A's windows "
+                              f"are {windows}")
+        shard_files = []
+        for sid in range(d + p):
+            name = f"{coll}_{va}" + ctx.to_ext(sid)
+            (path,) = [os.path.join(dd, name) for dd in dirs
+                       if os.path.exists(os.path.join(dd, name))]
+            shard_files.append(path)
+        t = time.perf_counter()
+        checked = _parity_matches(shard_files, d, p)
+        steps["encode"] = {"volume": va, "dat_bytes": size_a,
+                           "killed_leader": old, "new_leader": new,
+                           "kill_to_elected_s": elected_s,
+                           "kill_to_first_assign_s": gap_s,
+                           "kill_after_job_start_s": t_kill - t_job,
+                           "killed_while_encoding": during,
+                           "job_wall_s": job_s,
+                           "ec_lookup_after_job_s": listed_s,
+                           "launches": enc, "windows": windows,
+                           "parity_bytes_checked": checked * p,
+                           "parity_check_seconds": time.perf_counter() - t,
+                           "spread": {u: len(x) for u, x in
+                                      ec_locs(va).items()},
+                           "stages": [(x["event"][:60], x["ts"])
+                                      for x in jrec["trace"]]}
+        emit({"phase": "master_ha", "step": "encode", **steps["encode"]})
+
+        # 4. no key and no vid issued twice
+        t = time.perf_counter()
+        fids = assigns(n_assigns, seeds, HA_AFTER)
+        rate = n_assigns / (time.perf_counter() - t)
+        keys_after += [key_of(f) for f in fids]
+        check(min(keys_after) > max(keys),
+              f"a key at or below {max(keys)} issued after the kill")
+        grown = {vid_of(f) for f in fids} | {vid_of(gap_fid)}
+        check(not grown & (vids_before | {va}),
+              f"the new leader grew held vids {grown & vids_before}")
+        steps["no_reuse"] = {"assigns": n_assigns,
+                             "assigns_per_s_seed_list": rate,
+                             "max_key_before": max(keys),
+                             "min_key_after": min(keys_after),
+                             "vids_before": sorted(vids_before),
+                             "vids_grown": sorted(grown)}
+        emit({"phase": "master_ha", "step": "no_reuse", **steps["no_reuse"]})
+        keys += keys_after
+
+        # 5. the killed master back, then a server lost and the rebuild
+        oi = murls.index(old)
+        (back,), (bproc,), _ = _start_master_set(
+            tmp, procs, ports=[int(u.rsplit(":", 1)[1]) for u in murls],
+            which=[oi])
+        mproc[back] = bproc
+        poll(lambda: _ha_status([back])[back].get("leader") == new and
+             not _ha_status([back])[back].get("isLeader"),
+             "the restarted master follows", timeout=30)
+        locs = ec_locs(va)
+        filer_vids = set()
+        for path in files:
+            entry = http_json("GET", f"{furl}/__meta__/lookup?path="
+                              + urllib.parse.quote(path), timeout=30)
+            filer_vids.add(vid_of(entry["chunks"][0]["fileId"]))
+        filer_urls = {loc["url"] for vid in filer_vids for loc in
+                      operation.lookup(seeds, vid, use_cache=False)}
+        victim = max((u for u in urls if u not in filer_urls and
+                      u in locs), key=lambda u: len(locs[u]))
+        lost = sorted(locs[victim])
+        lost_files = {sid: os.path.join(vdir[victim], f"{coll}_{va}" +
+                                        ctx.to_ext(sid)) for sid in lost}
+        lost_sha = {sid: sha256_file(f) for sid, f in lost_files.items()}
+        _retire(procs, vproc[victim], signal.SIGKILL)
+        urls.remove(victim)
+        poll(lambda: victim not in alive(), "the leader drops the server")
+        shard_size = os.path.getsize(lost_files[lost[0]])
+        stepb = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_windows = sum(launches_for(d, min(stepb, shard_size - pos))
+                          for pos in range(0, shard_size, stepb))
+        l0 = {u: launches(u) for u in urls}
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={va} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        reb = int(sum(launches(u) - l0[u] for u in urls))
+        check(f"rebuilt shards {lost} on " in out[1], f"rebuild: {out}")
+        check(reb == reb_windows, f"the rebuild launched {reb}, its "
+                                  f"windows are {reb_windows}")
+        for sid, sha in lost_sha.items():
+            name = os.path.basename(lost_files[sid])
+            (now,) = [os.path.join(dd, name) for dd in dirs
+                      if dd != vdir[victim] and
+                      os.path.exists(os.path.join(dd, name))]
+            check(sha256_file(now) == sha, f"rebuilt shard {sid} differs")
+        operation._vid_cache._m.clear()
+        t = time.perf_counter()
+        n_read = read_all(
+            [(f, _payload(seed + 19, *big[f])) for f in big],
+            lambda f: operation.read(seeds, f), "A from EC")
+        steps["rebuild"] = {"volume": va, "rejoined": back,
+                            "stopped": victim, "lost": lost,
+                            "wall_s": reb_s, "launches": reb,
+                            "windows": reb_windows,
+                            "rebuilt_equal": len(lost),
+                            "read_back": n_read,
+                            "read_back_seconds": time.perf_counter() - t}
+        emit({"phase": "master_ha", "step": "rebuild", **steps["rebuild"]})
+
+        # 6. a transfer to a named follower, under 1 KiB reads
+        target = next(u for u in murls if u != new)
+        stop = threading.Event()
+        seen = {"reads": 0, "bad": []}
+
+        def reader():
+            paths = list(files)
+            i = 0
+            while not stop.is_set():
+                path = paths[i % len(paths)]
+                try:
+                    st, body, _ = http_bytes("GET", f"{furl}{path}",
+                                             timeout=60)
+                except OSError as e:
+                    st, body = repr(e)[:200], b""
+                seen["reads"] += 1
+                if st != 200 or body != files[path]:
+                    seen["bad"].append((path, st))
+                i += 1
+        th = threading.Thread(target=reader)
+        th.start()
+        try:
+            time.sleep(0.2)
+            t = time.perf_counter()
+            out = commands.run_script(
+                env, f"cluster.raft.leader.transfer -target={target}")
+            check("transferred" in out[0], f"transfer: {out}")
+            poll(lambda: http_json("GET", f"{furl}/debug/follow",
+                                   timeout=10).get("leader") == target,
+                 "the filer follows the new leader", timeout=2.0,
+                 interval=0.01)
+            follow_s = time.perf_counter() - t
+            poll(lambda: _ha_leader(murls) == target, "the target leads",
+                 timeout=10)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        check(not seen["bad"], f"reads during the transfer: {seen['bad'][:3]}")
+        steps["transfer"] = {"from": new, "to": target,
+                             "filer_follows_s": follow_s,
+                             "reads_during": seen["reads"]}
+        emit({"phase": "master_ha", "step": "transfer", **steps["transfer"]})
+
+        # 7. the whole set stopped and started on its -mdir
+        tid = operation.master_json(seeds, "GET", "/cluster/status",
+                                    timeout=30)["topologyId"]
+        for u in murls:
+            rc = _retire(procs, mproc[u], signal.SIGTERM)
+            check(rc == 0, f"master {u} stopped with {rc}")
+        t = time.perf_counter()
+        murls2, mprocs2, _ = _start_master_set(
+            tmp, procs, ports=[int(u.rsplit(":", 1)[1]) for u in murls])
+        check(murls2 == murls, f"the set came back as {murls2}")
+        mproc = dict(zip(murls, mprocs2))
+        fid0, t_first = first_assign(seeds, HA_AFTER)
+        restart_s = t_first - t
+        fids = [fid0] + assigns(n_assigns - 1, seeds, HA_AFTER)
+        after = [key_of(f) for f in fids]
+        check(min(after) > max(keys),
+              f"a key at or below {max(keys)} issued after the restart")
+        tid2 = operation.master_json(seeds, "GET", "/cluster/status",
+                                     timeout=30)["topologyId"]
+        check(tid2 == tid, f"topologyId {tid} became {tid2}")
+        poll(lambda: sorted(alive()) == sorted(urls),
+             "the surviving servers registered again")
+        keys += after
+        steps["restart"] = {"topology_id": tid,
+                            "restart_to_first_assign_s": restart_s,
+                            "leader": _ha_leader(murls),
+                            "assigns": n_assigns,
+                            "min_key_after": min(after),
+                            "servers": len(urls)}
+        emit({"phase": "master_ha", "step": "restart", **steps["restart"]})
+
+        # 8. the autopilot
+        snap = http_json("GET", f"{furl}/debug/autopilot", timeout=30)
+        check({"hedge.ratio", "hedge.min_ms", "brownout.factor",
+               "cache.chunk", "cache.meta"} <= set(snap["knobs"]),
+              f"filer knobs {sorted(snap['knobs'])}")
+        check({g["name"] for g in snap["planes"]} == {"meta", "read"} and
+              all(g["armed"] for g in snap["planes"]),
+              f"filer guards {snap['planes']}")
+        vsnaps = {u: http_json("GET", f"{u}/debug/autopilot", timeout=30)
+                  for u in urls}
+        check(all("cache.needle" in x["knobs"] for x in vsnaps.values()),
+              "a volume server without cache.needle")
+        time.sleep(1.5)
+        snap2 = http_json("GET", f"{furl}/debug/autopilot", timeout=30)
+        check(snap["enabled"] and snap2["ticks"] > snap["ticks"],
+              "the filer's loop does not tick")
+        for u, x in vsnaps.items():
+            y = http_json("GET", f"{u}/debug/autopilot", timeout=30)
+            check(x["enabled"] and y["ticks"] > x["ticks"],
+                  f"{u}'s loop does not tick")
+        by_server: dict = {}
+        for path in files:
+            entry = http_json("GET", f"{furl}/__meta__/lookup?path="
+                              + urllib.parse.quote(path), timeout=30)
+            fid = entry["chunks"][0]["fileId"]
+            (loc,) = operation.lookup(seeds, vid_of(fid), use_cache=False)
+            by_server.setdefault(loc["url"], []).append((path, fid))
+        x_url = max(by_server, key=lambda u: len(by_server[u]))
+        spike = by_server[x_url][:HA_SPIKE]
+        rport = http_json("GET", f"{furl}/status",
+                          timeout=30)["readPlanePort"]
+        check(rport, "the filer's read plane is not up")
+        rhost = furl.rsplit(":", 1)[0]
+
+        def plane_get(path):
+            return http_bytes("GET", f"{rhost}:{rport}{path}", timeout=30)
+
+        def plane_serves(path, fid) -> bool:
+            # the filer's GET fills its plane; a GET on the volume port
+            # registers the needle with the volume's read plane
+            http_bytes("GET", f"{furl}{path}", timeout=30)
+            http_bytes("GET", f"{x_url}/{fid}", timeout=30)
+            st, body, _ = plane_get(path)
+            return st == 200 and body == files[path]
+        for path, fid in spike:
+            poll(lambda: plane_serves(path, fid), f"{path} on the plane",
+                 timeout=30)
+        acts0 = metric(furl, "seaweedfs_tpu_autopilot_actions_total")
+        rc = _retire(procs, vproc[x_url], signal.SIGTERM)
+        check(rc == 0, f"{x_url} stopped with {rc}")
+        t_spike = time.perf_counter()
+        errs = 0
+
+        def tripped() -> bool:
+            nonlocal errs
+            for path, _fid in spike[:8]:
+                errs += plane_get(path)[0] != 200
+            return http_json("GET", f"{furl}/status",
+                             timeout=30)["readPlanePort"] == 0
+        poll(tripped, "the read plane's guard disarms it", timeout=30,
+             interval=0.02)
+        disarm_s = time.perf_counter() - t_spike
+        text = http_bytes("GET", f"{furl}/metrics", timeout=60)[1].decode()
+        disarms = sum(v for lb, v in _full_samples(
+            text, "seaweedfs_tpu_autopilot_actions_total")
+            if lb == {"knob": "plane.read", "direction": "disarm"})
+        check(disarms >= 1, "the disarm was not counted")
+        t_back = time.perf_counter()
+        (x2,) = _start_procs(
+            [["volume", "-dir", vdir[x_url], "-port",
+              x_url.rsplit(":", 1)[1], "-mserver", seeds, "-max",
+              str(WRITE_MAX_VOLUMES), "-device", device]],
+            [vdir[x_url] + ".log"], procs, "volume", log_mode="a")
+        check(x2 == x_url, f"{x_url} came back as {x2}")
+        vproc[x_url] = procs[-1]
+        poll(lambda: http_json("GET", f"{furl}/status", timeout=30)[
+            "readPlanePort"] == rport, "the guard re-arms the plane",
+            timeout=120, interval=0.05)
+        rearm_s = time.perf_counter() - t_back
+        for path, fid in spike:
+            poll(lambda: plane_serves(path, fid),
+                 f"{path} on the plane again", timeout=30)
+        snap3 = http_json("GET", f"{furl}/debug/autopilot", timeout=30)
+        steps["autopilot"] = {
+            "filer_knobs": snap["knobs"],
+            "volume_knobs": {u: x["knobs"] for u, x in vsnaps.items()},
+            "stopped": x_url, "plane_reads_failed": errs,
+            "disarm_s": disarm_s, "rearm_after_restart_s": rearm_s,
+            "disarms_counted": disarms,
+            "actions_total_delta": metric(
+                furl, "seaweedfs_tpu_autopilot_actions_total") - acts0,
+            "served_again": len(spike),
+            "plane_actions": [a for a in snap3["actions"]
+                              if a["knob"].startswith("plane.")]}
+        emit({"phase": "master_ha", "step": "autopilot",
+              **steps["autopilot"]})
+    finally:
+        bad = _stop_peers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a process of the HA cluster did not stop: {bad}")
+    out = {"phase": "master_ha",
+           "cuts": {"volume_a_mb": big_mb, "filer_files": n_files,
+                    "assigns": n_assigns},
+           "steps": steps,
+           "launches": {"encode": steps["encode"]["launches"],
+                        "rebuild": steps["rebuild"]["launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -8210,6 +8911,8 @@ def main(argv=None) -> int:
                        os.path.join(work, "qos_chaos"), args.seed)
         maint = timed("maintenance", phase_maintenance,
                       os.path.join(work, "maintenance"), args.seed)
+        ha = timed("master_ha", phase_master_ha,
+                   os.path.join(work, "master_ha"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -8249,7 +8952,9 @@ def main(argv=None) -> int:
               "qos_chaos_rebuild": qchaos["launches"]["rebuild"],
               "qos_chaos_scatter": qchaos["launches"]["scatter"],
               "maintenance_encode": maint["launches"]["encode"],
-              "maintenance_rebuild": maint["launches"]["rebuild"]}),
+              "maintenance_rebuild": maint["launches"]["rebuild"],
+              "master_ha_encode": ha["launches"]["encode"],
+              "master_ha_rebuild": ha["launches"]["rebuild"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

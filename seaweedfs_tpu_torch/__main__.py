@@ -3,9 +3,10 @@
     python3 -m seaweedfs_tpu_torch [-securityToml security.toml] ROLE ...
     python3 -m seaweedfs_tpu_torch master [-ip 127.0.0.1] [-port 9333]
         [-volumeSizeLimitMB 1024] [-defaultReplication 000]
+        [-peers HOST:PORT,HOST:PORT,...] [-mdir DIR]
         [-telemetry -telemetryUrl URL]
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
-        [-ip 127.0.0.1] [-mserver HOST:PORT] [-device cuda] [-max 8]
+        [-ip 127.0.0.1] [-mserver HOST:PORT[,...]] [-device cuda] [-max 8]
         [-dataCenter DC] [-rack RACK] [-fsync]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
         [-master HOST:PORT] [-store filer.db] [-collection C]
@@ -55,13 +56,20 @@ takes a free port) and serves until SIGTERM or SIGINT, when it stops
 cleanly and exits 0.  A master given `-telemetry` and `-telemetryUrl`
 prints `telemetry enabled -> <url>` next and posts an anonymous report
 of the cluster's shape there (`telemetry.py`) at once and every 24
-hours; without them it sends nothing.  The volume server's codec runs
+hours; without them it sends nothing.  `master -peers a,b,c` starts one
+member of an HA master set (raft, `server/raft.py`; each member is given
+the same list, its own address among them, as `-ip`:`-port` spells it)
+and `-mdir DIR` keeps its raft log, term and vote under `DIR/raft`, in
+the JAX package's format, so a restarted set keeps its topology id and
+issues no file key or volume id twice.  Every `-master` and `-mserver`
+of the other roles takes such a list and follows the leader.  The volume server's codec runs
 on the CUDA card, or on `-device cpu` when asked for.  A `-device cuda`
 given on the command line must find the card at start, or the command
 fails; left out, the card is first looked for by the first encode or
 rebuild, which fails without one.  `shell` runs one `;`-separated command line
 against `-master` (and `-filer`, for the `fs.*` commands), prints each
-command's output and exits.
+command's output and exits; with no command it reads lines at a `> `
+prompt until `exit`, `quit` or the end of input.
 
 `filer` starts a filer (`server/filer_server.py`) over the sqlite store
 `-store` (a file, its metadata log in `<store>.metalog`, or `:memory:`)
@@ -78,7 +86,10 @@ exits is respawned (20 times at most), and SIGTERM stops the fleet.
 `SEAWEEDFS_TPU_ASYNC_FRONT=filer` serves the filer on the asyncio front
 (`server/async_front.py`).  A `-storeType` other than sqlite,
 `-notification`, `-lockPeers` and `-metricsAddress` are refused, not
-ported yet (ROADMAP).
+ported yet (ROADMAP).  A volume server and a filer run the SLO autopilot
+(`autopilot.py`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`; a fleet's parent
+also registers the `workers` knob, between 1 and twice `-workers`
+processes, which spawns and drains siblings under the monitor's lock.
 
 `admin` starts the maintenance admin (`plugin/admin.py`) and prints
 `admin listening on <ip>:<port>`; `worker` registers a maintenance
@@ -237,6 +248,111 @@ def _s3(ap, args) -> int:
 WORKER_RESPAWNS = 20
 
 
+class _Fleet:
+    """A pre-fork filer's siblings: `cmd` started `workers - 1` times,
+    each exit respawned by the monitor (`WORKER_RESPAWNS` at most), and
+    the SLO autopilot's `workers` knob, which spawns and drains siblings.
+    One lock, `lock`, is held by a respawn, by the knob and by the stop:
+    once the stop has set `stopping`, no sibling starts that it would not
+    stop, and the monitor never brings back one that the knob drained."""
+
+    def __init__(self, cmd: "list[str]", workers: int):
+        self.cmd = cmd
+        self.workers = workers
+        self.procs: list = []
+        self.drained: "set[int]" = set()   # pids the knob stopped
+        self.stopping = threading.Event()
+        self.lock = threading.Lock()
+        self.respawns = 0
+
+    def _spawn(self):
+        import subprocess
+        p = subprocess.Popen(self.cmd)
+        self.procs.append(p)
+        return p
+
+    def start(self) -> None:
+        with self.lock:
+            if self.stopping.is_set():
+                return
+            for _ in range(self.workers - 1):
+                self._spawn()
+        threading.Thread(target=self._monitor, daemon=True,
+                         name="filer-worker-monitor").start()
+
+    def _monitor(self) -> None:
+        while not self.stopping.wait(2.0):
+            self.monitor_once()
+
+    def monitor_once(self) -> None:
+        import subprocess
+        with self.lock:
+            if self.stopping.is_set():
+                return
+            for i, p in enumerate(self.procs):
+                rc = p.poll()
+                if rc is None or p.pid in self.drained:
+                    continue
+                print(f"filer worker pid={p.pid} exited rc={rc}",
+                      file=sys.stderr, flush=True)
+                if self.respawns >= WORKER_RESPAWNS:
+                    continue
+                self.respawns += 1
+                self.procs[i] = subprocess.Popen(self.cmd)
+
+    def _live(self) -> list:
+        """The caller holds `lock`."""
+        return [p for p in self.procs
+                if p.poll() is None and p.pid not in self.drained]
+
+    def size(self) -> float:
+        """The fleet's processes, the parent included (the knob's
+        value)."""
+        with self.lock:
+            return 1.0 + len(self._live())
+
+    def scale(self, n: float) -> None:
+        """The knob's setter: spawn or drain siblings to `n` processes."""
+        want = max(0, int(round(n)) - 1)
+        with self.lock:
+            if self.stopping.is_set():
+                return
+            live = self._live()
+            while len(live) < want:
+                live.append(self._spawn())
+            while len(live) > want:
+                p = live.pop()
+                self.drained.add(p.pid)
+                p.terminate()
+
+    def register_knob(self, ap) -> None:
+        """The `workers` actuator, on the parent only: bounds [1, 2 x
+        -workers], a 30 s cooldown that runs from the fleet's start (the
+        operator's `-workers` is its first setting: the probe's first
+        idle ticks, before any load, drain nothing)."""
+        from .autopilot import Actuator
+        act = ap.register(Actuator(
+            "workers", get=self.size, set=self.scale, lo=1.0,
+            hi=float(max(self.workers * 2, 2)), cooldown=30.0,
+            describe="SO_REUSEPORT pre-fork filer processes (parent "
+                     "included)"))
+        act.last_actuated = ap.now()
+
+    def stop(self) -> None:
+        import subprocess
+        with self.lock:
+            self.stopping.set()
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
 def _filer(ap, args, argv: "list[str]") -> int:
     """`filer`, with its pre-fork fleet: `-workers N` (or
     `SEAWEEDFS_TPU_FILER_WORKERS`) above 1 re-executes this command line
@@ -247,8 +363,7 @@ def _filer(ap, args, argv: "list[str]") -> int:
     sibling exits when its parent (that pid) is gone; the parent
     respawns a sibling that exited, `WORKER_RESPAWNS` times at most,
     and on SIGTERM stops them all, and respawns none, before its own
-    server stops."""
-    import subprocess
+    server stops (`_Fleet`)."""
     import time
     from .server.filer_server import FilerServer
     workers = args.workers
@@ -296,12 +411,6 @@ def _filer(ap, args, argv: "list[str]") -> int:
                          reuse_port=is_worker or workers > 1)
     except ValueError as e:  # the meta plane over a :memory: store
         ap.error(f"filer: {e}")
-    procs: list = []
-    stopping = threading.Event()
-    # held by a respawn and by the stop: once the stop has set
-    # `stopping`, no sibling is started that it would not stop
-    spawn_lock = threading.Lock()
-    respawns = [0]
     # the command line of a sibling: this one, on the resolved port
     sibling = []
     skip = False
@@ -314,55 +423,22 @@ def _filer(ap, args, argv: "list[str]") -> int:
             continue
         sibling.append(a)
     sibling += ["-port", str(fs.http.port), "-workers", "0"]
-    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch"] + sibling
-
-    def monitor() -> None:
-        while not stopping.wait(2.0):
-            with spawn_lock:
-                if stopping.is_set():
-                    return
-                for i, p in enumerate(procs):
-                    rc = p.poll()
-                    if rc is None:
-                        continue
-                    print(f"filer worker pid={p.pid} exited rc={rc}",
-                          file=sys.stderr, flush=True)
-                    if respawns[0] >= WORKER_RESPAWNS:
-                        continue
-                    respawns[0] += 1
-                    procs[i] = subprocess.Popen(cmd)
+    fl = _Fleet([sys.executable, "-m", "seaweedfs_tpu_torch"] + sibling,
+                workers)
 
     def fleet(server) -> None:
         if is_worker or workers <= 1:
             return
         os.environ["SEAWEEDFS_TPU_TREE_ROOT"] = str(os.getpid())
-        with spawn_lock:
-            if stopping.is_set():
-                return
-            for _ in range(workers - 1):
-                procs.append(subprocess.Popen(cmd))
+        fl.start()
         print(f"filer pre-forked {workers - 1} sibling workers on port "
               f"{server.http.port}", flush=True)
-        threading.Thread(target=monitor, daemon=True,
-                         name="filer-worker-monitor").start()
-
-    def stop_fleet() -> None:
-        with spawn_lock:
-            stopping.set()
-        for p in procs:
-            if p.poll() is None:
-                p.terminate()
-        for p in procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+        fl.register_knob(server.autopilot)
 
     try:
-        return _serve(fs, _listening("filer"), fleet, stop_fleet)
+        return _serve(fs, _listening("filer"), fleet, fl.stop)
     finally:
-        stop_fleet()
+        fl.stop()
 
 
 def main(argv=None) -> int:
@@ -376,6 +452,11 @@ def main(argv=None) -> int:
     m.add_argument("-port", type=int, default=9333)
     m.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     m.add_argument("-defaultReplication", default="000")
+    m.add_argument("-peers", default="",
+                   help="the HA master set, host:port,... (this master "
+                        "among them); none: a set of one")
+    m.add_argument("-mdir", default="",
+                   help="keep the raft log, term and vote under DIR/raft")
     m.add_argument("-telemetry", action="store_true",
                    help="opt-in anonymous cluster reports (default off)")
     m.add_argument("-telemetryUrl", default="",
@@ -385,7 +466,8 @@ def main(argv=None) -> int:
     v.add_argument("-port", type=int, default=8080)
     v.add_argument("-dir", default=".", help="comma-separated data dirs")
     v.add_argument("-mserver", default="",
-                   help="master host:port (none: no heartbeat)")
+                   help="master host:port, or the HA set's comma-separated "
+                        "list (none: no heartbeat)")
     v.add_argument("-device", default=None,
                    help="codec device: cuda (the default) or cpu")
     v.add_argument("-max", type=int, default=8)
@@ -541,7 +623,8 @@ def main(argv=None) -> int:
             return _serve(MasterServer(
                 args.ip, args.port,
                 volume_size_limit_mb=args.volumeSizeLimitMB,
-                default_replication=args.defaultReplication),
+                default_replication=args.defaultReplication,
+                peers=args.peers or None, meta_dir=args.mdir or None),
                 _listening("master server"), report)
         finally:
             reporter.stop()
@@ -596,10 +679,34 @@ def main(argv=None) -> int:
         return 0
     from .shell import CommandEnv
     from .shell.commands import run_script
-    for out in run_script(CommandEnv(args.master, filer=args.filer),
-                          " ".join(args.command)):
+    env = CommandEnv(args.master, filer=args.filer)
+    if not args.command:
+        return _repl(env)
+    for out in run_script(env, " ".join(args.command)):
         print(out, flush=True)
     return 0
+
+
+def _repl(env) -> int:
+    """The shell's prompt: a `;`-separated line at a time, until `exit`,
+    `quit` or the end of input; a failed command prints its error and
+    the prompt goes on."""
+    from .shell.commands import run_script
+    while True:
+        try:
+            line = input("> ").strip()
+        except (EOFError, KeyboardInterrupt):
+            print(flush=True)
+            return 0
+        if line in ("exit", "quit"):
+            return 0
+        if not line:
+            continue
+        try:
+            for out in run_script(env, line):
+                print(out, flush=True)
+        except Exception as e:  # noqa: BLE001 — the prompt survives
+            print(f"error: {e}", flush=True)
 
 
 def _worker_handlers(caps: "list[str]", device: str) -> list:

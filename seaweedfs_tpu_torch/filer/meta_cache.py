@@ -167,6 +167,19 @@ class FilerMetaCache:
     MAX_FRESH_DIRS = 512
     MAX_FRESH_CHILDREN = 65536
 
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize (the autopilot's `cache.meta`): a shrink drops the
+        least recently used entries at once; the fills that stay keep
+        their watermarks."""
+        with self._lock:
+            self._cap = max(int(capacity), 1)
+            while len(self._entries) > self._cap:
+                self._entries.popitem(last=False)
+
     def fresh_token(self) -> "tuple[int, int]":
         """(foreign watermark, sibling-invalidation count), taken BEFORE
         the store read that proves a directory absent."""

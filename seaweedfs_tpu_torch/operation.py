@@ -2,9 +2,13 @@
 `master_json`, `assign`, `upload`, `assign_and_upload` / `submit`,
 `lookup`, `read` with failover over a volume's locations, and `delete`.
 
-The port's master is a single node, so there is no leader to follow:
-the seeds of a comma-separated list are tried in order and the first
-that answers is used.  Under a deadline (`util/deadline`), assign,
+Every call to a master goes through `master_json`, which takes one
+address or a comma-separated seed list and follows the raft leader
+(wdclient/masterclient.go: the re-dial on a leader announcement): the
+leader cached for that seed list first, then the seeds, and a follower's
+503 `{"error": "not leader", "leader": hint}` re-dials the hint.  The
+follow stream (`wdclient.MasterFollower`) feeds the cache with the
+leader it hears.  Under a deadline (`util/deadline`), assign,
 upload, lookup and read derive each hop's timeout from the remaining
 budget and forward it (the HTTP client stamps `X-Weed-Deadline-Ms`); a
 spent budget raises `DeadlineExceeded` and is never taken for a failed
@@ -53,21 +57,97 @@ from .storage import types
 from .util import deadline, hedge
 
 
+# the leader of each seed list, as last found (or announced on the
+# follow stream)
+_leader_cache: "dict[str, str]" = {}
+_leader_lock = threading.Lock()
+
+# what a leader new in office answers a lookup it cannot answer yet
+WARMING = "topology warming"
+
+# how long a call waits out an election: while a live member of the set
+# answers "not leader" and no seed leads, the set is electing (4-8 raft
+# pulses), and the call asks again rather than fail; so it does while a
+# leader new in office answers a lookup `WARMING` (it has not heard every
+# server yet: server/master_server.py)
+ELECTION_WAIT = 10.0
+
+
 def master_json(master: str, method: str, path: str,
                 payload: dict | None = None, timeout: float = 30.0,
                 headers: dict | None = None) -> dict:
-    """Call a master endpoint on the first reachable seed of `master`
-    (one address or a comma-separated list).  Raises OSError when no
-    seed answers; an answer with an "error" key is returned as is."""
-    seeds = [s.strip() for s in master.split(",") if s.strip()]
+    """Call a master endpoint through the seed list `master` (one address
+    or a comma-separated list), following the leader: the cached leader
+    of the list first, then each seed; a follower's `not leader` answer
+    re-dials its hint.  The seed that answers is cached as the list's
+    leader.  While some member answers but none leads, or the leader
+    answers "topology warming", the round is repeated for up to
+    `ELECTION_WAIT` seconds (at most `timeout`).
+    Raises OSError when no seed answers (chained to the last transport
+    error), `DeadlineExceeded` at once (another seed cannot give time
+    back); any other answer with an "error" key is returned as is."""
+    seeds = [x.strip() for x in master.split(",") if x.strip()]
+    give_up = None
+    while True:
+        r, last, last_exc, electing = _master_round(
+            master, seeds, method, path, payload, timeout, headers)
+        if r is not None:
+            return r
+        if not electing:
+            break
+        now = time.monotonic()
+        if give_up is None:
+            give_up = now + min(ELECTION_WAIT, timeout)
+        if now >= give_up:
+            break
+        time.sleep(0.1)
+    raise OSError(f"master_json {path}: {last}") from last_exc
+
+
+def _master_round(master, seeds, method, path, payload, timeout, headers):
+    """One pass over the seeds: (answer or None, the last failure, its
+    exception, whether a live member answered "not leader")."""
+    with _leader_lock:
+        cached = _leader_cache.get(master)
+    order = ([cached] if cached else []) + [x for x in seeds if x != cached]
     last = "no masters configured"
-    for url in seeds:
+    last_exc: "OSError | None" = None
+    electing = False
+    tried: "set[str]" = set()
+    while order:
+        url = order.pop(0)
+        if url in tried:
+            continue
+        tried.add(url)
         try:
-            return http_json(method, f"{url}{path}", payload, timeout,
-                             headers=headers)
+            r = http_json(method, f"{url}{path}", payload, timeout,
+                          headers=headers)
+        except deadline.DeadlineExceeded:
+            raise
         except OSError as e:
-            last = f"{url}: {e}"
-    raise OSError(f"master_json {path}: {last}")
+            last, last_exc = f"{url}: {e}", e
+            continue
+        if r.get("error") == "not leader":
+            electing = True
+            hint = r.get("leader", "")
+            last = f"{url}: not leader"
+            if hint and hint not in tried:
+                order.insert(0, hint)
+            continue
+        if r.get("error") == WARMING:
+            electing = True
+            last = f"{url}: {WARMING}"
+            continue
+        note_leader(master, url)
+        return r, last, last_exc, electing
+    return None, last, last_exc, electing
+
+
+def note_leader(master: str, url: str) -> None:
+    """Record `url` as the leader of the seed list `master`, which
+    `master_json` dials first."""
+    with _leader_lock:
+        _leader_cache[master] = url
 
 
 class VidCache:

@@ -459,9 +459,23 @@ def brownout_enabled() -> bool:
         not in ("0", "false")
 
 
+# the autopilot's override of the environment's factor (None: the
+# env's value, the baseline); set only through its actuator
+_brownout_factor_override: "float | None" = None
+
+
+def set_brownout_factor(f: "float | None") -> None:
+    global _brownout_factor_override
+    _brownout_factor_override = None if f is None else max(0.0, float(f))
+
+
+def effective_brownout_factor() -> float:
+    return _brownout_factor()
+
+
 def _brownout_factor() -> float:
-    # the reference's runtime override belongs to its SLO autopilot,
-    # which is not ported: the operator's env value is the factor
+    if _brownout_factor_override is not None:
+        return _brownout_factor_override
     return max(0.0, _env_float("SEAWEEDFS_TPU_BROWNOUT_FACTOR", 1.0))
 
 
@@ -483,6 +497,7 @@ def brownout_estimate() -> float:
 
 def _brownout_reset() -> None:
     _brownout_tracker.reset()
+    set_brownout_factor(None)
 
 
 # exempt from admission on every role: the observability/debug plane

@@ -37,6 +37,13 @@ pprof endpoint).  Every `/debug/` path is an admin path: the owner's
       "checkIntervalMs"}, a forced {"paceMs"}, or {"clear": true}, and
       answers what GET does.
 
+  GET/POST /debug/autopilot    the SLO autopilot (autopilot.py) of a
+      volume server or a filer: GET its state (the knobs with their
+      bounds and values, the plane guards, the action log); POST
+      {"enabled": bool} flips the loop, {"knob": name, "value": v} moves
+      one knob through the registry (clamped to its bounds), {"tick":
+      true} runs one step at once.
+
 Arms, the budget and the QoS controller are per process: a lever moves
 the process that serves it.
 """
@@ -70,6 +77,33 @@ def install_debug_routes(http: HttpServer) -> None:
     http.route("POST", "/debug/faults", _faults_post)
     http.route("GET", "/debug/qos", _qos_get)
     http.route("POST", "/debug/qos", _qos_post)
+
+
+def install_autopilot_routes(http: HttpServer, ap) -> None:
+    """`/debug/autopilot` over the role's `Autopilot` (the roles that run
+    a loop: the filer and the volume server)."""
+    def _ap_get(req: Request):
+        return 200, ap.snapshot()
+
+    def _ap_post(req: Request):
+        b = req.json()
+        try:
+            if "enabled" in b:
+                ap.set_enabled(bool(b["enabled"]))
+            if "knob" in b:
+                name = str(b["knob"])
+                if name not in ap.actuators:
+                    return 400, {"error": f"unknown knob {name!r}"}
+                ap.actuate(name, float(b["value"]), "debug lever",
+                           force=True)
+            if b.get("tick"):
+                ap.tick()
+        except (TypeError, ValueError, KeyError) as e:
+            return 400, {"error": str(e)}
+        return 200, ap.snapshot()
+
+    http.route("GET", "/debug/autopilot", _ap_get)
+    http.route("POST", "/debug/autopilot", _ap_post)
 
 
 def start_process_probes() -> None:

@@ -121,6 +121,8 @@ class NativeReadPlane(native.RecordDrain):
         self._armed = False
         self._addr_memo: "dict[int, tuple[str | None, float]]" = {}
         self._misses_seen = 0   # stale + upstream misses the memo saw
+        # the servers whose /status gave the memo's addresses
+        self._addr_urls: "set[str]" = set()
         self._fills: "queue.Queue" = queue.Queue(_FILL_QUEUE_MAX)
         self._stop_evt = threading.Event()
         self._filler = threading.Thread(target=self._fill_loop,
@@ -262,9 +264,14 @@ class NativeReadPlane(native.RecordDrain):
         st = self.stats()
         misses = st["stale_misses"] + st["upstream_errors"]
         if misses != self._misses_seen:
-            # a registration proved stale: every address may be
+            # a registration proved stale: every address may be, and so
+            # may the /status it came from (a restarted server's plane
+            # listens on another port)
             self._misses_seen = misses
             self._addr_memo.clear()
+            for url in self._addr_urls:
+                operation._invalidate_status(url)
+            self._addr_urls.clear()
         memo = self._addr_memo
         hit = memo.get(vid)
         now = time.monotonic()
@@ -288,6 +295,7 @@ class NativeReadPlane(native.RecordDrain):
                     addr = operation._plane_addr(loc["url"],
                                                  "readPlanePort")
                     if addr is not None:
+                        self._addr_urls.add(loc["url"])
                         break
         except (OSError, LookupError, RuntimeError, ValueError):
             addr = None          # a dead master or a lost volume

@@ -30,7 +30,16 @@ when a read key is set; the admin paths (`/debug/*`) need the admin
 JWT.  A started filer follows the master's
 location pushes (`operation.enable_follow`), so its chunk lookups and
 the read plane's fills resolve without a lookup RPC; `GET
-/debug/follow` shows the stream's state and pushed map.
+/debug/follow` shows the stream's state, the leader it follows and the
+pushed map.  `-master` may be the seed list of an HA master set: every
+call follows the leader (`operation.master_json`).
+
+A started filer runs the SLO autopilot (autopilot.py, `GET/POST
+/debug/autopilot`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`: it moves the
+hedge's ratio and floor, the brownout factor and the chunk and meta
+caches, and its plane guards disarm a native plane whose errors spike
+and re-arm it after probation, through `plane_lever`, which refuses
+while the planes stand down.
 
 The reference's filer HTTP surface:
   POST/PUT /path/to/file     upload (auto-chunked; a trailing / = mkdir)
@@ -74,14 +83,15 @@ import os
 import sys
 import urllib.parse
 
+from .. import autopilot as _autopilot
 from .. import faults, operation, profiling, qos, security, stats
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import SqliteStore
 from ..util.chunk_cache import read_cache_disk
-from .httpd import (HttpServer, Request, admin_guard, http_json,
-                    parse_range)
-from .debug import install_debug_routes, start_process_probes
+from .httpd import HttpServer, Request, admin_guard, parse_range
+from .debug import (install_autopilot_routes, install_debug_routes,
+                    start_process_probes)
 from .meta_plane_native import note_stood_down
 
 
@@ -89,8 +99,8 @@ def cluster_statistics(master: str, collection: str = "") -> dict:
     """Aggregate used/total/file counts from the master topology, the
     filer Statistics feed (filer.proto Statistics).  Raises OSError
     when the master is unreachable."""
-    vl = http_json("GET", f"{master}/dir/status", timeout=30)
-    cs = http_json("GET", f"{master}/cluster/status", timeout=30)
+    vl = operation.master_json(master, "GET", "/dir/status", timeout=30)
+    cs = operation.master_json(master, "GET", "/cluster/status", timeout=30)
     used = files = max_count = 0
     for dc in vl.get("dataCenters", {}).values():
         for rack in dc.get("racks", {}).values():
@@ -154,14 +164,10 @@ class FilerServer:
         plane_host = self.http.host if all(
             c in "0123456789." for c in self.http.host) else "127.0.0.1"
         self.native_meta = None
-        tls_on = security.current().tls is not None
-        # the native planes serve anonymous requests without admission:
-        # under a `[qos.default]` limit they would serve what admission
-        # refuses, so they stand down as they do under TLS
-        planes_down = tls_on or qos.anonymous_limited()
+        planes_down = self.planes_stood_down()
         if planes_down:
             for name in ("meta", "read"):
-                note_stood_down(name, "tls" if tls_on else "qos")
+                note_stood_down(name, planes_down)
         if self.filer.meta_plane is not None and not planes_down:
             from .meta_plane_native import (NativeMetaPlane,
                                             native_meta_plane_enabled)
@@ -229,6 +235,34 @@ class FilerServer:
                                    stats.PROCESS,
                                    names=("plane_request_seconds",))
         qos.throttle().maybe_start()
+        # the SLO autopilot (autopilot.py): the hedge, brownout and
+        # cache knobs, and guards over both native planes; start() runs
+        # it unless SEAWEEDFS_TPU_AUTOPILOT=0, /debug/autopilot serves
+        # either way
+        self.autopilot = _autopilot.build_for_filer(self)
+        install_autopilot_routes(self.http, self.autopilot)
+
+    @staticmethod
+    def planes_stood_down() -> "str | None":
+        """Why the native planes stay down here ("tls", "qos"), or None:
+        under `[tls]` they would speak plain text, and under a
+        `[qos.default]` limit serve what admission refuses."""
+        if security.current().tls is not None:
+            return "tls"
+        if qos.anonymous_limited():
+            return "qos"
+        return None
+
+    def plane_lever(self, plane):
+        """A plane guard's lever: it disarms at once, and arms only while
+        no stand-down holds, so probation never brings back a plane that
+        the configuration keeps down."""
+        def arm(on: bool) -> None:
+            reason = self.planes_stood_down() if on else None
+            if reason:
+                raise RuntimeError(f"the planes stand down ({reason})")
+            plane.arm(on)
+        return arm
 
     @staticmethod
     def _start_plane(name: str, make):
@@ -252,9 +286,12 @@ class FilerServer:
         # the follow stream: chunk lookups and the read plane's fills
         # resolve from the master's pushes (masterclient.go:471)
         operation.enable_follow(self.filer.master)
+        if _autopilot.enabled_by_env():
+            self.autopilot.start()
         return self
 
     def stop(self) -> None:
+        self.autopilot.stop()
         # the native planes before the Python listener: once a plane
         # stops acking, clients retry here and must still find a
         # server; the meta plane's final apply (Filer.close) last

@@ -20,10 +20,14 @@ from __future__ import annotations
 
 import collections
 import threading
+import uuid
 
 
 class LocationHub:
     def __init__(self, capacity: int = 4096):
+        # this hub's identity: a cursor means something only to the hub
+        # that issued it (each master of a set has its own)
+        self.id = uuid.uuid4().hex[:12]
         self._cond = threading.Condition()
         self._log: "collections.deque[tuple[int, dict]]" = \
             collections.deque(maxlen=capacity)

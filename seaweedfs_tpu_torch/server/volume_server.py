@@ -77,9 +77,16 @@ a master, and the public data path for reads and deletes.
   `/admin/vacuum`, `/admin/volume/merge` and `/admin/ec/generate` answer
   with 409 while it lasts (the JAX server has no such hold).
 
-With a `master` (host:port), the server posts `Store.collect_heartbeat()`
-to the master's `/heartbeat` at start, every `pulse_seconds`, and at
-once after every change of what it serves.  Without one (`master=""`)
+With a `master` (host:port, or the `-mserver` seed list of an HA set),
+the server posts `Store.collect_heartbeat()` to the leader's `/heartbeat`
+(`operation.master_json` follows it) at start, every `pulse_seconds`,
+and at once after every change of what it serves, and keeps the set's
+`topologyId` from the answer (on `/status`: a new epoch is observable,
+and a full heartbeat has already given the new leader all of this
+server's state); a follower's `not leader` is followed, not
+taken for a rejected heartbeat.  A started server runs the SLO
+autopilot (autopilot.py: the hot-needle cache's size; `GET/POST
+/debug/autopilot`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`.  Without one (`master=""`)
 there is no heartbeat, and a scatter's `placement` and a rebuild's
 `shardLocations` must come in the request body, and EC reads find no
 remote shard.
@@ -123,6 +130,7 @@ import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import autopilot as _autopilot
 from .. import faults, profiling, qos, security, stats
 from ..storage import types
 from ..storage.erasure_coding import ec_decoder, ec_encoder
@@ -134,7 +142,8 @@ from ..util.chunk_cache import (TieredChunkCache, read_cache_disk,
                                 read_cache_mb)
 from .httpd import (FileSlice, HttpServer, Request, http_bytes,
                     admin_guard, http_download, http_json)
-from .debug import install_debug_routes, start_process_probes
+from .debug import (install_autopilot_routes, install_debug_routes,
+                    start_process_probes)
 from .read_plane import DATA_OFFSET_IN_RECORD, plain_record
 from .write_plane import ACK_BUCKETS_S
 from .store_ec import EcReader
@@ -181,6 +190,7 @@ class VolumeServer:
         self._hb_thread: "threading.Thread | None" = None
         self._hb_lock = threading.Lock()
         self._last_hb_error: "str | None" = None
+        self.topology_id = ""       # the master set's, from a heartbeat
         r = self.http.route
         r("POST", "/admin/allocate_volume", self._allocate_volume)
         r("POST", "/admin/set_readonly", self._set_readonly)
@@ -270,6 +280,11 @@ class VolumeServer:
         self._holds: dict[int, tuple[str, float]] = {}
         self._busy_lock = threading.Lock()
         self._vacuum_disabled = False
+        # the SLO autopilot (autopilot.py): this role's loop owns the
+        # hot-needle cache's size; start() runs it unless
+        # SEAWEEDFS_TPU_AUTOPILOT=0, and /debug/autopilot serves either way
+        self.autopilot = _autopilot.build_for_volume(self)
+        install_autopilot_routes(self.http, self.autopilot)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -293,6 +308,8 @@ class VolumeServer:
             self._hb_thread = threading.Thread(
                 target=self._heartbeat_loop, name="heartbeat", daemon=True)
             self._hb_thread.start()
+        if _autopilot.enabled_by_env():
+            self.autopilot.start()
         return self
 
     def _plane_stand_down(self, plane: str, key: str) -> bool:
@@ -371,6 +388,7 @@ class VolumeServer:
                   file=sys.stderr)
 
     def stop(self) -> None:
+        self.autopilot.stop()
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10)
@@ -428,6 +446,11 @@ class VolumeServer:
             print(f"volume server {self.url}: heartbeat rejected by "
                   f"master: {err}", file=sys.stderr)
         self._last_hb_error = err
+        tid = r.get("topologyId", "")
+        if not err and tid:
+            # the set's identity: a heartbeat is always full, so a new
+            # leader has all of this server's state from this one on
+            self.topology_id = tid
 
     def _heartbeat_loop(self) -> None:
         while not self._hb_stop.wait(self.pulse_seconds):
@@ -832,9 +855,11 @@ class VolumeServer:
 
     def _status(self, req: Request):
         """The plane ports a client sends plain reads and writes to (0
-        for a plane that is off), with the heartbeat's fields."""
+        for a plane that is off), the master set's `topologyId` as last
+        heard, with the heartbeat's fields."""
         return 200, {
             "version": "seaweedfs-tpu/0.1",
+            "topologyId": self.topology_id,
             "udsPath": self.uds_server.sock_path if self.uds_server
             else "",
             "readPlanePort": self.read_plane.port if self.read_plane

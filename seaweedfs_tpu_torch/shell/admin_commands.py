@@ -12,9 +12,13 @@ _volume_server_evacuate.go, _cluster_ps.go, ...):
     volume.server.state -node=URL          volume.server.leave -node=URL
     volume.vacuum.disable|enable [-node=URL]
     volume.replica.check                   cluster.ps  cluster.status
+    cluster.raft.ps                        cluster.raft.leader.transfer
+    cluster.raft.add -server=URL           cluster.raft.remove -server=URL
     sleep [SECONDS]
 
-The raft, mq and tier verbs are not ported (ROADMAP A)."""
+The raft verbs speak to the leader of `-master` (a seed list of the HA
+set) through `operation.master_json`.  The mq and tier verbs are not
+ported (ROADMAP A)."""
 
 from __future__ import annotations
 
@@ -291,6 +295,69 @@ def cmd_cluster_status(env: CommandEnv, args: list[str]) -> str:
     return json.dumps(
         master_json(env.master, "GET", "/cluster/status",
             timeout=30), indent=2)
+
+
+# -- the master set's raft (shell/command_cluster_raft_*.go) ---------------
+
+@command("cluster.raft.ps")
+def cmd_cluster_raft_ps(env: CommandEnv, args: list[str]) -> str:
+    """command_cluster_raft_ps.go RaftListClusterServers: the members and
+    the log's state."""
+    st = master_json(env.master, "GET", "/cluster/status", timeout=30)
+    _must(st, "cluster status")
+    raft = st.get("raft", {})
+    lines = [f"leader: {st.get('leader')}  term: {st.get('term')}  "
+             f"topologyId: {st.get('topologyId')}"]
+    for peer in st.get("peers", []):
+        mark = "*" if peer == st.get("leader") else " "
+        lines.append(f"  {mark} {peer}")
+    lines.append(f"log: commit={raft.get('commitIndex')} "
+                 f"applied={raft.get('appliedIndex')} "
+                 f"last={raft.get('lastLogIndex')} "
+                 f"snapshot={raft.get('snapshotIndex')} "
+                 f"persistent={raft.get('persistent')}")
+    return "\n".join(lines)
+
+
+@command("cluster.raft.add")
+def cmd_cluster_raft_add(env: CommandEnv, args: list[str]) -> str:
+    """command_cluster_raft_add.go RaftAddServer (-server=host:port): a
+    master joins the replicated membership."""
+    server = _parse_flags(args).get("server", "")
+    if not server:
+        return "usage: cluster.raft.add -server=host:port"
+    r = master_json(env.master, "POST", "/cluster/raft/config",
+                    {"add": [server]}, timeout=30)
+    _must(r, f"add raft server {server}")
+    return f"members: {', '.join(r['peers'])}"
+
+
+@command("cluster.raft.remove")
+def cmd_cluster_raft_remove(env: CommandEnv, args: list[str]) -> str:
+    """command_cluster_raft_remove.go RaftRemoveServer
+    (-server=host:port)."""
+    server = _parse_flags(args).get("server", "")
+    if not server:
+        return "usage: cluster.raft.remove -server=host:port"
+    r = master_json(env.master, "POST", "/cluster/raft/config",
+                    {"remove": [server]}, timeout=30)
+    _must(r, f"remove raft server {server}")
+    return f"members: {', '.join(r['peers'])}"
+
+
+@command("cluster.raft.leader.transfer")
+def cmd_cluster_raft_leader_transfer(env: CommandEnv,
+                                     args: list[str]) -> str:
+    """command_cluster_raft_leader_transfer.go ([-target=URL]): the
+    leader replicates once more, nudges its most caught-up peer (or
+    -target) with TimeoutNow and steps down: a handover in one round
+    trip, not an election timeout."""
+    r = master_json(env.master, "POST", "/cluster/raft/transfer",
+                    {"target": _parse_flags(args).get("target", "")},
+                    timeout=30)
+    _must(r, "leader transfer")
+    return "leadership transferred (TimeoutNow nudge sent to the " \
+           "successor)"
 
 
 @command("sleep")

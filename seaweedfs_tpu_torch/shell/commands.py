@@ -86,11 +86,41 @@ class CommandEnv:
                     {"previousToken": self.admin_token or 0}, timeout=30)
         self.admin_token = None
 
+    # how long a command waits for the leader's topology to be warm
+    WARM_TIMEOUT = 30.0
+
     def confirm_is_locked(self) -> None:
-        """command_ec_encode.go:104 confirmIsLocked."""
+        """command_ec_encode.go:104 confirmIsLocked; then the wait for a
+        warm topology: a command that moves, deletes or rebuilds data
+        acts only on a leader's view that has heard every live server."""
         if self.admin_token is None:
             raise RuntimeError(
                 "lock is lost, or it is not locked; run `lock` first")
+        self.wait_topology_warm()
+
+    def wait_topology_warm(self, timeout: "float | None" = None) -> None:
+        """Wait until the leader's `/cluster/status` says `topologyWarm`
+        (a JAX master does not say, and is taken as warm).  A leader new
+        in office knows only the servers that heartbeated to it since:
+        on that view a live server's shards look missing, and ec.rebuild
+        would rebuild them (ROADMAP C)."""
+        limit = time.monotonic() + (self.WARM_TIMEOUT if timeout is None
+                                    else timeout)
+        while True:
+            st = master_json(self.master, "GET", "/cluster/status",
+                             timeout=30)
+            if "error" in st:
+                raise RuntimeError(f"cluster status: {st['error']}")
+            if st.get("topologyWarm", True):
+                return
+            if time.monotonic() >= limit:
+                raise RuntimeError("the leader's topology is not warm "
+                                   f"after {timeout or self.WARM_TIMEOUT} s")
+            time.sleep(0.1)
+
+    def master_seeds(self) -> "list[str]":
+        """The masters of `-master` (one address or an HA seed list)."""
+        return [x.strip() for x in self.master.split(",") if x.strip()]
 
     def volume_list(self) -> dict:
         return master_json(self.master, "GET", "/vol/list", timeout=30)
@@ -1016,7 +1046,7 @@ def _cluster_debug_nodes(env: CommandEnv) -> list[str]:
     """Every node that may hold spans of a trace: master(s), every
     volume server, and the filer when the shell knows one."""
     r = master_json(env.master, "GET", "/cluster/status", timeout=30)
-    nodes = [env.master]
+    nodes = env.master_seeds()
     nodes += [p for p in r.get("peers", []) if p not in nodes]
     nodes += r.get("dataNodes", [])
     if env.filer and env.filer not in nodes:
@@ -1104,7 +1134,7 @@ def collect_peer_health(env: CommandEnv,
     try:
         nodes = _cluster_debug_nodes(env)
     except OSError:
-        nodes = [env.master]
+        nodes = env.master_seeds()
     for n in extra_nodes or []:
         if n not in nodes:
             nodes.append(n)
@@ -1216,7 +1246,7 @@ def cmd_qos_set(env: CommandEnv, args: list[str]) -> str:
     try:
         nodes = _cluster_debug_nodes(env)
     except OSError:
-        nodes = [env.master]
+        nodes = env.master_seeds()
     ok, failed = 0, []
     for url in nodes:
         try:
@@ -1239,7 +1269,7 @@ def _top_nodes(env: CommandEnv, opts: dict) -> "list[str]":
     try:
         nodes = _cluster_debug_nodes(env)
     except OSError:
-        nodes = [env.master]
+        nodes = env.master_seeds()
     for n in (opts.get("nodes", "") or "").split(","):
         n = n.strip()
         if n and n not in nodes:

@@ -20,7 +20,7 @@ import threading
 import uuid
 
 from . import __version__, stats
-from .server.httpd import http_bytes, http_json
+from .server.httpd import http_bytes
 
 VERSION = f"seaweedfs-tpu/{__version__}"
 
@@ -62,9 +62,10 @@ class TelemetryClient:
             "instanceId": self.instance_id,
         }
         try:
-            status = http_json("GET", f"{master}/cluster/status",
-                               timeout=30)
-            vols = http_json("GET", f"{master}/vol/list", timeout=30)
+            from .operation import master_json
+            status = master_json(master, "GET", "/cluster/status",
+                                 timeout=30)
+            vols = master_json(master, "GET", "/vol/list", timeout=30)
             data["clusterId"] = status.get("topologyId", "")
             # the answering master is one, whatever `peers` lists
             data["masterCount"] = max(1, len(status.get("peers") or []))

@@ -150,6 +150,12 @@ class Topology:
             self._max_volume_id += 1
             return self._max_volume_id
 
+    def floor_volume_id(self, vid: int) -> None:
+        """Issue no volume id at or below `vid` (the master's committed
+        `maxVolumeId`)."""
+        with self.lock:
+            self._max_volume_id = max(self._max_volume_id, int(vid))
+
     # -- lookups (master_grpc_server_volume.go LookupVolume,
     #    topology_ec.go:153 LookupEcShards) -------------------------------
 

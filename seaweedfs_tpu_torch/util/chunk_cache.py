@@ -134,6 +134,21 @@ class MemChunkCache:
             if old is not None:
                 self._bytes -= len(old)
 
+    def set_limit(self, limit_bytes: int) -> None:
+        """Resize (the autopilot's knob): a shrink evicts LRU-first down
+        to the new bound at once; a grow raises the bound."""
+        evicted = 0
+        with self._lock:
+            self.limit = max(0, int(limit_bytes))
+            while self._bytes > self.limit and self._m:
+                _k, v = self._m.popitem(last=False)
+                self._bytes -= len(v)
+                evicted += 1
+            nbytes = self._bytes
+        if evicted:
+            self._meter.count("evictions", evicted)
+        self._meter.occupancy("mem", nbytes)
+
 
 class DiskChunkCache:
     """Bounded on-disk tier (chunk_cache_on_disk.go, simplified to one
@@ -308,3 +323,8 @@ class TieredChunkCache:
         self.mem.delete(key)
         if self.disk is not None:
             self.disk.delete(key)
+
+    def set_mem_limit(self, limit_bytes: int) -> None:
+        """Resize the memory tier (the autopilot's `cache.chunk` and
+        `cache.needle`); the disk tier keeps its bound."""
+        self.mem.set_limit(limit_bytes)

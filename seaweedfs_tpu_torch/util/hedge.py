@@ -26,9 +26,10 @@ dropped).
 `hedges_issued_total` and `hedges_won_total` (`kind="read"`) go to
 `stats.PROCESS`, and each hedge issued or won leaves a `hedge` flight
 note on the request (`profiling.flight_note`).  `LatencyTracker.
-note_many` is the native planes' record drain's feed.  The port has no
-SLO autopilot, so the JAX package's runtime overrides of the ratio and
-the floor are not here.
+note_many` is the native planes' record drain's feed.  The ratio and the
+floor are knobs of the SLO autopilot (autopilot.py): `set_ratio` and
+`set_min_threshold_ms` override the environment's values, which stay the
+baseline (`None` goes back to it, and so does `reset`).
 """
 
 from __future__ import annotations
@@ -54,11 +55,31 @@ def reads_enabled() -> bool:
         not in ("0", "false")
 
 
+# the autopilot's overrides of the environment (None: the env's value);
+# set only through its actuators
+_min_ms_override: "float | None" = None
+_ratio_override: "float | None" = None
+
+
+def set_min_threshold_ms(ms: "float | None") -> None:
+    global _min_ms_override
+    _min_ms_override = None if ms is None else max(0.0, float(ms))
+
+
+def set_ratio(ratio: "float | None") -> None:
+    global _ratio_override
+    _ratio_override = None if ratio is None else max(0.0, float(ratio))
+
+
 def effective_ratio() -> float:
+    if _ratio_override is not None:
+        return _ratio_override
     return max(0.0, _env_float("SEAWEEDFS_TPU_HEDGE_RATIO", 0.1))
 
 
 def min_threshold() -> float:
+    if _min_ms_override is not None:
+        return _min_ms_override / 1e3
     return _env_float("SEAWEEDFS_TPU_HEDGE_MIN_MS", 2.0) / 1e3
 
 
@@ -172,9 +193,12 @@ def read_threshold() -> "float | None":
 
 
 def reset() -> None:
-    """Forget the latency history and refill the tokens (tests)."""
+    """Forget the latency history, refill the tokens and drop the
+    autopilot's overrides back to the environment's baseline (tests)."""
     read_tracker.reset()
     _tokens.reset()
+    set_min_threshold_ms(None)
+    set_ratio(None)
 
 
 # -- the hedge workers ---------------------------------------------------

@@ -12,9 +12,13 @@ the TTL'd lookup cache.
 It speaks the JAX master's wire, so it follows either package's master.
 EC shard locations stay resolved by RPC (`/dir/ec_lookup`): the degraded
 read path needs each shard's placement, which the deltas do not carry.
-The port's master is one node, so the announced leader only re-points
-the poll when it differs from the address given (a JAX master's raft
-leader); there is no leader cache to feed.
+The stream follows the raft leader (wdclient.go:158-170): the leader a
+master announces (the `leader` of each answer, and `{"leader": url}`
+events on its hub) re-points the poll and feeds `operation`'s leader
+cache for the seed list, and the stream then resyncs from a snapshot,
+because a new leader's hub is fresh and the cursor means nothing there.
+A stream error resets the poll to the seed list, whose `not leader`
+hints find whoever leads now.
 """
 
 from __future__ import annotations
@@ -59,11 +63,13 @@ class MasterFollower:
 
     def state(self) -> dict:
         """What the stream holds: synced, the snapshots and event batches
-        applied, and vid -> the pushed urls (the filer's `/status`)."""
+        applied, the leader heard and the poll's target, and vid -> the
+        pushed urls (the filer's `/debug/follow`)."""
         with self._lock:
             vids = {str(v): sorted(m) for v, m in sorted(self._vids.items())}
             return {"synced": self._synced.is_set(),
                     "snapshots": self.snapshots, "events": self.events,
+                    "leader": self._leader, "target": self._target,
                     "volumes": vids}
 
     @property
@@ -95,6 +101,7 @@ class MasterFollower:
     def _run(self) -> None:
         from .operation import master_json
         cursor = -1
+        hub = ""
         failures = 0
         while not self._stop.is_set():
             try:
@@ -106,23 +113,28 @@ class MasterFollower:
                     self._apply_snapshot(r.get("snapshot") or {})
                     self._note_leader(r.get("leader"))
                     cursor = int(r.get("cursor", 0))
+                    # the cursor's hub: a poll that a redirect lands on
+                    # another master's answers lagged, not that hub's
+                    # events after a foreign cursor
+                    hub = r.get("hub", "")
                     self._synced.set()
                     failures = 0
                     continue
                 r = master_json(
                     self._target, "GET",
                     f"/cluster/watch?since={cursor}"
-                    f"&timeout={self.poll_timeout}",
+                    f"&timeout={self.poll_timeout}" +
+                    (f"&hub={hub}" if hub else ""),
                     timeout=self.poll_timeout + 10)
                 if "error" in r:
                     raise OSError(r["error"])
+                moved = self._note_leader(r.get("leader"))
                 if r.get("lagged"):
                     cursor = -1          # the ring lost events: resync
                     self._synced.clear()
                     continue
                 failures = 0
                 cursor = int(r.get("cursor", cursor))
-                moved = self._note_leader(r.get("leader"))
                 for ev in r.get("events", []):
                     if "leader" in ev:
                         moved = self._note_leader(ev["leader"]) or moved
@@ -143,10 +155,12 @@ class MasterFollower:
                 self._stop.wait(max(0.05, _backoff(failures)))
 
     def _note_leader(self, leader: "str | None") -> bool:
-        """Record an announced leader; True when it moved the poll target
-        (the caller resyncs)."""
-        if leader:
+        """Record an announced leader, in `operation`'s leader cache too;
+        True when it moved the poll target (the caller resyncs)."""
+        if leader and leader != self._leader:
             self._leader = leader
+            from . import operation
+            operation.note_leader(self.master, leader)
         if leader and leader != self._target:
             self._target = leader
             return True

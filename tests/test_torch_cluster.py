@@ -134,10 +134,13 @@ def test_master_matches_reference_master(dirs):
             == [{"url": urls[1], "shardIds": list(range(7))},
                 {"url": urls[2], "shardIds": [0] + list(range(7, TOTAL))}]
         st_port, st_ref = port["/cluster/status"], ref["/cluster/status"]
-        # the same keys (the port's adds its heartbeat count); the
-        # leader fields name each master itself
-        assert set(st_port) - {"heartbeats"} == set(st_ref)
-        assert set(st_port["raft"]) == set(st_ref["raft"])
+        # the same keys (the port's adds its heartbeat count, whether
+        # its leader has heard every server, and the volume-id bound of
+        # its log); the leader fields name each master itself
+        assert set(st_port) - {"heartbeats", "topologyWarm"} == set(st_ref)
+        assert set(st_port["raft"]) - {"maxVolumeIdBound"} == \
+            set(st_ref["raft"])
+        assert st_port["raft"]["persistent"] == st_ref["raft"]["persistent"]
         assert st_port["heartbeats"] == 3
         for k in ("dataNodes", "volumeSizeLimit", "isLeader"):
             assert st_port[k] == st_ref[k], k

@@ -257,6 +257,8 @@ def test_deletes_after_a_native_write(cluster):
     vs = cluster.servers[0]
     fids = [operation.submit(cluster.url, _payload(i, 2000))
             for i in range(6)]
+    # the plane counts a request after its client has the ack
+    _wait(lambda: vs.write_plane.requests() >= 6, "6 native writes")
     assert vs.write_plane.requests() == 6
     for fid in fids:
         _wait(lambda: operation._read_via_read_plane(
