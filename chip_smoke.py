@@ -372,6 +372,22 @@ Phases, each printing one JSON line:
    key, the servers registered again); the autopilot's knobs and guards,
    and the filer's read plane disarmed by its guard when the server of
    some files is down and re-armed once it is back.
+18. filer_rest: the rest of the filer.  A master, 4 `volume` servers,
+   filer A (`-storeType lsm`, its default meta plane and native planes,
+   `-notification webhook:` to a receiver in this script), filer B
+   (`-storeType redis` over a RESP stand-in this script starts as its own
+   process), both with `-lockPeers A,B`, and an `s3` gateway over B, all
+   subprocesses.  1 GiB written to A by TUS in 8 MiB PATCHes (one cut off
+   mid-body, resumed from a HEAD offset probe) and 512 files of 1-64 KiB,
+   all in one volume; its `ec.encode` on the card (launches against its
+   windows); 4 shards of one server deleted, `filer.sync` A -> B and
+   `filer.backup` to a directory reading through degraded EC reads while
+   `ec.rebuild` runs on the card (launches against its windows); every
+   byte equal through A, through B and in the backup; a lock held through
+   A refused (423) through B; a bucket of the gateway mounted into A with
+   `remote.mount`, read through, cached, and a local write pushed back by
+   `filer.remote.sync`; `filer.meta.tail -once` printing A's events, and
+   one webhook notification an event, in order.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -453,14 +469,14 @@ READ_C = 16                      # weed benchmark's concurrency
 # the card
 FILER_SERVERS = 3
 FILER_COLLECTION = "filer"
-FILER_N = 2_048                  # 1 KiB files through the filer (weed
+FILER_N = 1_024                  # 1 KiB files through the filer (weed
 FILER_DIRS = 64                  # benchmark's shape, n cut), in 64 dirs
 FILER_MULTI = 16                 # files of 8-24 MiB: 2-6 chunks each
 FILER_META_N = 1_024             # chunkless creates, then lookups
-FILER_SMALL_SAMPLE = 512         # 1 KiB files read per pass, and
+FILER_SMALL_SAMPLE = 256         # 1 KiB files read per pass, and
 FILER_LARGE_SAMPLE = 32          # config 1's needles (read_load's)
 FILER_MULTI_SAMPLE = FILER_MULTI // 3   # three fresh samples of 5
-FILER_CRASH_N = 1_024            # filer_plane: files written, then SIGKILL
+FILER_CRASH_N = 512              # filer_plane: files written, then SIGKILL
 
 
 def emit(obj: dict) -> None:
@@ -1370,14 +1386,15 @@ def phase_ec(volume_gib: float, seed: int, tmp: str
 
 def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
                  procs: list, role: str, line: "str | None" = None,
-                 env_extra: "dict | None" = None, log_mode: str = "w"
-                 ) -> "list[str]":
+                 env_extra: "dict | None" = None, log_mode: str = "w",
+                 cwd: "str | None" = None) -> "list[str]":
     """`python3 -m seaweedfs_tpu_torch <argv>` for each argv (with
-    `env_extra` in its environment), all started together and appended
-    to `procs` as they start (the caller stops them), stderr to its log
-    (opened with `log_mode`); returns the group of `line` (a regex; by
-    default `<role> server listening on <url>`, the url) once each has
-    printed its first line (120 s), and fails if one does not."""
+    `env_extra` in its environment, in `cwd`), all started together and
+    appended to `procs` as they start (the caller stops them), stderr to
+    its log (opened with `log_mode`); returns the group of `line` (a
+    regex; by default `<role> server listening on <url>`, the url) once
+    each has printed its first line (120 s), and fails if one does
+    not."""
     line = line or rf"{role} server listening on (\S+:\d+)\n"
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo, **(env_extra or {}))
@@ -1386,7 +1403,8 @@ def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
         with open(log, log_mode) as err:
             p = subprocess.Popen(
                 [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
-                stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                cwd=cwd)
         procs.append(p)
         started.append(p)
     lines = [[] for _ in started]
@@ -2252,7 +2270,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         # (it would take jobs whose launches this process cannot count)
         (cli_id,) = _start_procs(
             [["worker", "-admin", aurl, "-master", murl,
-              "-dir", os.path.join(tmp, "cli_worker"), "-device", "cuda"]],
+              "-dir", os.path.join(tmp, "cli_worker")]],
             [os.path.join(tmp, "cli_worker.log")], procs, "worker",
             rf"worker (\w+) polling {re.escape(aurl)}\n")
         bad = _stop_peers([procs[-1]])
@@ -4870,17 +4888,17 @@ def phase_filer_plane(tmp: str, seed: int, n_small: int = FILER_N,
 # shapes on 3 `volume -fsync` servers of replication 001
 FSYNC_SERVERS = 3
 FSYNC_COLLECTION = "fsync"        # the fill, encoded on the card
-FSYNC_BENCH_N = 2_048             # the benchmark at 001 (the Python path
+FSYNC_BENCH_N = 1_024             # the benchmark at 001 (the Python path
 #                                   acks ~360 writes/s on the card's
 #                                   host): the hedged passes read its files
 FSYNC_NATIVE_N = 1_024            # 1 KiB writes of replication 000: the
 #                                   write plane's epoch handshake
 FSYNC_SMALL_FILL = 512            # 1 KiB needles in the fill volume, read
 #                                   after its encode
-FSYNC_HEDGE_N = 2_048             # 1 KiB reads a hedged pass
+FSYNC_HEDGE_N = 1_024             # 1 KiB reads a hedged pass
 FSYNC_PASS_STRIDE = 2             # the read passes take every 2nd needle
 #                                   of each kind, on each of its replicas
-FSYNC_HEDGE_WARM = 1_024          # reads of the warm-up pass
+FSYNC_HEDGE_WARM = 512            # reads of the warm-up pass
 FSYNC_BUDGET_S = 0.1              # their deadline
 FSYNC_FILER_N = 512               # 1 KiB files through the filer
 
@@ -8842,6 +8860,651 @@ def phase_master_ha(tmp: str, seed: int, big_mb: int = HA_MB,
     return out
 
 
+REST_SERVERS = 4
+REST_COLLECTION = "rest"             # filer A's files: one volume, ~1 GiB
+REST_B_COLLECTION = "restb"          # filer B's copy of them
+REST_TUS_MB = 1024                   # the TUS upload (config 1's volume)
+REST_PATCH = 8 << 20                 # the size of each TUS PATCH
+REST_SMALL_N = 512                   # files of 1-64 KiB beside it
+REST_REMOTE_N = 16                   # objects in the mounted bucket
+REST_KEYS = ("RESTKEY", "restsecret")
+REST_MAX_VOLUMES = 3                 # volume slots a server (see below)
+
+# A RESP2 stand-in for a redis server (the command subset the redis
+# filer store sends), run as its own process: `python3 -c _RESP_SERVER`
+# prints `PORT <n>` and serves until killed.
+_RESP_SERVER = r'''
+import socket, sys, threading
+kv, zs, lock = {}, {}, threading.Lock()
+def lexok(m, lo, hi):
+    def ge(b, incl):
+        return b == b"-" or (m >= b[1:] if incl else m > b[1:])
+    def le(b, incl):
+        return b == b"+" or (m <= b[1:] if incl else m < b[1:])
+    return (lo == b"-" or ge(lo, lo[:1] == b"[")) and \
+        (hi == b"+" or le(hi, hi[:1] == b"["))
+def run(a):
+    c = a[0].upper()
+    with lock:
+        if c == b"PING": return b"+PONG\r\n"
+        if c == b"FLUSHALL": kv.clear(); zs.clear(); return b"+OK\r\n"
+        if c == b"SET": kv[a[1]] = a[2]; return b"+OK\r\n"
+        if c == b"GET":
+            v = kv.get(a[1])
+            return b"$-1\r\n" if v is None else \
+                b"$%d\r\n%s\r\n" % (len(v), v)
+        if c == b"DEL":
+            n = sum(1 for k in a[1:] if (kv.pop(k, None) is not None) |
+                    (zs.pop(k, None) is not None))
+            return b":%d\r\n" % n
+        if c == b"ZADD":
+            z = zs.setdefault(a[1], set()); n = len(z)
+            z.update(a[3::2]); return b":%d\r\n" % (len(z) - n)
+        if c == b"ZREM":
+            z = zs.get(a[1], set()); n = len(z)
+            z.difference_update(a[2:]); return b":%d\r\n" % (n - len(z))
+        if c == b"ZRANGEBYLEX":
+            out = [m for m in sorted(zs.get(a[1], ())) if lexok(m, a[2], a[3])]
+            if len(a) > 4 and a[4].upper() == b"LIMIT":
+                off, cnt = int(a[5]), int(a[6])
+                out = out[off:] if cnt < 0 else out[off:off + cnt]
+            return b"*%d\r\n" % len(out) + b"".join(
+                b"$%d\r\n%s\r\n" % (len(m), m) for m in out)
+    return b"-ERR unknown command\r\n"
+def serve(conn):
+    buf = b""
+    def fill(cond):
+        nonlocal buf
+        while not cond():
+            d = conn.recv(1 << 20)
+            if not d: raise EOFError
+            buf += d
+    def line():
+        nonlocal buf
+        fill(lambda: b"\r\n" in buf)
+        ln, buf = buf.split(b"\r\n", 1); return ln
+    def bulk():
+        nonlocal buf
+        size = int(line()[1:])
+        fill(lambda: len(buf) >= size + 2)
+        v, buf = buf[:size], buf[size + 2:]; return v
+    try:
+        while True:
+            n = int(line()[1:])
+            conn.sendall(run([bulk() for _ in range(n)]))
+    except (EOFError, OSError, ValueError):
+        conn.close()
+s = socket.socket(); s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+s.bind(("127.0.0.1", int(sys.argv[1]) if len(sys.argv) > 1 else 0))
+s.listen(64); print("PORT", s.getsockname()[1], flush=True)
+while True:
+    c, _ = s.accept()
+    threading.Thread(target=serve, args=(c,), daemon=True).start()
+'''
+
+
+def _fixed_port() -> int:
+    """A free port below the kernel's ephemeral range, for a listener
+    whose port other processes must know before it starts: no process
+    binding port 0 meanwhile can be handed it."""
+    import random
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for _ in range(100):
+        port = random.randrange(10000, max(10001, low))
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    return _free_port()
+
+
+def _tus_patch(seed: int, i: int, size: int) -> bytes:
+    """The i-th PATCH body of the seeded TUS upload."""
+    import numpy as np
+    return np.random.default_rng([seed, 20, i]).bytes(size)
+
+
+def _stream_sha(url: str, lo: int = 0, hi: "int | None" = None
+                ) -> "tuple[int, str, int]":
+    """A GET of bytes [lo, hi) (all by default), read in 8 MiB pieces:
+    (status, SHA-256, bytes)."""
+    from seaweedfs_tpu_torch.server.httpd import http_open_stream
+    headers = {"Range": f"bytes={lo}-{hi - 1}"} if hi is not None else None
+    conn, resp = http_open_stream(url, headers, timeout=300)
+    try:
+        h = hashlib.sha256()
+        n = 0
+        while True:
+            piece = resp.read(8 << 20)
+            if not piece:
+                break
+            h.update(piece)
+            n += len(piece)
+        return resp.status, h.hexdigest(), n
+    finally:
+        conn.close()
+
+
+def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
+                     small_n: int = REST_SMALL_N,
+                     remote_n: int = REST_REMOTE_N,
+                     device: str = "cuda") -> dict:
+    """The rest of the filer around an ec.encode and an ec.rebuild on the
+    card.  A master, 4 `volume` servers, filer A (`-storeType lsm`, its
+    default meta plane and native planes, `-notification webhook:` to a
+    receiver in this script), filer B (`-storeType redis` over a RESP
+    stand-in this script starts as its own process), both with
+    `-lockPeers A,B`, and an `s3` gateway over B, all `python -m
+    seaweedfs_tpu_torch` processes.  Steps, each printed on its JSON
+    line:
+    1. tus: a 1 GiB file written to A by TUS in 8 MiB PATCHes, one PATCH
+       cut off mid-body and the upload resumed from a HEAD offset probe;
+       512 files of 1-64 KiB; all in one volume of A's collection;
+    2. encode: `ec.encode` of that volume on the card, launches equal to
+       its windows;
+    3. sync: 4 shards of one server deleted; `filer.sync` A -> B and
+       `filer.backup` of A to a local directory started, reading through
+       degraded EC reads, while `ec.rebuild` runs on the card (launches
+       equal to its windows, 14 shards listed again); both run until
+       their offsets reach A's last event, and every byte read back
+       through A, through B and from the backup equals what was written;
+    4. lock: a key taken through A is refused (423) through B, released,
+       then taken through B;
+    5. remote: a bucket of the gateway with 16 objects mounted into A
+       with `remote.mount`, read through A, cached with `remote.cache`
+       and read again; a local write under the mount pushed to the bucket
+       by `filer.remote.sync`;
+    6. events: `filer.meta.tail -once` prints A's events, and the
+       webhook received one notification per event, in order, equal."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.cluster import ClusterLock
+    from seaweedfs_tpu_torch.remote.remote_storage import S3RemoteStorage
+    from seaweedfs_tpu_torch.server.httpd import (HttpServer, http_bytes,
+                                                  http_json)
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.storage.erasure_coding.shard_source import (
+        rebuild_slice_bytes)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    coll = REST_COLLECTION
+    ctx = ECContext(d, p, device="cpu")
+    dirs = [os.path.join(tmp, f"s{i}") for i in range(REST_SERVERS)]
+    for dd in dirs:
+        os.makedirs(dd)
+    procs: list = []
+    steps: dict = {}
+    hook_bodies: list = []
+    hook_lock = threading.Lock()
+
+    def on_hook(req):
+        with hook_lock:
+            hook_bodies.append(req.body)
+        return 200, {}
+    hook = HttpServer()
+    hook.route("POST", "/hook", on_hook)
+    hook.start()
+
+    def get(path):
+        return http_json("GET", f"{murl}{path}", timeout=30)
+
+    def ec_locs(vid):
+        return {x["url"]: x["shardIds"] for x in get(
+            f"/dir/ec_lookup?volumeId={vid}").get("shardIdLocations", [])}
+
+    def events(furl) -> list:
+        out, since = [], 0
+        while True:
+            r = http_json("GET", f"{furl}/__meta__/events?sinceNs={since}"
+                                 f"&limit=1000", timeout=60)
+            check("error" not in r, f"events of {furl}: {r}")
+            out += r["events"]
+            if len(r["events"]) < 1000:
+                return out
+            since = r["events"][-1]["tsNs"]
+
+    def cli(argv, log, line):
+        """A `python -m seaweedfs_tpu_torch` command that runs until
+        SIGTERM; its process, once it printed `line`."""
+        _start_procs([argv], [log], procs, argv[0], line=line, cwd=tmp)
+        return procs[-1]
+
+    def offset_of(state: str) -> int:
+        try:
+            with open(state) as f:
+                return int(json.load(f).get("sinceNs", 0))
+        except (OSError, ValueError):
+            return 0
+
+    resp = None
+    try:
+        # the cluster: the RESP stand-in, the master, then the rest at once
+        resp = subprocess.Popen([sys.executable, "-c", _RESP_SERVER, "0"],
+                                stdout=subprocess.PIPE, text=True, cwd=tmp)
+        resp_addr = f"127.0.0.1:{resp.stdout.readline().split()[1]}"
+        t = time.perf_counter()
+        (murl,) = _start_procs(
+            [["master", "-port", "0", "-volumeSizeLimitMB",
+              str(tus_mb + 256)]], [os.path.join(tmp, "master.log")],
+            procs, "master")
+        pa = _fixed_port()
+        pb = next(q for q in iter(_fixed_port, None) if q != pa)
+        ring = f"127.0.0.1:{pa},127.0.0.1:{pb}"
+        # the servers, both filers and the gateway start together (the
+        # gateway dials B at its first request); REST_MAX_VOLUMES slots a
+        # server make every growth one volume (the master grows one for
+        # each 16 free slots), so A's files all land in one volume
+        started: dict = {}
+        side = [threading.Thread(target=lambda: started.update(
+            s3=_start_procs(
+                [["s3", "-port", "0", "-filer", f"127.0.0.1:{pb}",
+                  "-accessKey", REST_KEYS[0], "-secretKey", REST_KEYS[1]]],
+                [os.path.join(tmp, "s3.log")], procs, "s3",
+                line=r"s3 gateway listening on (\S+:\d+).*\n"))),
+            threading.Thread(target=lambda: started.update(
+                volumes=_start_procs(
+                    [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
+                      "-max", str(REST_MAX_VOLUMES),
+                      *([] if device == "cuda" else ["-device", device])]
+                     for dd in dirs], [dd + ".log" for dd in dirs], procs,
+                    "volume")))]
+        for th in side:
+            th.start()
+        furl_a, furl_b = _start_procs(
+            [["filer", "-port", str(pa), "-master", murl, "-storeType",
+              "lsm", "-store", os.path.join(tmp, "a.ldb"), "-collection",
+              coll, "-notification", f"webhook:http://{hook.url}/hook",
+              "-lockPeers", ring],
+             ["filer", "-port", str(pb), "-master", murl, "-storeType",
+              "redis", "-store", resp_addr, "-collection",
+              REST_B_COLLECTION, "-lockPeers", ring]],
+            [os.path.join(tmp, "filer_a.log"),
+             os.path.join(tmp, "filer_b.log")], procs, "filer",
+            line=r"filer listening on (\S+:\d+)\n", cwd=tmp)
+        for th in side:
+            th.join()
+        check(len(started) == 2, "the servers or the gateway did not start")
+        urls, (s3url,) = started["volumes"], started["s3"]
+        poll(lambda: len(get("/cluster/status").get("dataNodes", [])) ==
+             REST_SERVERS, "4 volume servers")
+        # a server's /metrics imports its codec module (torch): all at
+        # once here, not one by one inside the first launch count
+        with ThreadPoolExecutor(REST_SERVERS) as pool:
+            list(pool.map(lambda u: http_bytes("GET", f"{u}/metrics",
+                                               timeout=300), urls))
+        start_s = time.perf_counter() - t
+        st_a = http_json("GET", f"{furl_a}/status", timeout=30)
+        check(st_a.get("metaPlanePort", 0) > 0 and
+              st_a.get("readPlanePort", 0) > 0,
+              f"filer A's native planes are off: {st_a}")
+
+        # 1. TUS: 1 GiB in 8 MiB PATCHes, one cut off mid-body
+        total = tus_mb << 20
+        n_patch = -(-total // REST_PATCH)
+        tus_sha = hashlib.sha256()
+        target = "/rest/tus/big.bin"
+        st, _, h = http_bytes("POST", f"{furl_a}/__tus__/?path={target}",
+                              None, {"Tus-Resumable": "1.0.0",
+                                     "Upload-Length": str(total)})
+        check(st == 201, f"TUS create: {st}")
+        loc = h["Location"]
+        cut_at = n_patch // 2
+        host, port = furl_a.rsplit(":", 1)
+
+        def head_offset() -> int:
+            st, _, h = http_bytes("HEAD", f"{furl_a}{loc}",
+                                  headers={"Tus-Resumable": "1.0.0"})
+            check(st == 200, f"TUS HEAD: {st}")
+            return int(h["Upload-Offset"])
+        t = time.perf_counter()
+        cursor, cut = 0, None
+        # a SHA-256 of each quarter of the upload, for B's ranged reads
+        piece_sha: dict = {}
+        per_piece = max(1, n_patch // 4)
+        while cursor < total:
+            i = cursor // REST_PATCH
+            base = i * REST_PATCH
+            size = min(REST_PATCH, total - base)
+            body = _tus_patch(seed, i, size)
+            part = body[cursor - base:]
+            if i == cut_at and cut is None:
+                # the client dies mid-PATCH: half the body sent, then the
+                # connection closes; the client asks HEAD where to resume
+                # (once the offset holds still: the filer may keep what
+                # arrived)
+                import socket
+                with socket.create_connection((host, int(port))) as sk:
+                    sk.sendall(
+                        f"PATCH {loc} HTTP/1.1\r\nHost: {furl_a}\r\n"
+                        f"Tus-Resumable: 1.0.0\r\nUpload-Offset: "
+                        f"{cursor}\r\nContent-Type: application/"
+                        f"offset+octet-stream\r\nContent-Length: "
+                        f"{len(part)}\r\n\r\n".encode() +
+                        part[:len(part) // 2])
+                seen = [head_offset()]
+
+                def still() -> bool:
+                    time.sleep(0.2)
+                    seen.append(head_offset())
+                    return seen[-1] == seen[-2]
+                poll(still, "the TUS offset holds still", timeout=60)
+                cut = {"offset_sent": cursor + len(part) // 2,
+                       "head_offset": seen[-1]}
+                check(cursor <= seen[-1] <= cut["offset_sent"],
+                      f"TUS HEAD after the cut: {cut}")
+                cursor = seen[-1]
+                continue
+            st, _, h = http_bytes(
+                "PATCH", f"{furl_a}{loc}", part,
+                {"Tus-Resumable": "1.0.0", "Upload-Offset": str(cursor),
+                 "Content-Type": "application/offset+octet-stream"},
+                timeout=300)
+            check(st == 204 and int(h["Upload-Offset"]) == base + size,
+                  f"PATCH {i} at {cursor}: {st} {h}")
+            tus_sha.update(body)
+            piece = i // per_piece * per_piece * REST_PATCH
+            piece_sha.setdefault(piece, hashlib.sha256()).update(body)
+            cursor = base + size
+        tus_s = time.perf_counter() - t
+        tus_sha = tus_sha.hexdigest()
+        piece_sha = {lo: h.hexdigest() for lo, h in piece_sha.items()}
+        # the very next GETs see the stitched file: its first and last
+        # MiB through A (the sync and the backup read all of it there)
+        last_i = (total - 1) // REST_PATCH
+        last_body = _tus_patch(seed, last_i,
+                               total - last_i * REST_PATCH)
+        for lo, want in ((0, _tus_patch(seed, 0, REST_PATCH)[:1 << 20]),
+                         (total - (1 << 20), last_body[-(1 << 20):])):
+            st, body, _ = http_bytes(
+                "GET", f"{furl_a}{target}", None,
+                {"Range": f"bytes={lo}-{lo + (1 << 20) - 1}"}, timeout=60)
+            check((st, body == want) == (206, True),
+                  f"bytes {lo}- of the stitched file through A: {st}")
+        rng = np.random.default_rng([seed, 21])
+        small = {f"/rest/small/{j % 16}/f{j:04d}":
+                 rng.bytes(int(rng.integers(1 << 10, 64 << 10)))
+                 for j in range(small_n)}
+        t = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            sts = list(pool.map(lambda kv: http_bytes(
+                "PUT", furl_a + kv[0], kv[1], timeout=60)[0],
+                small.items()))
+        small_s = time.perf_counter() - t
+        check(all(s == 201 for s in sts), "small PUTs through A")
+        vids = set()
+        for path in [target] + list(small):
+            e = http_json("GET", f"{furl_a}/__meta__/lookup?path={path}",
+                          timeout=30)
+            vids |= {int(c["fileId"].split(",")[0]) for c in e["chunks"]}
+        check(len(vids) == 1, f"A's files are on volumes {vids}")
+        (va,) = vids
+        steps["tus"] = {"bytes": total, "patches": n_patch,
+                        "patch_bytes": REST_PATCH, "seconds": tus_s,
+                        "mb_per_s": total / tus_s / 1e6, "cut": cut,
+                        "small_files": small_n, "small_seconds": small_s,
+                        "volume": va, "cluster_start_seconds": start_s}
+        emit({"phase": "filer_rest", "step": "tus", **steps["tus"]})
+
+        # 2. ec.encode on the card
+        holder = operation.lookup(murl, va, use_cache=False)[0]["url"]
+        dat = os.path.join(dirs[urls.index(holder)], f"{coll}_{va}.dat")
+        poll(lambda: all(v["size"] == os.path.getsize(dat) for _n, v in
+                         iter_volume_list_volumes(get("/vol/list"))
+                         if v["id"] == va),
+             "the master sees A's volume size")
+        size = os.path.getsize(dat)
+        windows = sum(launches_for(d, item[3]) for item in
+                      ec_encoder._encode_work_items(size, ctx))
+        env = commands.CommandEnv(murl, filer=furl_a)
+        l0 = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={va} -collection={coll}; "
+                 f"unlock")
+        enc_s = time.perf_counter() - t
+        enc = int(_counters(urls)["launches"] - l0)
+        check("scatter-encoded 14 shards" in out[1], f"encode: {out}")
+        check(enc == windows, f"the encode launched {enc}, its windows "
+                              f"are {windows}")
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed")
+        steps["encode"] = {"volume": va, "bytes": size, "seconds": enc_s,
+                           "gbps": size / enc_s / 1e9, "launches": enc,
+                           "windows": windows}
+        emit({"phase": "filer_rest", "step": "encode", **steps["encode"]})
+
+        # 3. 4 shards lost; sync and backup read degraded while the
+        # rebuild runs on the card
+        locs = ec_locs(va)
+        victim = max(locs, key=lambda u: len(locs[u]))
+        lost = sorted(locs[victim])[:4]
+        check(len(lost) == 4, f"no server holds 4 shards: {locs}")
+        shard_size = int(http_json(
+            "GET", f"{victim}/admin/ec/info?volumeId={va}&collection="
+                   f"{coll}", timeout=30)["shardSize"])
+        _post(f"{victim}/admin/ec/delete_shards",
+              {"volumeId": va, "collection": coll, "shardIds": lost},
+              "rest-loss")
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) ==
+             [s for s in range(d + p) if s not in lost],
+             "the master lists 10 shards")
+        c0 = _counters(urls)
+        sync_state = os.path.join(tmp, "sync.offset")
+        bak_state = os.path.join(tmp, "backup.offset")
+        bak_dir = os.path.join(tmp, "backup")
+        t_sync = time.perf_counter()
+        sync_p = cli(["filer.sync", "-from", furl_a, "-to", furl_b,
+                      "-state", sync_state, "-interval", "0.1"],
+                     os.path.join(tmp, "sync.log"),
+                     r"filer\.sync (\S+) -> \S+ \(offset state: .*\)\n")
+        bak_p = cli(["filer.backup", "-filer", furl_a, "-dir", bak_dir,
+                     "-state", bak_state, "-interval", "0.1"],
+                    os.path.join(tmp, "backup.log"),
+                    r"filer\.backup (\S+) -> .*\n")
+        step = rebuild_step(shard_size, ctx, rebuild_slice_bytes())
+        reb_windows = sum(launches_for(d, min(step, shard_size - pos))
+                          for pos in range(0, shard_size, step))
+        l0 = _counters(urls)["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={va} -collection={coll}; "
+                 f"unlock")
+        reb_s = time.perf_counter() - t
+        reb = int(_counters(urls)["launches"] - l0)
+        check(f"rebuilt shards {lost} on " in out[1], f"rebuild: {out}")
+        check(reb == reb_windows, f"the rebuild launched {reb}, its "
+                                  f"windows are {reb_windows}")
+        poll(lambda: sorted(s for ids in ec_locs(va).values()
+                            for s in ids) == list(range(d + p)),
+             "14 shards listed again")
+        # every server forgets the volume's cached shard locations (an
+        # EC reader keeps them for minutes), so the sync's and the
+        # backup's reads leave the degraded path once the shards are back
+        for u in urls:
+            http_json("POST", f"{u}/admin/ec/unmount",
+                      {"volumeId": va, "collection": coll, "shardIds": []},
+                      timeout=30)
+        last = events(furl_a)[-1]["tsNs"]
+        done = {}
+
+        def caught_up():
+            for name, state in (("sync", sync_state),
+                                ("backup", bak_state)):
+                if name not in done and offset_of(state) >= last:
+                    done[name] = time.perf_counter()
+            return len(done) == 2
+        poll(caught_up, "filer.sync and filer.backup reach A's last event",
+             timeout=600, interval=0.05)
+        dlt = _delta(_counters(urls), c0)
+        for proc in (sync_p, bak_p):
+            proc.terminate()
+            check(proc.wait(timeout=30) == 0, "filer.sync/backup exit")
+        check(dlt["degraded"] > 0, f"no degraded read during the sync: "
+                                   f"{dlt}")
+        # every byte through B and in the backup (A's bytes were read
+        # back right after the upload, and the sync and the backup read
+        # them through A), and the small files through A too
+        t = time.perf_counter()
+
+        def small_ok(path):
+            want = small[path]
+            with open(bak_dir + path, "rb") as f:
+                ok = f.read() == want
+            return ok and all(http_bytes("GET", furl + path,
+                                         timeout=60)[1] == want
+                              for furl in (furl_a, furl_b))
+        quarter = per_piece * REST_PATCH
+        ranges = [(lo, min(total, lo + quarter))
+                  for lo in range(0, total, quarter)]
+        with ThreadPoolExecutor(8) as pool:
+            big_b = [pool.submit(_stream_sha, f"{furl_b}{target}", lo, hi)
+                     for lo, hi in ranges]
+            big_bak = pool.submit(sha256_file, bak_dir + target)
+            bad = [pth for pth, ok in zip(small, pool.map(small_ok, small))
+                   if not ok]
+            got = [f.result() for f in big_b]
+            check(got == [(206, piece_sha[lo], hi - lo)
+                          for lo, hi in ranges],
+                  f"the TUS file through B: {got}")
+            check(big_bak.result() == tus_sha, "the TUS file in the backup")
+        check(not bad, f"{len(bad)} small files differ, first {bad[:3]}")
+        verify_s = time.perf_counter() - t
+        steps["sync"] = {"lost": lost, "server": victim,
+                         "rebuild_seconds": reb_s, "rebuild_launches": reb,
+                         "rebuild_windows": reb_windows,
+                         "sync_seconds": done["sync"] - t_sync,
+                         "backup_seconds": done["backup"] - t_sync,
+                         "lag_sync_to_backup_s": done["backup"] -
+                         done["sync"],
+                         "degraded_reads": dlt["degraded"],
+                         "kernel_launches_in_reads": dlt["launches"] - reb,
+                         "verify_seconds": verify_s,
+                         "files_equal": 1 + small_n}
+        emit({"phase": "filer_rest", "step": "sync", **steps["sync"]})
+
+        # 4. the lock ring
+        key = "rest/lock"
+        held = ClusterLock(furl_a, key, "owner-a", ttl_sec=10).acquire(
+            timeout=30)
+        refused = ClusterLock(furl_b, key, "owner-b", ttl_sec=10)
+        owner = held._call("/admin/locks/acquire", {
+            "key": key, "owner": "owner-b", "ttlSec": 10})
+        check(owner == {"error": "locked", "owner": "owner-a"},
+              f"a lock held through A, asked through B: {owner}")
+        check(refused._try_acquire() == "conflict",
+              "B's owner took a held lock")
+        held.release()
+        taken = ClusterLock(furl_b, key, "owner-b", ttl_sec=10).acquire(
+            timeout=30)
+        taken.release()
+        steps["lock"] = {"key": key, "refused": owner, "released": True}
+        emit({"phase": "filer_rest", "step": "lock", **steps["lock"]})
+
+        # 5. a bucket of the gateway mounted into A
+        bucket = "rest-remote"
+        client = S3RemoteStorage(s3url, *REST_KEYS, bucket)
+        client.create_bucket()
+        objs = {f"obj/{j:02d}.bin": rng.bytes(int(rng.integers(
+            64 << 10, 1 << 20))) for j in range(remote_n)}
+        for k, v in objs.items():
+            client.write(k, v)
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"remote.configure -name=cloud1 -type=s3 "
+                 f"-endpoint={s3url} -accessKey={REST_KEYS[0]} "
+                 f"-secretKey={REST_KEYS[1]}; remote.mount -dir=/rest/cloud "
+                 f"-remote=cloud1/{bucket}")
+        check(f"({remote_n} entries)" in out[1], f"remote.mount: {out}")
+
+        def read_mount():
+            return all(http_bytes("GET", f"{furl_a}/rest/cloud/{k}",
+                                  timeout=60)[1] == v
+                       for k, v in objs.items())
+        check(read_mount(), "the mount read through A")
+        out = commands.run_script(env, "remote.cache -dir=/rest/cloud")
+        check(out[0].startswith(f"cached {remote_n} files"),
+              f"remote.cache: {out}")
+        e = http_json("GET", f"{furl_a}/__meta__/lookup?path=/rest/cloud/"
+                             f"obj/00.bin", timeout=30)
+        check(e.get("chunks") and e["extended"].get("remote"),
+              f"a cached entry: {e}")
+        check(read_mount(), "the cached mount through A")
+        pushed = rng.bytes(200_000)
+        check(http_bytes("PUT", f"{furl_a}/rest/cloud/pushed.bin",
+                         pushed)[0] == 201, "a write under the mount")
+        rsync = cli(["filer.remote.sync", "-filer", furl_a, "-dir",
+                     "/rest/cloud", "-state",
+                     os.path.join(tmp, "remote.offset"), "-interval", "0.1"],
+                    os.path.join(tmp, "remote_sync.log"),
+                    r"remote-syncing (\S+) on .*\n")
+        poll(lambda: client.stat("pushed.bin") is not None,
+             "filer.remote.sync pushed the write", timeout=120)
+        check(client.read("pushed.bin") == pushed, "the pushed object")
+        rsync.terminate()
+        check(rsync.wait(timeout=30) == 0, "filer.remote.sync exit")
+        steps["remote"] = {"objects": remote_n,
+                           "bytes": sum(map(len, objs.values())),
+                           "seconds": time.perf_counter() - t}
+        emit({"phase": "filer_rest", "step": "remote", **steps["remote"]})
+
+        # 6. the events: filer.meta.tail and the webhook
+        evs = events(furl_a)
+        tail = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.meta.tail",
+             "-filer", furl_a, "-once"], capture_output=True, text=True,
+            timeout=120, cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+        check(tail.returncode == 0, f"filer.meta.tail: {tail.stderr}")
+        tailed = [json.loads(x) for x in tail.stdout.splitlines()]
+        check(tailed == evs, f"filer.meta.tail printed {len(tailed)} "
+                             f"events of {len(evs)}")
+        poll(lambda: len(hook_bodies) >= len(evs), "every notification",
+             timeout=60)
+        time.sleep(0.3)
+        with hook_lock:
+            notified = [json.loads(b) for b in hook_bodies]
+        check(notified == evs, f"{len(notified)} notifications for "
+                               f"{len(evs)} events, or out of order")
+        steps["events"] = {"events": len(evs), "tailed": len(tailed),
+                           "notifications": len(notified)}
+        emit({"phase": "filer_rest", "step": "events", **steps["events"]})
+    finally:
+        bad = _stop_peers(procs)
+        if resp is not None:
+            resp.kill()
+            resp.wait(timeout=30)
+            resp.stdout.close()
+        hook.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a process of the phase did not stop: {bad}")
+    out = {"phase": "filer_rest", "servers": REST_SERVERS,
+           "steps": steps,
+           "launches": {"encode": steps["encode"]["launches"],
+                        "rebuild": steps["sync"]["rebuild_launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -8913,6 +9576,8 @@ def main(argv=None) -> int:
                       os.path.join(work, "maintenance"), args.seed)
         ha = timed("master_ha", phase_master_ha,
                    os.path.join(work, "master_ha"), args.seed)
+        rest = timed("filer_rest", phase_filer_rest,
+                     os.path.join(work, "filer_rest"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -8954,7 +9619,9 @@ def main(argv=None) -> int:
               "maintenance_encode": maint["launches"]["encode"],
               "maintenance_rebuild": maint["launches"]["rebuild"],
               "master_ha_encode": ha["launches"]["encode"],
-              "master_ha_rebuild": ha["launches"]["rebuild"]}),
+              "master_ha_rebuild": ha["launches"]["rebuild"],
+              "filer_rest_encode": rest["launches"]["encode"],
+              "filer_rest_rebuild": rest["launches"]["rebuild"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

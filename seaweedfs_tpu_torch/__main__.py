@@ -10,7 +10,17 @@
         [-dataCenter DC] [-rack RACK] [-fsync]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
         [-master HOST:PORT] [-store filer.db] [-collection C]
-        [-replication 000] [-workers N] [-metaPlane 0|1]
+        [-storeType sqlite|lsm|redis|elastic] [-replication 000]
+        [-workers N] [-metaPlane 0|1] [-notification SPEC]
+        [-lockPeers HOST:PORT,...]
+    python3 -m seaweedfs_tpu_torch filer.sync -from HOST:PORT -to HOST:PORT
+        [-state FILE] [-interval 0.5]
+    python3 -m seaweedfs_tpu_torch filer.backup -filer HOST:PORT -dir DIR
+        [-state FILE] [-interval 0.5]
+    python3 -m seaweedfs_tpu_torch filer.remote.sync -filer HOST:PORT
+        -dir /MOUNTED [-state FILE] [-interval 0.5]
+    python3 -m seaweedfs_tpu_torch filer.meta.tail [-filer HOST:PORT]
+        [-sinceNs N] [-pathPrefix /P] [-interval 1.0] [-once]
     python3 -m seaweedfs_tpu_torch shell [-master HOST:PORT]
         [-filer HOST:PORT] ["lock; ec.encode -volumeId=1; unlock"]
     python3 -m seaweedfs_tpu_torch admin [-ip 127.0.0.1] [-port 23646]
@@ -30,7 +40,8 @@
         [-kmsFile keys.json]
     python3 -m seaweedfs_tpu_torch cert [-dir certs]
         [-hosts 127.0.0.1,localhost]
-    python3 -m seaweedfs_tpu_torch scaffold [-config security]
+    python3 -m seaweedfs_tpu_torch scaffold
+        [-config security|filer|notification|replication]
 
 `-securityToml` (before the role) loads the reference's security.toml
 into the process (`security.py`): `[jwt.signing]` and
@@ -41,7 +52,13 @@ JWTs, `[admin] key` (or `[access] admin_key`) the admin paths,
 configures QoS (a malformed one exits 2).  `cert` mints a
 cluster CA and one node certificate for `[tls]` (it needs the
 `cryptography` package); `scaffold -config security` prints a
-commented security.toml.
+commented security.toml, and `-config filer|notification|replication`
+the filer's, the notification's and filer.backup's templates.
+
+Every flag of every command may be defaulted from the environment as
+`WEED_<COMMAND>_<FLAG>` (`WEED_FILER_STORETYPE=lsm`; dots and dashes as
+underscores), as the reference's viper layer does
+(`util/config.apply_env_defaults`); a flag on the command line wins.
 
 `master` starts the master (`server/master_server.py`) and `volume` a
 volume server (`server/volume_server.py`) that heartbeats to
@@ -71,25 +88,39 @@ against `-master` (and `-filer`, for the `fs.*` commands), prints each
 command's output and exits; with no command it reads lines at a `> `
 prompt until `exit`, `quit` or the end of input.
 
-`filer` starts a filer (`server/filer_server.py`) over the sqlite store
-`-store` (a file, its metadata log in `<store>.metalog`, or `:memory:`)
-whose files' chunks go to `-collection` on `-master`'s volumes, and
-prints `filer listening on <ip>:<port>`.  Over a store file it runs the
-meta plane (metalog as WAL, the store an async checkpoint) and the
-native meta and read planes by default, in one process; `-metaPlane 0`
-commits every mutation synchronously, and `-metaPlane 1` over a store
-the plane cannot run on (`:memory:`) is refused.  `-workers N` (or
+`filer` starts a filer (`server/filer_server.py`) over the store
+`-store` of `-storeType`: sqlite (a file, its metadata log in
+`<store>.metalog`, or `:memory:`; the default), lsm (a directory, the
+reference's leveldb2 shape), redis (the host:port of a RESP server) or
+elastic (of an ES-wire server); its files' chunks go to `-collection`
+on `-master`'s volumes, and it prints `filer listening on
+<ip>:<port>`.  Without `-store`/`-storeType` on the command line, the
+first enabled store of a `filer.toml` in ./, ~/.seaweedfs/ or
+/etc/seaweedfs/ is used, and without `-notification` the first enabled
+sink of a `notification.toml` there.  Over a local store (a sqlite
+file, an lsm directory) it runs the meta plane (metalog as WAL, the
+store an async checkpoint) and the native meta and read planes by
+default, in one process; `-metaPlane 0` commits every mutation
+synchronously, and `-metaPlane 1` over `:memory:` is refused (over
+redis or elastic, which the plane never runs on, every mutation commits
+synchronously, as in the JAX filer).  `-notification` publishes
+every metadata event, at least once, to `webhook:URL`,
+`logfile:PATH`, `sqs:QUEUE_URL` or `pubsub:ENDPOINT/projects/P/topics/T`
+(`mq:` and `kafka:` are refused, exit 2: not ported yet); `-lockPeers`
+names the filers of the lock ring, this one among them (refused
+otherwise).  `-workers N` (or
 `SEAWEEDFS_TPU_FILER_WORKERS`) above 1 pre-forks N-1 sibling processes
 on the same port (SO_REUSEPORT) and prints `filer pre-forked N-1
 sibling workers on port P` after its listening line; a sibling that
 exits is respawned (20 times at most), and SIGTERM stops the fleet.
 `SEAWEEDFS_TPU_ASYNC_FRONT=filer` serves the filer on the asyncio front
-(`server/async_front.py`).  A `-storeType` other than sqlite,
-`-notification`, `-lockPeers` and `-metricsAddress` are refused, not
-ported yet (ROADMAP).  A volume server and a filer run the SLO autopilot
-(`autopilot.py`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`; a fleet's parent
-also registers the `workers` knob, between 1 and twice `-workers`
-processes, which spawns and drains siblings under the monitor's lock.
+(`server/async_front.py`).  `-workers` over a store other than sqlite
+warns and runs one process, as the JAX filer does.  `-metricsAddress`
+is refused, not ported yet (ROADMAP).  A volume server and a filer run
+the SLO autopilot (`autopilot.py`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`;
+a fleet's parent also registers the `workers` knob, between 1 and twice
+`-workers` processes, which spawns and drains siblings under the
+monitor's lock.
 
 `admin` starts the maintenance admin (`plugin/admin.py`) and prints
 `admin listening on <ip>:<port>`; `worker` registers a maintenance
@@ -117,6 +148,16 @@ lists its live files, or writes them to the tar file `-o`.
 keystore that enables SSE-KMS.  `-stsKey`, `-rolesFile`,
 `-kmsEndpoint`, `-kmsCloud`, `-metricsPort` and `-metricsAddress` are
 refused (exit 2), not ported yet (ROADMAP A9).
+
+`filer.sync` replicates `-from`'s namespace and content to `-to`,
+event by event from its metadata log, and `filer.backup` mirrors a
+filer into the local directory `-dir`; each keeps its offset in
+`-state` (a name derived from its ends by default), advanced after an
+event is applied, and runs until SIGTERM or SIGINT.
+`filer.remote.sync` pushes local changes under a remote-mounted
+directory back to its S3 store.  `filer.meta.tail` prints the metadata
+events from `-sinceNs` (0: from now; with `-once`, from the start) as
+JSON lines, under `-pathPrefix`; `-once` drains the backlog and exits.
 
 `benchmark` writes `-n` files of `-size` bytes through `-master` on
 `-c` threads, then reads each back, and prints one JSON line of
@@ -196,6 +237,91 @@ white_list = []
 # cert = "certs/node.crt"
 # key = "certs/node.key"
 # mtls = true"""
+
+
+FILER_SCAFFOLD = """\
+# filer.toml — place in ./, ~/.seaweedfs/, or /etc/seaweedfs/
+# the first ENABLED section picks the filer's metadata store
+# (command/scaffold/filer.toml layout; archetype mapping in
+# seaweedfs_tpu_torch/util/config.py)
+
+[sqlite]
+enabled = true
+dbFile = "filer.db"           # or ":memory:"
+
+[leveldb2]
+# embedded ordered-KV (our LSM store — the reference's default)
+enabled = false
+dir = "./filerldb2"
+
+[redis2]
+# any RESP2 server (hand-rolled client, filer/redis_store.py)
+enabled = false
+address = "localhost:6379"
+
+[elastic7]
+# any ES-wire JSON-HTTP server (filer/elastic_store.py)
+enabled = false
+servers = ["http://localhost:9200"]\
+"""
+
+NOTIFICATION_SCAFFOLD = """\
+# notification.toml — metadata-event publishing
+# (command/scaffold/notification.toml layout; the first enabled
+# sink becomes the filer's -notification spec)
+
+[notification.webhook]
+enabled = false
+url = "http://localhost:9000/events"
+
+[notification.kafka]
+enabled = false
+hosts = ["localhost:9092"]
+topic = "seaweedfs_meta"
+
+[notification.log]
+enabled = false
+path = "filer_events.log"
+
+[notification.mq]
+enabled = false
+broker = "localhost:17777"
+namespace = "notifications"
+topic = "filer_meta"\
+"""
+
+REPLICATION_SCAFFOLD = """\
+# replication.toml — filer.backup sink selection
+# (command/scaffold/replication.toml layout; the first enabled
+# [sink.*] section drives filer.backup)
+
+[sink.local]
+enabled = false
+directory = "/backup"
+
+[sink.s3]
+enabled = false
+endpoint = "localhost:8333"
+bucket = "backup"
+aws_access_key_id = ""
+aws_secret_access_key = ""
+
+[sink.gcs]
+enabled = false
+bucket = "backup"
+
+[sink.azure]
+enabled = false
+container = "backup"
+
+[sink.backblaze]
+enabled = false
+bucket = "backup"\
+"""
+
+SCAFFOLDS = {"security": SECURITY_SCAFFOLD, "filer": FILER_SCAFFOLD,
+             "notification": NOTIFICATION_SCAFFOLD,
+             "replication": REPLICATION_SCAFFOLD}
 
 
 def _load_security(path: str) -> "str | None":
@@ -365,7 +491,10 @@ def _filer(ap, args, argv: "list[str]") -> int:
     and on SIGTERM stops them all, and respawns none, before its own
     server stops (`_Fleet`)."""
     import time
+    from . import notification as notify
     from .server.filer_server import FilerServer
+    from .util.config import (filer_store_from_toml, find_toml,
+                              notification_from_toml)
     workers = args.workers
     if workers is None:
         try:
@@ -373,17 +502,35 @@ def _filer(ap, args, argv: "list[str]") -> int:
                 "SEAWEEDFS_TPU_FILER_WORKERS", "") or 1)
         except ValueError:
             workers = 1
-    refused = {
-        f"-storeType {args.store_type}": args.store_type != "sqlite",
-        "-notification": bool(args.notification),
-        "-lockPeers": bool(args.lock_peers),
-        "-metricsAddress": bool(args.metrics_address)}
-    for flag, hit in refused.items():
-        if hit:
-            ap.error(f"filer {flag}: not ported yet (ROADMAP A, "
-                     f"\"the rest of the filer\")")
+    if args.metrics_address:
+        ap.error("filer -metricsAddress: not ported yet (ROADMAP A)")
     if workers < 0:
         ap.error(f"filer -workers {workers}: must be 0 or more")
+    # the scaffold TOMLs stand in for the flags' defaults only: a
+    # -store/-storeType or -notification on the command line wins
+    store_type, store_path = args.store_type, args.store
+    toml_path = find_toml("filer.toml")
+    if toml_path and store_type == "sqlite" and store_path == "filer.db":
+        picked = filer_store_from_toml(toml_path)
+        if picked:
+            store_type, store_path = picked
+            print(f"filer store from {toml_path}: {store_type} "
+                  f"{store_path}", file=sys.stderr)
+    spec = args.notification
+    ntoml = find_toml("notification.toml")
+    if ntoml and not spec:
+        spec = notification_from_toml(ntoml)
+        if spec:
+            print(f"notification from {ntoml}: {spec}", file=sys.stderr)
+    if spec:
+        try:
+            notify.from_spec(spec).close()
+        except ValueError as e:    # an unknown kind, or mq: / kafka:
+            ap.error(f"filer: {e}")
+    if workers > 1 and store_type != "sqlite":
+        print("filer -workers needs the sqlite store (shared WAL + "
+              "metalog); running 1 process", file=sys.stderr, flush=True)
+        workers = 1
     if args.meta_plane:
         # through the environment, so the siblings run the same mode
         os.environ["SEAWEEDFS_TPU_FILER_META_PLANE"] = args.meta_plane
@@ -405,11 +552,17 @@ def _filer(ap, args, argv: "list[str]") -> int:
                          name="filer-orphan-watch").start()
     try:
         fs = FilerServer(args.master, args.ip, args.port,
-                         store_path=args.store,
+                         store_path=store_path,
                          collection=args.collection,
                          replication=args.replication,
+                         store_type=store_type, notification=spec,
+                         lock_peers=[p.strip() for p in
+                                     args.lock_peers.split(",")
+                                     if p.strip()],
                          reuse_port=is_worker or workers > 1)
-    except ValueError as e:  # the meta plane over a :memory: store
+    except (ValueError, RuntimeError, OSError) as e:
+        # the meta plane asked for over a store it cannot run on, a ring
+        # without this filer, a store that does not answer
         ap.error(f"filer: {e}")
     # the command line of a sibling: this one, on the resolved port
     sibling = []
@@ -498,16 +651,21 @@ def main(argv=None) -> int:
     fl.add_argument("-port", type=int, default=8888)
     fl.add_argument("-master", default="127.0.0.1:9333")
     fl.add_argument("-store", default="filer.db",
-                    help="sqlite store path, or :memory:")
+                    help="sqlite file or :memory:, lsm directory, or the "
+                         "host:port of a redis/elastic server")
     fl.add_argument("-storeType", dest="store_type", default="sqlite",
                     choices=["sqlite", "lsm", "redis", "elastic"],
-                    help="metadata store; only sqlite is ported")
+                    help="metadata store")
     fl.add_argument("-collection", default="")
     fl.add_argument("-replication", default="")
     fl.add_argument("-notification", default="",
-                    help="metadata notification sink (not ported)")
+                    help="metadata notification sink: webhook:URL, "
+                         "logfile:PATH, sqs:QUEUE_URL or pubsub:ENDPOINT/"
+                         "projects/P/topics/T (mq: and kafka: are not "
+                         "ported)")
     fl.add_argument("-lockPeers", dest="lock_peers", default="",
-                    help="distributed-lock ring (not ported)")
+                    help="the lock ring's filers, host:port,... (this "
+                         "filer among them)")
     fl.add_argument("-workers", type=int, default=None,
                     help="pre-fork worker processes on one port "
                          "(SO_REUSEPORT); default "
@@ -523,6 +681,40 @@ def main(argv=None) -> int:
                     default="", help="Prometheus pushgateway (not ported)")
     fl.add_argument("-metricsIntervalSec", dest="metrics_interval",
                     type=int, default=15)
+    fsy = sub.add_parser("filer.sync", help="replicate one filer's "
+                         "namespace and content to another")
+    fsy.add_argument("-from", dest="sync_from", required=True,
+                     help="source filer host:port")
+    fsy.add_argument("-to", dest="sync_to", required=True,
+                     help="target filer host:port")
+    fsy.add_argument("-state", default="",
+                     help="offset file (default: named after -from/-to)")
+    fsy.add_argument("-interval", type=float, default=0.5,
+                     help="poll interval seconds when idle")
+    fbk = sub.add_parser("filer.backup", help="mirror a filer into a "
+                         "local directory")
+    fbk.add_argument("-filer", required=True,
+                     help="source filer host:port")
+    fbk.add_argument("-dir", required=True, help="backup root")
+    fbk.add_argument("-state", default="", help="offset file")
+    fbk.add_argument("-interval", type=float, default=0.5)
+    frs = sub.add_parser("filer.remote.sync", help="push local changes "
+                         "under a remote-mounted directory to its store")
+    frs.add_argument("-filer", required=True)
+    frs.add_argument("-dir", required=True,
+                     help="remote-mounted filer directory")
+    frs.add_argument("-state", default="", help="offset file")
+    frs.add_argument("-interval", type=float, default=0.5)
+    mt = sub.add_parser("filer.meta.tail", help="print the filer's "
+                        "metadata events as JSON lines")
+    mt.add_argument("-filer", default="127.0.0.1:8888")
+    mt.add_argument("-sinceNs", dest="since_ns", type=int, default=0,
+                    help="replay from this event timestamp (0 = now)")
+    mt.add_argument("-pathPrefix", dest="path_prefix", default="",
+                    help="only events under this path")
+    mt.add_argument("-interval", type=float, default=1.0)
+    mt.add_argument("-once", action="store_true",
+                    help="drain the backlog and exit (no follow)")
     sh = sub.add_parser("shell", help="run shell commands")
     sh.add_argument("-master", default="127.0.0.1:9333")
     sh.add_argument("-filer", default="",
@@ -567,7 +759,10 @@ def main(argv=None) -> int:
                      help="comma-separated SAN hosts and IPs")
     sc = sub.add_parser("scaffold", help="print a commented template "
                         "config")
-    sc.add_argument("-config", default="security", choices=["security"])
+    sc.add_argument("-config", default="security",
+                    choices=["security", "filer", "notification",
+                             "replication"],
+                    help="which template to print")
     for name, what in (("fix", "rebuild a volume's .idx from its .dat"),
                        ("compact", "vacuum a volume's files offline"),
                        ("export", "list or tar a volume's live files")):
@@ -580,6 +775,10 @@ def main(argv=None) -> int:
         if name == "export":
             off.add_argument("-o", dest="out", default="",
                              help="output .tar path (omit to list)")
+    # WEED_<COMMAND>_<FLAG> in the environment replace the parsers'
+    # defaults (the reference's viper layer): a flag given still wins
+    from .util.config import apply_env_defaults
+    apply_env_defaults(sub.choices)
     args = ap.parse_args(argv)
 
     if args.securityToml:
@@ -603,8 +802,34 @@ def main(argv=None) -> int:
               f'key = "{paths["key"]}"\nmtls = true')
         return 0
     if args.cmd == "scaffold":
-        print(SECURITY_SCAFFOLD)
+        print(SCAFFOLDS[args.config])
         return 0
+    if args.cmd == "filer.sync":
+        from .filer.filer_sync import FilerSync
+        return _serve(FilerSync(args.sync_from, args.sync_to,
+                                args.state or None,
+                                poll_interval=args.interval),
+                      lambda s: f"filer.sync {s.source} -> {s.target} "
+                                f"(offset state: {s.state_path})")
+    if args.cmd == "filer.backup":
+        from .filer.filer_backup import FilerBackup
+        return _serve(FilerBackup(args.filer, args.dir, args.state or None,
+                                  poll_interval=args.interval),
+                      lambda s: f"filer.backup {s.source} -> "
+                                f"{args.dir} (offset state: "
+                                f"{s.state_path})")
+    if args.cmd == "filer.remote.sync":
+        from .remote import RemoteError, RemoteSyncer
+        try:
+            syncer = RemoteSyncer(args.filer, args.dir, args.state or None,
+                                  args.interval)
+        except (RemoteError, OSError) as e:
+            print(f"filer.remote.sync: {e}", file=sys.stderr)
+            return 1
+        return _serve(syncer, lambda s: f"remote-syncing {s.dir} on "
+                                        f"{s.filer}")
+    if args.cmd == "filer.meta.tail":
+        return _meta_tail(args)
     if args.cmd == "s3":
         return _s3(ap, args)
 
@@ -685,6 +910,50 @@ def main(argv=None) -> int:
     for out in run_script(env, " ".join(args.command)):
         print(out, flush=True)
     return 0
+
+
+def _meta_tail(args) -> int:
+    """filer.meta.tail (command/filer_meta_tail.go): the metadata log
+    from `-sinceNs` as JSON lines, pages of 1,000; `-once` stops at the
+    end of the backlog, else it follows, retrying a filer that is
+    down."""
+    import json
+    import time
+    from .server.httpd import http_json
+    since = args.since_ns
+    if since == 0 and not args.once:
+        since = time.time_ns()          # "now": only new events
+    try:
+        while True:
+            try:
+                r = http_json("GET", f"{args.filer}/__meta__/events?"
+                                     f"sinceNs={since}&limit=1000")
+            except OSError as e:
+                if args.once:
+                    print(f"filer.meta.tail: {e}", file=sys.stderr)
+                    return 1
+                print(f"filer.meta.tail: {e}; retrying", file=sys.stderr)
+                time.sleep(args.interval)
+                continue
+            if "error" in r:
+                # a 401 or 404 must not read as an empty log
+                print(f"filer.meta.tail: {r['error']}", file=sys.stderr)
+                return 1
+            events = r.get("events", [])
+            for ev in events:
+                path = (ev.get("newEntry") or ev.get("oldEntry") or
+                        {}).get("fullPath", "")
+                since = max(since, int(ev.get("tsNs", 0)))
+                if args.path_prefix and \
+                        not path.startswith(args.path_prefix):
+                    continue
+                print(json.dumps(ev), flush=True)
+            if len(events) < 1000:
+                if args.once:
+                    return 0
+                time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
 
 
 def _repl(env) -> int:

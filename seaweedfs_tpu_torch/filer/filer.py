@@ -2,17 +2,17 @@
 on the volume cluster (weed/filer/filer.go), the port's copy of
 `seaweedfs_tpu/filer/filer.py`.
 
-Over a sqlite file with a metalog dir the meta plane runs by default
-(`meta_plane.MetaPlane`): a mutation is acked once its event clears the
-metalog barrier, the store is applied behind it, and reads merge the
-unapplied overlay over the store (`_store_find`, `_store_list`).  With
-`SEAWEEDFS_TPU_FILER_META_PLANE=0`, and over a store the plane cannot
-checkpoint, every mutation commits synchronously: the store first
-(group-committed, `abstract_sql.AbstractSqlStore`), then the metadata
-log (`meta_log.MetaLog`, group-committed too).  Either way listeners see
-the event, and the caller gets its answer, only after the log holds it.
-Subscribers resume from their last-seen tsNs and never silently skip
-events.
+Over a sqlite file or an lsm directory with a metalog dir the meta
+plane runs by default (`meta_plane.MetaPlane`): a mutation is acked once
+its event clears the metalog barrier, the store is applied behind it,
+and reads merge the unapplied overlay over the store (`_store_find`,
+`_store_list`).  With `SEAWEEDFS_TPU_FILER_META_PLANE=0`, and over a
+store the plane cannot checkpoint, every mutation commits synchronously:
+the store first (group-committed, `abstract_sql.AbstractSqlStore`), then
+the metadata log (`meta_log.MetaLog`, group-committed too).  Either way
+listeners see the event, and the caller gets its answer, only after the
+log holds it.  Subscribers resume from their last-seen tsNs and never
+silently skip events.
 
 Reads go through the metadata cache (`meta_cache.FilerMetaCache`) and
 the chunk-body cache (`util/chunk_cache.TieredChunkCache`); a chunk on
@@ -117,7 +117,8 @@ class Filer:
                  collection: str = "", replication: str = "",
                  meta_log_dir: str | None = None,
                  meta_cache: "bool | None" = None,
-                 chunk_cache_dir: "str | None" = None):
+                 chunk_cache_dir: "str | None" = None,
+                 meta_plane: "bool | None" = None):
         self.master = master
         self.store = store or MemoryStore()
         self.collection = collection
@@ -128,22 +129,26 @@ class Filer:
         self.meta_log = MetaLog(meta_log_dir)
         self._listeners: list[Callable[[dict], None]] = []
         # meta plane (meta_plane.py): the metalog is this filer's WAL.
-        # Auto-on for a store it can checkpoint (a sqlite file) with a
-        # metalog dir; SEAWEEDFS_TPU_FILER_META_PLANE=0 restores the
-        # synchronous commit, whose boot replays any unapplied tail a
-        # planed run left behind.  Asked for by "1" over a store it
-        # cannot run on, the filer refuses rather than commit
-        # synchronously under the plane's name.
+        # Auto-on for a store it can checkpoint (a sqlite file, an lsm
+        # directory) with a metalog dir; SEAWEEDFS_TPU_FILER_META_PLANE=0
+        # restores the synchronous commit, whose boot replays any
+        # unapplied tail a planed run left behind.  Asked for by "1"
+        # over a store it cannot run on, the filer refuses rather than
+        # commit synchronously under the plane's name.  `meta_plane=False`
+        # keeps it off whatever the environment says (the filer server
+        # passes it for a remote store, which the plane never runs on,
+        # as the JAX filer does).
         from .meta_plane import MetaPlane, meta_plane_enabled, recover_sync
         supported = bool(self.meta_log.dir) and \
             getattr(self.store, "supports_meta_plane", False)
-        asked = meta_plane_enabled()
+        asked = False if meta_plane is False else meta_plane_enabled()
         if asked and not supported:
             self.meta_log.close()
             raise ValueError(
-                "the filer meta plane needs a sqlite file store and a "
-                "metalog dir; set SEAWEEDFS_TPU_FILER_META_PLANE=0 for "
-                "the synchronous store commit")
+                "the filer meta plane needs a local store (a sqlite file "
+                "or an lsm directory) and a metalog dir; set "
+                "SEAWEEDFS_TPU_FILER_META_PLANE=0 for the synchronous "
+                "store commit")
         self.meta_plane = MetaPlane(self.store, self.meta_log) \
             if (asked is not False and supported) else None
         if self.meta_plane is None and supported:

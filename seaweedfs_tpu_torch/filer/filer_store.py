@@ -3,8 +3,8 @@
 ephemeral filers) and the SQLite store of the abstract_sql family (one
 (directory, name)-keyed table, the schema of
 filer/abstract_sql/abstract_sql_store.go), the durable default.  The
-JAX package's other stores (lsm, redis, elastic, kv) are not ported
-(ROADMAP).
+other stores are lsm_store.py, redis_store.py, elastic_store.py and
+kv_store.py.
 """
 
 from __future__ import annotations

@@ -56,8 +56,8 @@ plus JSON-over-HTTP mirrors of filer.proto RPCs:
   GET  /__meta__/statistics           <- Statistics
 and `/status`, `/metrics`.
 
-The store is sqlite (a file, or ":memory:"); its metadata log lives in
-`<store>.metalog`, so two filers over one store file share one log dir
+A local store (a sqlite file or an lsm directory) keeps its metadata
+log in `<store>.metalog`, so two filers over one store share one log dir
 and see each other's commits (through its watermark files, or the meta
 plane's log follower).
 
@@ -72,27 +72,78 @@ Observability: the server spans, `filer_request_seconds` and
 `filer_request_cpu_seconds` (httpd's middleware, either front), a write
 track a PUT (`filer_write_stage_seconds{stage}`: recv, assign, upload,
 meta, gc), the flight recorder and the debug routes (server/debug.py),
-and the native planes' record drains.  Not ported (ROADMAP): TUS
-uploads, the lock routes, notification, remote mounts, gRPC, QoS, fault
-sites and the autopilot.
+and the native planes' record drains.
+
+The rest of the JAX filer:
+- stores (`store_type`): sqlite (a file or ":memory:"), lsm (a
+  directory, filer/lsm_store.py; the meta plane checkpoints into it as
+  into a sqlite file), redis (`store_path` the host:port of a RESP
+  server) and elastic (an ES-wire server).  A remote store keeps its
+  metalog in `filer-<type>-<address>-p<port>.metalog` in the working
+  directory, and its meta cache stays off (`SEAWEEDFS_TPU_FILER_META_
+  CACHE=force` turns it on): co-located filers over one remote store
+  keep distinct logs, so no watermark tells one of the other's writes;
+- TUS resumable uploads (`/__tus__/`: POST `?path=` with
+  `Upload-Length`, HEAD for the offset, PATCH at it, DELETE), their
+  parts staged as files under `/.tus/<id>/` and stitched by chunk list;
+- the lock ring (`/admin/locks/acquire|release|list`; `lock_peers`
+  names every member, this filer among them, or the constructor
+  raises); a key owned by another member answers `movedTo`;
+- notification (`notification`, a `notification.from_spec` string):
+  started with the server, a `NotificationTailer` follows the metalog
+  and publishes every event, its offset in `<metalog>/notify.offset`;
+- remote mounts: an entry with a remote marker and no chunks is read
+  through from the mount's S3 store (remote/).
+Not ported (ROADMAP): gRPC.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import urllib.parse
+import uuid
 
 from .. import autopilot as _autopilot
-from .. import faults, operation, profiling, qos, security, stats
+from .. import faults, notification, operation, profiling, qos, security
+from .. import stats
+from ..cluster.lock_manager import LockManager, normalize_address
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
-from ..filer.filer_store import SqliteStore
+from ..filer.filer_store import FilerStore, SqliteStore
 from ..util.chunk_cache import read_cache_disk
 from .httpd import HttpServer, Request, admin_guard, parse_range
 from .debug import (install_autopilot_routes, install_debug_routes,
                     start_process_probes)
 from .meta_plane_native import note_stood_down
+
+
+def open_store(store_type: str, store_path: str) -> FilerStore:
+    """The filer store `-storeType` names over `-store`: a sqlite file
+    (or ":memory:"), an lsm directory, or the host:port of a RESP or
+    ES-wire server."""
+    if store_type == "sqlite":
+        return SqliteStore(store_path)
+    if store_type == "lsm":
+        if store_path == ":memory:":
+            raise ValueError(
+                "the lsm store needs a directory path, not :memory: (use "
+                "-storeType sqlite for in-memory)")
+        from ..filer.lsm_store import LsmStore
+        return LsmStore(store_path)
+    if store_type == "redis":
+        from ..filer.redis_store import RedisFilerStore, RespClient
+        r_host, _, r_port = store_path.rpartition(":")
+        if not r_host or not r_port.isdigit():
+            raise ValueError("-storeType redis needs -store host:port of "
+                             "a RESP server")
+        return RedisFilerStore(RespClient(r_host, int(r_port)))
+    if store_type == "elastic":
+        from ..filer.elastic_store import ElasticClient, ElasticFilerStore
+        return ElasticFilerStore(ElasticClient(store_path))
+    raise ValueError(f"unknown filer store type {store_type!r} "
+                     f"(sqlite|lsm|redis|elastic)")
 
 
 def cluster_statistics(master: str, collection: str = "") -> dict:
@@ -122,34 +173,54 @@ class FilerServer:
                  port: int = 0, store_path: str = ":memory:",
                  collection: str = "", replication: str = "",
                  meta_log_dir: str | None = None,
+                 store_type: str = "sqlite",
+                 notification: str = "",
+                 lock_peers: "list[str] | None" = None,
                  reuse_port: bool = False):
+        self._notification_spec = notification
+        self._notifier = None
         # bind the listener FIRST: it fails fast on a taken port,
-        # before any store file is touched
+        # before any store file is touched, and a remote store's
+        # metalog dir below needs the resolved port
         self.http = HttpServer(host, port, reuse_port=reuse_port)
         try:
-            if meta_log_dir is None and store_path != ":memory:":
+            local = store_type in ("sqlite", "lsm")
+            if meta_log_dir is None and store_path != ":memory:" and local:
                 # the metadata log persists beside the store:
                 # subscribers must survive a restart, and siblings over
                 # one store share it (filer_notify_append.go)
                 meta_log_dir = store_path + ".metalog"
-            # the disk tier of the chunk cache, when one is configured,
-            # gets a directory of this filer's own
+            elif meta_log_dir is None and not local:
+                # a remote store's path is an address: the log goes to
+                # the working directory, one per address AND port, so
+                # two co-located filers over one server never interleave
+                # their stamp clocks (a pinned port keeps it across
+                # restarts)
+                safe = store_path.replace(":", "_").replace("/", "_")
+                meta_log_dir = (f"filer-{store_type}-{safe}"
+                                f"-p{self.http.port}.metalog")
+            store = open_store(store_type, store_path)
             from ..filer.meta_plane import meta_plane_enabled
             # will the meta plane run here?  (Filer decides; this is its
             # gate, for the fleet's cache decision)
-            plane_on = store_path != ":memory:" and \
+            plane_on = local and store_path != ":memory:" and \
                 meta_plane_enabled() is not False
-            # a sibling of a fleet without the meta plane: the shared
-            # watermark moves at the fleet's commit rate, and every fill
-            # would be invalidated at once; with the plane, sibling
-            # commits arrive as per-path invalidations and fills survive
-            coherent = plane_on or not reuse_port or os.environ.get(
+            # the cache's cross-filer coherence rides the shared metalog
+            # dir, which filers over one remote store do not share; and
+            # a sibling of a fleet without the meta plane sees the
+            # shared watermark move at the fleet's commit rate, every
+            # fill invalidated at once (with the plane, sibling commits
+            # arrive as per-path invalidations and fills survive)
+            forced = os.environ.get(
                 "SEAWEEDFS_TPU_FILER_META_CACHE") == "force"
+            coherent = forced or (local and (plane_on or not reuse_port))
+            # the disk tier of the chunk cache, when one is configured,
+            # gets a directory of this filer's own
             cache_dir, _ = read_cache_disk()
             self.filer = Filer(
-                master, SqliteStore(store_path), collection=collection,
+                master, store, collection=collection,
                 replication=replication, meta_log_dir=meta_log_dir,
-                meta_cache=coherent,
+                meta_cache=coherent, meta_plane=None if local else False,
                 chunk_cache_dir=(os.path.join(cache_dir,
                                               f"filer{self.http.port}")
                                  if cache_dir else None))
@@ -157,6 +228,27 @@ class FilerServer:
             # a store-setup failure must not leak a bound socket
             self.http.stop()
             raise
+        # the lock ring (distributed_lock_manager.go): every member's
+        # -lockPeers names the same filers, each key hashes to one of
+        # them; the ring compares normalized addresses, and one that
+        # does not name this filer is refused (a diverged ring could
+        # grant one lock twice)
+        self._ring_self = normalize_address(
+            f"[{self.http.host}]:{self.http.port}"
+            if ":" in self.http.host else self.http.url)
+        self.lock_manager = LockManager(self._ring_self)
+        if lock_peers:
+            members = {normalize_address(p) for p in lock_peers}
+            if self._ring_self not in members:
+                self.filer.close()
+                self.http.stop()
+                raise ValueError(
+                    f"filer {self.http.url} (normalized "
+                    f"{self._ring_self}) is not in -lockPeers "
+                    f"{sorted(members)}; every filer must appear in "
+                    f"the shared peer list under a spelling that "
+                    f"normalizes to its advertised address")
+            self.lock_manager.members = sorted(members)
         self.metrics = stats.Metrics("filer")
         self.http.role = "filer"
         self.http.metrics = self.metrics
@@ -222,7 +314,13 @@ class FilerServer:
         r("POST", "/__meta__/patch_extended", self._meta_patch_extended)
         r("GET", "/__meta__/events", self._meta_events)
         r("GET", "/__meta__/statistics", self._meta_statistics)
+        r("POST", "/admin/locks/acquire", self._lock_acquire)
+        r("POST", "/admin/locks/release", self._lock_release)
+        r("GET", "/admin/locks/list", self._lock_list)
         install_debug_routes(self.http)
+        for m in ("OPTIONS", "POST", "HEAD", "PATCH", "DELETE", "GET",
+                  "PUT"):
+            self.http.route_prefix(m, "/__tus__/", self._tus_route)
         self.http.route_prefix("POST", "/__chunk__/", self._chunk_route)
         self.http.fallback = self._dispatch
         self.http.guard = admin_guard
@@ -288,10 +386,21 @@ class FilerServer:
         operation.enable_follow(self.filer.master)
         if _autopilot.enabled_by_env():
             self.autopilot.start()
+        if self._notification_spec:
+            # every namespace mutation goes to the sink, at least once:
+            # the tailer's offset advances after a publish succeeded
+            self._notifier = notification.NotificationTailer(
+                self.filer.meta_log,
+                notification.from_spec(self._notification_spec),
+                state_path=(os.path.join(self.filer.meta_log.dir,
+                                         "notify.offset")
+                            if self.filer.meta_log.dir else None)).start()
         return self
 
     def stop(self) -> None:
         self.autopilot.stop()
+        if self._notifier is not None:
+            self._notifier.stop()
         # the native planes before the Python listener: once a plane
         # stops acking, clients retry here and must still find a
         # server; the meta plane's final apply (Filer.close) last
@@ -316,6 +425,9 @@ class FilerServer:
         self.metrics.gauge_set(
             "meta_log_last_ts_ns", float(self.filer.meta_log.last_ts()),
             help_text="timestamp of the newest metadata log event")
+        self.metrics.gauge_set(
+            "locks_held", float(len(self.lock_manager.all_locks())),
+            help_text="distributed locks currently held here")
         if self.filer.meta_plane is not None:
             mp = self.filer.meta_plane.snapshot()
             self.metrics.gauge_set(
@@ -464,6 +576,9 @@ class FilerServer:
 
     # -- dispatch ---------------------------------------------------------
 
+    def _tus_route(self, req: Request):
+        return self._tus(req, urllib.parse.unquote(req.path))
+
     def _chunk_route(self, req: Request):
         return self._chunk_write(
             req, urllib.parse.unquote(req.path)[len("/__chunk__"):])
@@ -472,7 +587,10 @@ class FilerServer:
         # the wire path is percent-encoded (every client quotes);
         # storing it un-decoded would persist names like "a%21" for "a!"
         path = urllib.parse.unquote(req.path)
-        # a percent-encoded "/__chunk__/" misses the prefix table
+        # a percent-encoded "/__tus__/" or "/__chunk__/" misses the
+        # prefix table
+        if path.startswith("/__tus__/"):
+            return self._tus(req, path)
         if path.startswith("/__chunk__/"):
             return self._chunk_write(req, path[len("/__chunk__"):])
         if req.method in ("POST", "PUT"):
@@ -540,6 +658,8 @@ class FilerServer:
             return 404, {"error": f"{path} not found"}
         if entry.is_directory:
             return self._list(req, path)
+        if not entry.chunks and entry.extended.get("remote"):
+            return self._get_remote(req, path, entry)
         rng = req.headers.get("Range", "")
         file_size = entry.total_size()
         parsed = parse_range(rng, file_size)
@@ -571,6 +691,36 @@ class FilerServer:
             return 206, (body, headers)
         return 200, (body, headers)
 
+    def _get_remote(self, req: Request, path: str, entry):
+        """Read-through of an uncached remote-mounted entry
+        (filer_remote_read: fetched from the foreign store on demand;
+        remote.cache materializes local chunks so this stops being
+        hit)."""
+        from ..remote import RemoteError, remote_for_path
+        try:
+            located = remote_for_path(self.url, path)
+            if located is None:
+                return 404, {"error": f"{path}: remote mount gone"}
+            client, key = located
+            marker = json.loads(entry.extended["remote"])
+            total = int(marker.get("size", 0))
+            parsed = parse_range(req.headers.get("Range", ""), total)
+            if parsed == "unsatisfiable":
+                return 416, (b"", {"Content-Range": f"bytes */{total}"})
+            if parsed is not None:
+                offset, size = parsed
+                data = client.read(key, offset, size)
+                end = offset + len(data) - 1
+                return 206, (data, {
+                    "Content-Type": "application/octet-stream",
+                    "Content-Range": f"bytes {offset}-{end}/{total}"})
+            return 200, (client.read(key),
+                         {"Content-Type": "application/octet-stream"})
+        except FileNotFoundError:
+            return 404, {"error": f"{path}: gone on remote"}
+        except (RemoteError, OSError, ValueError) as e:
+            return 502, {"error": f"remote read {path}: {e}"}
+
     def _list(self, req: Request, path: str):
         limit = int(req.query.get("limit", 1000))
         last = req.query.get("lastFileName", "")
@@ -598,6 +748,131 @@ class FilerServer:
         except IsADirectoryError as e:
             return 409, {"error": str(e)}
         return 204, b""
+
+    # -- TUS resumable uploads (filer_server_tus_handlers.go) -------------
+
+    TUS_VERSION = "1.0.0"
+    _TUS_DIR = "/.tus"
+
+    def _tus_parts(self, updir: str) -> list:
+        return sorted((e for e in self.filer.list_directory(updir,
+                                                             limit=100000)
+                       if e.name.endswith(".part")),
+                      key=lambda e: int(e.name.split(".")[0]))
+
+    def _tus(self, req: Request, path: str):
+        """tus.io core protocol: creation (POST), offset probe (HEAD),
+        append (PATCH), abort (DELETE).  Parts are staged as filer files
+        under /.tus/<id>/, so an upload resumes across filer restarts,
+        and the completed upload is materialized by stitching the parts'
+        chunk lists (no data copy)."""
+        tus_headers = {"Tus-Resumable": self.TUS_VERSION,
+                       "Tus-Version": self.TUS_VERSION,
+                       "Tus-Extension": "creation,termination"}
+        if req.method == "OPTIONS":
+            return 204, (b"", tus_headers)
+        if req.method == "POST":
+            try:
+                length = int(req.headers.get("Upload-Length", -1))
+            except ValueError:
+                length = -1
+            target = req.query.get("path", "")
+            if length < 0 or not target:
+                return 400, {"error": "Upload-Length header and "
+                                      "?path= are required"}
+            uid = uuid.uuid4().hex
+            marker = Entry(f"{self._TUS_DIR}/{uid}", is_directory=True)
+            marker.extended["tusTarget"] = target
+            marker.extended["tusLength"] = str(length)
+            self.filer.create_entry(marker)
+            return 201, (b"", {**tus_headers,
+                               "Location": f"/__tus__/{uid}"})
+
+        uid = path[len("/__tus__/"):].strip("/")
+        if not uid or "/" in uid:
+            # an empty id would name the /.tus staging root: a DELETE
+            # would then wipe every upload in flight
+            return 404, {"error": "unknown upload"}
+        updir = f"{self._TUS_DIR}/{uid}"
+        marker = self.filer.find_entry(updir)
+        if marker is None or not marker.extended.get("tusTarget"):
+            return 404, {"error": "unknown upload"}
+        length = int(marker.extended.get("tusLength", 0))
+        offset = sum(e.total_size() for e in self._tus_parts(updir))
+        if req.method == "HEAD":
+            return 200, (b"", {**tus_headers,
+                               "Upload-Offset": str(offset),
+                               "Upload-Length": str(length),
+                               "Cache-Control": "no-store"})
+        if req.method == "DELETE":
+            self.filer.delete_entry(updir, recursive=True)
+            return 204, (b"", tus_headers)
+        if req.method != "PATCH":
+            return 405, {"error": f"method {req.method} not allowed"}
+        try:
+            claimed = int(req.headers.get("Upload-Offset", -1))
+        except ValueError:
+            claimed = -1
+        if claimed != offset:
+            # 409: the client's view of the offset is stale
+            return 409, (b"", {**tus_headers,
+                               "Upload-Offset": str(offset)})
+        data = req.body
+        if offset + len(data) > length:
+            return 413, {"error": "upload exceeds Upload-Length"}
+        self.filer.write_file(f"{updir}/{offset:020d}.part", data)
+        offset += len(data)
+        if offset == length:
+            # stitch the parts' chunk lists into the target entry
+            target = marker.extended["tusTarget"]
+            chunks = []
+            base = 0
+            for part in self._tus_parts(updir):
+                for c in part.chunks:
+                    chunks.append(type(c)(c.file_id, base + c.offset,
+                                          c.size, c.e_tag, c.mtime_ns))
+                base += part.total_size()
+            old = self.filer.find_entry(target)
+            self.filer.create_entry(Entry(target, chunks=chunks))
+            if old is not None and not old.is_directory:
+                # the replaced file's chunks are reclaimed, as
+                # write_file's overwrite does
+                self.filer._delete_chunks(old)
+            self.filer.delete_entry(updir, recursive=True,
+                                    delete_chunks=False)
+        return 204, (b"", {**tus_headers, "Upload-Offset": str(offset)})
+
+    # -- distributed locks (distributed_lock_manager.go) ---------------
+
+    def _lock_acquire(self, req: Request):
+        b = req.json()
+        key = str(b.get("key", ""))
+        if not key:
+            return 400, {"error": "missing lock key"}
+        target = self.lock_manager.target_server(key)
+        if target and target != self._ring_self:
+            return 200, {"movedTo": target}
+        r = self.lock_manager.acquire(
+            key, str(b.get("owner", "")), float(b.get("ttlSec", 10.0)),
+            str(b.get("renewToken", "")))
+        if isinstance(r, str):
+            return 423, {"error": "locked", "owner": r}
+        token, expires_at = r
+        return 200, {"renewToken": token, "expiresAt": expires_at}
+
+    def _lock_release(self, req: Request):
+        b = req.json()
+        key = str(b.get("key", ""))
+        target = self.lock_manager.target_server(key)
+        if target and target != self._ring_self:
+            return 200, {"movedTo": target}
+        if not self.lock_manager.release(key,
+                                         str(b.get("renewToken", ""))):
+            return 409, {"error": "token mismatch"}
+        return 200, {}
+
+    def _lock_list(self, req: Request):
+        return 200, {"locks": self.lock_manager.all_locks()}
 
     # -- meta RPC mirrors -------------------------------------------------
 

@@ -385,6 +385,7 @@ class HttpServer:
 
             do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = \
                 do_OPTIONS = _dispatch
+            do_PATCH = _dispatch    # TUS resumable uploads
 
             def log_message(self, *args):  # quiet
                 pass

@@ -4,10 +4,12 @@ volume maintenance verbs (volume.vacuum, .balance, .move, .copy,
 .fix.replication, .scrub, .merge and the rest of `commands.py` and
 `admin_commands.py`), cluster.top, cluster.slow, cluster.profile,
 trace.show and qos.*, reading every node's /metrics and debug routes;
-and the `fs.*` family and the repair plane (volume.fsck,
-volume.check.disk), driving a filer and the volume servers.  It imports
+the `fs.*` family and the repair plane (volume.fsck,
+volume.check.disk), driving a filer and the volume servers; and the
+`remote.*` family, mounting foreign S3 stores into a filer.  It imports
 no torch."""
 
 from . import admin_commands  # noqa: F401 — registers the volume admin verbs
 from . import fs_commands  # noqa: F401 — registers the fs.* commands
+from . import remote_commands  # noqa: F401 — registers the remote.* verbs
 from .commands import COMMANDS, CommandEnv, run_command  # noqa: F401

@@ -3,7 +3,11 @@ plane, the port's copy of `seaweedfs_tpu/shell/fs_commands.py` without
 its tier verbs: fs.configure, fs.ls, fs.cat, fs.meta, fs.rm, fs.mkdir,
 fs.du, fs.mv, fs.tree, fs.pwd and fs.cd operate on a filer's namespace
 over its HTTP surface (the filer address comes from the shell's -filer
-flag or `fs.configure`);
+flag or `fs.configure`); fs.meta.save / .load / .cat / .notify back up,
+restore, show and re-emit entries, fs.verify checks every chunk is
+readable, fs.log lists recent metadata events, and
+fs.meta.change.volume.id and fs.merge.volumes move chunk references
+between volumes;
 
   volume.fsck        (command_volume_fsck.go) — the filer's chunk fids
                      against the volumes' needles: orphan needles no
@@ -28,7 +32,7 @@ import urllib.parse
 from ..server.httpd import http_bytes, http_json
 from ..topology import iter_volume_list_ec_shards
 from .commands import (CommandEnv, _all_node_urls, _ec_shard_locations,
-                       _ec_volumes, _move_shard, _parse_flags,
+                       _ec_volumes, _move_shard, _must, _parse_flags,
                        _volumes_by_id, command)
 
 
@@ -459,3 +463,274 @@ def cmd_ec_rebalance_proportional(env: CommandEnv,
             f"capacity " +
             json.dumps({u: f"{used[u]}/{capacity[u]}"
                         for u in sorted(capacity)}))
+
+
+# --- metadata backup, verification, chunk relocation -------------------
+
+def _walk_entries(env: CommandEnv, directory: str):
+    """Depth-first full-entry walk via the PAGINATED filer listing
+    (_list_dir) — a flat limit would silently truncate large
+    directories, making fs.meta.save backups and fs.verify sweeps
+    incomplete without saying so."""
+    for e in _list_dir(env, directory):
+        yield e
+        if e.get("isDirectory"):
+            yield from _walk_entries(env, e["fullPath"])
+
+
+@command("fs.meta.save")
+def cmd_fs_meta_save(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_meta_save.go (-o=meta.jsonl [dir]): serialize the
+    filer metadata tree (entries incl. chunk lists) to a local file
+    for backup/migration."""
+    opts = _parse_flags(args)
+    out_path = opts.get("o", "filer-meta.jsonl")
+    root = _resolve(env, next((a for a in args
+                               if not a.startswith("-")), "/"))
+    n = 0
+    with open(out_path, "w") as f:
+        for e in _walk_entries(env, root):
+            f.write(json.dumps(e) + "\n")
+            n += 1
+    return f"saved {n} entries under {root} to {out_path}"
+
+
+@command("fs.meta.load")
+def cmd_fs_meta_load(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_meta_load.go (meta.jsonl): restore entries saved by
+    fs.meta.save (full entries incl. chunk refs — the data itself must
+    still live on the volume servers)."""
+    src = next((a for a in args if not a.startswith("-")), "")
+    if not src:
+        return "usage: fs.meta.load <meta.jsonl>"
+    filer = env.require_filer()
+    n = 0
+    with open(src) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            entry = json.loads(line)
+            _must(http_json("POST", f"{filer}/__meta__/put_entry",
+                            entry), f"load {entry.get('fullPath')}")
+            n += 1
+    return f"loaded {n} entries from {src}"
+
+
+@command("fs.meta.cat")
+def cmd_fs_meta_cat(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_meta_cat.go: the raw stored entry (attributes +
+    chunk list) of one path."""
+    path = _resolve(env, args[0] if args else "")
+    st, body, _ = _filer_get(env, "/__meta__/lookup",
+                             "path=" + urllib.parse.quote(path))
+    if st != 200:
+        raise RuntimeError(f"{path}: {st}")
+    return json.dumps(json.loads(body), indent=1)
+
+
+@command("fs.verify")
+def cmd_fs_verify(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_verify.go ([dir]): every chunk fid of every file
+    under dir must be readable on some volume server."""
+    from .. import operation
+    root = _resolve(env, args[0] if args else "/")
+    files = chunks = broken = 0
+    problems: list[str] = []
+    for e in _walk_entries(env, root):
+        if e.get("isDirectory"):
+            continue
+        files += 1
+        for c in e.get("chunks", []):
+            chunks += 1
+            fid = c.get("fileId", "")
+            try:
+                vid = int(fid.split(",")[0])
+                locs = operation.lookup(env.master, vid,
+                                        use_cache=False)
+                if not locs:
+                    raise LookupError("no locations")
+                # readable on SOME replica is the contract — a single
+                # down server must not flag healthy data as broken
+                errs = []
+                for loc in locs:
+                    try:
+                        st, _, _ = http_bytes(
+                            "HEAD", f"{loc['url']}/{fid}")
+                    except OSError as oe:
+                        errs.append(f"{loc['url']}: {oe}")
+                        continue
+                    if st == 200:
+                        break
+                    errs.append(f"{loc['url']}: HTTP {st}")
+                else:
+                    raise LookupError("; ".join(errs))
+            except (OSError, LookupError, ValueError) as ex:
+                broken += 1
+                if len(problems) < 20:
+                    problems.append(f"{e['fullPath']}: {fid}: {ex}")
+    lines = [f"verified {files} files / {chunks} chunks under {root}: "
+             f"{broken} broken"]
+    lines += problems
+    return "\n".join(lines)
+
+
+@command("fs.log")
+def cmd_fs_log(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_log.go analog: recent filer metadata log events
+    (-n=20)."""
+    opts = _parse_flags(args)
+    n = int(opts.get("n", 20))
+    st, body, _ = _filer_get(env, "/__meta__/events", "sinceNs=0")
+    if st != 200:
+        raise RuntimeError(f"meta events: {st}")
+    events = json.loads(body).get("events", [])[-n:]
+    lines = []
+    for ev in events:
+        path = ((ev.get("newEntry") or ev.get("oldEntry") or
+                 {}).get("fullPath", "?"))
+        lines.append(f"{ev.get('tsNs', 0)} {ev.get('op', '?'):7s} "
+                     f"{path}")
+    return "\n".join(lines) or "(no events)"
+
+
+@command("fs.meta.notify")
+def cmd_fs_meta_notify(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_meta_notify.go ([dir]): re-emit every entry under
+    dir as a fresh metadata event (re-seeds filer.sync / notification
+    consumers after they lost their position)."""
+    filer = env.require_filer()
+    root = _resolve(env, args[0] if args else "/")
+    n = 0
+    for e in _walk_entries(env, root):
+        _must(http_json("POST", f"{filer}/__meta__/put_entry", e),
+              f"notify {e.get('fullPath')}")
+        n += 1
+    return f"re-emitted {n} entries under {root} into the meta log"
+
+
+# --- chunk relocation (command_fs_merge_volumes.go /
+# command_fs_meta_change_volume_id.go) ------------------------------------
+
+def _chunk_vid(fid: str) -> int:
+    return int(fid.split(",", 1)[0])
+
+
+@command("fs.meta.change.volume.id")
+def cmd_fs_meta_change_volume_id(env: CommandEnv,
+                                 args: list[str]) -> str:
+    """command_fs_meta_change_volume_id.go: rewrite volume ids inside
+    chunk fids in filer METADATA only (after an out-of-band volume
+    move/renumber).
+
+        fs.meta.change.volume.id -dir=/p -fromVolumeId=x
+                                 -toVolumeId=y -apply
+        fs.meta.change.volume.id -dir=/p -mapping=map.txt -apply
+
+    mapping file lines: `1 => 2`.  Without -apply: dry run."""
+    opts = _parse_flags(args)
+    mapping: dict[int, int] = {}
+    if opts.get("mapping"):
+        with open(opts["mapping"]) as f:
+            for line in f:
+                line = line.strip()
+                if not line or "=>" not in line:
+                    continue
+                a, b = line.split("=>", 1)
+                mapping[int(a.strip())] = int(b.strip())
+    elif "fromVolumeId" in opts and "toVolumeId" in opts:
+        mapping[int(opts["fromVolumeId"])] = int(opts["toVolumeId"])
+    if not mapping:
+        return ("usage: fs.meta.change.volume.id -dir=/p "
+                "(-fromVolumeId=x -toVolumeId=y | -mapping=f) "
+                "[-apply]")
+    root = _resolve(env, opts.get("dir", "/"))
+    apply = "apply" in opts
+    filer = env.require_filer()
+    changed = files = 0
+    for e in _walk_entries(env, root):
+        chunks = e.get("chunks") or []
+        touched = False
+        for c in chunks:
+            vid = _chunk_vid(c["fileId"])
+            if vid in mapping:
+                c["fileId"] = \
+                    f"{mapping[vid]}," + c["fileId"].split(",", 1)[1]
+                touched = True
+                changed += 1
+        if touched:
+            files += 1
+            if apply:
+                _must(http_json("POST",
+                                f"{filer}/__meta__/put_entry", e),
+                      f"update {e['fullPath']}")
+    verb = "changed" if apply else "would change"
+    pairs = ", ".join(f"{a}=>{b}" for a, b in sorted(mapping.items()))
+    return (f"{verb} {changed} chunk refs in {files} files under "
+            f"{root} ({pairs})" + ("" if apply else "; add -apply to write"))
+
+
+@command("fs.merge.volumes")
+def cmd_fs_merge_volumes(env: CommandEnv, args: list[str]) -> str:
+    """command_fs_merge_volumes.go: RELOCATE chunk data out of
+    lighter volumes into a target volume so vacuum can reclaim the
+    emptied ones.
+
+        fs.merge.volumes -fromVolumeId=x -toVolumeId=y [-dir=/]
+                         [-apply]
+
+    For every file chunk on the source volume: read the bytes, write
+    them to the SAME needle key on the target volume, update the
+    entry's chunk fid, then delete the source needle.  Needle keys
+    are cluster-unique (master sequence), so no collision on the
+    target."""
+    from .. import operation
+    opts = _parse_flags(args)
+    if "fromVolumeId" not in opts or "toVolumeId" not in opts:
+        return ("usage: fs.merge.volumes -fromVolumeId=x "
+                "-toVolumeId=y [-dir=/] [-apply]")
+    src_vid = int(opts["fromVolumeId"])
+    dst_vid = int(opts["toVolumeId"])
+    if src_vid == dst_vid:
+        raise RuntimeError("from and to volume are the same")
+    apply = "apply" in opts
+    root = _resolve(env, opts.get("dir", "/"))
+    filer = env.require_filer()
+    dst_locs = env.volume_locations(dst_vid)
+    if not dst_locs:
+        raise RuntimeError(f"target volume {dst_vid} not found")
+    moved = bytes_moved = files = 0
+    for e in _walk_entries(env, root):
+        chunks = e.get("chunks") or []
+        todo = [c for c in chunks
+                if _chunk_vid(c["fileId"]) == src_vid]
+        if not todo:
+            continue
+        files += 1
+        if not apply:
+            moved += len(todo)
+            bytes_moved += sum(c.get("size", 0) for c in todo)
+            continue
+        old_fids = []
+        for c in todo:
+            data = operation.read(env.master, c["fileId"])
+            rest = c["fileId"].split(",", 1)[1]
+            new_fid = f"{dst_vid},{rest}"
+            operation.upload(dst_locs[0]["url"], new_fid, data)
+            old_fids.append(c["fileId"])
+            c["fileId"] = new_fid
+            moved += 1
+            bytes_moved += len(data)
+        _must(http_json("POST", f"{filer}/__meta__/put_entry", e),
+              f"update {e['fullPath']}")
+        # source needles die only AFTER the metadata points at the
+        # new home — a crash in between leaves both copies (safe)
+        for fid in old_fids:
+            try:
+                operation.delete(env.master, fid)
+            except (OSError, RuntimeError):
+                pass    # vacuum will reclaim
+    verb = "moved" if apply else "would move"
+    return (f"{verb} {moved} chunks ({bytes_moved} bytes) in {files} "
+            f"files from volume {src_vid} to {dst_vid}"
+            + ("" if apply else "; add -apply to execute"))

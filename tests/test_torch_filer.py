@@ -24,8 +24,10 @@ numpy.
 - EC: files in an encoded collection read back through the filer,
   direct and with a shard holder stopped, without calling the kernel;
 - the command line: `filer` serves `/status` with its native planes'
-  ports, refuses what is not ported; `shell -filer ... "fs.ls /d"`
-  prints what the JAX shell does.
+  ports, runs the stores, fleets, notification specs and lock rings the
+  JAX filer runs and fails where it fails, and refuses what is not
+  ported (`mq:`, `kafka:`); `shell -filer ... "fs.ls /d"` prints what
+  the JAX shell does.
 
 The meta plane (the JAX filer's default) is held against the JAX package
 in tests/test_torch_meta_plane.py, and the native planes in
@@ -1075,30 +1077,100 @@ def test_filer_command_serves_and_stops(tmp_path):
     assert rc == 0
 
 
+def _filer_cli(module: str, argv: list, env: dict) -> dict:
+    """`python3 -m <module> filer ... argv`: what it printed first, its
+    exit code, its stderr; a filer that came up is stopped with SIGTERM
+    once it listens."""
+    p = subprocess.Popen(
+        [sys.executable, "-m", module, "filer", "-port", "0", "-master",
+         MASTER] + argv, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "JAX_PLATFORMS": "cpu", **env})
+    try:
+        first = p.stdout.readline()
+        if first.startswith("filer listening on"):
+            time.sleep(0.5)               # a sibling would be forked now
+            p.send_signal(signal.SIGTERM)
+        rc = p.wait(60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    rest = p.stdout.read()
+    return {"listening": first.startswith("filer listening on"),
+            "forked": "pre-forked" in rest, "rc": rc,
+            "stderr": p.stderr.read(), "first": first}
+
+
+@pytest.fixture(scope="module")
+def store_servers():
+    """tests/resp_fake.py as a process, and an ES-wire fake."""
+    from elastic_fake import FakeElastic
+    proc = subprocess.Popen([sys.executable,
+                             os.path.join(REPO, "tests", "resp_fake.py"),
+                             "0"], stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline().strip()
+    es = FakeElastic().start()
+    try:
+        yield {"redis": f"127.0.0.1:{line.split()[1]}",
+               "elastic": es.address}
+    finally:
+        es.stop()
+        proc.kill()
+        proc.wait(timeout=5)
+
+
 @pytest.mark.parametrize("argv,env", [
     (["-metaPlane", "1", "-workers", "2", "-storeType", "lsm"], {}),
     (["-storeType", "lsm"], {}),
     (["-workers", "2", "-storeType", "redis"], {}),
     (["-workers", "2", "-storeType", "elastic"],
      {"SEAWEEDFS_TPU_FILER_META_PLANE": "1"}),
-    (["-notification", "log"], {}), (["-lockPeers", "127.0.0.1:1"], {})],
+    (["-notification", "log"], {}), (["-lockPeers", "127.0.0.1:1"], {}),
+    (["-notification", "mq:127.0.0.1:1/ns/topic"], {}),
+    (["-notification", "kafka:127.0.0.1:1/topic"], {})],
     ids=["metaPlane", "storeType", "workers", "meta_plane_env",
-         "notification", "lockPeers"])
-def test_filer_command_refuses_what_is_not_ported(argv, env, tmp_path):
-    """What the port has not ported is refused with exit 2, before any
-    process starts.  Pre-fork `-workers` and the meta plane are ported, so
-    the `metaPlane`, `workers` and `meta_plane_env` cases now check that
-    the refusal of a store other than sqlite holds when a fleet or the
-    meta plane is asked for too: no sibling is forked first (the JAX
-    filer warns and runs one process there).  `-workers 2` over sqlite
-    is accepted and runs a fleet: tests/test_torch_workers.py."""
-    p = subprocess.run(
-        [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port", "0",
-         "-master", MASTER, "-store", str(tmp_path / "f.db")] + argv,
-        cwd=REPO, capture_output=True, text=True, timeout=60,
-        env={**os.environ, **env})
-    assert p.returncode == 2 and "not ported" in p.stderr, p.stderr
-    assert p.stdout == ""
+         "notification", "lockPeers", "mq", "kafka"])
+def test_filer_command_refuses_what_is_not_ported(argv, env, tmp_path,
+                                                  store_servers):
+    """The port's `filer` with the argv the JAX filer is given, against
+    what the JAX filer does with it.  Over lsm, one process with the
+    meta plane; a fleet asked for over a store other than sqlite warns
+    and runs one process (redis and elastic on the stand-ins, the plane
+    off over them whatever the environment says); an unknown
+    `-notification` kind and a ring without this filer fail before
+    serving, with the JAX filer's message (exit 2 here, a traceback's 1
+    there).  `mq:` and `kafka:` are what the port still refuses: exit 2,
+    naming the kind, before any process starts."""
+    store = str(tmp_path / "f.db")
+    if "redis" in argv or "elastic" in argv:
+        store = store_servers[argv[argv.index("-storeType") + 1]]
+    argv = ["-store", store] + argv
+    kind = argv[argv.index("-notification") + 1].split(":")[0] \
+        if "-notification" in argv else ""
+    if kind in ("mq", "kafka"):
+        got = _filer_cli("seaweedfs_tpu_torch", argv, env)
+        assert got["rc"] == 2 and got["first"] == "", got
+        assert f"-notification {kind}: not ported" in got["stderr"]
+        return
+    got = {m: _filer_cli(m, argv, env)
+           for m in ("seaweedfs_tpu_torch", "seaweedfs_tpu")}
+    port, ref = got["seaweedfs_tpu_torch"], got["seaweedfs_tpu"]
+    assert port["listening"] == ref["listening"], got
+    assert port["forked"] is ref["forked"] is False, got
+    if ref["listening"]:
+        assert port["rc"] == 0, port
+        if "-workers" in argv:
+            for out in (port, ref):
+                assert "running 1 process" in out["stderr"], out
+        if "lsm" in argv:
+            assert os.path.isfile(os.path.join(store, "wal.log"))
+            assert os.path.isdir(store + ".metalog")
+    else:
+        assert ref["rc"] != 0 and port["rc"] == 2, got
+        want = ("unknown notification spec 'log'" if kind else
+                "is not in -lockPeers")
+        assert want in port["stderr"] and want in ref["stderr"], got
 
 
 @pytest.mark.parametrize("server", ["port", "jax"])

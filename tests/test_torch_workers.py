@@ -285,14 +285,26 @@ def test_the_workers_default_comes_from_the_environment(cluster,
         assert fleet.stop() == 0
 
 
-def test_a_non_sqlite_store_is_still_refused(cluster):
-    out = subprocess.run(
-        [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port",
-         "0", "-master", cluster, "-storeType", "lsm", "-workers", "4"],
-        capture_output=True, text=True, timeout=60,
-        env=dict(os.environ, PYTHONPATH=REPO))
-    assert out.returncode == 2
-    assert "-storeType lsm: not ported yet" in out.stderr
+def test_a_non_sqlite_store_is_still_refused(cluster, tmp_path):
+    """A fleet over a store other than sqlite: as the JAX filer does, the
+    filer warns and runs one process (no sibling forked) over the lsm
+    store, with its meta plane."""
+    fleet = Fleet(["filer", "-port", "0", "-master", cluster, "-storeType",
+                   "lsm", "-store", str(tmp_path / "ldb"), "-workers", "4"],
+                  {})
+    try:
+        st, _, _ = http_bytes("PUT", f"{fleet.url}/lsm/x", b"x" * 100,
+                              timeout=10)
+        assert st == 201
+        assert http_bytes("GET", f"{fleet.url}/lsm/x")[1] == b"x" * 100
+        time.sleep(0.5)                   # a sibling would be forked now
+        assert _children_of(fleet.proc.pid) == []
+        assert fleet.tree_procs() == 1
+    finally:
+        assert fleet.stop() == 0
+    out = "".join(fleet.lines)
+    assert "running 1 process" in out and "pre-forked" not in out
+    assert os.path.isfile(str(tmp_path / "ldb" / "wal.log"))
 
 
 def test_reuse_port_lets_two_listeners_share_a_port():
