@@ -388,6 +388,23 @@ Phases, each printing one JSON line:
    `remote.mount`, read through, cached, and a local write pushed back by
    `filer.remote.sync`; `filer.meta.tail -once` printing A's events, and
    one webhook notification an event, in order.
+19. server_s3: the reference's published S3 deployment.  One `-v 1
+   -logdir D -logJson server -filer -s3` (master, volume server, filer
+   and gateway in one process, the codec on the card), an `iam` server
+   with an HS256 and an RS256 OIDC provider, and a second `s3` gateway
+   over the same filer with `-stsKey`, `-kmsEndpoint` (a KMS stub in this
+   script), `-metricsAddress` (a pushgateway stand-in here) and
+   `-metricsPort`; the admin identity and the bucket made by the shell's
+   `s3.*` verbs.  warp mixed's shape: a prefill of 10 MiB objects on 20
+   threads until one 1 GiB volume is full, 16 of them through the second
+   gateway under SSE-KMS with `AssumeRoleWithWebIdentity` credentials;
+   200 operations, GET 45%, STAT 30%, PUT 15%, DELETE 10% (objects/s,
+   MiB/s, p50/p99 each); the volume's `ec.encode` and, with shards 1, 4,
+   7 and 9 deleted and 8 objects read degraded, its `ec.rebuild`, both on
+   the card (launches against windows); every object read back through
+   both gateways, a tampered, an expired and a foreign session token
+   answered 403, `weed.log`'s JSON lines with one request id also in its
+   answer, and the pushes the stand-in received.
 
 `--kernel-only` runs phases 1 and 2 alone and prints no result line.
 Then a `kernels` line, the card's name and power limit, and the device
@@ -551,6 +568,20 @@ def sweep_children() -> "list[str]":
             except ChildProcessError:
                 pass
     return left
+
+
+class _Laps:
+    """Where a phase's wall goes: `laps(name)` adds the seconds since the
+    last mark (or the start) to `walls[name]`."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.walls: dict = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.walls[name] = self.walls.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def time_ms(fn, reps: int, trials: int = 10) -> float:
@@ -1425,7 +1456,28 @@ def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
                 raise RuntimeError(f"check failed: {log} did not start: "
                                    f"{out} {f.read()[-2000:]}")
         urls.append(m.group(1))
+    if role == "volume":
+        _warm_metrics(urls)
     return urls
+
+
+def _warm_metrics(urls) -> None:
+    """GET every server's /metrics at once, the answers dropped: a volume
+    server imports its codec module (torch) at its first /metrics, and
+    servers first scraped one by one inside a step paid those imports in
+    turn there (~60-90 s of `worker`'s and `write`'s walls outside their
+    timed steps).  Best effort: a server behind TLS or
+    the admin guard is left for its first scrape."""
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+
+    def one(url: str) -> None:
+        import http.client
+        try:
+            http_bytes("GET", f"{url}/metrics", timeout=300)
+        except (OSError, ValueError, http.client.HTTPException):
+            pass
+    with ThreadPoolExecutor(max(1, len(urls))) as pool:
+        list(pool.map(one, urls))
 
 
 def _start_peers(dirs: "list[str]", logdir: str, procs: list,
@@ -2248,6 +2300,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
     procs: list = []
     server0 = None
     worker = None
+    laps = _Laps()
     try:
         t0 = time.perf_counter()
         # the volume is full at this limit (its whole MiB, 1025 at
@@ -2291,6 +2344,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
              CLUSTER_SERVERS and {1, *batch_vids} <= normal_vids(),
              "7 nodes and the volumes in /vol/list")
         start_s = time.perf_counter() - t0
+        laps("start")
 
         def ec_locs(vid):
             r = get(f"/dir/ec_lookup?volumeId={vid}")
@@ -2406,6 +2460,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         sidecars = (held - ctx.total * shard_size) // len(placed)
         written = {"worker_encode": dat + idx + ctx.total * shard_size +
                    sidecars + held}
+        laps("encode")
 
         # 2. a peer with two data shards (else any) stopped with its
         # disk; once the master drops it, detection proposes the rebuild
@@ -2456,6 +2511,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         moved = int(re.search(r"rebalanced (\d+)", reb["message"]).group(1))
         written["worker_rebuild"] = (len(lost) + moved) * shard_size
         drop_shards(1)
+        laps("rebuild")
 
         # 3. the 64 volumes in one job: one batched launch a step
         rs_cuda.LAUNCHES = 0
@@ -2474,6 +2530,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         batch_idx = sum(os.path.getsize(b + ".idx") for b in batch["bases"])
         written["worker_batch"] = batch["dat_bytes"] + batch_idx + \
             2 * batch_held   # pulled, the worker's files, the pushes
+        laps("batch")
 
         # 4. a scatter job on a second link of the volume: the source
         # (server 0, in this process) encodes and streams the shards
@@ -2496,6 +2553,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
                                                  "scatter job")[1]
         deletes = delete_and_scrub(2)
         drop_shards(2)
+        laps("scatter")
 
         # 5. the worker-mode encode again, under the profiler
         mount_link(3)
@@ -2510,6 +2568,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
         check_shards(3, ec["shard_sha"], "profiled worker encode")
         profiled["job_seconds"] = prof_jobs[0]["wall_s"]
         heartbeats = get("/cluster/status")["heartbeats"]
+        laps("profiled")
     finally:
         if worker is not None:
             worker.stop()
@@ -2517,6 +2576,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
             server0.stop()
         bad = _stop_peers(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+        laps("stop")
     check(not bad, f"servers or the admin did not stop cleanly: {bad}")
     out = {"phase": "worker", "servers": CLUSTER_SERVERS,
            "cluster_start_seconds": start_s, "cli_worker_id": cli_id,
@@ -2537,7 +2597,7 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
            "profiled_encode": profiled,
            "files_written_bytes": {**written,
                                    "total": sum(written.values())},
-           "master_heartbeats": heartbeats}
+           "master_heartbeats": heartbeats, "step_walls_s": laps.walls}
     emit(out)
     return out
 
@@ -2685,6 +2745,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
     dirs = [os.path.join(tmp, f"w{i}") for i in range(len(WRITE_RACKS))]
     procs: list = []
     admin = worker = None
+    laps = _Laps()
     launches_name = \
         'seaweedfs_tpu_gf_kernel_launches{entry="gf_apply_words"}'
     cuts = {"benchmark_n": {"run": bench_n, "reference_default": 1 << 20,
@@ -2724,6 +2785,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         check(volumes() == {}, "the cluster starts with no volume")
         plane_ports = _planes_up(urls)
 
+        laps("start")
         # 1. weed benchmark's shape; every read held against the payload
         import random
         rng0 = random.Random(0)
@@ -2764,6 +2826,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         check(bench_grown, "the benchmark grew no volume")
         bench_launches = rs_cuda.LAUNCHES
 
+        laps("benchmark")
         # 2. replication: 256 seeded needles under each of 001 and 010
         rng = np.random.default_rng([seed, 10])
         sizes = [int(x) for x in rng.integers(1 << 10, 1 << 20,
@@ -2837,6 +2900,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
             handed = str(e)
         live = [u for u in urls if u != second]
 
+        laps("replication")
         # 3. the fill: config 1's needles until the limit seals volume 1
         first = types.parse_file_id(operation.assign(
             murl, collection="fill").fid).volume_id
@@ -2887,6 +2951,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         check(dat_size >= limit_mb << 20, f"volume {first} is {dat_size} "
                                           f"bytes, under the limit")
 
+        laps("fill")
         # 4. the detected EC job encodes it on the card (in this process)
         ctx = ECContext(device="cuda")
         expect = sum(launches_for(ctx.data_shards, item[3])
@@ -2904,6 +2969,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
              list(range(ctx.total)) and first not in volumes(),
              "14 shards listed and the volume gone")
 
+        laps("encode")
         # 5. every filled fid read back from the EC volume, 8 readers
         def launches_on(u):
             text = http_bytes("GET", f"{u}/metrics")[1].decode()
@@ -2928,6 +2994,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         check(read_launches == 0,
               f"the read-back launched the kernel {read_launches} times")
 
+        laps("read_back")
         # 6. upload and download on the command line
         src = os.path.join(tmp, "upload.bin")
         with open(src, "wb") as f:
@@ -2953,6 +3020,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
         check(crc_probe["path"] == "sse4.2",
               f"the servers' CRC32-C runs on {crc_probe['path']}, not on "
               f"the SSE4.2 instruction")
+        laps("cli")
         # the live servers' counts since they started
         phase_planes = _plane_delta(_plane_counters(live), _NO_PLANES)
     finally:
@@ -2962,6 +3030,7 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
             admin.stop()
         bad = _stop_peers(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+        laps("stop")
     check(not bad, f"the master or a volume server did not stop "
                    f"cleanly: {bad}")
     write_ms = [w[3] for w in written]
@@ -2995,7 +3064,8 @@ def phase_write(tmp: str, seed: int, bench_n: int = BENCH_N,
            "cli": {"fid": cli_fid, "bytes": 3 << 20, "round_trip": True},
            "planes": {"ports": plane_ports, "benchmark": bench_planes,
                       "fill": fill_planes, "phase": phase_planes},
-           "crc32c": crc_probe, "master_heartbeats": heartbeats}
+           "crc32c": crc_probe, "master_heartbeats": heartbeats,
+           "step_walls_s": laps.walls}
     emit(out)
     return out
 
@@ -5040,10 +5110,11 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
     acked needle of each kind, read from each of its replicas through
     that location's ladder (read plane, UDS, HTTP), each plane's share;
     every body equal to its seeded payload, and both the restarted
-    server and the other replicas serving reads in each pass.  A warm pass, then two passes of `hedge_n` reads
-    under a `FSYNC_BUDGET_S` deadline with one replica SIGSTOPped,
-    hedging on and off.  The filer's `/dir/lookup` RPCs during its read
-    passes; the seconds from the SIGKILL until the filer's pushed map
+    server and the other replicas serving reads in each pass.  A warm
+    pass, then two passes of `hedge_n` reads under a `FSYNC_BUDGET_S`
+    deadline with one replica SIGSTOPped, hedging on (the stopped
+    replica ejected once it lost 3 races) and off.  The filer's
+    `/dir/lookup` RPCs during its read passes; the seconds from the SIGKILL until the filer's pushed map
     drops the server, from its restart until the map holds it again,
     and from a volume's growth until the map holds it.  `ec.encode` of
     the sealed volume on the card: launches against its windows, shard
@@ -5366,10 +5437,12 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
             replace=False)]
         check(len(hsample) == min(hedge_n, len(sample_pool)) >=
               min(hedge_n, bench_n // 2), f"{len(hsample)} hedge samples")
-        # every read's primary is the stopped replica: the default budget
-        # (16 tokens, 10% of primary successes) would hedge ~16 of them,
-        # and the default 64 workers are all parked on primaries that
-        # wait out their 100 ms (16 readers x 100 ms / ~25 ms a read)
+        # every read's first location is the stopped replica: it leads
+        # the races until it has lost 3 in a row, then again each time
+        # its 1 s ejection runs out (util/hedge.py); the default budget
+        # (16 tokens, 10% of primary successes) would hedge ~16 of its
+        # reads, and the default 64 workers can all be parked on
+        # primaries that wait out their 100 ms
         hedge_knobs = {"SEAWEEDFS_TPU_HEDGE_BURST": str(hedge_n),
                        "SEAWEEDFS_TPU_HEDGE_WORKERS": "256"}
 
@@ -5381,6 +5454,8 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
                            'seaweedfs_tpu_hedges_won_total{kind="read"}')
             iss0 = _metric(stats.PROCESS.render(),
                            'seaweedfs_tpu_hedges_issued_total{kind="read"}')
+            ej0 = _metric(stats.PROCESS.render(),
+                          "seaweedfs_tpu_hedge_ejections_total")
             hedge._tokens.reset()
 
             def one(fid):
@@ -5461,7 +5536,10 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
                    "hedges_won": int(_metric(
                        stats.PROCESS.render(),
                        'seaweedfs_tpu_hedges_won_total{kind="read"}')
-                       - won0)}
+                       - won0),
+                   "ejections": int(_metric(
+                       stats.PROCESS.render(),
+                       "seaweedfs_tpu_hedge_ejections_total") - ej0)}
             print(f"fsync_tier {what}: {json.dumps(out)}", flush=True)
             return out
         hedge.reset()
@@ -5480,6 +5558,7 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
         check(hedged["over_budget"] == 0,
               f"{hedged['over_budget']} hedged reads missed the budget")
         check(hedged["hedges_won"] > 0, "no hedge won")
+        check(hedged["ejections"] > 0, "the stopped replica was not ejected")
         poll_fine(lambda: stopped in get("/cluster/status")["dataNodes"] and
                   all(stopped in pushed().get(v, []) for v in bvids),
                   "the stopped replica is back in the filer's map", 30)
@@ -8243,9 +8322,10 @@ def _ha_status(urls) -> dict:
     return out
 
 
-def _ha_leader(urls) -> "str | None":
-    """The one master that leads and that every live master names."""
-    st = _ha_status(urls)
+def _ha_leader(urls, st: "dict | None" = None) -> "str | None":
+    """The one master that leads and that every live master names (in
+    the statuses `st`, else each master's status asked now)."""
+    st = _ha_status(urls) if st is None else st
     leaders = [u for u, r in st.items() if r.get("isLeader")]
     if len(leaders) != 1:
         return None
@@ -8706,8 +8786,22 @@ def phase_master_ha(tmp: str, seed: int, big_mb: int = HA_MB,
                  "the filer follows the new leader", timeout=2.0,
                  interval=0.01)
             follow_s = time.perf_counter() - t
-            poll(lambda: _ha_leader(murls) == target, "the target leads",
-                 timeout=10)
+            last: dict = {}
+
+            def target_leads() -> bool:
+                last["st"] = _ha_status(murls)
+                return _ha_leader(murls, last["st"]) == target
+            try:
+                poll(target_leads, "the target leads", timeout=10)
+            except RuntimeError as e:
+                # what each master said last: who leads, in which term
+                raise RuntimeError(f"{e}: target {target}; " + str({
+                    u: {k: r.get(k) for k in ("isLeader", "leader",
+                                              "error", "term")
+                        if k in r} | ({"raftTerm": r["raft"].get("term")}
+                                      if isinstance(r.get("raft"), dict)
+                                      else {})
+                    for u, r in last.get("st", {}).items()})) from None
             time.sleep(0.5)
         finally:
             stop.set()
@@ -9505,6 +9599,541 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
     return out
 
 
+SERVER_S3_KEYS = ("SERVERAK", "serversecret")   # -s3.accessKey/-secretKey
+SERVER_S3_OBJ = 10 << 20             # warp's default --obj.size
+SERVER_S3_C = 20                     # the published run's concurrency
+SERVER_S3_MB = 1024                  # one volume of config 1's size
+SERVER_S3_MIXED = 200                # warp mixed, bounded by a count
+SERVER_S3_MIX = (("GET", 45), ("STAT", 30), ("PUT", 15), ("DELETE", 10))
+SERVER_S3_STS_N = 16                 # prefill objects through the STS
+SERVER_S3_LOST = (1, 4, 7, 9)        # data shards deleted before rebuild
+SERVER_S3_DEGRADED = 8               # objects read while they are lost
+SERVER_S3_STS_KEY = "server-s3-sts-signing-key"
+SERVER_S3_SLOW_MS = "1"              # spans logged as slow, with their id
+
+
+def _read_lines(proc, n: int, timeout: float = 60.0) -> "list[str]":
+    """The next `n` lines a started process prints (fails after
+    `timeout` seconds)."""
+    out: list = []
+    t = threading.Thread(target=lambda: out.extend(
+        proc.stdout.readline() for _ in range(n)), daemon=True)
+    t.start()
+    t.join(timeout)
+    check(len(out) == n, f"{n} lines expected, got {out}")
+    return out
+
+
+def _payload_of(seed: int, key: str, size: int) -> bytes:
+    import numpy as np
+    h = int.from_bytes(hashlib.sha256(key.encode()).digest()[:8], "big")
+    return np.random.default_rng([seed, 22, h]).bytes(size)
+
+
+def _op_stats(samples: "list[tuple[float, int]]", wall: float) -> dict:
+    """warp's per-operation line: objects/s and MiB/s over the mixed
+    part's wall, p50/p99 of the operation's latency."""
+    ms = [s * 1e3 for s, _ in samples]
+    return {"ops": len(samples), "obj_per_s": len(samples) / wall,
+            "mib_per_s": sum(b for _, b in samples) / wall / (1 << 20),
+            **(_pcts(ms) if ms else {})}
+
+
+def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
+                    obj_size: int = SERVER_S3_OBJ,
+                    mixed_ops: int = SERVER_S3_MIXED,
+                    sts_n: int = SERVER_S3_STS_N,
+                    device: str = "cuda") -> dict:
+    """The reference's published S3 deployment around an ec.encode and an
+    ec.rebuild on the card: one `python -m seaweedfs_tpu_torch -v 1
+    -logdir D -logJson server -filer -s3` (master, volume server, filer
+    and gateway in one process, its codec on the default device), an
+    `iam` server (`-stsKey`, `-rolesFile`, `-oidcConfig` with one HS256
+    and one RS256 provider) and a second `s3 -filer` gateway over the
+    same filer (`-iamConfig`, `-stsKey`, `-rolesFile`, `-kmsEndpoint` at
+    a KMS stub in this script, `-metricsAddress` at a pushgateway
+    stand-in here, `-metricsPort`).  Steps, each printed on its JSON
+    line:
+    1. start: the processes, the admin identities and the bucket made by
+       the shell's `s3.user.create`, `s3.accesskey.create`,
+       `s3.policy.attach`, `s3.bucket.create` and `s3.bucket.quota`
+       (`-config` the identities file the gateway and the IAM server
+       read);
+    2. prefill: warp mixed's objects (10 MiB) on 20 threads until one
+       volume of `volume_mb` is full; `sts_n` of them PUT through the
+       second gateway under SSE-KMS with credentials from
+       `AssumeRoleWithWebIdentity`, half with an HS256 token and half
+       with an RS256 token this script mints;
+    3. mixed: `mixed_ops` operations in warp mixed's shares (GET 45%,
+       STAT 30%, PUT 15%, DELETE 10%) on 20 threads through the
+       server's gateway: objects/s, MiB/s and p50/p99 of each;
+    4. encode: `ec.encode` of the full volume through the shell, on the
+       card (launches equal to its windows);
+    5. rebuild: shards 1, 4, 7 and 9 deleted, `SERVER_S3_DEGRADED`
+       objects read degraded (host codec, no launch), `ec.rebuild` on the
+       card (launches equal to its windows);
+    6. verify: every object read back through both gateways equal to its
+       seeded payload (the SSE-KMS ones with their temporary
+       credentials), the deleted ones 404; a tampered, an expired and a
+       foreign session token answered 403; `weed.log`'s lines all JSON,
+       one request id found in a line and in its answer's
+       `X-Request-ID`; the pushes the stand-in received; the second
+       gateway's `-metricsPort` page; `s3.bucket.quota.enforce`."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import security
+    from seaweedfs_tpu_torch.iam.kms import LocalKms
+    from seaweedfs_tpu_torch.iam.kms_aws import KmsStubServer
+    from seaweedfs_tpu_torch.iam.oidc import mint_test_token
+    from seaweedfs_tpu_torch.server.httpd import (HttpServer, http_bytes,
+                                                  http_json)
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import (
+        ECContext)
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import (
+        rebuild_step)
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(tmp)
+    d, p = 10, 4
+    ctx = ECContext(d, p, device="cpu")
+    sdir, logdir = os.path.join(tmp, "server"), os.path.join(tmp, "log")
+    os.makedirs(sdir)
+    ids_path = os.path.join(tmp, "s3.json")
+    roles_path = os.path.join(tmp, "roles.json")
+    oidc_path = os.path.join(tmp, "oidc.json")
+    procs: list = []
+    iam_procs: list = []
+    s3b_procs: list = []
+    steps: dict = {}
+    pushes: dict = {}
+    push_lock = threading.Lock()
+
+    def on_push(req):
+        with push_lock:
+            pushes[req.path] = pushes.get(req.path, 0) + 1
+        return 200, {}
+    pgw = HttpServer()
+    pgw.fallback = on_push
+    pgw.start()
+    kms_backend = LocalKms(os.path.join(tmp, "kms.json"))
+    kms_backend.create_key(alias="aws/s3")
+    kms_stub = KmsStubServer(kms_backend, access_key="KMSAK",
+                             secret_key="KMSSK").start()
+    # the identity providers: one shared HS256 secret, one RSA key pair
+    rsa_key = rsa.generate_private_key(public_exponent=65537,
+                                       key_size=2048)
+    pem_path = os.path.join(tmp, "rs.pem")
+    with open(pem_path, "wb") as f:
+        f.write(rsa_key.public_key().public_bytes(
+            serialization.Encoding.PEM,
+            serialization.PublicFormat.SubjectPublicKeyInfo))
+    with open(oidc_path, "w") as f:
+        json.dump([{"name": "hs", "issuer": "https://hs.idp.test",
+                    "audience": "warp", "hs256Secret": "hs-secret"},
+                   {"name": "rs", "issuer": "https://rs.idp.test",
+                    "audience": "warp", "rsaPublicKeyFile": pem_path}], f)
+    with open(roles_path, "w") as f:
+        json.dump({"warp-writer": {
+            "actions": ["Read:warp", "Write:warp", "List:warp"],
+            "trust": ["oidc:hs#*", "oidc:rs#*"]}}, f)
+    bucket = "warp"
+    objs: dict = {}          # key -> (sha256, size, kind)
+    try:
+        # 1. the identities first (the shell's verbs on the file alone),
+        # the IAM server beside the all-in-one server, then the second
+        # gateway (it needs the filer's address) beside the bucket's verbs
+        # and the volume server's first /metrics (its codec module)
+        t = time.perf_counter()
+        cfg = f"-config={ids_path}"
+        out = commands.run_script(
+            commands.CommandEnv(""),
+            f"s3.user.create -user=admin -actions=Read {cfg}; "
+            f"s3.accesskey.create -user=admin {cfg}; "
+            f"s3.policy.attach -user=admin -actions=Admin {cfg}")
+        admin = tuple(ln.split(": ", 1)[1] for ln in out[1].splitlines())
+        check(len(admin) == 2 and "Admin" in out[2], f"shell: {out}")
+        mport = _free_port()
+        started: dict = {}
+
+        def start_iam():
+            # its own list: the other processes start meanwhile
+            _start_procs(
+                [["iam", "-port", "0", "-iamConfig", ids_path, "-stsKey",
+                  SERVER_S3_STS_KEY, "-rolesFile", roles_path,
+                  "-oidcConfig", oidc_path]],
+                [os.path.join(tmp, "iam.log")], iam_procs, "iam",
+                line=r"oidc provider (hs) .*\n", cwd=tmp)
+            started["iam_lines"] = _read_lines(iam_procs[0], 2)
+        th_iam = threading.Thread(target=start_iam)
+        th_iam.start()
+        (first_line,) = _start_procs(
+            [["-v", "1", "-logdir", logdir, "-logJson", "server",
+              "-filer", "-s3", "-s3.accessKey", SERVER_S3_KEYS[0],
+              "-s3.secretKey", SERVER_S3_KEYS[1], "-dir", sdir,
+              "-master.port", "0", "-master.volumeSizeLimitMB",
+              str(volume_mb), "-volume.port", "0", "-filer.port", "0",
+              "-s3.port", "0",
+              *([] if device == "cuda" else ["-device", device])]],
+            [os.path.join(tmp, "server.log")], procs, "server",
+            line=r"(master on \S+:\d+, volume on \S+:\d+)\n",
+            env_extra={"SEAWEEDFS_TPU_SLOW_MS": SERVER_S3_SLOW_MS},
+            cwd=tmp)
+        murl, vurl = re.fullmatch(r"master on (\S+:\d+), volume on "
+                                  r"(\S+:\d+)", first_line).groups()
+        banner = _read_lines(procs[-1], 2)
+        furl = re.fullmatch(r"filer on (\S+:\d+)\n", banner[0]).group(1)
+        s3a = re.fullmatch(r"s3 on (\S+:\d+)\n", banner[1]).group(1)
+        th_warm = threading.Thread(target=_warm_metrics, args=([vurl],))
+        th_warm.start()
+
+        def start_s3b():
+            started["s3b"] = _start_procs(
+                [["s3", "-port", "0", "-filer", furl, "-iamConfig",
+                  ids_path, "-stsKey", SERVER_S3_STS_KEY, "-rolesFile",
+                  roles_path, "-kmsEndpoint", f"{kms_stub.url},KMSAK,KMSSK",
+                  "-metricsAddress", pgw.url, "-metricsIntervalSec", "1",
+                  "-metricsPort", str(mport)]],
+                [os.path.join(tmp, "s3b.log")], s3b_procs, "s3",
+                line=r"s3 gateway listening on (\S+:\d+) .*\n", cwd=tmp)
+            started["push_line"] = _read_lines(s3b_procs[0], 1)[0]
+        th_s3b = threading.Thread(target=start_s3b)
+        th_s3b.start()
+        env = commands.CommandEnv(murl, filer=furl)
+        out = commands.run_script(
+            env, f"s3.bucket.create -name={bucket}; s3.bucket.quota "
+                 f"-bucket={bucket} -limitMB={4 * volume_mb}")
+        check(out[0] == f"created bucket {bucket}", f"shell: {out}")
+        for th in (th_iam, th_warm, th_s3b):
+            th.join()
+        procs += iam_procs + s3b_procs
+        del iam_procs[:], s3b_procs[:]
+        check("iam_lines" in started and "s3b" in started,
+              f"the iam server or the second gateway did not start: "
+              f"{sorted(started)}")
+        (s3b,) = started["s3b"]
+        check(started["push_line"] == f"pushing metrics to {pgw.url} "
+                                      f"every 1s\n",
+              f"the second gateway's push line: {started['push_line']}")
+        iam_url = re.fullmatch(r"iam api on (\S+:\d+)\n",
+                               started["iam_lines"][1]).group(1)
+        steps["start"] = {"seconds": time.perf_counter() - t,
+                          "master": murl, "filer": furl, "s3": s3a,
+                          "s3_sts": s3b, "iam": iam_url,
+                          "iam_lines": started["iam_lines"]}
+        emit({"phase": "server_s3", "step": "start", **steps["start"]})
+        send_a = _s3_client(s3a, SERVER_S3_KEYS)
+        send_b = _s3_client(s3b, admin)
+
+        # 2. prefill: 10 MiB objects until one volume is full, part of
+        # them through the STS gateway under SSE-KMS
+        def web_creds(provider: str) -> dict:
+            claims = {"iss": f"https://{provider}.idp.test",
+                      "aud": "warp", "sub": f"warp-{provider}",
+                      "exp": int(time.time()) + 3600}
+            token = mint_test_token(
+                claims, **({"hs256_secret": "hs-secret"}
+                           if provider == "hs"
+                           else {"rsa_private_key": rsa_key}))
+            form = urllib.parse.urlencode({
+                "Action": "AssumeRoleWithWebIdentity",
+                "RoleName": "warp-writer", "WebIdentityToken": token,
+                "RoleSessionName": f"chip-{provider}"}).encode()
+            st, body, _ = http_bytes("POST", f"{iam_url}/", form, {
+                "Content-Type": "application/x-www-form-urlencoded"},
+                timeout=60)
+            check(st == 200, f"AssumeRoleWithWebIdentity ({provider}): "
+                             f"{st} {body[:200]!r}")
+            import xml.etree.ElementTree as ET
+            return {e.tag.rsplit("}", 1)[-1]: e.text
+                    for e in ET.fromstring(body).iter()}
+        sessions = {pv: web_creds(pv) for pv in ("hs", "rs")}
+        sts_send = {pv: _s3_client(s3b, (c["AccessKeyId"],
+                                         c["SecretAccessKey"]))
+                    for pv, c in sessions.items()}
+
+        def put(key: str, kind: str) -> float:
+            body = _payload_of(seed, key, obj_size)
+            t0 = time.perf_counter()
+            if kind == "plain":
+                st = send_a("PUT", f"/{bucket}/{key}", body=body)[0]
+            else:
+                pv = kind
+                st = sts_send[pv]("PUT", f"/{bucket}/{key}", body=body,
+                                  headers={
+                    "x-amz-security-token": sessions[pv]["SessionToken"],
+                    "x-amz-server-side-encryption": "aws:kms"})[0]
+            dt = time.perf_counter() - t0
+            check(st == 200, f"PUT {key} ({kind}): {st}")
+            objs[key] = (hashlib.sha256(body).hexdigest(), len(body),
+                         kind)
+            return dt
+        n_fill = -(-(volume_mb << 20) // obj_size) + 1
+        plan = [(f"prefill/sts-{pv}-{i:03d}", pv)
+                for i in range(sts_n // 2) for pv in ("hs", "rs")]
+        plan += [(f"prefill/obj-{i:04d}", "plain")
+                 for i in range(n_fill - len(plan))]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_S3_C) as pool:
+            put_s = list(pool.map(lambda kv: put(*kv), plan))
+        fill_s = time.perf_counter() - t
+
+        def vid_of(key: str) -> "set[int]":
+            e = http_json("GET", f"{furl}/__meta__/lookup?path=/buckets/"
+                                 f"{bucket}/{key}", timeout=30)
+            return {int(c["fileId"].split(",")[0]) for c in e["chunks"]}
+        first = min(vid_of(plan[0][0]))
+        dat = os.path.join(sdir, f"{first}.dat")
+        check(os.path.getsize(dat) >= (volume_mb << 20) * 0.95,
+              f"volume {first} holds {os.path.getsize(dat)} bytes")
+        steps["prefill"] = {"objects": len(plan), "sts_objects": sts_n,
+                            "bytes": len(plan) * obj_size,
+                            "seconds": fill_s,
+                            "mib_per_s": len(plan) * obj_size / fill_s /
+                            (1 << 20), **_pcts([s * 1e3 for s in put_s]),
+                            "volume": first,
+                            "volume_bytes": os.path.getsize(dat)}
+        emit({"phase": "server_s3", "step": "prefill",
+              **steps["prefill"]})
+
+        # 3. warp mixed through the server's gateway, bounded by a count
+        rng = np.random.default_rng([seed, 23])
+        kinds = [op for op, share in SERVER_S3_MIX
+                 for _ in range(round(mixed_ops * share / 100))]
+        rng.shuffle(kinds)
+        plain = sorted(k for k, v in objs.items() if v[2] == "plain")
+        n_del = kinds.count("DELETE")
+        doomed, kept = plain[:n_del], plain[n_del:]
+        doomed_it, new_i = iter(doomed), itertools.count()
+        schedule = []
+        for op in kinds:
+            if op == "DELETE":
+                schedule.append((op, next(doomed_it)))
+            elif op == "PUT":
+                schedule.append((op, f"mixed/put-{next(new_i):04d}"))
+            else:
+                schedule.append((op, kept[int(rng.integers(len(kept)))]))
+        samples: dict = {op: [] for op, _ in SERVER_S3_MIX}
+
+        def run(item):
+            op, key = item
+            t0 = time.perf_counter()
+            if op == "PUT":
+                put(key, "plain")
+                nbytes = obj_size
+            elif op == "GET":
+                st, body, _ = send_a("GET", f"/{bucket}/{key}")
+                check(st == 200 and hashlib.sha256(body).hexdigest() ==
+                      objs[key][0], f"mixed GET {key}: {st}")
+                nbytes = len(body)
+            elif op == "STAT":
+                st, _, h = send_a("HEAD", f"/{bucket}/{key}")
+                check(st == 200 and int(h["Content-Length"]) ==
+                      objs[key][1], f"mixed STAT {key}: {st}")
+                nbytes = 0
+            else:
+                st = send_a("DELETE", f"/{bucket}/{key}")[0]
+                check(st == 204, f"mixed DELETE {key}: {st}")
+                nbytes = 0
+            return op, time.perf_counter() - t0, nbytes
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_S3_C) as pool:
+            for op, dt, nbytes in pool.map(run, schedule):
+                samples[op].append((dt, nbytes))
+        mixed_s = time.perf_counter() - t
+        for key in doomed:
+            objs.pop(key)
+        steps["mixed"] = {"ops": len(schedule), "seconds": mixed_s,
+                          "threads": SERVER_S3_C, "obj_size": obj_size,
+                          **{op.lower(): _op_stats(samples[op], mixed_s)
+                             for op, _ in SERVER_S3_MIX}}
+        emit({"phase": "server_s3", "step": "mixed", **steps["mixed"]})
+
+        # 4. ec.encode of the full volume, on the card
+        def ec_locs() -> list:
+            return sorted(s for x in http_json(
+                "GET", f"{murl}/dir/ec_lookup?volumeId={first}",
+                timeout=30).get("shardIdLocations", [])
+                for s in x["shardIds"])
+        poll(lambda: any(v["id"] == first and
+                         v["size"] == os.path.getsize(dat)
+                         for _n, v in iter_volume_list_volumes(http_json(
+                             "GET", f"{murl}/vol/list", timeout=30))),
+             "the master sees the volume's size")
+        size = os.path.getsize(dat)
+        windows = sum(launches_for(d, item[3]) for item in
+                      ec_encoder._encode_work_items(size, ctx))
+        l0 = _counters([vurl])["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.encode -volumeId={first}; unlock")
+        enc_s = time.perf_counter() - t
+        enc = int(_counters([vurl])["launches"] - l0)
+        check("encoded 14 shards" in out[1], f"encode: {out}")
+        check(enc == windows, f"the encode launched {enc}, its windows "
+                              f"are {windows}")
+        poll(lambda: ec_locs() == list(range(d + p)), "14 shards listed")
+        steps["encode"] = {"volume": first, "bytes": size,
+                           "seconds": enc_s, "gbps": size / enc_s / 1e9,
+                           "launches": enc, "windows": windows}
+        emit({"phase": "server_s3", "step": "encode", **steps["encode"]})
+
+        # 5. 4 shards lost: degraded reads on the host, then ec.rebuild
+        info = http_json("GET", f"{vurl}/admin/ec/info?volumeId={first}"
+                                f"&collection=", timeout=30)
+        shard_size = int(info["shardSize"])
+        _post(f"{vurl}/admin/ec/delete_shards",
+              {"volumeId": first, "collection": "",
+               "shardIds": list(SERVER_S3_LOST)}, "server-s3-loss")
+        poll(lambda: ec_locs() == [s for s in range(d + p)
+                                   if s not in SERVER_S3_LOST],
+             "the master lists 10 shards")
+        on_first = [k for k in sorted(objs) if objs[k][2] == "plain" and
+                    first in vid_of(k)][:SERVER_S3_DEGRADED]
+        c0 = _counters([vurl])
+        for key in on_first:
+            st, body, _ = send_a("GET", f"/{bucket}/{key}")
+            check(st == 200 and hashlib.sha256(body).hexdigest() ==
+                  objs[key][0], f"degraded GET {key}: {st}")
+        dg = _delta(_counters([vurl]), c0)
+        check(dg["degraded"] > 0 and dg["launches"] == 0,
+              f"degraded reads: {dg}")
+        # every survivor is on the one server: the rebuild reads local
+        # files in device batches, no streamed slices
+        step = rebuild_step(shard_size, ctx, None)
+        reb_windows = sum(launches_for(d, min(step, shard_size - pos))
+                          for pos in range(0, shard_size, step))
+        l0 = _counters([vurl])["launches"]
+        t = time.perf_counter()
+        out = commands.run_script(
+            env, f"lock; ec.rebuild -volumeId={first}; unlock")
+        reb_s = time.perf_counter() - t
+        reb = int(_counters([vurl])["launches"] - l0)
+        check(f"rebuilt shards {list(SERVER_S3_LOST)} on " in out[1],
+              f"rebuild: {out}")
+        check(reb == reb_windows, f"the rebuild launched {reb}, its "
+                                  f"windows are {reb_windows}")
+        poll(lambda: ec_locs() == list(range(d + p)),
+             "14 shards listed again")
+        http_json("POST", f"{vurl}/admin/ec/unmount",
+                  {"volumeId": first, "collection": "", "shardIds": []},
+                  timeout=30)
+        steps["rebuild"] = {"lost": list(SERVER_S3_LOST),
+                            "degraded_objects": len(on_first),
+                            "degraded_reads": dg["degraded"],
+                            "degraded_launches": dg["launches"],
+                            "seconds": reb_s, "launches": reb,
+                            "windows": reb_windows}
+        emit({"phase": "server_s3", "step": "rebuild",
+              **steps["rebuild"]})
+
+        # 6. every object through both gateways
+        c0 = _counters([vurl])
+
+        def verify(key):
+            want, _, kind = objs[key]
+            got = []
+            if kind == "plain":
+                for send in (send_a, send_b):
+                    st, body, _ = send("GET", f"/{bucket}/{key}")
+                    got.append(st == 200 and hashlib.sha256(
+                        body).hexdigest() == want)
+            else:
+                st, body, _ = sts_send[kind]("GET", f"/{bucket}/{key}",
+                                             headers={
+                    "x-amz-security-token":
+                    sessions[kind]["SessionToken"]})
+                got.append(st == 200 and
+                           hashlib.sha256(body).hexdigest() == want)
+            return all(got)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_S3_C) as pool:
+            bad = [k for k, ok in zip(sorted(objs), pool.map(
+                verify, sorted(objs))) if not ok]
+            gone = [k for k, st in zip(doomed, pool.map(
+                lambda k: send_a("HEAD", f"/{bucket}/{k}")[0], doomed))
+                if st != 404]
+        verify_s = time.perf_counter() - t
+        check(not bad, f"{len(bad)} objects differ, first {bad[:3]}")
+        check(not gone, f"deleted objects still answer: {gone[:3]}")
+        reads = _delta(_counters([vurl]), c0)
+        # the session tokens: tampered, expired, foreign
+        sess = sessions["hs"]
+        claims = security.decode_jwt(SERVER_S3_STS_KEY,
+                                     sess["SessionToken"])
+        claims["exp"] = int(time.time()) - 60
+        tokens = {"tampered": sess["SessionToken"][:-4] + "AAAA",
+                  "expired": security.gen_jwt(SERVER_S3_STS_KEY, claims),
+                  "foreign": security.gen_jwt("another-key", {
+                      **claims, "exp": int(time.time()) + 600})}
+        key_hs = next(k for k in sorted(objs) if objs[k][2] == "hs")
+        refused = {name: sts_send["hs"]("GET", f"/{bucket}/{key_hs}",
+                                        headers={
+            "x-amz-security-token": tok})[0]
+            for name, tok in tokens.items()}
+        check(set(refused.values()) == {403},
+              f"bad session tokens: {refused}")
+        # the log: JSON lines, and one request id in a line and an answer
+        rid = f"server-s3-{seed}-{os.getpid()}"
+        key0 = next(k for k in sorted(objs) if objs[k][2] == "plain")
+        st, _, h = send_a("GET", f"/{bucket}/{key0}",
+                          headers={"X-Request-ID": rid})
+        check(h.get("X-Request-ID") == rid, f"the answer's id: {h}")
+        log_path = os.path.join(logdir, "weed.log")
+
+        def log_docs() -> list:
+            with open(log_path) as f:
+                return [json.loads(ln) for ln in f if ln.strip()]
+        poll(lambda: any(doc.get("requestId") == rid
+                         for doc in log_docs()),
+             "the request id in a weed.log line", timeout=30)
+        docs = log_docs()
+        rid_lines = [doc for doc in docs if doc.get("requestId") == rid]
+        st, text, _ = http_bytes("GET", f"127.0.0.1:{mport}/metrics",
+                                 timeout=30)
+        check(st == 200 and f'bucket="{bucket}"'.encode() in text,
+              "the second gateway's -metricsPort page")
+        want_push = f"/metrics/job/s3/instance/{urllib.parse.quote(s3b)}"
+        poll(lambda: pushes.get(want_push, 0) >= 2,
+             "pushes from the second gateway", timeout=30)
+        quota = commands.run_script(env, "s3.bucket.quota.enforce")[0]
+        check(f"{bucket}: used=" in quota and quota.endswith(" ok"),
+              f"quota: {quota}")
+        steps["verify"] = {
+            "objects": len(objs), "deleted": len(doomed),
+            "gateways": 2, "seconds": verify_s,
+            "bytes": sum(v[1] * (2 if v[2] == "plain" else 1)
+                         for v in objs.values()),
+            "kernel_launches": reads["launches"],
+            "degraded_reads": reads["degraded"],
+            "refused_tokens": refused,
+            "log_lines": len(docs),
+            "log_keys": sorted({k for doc in docs for k in doc}),
+            "request_id": rid, "request_id_lines": len(rid_lines),
+            "request_id_components": sorted({doc.get("component", "")
+                                             for doc in rid_lines}),
+            "pushes": dict(pushes), "quota": quota}
+        emit({"phase": "server_s3", "step": "verify", **steps["verify"]})
+    finally:
+        bad = _stop_peers(procs + iam_procs + s3b_procs)
+        kms_stub.stop()
+        pgw.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not bad, f"a process of the phase did not stop: {bad}")
+    out = {"phase": "server_s3", "steps": steps,
+           "launches": {"encode": steps["encode"]["launches"],
+                        "rebuild": steps["rebuild"]["launches"],
+                        "reads": steps["verify"]["kernel_launches"] +
+                        steps["rebuild"]["degraded_launches"]},
+           "phase_seconds": time.perf_counter() - phase_t0}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-gib", type=float, default=1.0,
@@ -9578,6 +10207,8 @@ def main(argv=None) -> int:
                    os.path.join(work, "master_ha"), args.seed)
         rest = timed("filer_rest", phase_filer_rest,
                      os.path.join(work, "filer_rest"), args.seed)
+        srv = timed("server_s3", phase_server_s3,
+                    os.path.join(work, "server_s3"), args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -9621,7 +10252,10 @@ def main(argv=None) -> int:
               "master_ha_encode": ha["launches"]["encode"],
               "master_ha_rebuild": ha["launches"]["rebuild"],
               "filer_rest_encode": rest["launches"]["encode"],
-              "filer_rest_rebuild": rest["launches"]["rebuild"]}),
+              "filer_rest_rebuild": rest["launches"]["rebuild"],
+              "server_s3_encode": srv["launches"]["encode"],
+              "server_s3_rebuild": srv["launches"]["rebuild"],
+              "server_s3_reads": srv["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",
              {"batch": batch["batched_launches"],

@@ -1,18 +1,27 @@
 """Command line of the port.
 
-    python3 -m seaweedfs_tpu_torch [-securityToml security.toml] ROLE ...
+    python3 -m seaweedfs_tpu_torch [-securityToml security.toml]
+        [-v LEVEL] [-logdir DIR] [-logJson] ROLE ...
     python3 -m seaweedfs_tpu_torch master [-ip 127.0.0.1] [-port 9333]
         [-volumeSizeLimitMB 1024] [-defaultReplication 000]
         [-peers HOST:PORT,HOST:PORT,...] [-mdir DIR]
         [-telemetry -telemetryUrl URL]
+        [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
         [-ip 127.0.0.1] [-mserver HOST:PORT[,...]] [-device cuda] [-max 8]
         [-dataCenter DC] [-rack RACK] [-fsync]
+        [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
+    python3 -m seaweedfs_tpu_torch server [-ip 127.0.0.1] [-dir .]
+        [-master.port 9333] [-master.volumeSizeLimitMB 1024]
+        [-volume.port 8080] [-device cuda]
+        [-filer [-filer.port 8888]]
+        [-s3 [-s3.port 8333] [-s3.accessKey AK -s3.secretKey SK]]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
         [-master HOST:PORT] [-store filer.db] [-collection C]
         [-storeType sqlite|lsm|redis|elastic] [-replication 000]
         [-workers N] [-metaPlane 0|1] [-notification SPEC]
         [-lockPeers HOST:PORT,...]
+        [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
     python3 -m seaweedfs_tpu_torch filer.sync -from HOST:PORT -to HOST:PORT
         [-state FILE] [-interval 0.5]
     python3 -m seaweedfs_tpu_torch filer.backup -filer HOST:PORT -dir DIR
@@ -37,11 +46,27 @@
     python3 -m seaweedfs_tpu_torch s3 [-ip 127.0.0.1] [-port 8333]
         [-filer HOST:PORT | -master HOST:PORT -store filer.db]
         [-accessKey AK -secretKey SK] [-iamConfig s3.json]
-        [-kmsFile keys.json]
+        [-stsKey KEY [-rolesFile roles.json]]
+        [-kmsFile keys.json | -kmsEndpoint HOST:PORT[,AK,SK[,REGION]]
+         | -kmsCloud gcp|azure|openbao:ENDPOINT,KEY,TOKEN]
+        [-metricsPort P] [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
+    python3 -m seaweedfs_tpu_torch iam -iamConfig s3.json [-ip 127.0.0.1]
+        [-port 8111] [-stsKey KEY [-rolesFile roles.json]
+        [-oidcConfig providers.json]]
+    python3 -m seaweedfs_tpu_torch version
     python3 -m seaweedfs_tpu_torch cert [-dir certs]
         [-hosts 127.0.0.1,localhost]
     python3 -m seaweedfs_tpu_torch scaffold
         [-config security|filer|notification|replication]
+
+`-v LEVEL` (or `WEED_V`), `-logdir DIR` and `-logJson` (before the
+role) set the log (`util/wlog.py`): `V(n)` gates detail at or under
+LEVEL, every line goes to stderr and, with `-logdir`, to
+`DIR/weed.log` too (rotated at 64 MiB, three old files kept), as one
+JSON object a line with `-logJson`, and a line logged inside a request
+carries its request id (`X-Request-ID`).  Every `WEED_*` environment
+default that replaced a flag's default is logged as an `env override`
+line.
 
 `-securityToml` (before the role) loads the reference's security.toml
 into the process (`security.py`): `[jwt.signing]` and
@@ -83,7 +108,27 @@ of the other roles takes such a list and follows the leader.  The volume server'
 on the CUDA card, or on `-device cpu` when asked for.  A `-device cuda`
 given on the command line must find the card at start, or the command
 fails; left out, the card is first looked for by the first encode or
-rebuild, which fails without one.  `shell` runs one `;`-separated command line
+rebuild, which fails without one.  `-metricsAddress` on `master`,
+`volume`, `filer` and `s3` PUTs the role's registry to a Prometheus
+pushgateway every `-metricsIntervalSec` seconds
+(`stats.MetricsPusher`; `pushing metrics to ...` printed after the
+listening line); a failed push is logged and retried at the next tick,
+never fatal.
+
+`server` runs a master, a volume server on `-dir` (its codec on
+`-device`, the card by default), and with `-filer` or `-s3` a filer
+over the sqlite store `DIR/filer.db`, and with `-s3` an S3 gateway on
+it (signed with `-s3.accessKey`/`-s3.secretKey`, unsigned without), all
+in one process, started in that order; it prints `master on URL,
+volume on URL`, then `filer on URL` and `s3 on URL`, as the JAX
+package's `server` does, and stops them in the reverse order on
+SIGTERM or SIGINT.  `-master.volumeSizeLimitMB` (the reference's `weed
+server` flag; the JAX `server` has none) sets the master's volume size
+limit.  `-tierBackend` is refused (exit 2): the S3 tier
+backend is not ported (ROADMAP A4).  `version` prints
+`seaweedfs-tpu-torch <version> (python <version>)`.
+
+`shell` runs one `;`-separated command line
 against `-master` (and `-filer`, for the `fs.*` commands), prints each
 command's output and exits; with no command it reads lines at a `> `
 prompt until `exit`, `quit` or the end of input.
@@ -115,8 +160,8 @@ sibling workers on port P` after its listening line; a sibling that
 exits is respawned (20 times at most), and SIGTERM stops the fleet.
 `SEAWEEDFS_TPU_ASYNC_FRONT=filer` serves the filer on the asyncio front
 (`server/async_front.py`).  `-workers` over a store other than sqlite
-warns and runs one process, as the JAX filer does.  `-metricsAddress`
-is refused, not ported yet (ROADMAP).  A volume server and a filer run
+warns and runs one process, as the JAX filer does.  A volume server
+and a filer run
 the SLO autopilot (`autopilot.py`) unless `SEAWEEDFS_TPU_AUTOPILOT=0`;
 a fleet's parent also registers the `workers` knob, between 1 and twice
 `-workers` processes, which spawns and drains siblings under the
@@ -145,9 +190,22 @@ lists its live files, or writes them to the tar file `-o`.
 <ip>:<port>`.  Requests are signed with SigV4 against `-accessKey` /
 `-secretKey` (every key acts as admin) or the identities of
 `-iamConfig` (the reference's s3.json shape); `-kmsFile` is a local KMS
-keystore that enables SSE-KMS.  `-stsKey`, `-rolesFile`,
-`-kmsEndpoint`, `-kmsCloud`, `-metricsPort` and `-metricsAddress` are
-refused (exit 2), not ported yet (ROADMAP A9).
+keystore that enables SSE-KMS; `-kmsEndpoint` speaks the AWS KMS wire
+protocol to an endpoint instead (`iam/kms_aws.py`), and `-kmsCloud` to
+GCP KMS, Azure Key Vault or OpenBao transit (`iam/kms_cloud.py`; an
+unknown provider exits 2).  `-stsKey` honours temporary credentials
+(`x-amz-security-token`) minted under the same key by an `iam` server,
+whose roles `-rolesFile` holds (`iam/sts.py`).  `-metricsPort` serves
+the per-bucket metrics on a listener of their own too.
+
+`iam` serves the IAM API (`iam/iamapi.py`: users, access keys, inline
+policies) and STS `AssumeRole` over HTTP on `-port`, over the
+identities JSON `-iamConfig` that gateways share; with `-stsKey`
+(and `-rolesFile`) it mints temporary credentials, and `-oidcConfig`, a
+JSON list of `{name, issuer, audience?, hs256Secret? |
+rsaPublicKeyFile?}`, adds `AssumeRoleWithWebIdentity` (`iam/oidc.py`;
+without `-stsKey` it exits 2).  It prints `oidc provider NAME (ISSUER)`
+for each provider, then `iam api on <ip>:<port>`.
 
 `filer.sync` replicates `-from`'s namespace and content to `-to`,
 event by event from its metadata log, and `filer.backup` mirrors a
@@ -176,16 +234,18 @@ import tempfile
 import threading
 
 
-def _serve(server, line, then=None, before_stop=None) -> int:
-    """Start `server`, print `line(server)`, call `then(server)` if
-    given, freeze the heap so far out of the cycle collector, and serve
-    until SIGTERM or SIGINT; then call `before_stop()` if given, and stop
-    the server."""
+def _serve(server, line, then=None, before_stop=None, push=None) -> int:
+    """Start `server`, print `line(server)`, start the metrics pusher that
+    `push`, (args, job), asks for, call `then(server)` if given, freeze
+    the heap so far out of the cycle collector, and serve until SIGTERM
+    or SIGINT; then call `before_stop()` if given, and stop the pusher
+    and the server."""
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
     server.start()
     print(line(server), flush=True)
+    pusher = _metrics_pusher(server, *push) if push else None
     if then is not None:
         then(server)
     # the startup heap (torch and the other modules, the loaded indexes)
@@ -200,8 +260,27 @@ def _serve(server, line, then=None, before_stop=None) -> int:
             if before_stop is not None:
                 before_stop()
         finally:
+            if pusher is not None:
+                pusher.stop()
             server.stop()
     return 0
+
+
+def _metrics_pusher(server, args, job: str):
+    """With `-metricsAddress`, push `server`'s registry to the gateway
+    every `-metricsIntervalSec` (`stats.MetricsPusher`) and say so, as
+    the JAX roles do (the volume server's line names no interval);
+    None without it."""
+    if not args.metrics_address:
+        return None
+    from .stats import MetricsPusher
+    pusher = MetricsPusher(server.metrics, job, server.url,
+                           args.metrics_address,
+                           args.metrics_interval).start()
+    every = "" if job == "volume_server" else \
+        f" every {args.metrics_interval}s"
+    print(f"pushing metrics to {args.metrics_address}{every}", flush=True)
+    return pusher
 
 
 def _listening(role: str):
@@ -337,26 +416,54 @@ def _load_security(path: str) -> "str | None":
         return f"-securityToml {path}: {e}"
     if qos_cfg is not None:
         qos.configure(qos_cfg)
+        from .util import wlog
+        wlog.info("qos config loaded from %s", path, component="config")
+    return None
+
+
+def _kms(args):
+    """The gateway's KMS provider: `-kmsCloud`, else `-kmsEndpoint`, else
+    `-kmsFile` (seaweedfs_tpu/__main__.py's order); None without one.
+    Raises ValueError for an unknown `-kmsCloud` provider."""
+    if args.kms_cloud:
+        from .iam import kms_cloud
+        kind, _, rest = args.kms_cloud.partition(":")
+        parts = rest.split(",")
+        ctor = {"gcp": kms_cloud.GcpKms, "azure": kms_cloud.AzureKms,
+                "openbao": kms_cloud.OpenBaoKms}.get(kind)
+        if ctor is None:
+            raise ValueError(f"unknown -kmsCloud provider {kind!r}")
+        return ctor(parts[0], parts[1] if len(parts) > 1 else "",
+                    token=parts[2] if len(parts) > 2 else "")
+    if args.kms_endpoint:
+        from .iam.kms_aws import AwsKms
+        parts = args.kms_endpoint.split(",")
+        return AwsKms(parts[0], parts[1] if len(parts) > 1 else "",
+                      parts[2] if len(parts) > 2 else "",
+                      parts[3] if len(parts) > 3 else "us-east-1")
+    if args.kms_file:
+        from .iam.kms import LocalKms
+        return LocalKms(args.kms_file)
     return None
 
 
 def _s3(ap, args) -> int:
     """`s3`: the gateway over a running filer or an in-process one."""
-    for flag in ("stsKey", "rolesFile", "kmsEndpoint", "kmsCloud",
-                 "metricsPort", "metricsAddress"):
-        if getattr(args, "refused_" + flag) is not None:
-            print(f"s3 -{flag}: not ported yet (ROADMAP A9)",
-                  file=sys.stderr)
-            return 2
     from .s3 import S3ApiServer
     creds = {args.accessKey: args.secretKey} if args.accessKey else None
-    iam_store = kms = None
+    iam_store = sts = None
     if args.iam_config:
         from .iam import IdentityStore
         iam_store = IdentityStore(args.iam_config)
-    if args.kms_file:
-        from .iam.kms import LocalKms
-        kms = LocalKms(args.kms_file)
+    if args.sts_key:
+        from .iam import StsService
+        from .iam.sts import RoleStore
+        sts = StsService(args.sts_key, RoleStore(args.roles_file or None))
+    try:
+        kms = _kms(args)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
     if args.filer:
         from .filer.client import FilerClient
         backend = FilerClient(args.filer)
@@ -365,9 +472,102 @@ def _s3(ap, args) -> int:
         from .filer.filer_store import SqliteStore
         backend = Filer(args.master, SqliteStore(args.store))
     suffix = f" (filer {args.filer})" if args.filer else ""
+
+    def line(gw) -> str:
+        metrics = f" (metrics {gw.metrics_http.url}/metrics)" \
+            if gw.metrics_http is not None else ""
+        return f"s3 gateway listening on {gw.url}{suffix}{metrics}"
     return _serve(S3ApiServer(backend, args.ip, args.port,
-                              credentials=creds, iam=iam_store, kms=kms),
-                  lambda gw: f"s3 gateway listening on {gw.url}{suffix}")
+                              credentials=creds, iam=iam_store, sts=sts,
+                              kms=kms, metrics_port=args.metrics_port),
+                  line, push=(args, "s3"))
+
+
+class _AllInOne:
+    """`server`: a master, a volume server and, with `-filer` or `-s3`,
+    a filer and an S3 gateway in one process, started in dependency
+    order (command/mini.go) and stopped in the reverse order."""
+
+    def __init__(self, args):
+        self.args = args
+        self.parts: list = []
+
+    def start(self) -> "_AllInOne":
+        from .server.master_server import MasterServer
+        from .server.volume_server import VolumeServer
+        a = self.args
+        self.master = MasterServer(
+            a.ip, a.master_port,
+            volume_size_limit_mb=a.volume_size_limit_mb).start()
+        self.parts.append(self.master)
+        self.volume = VolumeServer([a.dir], host=a.ip, port=a.volume_port,
+                                   device=a.device or "cuda",
+                                   master=self.master.url).start()
+        self.parts.append(self.volume)
+        self.lines = [f"master on {self.master.url}, volume on "
+                      f"{self.volume.url}"]
+        if a.filer or a.s3:
+            from .server.filer_server import FilerServer
+            self.filer = FilerServer(
+                self.master.url, a.ip, a.filer_port,
+                store_path=os.path.join(a.dir, "filer.db")).start()
+            self.parts.append(self.filer)
+            self.lines.append(f"filer on {self.filer.url}")
+            if a.s3:
+                from .s3 import S3ApiServer
+                creds = {a.s3_access: a.s3_secret} if a.s3_access \
+                    else None
+                self.s3 = S3ApiServer(self.filer.filer, a.ip, a.s3_port,
+                                      credentials=creds).start()
+                self.parts.append(self.s3)
+                self.lines.append(f"s3 on {self.s3.url}")
+        return self
+
+    def stop(self) -> None:
+        while self.parts:
+            self.parts.pop().stop()
+
+
+def _server(args) -> int:
+    if args.tierBackend:
+        print("server -tierBackend: not ported yet (ROADMAP A4)",
+              file=sys.stderr)
+        return 2
+    if args.device is not None:
+        from .ops.rs_torch import _resolve_device
+        _resolve_device(args.device)  # raises without the card
+    return _serve(_AllInOne(args), lambda s: "\n".join(s.lines))
+
+
+def _iam(ap, args) -> int:
+    """`iam`: the IAM API and STS over HTTP (`iam/iamapi.py`)."""
+    import json
+    from .iam import IdentityStore, StsService
+    from .iam.iamapi import IamApiServer
+    from .iam.sts import RoleStore
+    store = IdentityStore(args.iam_config)
+    sts = StsService(args.sts_key, RoleStore(args.roles_file or None)) \
+        if args.sts_key else None
+    if args.oidc_config and sts is None:
+        ap.error("-oidcConfig requires -stsKey (web identities mint STS "
+                 "credentials)")
+    if sts is not None and args.oidc_config:
+        from .iam.oidc import OidcProvider
+        with open(args.oidc_config) as f:
+            providers = json.load(f)
+        for cfg in providers:
+            pems = []
+            if cfg.get("rsaPublicKeyFile"):
+                with open(cfg["rsaPublicKeyFile"], "rb") as kf:
+                    pems.append(kf.read())
+            sts.add_provider(OidcProvider(
+                cfg["name"], cfg["issuer"], cfg.get("audience", ""),
+                rsa_public_keys_pem=pems,
+                hs256_secret=cfg.get("hs256Secret", "")))
+            print(f"oidc provider {cfg['name']} ({cfg['issuer']})",
+                  flush=True)
+    return _serve(IamApiServer(store, sts, args.ip, args.port),
+                  lambda srv: f"iam api on {srv.url}")
 
 
 # a sibling that keeps exiting is respawned this many times at most
@@ -419,8 +619,9 @@ class _Fleet:
                 rc = p.poll()
                 if rc is None or p.pid in self.drained:
                     continue
-                print(f"filer worker pid={p.pid} exited rc={rc}",
-                      file=sys.stderr, flush=True)
+                from .util import wlog
+                wlog.warning(f"filer worker pid={p.pid} exited rc={rc}",
+                             component="filer")
                 if self.respawns >= WORKER_RESPAWNS:
                     continue
                 self.respawns += 1
@@ -493,6 +694,7 @@ def _filer(ap, args, argv: "list[str]") -> int:
     import time
     from . import notification as notify
     from .server.filer_server import FilerServer
+    from .util import wlog
     from .util.config import (filer_store_from_toml, find_toml,
                               notification_from_toml)
     workers = args.workers
@@ -502,8 +704,6 @@ def _filer(ap, args, argv: "list[str]") -> int:
                 "SEAWEEDFS_TPU_FILER_WORKERS", "") or 1)
         except ValueError:
             workers = 1
-    if args.metrics_address:
-        ap.error("filer -metricsAddress: not ported yet (ROADMAP A)")
     if workers < 0:
         ap.error(f"filer -workers {workers}: must be 0 or more")
     # the scaffold TOMLs stand in for the flags' defaults only: a
@@ -514,22 +714,23 @@ def _filer(ap, args, argv: "list[str]") -> int:
         picked = filer_store_from_toml(toml_path)
         if picked:
             store_type, store_path = picked
-            print(f"filer store from {toml_path}: {store_type} "
-                  f"{store_path}", file=sys.stderr)
+            wlog.info("filer store from %s: %s %s", toml_path,
+                      store_type, store_path, component="config")
     spec = args.notification
     ntoml = find_toml("notification.toml")
     if ntoml and not spec:
         spec = notification_from_toml(ntoml)
         if spec:
-            print(f"notification from {ntoml}: {spec}", file=sys.stderr)
+            wlog.info("notification from %s: %s", ntoml, spec,
+                      component="config")
     if spec:
         try:
             notify.from_spec(spec).close()
         except ValueError as e:    # an unknown kind, or mq: / kafka:
             ap.error(f"filer: {e}")
     if workers > 1 and store_type != "sqlite":
-        print("filer -workers needs the sqlite store (shared WAL + "
-              "metalog); running 1 process", file=sys.stderr, flush=True)
+        wlog.warning("filer -workers needs the sqlite store (shared WAL + "
+                     "metalog); running 1 process", component="filer")
         workers = 1
     if args.meta_plane:
         # through the environment, so the siblings run the same mode
@@ -589,7 +790,8 @@ def _filer(ap, args, argv: "list[str]") -> int:
         fl.register_knob(server.autopilot)
 
     try:
-        return _serve(fs, _listening("filer"), fleet, fl.stop)
+        return _serve(fs, _listening("filer"), fleet, fl.stop,
+                      push=(args, "filer"))
     finally:
         fl.stop()
 
@@ -599,7 +801,21 @@ def main(argv=None) -> int:
     ap.add_argument("-securityToml", default="",
                     help="security.toml: JWT signing keys, admin key, "
                          "IP whitelist, TLS")
+    ap.add_argument("-v", type=int, default=None, metavar="LEVEL",
+                    help="verbose log level (wlog.V gates; also WEED_V)")
+    ap.add_argument("-logdir", default="",
+                    help="also write the log to <logdir>/weed.log, "
+                         "size-rotated")
+    ap.add_argument("-logJson", dest="log_json", action="store_true",
+                    help="one JSON object a log line")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def metrics_flags(parser) -> None:
+        parser.add_argument("-metricsAddress", dest="metrics_address",
+                            default="",
+                            help="Prometheus pushgateway host:port")
+        parser.add_argument("-metricsIntervalSec", dest="metrics_interval",
+                            type=int, default=15)
     m = sub.add_parser("master", help="start a master server")
     m.add_argument("-ip", default="127.0.0.1")
     m.add_argument("-port", type=int, default=9333)
@@ -614,6 +830,7 @@ def main(argv=None) -> int:
                    help="opt-in anonymous cluster reports (default off)")
     m.add_argument("-telemetryUrl", default="",
                    help="collector URL for -telemetry")
+    metrics_flags(m)
     v = sub.add_parser("volume", help="start a volume server")
     v.add_argument("-ip", default="127.0.0.1")
     v.add_argument("-port", type=int, default=8080)
@@ -629,6 +846,31 @@ def main(argv=None) -> int:
     v.add_argument("-fsync", action="store_true",
                    help="fsync acked writes (the power-loss tier; one "
                         "fsync a group-commit window)")
+    metrics_flags(v)
+    sv = sub.add_parser("server", help="all-in-one: master + volume (+ "
+                        "filer + s3) in one process")
+    sv.add_argument("-ip", default="127.0.0.1")
+    sv.add_argument("-master.port", dest="master_port", type=int,
+                    default=9333)
+    sv.add_argument("-master.volumeSizeLimitMB", dest="volume_size_limit_mb",
+                    type=int, default=1024,
+                    help="the master's volume size limit (the reference's "
+                         "weed server flag)")
+    sv.add_argument("-volume.port", dest="volume_port", type=int,
+                    default=8080)
+    sv.add_argument("-filer", action="store_true")
+    sv.add_argument("-filer.port", dest="filer_port", type=int,
+                    default=8888)
+    sv.add_argument("-s3", action="store_true")
+    sv.add_argument("-s3.port", dest="s3_port", type=int, default=8333)
+    sv.add_argument("-s3.accessKey", dest="s3_access", default="")
+    sv.add_argument("-s3.secretKey", dest="s3_secret", default="")
+    sv.add_argument("-dir", default=".")
+    sv.add_argument("-device", default=None,
+                    help="the volume server's codec device: cuda (the "
+                         "default) or cpu")
+    sv.add_argument("-tierBackend", default="",
+                    help="S3 tier backend (not ported: refused)")
     ad = sub.add_parser("admin", help="start the maintenance admin")
     ad.add_argument("-ip", default="127.0.0.1")
     ad.add_argument("-port", type=int, default=23646)
@@ -677,10 +919,7 @@ def main(argv=None) -> int:
                          "synchronous store commit; default auto (on for "
                          "a sqlite file).  Sets "
                          "SEAWEEDFS_TPU_FILER_META_PLANE")
-    fl.add_argument("-metricsAddress", dest="metrics_address",
-                    default="", help="Prometheus pushgateway (not ported)")
-    fl.add_argument("-metricsIntervalSec", dest="metrics_interval",
-                    type=int, default=15)
+    metrics_flags(fl)
     fsy = sub.add_parser("filer.sync", help="replicate one filer's "
                          "namespace and content to another")
     fsy.add_argument("-from", dest="sync_from", required=True,
@@ -746,12 +985,35 @@ def main(argv=None) -> int:
     s3p.add_argument("-iamConfig", dest="iam_config", default="",
                      help="identities JSON (the s3.json shape); "
                           "supersedes -accessKey")
+    s3p.add_argument("-metricsPort", dest="metrics_port", type=int,
+                     default=None,
+                     help="serve the per-bucket metrics on a separate "
+                          "listener too")
+    metrics_flags(s3p)
+    s3p.add_argument("-stsKey", dest="sts_key", default="",
+                     help="STS signing key: honour temporary credentials "
+                          "minted by the iam server")
+    s3p.add_argument("-rolesFile", dest="roles_file", default="")
     s3p.add_argument("-kmsFile", dest="kms_file", default="",
                      help="local KMS keystore (enables SSE-KMS)")
-    for flag in ("-stsKey", "-rolesFile", "-kmsEndpoint", "-kmsCloud",
-                 "-metricsPort", "-metricsAddress"):
-        s3p.add_argument(flag, dest="refused_" + flag[1:], default=None,
-                         help="not ported (refused)")
+    s3p.add_argument("-kmsEndpoint", dest="kms_endpoint", default="",
+                     help="AWS-KMS-protocol endpoint host:port[,accessKey,"
+                          "secretKey[,region]]; overrides -kmsFile")
+    s3p.add_argument("-kmsCloud", dest="kms_cloud", default="",
+                     help="gcp:endpoint,keyName,token | azure:vaultUrl,"
+                          "keyName,token | openbao:addr,keyName,token; "
+                          "overrides -kmsEndpoint and -kmsFile")
+    iamp = sub.add_parser("iam", help="the IAM API and STS AssumeRole over "
+                          "an identities JSON shared with the gateways")
+    iamp.add_argument("-ip", default="127.0.0.1")
+    iamp.add_argument("-port", type=int, default=8111)
+    iamp.add_argument("-iamConfig", dest="iam_config", required=True)
+    iamp.add_argument("-stsKey", dest="sts_key", default="")
+    iamp.add_argument("-rolesFile", dest="roles_file", default="")
+    iamp.add_argument("-oidcConfig", dest="oidc_config", default="",
+                      help="JSON list of OIDC providers: [{name, issuer, "
+                           "audience?, hs256Secret? | rsaPublicKeyFile?}]")
+    sub.add_parser("version", help="print the version")
     crt = sub.add_parser("cert", help="mint a cluster CA and node "
                          "certificate for the TLS plane")
     crt.add_argument("-dir", default="certs")
@@ -778,9 +1040,19 @@ def main(argv=None) -> int:
     # WEED_<COMMAND>_<FLAG> in the environment replace the parsers'
     # defaults (the reference's viper layer): a flag given still wins
     from .util.config import apply_env_defaults
-    apply_env_defaults(sub.choices)
+    env_applied = apply_env_defaults(sub.choices)
     args = ap.parse_args(argv)
 
+    from .util import wlog
+    if args.v is not None:
+        wlog.set_verbosity(args.v)
+    if args.log_json:
+        wlog.json_format(True)
+    if args.logdir:
+        os.makedirs(args.logdir, exist_ok=True)
+        wlog.set_output(os.path.join(args.logdir, "weed.log"))
+    for line in env_applied:
+        wlog.info("env override: %s", line, component="config")
     if args.securityToml:
         err = _load_security(args.securityToml)
         if err:
@@ -832,6 +1104,15 @@ def main(argv=None) -> int:
         return _meta_tail(args)
     if args.cmd == "s3":
         return _s3(ap, args)
+    if args.cmd == "iam":
+        return _iam(ap, args)
+    if args.cmd == "version":
+        from . import __version__
+        print(f"seaweedfs-tpu-torch {__version__} "
+              f"(python {sys.version.split()[0]})")
+        return 0
+    if args.cmd == "server":
+        return _server(args)
 
     if args.cmd == "master":
         from .server.master_server import MasterServer
@@ -850,7 +1131,7 @@ def main(argv=None) -> int:
                 volume_size_limit_mb=args.volumeSizeLimitMB,
                 default_replication=args.defaultReplication,
                 peers=args.peers or None, meta_dir=args.mdir or None),
-                _listening("master server"), report)
+                _listening("master server"), report, push=(args, "master"))
         finally:
             reporter.stop()
     if args.cmd in ("volume", "worker") and args.device is not None:
@@ -863,7 +1144,7 @@ def main(argv=None) -> int:
             device=args.device or "cuda", master=args.mserver,
             data_center=args.dataCenter, rack=args.rack,
             max_volume_count=args.max, fsync=args.fsync),
-            _listening("volume server"))
+            _listening("volume server"), push=(args, "volume_server"))
     if args.cmd == "admin":
         from .plugin.admin import AdminServer
         return _serve(AdminServer(

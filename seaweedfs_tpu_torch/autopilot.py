@@ -44,15 +44,13 @@ otherwise run two loops on one knob.  The pre-fork filer's parent adds
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
 from collections import deque
 
 from . import profiling, stats
-
-_log = logging.getLogger("seaweedfs_tpu_torch.autopilot")
+from .util import wlog
 
 
 def _env_float(name: str, default: float) -> float:
@@ -229,8 +227,8 @@ class Autopilot:
         profiling.flight_note("autopilot", {
             "knob": name, "from": round(cur, 6), "to": round(new, 6),
             "reason": reason})
-        _log.info("autopilot[%s] %s: %.4g -> %.4g (%s)", self.role, name,
-                  cur, new, reason)
+        wlog.info("autopilot[%s] %s: %.4g -> %.4g (%s)", self.role, name,
+                  cur, new, reason, component="autopilot")
         return True
 
     # -- sensors ----------------------------------------------------------------
@@ -289,7 +287,8 @@ class Autopilot:
             try:
                 self.tick()
             except Exception as e:  # noqa: BLE001 — a failed tick holds
-                _log.warning("autopilot tick failed: %s", e)
+                wlog.warning("autopilot tick failed: %s", e,
+                             component="autopilot")
 
     def set_enabled(self, on: bool) -> None:
         self.enabled = bool(on)
@@ -504,8 +503,8 @@ class Autopilot:
                                  knob=f"plane.{g.name}", direction=what)
         profiling.flight_note("autopilot", {"plane": g.name, "action": what,
                                             "reason": reason})
-        _log.warning("autopilot[%s] plane %s: %s (%s)", self.role, g.name,
-                     what, reason)
+        wlog.warning("autopilot[%s] plane %s: %s (%s)", self.role, g.name,
+                     what, reason, component="autopilot")
 
     # -- introspection ----------------------------------------------------------
 

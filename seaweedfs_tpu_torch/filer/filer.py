@@ -23,7 +23,6 @@ reads included, on the host: no filer read launches the GF(2^8) kernel.
 from __future__ import annotations
 
 import copy
-import sys
 import threading
 import time
 from typing import Callable
@@ -35,6 +34,7 @@ from .entry import Attributes, Entry, FileChunk, normalize_path
 from .filechunks import total_size, view_from_chunks
 from .filer_store import FilerStore, MemoryStore
 from .meta_log import MetaLog
+from ..util import wlog
 
 CHUNK_SIZE = 4 * 1024 * 1024  # filer auto-chunk default (8MB in ref CLI)
 
@@ -661,8 +661,8 @@ class Filer:
                 fn(event)
             except Exception as e:  # noqa: BLE001 — listeners are
                 # isolated from each other
-                print(f"filer: meta listener raised: {e!r}",
-                      file=sys.stderr)
+                wlog.warning(f"filer: meta listener raised: {e!r}",
+                             component="filer")
 
     def subscribe(self, fn: Callable[[dict], None]) -> None:
         with self._log_lock:

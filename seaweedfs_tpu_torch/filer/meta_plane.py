@@ -48,7 +48,6 @@ the other left.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import threading
 import time
@@ -59,8 +58,8 @@ from .. import stats
 from ..util.group_commit import GROUP_COMMIT_BATCH_BUCKETS
 from .entry import Entry
 from .meta_log import LOG_START, _segment_name
+from ..util import wlog
 
-_log = logging.getLogger("seaweedfs_tpu_torch.filer")
 
 _OMISS = object()          # lookup(): "the overlay has no opinion"
 
@@ -598,7 +597,7 @@ class MetaPlane:
                 self.sink(evs)
             except Exception as e:  # noqa: BLE001 — the tap is
                 # advisory; coherence never depends on it
-                _log.warning("meta plane sink: %r", e)
+                wlog.warning("meta plane sink: %r", e, component="filer")
 
     def _invalidate(self, paths) -> None:
         if paths and self.cache is not None:
@@ -645,7 +644,8 @@ class MetaPlane:
                 self._tick_applier()
                 self._evict()
             except Exception as e:  # noqa: BLE001 — the plane thread
-                _log.warning("meta plane tick: %r", e)  # must survive
+                # the plane thread must survive
+                wlog.warning("meta plane tick: %r", e, component="filer")
                 time.sleep(0.2)
 
     def _try_acquire(self) -> bool:
@@ -817,7 +817,7 @@ class MetaPlane:
                 finally:
                     self._stop.set()
         except Exception as e:  # noqa: BLE001 — teardown must finish
-            _log.warning("meta plane final apply: %r", e)
+            wlog.warning("meta plane final apply: %r", e, component="filer")
         if self._lockf is not None:
             try:
                 self._lockf.close()     # releases the flock

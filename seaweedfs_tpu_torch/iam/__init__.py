@@ -1,18 +1,26 @@
-"""IAM for the S3 gateway, the port's copy of `seaweedfs_tpu/iam/`'s
-identity model and local KMS (weed/s3api/auth_credentials.go,
-weed/kms/local):
+"""IAM for the S3 gateway, the port's copy of `seaweedfs_tpu/iam/`
+(weed/s3api/auth_credentials.go, weed/iam/, weed/iamapi/, weed/kms/):
 
-- identity:  Identity/Account/Credential, coarse S3 actions and the JSON
-             identity store (the reference's s3.json shape, `-iamConfig`)
-- kms:       the local KMS provider and envelope encryption for SSE-KMS
-             (`-kmsFile`; keys stay on the host)
+- identity:   Identity/Account/Credential, coarse S3 actions and the JSON
+              identity store (the reference's s3.json shape, `-iamConfig`)
+- sts:        stateless temporary credentials: session-token JWTs that
+              any gateway holding the signing key verifies (`-stsKey`,
+              `-rolesFile`)
+- oidc:       OIDC id-token validation (HS256, RS256) for
+              AssumeRoleWithWebIdentity
+- iamapi:     the IAM REST API and STS AssumeRole over HTTP (`iam`)
+- kms:        the local KMS provider and envelope encryption for SSE-KMS
+              (`-kmsFile`; keys stay on the host)
+- kms_aws:    the AWS KMS wire protocol (`-kmsEndpoint`) and its stub
+- kms_cloud:  GCP KMS, Azure Key Vault and OpenBao transit
+              (`-kmsCloud`), each with its fake server
 
-STS, OIDC, LDAP, the IAM API and the remote KMS providers are not
-ported (ROADMAP A9).
+LDAP is not ported (ROADMAP A5, with the SFTP gateway that uses it).
 """
 
 from .identity import (Account, Credential, Identity, IdentityStore,
                        coarse_action)
+from .sts import StsService
 
 __all__ = ["Account", "Credential", "Identity", "IdentityStore",
-           "coarse_action"]
+           "StsService", "coarse_action"]

@@ -16,6 +16,8 @@ import json
 import os
 import threading
 
+from ..util import wlog
+
 # s3_constants/s3_actions.go
 ACTION_READ = "Read"
 ACTION_WRITE = "Write"
@@ -464,9 +466,9 @@ class IdentityStore:
                 # no translation, no grant: every identity's derived
                 # group actions are cleared below, never left stale
                 # (a deleted group or policy must not keep granting)
-                import sys
-                print(f"iam group grants dropped: policy translation "
-                      f"unavailable: {e}", file=sys.stderr)
+                wlog.warning("iam group grants dropped: policy "
+                             "translation unavailable: %s", e,
+                             component="iam")
                 groups = {}
             for gname, g in groups.items():
                 # FAIL CLOSED per group: a malformed entry (non-dict
@@ -494,9 +496,9 @@ class IdentityStore:
                                            set()).update(acts)
                 except (AttributeError, KeyError, TypeError,
                         ValueError) as e:
-                    import sys
-                    print(f"iam group {gname!r} malformed; its grant "
-                          f"is dropped: {e}", file=sys.stderr)
+                    wlog.warning(
+                        "iam group %r malformed; its grant is "
+                        "dropped: %s", gname, e, component="iam")
                     continue
         for ident in self._identities.values():
             ident.group_actions = sorted(derived.get(ident.name, ()))

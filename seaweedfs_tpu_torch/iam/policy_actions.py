@@ -1,8 +1,8 @@
 """IAM policy documents to coarse identity actions
 (iamapi_management_handlers.go GetActions), the port's copy of the part
 of `seaweedfs_tpu/iam/iamapi.py` that the identity store uses to derive
-group and managed-policy grants.  The IAM API server itself is not
-ported (ROADMAP A9)."""
+group and managed-policy grants; `iam/iamapi.py` (the IAM API server)
+uses it too."""
 
 from __future__ import annotations
 

@@ -798,13 +798,16 @@ def _read_via_uds(locs: "list[dict]", vid: int, key: int, cookie: int
 def _maybe_hedged_read(locs: "list[dict]", fid: str, headers: dict,
                        vid: int = -1, key: int = -1, cookie: int = -1
                        ) -> "bytes | None":
-    """A first-wins read of `fid` across the first two locations
-    (`util/hedge`), for requests that carry a deadline only, once the
-    tracker knows what slow is and the budget leaves room for a second
-    leg.  Each leg runs its location's whole ladder: for a whole needle
-    (`key` >= 0) UDS first, the read plane second, then the HTTP port,
-    so one wedged replica costs about the p95 whichever plane it is
-    wedged on.  None: not armed, or no leg succeeded."""
+    """A first-wins read of `fid` across the first two locations in
+    `hedge.race_order` (`util/hedge`), for requests that carry a deadline
+    only, once the tracker knows what slow is and the budget leaves room
+    for a second leg; each race's verdict goes to `hedge.note_race`.
+    Each leg runs its location's whole ladder in the sequential path's
+    order: for a whole needle (`key` >= 0) the read plane first, UDS
+    second (the JAX legs try UDS first), then the HTTP port, so a leg
+    takes the route whose reads set the threshold, and one wedged
+    replica costs about the p95 whichever plane it is wedged on.  None:
+    not armed, or no leg succeeded."""
     d = deadline.get()
     if d is None or not hedge.reads_enabled():
         return None
@@ -816,9 +819,6 @@ def _maybe_hedged_read(locs: "list[dict]", fid: str, headers: dict,
 
     def fetch(loc):
         if key >= 0:
-            data, _stop = _uds_read_one(loc, vid, key, cookie)
-            if data is not None:
-                return 200, data
             addr = _plane_addr(loc["url"], "readPlanePort")
             if addr:
                 try:
@@ -831,18 +831,25 @@ def _maybe_hedged_read(locs: "list[dict]", fid: str, headers: dict,
                 except deadline.DeadlineExceeded:
                     raise
                 except OSError:
-                    # a raced leg: the HTTP port next, and the status
-                    # cache is the sequential path's to drop
+                    # a raced leg: UDS next, and the status cache is
+                    # the sequential path's to drop
                     pass
+            data, _stop = _uds_read_one(loc, vid, key, cookie)
+            if data is not None:
+                return 200, data
         status, body, _ = http_bytes(
             "GET", f"{loc['url']}/{fid}", None, headers,
             timeout=deadline.io_timeout(60.0, site="volume.read"))
         return status, body
 
+    first, second = hedge.race_order(locs, lambda loc: loc["url"])[:2]
     val, _hedged = hedge.hedged_fetch(
-        lambda: fetch(locs[0]), lambda: fetch(locs[1]), threshold,
-        lambda sv: sv[0] in (200, 206), kind="read")
-    return val[1] if val is not None else None
+        lambda: (*fetch(first), first), lambda: (*fetch(second), second),
+        threshold, lambda sv: sv[0] in (200, 206), kind="read")
+    if val is None:
+        return None
+    hedge.note_race(first["url"], lost=val[2] is second)
+    return val[1]
 
 
 def delete(master: str, fid: str) -> None:

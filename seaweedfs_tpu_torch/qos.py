@@ -59,15 +59,13 @@ role's /metrics appends.
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
 from dataclasses import dataclass, field
 
 from .util.hedge import LatencyTracker as _LatencyTracker
-
-_log = logging.getLogger("seaweedfs_tpu_torch.qos")
+from .util import wlog
 
 
 def _env_float(name: str, default: float) -> float:
@@ -816,7 +814,8 @@ class FeedbackThrottle:
                 self.sample_now()
             except Exception as e:   # noqa: BLE001 — the throttle is
                 # advisory; it must never die, only report
-                _log.warning("qos throttle sample failed: %s", e)
+                wlog.warning("qos throttle sample failed: %s", e,
+                             component="qos")
 
 
 def _merged(metrics, names: "tuple[str, ...]") -> "dict | None":

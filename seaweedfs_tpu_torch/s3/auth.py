@@ -6,8 +6,9 @@ Implements the standard SigV4 flow: canonical request -> string to sign
 both the server-side verifier and the client-side signer used by tests
 and tools (the cross-checking the reference gets from s3tests).
 
-The port's copy of `seaweedfs_tpu/s3/auth.py`, without STS session
-tokens (STS is not ported).
+The port's copy of `seaweedfs_tpu/s3/auth.py`: a request signed with
+an STS session's temporary key is verified against the secret that
+`iam/sts.StsService` derives from its `x-amz-security-token`.
 """
 
 from __future__ import annotations
@@ -149,13 +150,16 @@ class AuthContext:
 
     def __init__(self, identity: str, seed_signature: str,
                  signing_key: bytes, amz_date: str, scope: str,
-                 payload_hash: str):
+                 payload_hash: str, sts_identity=None):
         self.identity = identity
         self.seed_signature = seed_signature
         self.signing_key = signing_key
         self.amz_date = amz_date
         self.scope = scope
         self.payload_hash = payload_hash
+        # ephemeral iam.Identity resolved from an STS session token —
+        # authorization must use its role actions, not a store lookup
+        self.sts_identity = sts_identity
 
     @property
     def is_streaming(self) -> bool:
@@ -170,11 +174,24 @@ class SigV4Verifier:
 
     MAX_SKEW_SECONDS = 15 * 60
 
-    def __init__(self, credentials):
+    def __init__(self, credentials, sts=None):
         # anything with .get(access_key) -> secret: a plain dict or an
-        # IdentityStore.secrets_view().  STS session tokens are not
-        # honoured (STS is not ported, ROADMAP A9).
+        # IdentityStore.secrets_view()
         self.credentials = credentials
+        self.sts = sts  # optional iam.StsService for temp credentials
+
+    def _lookup_secret(self, access_key: str, token: str
+                       ) -> "tuple[str | None, object | None]":
+        """(secret, sts_identity): static store first, then STS
+        session-token resolution (s3api auth: x-amz-security-token)."""
+        secret = self.credentials.get(access_key)
+        if secret is not None:
+            return secret, None
+        if self.sts is not None and token:
+            resolved = self.sts.resolve(access_key, token)
+            if resolved is not None:
+                return resolved
+        return None, None
 
     def verify(self, method: str, path: str, query: dict,
                headers: dict, payload: bytes
@@ -184,10 +201,10 @@ class SigV4Verifier:
         canonical URI.  Query-auth (presigned) requests are routed by
         the presence of X-Amz-Signature in the query."""
         if "X-Amz-Signature" in query:
-            ok, who = self._verify_presigned(
+            ok, who, sts_ident = self._verify_presigned(
                 method, path, query, headers)
-            ctx = AuthContext(who, "", b"", "", "", UNSIGNED_PAYLOAD) \
-                if ok else None
+            ctx = AuthContext(who, "", b"", "", "", UNSIGNED_PAYLOAD,
+                              sts_identity=sts_ident) if ok else None
             return ok, who, ctx
         auth = headers.get("authorization", "")
         if not auth.startswith(ALGORITHM):
@@ -202,7 +219,8 @@ class SigV4Verifier:
             access_key, date, region, service, _ = cred.split("/")
         except (KeyError, ValueError):
             return False, "malformed authorization header", None
-        secret = self.credentials.get(access_key)
+        secret, sts_ident = self._lookup_secret(
+            access_key, headers.get("x-amz-security-token", ""))
         if secret is None:
             return False, "unknown access key", None
         amz_date = headers.get("x-amz-date", "")
@@ -225,14 +243,15 @@ class SigV4Verifier:
         if not hmac.compare_digest(want, got_sig):
             return False, "signature mismatch", None
         return True, access_key, AuthContext(
-            access_key, got_sig, key, amz_date, scope, payload_hash)
+            access_key, got_sig, key, amz_date, scope, payload_hash,
+            sts_identity=sts_ident)
 
     def _verify_presigned(self, method: str, path: str, query: dict,
                           headers: dict
-                          ) -> "tuple[bool, str]":
+                          ) -> "tuple[bool, str, object | None]":
         try:
             if query.get("X-Amz-Algorithm") != ALGORITHM:
-                return False, "unsupported algorithm"
+                return False, "unsupported algorithm", None
             cred = query["X-Amz-Credential"]
             amz_date = query["X-Amz-Date"]
             expires = int(query["X-Amz-Expires"])
@@ -240,26 +259,27 @@ class SigV4Verifier:
             got_sig = query["X-Amz-Signature"]
             access_key, date, region, service, _ = cred.split("/")
         except (KeyError, ValueError):
-            return False, "malformed presigned query"
-        secret = self.credentials.get(access_key)
+            return False, "malformed presigned query", None
+        secret, sts_ident = self._lookup_secret(
+            access_key, query.get("X-Amz-Security-Token", ""))
         if secret is None:
-            return False, "unknown access key"
+            return False, "unknown access key", None
         # expiry: valid from X-Amz-Date for X-Amz-Expires seconds
         # (and Expires itself is capped at 7 days, as AWS does)
         if not 0 < expires <= 7 * 24 * 3600:
-            return False, "invalid X-Amz-Expires"
+            return False, "invalid X-Amz-Expires", None
         try:
             t0 = datetime.strptime(
                 amz_date, "%Y%m%dT%H%M%SZ").replace(tzinfo=timezone.utc)
         except ValueError:
-            return False, "malformed X-Amz-Date"
+            return False, "malformed X-Amz-Date", None
         if amz_date[:8] != date:
-            return False, "credential scope date mismatch"
+            return False, "credential scope date mismatch", None
         now = datetime.now(timezone.utc)
         if (now - t0).total_seconds() > expires:
-            return False, "request has expired"
+            return False, "request has expired", None
         if (t0 - now).total_seconds() > self.MAX_SKEW_SECONDS:
-            return False, "request time too skewed"
+            return False, "request time too skewed", None
         # canonical query = all X-Amz-* params EXCEPT the signature
         q = {k: v for k, v in query.items() if k != "X-Amz-Signature"}
         creq = canonical_request(
@@ -271,8 +291,8 @@ class SigV4Verifier:
         want = hmac.new(signing_key(secret, date, region, service),
                         sts.encode(), hashlib.sha256).hexdigest()
         if not hmac.compare_digest(want, got_sig):
-            return False, "signature mismatch"
-        return True, access_key
+            return False, "signature mismatch", None
+        return True, access_key, sts_ident
 
     def _check_date(self, amz_date: str, scope_date: str) -> str | None:
         """Replay window: x-amz-date within 15 minutes of now and

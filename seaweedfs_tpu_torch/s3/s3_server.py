@@ -12,10 +12,11 @@ Implemented surface (the core the reference's s3tests exercise first):
   `<key>.versions/`, newest-first by inverted-timestamp id), and
   bucket CORS incl. preflight (s3api/cors/).
 
-The port's copy of `seaweedfs_tpu/s3/s3_server.py`.  Not here: the S3
-Tables plane (501 NotImplemented), STS session tokens, the QoS
-admission, the IAM gRPC cache and the separate metrics listener (the
-per-bucket families are on the gateway's own `GET /metrics`).
+The port's copy of `seaweedfs_tpu/s3/s3_server.py`, with STS session
+credentials (`sts=`) and the separate metrics listener
+(`metrics_port=`); the per-bucket families are on the gateway's own
+`GET /metrics` too.  Not here: the S3 Tables plane (501
+NotImplemented, ROADMAP A3.4) and the IAM gRPC cache (no gRPC).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import sys
 import threading
 import time
 import urllib.parse
@@ -36,6 +36,7 @@ from ..server.httpd import HttpServer, Request
 from .auth import SigV4Verifier
 from .chunked import ChunkedDecodeError, decode_streaming_body
 from .cors import evaluate as cors_evaluate, parse_cors_config
+from ..util import wlog
 
 BUCKETS_ROOT = "/buckets"
 UPLOADS_DIR = "/.uploads"
@@ -102,17 +103,21 @@ class S3ApiServer:
     def __init__(self, filer: Filer, host: str = "127.0.0.1",
                  port: int = 0,
                  credentials: dict[str, str] | None = None,
-                 iam=None, kms=None):
+                 iam=None, sts=None, kms=None,
+                 metrics_port: int | None = None):
         """`credentials` is the legacy flat access->secret dict (every
         key acts as admin).  `iam` is an iam.IdentityStore: identities
         then carry coarse actions enforced per request
-        (auth_credentials.go CanDo), `kms` an iam.kms.LocalKms enabling
-        SSE-KMS."""
+        (auth_credentials.go CanDo), `sts` an iam.StsService whose
+        temporary credentials the verifier honors, `kms` a KMS provider
+        (iam.kms.LocalKms, iam.kms_aws.AwsKms, a iam.kms_cloud provider)
+        enabling SSE-KMS, and `metrics_port` a separate listener for
+        the per-bucket metrics (`-metricsPort`)."""
         self.filer = filer
         self.iam = iam
         self.kms = kms
         creds = iam.secrets_view() if iam is not None else credentials
-        self.verifier = SigV4Verifier(creds) \
+        self.verifier = SigV4Verifier(creds, sts=sts) \
             if creds is not None else None
         self.http = HttpServer(host, port)
         self.http.fallback = self._dispatch
@@ -132,14 +137,24 @@ class S3ApiServer:
         self.circuit_breaker = CircuitBreaker()
         self._cb_stamp = (0.0, -1.0)     # (checked-at, entry-mtime)
         self.metrics = Metrics("s3")
-        # the per-bucket families on the gateway's own port (the
-        # separate `-metricsPort` listener is not ported): an exact
-        # route, so a bucket named "metrics" lists only with a prefix
+        # the per-bucket families on the gateway's own port (an exact
+        # route, so a bucket named "metrics" lists only with a prefix)
+        # and, given `metrics_port`, with the process's on a separate
+        # listener, as the reference's `weed s3 -metricsPort` serves them
         self.http.route(
             "GET", "/metrics",
             lambda req: (200, (self.metrics.render().encode(),
                                {"Content-Type":
                                 "text/plain; version=0.0.4"})))
+        self.metrics_http = None
+        if metrics_port is not None:
+            from ..stats import render_process
+            self.metrics_http = HttpServer(host, metrics_port)
+            self.metrics_http.route(
+                "GET", "/metrics",
+                lambda req: (200, ((self.metrics.render() +
+                                    render_process()).encode(),
+                                   "text/plain; version=0.0.4")))
         # QoS: tenant admission at the tenant-facing edge (the tenant is
         # the SigV4 access key), and this gateway's request_seconds is a
         # foreground source of the process's EC throttle
@@ -153,11 +168,15 @@ class S3ApiServer:
 
     def start(self):
         self.http.start()
+        if self.metrics_http is not None:
+            self.metrics_http.start()
         return self
 
     def stop(self):
         from .. import qos
         qos.throttle().remove_source(f"s3:{self.http.port}")
+        if self.metrics_http is not None:
+            self.metrics_http.stop()
         self.http.stop()
 
     @property
@@ -219,8 +238,8 @@ class S3ApiServer:
                 # RuntimeError/LookupError when the hosting volume is
                 # down; load() raises on wrong-shape JSON) must keep
                 # the last good config, never crash the request path
-                print(f"s3: circuit-breaker config unreadable; "
-                      f"keeping previous: {e}", file=sys.stderr)
+                wlog.warning(f"s3: circuit-breaker config unreadable; "
+                             f"keeping previous: {e}", component="s3")
         self._cb_stamp = (now, new_mtime)
 
     def _dispatch(self, req: Request):
@@ -276,7 +295,9 @@ class S3ApiServer:
                 req.body)
             if ok:
                 identity = who
-                if self.iam is not None:
+                if ctx is not None and ctx.sts_identity is not None:
+                    ident_obj = ctx.sts_identity
+                elif self.iam is not None:
                     ident_obj = self.iam.by_access_key(who)
                 if ident_obj is not None:
                     identity = ident_obj.name
@@ -373,7 +394,7 @@ class S3ApiServer:
 
     def _s3tables_op(self, req: Request, operation: str):
         """The S3 Tables plane (X-Amz-Target: S3Tables.<Op>) is not
-        ported (ROADMAP A9): it answers 501, as a gateway without the
+        ported (ROADMAP A3.4): it answers 501, as a gateway without the
         backing piece does."""
         return 501, (json.dumps(
             {"__type": "NotImplemented",

@@ -31,14 +31,13 @@ import contextvars
 import http.client
 import json
 import os
-import secrets
 import threading
 import time
 import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import profiling, tracing
-from ..util import deadline
+from ..util import deadline, request_id
 from .httpd import HANDSHAKE_TIMEOUT, _run_release, normalize_payload
 
 _MAX_HEADER = 64 << 10
@@ -304,9 +303,8 @@ class AsyncFront:
         notes and stage track it binds are the request's alone; the
         flight-recorder material comes back with the answer."""
         outer = self.owner
-        rid = req.headers.get(tracing.REQUEST_ID_HEADER) or \
-            secrets.token_hex(8)
-        tracing.set_request_id(rid)
+        rid = request_id.ensure_request_id(
+            req.headers.get(request_id.HEADER))
         dl = deadline.adopt(req.headers.get(deadline.HEADER),
                             site=outer.role or "server",
                             allow_default=not req.path.startswith(

@@ -45,13 +45,13 @@ from __future__ import annotations
 import ctypes
 import os
 import queue
-import sys
 import threading
 import time
 
 from .. import native, operation, security
 from .meta_plane_native import note_stood_down
 from ..filer.filer import CHUNK_SIZE
+from ..util import wlog
 
 # response latency histogram bucket bounds (filer_read_plane.cc
 # kLatBuckets), in seconds: rendered on /metrics as
@@ -320,9 +320,9 @@ class NativeReadPlane(native.RecordDrain):
                     self._h, path.encode(), addr.encode(),
                     fid.encode(), (mime or "").encode(),
                     int(size), int(token))
-            except Exception as e:  # noqa: BLE001 — the filler must
-                print(f"filer: read plane fill failed: {e!r}",  # live
-                      file=sys.stderr)
+            except Exception as e:  # noqa: BLE001 — the filler must live
+                wlog.warning(f"filer: read plane fill failed: {e!r}",
+                             component="filer")
 
     # -- telemetry ------------------------------------------------------
 

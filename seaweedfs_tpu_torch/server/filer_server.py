@@ -101,7 +101,6 @@ from __future__ import annotations
 
 import json
 import os
-import sys
 import urllib.parse
 import uuid
 
@@ -112,6 +111,7 @@ from ..cluster.lock_manager import LockManager, normalize_address
 from ..filer import Entry, Filer
 from ..filer.entry import Attributes
 from ..filer.filer_store import FilerStore, SqliteStore
+from ..util import wlog
 from ..util.chunk_cache import read_cache_disk
 from .httpd import HttpServer, Request, admin_guard, parse_range
 from .debug import (install_autopilot_routes, install_debug_routes,
@@ -370,7 +370,8 @@ class FilerServer:
         try:
             return make()
         except (RuntimeError, OSError) as e:
-            print(f"filer: native {name} plane off: {e}", file=sys.stderr)
+            wlog.warning(f"filer: native {name} plane off: {e}",
+                         component="filer")
             stats.PROCESS.counter_add(
                 "filer_native_plane_unavailable_total", 1.0,
                 help_text="native filer planes that failed to build or "

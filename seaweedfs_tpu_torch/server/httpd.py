@@ -71,9 +71,7 @@ from __future__ import annotations
 
 import http.client
 import json
-import logging
 import os
-import secrets
 import select
 import socket
 import ssl
@@ -84,9 +82,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
 from .. import faults, profiling, stats, tracing
-from ..util import deadline
-
-_log = logging.getLogger("seaweedfs_tpu_torch.httpd")
+from ..util import deadline, request_id, wlog
 
 
 class Request:
@@ -288,9 +284,11 @@ class HttpServer:
 
             def _dispatch(self):
                 req = Request(self)
-                rid = req.headers.get(tracing.REQUEST_ID_HEADER) or \
-                    secrets.token_hex(8)
-                tracing.set_request_id(rid)
+                # the caller's request id, or a fresh one (util/
+                # request_id): the log lines, the spans and the answer
+                # carry it
+                rid = request_id.ensure_request_id(
+                    req.headers.get(request_id.HEADER))
                 _, parent = tracing.parse_traceparent(
                     req.headers.get(tracing.HEADER, ""))
                 # the budget is bound before anything spends time on
@@ -583,7 +581,8 @@ class HttpServer:
                 deadline=dl_doc, stages=summary, notes=notes)
         except Exception as e:  # noqa: BLE001 — observability must
             # never break a reply
-            _log.warning("flight capture failed: %s", e)
+            wlog.warning("flight capture failed: %s", e,
+                         component="profiling")
 
     def route(self, method: str, path: str, fn: Route) -> None:
         self.routes[(method, path)] = fn
@@ -650,7 +649,7 @@ def _run_release(release) -> None:
     try:
         release()
     except Exception as e:  # noqa: BLE001
-        _log.warning("qos release failed: %s", e)
+        wlog.warning("qos release failed: %s", e, component="qos")
 
 
 def async_front_roles() -> "set[str]":

@@ -78,7 +78,6 @@ above this hub's) answers `lagged`.  It imports no torch.
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
@@ -96,8 +95,7 @@ from .debug import install_debug_routes
 from .httpd import HttpServer, Request, admin_guard, http_json
 from .location_hub import LocationHub
 from .raft import RaftNode
-
-_log = logging.getLogger("seaweedfs_tpu_torch.master")
+from ..util import wlog
 
 
 class _AllocateRefused(Exception):
@@ -261,8 +259,9 @@ class MasterServer:
             else:
                 self.raft.propose("topologyId", self.raft.topology_id)
             self._checkpoint_sequence(sync=True)
-        except Exception as e:  # noqa: BLE001 — retried at the next
-            _log.warning("leader bootstrap incomplete: %s", e)   # term
+        except Exception as e:  # noqa: BLE001 — retried at the next term
+            wlog.warning("leader bootstrap incomplete: %s", e,
+                         component="master")
 
     def _on_raft_apply(self, key: str, value) -> None:
         """Committed entries: the bounds floor a follower's sequencer and

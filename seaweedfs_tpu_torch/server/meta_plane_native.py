@@ -41,12 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import sys
 import threading
 
 from .. import native, operation, stats
 from ..filer.meta_log import alloc_writer_identity
 from ..storage.types import FileId, parse_needle_id_cookie
+from ..util import wlog
 
 # ack latency histogram bucket bounds (meta_plane.cc kLatBuckets), in
 # seconds: rendered on /metrics as filer_meta_plane_native_ack_seconds
@@ -81,7 +81,6 @@ def native_meta_plane_enabled() -> "bool | None":
     return None
 
 
-
 _stood_down: set = set()
 
 
@@ -98,8 +97,9 @@ def note_stood_down(plane: str, reason: str) -> None:
         plane=plane, reason=reason)
     if (plane, reason) not in _stood_down:
         _stood_down.add((plane, reason))
-        print(f"filer: native {plane} plane stands down ({reason})",
-              file=sys.stderr)
+        wlog.warning(f"filer: native {plane} plane stands down ({reason})",
+                     component="filer")
+
 
 class NativeMetaPlane(native.RecordDrain):
     """One native meta-plane server bound to <host>:<ephemeral>,
@@ -255,8 +255,8 @@ class NativeMetaPlane(native.RecordDrain):
             except Exception as e:  # noqa: BLE001 — a dead master
                 # means a dry pool (= fallbacks), never a dead feeder
                 if wait == interval:
-                    print(f"filer: meta plane fid feed failed: {e!r}",
-                          file=sys.stderr)
+                    wlog.warning(f"filer: meta plane fid feed failed: {e!r}",
+                                 component="filer")
                 wait = min(max(wait * 2, interval), 2.0)
 
     # -- telemetry ------------------------------------------------------

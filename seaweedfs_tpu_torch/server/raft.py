@@ -45,7 +45,6 @@ It imports no torch.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import random
 import threading
@@ -55,8 +54,8 @@ from concurrent.futures import (TimeoutError as FuturesTimeout,
                                 ThreadPoolExecutor, as_completed)
 
 from .httpd import HttpServer, Request, http_json
+from ..util import wlog
 
-_log = logging.getLogger("seaweedfs_tpu_torch.raft")
 
 FOLLOWER = "follower"
 CANDIDATE = "candidate"
@@ -560,13 +559,19 @@ class RaftNode:
     # -- roles --------------------------------------------------------------------
 
     def _step_down(self, term: int) -> None:
-        """The caller holds the lock."""
+        """The caller holds the lock.  A leader that steps down starts its
+        election timer afresh: its last append heard is as old as its
+        term, and a stale timer would stand it for election at its next
+        pulse, against the successor it has just voted on (the JAX node
+        keeps the stale timer)."""
         was_leader = self.state == LEADER
         if term != self.term:
             self.term = term
             self.voted_for = None
             self._persist_state()
         self.state = FOLLOWER
+        if was_leader:
+            self._last_heard = time.monotonic()
         if was_leader and self.on_leadership is not None:
             try:
                 self._pool.submit(self.on_leadership, False)
@@ -627,13 +632,12 @@ class RaftNode:
                 nudged = True
                 break
         if not nudged and candidates:
-            _log.warning("leader transfer: no peer took timeout_now; "
+            wlog.warning("leader transfer: no peer took timeout_now; "
                          "stepping down")
         with self._lock:
             if self.state != LEADER:
                 return True
             self._step_down(self.term)
-            self._last_heard = time.monotonic()
         return True
 
     def _election_timeout(self) -> float:

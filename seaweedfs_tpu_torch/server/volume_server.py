@@ -121,7 +121,6 @@ from __future__ import annotations
 import contextlib
 import os
 import shutil
-import sys
 import tempfile
 import threading
 import time
@@ -147,6 +146,7 @@ from .debug import (install_autopilot_routes, install_debug_routes,
 from .read_plane import DATA_OFFSET_IN_RECORD, plain_record
 from .write_plane import ACK_BUCKETS_S
 from .store_ec import EcReader
+from ..util import wlog
 
 
 def _promote_degraded() -> bool:
@@ -327,8 +327,8 @@ class VolumeServer:
             help_text="native or UDS planes not started because "
                       "security.toml keys or TLS are configured",
             plane=plane, reason=reason)
-        print(f"volume server {self.url}: {plane} plane stands down "
-              f"({reason})", file=sys.stderr)
+        wlog.warning(f"volume server {self.url}: {plane} plane stands down "
+                     f"({reason})")
         return True
 
     def _start_planes(self) -> None:
@@ -346,8 +346,7 @@ class VolumeServer:
             try:
                 self.read_plane = ReadPlane(self.http.host)
             except (RuntimeError, OSError) as e:
-                print(f"volume server {self.url}: no read plane: {e}",
-                      file=sys.stderr)
+                wlog.warning(f"volume server {self.url}: no read plane: {e}")
             else:
                 # plane-served reads train the hedge's threshold and
                 # reach the flight recorder
@@ -363,8 +362,7 @@ class VolumeServer:
                                           on_tick=self._wp_tick,
                                           on_epoch=self._wp_epoch)
         except (RuntimeError, OSError) as e:
-            print(f"volume server {self.url}: no write plane: {e}",
-                  file=sys.stderr)
+            wlog.warning(f"volume server {self.url}: no write plane: {e}")
             return
         self.write_plane.start_record_drain()
         for loc in self.store.locations:
@@ -384,8 +382,7 @@ class VolumeServer:
                 os.rmdir(sock_dir)
                 raise
         except OSError as e:       # no AF_UNIX, or a path too long
-            print(f"volume server {self.url}: no UDS reader: {e}",
-                  file=sys.stderr)
+            wlog.warning(f"volume server {self.url}: no UDS reader: {e}")
 
     def stop(self) -> None:
         self.autopilot.stop()
@@ -442,9 +439,8 @@ class VolumeServer:
         err = r.get("error")
         if err and err != self._last_hb_error:
             # invisible to the master: say so once per distinct error
-            import sys
-            print(f"volume server {self.url}: heartbeat rejected by "
-                  f"master: {err}", file=sys.stderr)
+            wlog.warning(f"volume server {self.url}: heartbeat rejected by "
+                         f"master: {err}")
         self._last_hb_error = err
         tid = r.get("topologyId", "")
         if not err and tid:

@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import array
 import ctypes
-import sys
 import threading
 from collections import namedtuple
 
 from .. import native
+from ..util import wlog
 
 # bounds of the ack latency histogram (write_plane.cc kLatBuckets), in
 # seconds: /metrics renders it as write_plane_ack_seconds
@@ -115,8 +115,8 @@ class WritePlane(native.RecordDrain):
         if fsync:
             if not self.can_handshake():
                 self.fsync_refused += 1
-                print(f"write plane: -fsync volume {vid} stays on the "
-                      f"Python path: no epoch handshake", file=sys.stderr)
+                wlog.warning(f"write plane: -fsync volume {vid} stays on the "
+                             f"Python path: no epoch handshake")
                 return False
             # the handshake thread starts with the first -fsync volume
             self._ensure_epoch_thread()
@@ -220,9 +220,8 @@ class WritePlane(native.RecordDrain):
                 self._on_epoch(vid.value, epoch.value)
             except Exception as e:  # noqa: BLE001 — the loop must live
                 self.epoch_failures += 1
-                print(f"write plane: epoch flush of volume {vid.value} "
-                      f"failed, its acks stay parked: {e!r}",
-                      file=sys.stderr)
+                wlog.warning(f"write plane: epoch flush of volume {vid.value} "
+                             f"failed, its acks stay parked: {e!r}")
                 continue
             self.epochs += 1
             self._lib.wp_epoch_done(self._h, vid.value, epoch.value)

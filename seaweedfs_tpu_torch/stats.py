@@ -1,15 +1,15 @@
 """Prometheus-style metrics registry (the counterpart of
 `seaweedfs_tpu/stats.py`'s `Metrics` and `PROCESS`), rendered in the
 Prometheus text format, and the process-tree sampler every role's
-`/metrics` appends (`render_process`).
-
-The push-gateway loop is not ported (`-metricsAddress` is refused).
+`/metrics` appends (`render_process`), and the push-gateway loop that
+`-metricsAddress` starts (`MetricsPusher`).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import urllib.parse
 from collections import defaultdict
 
 # latency buckets in seconds, 5ms through 10s (the reference's)
@@ -328,3 +328,61 @@ def render_process() -> str:
             "process_tree_procs", float(count),
             help_text="processes in this node's /proc subtree")
     return PROCESS.render()
+
+
+class MetricsPusher:
+    """LoopPushingMetric (metrics.go:534): every `interval` seconds, PUT
+    the rendered registry to a Prometheus pushgateway at
+    /metrics/job/<job>/instance/<instance>.  A failed push is logged
+    (once until a push succeeds again) and retried at the next tick,
+    never fatal: metrics delivery must not take a data server down."""
+
+    def __init__(self, metrics: "Metrics", job: str, instance: str,
+                 gateway: str, interval: float = 15.0):
+        self.metrics = metrics
+        self.gateway = gateway
+        self.interval = interval
+        self.path = (f"/metrics/job/{urllib.parse.quote(job)}"
+                     f"/instance/{urllib.parse.quote(instance)}")
+        self.pushed = self.failed = 0
+        self._failing = False
+        self._stop = threading.Event()
+        self._thread: "threading.Thread | None" = None
+
+    def push_once(self) -> bool:
+        from .server.httpd import http_bytes
+        from .util import wlog
+        try:
+            st, _, _ = http_bytes(
+                "PUT", f"{self.gateway}{self.path}",
+                self.metrics.render().encode(),
+                {"Content-Type": "text/plain; version=0.0.4"})
+            err = "" if st < 300 else f"HTTP {st}"
+        except OSError as e:
+            err = repr(e)
+        if err:
+            self.failed += 1
+            if not self._failing:
+                wlog.warning("metrics push to %s failed: %s; retrying "
+                             "every %ss", self.gateway, err, self.interval,
+                             component="stats")
+            self._failing = True
+            return False
+        self.pushed += 1
+        self._failing = False
+        return True
+
+    def start(self) -> "MetricsPusher":
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="metrics-pusher")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.push_once()

@@ -11,8 +11,9 @@ with `spans_for(trace_id)` and show where the time went.
   recording, never id propagation;
 - spans at least `SEAWEEDFS_TPU_SLOW_MS` long are logged at WARNING.
 
-The trace id follows the request id of this module's own contextvar
-(`set_request_id`).  Over HTTP the request id rides `X-Request-ID` and
+The trace id follows the request id of `util/request_id`'s contextvar
+(`set_request_id`), the one the HTTP fronts set and `util/wlog` puts on
+every line.  Over HTTP the request id rides `X-Request-ID` and
 the parent span `X-Trace-Parent` (`<trace_id>-<span_id>`), the
 reference's headers, so a trace crosses servers of either package.
 A maintenance job carries its trace context in the job message instead:
@@ -30,7 +31,6 @@ from __future__ import annotations
 
 import contextvars
 import itertools
-import logging
 import os
 import random
 import secrets
@@ -38,27 +38,16 @@ import threading
 import time
 from collections import deque
 
-_log = logging.getLogger("seaweedfs_tpu_torch.trace")
+from .util import request_id as _request_id
+from .util import wlog
 
 HEADER = "X-Trace-Parent"
-REQUEST_ID_HEADER = "X-Request-ID"
-
-_request_id: contextvars.ContextVar[str] = \
-    contextvars.ContextVar("weed_request_id", default="")
-
-
-def set_request_id(rid: str) -> "contextvars.Token":
-    """Make `rid` this context's request id; the returned token undoes
-    it (`reset_request_id`)."""
-    return _request_id.set(rid)
-
-
-def reset_request_id(token: "contextvars.Token") -> None:
-    _request_id.reset(token)
-
-
-def get_request_id() -> str:
-    return _request_id.get()
+REQUEST_ID_HEADER = _request_id.HEADER
+# the request id is `util/request_id`'s contextvar, the one the HTTP
+# fronts set and every log line reads
+set_request_id = _request_id.set_request_id
+reset_request_id = _request_id.reset_request_id
+get_request_id = _request_id.get_request_id
 
 
 def _env_int(name: str, default: int) -> int:
@@ -185,9 +174,10 @@ def _slow_log_and_sample(doc: dict, threshold: float,
     """Slow-log the span (whatever the sampling); True when the sample
     keeps it."""
     if threshold > 0 and doc["durationMs"] >= threshold:
-        _log.warning("slow span %s (%s) %.1fms trace=%s span=%s attrs=%s",
+        wlog.warning("slow span %s (%s) %.1fms trace=%s span=%s attrs=%s",
                      doc["name"], doc["role"] or "-", doc["durationMs"],
-                     doc["traceId"], doc["spanId"], doc.get("attrs") or {})
+                     doc["traceId"], doc["spanId"], doc.get("attrs") or {},
+                     component="trace")
     return not (rate < 1.0 and random.random() >= rate)
 
 

@@ -22,10 +22,18 @@ dropped).
   primaries parked on a wedged replica.
 - A primary that fails before the threshold gets the secondary at once
   (with a token), where the JAX hedge returns no result.
+- A replica that loses `SEAWEEDFS_TPU_HEDGE_EJECT_AFTER` (3) races in a
+  row (its second leg answered first) is ejected for
+  `SEAWEEDFS_TPU_HEDGE_EJECT_MS` (1000): `race_order` puts it behind the
+  other locations, so a stopped replica costs a few hedges, not one a
+  read.  When the time is out it leads one race, a probe: a loss keeps
+  it out for another period, a win clears it.  `EJECT_AFTER=0` turns
+  this off; the JAX hedge has no ejection.
 
-`hedges_issued_total` and `hedges_won_total` (`kind="read"`) go to
-`stats.PROCESS`, and each hedge issued or won leaves a `hedge` flight
-note on the request (`profiling.flight_note`).  `LatencyTracker.
+`hedges_issued_total`, `hedges_won_total` (`kind="read"`) and
+`hedge_ejections_total` go to `stats.PROCESS`, and each hedge issued or
+won leaves a `hedge` flight note on the request
+(`profiling.flight_note`).  `LatencyTracker.
 note_many` is the native planes' record drain's feed.  The ratio and the
 floor are knobs of the SLO autopilot (autopilot.py): `set_ratio` and
 `set_min_threshold_ms` override the environment's values, which stay the
@@ -193,12 +201,84 @@ def read_threshold() -> "float | None":
 
 
 def reset() -> None:
-    """Forget the latency history, refill the tokens and drop the
-    autopilot's overrides back to the environment's baseline (tests)."""
+    """Forget the latency history and the ejections, refill the tokens
+    and drop the autopilot's overrides back to the environment's
+    baseline (tests)."""
     read_tracker.reset()
     _tokens.reset()
+    with _eject_lock:
+        _losses.clear()
+        _ejected.clear()
     set_min_threshold_ms(None)
     set_ratio(None)
+
+
+# -- ejection of a replica that keeps losing races -------------------------
+
+_eject_lock = threading.Lock()
+_losses: "dict[str, int]" = {}      # location -> races lost in a row
+_ejected: "dict[str, float]" = {}   # location -> monotonic time out
+
+
+def eject_after() -> int:
+    try:
+        return max(0, int(os.environ.get(
+            "SEAWEEDFS_TPU_HEDGE_EJECT_AFTER", "") or 3))
+    except ValueError:
+        return 3
+
+
+def note_race(primary: str, lost: bool) -> None:
+    """The verdict of a race that `primary` led: lost when the other leg
+    answered first.  The `eject_after()`th loss in a row ejects it, and
+    each loss after extends its ejection (the counter counts ejections,
+    not extensions); a win ends both."""
+    n = eject_after()
+    with _eject_lock:
+        if not lost:
+            _losses.pop(primary, None)
+            _ejected.pop(primary, None)
+            return
+        if not n:
+            return
+        _losses[primary] = _losses.get(primary, 0) + 1
+        if _losses[primary] < n:
+            return
+        now = time.monotonic()
+        fresh = _ejected.get(primary, 0.0) <= now
+        _ejected[primary] = now + _eject_seconds()
+    if fresh:
+        stats.PROCESS.counter_add(
+            "hedge_ejections_total", 1.0,
+            help_text="replicas put behind the others after losing "
+                      "hedged races in a row")
+
+
+def _eject_seconds() -> float:
+    return _env_float("SEAWEEDFS_TPU_HEDGE_EJECT_MS", 1000.0) / 1e3
+
+
+def race_order(locs: list, key=lambda loc: loc) -> list:
+    """`locs` with the ejected ones moved behind the rest, each group in
+    its own order.  A location whose ejection has run out leads this
+    race only: its time is set again for every other race, so one read
+    probes it, and that race's verdict clears or keeps the ejection."""
+    with _eject_lock:
+        if not _ejected:
+            return locs
+        now = time.monotonic()
+        behind = []
+        for loc in locs:
+            until = _ejected.get(key(loc))
+            if until is None:
+                continue
+            if until > now:
+                behind.append(loc)
+            else:
+                _ejected[key(loc)] = now + _eject_seconds()
+    if not behind:
+        return locs
+    return [loc for loc in locs if loc not in behind] + behind
 
 
 # -- the hedge workers ---------------------------------------------------

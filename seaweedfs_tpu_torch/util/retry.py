@@ -35,13 +35,12 @@ budget and the breakers are per process.
 
 from __future__ import annotations
 
-import logging
 import os
 import random
 import threading
 import time
 
-_log = logging.getLogger("seaweedfs_tpu_torch.retry")
+from . import wlog
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 _STATE_GAUGE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
@@ -282,9 +281,9 @@ def record_failure(peer: str, error: str = "") -> None:
         _metrics().counter_add(
             "peer_breaker_trips_total", 1.0,
             help_text="breaker close->open transitions", peer=peer)
-        _log.warning("peer breaker OPEN for %s after %d consecutive "
-                     "failures%s", peer, tripped[0],
-                     f" (last: {tripped[1]})" if tripped[1] else "")
+        wlog.warning(f"peer breaker OPEN for {peer} after {tripped[0]} "
+                     f"consecutive failures"
+                     + (f" (last: {tripped[1]})" if tripped[1] else ""))
 
 
 def peer_state(peer: str) -> str:

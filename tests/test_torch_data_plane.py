@@ -170,8 +170,12 @@ def test_seeded_uploads_read_back_equal_in_both_packages(tmp_path):
             fids["ref"].append((ref_operation.submit(ref_master.url,
                                                      _payload(i, n)),
                                 _payload(i, n)))
-        assert vs.write_plane.requests() == len(fids["port"])
-        assert ref_vs.write_plane.requests() == len(fids["ref"])
+        # a plane counts a request after its client has the ack
+        for server, n in ((vs, len(fids["port"])),
+                          (ref_vs, len(fids["ref"]))):
+            _wait(lambda: server.write_plane.requests() >= n,
+                  f"{n} native writes")
+            assert server.write_plane.requests() == n
         for kind, server, murl in (("port", vs, port.url),
                                    ("ref", ref_vs, ref_master.url)):
             for fid, want in fids[kind]:
@@ -200,6 +204,7 @@ def test_what_the_plane_does_not_own_falls_back_to_python(tmp_path):
         wp = vs.write_plane
         before = wp.requests(), wp.fallbacks()
         assert operation.upload(a.url, a.fid, b"first")["size"] == 5
+        _wait(lambda: wp.requests() >= before[0] + 1, "the native write")
         assert wp.requests() == before[0] + 1
         rp_url = f"127.0.0.1:{vs.read_plane.port}/{a.fid}"
         _wait(lambda: http_bytes("GET", rp_url)[1] == b"first",
@@ -306,6 +311,7 @@ def test_a_freeze_detaches_and_a_thaw_attaches(cluster):
     operation._plane_vid_misses().clear()
     n0 = vs.write_plane.requests()
     assert operation.upload(vs.url, nxt, b"thawed")["size"] == 6
+    _wait(lambda: vs.write_plane.requests() >= n0 + 1, "the native write")
     assert vs.write_plane.requests() == n0 + 1
     assert operation.read(cluster.url, nxt) == b"thawed"
     assert operation.read(cluster.url, fid) == b"before"
@@ -480,6 +486,8 @@ def test_ec_encode_of_a_native_fill_equals_the_python_fill(cluster,
     vs = cluster.servers[0]
     fids = [operation.submit(cluster.url, _payload(i, 1000 + 997 * i))
             for i in range(60)]
+    # the plane counts a request after its client has the ack
+    _wait(lambda: vs.write_plane.requests() >= 60, "60 native writes")
     assert vs.write_plane.requests() == 60
     vid = types.parse_file_id(fids[0]).volume_id
     assert {types.parse_file_id(f).volume_id for f in fids} == {vid}

@@ -1077,15 +1077,17 @@ def test_filer_command_serves_and_stops(tmp_path):
     assert rc == 0
 
 
-def _filer_cli(module: str, argv: list, env: dict) -> dict:
-    """`python3 -m <module> filer ... argv`: what it printed first, its
-    exit code, its stderr; a filer that came up is stopped with SIGTERM
-    once it listens."""
+def _filer_cli(module: str, argv: list, env: dict, cwd) -> dict:
+    """`python3 -m <module> filer ... argv` in `cwd` (where a filer over
+    redis or elastic keeps its metalog directory), the repo on
+    PYTHONPATH: what it printed first, its exit code, its stderr; a filer
+    that came up is stopped with SIGTERM once it listens."""
     p = subprocess.Popen(
         [sys.executable, "-m", module, "filer", "-port", "0", "-master",
-         MASTER] + argv, cwd=REPO, stdout=subprocess.PIPE,
+         MASTER] + argv, cwd=str(cwd), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "JAX_PLATFORMS": "cpu", **env})
+        env={**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO,
+             **env})
     try:
         first = p.stdout.readline()
         if first.startswith("filer listening on"):
@@ -1149,11 +1151,11 @@ def test_filer_command_refuses_what_is_not_ported(argv, env, tmp_path,
     kind = argv[argv.index("-notification") + 1].split(":")[0] \
         if "-notification" in argv else ""
     if kind in ("mq", "kafka"):
-        got = _filer_cli("seaweedfs_tpu_torch", argv, env)
+        got = _filer_cli("seaweedfs_tpu_torch", argv, env, tmp_path)
         assert got["rc"] == 2 and got["first"] == "", got
         assert f"-notification {kind}: not ported" in got["stderr"]
         return
-    got = {m: _filer_cli(m, argv, env)
+    got = {m: _filer_cli(m, argv, env, tmp_path)
            for m in ("seaweedfs_tpu_torch", "seaweedfs_tpu")}
     port, ref = got["seaweedfs_tpu_torch"], got["seaweedfs_tpu"]
     assert port["listening"] == ref["listening"], got

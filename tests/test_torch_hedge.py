@@ -13,10 +13,15 @@ cases hold a read's wall to its deadline.
   deadline rides onto the workers, and the pool grows past parked
   primaries (tests/test_deadline.py's hedge cases); the port's losing
   leg is freed by reference counting, with no cycle for the collector;
+- the port's ejection (the JAX hedge has none): a location that loses
+  three races in a row goes behind the others until its time is out,
+  then leads one probing race, whose loss keeps it out and whose win
+  clears it, and `EJECT_AFTER=0` turns it off;
 - a cluster read under a deadline meets its budget past a stalled
   replica with hedging on and misses it with hedging off
   (tests/test_chaos_cluster.py scenarios 8: an armed
-  `volume.read.serve` delay, matched to the replica's url).
+  `volume.read.serve` delay, matched to the replica's url), and the
+  stalled replica is ejected after it lost three races.
 """
 
 import gc
@@ -243,6 +248,42 @@ def test_the_pool_grows_past_parked_primaries(pkg):
         park.set()
 
 
+def test_a_location_that_keeps_losing_is_ejected(monkeypatch):
+    monkeypatch.setenv("SEAWEEDFS_TPU_HEDGE_EJECT_MS", "80")
+    locs = [{"url": "a"}, {"url": "b"}, {"url": "c"}]
+    url = (lambda loc: loc["url"])
+    ejections = _counter(stats, "seaweedfs_tpu_hedge_ejections_total")
+    for _ in range(2):
+        hedge.note_race("a", lost=True)
+    assert hedge.race_order(locs, url) is locs
+    hedge.note_race("a", lost=True)
+    assert [x["url"] for x in hedge.race_order(locs, url)] == \
+        ["b", "c", "a"]
+    hedge.note_race("a", lost=True)        # extends the running one
+    assert _counter(stats, "seaweedfs_tpu_hedge_ejections_total") == \
+        ejections + 1
+    time.sleep(0.1)
+    assert hedge.race_order(locs, url) == locs     # one race probes it
+    assert hedge.race_order(locs, url)[-1]["url"] == "a"
+    hedge.note_race("a", lost=True)        # the probe lost: out again
+    time.sleep(0.1)
+    assert hedge.race_order(locs, url) == locs
+    assert _counter(stats, "seaweedfs_tpu_hedge_ejections_total") == \
+        ejections + 1
+    hedge.note_race("a", lost=False)       # the probe won: cleared
+    assert hedge.race_order(locs, url) == locs
+    assert hedge.race_order(locs, url) == locs
+    hedge.note_race("a", lost=True)
+    assert hedge.race_order(locs, url) == locs
+
+
+def test_ejection_is_off_at_zero(monkeypatch):
+    monkeypatch.setenv("SEAWEEDFS_TPU_HEDGE_EJECT_AFTER", "0")
+    for _ in range(10):
+        hedge.note_race("a", lost=True)
+    assert hedge.race_order(["a", "b"]) == ["a", "b"]
+
+
 # -- a stalled replica, hedged and not ------------------------------------
 
 class _Cluster:
@@ -337,3 +378,29 @@ def test_an_unhedged_read_misses_its_budget(stalled, monkeypatch):
         assert operation.read(c.url, fid) == blobs[fid]
         took = time.monotonic() - t0
     assert took > budget, f"the unhedged read took {took:.2f} s"
+
+
+def test_a_stalled_replica_is_ejected_after_three_lost_races(stalled):
+    c, blobs, slow_url = stalled
+    for _ in range(4):
+        for fid, data in blobs.items():
+            assert operation.read(c.url, fid) == data
+    fid = next(f for f in blobs if operation.lookup(
+        c.url, int(f.split(",")[0]))[0]["url"] == slow_url)
+    locs = operation.lookup(c.url, int(fid.split(",")[0]))
+    c.stall(slow_url, 2.0)
+    ejections = _counter(stats, "seaweedfs_tpu_hedge_ejections_total")
+    for i in range(3):
+        assert hedge.race_order(locs, lambda loc: loc["url"])[0]["url"] \
+            == slow_url, f"ejected after {i} lost races"
+        with deadline.scope(1.2):
+            assert operation.read(c.url, fid) == blobs[fid]
+    assert _counter(stats, "seaweedfs_tpu_hedge_ejections_total") == \
+        ejections + 1
+    assert hedge.race_order(locs, lambda loc: loc["url"])[-1]["url"] == \
+        slow_url
+    for _ in range(3):
+        with deadline.scope(1.2):
+            t0 = time.monotonic()
+            assert operation.read(c.url, fid) == blobs[fid]
+            assert time.monotonic() - t0 < 1.2

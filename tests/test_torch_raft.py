@@ -14,7 +14,8 @@
 - `master -peers -mdir` on the command line, and the shell's prompt over
   stdin.
 - The faults of ROADMAP C that this slice found (C22, C23): each shown in
-  the JAX package and shown absent from the port.
+  the JAX package and shown absent from the port; so is a deposed
+  leader's stale election timer (ROADMAP C28).
 
 Every listener is bound (port 0) before the masters learn the peer list;
 every wait is a condition under a deadline.
@@ -703,3 +704,41 @@ def test_c23_port_shell_waits_for_a_warm_leader(tmp_path):
         faults.reset()
         stop_all(servers, masters)
         stop_background_probes()
+
+
+class _Vote:
+    """A vote request as `_handle_vote` reads it."""
+
+    def __init__(self, body: dict):
+        self.body = body
+
+    def json(self) -> dict:
+        return self.body
+
+
+@pytest.mark.parametrize("cls", [RefNode, RaftNode], ids=["jax", "port"])
+def test_c28_a_deposed_leader_restarts_its_election_timer(cls):
+    """A leader deposed by a successor's vote request that it refuses
+    (its own log is longer) is a follower that heard no append for as
+    long as it led: the JAX node's timer stays that old, so its next
+    pulse stands it for election against the successor; the port's
+    restarts at the step-down."""
+    node = cls(_Routes(), "127.0.0.1:1", ["127.0.0.1:2", "127.0.0.1:3"])
+    try:
+        with node._lock:
+            node.log.append([{"index": 1, "term": 1, "key": "noop",
+                              "value": 1}])
+            node.term, node.state = 1, "leader"
+            node._last_heard = time.monotonic() - 60.0
+        t0 = time.monotonic()
+        status, r = node._handle_vote(_Vote({
+            "term": 2, "candidate": "127.0.0.1:2", "lastLogIndex": 0,
+            "lastLogTerm": 0}))
+        assert status == 200 and not r["granted"] and r["term"] == 2
+        assert node.state == "follower"
+        if cls is RefNode:
+            assert node._last_heard < t0 - 59.0
+        else:
+            assert node._last_heard >= t0
+    finally:
+        node.stop()

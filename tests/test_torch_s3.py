@@ -18,7 +18,9 @@ bytes, and the XML bodies once request-specific values are masked).
   three JWT keys): a PUT runs the whole signed write path (gateway,
   filer, assign with its JWT, volume checking it) and reads come back
   with read JWTs;
-- `s3` on the command line: the unported flags exit 2 naming the flag.
+- `s3` on the command line: each flag of the identity and metrics
+  planes (`-stsKey`, `-rolesFile`, `-kmsEndpoint`, `-kmsCloud`,
+  `-metricsPort`, `-metricsAddress`) run against its local stand-in.
 """
 
 import os
@@ -31,6 +33,7 @@ import urllib.parse
 
 import pytest
 
+from jax_suite import load_suite
 from seaweedfs_tpu.s3 import S3ApiServer as RefS3
 from seaweedfs_tpu.s3 import auth as ref_auth
 from seaweedfs_tpu.s3 import chunked as ref_chunked
@@ -69,25 +72,13 @@ def port_volume_server(dirs, master, **kw):
 
 def load_jax_suite(name: str, exclude=()) -> dict:
     """The test functions of `tests/<name>.py`, its source executed with
-    the server classes imported from the port: {exported name: fn}.
-    The suite's own fixtures are not exported; the importing module
-    provides them, built on the port.  `exclude` names tests of what the
-    port does not have (each with its reason at the call)."""
-    path = os.path.join(HERE, f"{name}.py")
-    with open(path) as f:
-        src = f.read()
-    for mod in _PORTED:
-        src = re.sub(rf"\b{re.escape(mod)}\b",
-                     mod.replace("seaweedfs_tpu.", "seaweedfs_tpu_torch.",
-                                 1), src)
-    module = types.ModuleType(f"ported_{name}")
-    module.__file__ = path
-    exec(compile(src, path, "exec"), module.__dict__)
-    module.VolumeServer = port_volume_server
-    short = name.removeprefix("test_")
-    return {f"test_{short}__{k[5:]}": v
-            for k, v in module.__dict__.items()
-            if k.startswith("test_") and callable(v) and k not in exclude}
+    the server classes imported from the port (`jax_suite.load_suite`):
+    {exported name: fn}.  The suite's own fixtures are not exported; the
+    importing module provides them, built on the port.  `exclude` names
+    tests of what the port does not have (each with its reason at the
+    call)."""
+    return load_suite(name, _PORTED, exclude,
+                      overrides={"VolumeServer": port_volume_server})
 
 
 def _start_cluster(tmp_path, n_volumes=2):
@@ -508,15 +499,118 @@ def test_gateway_on_secured_cluster(tmp_path):
 
 # -- the command line -------------------------------------------------------------
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
 @pytest.mark.parametrize("flag", ["-stsKey", "-rolesFile", "-kmsEndpoint",
                                   "-kmsCloud", "-metricsPort",
                                   "-metricsAddress"])
-def test_s3_refuses_unported_flags(flag):
-    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "s3",
-                        flag, "1"], cwd=REPO, capture_output=True,
-                       text=True, timeout=60)
-    assert r.returncode == 2
-    assert flag in r.stderr and "not ported" in r.stderr
+def test_s3_runs_each_flag_against_its_stand_in(flag, tmp_path):
+    """`s3 -filer F` with each flag of the identity and metrics planes,
+    driven against its local stand-in: temporary credentials minted
+    under `-stsKey` (with the roles of `-rolesFile`), SSE-KMS through a
+    KMS stub (`-kmsEndpoint`) and an OpenBao fake (`-kmsCloud`), the
+    per-bucket metrics on their own listener (`-metricsPort`) and pushes
+    to a pushgateway stand-in (`-metricsAddress`)."""
+    import signal
+    from seaweedfs_tpu_torch.iam import kms_aws, kms_cloud
+    from seaweedfs_tpu_torch.iam.kms import LocalKms
+    from seaweedfs_tpu_torch.iam.sts import RoleStore, StsService
+    from seaweedfs_tpu_torch.iam.identity import Identity
+    from seaweedfs_tpu_torch.server.httpd import HttpServer
+    master, servers, filer = _start_cluster(tmp_path)
+    extra, stand_in, pushes = [], None, []
+    sts_key, roles = "sts-key", str(tmp_path / "roles.json")
+    if flag in ("-stsKey", "-rolesFile"):
+        extra = ["-stsKey", sts_key]
+        if flag == "-rolesFile":
+            RoleStore(roles).put("writer", ["Admin"], trust=[AK])
+            extra += ["-rolesFile", roles]
+    elif flag == "-kmsEndpoint":
+        backend = LocalKms(str(tmp_path / "kms.json"))
+        backend.create_key(alias="aws/s3")
+        stand_in = kms_aws.KmsStubServer(backend).start()
+        extra = ["-kmsEndpoint", f"{stand_in.url},AK,SK"]
+    elif flag == "-kmsCloud":
+        stand_in = kms_cloud.FakeOpenBaoServer().start()
+        extra = ["-kmsCloud", f"openbao:{stand_in.url},transit-key,"
+                              f"{stand_in.token}"]
+    elif flag == "-metricsPort":
+        mport = _free_port()
+        extra = ["-metricsPort", str(mport)]
+    else:
+        stand_in = HttpServer()
+        stand_in.fallback = lambda req: (pushes.append(req.path) or 200,
+                                         {})
+        stand_in.start()
+        extra = ["-metricsAddress", stand_in.url, "-metricsIntervalSec",
+                 "1"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "s3", "-port", "0",
+         "-filer", filer.url, "-accessKey", AK, "-secretKey", SK] + extra,
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"s3 gateway listening on (\S+)", line)
+        assert m, line
+        url = m.group(1)
+
+        def send(method, path, body=b"", headers=None, keys=(AK, SK)):
+            h = auth.sign_request(method, url, path, {}, dict(headers or {}),
+                                  body, *keys)
+            return http_bytes(method, f"{url}{path}", body or None, h)
+        assert send("PUT", "/flags")[0] == 200
+        if flag in ("-stsKey", "-rolesFile"):
+            store = RoleStore(roles if flag == "-rolesFile" else None)
+            if flag == "-stsKey":
+                store.put("writer", ["Admin"], trust=[AK])
+            creds = StsService(sts_key, store).assume_role(
+                Identity(AK), "writer")
+            keys = (creds["AccessKeyId"], creds["SecretAccessKey"])
+            tok = {"x-amz-security-token": creds["SessionToken"]}
+            assert send("PUT", "/flags/t.txt", b"temp", tok, keys)[0] == 200
+            assert send("GET", "/flags/t.txt", b"", tok, keys)[:2] == \
+                (200, b"temp")
+            assert send("GET", "/flags/t.txt", b"", None, keys)[0] == 403
+            other = StsService("another-key", store).assume_role(
+                Identity(AK), "writer")
+            assert send("GET", "/flags/t.txt", b"", {
+                "x-amz-security-token": other["SessionToken"]},
+                (other["AccessKeyId"], other["SecretAccessKey"]))[0] == 403
+        elif flag in ("-kmsEndpoint", "-kmsCloud"):
+            body = os.urandom(100_000)
+            st, _, h = send("PUT", "/flags/sec.bin", body, {
+                "x-amz-server-side-encryption": "aws:kms"})
+            assert st == 200
+            assert h.get("x-amz-server-side-encryption") == "aws:kms"
+            assert send("GET", "/flags/sec.bin")[:2] == (200, body)
+            stored = filer.filer.read_file("/buckets/flags/sec.bin")
+            assert len(stored) == len(body) and stored != body
+        elif flag == "-metricsPort":
+            assert f"(metrics 127.0.0.1:{mport}/metrics)" in line
+            st, text, _ = http_bytes("GET", f"127.0.0.1:{mport}/metrics")
+            assert st == 200
+            assert b'bucket="flags"' in text and b"process_cpu" in text
+        else:
+            assert proc.stdout.readline() == \
+                f"pushing metrics to {stand_in.url} every 1s\n"
+            deadline = time.monotonic() + 30
+            want = ("/metrics/job/s3/instance/" +
+                    urllib.parse.quote(url))
+            while want not in pushes:
+                assert time.monotonic() < deadline, pushes
+                time.sleep(0.05)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        proc.stdout.close()
+        if stand_in is not None:
+            stand_in.stop()
+        _stop_cluster(master, servers, filer)
 
 
 def test_s3_command_serves(tmp_path):

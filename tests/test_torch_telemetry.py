@@ -22,6 +22,7 @@ from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 from seaweedfs_tpu_torch.storage.erasure_coding import (ec_decoder,
                                                         ec_encoder)
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_context import ECContext
+from seaweedfs_tpu_torch.util import wlog
 from test_torch_profiling import stop_background_probes
 
 STAGES = ("encode.read", "encode.codec", "encode.write",
@@ -273,14 +274,27 @@ def test_request_id_is_the_trace_id():
         tracing.set_request_id("")
 
 
-def test_sampling_buffer_and_slow_log(monkeypatch, caplog):
+def test_sampling_buffer_and_slow_log(monkeypatch):
     tracing.reset_buffer()
     monkeypatch.setenv("SEAWEEDFS_TPU_TRACE_SAMPLE", "0")
     monkeypatch.setenv("SEAWEEDFS_TPU_SLOW_MS", "100")
-    with caplog.at_level(logging.WARNING, "seaweedfs_tpu_torch.trace"):
+    # the slow-span line goes through util/wlog, whose logger does not
+    # propagate to the root's handlers: captured with a handler of its own
+    lines = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                lines.append(record.getMessage())
+
+    h = Capture()
+    wlog._logger.addHandler(h)
+    try:
         tracing.emit_span("dropped-but-slow", 0.0, 0.5)
+    finally:
+        wlog._logger.removeHandler(h)
     assert tracing.recent_spans() == []
-    assert "slow span dropped-but-slow" in caplog.text
+    assert any("slow span dropped-but-slow" in m for m in lines), lines
     monkeypatch.setenv("SEAWEEDFS_TPU_TRACE_SAMPLE", "1")
     monkeypatch.setenv("SEAWEEDFS_TPU_TRACE_BUFFER", "20")
     for i in range(30):
