@@ -399,9 +399,16 @@ Phases, each printing one JSON line:
    threads until one 1 GiB volume is full, 16 of them through the second
    gateway under SSE-KMS with `AssumeRoleWithWebIdentity` credentials;
    200 operations, GET 45%, STAT 30%, PUT 15%, DELETE 10% (objects/s,
-   MiB/s, p50/p99 each); the volume's `ec.encode` and, with shards 1, 4,
-   7 and 9 deleted and 8 objects read degraded, its `ec.rebuild`, both on
-   the card (launches against windows); every object read back through
+   MiB/s, p50/p99 each); the full volume tiered (the server started with
+   `-tierBackend` at the second gateway): `volume.tier.upload` to its
+   bucket, up to 256 MiB of its objects read through the tier, a write
+   refused, `/admin/query` over a CSV needle against the port's engine,
+   `volume.tier.download` with the `.dat`'s SHA-256 unchanged; S3 Tables
+   (a table bucket, namespace and table, the Iceberg write guard, a stale
+   version token, the `s3tables.*` verbs); then the fetched-back volume's
+   `ec.encode` and, with shards 1, 4, 7 and 9 deleted and 8 objects read
+   degraded, its `ec.rebuild`, both on the card (launches against
+   windows); every object read back through
    both gateways, a tampered, an expired and a foreign session token
    answered 403, `weed.log`'s JSON lines with one request id also in its
    answer, and the pushes the stand-in received.
@@ -9610,6 +9617,8 @@ SERVER_S3_LOST = (1, 4, 7, 9)        # data shards deleted before rebuild
 SERVER_S3_DEGRADED = 8               # objects read while they are lost
 SERVER_S3_STS_KEY = "server-s3-sts-signing-key"
 SERVER_S3_SLOW_MS = "1"              # spans logged as slow, with their id
+SERVER_S3_TIER_READ_MB = 256         # the tiered volume's objects read back
+SERVER_S3_QUERY_KEY = 1 << 40        # the CSV needle's key in that volume
 
 
 def _read_lines(proc, n: int, timeout: float = 60.0) -> "list[str]":
@@ -9637,6 +9646,160 @@ def _op_stats(samples: "list[tuple[float, int]]", wall: float) -> dict:
     return {"ops": len(samples), "obj_per_s": len(samples) / wall,
             "mib_per_s": sum(b for _, b in samples) / wall / (1 << 20),
             **(_pcts(ms) if ms else {})}
+
+
+def _tier_read_bytes(vurl: str) -> float:
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    text = http_bytes("GET", f"{vurl}/metrics", timeout=60)[1].decode()
+    return sum(v for _, v in _samples(text,
+                                      "volume_tier_remote_read_bytes_total"))
+
+
+def _server_s3_tier(seed: int, env, vurl: str, murl: str, s3b: str,
+                    admin: tuple, sdir: str, vid: int, send_a,
+                    unread: dict, vid_of, bucket: str, run_query,
+                    read_mb: int) -> dict:
+    """server_s3's tier step (see `phase_server_s3`): the full volume
+    `vid` to bucket `tier` on the second gateway `s3b` and back, with up
+    to `read_mb` of the objects of `unread` (none of them read since
+    their PUT, so no cache holds them) read through the tier between,
+    the last in key order (the degraded reads of the rebuild step take
+    the first, which must still miss the filer's chunk cache)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.server.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.topology import iter_volume_list_volumes
+
+    dat = os.path.join(sdir, f"{vid}.dat")
+    rng = np.random.default_rng([seed, 24])
+    sizes, tiers = rng.integers(1, 1000, 2000), rng.integers(0, 3, 2000)
+    csv = ("name,size,tier\n" + "".join(
+        f"r{i},{int(sz)},{('hot', 'warm', 'cold')[t]}\n"
+        for i, (sz, t) in enumerate(zip(sizes, tiers)))).encode()
+    fid = f"{vid},{SERVER_S3_QUERY_KEY:x}{0x5EED5EED:08x}"
+    st, body, _ = http_bytes("POST", f"{vurl}/{fid}", csv, timeout=60)
+    check(st == 201, f"the CSV needle: {st} {body[:200]!r}")
+    size = os.path.getsize(dat)
+    sha = sha256_file(dat)
+
+    def remote_tiered() -> "bool | None":
+        """The master's view of the volume (None: not listed)."""
+        for _n, v in iter_volume_list_volumes(http_json(
+                "GET", f"{murl}/vol/list", timeout=30)):
+            if v["id"] == vid:
+                return bool(v.get("remoteTiered"))
+        return None
+    t = time.perf_counter()
+    out = commands.run_script(
+        env, f"lock; volume.tier.upload -volumeId={vid} -endpoint={s3b} "
+             f"-bucket=tier -accessKey={admin[0]} -secretKey={admin[1]}; "
+             f"unlock")
+    up_s = time.perf_counter() - t
+    check(f"-> s3://tier/{vid}." in out[1], f"tier upload: {out}")
+    check(not os.path.exists(dat), "the tiered volume's .dat is still there")
+    poll(lambda: remote_tiered() is True, "remoteTiered in the master's view")
+
+    # objects of the volume alone, read through the server's gateway
+    mine = [k for k in sorted(unread, reverse=True)
+            if unread[k][2] == "plain" and vid_of(k) == {vid}]
+    budget = read_mb << 20
+    picked = []
+    for k in mine:
+        if sum(unread[x][1] for x in picked) + unread[k][1] > budget:
+            break
+        picked.append(k)
+    check(picked, "no object of the tiered volume to read")
+    b0, l0 = _tier_read_bytes(vurl), _counters([vurl])["launches"]
+
+    def read(key):
+        st, body, _ = send_a("GET", f"/{bucket}/{key}")
+        return st == 200 and hashlib.sha256(body).hexdigest() == \
+            unread[key][0]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        bad = [k for k, ok in zip(picked, pool.map(read, picked)) if not ok]
+    read_s = time.perf_counter() - t
+    read_bytes = sum(unread[k][1] for k in picked)
+    tier_bytes = _tier_read_bytes(vurl) - b0
+    launches = int(_counters([vurl])["launches"] - l0)
+    check(not bad, f"tiered reads differ: {bad[:3]}")
+    check(launches == 0, f"the tiered reads launched {launches}")
+    check(tier_bytes >= read_bytes, f"{read_bytes} bytes read, "
+                                    f"{tier_bytes} from the tier")
+    # a write into the tiered volume is refused
+    st, _, _ = http_bytes("POST", f"{vurl}/{vid},{(1 << 40) + 1:x}"
+                                  f"00000001", b"refused", timeout=60)
+    check(st == 409, f"a write into the tiered volume: {st}")
+    # the needle query, through the tier, against the plain engine
+    expr = "select name, size from s3object where size > 900"
+    q = http_json("POST", f"{vurl}/admin/query", {
+        "volumeId": vid, "key": SERVER_S3_QUERY_KEY, "expression": expr,
+        "inputFormat": "csv", "csvHeader": True}, timeout=120)
+    want = run_query(expr, csv, "csv", True)
+    check(q.get("rows") == want and q.get("count") == len(want),
+          f"/admin/query: {str(q)[:200]}")
+    t = time.perf_counter()
+    out = commands.run_script(
+        env, f"lock; volume.tier.download -volumeId={vid}; unlock")
+    down_s = time.perf_counter() - t
+    check("fetched" in out[1], f"tier download: {out}")
+    same = os.path.getsize(dat) == size and sha256_file(dat) == sha
+    check(same, "the fetched-back .dat differs from the original")
+    poll(lambda: remote_tiered() is False, "the volume local again")
+    return {"volume": vid, "dat_bytes": size, "sha256": sha,
+            "upload_seconds": up_s, "upload_mb_per_s": size / up_s / 1e6,
+            "remote_reads": len(picked), "remote_read_bytes": read_bytes,
+            "tier_read_bytes": tier_bytes, "remote_read_seconds": read_s,
+            "remote_read_mib_per_s": read_bytes / read_s / (1 << 20),
+            "launches": launches, "write_refused": st, "query_rows": len(want),
+            "download_seconds": down_s,
+            "download_mb_per_s": size / down_s / 1e6,
+            "sha256_equal": same}
+
+
+def _server_s3_tables(env, send_a) -> dict:
+    """server_s3's tables step (see `phase_server_s3`)."""
+    from seaweedfs_tpu_torch.shell import commands
+
+    def op(name: str, body: dict) -> "tuple[int, dict]":
+        st, resp, _ = send_a("POST", "/", body=json.dumps(body).encode(),
+                             headers={"X-Amz-Target": f"S3Tables.{name}"})
+        return st, json.loads(resp or b"{}")
+    t = time.perf_counter()
+    st, r = op("CreateTableBucket", {"name": "lake", "tags": {"env": "chip"}})
+    check(st == 200, f"CreateTableBucket: {st} {r}")
+    arn = r["arn"]
+    st, r = op("CreateNamespace", {"tableBucketARN": arn,
+                                   "namespace": ["raw"]})
+    check(st == 200, f"CreateNamespace: {st} {r}")
+    st, r = op("CreateTable", {"tableBucketARN": arn, "namespace": ["raw"],
+                               "name": "clicks", "metadata": {
+                                   "iceberg": {"schema": {"fields": []}}}})
+    check(st == 200 and r.get("versionToken"), f"CreateTable: {st} {r}")
+    meta = send_a("PUT", "/lake/raw/clicks/metadata/v1.metadata.json",
+                  body=b'{"format-version": 2}')[0]
+    junk = send_a("PUT", "/lake/raw/clicks/notes.txt", body=b"no")[0]
+    check((meta, junk) == (200, 403),
+          f"table-bucket writes: metadata {meta}, outside the layout {junk}")
+    st, r = op("UpdateTable", {"tableBucketARN": arn, "namespace": ["raw"],
+                               "name": "clicks", "versionToken": "stale"})
+    check((st, r.get("__type")) == (409, "ConflictException"),
+          f"a stale version token: {st} {r}")
+    lines = commands.run_script(
+        env, "s3tables.bucket -list; s3tables.namespace -bucket=lake -list; "
+             "s3tables.table -bucket=lake -namespace=raw -list; "
+             "s3tables.tag -resource=lake -list")
+    docs = [json.loads(ln) for ln in lines]
+    listed = ([b["name"] for b in docs[0]["tableBuckets"]],
+              [n["namespace"] for n in docs[1]["namespaces"]],
+              [x["name"] for x in docs[2]["tables"]], docs[3]["tags"])
+    check(listed == (["lake"], [["raw"]], ["clicks"], {"env": "chip"}),
+          f"the s3tables verbs listed {listed}")
+    return {"seconds": time.perf_counter() - t, "table_arn":
+            f"{arn}/table/raw/clicks", "metadata_put": meta,
+            "outside_layout_put": junk, "stale_token": st,
+            "listed": listed}
 
 
 def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
@@ -9667,8 +9830,24 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
     3. mixed: `mixed_ops` operations in warp mixed's shares (GET 45%,
        STAT 30%, PUT 15%, DELETE 10%) on 20 threads through the
        server's gateway: objects/s, MiB/s and p50/p99 of each;
-    4. encode: `ec.encode` of the full volume through the shell, on the
-       card (launches equal to its windows);
+    3a. tier: a CSV needle of seeded rows written into the full volume,
+       the `.dat`'s SHA-256, `volume.tier.upload` of the volume to bucket
+       `tier` on the second gateway (the server's `-tierBackend`): the
+       `.dat` gone and `remoteTiered` in the master's view; up to
+       `SERVER_S3_TIER_READ_MB` of its objects read through the server's
+       gateway, each a ranged GET of the tier object (the server's
+       `volume_tier_remote_read_bytes_total`) equal to its payload; a
+       needle write into it refused; `/admin/query` over the CSV needle
+       equal to the port's engine on the same bytes; `volume.tier.download`
+       and the `.dat`'s SHA-256 as before; the walls and MB/s;
+    3b. tables: a table bucket, a namespace and a table made through the
+       server's gateway (`S3Tables.*`), an Iceberg metadata PUT accepted
+       and a key outside the layout refused, a stale version token
+       answered 409 `ConflictException`, and the `s3tables.*` verbs
+       listing what was made;
+    4. encode: `ec.encode` of the full volume (fetched back from its
+       tier) through the shell, on the card (launches equal to its
+       windows);
     5. rebuild: shards 1, 4, 7 and 9 deleted, `SERVER_S3_DEGRADED`
        objects read degraded (host codec, no launch), `ec.rebuild` on the
        card (launches equal to its windows);
@@ -9685,6 +9864,7 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
     from seaweedfs_tpu_torch.iam.kms import LocalKms
     from seaweedfs_tpu_torch.iam.kms_aws import KmsStubServer
     from seaweedfs_tpu_torch.iam.oidc import mint_test_token
+    from seaweedfs_tpu_torch.query import run_query
     from seaweedfs_tpu_torch.server.httpd import (HttpServer, http_bytes,
                                                   http_json)
     from seaweedfs_tpu_torch.shell import commands
@@ -9757,7 +9937,7 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
             f"s3.policy.attach -user=admin -actions=Admin {cfg}")
         admin = tuple(ln.split(": ", 1)[1] for ln in out[1].splitlines())
         check(len(admin) == 2 and "Admin" in out[2], f"shell: {out}")
-        mport = _free_port()
+        mport, s3b_port = _free_port(), _free_port()
         started: dict = {}
 
         def start_iam():
@@ -9777,7 +9957,8 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
               "-s3.secretKey", SERVER_S3_KEYS[1], "-dir", sdir,
               "-master.port", "0", "-master.volumeSizeLimitMB",
               str(volume_mb), "-volume.port", "0", "-filer.port", "0",
-              "-s3.port", "0",
+              "-s3.port", "0", "-tierBackend",
+              f"127.0.0.1:{s3b_port},tier,{admin[0]},{admin[1]}",
               *([] if device == "cuda" else ["-device", device])]],
             [os.path.join(tmp, "server.log")], procs, "server",
             line=r"(master on \S+:\d+, volume on \S+:\d+)\n",
@@ -9793,7 +9974,7 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
 
         def start_s3b():
             started["s3b"] = _start_procs(
-                [["s3", "-port", "0", "-filer", furl, "-iamConfig",
+                [["s3", "-port", str(s3b_port), "-filer", furl, "-iamConfig",
                   ids_path, "-stsKey", SERVER_S3_STS_KEY, "-rolesFile",
                   roles_path, "-kmsEndpoint", f"{kms_stub.url},KMSAK,KMSSK",
                   "-metricsAddress", pgw.url, "-metricsIntervalSec", "1",
@@ -9952,6 +10133,18 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
                           **{op.lower(): _op_stats(samples[op], mixed_s)
                              for op, _ in SERVER_S3_MIX}}
         emit({"phase": "server_s3", "step": "mixed", **steps["mixed"]})
+
+        # 3a. the full volume to its tier on the second gateway and back
+        read_before = {k for op, k in schedule if op in ("GET", "STAT")}
+        steps["tier"] = _server_s3_tier(
+            seed, env, vurl, murl, s3b, admin, sdir, first, send_a,
+            {k: v for k, v in objs.items() if k not in read_before},
+            vid_of, bucket, run_query,
+            min(SERVER_S3_TIER_READ_MB, volume_mb // 4))
+        emit({"phase": "server_s3", "step": "tier", **steps["tier"]})
+        # 3b. S3 Tables through the server's gateway and the shell
+        steps["tables"] = _server_s3_tables(env, send_a)
+        emit({"phase": "server_s3", "step": "tables", **steps["tables"]})
 
         # 4. ec.encode of the full volume, on the card
         def ec_locs() -> list:
@@ -10125,8 +10318,12 @@ def phase_server_s3(tmp: str, seed: int, volume_mb: int = SERVER_S3_MB,
         shutil.rmtree(tmp, ignore_errors=True)
     check(not bad, f"a process of the phase did not stop: {bad}")
     out = {"phase": "server_s3", "steps": steps,
+           "tier": {k: steps["tier"][k] for k in (
+               "upload_mb_per_s", "remote_read_mib_per_s",
+               "download_mb_per_s", "sha256_equal")},
            "launches": {"encode": steps["encode"]["launches"],
                         "rebuild": steps["rebuild"]["launches"],
+                        "tier_reads": steps["tier"]["launches"],
                         "reads": steps["verify"]["kernel_launches"] +
                         steps["rebuild"]["degraded_launches"]},
            "phase_seconds": time.perf_counter() - phase_t0}
@@ -10255,6 +10452,7 @@ def main(argv=None) -> int:
               "filer_rest_rebuild": rest["launches"]["rebuild"],
               "server_s3_encode": srv["launches"]["encode"],
               "server_s3_rebuild": srv["launches"]["rebuild"],
+              "server_s3_tier_reads": srv["launches"]["tier_reads"],
               "server_s3_reads": srv["launches"]["reads"]}),
             ("batched", "gf_apply_words_batched",
              "seaweedfs_tpu/parallel/ec_sharded.py:157",

@@ -9,11 +9,13 @@
         [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
     python3 -m seaweedfs_tpu_torch volume -dir DIR[,DIR...] [-port 8080]
         [-ip 127.0.0.1] [-mserver HOST:PORT[,...]] [-device cuda] [-max 8]
-        [-dataCenter DC] [-rack RACK] [-fsync]
+        [-dataCenter DC] [-rack RACK] [-fsync] [-memoryMapMaxSizeMb MB]
+        [-tierBackend ENDPOINT,BUCKET[,ACCESSKEY,SECRETKEY]]
         [-metricsAddress HOST:PORT [-metricsIntervalSec 15]]
     python3 -m seaweedfs_tpu_torch server [-ip 127.0.0.1] [-dir .]
         [-master.port 9333] [-master.volumeSizeLimitMB 1024]
         [-volume.port 8080] [-device cuda]
+        [-tierBackend ENDPOINT,BUCKET[,ACCESSKEY,SECRETKEY]]
         [-filer [-filer.port 8888]]
         [-s3 [-s3.port 8333] [-s3.accessKey AK -s3.secretKey SK]]
     python3 -m seaweedfs_tpu_torch filer [-ip 127.0.0.1] [-port 8888]
@@ -26,6 +28,9 @@
         [-state FILE] [-interval 0.5]
     python3 -m seaweedfs_tpu_torch filer.backup -filer HOST:PORT -dir DIR
         [-state FILE] [-interval 0.5]
+    python3 -m seaweedfs_tpu_torch filer.backup.s3 -filer HOST:PORT
+        -endpoint HOST:PORT -bucket B [-accessKey AK -secretKey SK]
+        [-prefix P] [-state FILE] [-interval 0.5]
     python3 -m seaweedfs_tpu_torch filer.remote.sync -filer HOST:PORT
         -dir /MOUNTED [-state FILE] [-interval 0.5]
     python3 -m seaweedfs_tpu_torch filer.meta.tail [-filer HOST:PORT]
@@ -91,7 +96,13 @@ volume server (`server/volume_server.py`) that heartbeats to
 volume slots and its `-dataCenter` and `-rack`, which the master's
 placement of new volumes reads.  `-fsync` puts the volume server on
 the power-loss tier: a write or delete is acked after an fsync of its
-`.dat`, one fsync a group-commit window.  The master grows volumes of
+`.dat`, one fsync a group-commit window.  `-memoryMapMaxSizeMb MB`
+serves needle reads of volumes up to MB from a read-only map of the
+`.dat` (0, the default, reads through the file handle).  `-tierBackend
+ENDPOINT,BUCKET[,AK,SK]` registers the S3 backend "default" (the bucket
+`tier` if none is given), so the server mounts at start the volumes
+that `volume.tier.move` (or `.upload`) put there; without it such a
+volume is left out with a line on stderr.  The master grows volumes of
 `-defaultReplication` for assigns that name none.  Each prints
 `<role> server listening on <ip>:<port>` on its first line (`-port 0`
 takes a free port) and serves until SIGTERM or SIGINT, when it stops
@@ -124,8 +135,8 @@ volume on URL`, then `filer on URL` and `s3 on URL`, as the JAX
 package's `server` does, and stops them in the reverse order on
 SIGTERM or SIGINT.  `-master.volumeSizeLimitMB` (the reference's `weed
 server` flag; the JAX `server` has none) sets the master's volume size
-limit.  `-tierBackend` is refused (exit 2): the S3 tier
-backend is not ported (ROADMAP A4).  `version` prints
+limit; `-tierBackend` registers the volume server's S3 tier backend,
+as `volume`'s does.  `version` prints
 `seaweedfs-tpu-torch <version> (python <version>)`.
 
 `shell` runs one `;`-separated command line
@@ -208,8 +219,11 @@ without `-stsKey` it exits 2).  It prints `oidc provider NAME (ISSUER)`
 for each provider, then `iam api on <ip>:<port>`.
 
 `filer.sync` replicates `-from`'s namespace and content to `-to`,
-event by event from its metadata log, and `filer.backup` mirrors a
-filer into the local directory `-dir`; each keeps its offset in
+event by event from its metadata log, `filer.backup` mirrors a
+filer into the local directory `-dir` and `filer.backup.s3` into the
+bucket `-bucket` of the S3 API at `-endpoint` (under `-prefix`; SigV4
+with `-accessKey`/`-secretKey`; the bucket is made if missing); each
+keeps its offset in
 `-state` (a name derived from its ends by default), advanced after an
 event is applied, and runs until SIGTERM or SIGINT.
 `filer.remote.sync` pushes local changes under a remote-mounted
@@ -530,9 +544,8 @@ class _AllInOne:
 
 def _server(args) -> int:
     if args.tierBackend:
-        print("server -tierBackend: not ported yet (ROADMAP A4)",
-              file=sys.stderr)
-        return 2
+        from .storage.backend import configure_from_flag
+        configure_from_flag(args.tierBackend)
     if args.device is not None:
         from .ops.rs_torch import _resolve_device
         _resolve_device(args.device)  # raises without the card
@@ -846,6 +859,12 @@ def main(argv=None) -> int:
     v.add_argument("-fsync", action="store_true",
                    help="fsync acked writes (the power-loss tier; one "
                         "fsync a group-commit window)")
+    v.add_argument("-memoryMapMaxSizeMb", dest="mmap_mb", type=int,
+                   default=0, help="mmap the .dat read path of volumes up "
+                                   "to this size (0: off)")
+    v.add_argument("-tierBackend", default="",
+                   help="S3 tier backend: endpoint,bucket[,accessKey,"
+                        "secretKey], to mount tiered volumes at start")
     metrics_flags(v)
     sv = sub.add_parser("server", help="all-in-one: master + volume (+ "
                         "filer + s3) in one process")
@@ -870,7 +889,8 @@ def main(argv=None) -> int:
                     help="the volume server's codec device: cuda (the "
                          "default) or cpu")
     sv.add_argument("-tierBackend", default="",
-                    help="S3 tier backend (not ported: refused)")
+                    help="S3 tier backend: endpoint,bucket[,accessKey,"
+                         "secretKey]")
     ad = sub.add_parser("admin", help="start the maintenance admin")
     ad.add_argument("-ip", default="127.0.0.1")
     ad.add_argument("-port", type=int, default=23646)
@@ -937,6 +957,18 @@ def main(argv=None) -> int:
     fbk.add_argument("-dir", required=True, help="backup root")
     fbk.add_argument("-state", default="", help="offset file")
     fbk.add_argument("-interval", type=float, default=0.5)
+    fbs3 = sub.add_parser("filer.backup.s3", help="mirror a filer into an "
+                          "S3-compatible bucket")
+    fbs3.add_argument("-filer", required=True, help="source filer host:port")
+    fbs3.add_argument("-endpoint", required=True,
+                      help="S3 endpoint, e.g. http://host:8333")
+    fbs3.add_argument("-bucket", required=True)
+    fbs3.add_argument("-accessKey", dest="access_key", default="")
+    fbs3.add_argument("-secretKey", dest="secret_key", default="")
+    fbs3.add_argument("-prefix", default="",
+                      help="key prefix inside the bucket")
+    fbs3.add_argument("-state", default="", help="offset file")
+    fbs3.add_argument("-interval", type=float, default=0.5)
     frs = sub.add_parser("filer.remote.sync", help="push local changes "
                          "under a remote-mounted directory to its store")
     frs.add_argument("-filer", required=True)
@@ -1090,6 +1122,16 @@ def main(argv=None) -> int:
                       lambda s: f"filer.backup {s.source} -> "
                                 f"{args.dir} (offset state: "
                                 f"{s.state_path})")
+    if args.cmd == "filer.backup.s3":
+        from .filer.s3_sink import S3Sink
+        return _serve(S3Sink(args.filer, args.endpoint, args.bucket,
+                             args.access_key, args.secret_key, args.prefix,
+                             args.state or None,
+                             poll_interval=args.interval),
+                      lambda s: f"filer.backup.s3 {s.source} -> "
+                                f"{args.endpoint}/{args.bucket}/"
+                                f"{args.prefix} (offset state: "
+                                f"{s.state_path})")
     if args.cmd == "filer.remote.sync":
         from .remote import RemoteError, RemoteSyncer
         try:
@@ -1139,6 +1181,12 @@ def main(argv=None) -> int:
         _resolve_device(args.device)  # raises without the card
     if args.cmd == "volume":
         from .server.volume_server import VolumeServer
+        if args.tierBackend:
+            from .storage.backend import configure_from_flag
+            configure_from_flag(args.tierBackend)
+        if args.mmap_mb:
+            from .storage import store
+            store.MMAP_READ_MB = args.mmap_mb
         return _serve(VolumeServer(
             args.dir.split(","), host=args.ip, port=args.port,
             device=args.device or "cuda", master=args.mserver,

@@ -4,7 +4,11 @@ the port's copy of `seaweedfs_tpu/filer/client.py`.  It speaks the JAX
 filer's wire format, so either package's client drives either filer.
 
 Duck-typed to the in-process `Filer` for the read/write/namespace
-methods that gateways consume.
+methods that gateways consume, `open_read_stream` included: a gateway
+over a remote filer streams an object's range from one ranged GET,
+where the JAX client has no such method and its gateway reads the whole
+object for any range (a tier's 8-byte superblock read of a 1 GiB object
+among them).
 """
 
 from __future__ import annotations
@@ -12,8 +16,38 @@ from __future__ import annotations
 import json
 import urllib.parse
 
-from ..server.httpd import http_bytes
+from ..server.httpd import http_bytes, http_open_stream
 from .entry import Entry, normalize_path
+
+
+class _RangeStream:
+    """A file-like over one ranged GET of a file on the filer
+    (`FilerClient.open_read_stream`), read as the server drains its
+    response: exactly `size` bytes, or OSError if the filer's body ends
+    short.  `on_close` runs once, when the response is done."""
+
+    def __init__(self, conn, resp, size: int, on_close=None):
+        self._conn = conn
+        self._resp = resp
+        self._left = size
+        self._on_close = on_close
+
+    def read(self, n: int = -1) -> bytes:
+        if self._left <= 0:
+            return b""
+        data = self._resp.read(self._left if n < 0 else min(n, self._left))
+        if not data:
+            raise OSError(f"filer stream ended {self._left} bytes short")
+        self._left -= len(data)
+        return data
+
+    def close(self) -> None:
+        conn, self._conn = self._conn, None
+        if conn is not None:
+            conn.close()
+        cb, self._on_close = self._on_close, None
+        if cb is not None:
+            cb()
 
 
 class FilerClient:
@@ -141,3 +175,25 @@ class FilerClient:
         if st == 200 and (offset or size is not None):
             body = body[offset:offset + size if size else None]
         return body
+
+    def open_read_stream(self, entry: Entry, offset: int, size: int,
+                         on_close=None) -> _RangeStream:
+        """[offset, offset+size) of `entry`'s content as a stream (the
+        in-process `Filer.open_read_stream`'s contract), from one ranged
+        GET opened here: a filer that refuses it raises OSError, after
+        `on_close` ran."""
+        if size <= 0:
+            return _RangeStream(None, None, 0, on_close)
+        try:
+            conn, resp = http_open_stream(
+                self._url(entry.full_path),
+                {"Range": f"bytes={offset}-{offset + size - 1}"})
+        except OSError:
+            if on_close is not None:
+                on_close()
+            raise
+        stream = _RangeStream(conn, resp, size, on_close)
+        if resp.status == 206 or (resp.status == 200 and offset == 0):
+            return stream
+        stream.close()
+        raise OSError(f"filer read {entry.full_path}: {resp.status}")

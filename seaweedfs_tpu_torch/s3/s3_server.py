@@ -15,8 +15,10 @@ Implemented surface (the core the reference's s3tests exercise first):
 The port's copy of `seaweedfs_tpu/s3/s3_server.py`, with STS session
 credentials (`sts=`) and the separate metrics listener
 (`metrics_port=`); the per-bucket families are on the gateway's own
-`GET /metrics` too.  Not here: the S3 Tables plane (501
-NotImplemented, ROADMAP A3.4) and the IAM gRPC cache (no gRPC).
+`GET /metrics` too, and the S3 Tables plane (`s3tables.py`: the
+`X-Amz-Target: S3Tables.<Op>` target, and the write guard that holds
+object writes into a table bucket to the Iceberg layout of an existing
+table).  Not here: the IAM gRPC cache (no gRPC).
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ BUCKETS_ROOT = "/buckets"
 UPLOADS_DIR = "/.uploads"
 VERSIONS_EXT = ".versions"
 S3_NS = "http://s3.amazonaws.com/doc/2006-03-01/"
-# the extended attribute that marks a bucket made by the S3 Tables plane
-TABLE_BUCKET_MARKER = "s3tables.tableBucket"
 
 
 def new_version_id() -> str:
@@ -393,35 +393,101 @@ class S3ApiServer:
         return self._object_op(req, bucket, key)
 
     def _s3tables_op(self, req: Request, operation: str):
-        """The S3 Tables plane (X-Amz-Target: S3Tables.<Op>) is not
-        ported (ROADMAP A3.4): it answers 501, as a gateway without the
-        backing piece does."""
-        return 501, (json.dumps(
-            {"__type": "NotImplemented",
-             "message": f"S3Tables.{operation} is not implemented "
-                        f"on this gateway"}).encode(),
-            "application/x-amz-json-1.1")
+        """The S3 Tables plane (`s3tables.py`; the reference's
+        weed/s3api/s3tables/handler.go): POST / with `X-Amz-Target:
+        S3Tables.<Op>` and a JSON body.  A mutating operation needs the
+        coarse Admin action on its table bucket, a Get or List needs Read
+        (or Admin); with flat credentials every valid signature is
+        admin."""
+        from .s3tables import (S3TablesError, S3TablesStore,
+                               handle_request, parse_bucket_arn,
+                               parse_table_arn)
+
+        def answer(status: int, doc: dict):
+            return status, (json.dumps(doc).encode(),
+                            "application/x-amz-json-1.1")
+        try:
+            body = json.loads(req.body or b"{}")
+        except ValueError as e:
+            return answer(400, {"__type": "InvalidRequest",
+                                "message": f"bad JSON body: {e}"})
+        ident = getattr(req, "s3_identity_obj", None)
+        if self.verifier is not None:
+            # the target bucket, for grants scoped to one
+            tbkt = ""
+            try:
+                if body.get("tableBucketARN"):
+                    tbkt = parse_bucket_arn(body["tableBucketARN"])
+                elif body.get("tableARN"):
+                    tbkt = parse_table_arn(body["tableARN"])[0]
+                elif body.get("resourceArn"):
+                    tbkt = parse_bucket_arn(
+                        body["resourceArn"].split("/table/")[0])
+                elif body.get("name") and operation == "CreateTableBucket":
+                    tbkt = body["name"]
+            except S3TablesError:
+                tbkt = ""
+            needed = "Read" if operation.startswith(("Get", "List")) \
+                else "Admin"
+            legacy_admin = self.iam is None and \
+                bool(getattr(req, "s3_identity", None))
+            if not legacy_admin and (ident is None or not (
+                    ident.can_do(needed, tbkt) or ident.is_admin)):
+                return answer(403, {"__type": "AccessDeniedException",
+                                    "message": f"not authorized to "
+                                               f"{operation}"})
+        try:
+            resp = handle_request(S3TablesStore(self.filer), operation, body)
+        except S3TablesError as e:
+            return answer(e.status, {"__type": e.code, "message": e.message})
+        if operation in ("CreateTableBucket", "DeleteTableBucket"):
+            # a cached "not a table bucket" would let any object into a
+            # bucket just made a table bucket for the cache's 2 s
+            if body.get("name"):
+                self._tbkt_cache.pop(body["name"], None)
+            if body.get("tableBucketARN"):
+                try:
+                    self._tbkt_cache.pop(
+                        parse_bucket_arn(body["tableBucketARN"]), None)
+                except S3TablesError:
+                    pass
+        return answer(200, resp)
+
+    def _is_table_bucket(self, bucket: str) -> bool:
+        """Whether `bucket` is a table bucket, cached 2 s: the write guard
+        runs on every object write, and a plain bucket must not pay a
+        filer round trip a request (a bucket's kind changes only on its
+        create or delete, which drop the entry)."""
+        from .s3tables import is_table_bucket
+        now = time.monotonic()
+        hit = self._tbkt_cache.get(bucket)
+        if hit is not None and now - hit[0] < 2.0:
+            return hit[1]
+        val = is_table_bucket(self.filer.find_entry(self._bucket_path(bucket)))
+        self._tbkt_cache[bucket] = (now, val)
+        if len(self._tbkt_cache) > 4096:    # unauthenticated-probe cap
+            self._tbkt_cache.clear()
+        return val
 
     def _table_bucket_write_guard(self, req: Request, bucket: str,
                                   key: str):
-        """A table bucket (one carrying the S3 Tables marker, made by a
-        gateway that has the plane) keeps its Iceberg layout: this
-        gateway, which cannot check that layout, refuses object writes
-        into it with 501 rather than corrupt the catalog.  The check is
-        cached for 2 s: it runs on every object write."""
-        now = time.monotonic()
-        hit = self._tbkt_cache.get(bucket)
-        if hit is None or now - hit[0] >= 2.0:
-            e = self.filer.find_entry(self._bucket_path(bucket))
-            hit = (now, e is not None and
-                   TABLE_BUCKET_MARKER in e.extended)
-            self._tbkt_cache[bucket] = hit
-            if len(self._tbkt_cache) > 4096:  # unauthenticated-probe cap
-                self._tbkt_cache.clear()
-        if hit[1]:
-            return _error(501, "NotImplemented",
-                          f"table bucket {bucket}: S3 Tables is not "
-                          f"implemented on this gateway")
+        """An object write into a table bucket must be a file of the
+        Iceberg layout (s3tables/iceberg_layout.go) under an existing
+        table: anything else would break the catalog's invariants (403).
+        Deletes pass.  Returns the error answer, or None."""
+        from .s3tables import X_METADATA, validate_iceberg_key
+        if not self._is_table_bucket(bucket):
+            return None
+        reason = validate_iceberg_key(key)
+        if reason is None:
+            ns, table = key.split("/")[:2]
+            t = self.filer.find_entry(
+                f"{self._bucket_path(bucket)}/{ns}/{table}")
+            if t is None or X_METADATA not in t.extended:
+                reason = f"no table {ns}/{table} in bucket {bucket}"
+        if reason is not None and req.method != "DELETE":
+            return _error(403, "AccessDenied",
+                          f"table bucket {bucket}: {reason}")
         return None
 
     # -- CORS (s3api/cors/) -----------------------------------------------

@@ -23,6 +23,8 @@ outside the lock, so a slow reader never holds the volume.  A record
 larger than the socket's send buffer is sent whole: the server waits
 for room when sendfile(2) would block (the JAX server's sendfile fails
 there, and its reader falls back to HTTP for any needle over ~256 KiB).
+A tiered volume has no local fd: its record is read through its remote
+`.dat` (ranged GETs) under the lock and sent from memory.
 """
 
 from __future__ import annotations
@@ -140,29 +142,24 @@ class UdsNeedleServer:
             offset = types.to_actual_offset(got[0])
             total = get_actual_size(got[1], v.version)
             version = v.version
-            v.flush()
-            dup_fd = os.dup(v.dat_fd())
+            dup_fd = payload = None
+            if v.is_remote:
+                v._dat.seek(offset)
+                payload = v._dat.read(total)
+            else:
+                v.flush()
+                dup_fd = os.dup(v.dat_fd())
         try:
             conn.settimeout(30.0)
             conn.sendall(json.dumps(
                 {"size": total, "version": version}).encode() + b"\n")
-            sent = 0
-            while sent < total:
-                try:
-                    n = os.sendfile(conn.fileno(), dup_fd, offset + sent,
-                                    total - sent)
-                except BlockingIOError:
-                    # the socket's buffer is full (a socket with a
-                    # timeout does not block): wait for room, within
-                    # the timeout
-                    if not select.select([], [conn], [], 30.0)[1]:
-                        raise TimeoutError("uds send stalled") from None
-                    continue
-                if n == 0:
-                    break
-                sent += n
+            if payload is not None:
+                conn.sendall(payload)
+            else:
+                _send_file(conn, dup_fd, offset, total)
         finally:
-            os.close(dup_fd)
+            if dup_fd is not None:
+                os.close(dup_fd)
         if self.on_read is not None:
             try:
                 self.on_read(vid, key)
@@ -170,6 +167,24 @@ class UdsNeedleServer:
                 pass           # effort and must not end the connection
         with self._served_lock:       # counted once its hook has run
             self.served += 1
+
+
+def _send_file(conn: socket.socket, fd: int, offset: int,
+               total: int) -> None:
+    """sendfile(2) of `total` bytes at `offset`, waiting for room in the
+    socket's buffer (a socket with a timeout does not block) within
+    30 s."""
+    sent = 0
+    while sent < total:
+        try:
+            n = os.sendfile(conn.fileno(), fd, offset + sent, total - sent)
+        except BlockingIOError:
+            if not select.select([], [conn], [], 30.0)[1]:
+                raise TimeoutError("uds send stalled") from None
+            continue
+        if n == 0:
+            break
+        sent += n
 
 
 _kept = threading.local()

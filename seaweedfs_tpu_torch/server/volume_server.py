@@ -50,6 +50,19 @@ a master, and the public data path for reads and deletes.
   the handshake leaves the volume on the Python path.
 - `/admin/allocate_volume`: a new empty volume, for the master's
   growth.
+- Tiers (storage/volume_tier.go): `/admin/tier_move` freezes a volume,
+  heartbeats at once (so the master stops assigning into it: the tier
+  may be this very cluster's gateway), uploads its `.dat` to an S3
+  backend under a key of its own a replica (`<vid>.<port>.dat`), writes
+  the `.vif`'s `files` entry, removes the `.dat` and mounts the volume
+  again, remote and read-only; `/admin/tier_fetch` downloads it back and
+  mounts it local and writable.  A remote volume is never in the read
+  or write plane, its UDS reads go through the remote `.dat`, and each
+  swap drops the volume from the read plane and the hot-needle cache
+  (`_swap_guard`); a tier move or fetch holds the volume against a
+  vacuum, a merge or an EC generate (409, as those hold each other).
+- `/admin/query` (volume_server.proto Query): a SQL-subset SELECT over
+  one needle's JSON or CSV content (`query/engine.run_query`).
 
 - `/admin/ec/generate`: encode a read-only volume, locally or, with a
   `placement` map ({shard_id: url}), as a scatter-encode: each shard
@@ -224,6 +237,9 @@ class VolumeServer:
         r("GET", "/admin/ec/shard_read", self._ec_shard_read)
         r("GET", "/admin/ec/info", self._ec_info)
         r("POST", "/admin/ec/scrub", self._ec_scrub)
+        r("POST", "/admin/query", self._query)
+        r("POST", "/admin/tier_move", self._tier_move)
+        r("POST", "/admin/tier_fetch", self._tier_fetch)
         r("GET", "/metrics", self._metrics)
         r("GET", "/status", self._status)
         install_debug_routes(self.http)
@@ -764,8 +780,8 @@ class VolumeServer:
         the needle object it was handed, from a queue, so it can serve
         the old bytes for a moment after an acked overwrite.)"""
         v = self.store.find_volume(vid)
-        if self.read_plane is None or v is None:
-            return                  # no plane, or not a normal volume
+        if self.read_plane is None or v is None or v.is_remote:
+            return          # no plane, not a normal volume, or no local fd
         with self._rp_lock:
             rp = self.read_plane
             if rp is None:
@@ -1221,6 +1237,135 @@ class VolumeServer:
                         pass
         self._heartbeat_once()
         return 200, {"mergedNeedles": merged, "datBytes": v.dat_size()}
+
+    # -- tiers (storage/volume_tier.go) and the needle query ----------------
+
+    def _tier_move(self, req: Request):
+        """volume_server.proto VolumeTierMoveDatToRemote: the `.dat` to an
+        S3 backend (named by `endpoint`, `bucket` and keys, else the one
+        registered as `backendId`), then the volume mounted remote."""
+        from ..storage.backend import configure_s3_backend, get_backend
+        b = req.json()
+        vid = int(b["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        if v.is_remote:
+            return 200, {"alreadyRemote": True}
+        backend_id = b.get("backendId", "default")
+        if b.get("endpoint"):
+            storage = configure_s3_backend(
+                backend_id, b["endpoint"], b.get("bucket", "tier"),
+                b.get("accessKey", ""), b.get("secretKey", ""))
+        else:
+            try:
+                storage = get_backend(backend_id)
+            except KeyError as e:
+                return 400, {"error": str(e)}
+        with self._exclusive(vid, "tier.move") as busy:
+            if busy:
+                return 409, {"error": f"volume {vid} is busy: {busy}"}
+            return self._tier_move_locked(v, vid, backend_id, storage)
+
+    def _tier_move_locked(self, v, vid: int, backend_id: str, storage):
+        collection = v.collection
+        was_read_only = v.read_only
+        self.store.set_volume_read_only(vid, True)
+        v.sync()
+        # the master stops assigning into it before the upload, whose
+        # chunks may land on this very cluster
+        self._heartbeat_once()
+        # each replica tiers its own copy under its own key: replicas
+        # may differ, and one key would be overwritten by the last
+        key = (f"{collection}_" if collection else "") + \
+            f"{vid}.{self.http.port}.dat"
+        dat_path = v.file_name(".dat")
+        try:
+            storage.ensure_bucket()
+            size = storage.upload(dat_path, key)
+        except (OSError, RuntimeError) as e:
+            if not was_read_only:
+                self.store.set_volume_read_only(vid, False)
+                self._wp_sync_volume(vid)
+                self._heartbeat_once()
+            return 500, {"error": f"tier upload failed: {e}"}
+        v.volume_info.files = [{
+            "backendType": "s3", "backendId": backend_id, "key": key,
+            "fileSize": size, "extension": ".dat"}]
+        v.volume_info.read_only = True
+        v.save_volume_info()
+        with self._swap_guard(vid):
+            self.store.unmount_volume(vid)
+        os.remove(dat_path)
+        # outside the guard: the remote mount reads its superblock through
+        # the tier, which may be this server's own gateway chain
+        self.store.mount_volume(vid, collection)
+        self._heartbeat_once()
+        return 200, {"key": key, "fileSize": size, "backendId": backend_id}
+
+    def _tier_fetch(self, req: Request):
+        """volume.tier.download (VolumeTierMoveDatFromRemote): the remote
+        `.dat` downloaded back, the volume mounted local and writable; the
+        remote object deleted unless `deleteRemote` is false."""
+        from ..storage.backend import get_backend
+        b = req.json()
+        vid = int(b["volumeId"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        if not v.is_remote:
+            return 200, {"alreadyLocal": True}
+        remote = v.volume_info.files[0]
+        try:
+            storage = get_backend(remote.get("backendId", "default"))
+        except KeyError as e:
+            return 400, {"error": str(e)}
+        with self._exclusive(vid, "tier.fetch") as busy:
+            if busy:
+                return 409, {"error": f"volume {vid} is busy: {busy}"}
+            collection = v.collection
+            try:
+                size = storage.download(remote["key"], v.file_name(".dat"))
+            except (OSError, RuntimeError) as e:
+                return 500, {"error": f"tier download failed: {e}"}
+            v.volume_info.files = []
+            # local and writable again: a stale readOnly in the .vif
+            # would leave a reference reader treating it as frozen
+            v.volume_info.read_only = False
+            v.save_volume_info()
+            with self._swap_guard(vid):
+                self.store.unmount_volume(vid)
+            self.store.mount_volume(vid, collection)
+            self._wp_sync_volume(vid)
+        if bool(b.get("deleteRemote", True)):
+            storage.delete(remote["key"])
+        self._heartbeat_once()
+        # the backend that held it: volume.tier.compact uploads the
+        # compacted copy there again
+        return 200, {"fileSize": size,
+                     "backendId": remote.get("backendId", "default")}
+
+    def _query(self, req: Request):
+        """volume_server.proto:132 Query (volume_grpc_query.go): a
+        SQL-subset SELECT over one stored needle's JSON or CSV content,
+        evaluated where the bytes are."""
+        from ..query import QueryError, run_query
+        b = req.json()
+        vid, key = int(b["volumeId"]), int(b["key"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return 404, {"error": f"volume {vid} not found"}
+        try:
+            n = v.read_needle(key)
+        except KeyError as e:
+            return 404, {"error": str(e)}
+        try:
+            rows = run_query(b["expression"], n.data,
+                             b.get("inputFormat", "json"),
+                             bool(b.get("csvHeader", True)))
+        except QueryError as e:
+            return 400, {"error": str(e)}
+        return 200, {"rows": rows, "count": len(rows)}
 
     def _scrub(self, req: Request):
         """volume_grpc_scrub.go ScrubVolume: every live needle re-read

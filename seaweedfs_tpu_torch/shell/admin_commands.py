@@ -14,11 +14,14 @@ _volume_server_evacuate.go, _cluster_ps.go, ...):
     volume.replica.check                   cluster.ps  cluster.status
     cluster.raft.ps                        cluster.raft.leader.transfer
     cluster.raft.add -server=URL           cluster.raft.remove -server=URL
+    volume.tier.upload -volumeId=N -endpoint=E [-bucket=B -accessKey=K
+                       -secretKey=S]       volume.tier.download -volumeId=N
     sleep [SECONDS]
 
 The raft verbs speak to the leader of `-master` (a seed list of the HA
-set) through `operation.master_json`.  The mq and tier verbs are not
-ported (ROADMAP A)."""
+set) through `operation.master_json`.  `volume.tier.upload` and
+`.download` are the reference's names of `volume.tier.move` and
+`.fetch` (`fs_commands`).  The mq verbs are not ported (ROADMAP A5)."""
 
 from __future__ import annotations
 
@@ -467,3 +470,19 @@ def cmd_volume_replica_check(env: CommandEnv, args: list[str]) -> str:
     checked = sum(1 for r in by_vid.values() if len(r) > 1)
     return "\n".join([f"checked {checked} replicated volumes: "
                       f"{len(divergent)} divergent"] + divergent)
+
+
+@command("volume.tier.upload")
+def cmd_volume_tier_upload(env: CommandEnv, args: list[str]) -> str:
+    """command_volume_tier_upload.go: a volume's .dat to an S3-compatible
+    tier backend (volume.tier.move's engine)."""
+    from .fs_commands import cmd_volume_tier_move
+    return cmd_volume_tier_move(env, args)
+
+
+@command("volume.tier.download")
+def cmd_volume_tier_download(env: CommandEnv, args: list[str]) -> str:
+    """command_volume_tier_download.go: a tiered volume's .dat back to
+    local disk (volume.tier.fetch's engine)."""
+    from .fs_commands import cmd_volume_tier_fetch
+    return cmd_volume_tier_fetch(env, args)

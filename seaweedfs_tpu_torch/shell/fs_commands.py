@@ -1,6 +1,6 @@
-"""The shell's `fs.*` family (weed/shell/command_fs_*.go) and repair
-plane, the port's copy of `seaweedfs_tpu/shell/fs_commands.py` without
-its tier verbs: fs.configure, fs.ls, fs.cat, fs.meta, fs.rm, fs.mkdir,
+"""The shell's `fs.*` family (weed/shell/command_fs_*.go), repair plane
+and tier verbs, the port's copy of `seaweedfs_tpu/shell/fs_commands.py`:
+fs.configure, fs.ls, fs.cat, fs.meta, fs.rm, fs.mkdir,
 fs.du, fs.mv, fs.tree, fs.pwd and fs.cd operate on a filer's namespace
 over its HTTP surface (the filer address comes from the shell's -filer
 flag or `fs.configure`); fs.meta.save / .load / .cat / .notify back up,
@@ -19,7 +19,17 @@ between volumes;
                      over as raw records from a replica that has them;
   ec.rebalance.proportional
                      (ec_proportional_rebalance.go) — EC shards spread
-                     in proportion to each server's free volume slots.
+                     in proportion to each server's free volume slots;
+  volume.tier.move   (command_volume_tier_move.go) — every replica's
+                     `.dat` to an S3 backend (-endpoint, -bucket,
+                     -accessKey, -secretKey), reads then ranged GETs;
+  volume.tier.fetch  — the `.dat` back to local disk (the last replica
+                     deletes the remote object);
+  volume.tier.compact
+                     (command_volume_tier_compact.go) — a tiered
+                     volume fetched, vacuumed and uploaded again to the
+                     backend it came from (-volumeId, or every tiered
+                     volume over -garbageThreshold in -collection).
 
 The output lines are the JAX shell's.
 """
@@ -30,7 +40,7 @@ import json
 import urllib.parse
 
 from ..server.httpd import http_bytes, http_json
-from ..topology import iter_volume_list_ec_shards
+from ..topology import iter_volume_list_ec_shards, iter_volume_list_volumes
 from .commands import (CommandEnv, _all_node_urls, _ec_shard_locations,
                        _ec_volumes, _move_shard, _must, _parse_flags,
                        _volumes_by_id, command)
@@ -734,3 +744,120 @@ def cmd_fs_merge_volumes(env: CommandEnv, args: list[str]) -> str:
     return (f"{verb} {moved} chunks ({bytes_moved} bytes) in {files} "
             f"files from volume {src_vid} to {dst_vid}"
             + ("" if apply else "; add -apply to execute"))
+
+
+# --- volume tiers (shell/command_volume_tier_*.go) -------------------------
+
+@command("volume.tier.move")
+def cmd_volume_tier_move(env: CommandEnv, args: list[str]) -> str:
+    """Move a volume's .dat to an S3-compatible backend on every replica;
+    needle reads become ranged GETs (storage/volume_tier.go)."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    vid = int(opts["volumeId"])
+    if "endpoint" not in opts:
+        raise RuntimeError("volume.tier.move needs -endpoint=host:port "
+                           "(an S3-compatible API, e.g. our own "
+                           "gateway)")
+    body = {"volumeId": vid,
+            "endpoint": opts["endpoint"],
+            "bucket": opts.get("bucket", "tier"),
+            "accessKey": opts.get("accessKey", ""),
+            "secretKey": opts.get("secretKey", ""),
+            "backendId": opts.get("backendId", "default")}
+    urls = [loc["url"] for loc in env.volume_locations(vid)]
+    if not urls:
+        raise RuntimeError(f"volume {vid} has no locations")
+    out = []
+    for url in urls:
+        r = http_json("POST", f"{url}/admin/tier_move", body, timeout=3600)
+        if r.get("error"):
+            raise RuntimeError(f"tier_move on {url}: {r['error']}")
+        out.append(f"{url}: -> s3://{body['bucket']}/"
+                   f"{r.get('key', '?')} ({r.get('fileSize', '?')}B)")
+    return "\n".join(out)
+
+
+@command("volume.tier.fetch")
+def cmd_volume_tier_fetch(env: CommandEnv, args: list[str]) -> str:
+    """Bring a tiered volume's .dat back to local disk on every replica;
+    only the last deletes the remote object, which the others read."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    vid = int(opts["volumeId"])
+    urls = [loc["url"] for loc in env.volume_locations(vid)]
+    out = []
+    for i, url in enumerate(urls):
+        r = http_json("POST", f"{url}/admin/tier_fetch",
+                      {"volumeId": vid,
+                       "deleteRemote": i == len(urls) - 1}, timeout=3600)
+        if r.get("error"):
+            raise RuntimeError(f"tier_fetch on {url}: {r['error']}")
+        out.append(f"{url}: fetched ({r.get('fileSize', '?')}B)")
+    return "\n".join(out)
+
+
+@command("volume.tier.compact")
+def cmd_volume_tier_compact(env: CommandEnv, args: list[str]) -> str:
+    """command_volume_tier_compact.go: reclaim remote-tier space — fetch
+    the tiered .dat back, vacuum out deleted needles, upload the
+    compacted copy to the same backend.
+
+        volume.tier.compact -volumeId=N [-endpoint=.. -bucket=..
+                            -accessKey=.. -secretKey=..]
+        volume.tier.compact [-collection=C] [-garbageThreshold=0.3]
+
+    The backend flags may be left out while the server still holds the
+    backend the volume was moved with."""
+    env.confirm_is_locked()
+    opts = _parse_flags(args)
+    threshold = float(opts.get("garbageThreshold", 0.3))
+    move_body = {"backendId": opts.get("backendId", "default")}
+    for k in ("endpoint", "bucket", "accessKey", "secretKey"):
+        if opts.get(k):
+            move_body[k] = opts[k]
+    if "volumeId" in opts:
+        vids = [int(opts["volumeId"])]
+    else:
+        collection = opts.get("collection", "")
+        vids = sorted({
+            v["id"] for _node, v in iter_volume_list_volumes(env.volume_list())
+            if v.get("remoteTiered") and
+            (not collection or v.get("collection") == collection) and
+            v.get("deletedByteCount", 0) / max(v.get("size", 0), 1) >=
+            threshold})
+    if not vids:
+        return "no remote volumes above the garbage threshold"
+    out = []
+    for vid in vids:
+        urls = _volumes_by_id(env).get(vid) or \
+            [loc["url"] for loc in env.volume_locations(vid)]
+        for url in urls:
+            r = http_json("POST", f"{url}/admin/tier_fetch",
+                          {"volumeId": vid, "deleteRemote": False},
+                          timeout=3600)
+            if r.get("error"):
+                raise RuntimeError(f"tier_fetch on {url}: {r['error']}")
+            if r.get("alreadyLocal"):
+                # a verb that reclaims remote space never tiers a local
+                # volume as a side effect
+                raise RuntimeError(
+                    f"volume {vid} on {url} is not remote-tiered; "
+                    "use volume.vacuum for local volumes")
+            before = r.get("fileSize", 0)
+            # back to the backend it came from unless the flags say
+            # otherwise: the fetch cleared the .vif's binding
+            body = dict(move_body, volumeId=vid)
+            if "backendId" not in opts and r.get("backendId"):
+                body["backendId"] = r["backendId"]
+            r2 = http_json("POST", f"{url}/admin/vacuum", {"volumeId": vid},
+                           timeout=3600)
+            if r2.get("error"):
+                raise RuntimeError(f"vacuum on {url}: {r2['error']}")
+            r = http_json("POST", f"{url}/admin/tier_move", body,
+                          timeout=3600)
+            if r.get("error"):
+                raise RuntimeError(f"tier_move on {url}: {r['error']}")
+            out.append(f"volume {vid} on {url}: {before} -> "
+                       f"{r.get('fileSize', 0)} bytes remote")
+    return "\n".join(out)

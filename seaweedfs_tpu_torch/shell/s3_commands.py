@@ -9,9 +9,16 @@ the lifecycle enforcement pass):
     s3.lifecycle.apply       one enforcement pass over every bucket
                              with a lifecycle configuration
 
-with `s3.bucket.create` / `.delete` / `.list` and `s3.circuitBreaker`.
-The four `s3tables.*` verbs are refused, as the gateway's S3 Tables
-target answers 501: S3 Tables is not ported (ROADMAP A3.4).
+with `s3.bucket.create` / `.delete` / `.list` and `s3.circuitBreaker`,
+and the S3 Tables verbs over the filer (command_s3tables_*.go,
+`s3/s3tables.S3TablesStore`):
+
+    s3tables.bucket     -create|-list|-get|-delete|-put-policy|
+                        -get-policy|-delete-policy -name=B
+    s3tables.namespace  -bucket=B -create|-list|-get|-delete [-name=NS]
+    s3tables.table      -bucket=B -namespace=NS -create|-list|-get|
+                        -update|-delete [-name=T] [-metadataFile=F]
+    s3tables.tag        -resource=ARN -set=k=v,...|-unset=k,...|-list
 """
 
 from __future__ import annotations
@@ -266,18 +273,151 @@ def cmd_s3_circuit_breaker(env: CommandEnv, args: list[str]) -> str:
     return f"applied:\n{rendered}"
 
 
-# -- S3 Tables (command_s3tables_*.go): not ported ------------------------
+# -- S3 Tables (command_s3tables_*.go) ------------------------------------
 
-def _s3tables_refused(name: str):
-    def refuse(env: CommandEnv, args: list[str]) -> str:
-        raise RuntimeError(f"{name}: S3 Tables is not ported "
-                           f"(ROADMAP A3.4)")
-    refuse.__name__ = "cmd_" + name.replace(".", "_")
-    refuse.__doc__ = (f"{name} (command_{name.replace('.', '_')}.go): "
-                      f"refused, as the gateway's S3 Tables target is")
-    return refuse
+def _s3tables_store(env: CommandEnv):
+    from ..s3.s3tables import S3TablesStore
+    return S3TablesStore(_client(env))
 
 
-for _name in ("s3tables.bucket", "s3tables.namespace", "s3tables.table",
-              "s3tables.tag"):
-    command(_name)(_s3tables_refused(_name))
+@command("s3tables.bucket")
+def cmd_s3tables_bucket(env: CommandEnv, args: list[str]) -> str:
+    """command_s3tables_bucket.go: manage table buckets.
+
+        s3tables.bucket -create -name=B [-tags=k1=v1,k2=v2]
+        s3tables.bucket -list [-prefix=P]
+        s3tables.bucket -get -name=B
+        s3tables.bucket -delete -name=B
+        s3tables.bucket -put-policy -name=B -file=policy.json
+        s3tables.bucket -get-policy -name=B
+        s3tables.bucket -delete-policy -name=B"""
+    import json as _json
+    from ..s3.s3tables import S3TablesError
+    opts = _parse_flags(args)
+    st = _s3tables_store(env)
+    name = opts.get("name", "")
+    try:
+        if "create" in opts:
+            tags = dict(kv.split("=", 1) for kv in
+                        opts.get("tags", "").split(",") if "=" in kv)
+            r = st.create_table_bucket(name, tags=tags or None)
+            return _json.dumps(r, indent=1)
+        if "list" in opts:
+            r = st.list_table_buckets(opts.get("prefix", ""),
+                                      opts.get("continuation", ""),
+                                      int(opts.get("limit", 0)))
+            return _json.dumps(r, indent=1)
+        if "get" in opts:
+            return _json.dumps(st.get_table_bucket(name), indent=1)
+        if "delete-policy" in opts:
+            st.delete_policy(bucket_arn_=name)
+            return f"deleted policy of {name}"
+        if "delete" in opts:
+            st.delete_table_bucket(name)
+            return f"deleted table bucket {name}"
+        if "put-policy" in opts:
+            with open(opts["file"]) as f:
+                st.put_policy(f.read(), bucket_arn_=name)
+            return f"policy applied to {name}"
+        if "get-policy" in opts:
+            return st.get_policy(bucket_arn_=name)["resourcePolicy"]
+    except S3TablesError as e:
+        raise RuntimeError(f"{e.code}: {e.message}")
+    return ("usage: s3tables.bucket -create|-list|-get|-delete|"
+            "-put-policy|-get-policy|-delete-policy -name=B")
+
+
+@command("s3tables.namespace")
+def cmd_s3tables_namespace(env: CommandEnv, args: list[str]) -> str:
+    """command_s3tables_namespace.go: namespaces inside a table
+    bucket (-bucket=B -create|-list|-get|-delete [-name=NS])."""
+    import json as _json
+    from ..s3.s3tables import S3TablesError
+    opts = _parse_flags(args)
+    st = _s3tables_store(env)
+    bucket, ns = opts.get("bucket", ""), opts.get("name", "")
+    try:
+        if "create" in opts:
+            return _json.dumps(st.create_namespace(bucket, [ns]),
+                               indent=1)
+        if "list" in opts:
+            return _json.dumps(
+                st.list_namespaces(bucket, opts.get("prefix", "")),
+                indent=1)
+        if "get" in opts:
+            return _json.dumps(st.get_namespace(bucket, [ns]),
+                               indent=1)
+        if "delete" in opts:
+            st.delete_namespace(bucket, [ns])
+            return f"deleted namespace {ns}"
+    except S3TablesError as e:
+        raise RuntimeError(f"{e.code}: {e.message}")
+    return ("usage: s3tables.namespace -bucket=B "
+            "-create|-list|-get|-delete [-name=NS]")
+
+
+@command("s3tables.table")
+def cmd_s3tables_table(env: CommandEnv, args: list[str]) -> str:
+    """command_s3tables_table.go: tables inside a namespace
+    (-bucket=B -namespace=NS -create|-list|-get|-delete|-update
+    [-name=T] [-metadataFile=m.json] [-versionToken=V])."""
+    import json as _json
+    from ..s3.s3tables import S3TablesError
+    opts = _parse_flags(args)
+    st = _s3tables_store(env)
+    bucket = opts.get("bucket", "")
+    ns = [opts["namespace"]] if opts.get("namespace") else []
+    name = opts.get("name", "")
+    meta = None
+    if opts.get("metadataFile"):
+        with open(opts["metadataFile"]) as f:
+            meta = _json.load(f)
+    try:
+        if "create" in opts:
+            return _json.dumps(
+                st.create_table(bucket, ns, name, metadata=meta),
+                indent=1)
+        if "list" in opts:
+            return _json.dumps(
+                st.list_tables(bucket, ns or None,
+                               opts.get("prefix", "")), indent=1)
+        if "get" in opts:
+            return _json.dumps(st.get_table(bucket, ns, name),
+                               indent=1)
+        if "update" in opts:
+            return _json.dumps(st.update_table(
+                bucket, ns, name, opts.get("versionToken", ""),
+                meta), indent=1)
+        if "delete" in opts:
+            st.delete_table(bucket, ns, name,
+                            opts.get("versionToken", ""))
+            return f"deleted table {name}"
+    except S3TablesError as e:
+        raise RuntimeError(f"{e.code}: {e.message}")
+    return ("usage: s3tables.table -bucket=B -namespace=NS "
+            "-create|-list|-get|-update|-delete [-name=T]")
+
+
+@command("s3tables.tag")
+def cmd_s3tables_tag(env: CommandEnv, args: list[str]) -> str:
+    """command_s3tables_tag.go: tag table buckets/tables by ARN or
+    bucket name (-resource=ARN -set=k=v,... | -list | -unset=k1,k2)."""
+    import json as _json
+    from ..s3.s3tables import S3TablesError
+    opts = _parse_flags(args)
+    st = _s3tables_store(env)
+    arn = opts.get("resource", "")
+    try:
+        if opts.get("set"):
+            tags = dict(kv.split("=", 1) for kv in
+                        opts["set"].split(",") if "=" in kv)
+            st.tag_resource(arn, tags)
+            return f"tagged {arn}"
+        if opts.get("unset"):
+            st.untag_resource(arn, opts["unset"].split(","))
+            return f"untagged {arn}"
+        if "list" in opts:
+            return _json.dumps(st.list_tags(arn), indent=1)
+    except S3TablesError as e:
+        raise RuntimeError(f"{e.code}: {e.message}")
+    return "usage: s3tables.tag -resource=ARN -set=k=v|-unset=k|-list"

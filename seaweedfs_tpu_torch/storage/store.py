@@ -6,6 +6,14 @@ mount, unmount and delete, EC shard mount and unmount, needle writes,
 needle reads and deletes on normal and EC volumes, and the heartbeat
 snapshot the master consumes.  An EcVolume holds open shard and `.ecx`
 handles: the store closes one it replaces or unmounts.
+
+A tiered volume has no local `.dat`: a `.vif` with a `files` entry
+(`_vif_is_remote`) mounts it at load and on `mount_volume`, over its
+backend (`backend.get_backend`); at load, one whose backend this
+process has not configured or cannot reach is left out with a line on
+stderr, never failing the load (the JAX store fails it on the latter).
+`MMAP_READ_MB` (the volume server's `-memoryMapMaxSizeMb`, set before a
+Store is made) is every local volume's mmap read cap.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import glob
 import os
 import re
+import sys
 import threading
 
 from .erasure_coding.ec_context import to_ext
@@ -21,9 +30,25 @@ from .needle import Needle
 from .replica_placement import ReplicaPlacement
 from .ttl import EMPTY_TTL, read_ttl
 from .volume import Volume
+from .volume_info import maybe_load_volume_info
 
 _VOL_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
+_VIF_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.vif$")
 _EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec00$")
+
+
+# the process's mmap read cap in MB (0: off)
+MMAP_READ_MB = 0
+
+
+def _vif_is_remote(vif_path: str) -> bool:
+    """True when the `.vif` records a remote-tiered `.dat`
+    (storage/volume_tier.go: `files` holds the backend's copy)."""
+    try:
+        vi = maybe_load_volume_info(vif_path)
+    except ValueError:
+        return False
+    return bool(vi and vi.files)
 
 
 class DiskLocation:
@@ -45,7 +70,23 @@ class DiskLocation:
                 vid = int(m.group("vid"))
                 self.volumes[vid] = Volume(self.directory, vid,
                                            collection=m.group("col") or "",
+                                           mmap_read_mb=MMAP_READ_MB,
                                            fsync=self.fsync)
+        for path in glob.glob(os.path.join(self.directory, "*.vif")):
+            m = _VIF_RE.match(os.path.basename(path))
+            if not m:
+                continue
+            vid = int(m.group("vid"))
+            if vid in self.volumes or not _vif_is_remote(path):
+                continue
+            try:
+                self.volumes[vid] = Volume(self.directory, vid,
+                                           collection=m.group("col") or "")
+            except (KeyError, OSError, RuntimeError) as e:
+                # a backend this server was not given, or cannot reach:
+                # that volume is unavailable, the others are served
+                print(f"volume {vid}: cannot open tiered volume: {e} "
+                      f"(start with -tierBackend)", file=sys.stderr)
         for path in glob.glob(os.path.join(self.directory, "*.ec00")):
             m = _EC_RE.match(os.path.basename(path))
             if m:
@@ -108,7 +149,8 @@ class Store:
             v = Volume(
                 loc.directory, vid, collection=collection,
                 replica_placement=ReplicaPlacement.from_string(replication),
-                ttl=read_ttl(ttl) if ttl else EMPTY_TTL, fsync=loc.fsync)
+                ttl=read_ttl(ttl) if ttl else EMPTY_TTL,
+                mmap_read_mb=MMAP_READ_MB, fsync=loc.fsync)
             loc.volumes[vid] = v
             return v
 
@@ -133,11 +175,13 @@ class Store:
     def mount_volume(self, vid: int, collection: str = "") -> Volume:
         with self.lock:
             for loc in self.locations:
-                name = (f"{collection}_" if collection else "") + f"{vid}"
-                if os.path.exists(os.path.join(loc.directory,
-                                               name + ".dat")):
+                base = os.path.join(
+                    loc.directory,
+                    (f"{collection}_" if collection else "") + f"{vid}")
+                if os.path.exists(base + ".dat") or \
+                        _vif_is_remote(base + ".vif"):
                     v = Volume(loc.directory, vid, collection=collection,
-                               fsync=loc.fsync)
+                               mmap_read_mb=MMAP_READ_MB, fsync=loc.fsync)
                     loc.volumes[vid] = v
                     return v
             raise KeyError(f"volume {vid} files not found")
@@ -261,8 +305,9 @@ class Store:
                             v.super_block.replica_placement.byte(),
                         "ttl": v.super_block.ttl.to_u32(),
                         "version": v.version,
-                        # no remote tiers in the port
-                        "remoteTiered": False,
+                        # master.proto remote_storage_name's role:
+                        # volume.tier.compact selects tiered volumes by it
+                        "remoteTiered": v.is_remote,
                     })
                 for vid, ev in loc.ec_volumes.items():
                     ec_shards.append({

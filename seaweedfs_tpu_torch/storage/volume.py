@@ -1,7 +1,7 @@
 """Append-only needle volume: `.dat` + `.idx` pair.
 
-The port of `seaweedfs_tpu/storage/volume.py` without its mmap read path
-and remote tiers: create or open a volume, cookie-checked writes with a
+The port of `seaweedfs_tpu/storage/volume.py`: create or open a volume,
+cookie-checked writes with a
 monotonic AppendAtNs (the JAX volume's answers: size and unchanged, the
 volume's TTL on needles without one, read-only refused), reads,
 tombstone deletes, the heartbeat's counts, sync, read-only, close and
@@ -34,6 +34,18 @@ renames them over the live files, with the compaction revision + 1.
 records, last write wins; `scrub` re-reads and CRC-checks every live
 needle; `walk_dat` scans a `.dat` in append order (the offline `fix`
 and `export` tools and the merge).
+
+Remote tiers (storage/volume_tier.go): a volume whose `.vif` has a
+`files` entry and no local `.dat` opens read-only over a
+`backend.RemoteDatFile` (its reads are ranged GETs of the tier object);
+writes, deletes, vacuum and `configure_replication` are refused, and it
+never attaches to the write plane.  The mmap read path (the volume
+server's `-memoryMapMaxSizeMb`, backend/memory_map): with
+`mmap_read_mb` > 0 a volume whose `.dat` is at most that size serves
+reads from a read-only map of its handle's file; a tail past the map
+under `MMAP_REMAP_CHUNK` is read through the handle, a larger one remaps.
+The map pins the inode it was made from, so `_swap_in_shadows` (the
+compaction commit and the merge) and `close` drop it first.
 """
 
 from __future__ import annotations
@@ -128,25 +140,50 @@ class CookieMismatch(ValueError):
 class Volume:
     """One volume on disk: <dir>/<collection_prefix><vid>.{dat,idx,vif}."""
 
+    # remap only once the .dat has outgrown the map by this much: a
+    # smaller fresh tail is read through the handle, so a write-then-read
+    # load does not pay a remap an append
+    MMAP_REMAP_CHUNK = 4 << 20
+
     def __init__(self, directory: str, volume_id: int, collection: str = "",
                  replica_placement: ReplicaPlacement | None = None,
                  ttl: TTL = EMPTY_TTL,
                  version: int = types.CURRENT_VERSION,
-                 fsync: bool = False):
+                 mmap_read_mb: int = 0, fsync: bool = False):
         self.dir = directory
         self.id = volume_id
         self.collection = collection
         self.lock = threading.RLock()
         self.last_append_at_ns = 0
         self.read_only = False
+        self.is_remote = False
         # the -fsync tier: the barrier's flush also fsyncs the .dat
         self.fsync = bool(fsync)
         # the .dat + .idx durability barrier, shared by the writers of a
         # commit window
         self._barrier = CommitBarrier(self._group_commit_flush,
                                       site="volume.needle")
+        # the mmap read path: 0 turns it off; a .dat over the cap is read
+        # through the handle (_mm_skip until the next swap)
+        self.mmap_limit = int(mmap_read_mb) * (1 << 20)
+        self._mm = None
+        self._mm_skip = False
         dat_path = self.file_name(".dat")
-        if os.path.exists(dat_path):
+        vi = maybe_load_volume_info(self.file_name(".vif"))
+        remote = next((f for f in (vi.files if vi else [])
+                       if f.get("extension", ".dat") == ".dat"), None)
+        if remote is not None and not os.path.exists(dat_path):
+            # tiered (volume_tier.go LoadRemoteFile): ranged reads of the
+            # backend's object, no writes; KeyError for a backend this
+            # process has not configured
+            from .backend import RemoteDatFile, get_backend
+            self._dat = RemoteDatFile(
+                get_backend(remote.get("backendId", "default")),
+                remote["key"], int(remote["fileSize"]))
+            self.super_block = SuperBlock.read_from(self._dat)
+            self.read_only = True
+            self.is_remote = True
+        elif os.path.exists(dat_path):
             self._dat = open(dat_path, "r+b")
             self.super_block = SuperBlock.read_from(self._dat)
             self._dat.seek(0, os.SEEK_END)
@@ -163,14 +200,15 @@ class Volume:
         # native appends indexed since the last drain_native
         self._wp = None
         self._drained: list = []
-        self._replay_dat_tail()
+        if not self.is_remote:
+            self._replay_dat_tail()
         # vacuum state: a compaction between compact() and
         # commit_compact(), and the .idx size at its snapshot
         self._compacting = False
         self._idx_snapshot: "int | None" = None
-        self.volume_info = maybe_load_volume_info(self.file_name(".vif")) \
-            or VolumeInfo(version=self.super_block.version,
-                          replication=str(self.super_block.replica_placement))
+        self.volume_info = vi or VolumeInfo(
+            version=self.super_block.version,
+            replication=str(self.super_block.replica_placement))
 
     # -- the native write plane (server/write_plane.py) ------------------
 
@@ -213,7 +251,7 @@ class Volume:
             # a compaction's snapshot and diff replay read the .idx: a
             # plane appending to the old .dat would lose its records in
             # the swap (the server offers the volume again after it)
-            if self._compacting or \
+            if self._compacting or self.is_remote or \
                     self.read_only or self.version != types.VERSION3 or \
                     bool(self.super_block.ttl) or \
                     self.super_block.replica_placement.byte() or \
@@ -296,7 +334,8 @@ class Volume:
 
     def dat_fd(self) -> int:
         """The `.dat`'s file descriptor, for pread(2) of records that are
-        on the file (every acked write is)."""
+        on the file (every acked write is).  A tiered volume has none:
+        callers check `is_remote` first."""
         return self._dat.fileno()
 
     def dat_size(self) -> int:
@@ -332,6 +371,8 @@ class Volume:
     def configure_replication(self, replication: str) -> None:
         """Rewrite the replica placement in the superblock and the
         volume info (VolumeConfigure)."""
+        if self.is_remote:
+            raise ValueError("cannot configure a remote-tier volume")
         rp = ReplicaPlacement.from_string(replication)
         with self.lock:
             self.super_block.replica_placement = rp
@@ -413,7 +454,7 @@ class Volume:
             try:
                 dat.flush()
                 nm.flush()
-                if self.fsync:
+                if self.fsync and not self.is_remote:
                     os.fsync(dat.fileno())
                     stats.PROCESS.counter_add(
                         "volume_fsyncs_total", 1.0,
@@ -423,7 +464,7 @@ class Volume:
             except ValueError:
                 if dat is self._dat and nm is self.nm:
                     raise
-                if not self.fsync:
+                if not self.fsync or self.is_remote:
                     return
 
     def _append(self, n: Needle) -> int:
@@ -481,12 +522,58 @@ class Volume:
 
     def _read_at(self, stored_offset: int, size: int,
                  check_crc: bool = True) -> Needle:
+        """The record at `stored_offset` (the caller holds the lock)."""
         offset = types.to_actual_offset(stored_offset)
         length = get_actual_size(size, self.version)
-        self._dat.seek(offset)
-        buf = self._dat.read(length)
+        buf = self._mmap_read(offset, length) if self.mmap_limit else None
+        if buf is None:
+            self._dat.seek(offset)
+            buf = self._dat.read(length)
         return Needle.from_bytes(buf, self.version, expected_size=size,
                                  check_crc=check_crc)
+
+    # -- the mmap read path (backend/memory_map) -------------------------
+
+    def _mmap_read(self, offset: int, length: int) -> "bytes | None":
+        """The bytes from the map, remapping when the file has outgrown
+        it by `MMAP_REMAP_CHUNK`; None sends the read through the handle
+        (a fresh tail, a file over the cap, a remote volume, a failed
+        map).  The map is made from the handle's own descriptor, so it
+        reads the inode the handle and the needle map describe."""
+        if self.is_remote or self._mm_skip:
+            return None
+        mm = self._mm
+        if mm is not None and offset + length <= len(mm):
+            return mm[offset:offset + length]
+        import mmap
+        try:
+            self._dat.flush()           # the tail must be in the file
+            size = os.fstat(self._dat.fileno()).st_size
+            if mm is not None and size - len(mm) < self.MMAP_REMAP_CHUNK:
+                return None
+            self._drop_mmap()
+            if size == 0 or size > self.mmap_limit:
+                # the file only grows between swaps: once over the cap,
+                # no fstat a read until the next swap clears the skip
+                self._mm_skip = size > self.mmap_limit
+                return None
+            self._mm = mmap.mmap(self._dat.fileno(), 0,
+                                 access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            self._drop_mmap()
+            self._mm_skip = True
+            return None
+        if offset + length > len(self._mm):
+            return None
+        return self._mm[offset:offset + length]
+
+    def _drop_mmap(self) -> None:
+        """Unmap (before any swap of the `.dat`: the map pins the old
+        inode), and probe the next file afresh."""
+        self._mm_skip = False
+        mm, self._mm = self._mm, None
+        if mm is not None:
+            mm.close()
 
     def read_needle(self, needle_id: int, cookie: int | None = None
                     ) -> Needle:
@@ -537,6 +624,10 @@ class Volume:
         the write plane detached and its journal drained, and every
         buffered append and index entry flushed.  `commit_compact`
         replays what landed after the snapshot."""
+        if self.is_remote:
+            raise PermissionError(
+                f"volume {self.id} is tiered to a remote backend; "
+                f"fetch it back before compacting")
         cpd, cpx = self.file_name(".cpd"), self.file_name(".cpx")
         with self.lock:
             if self._compacting:
@@ -631,7 +722,10 @@ class Volume:
         """Close the live handles, rename `.cpd`/`.cpx` over `.dat`/
         `.idx` and reopen them (the caller holds the lock).  Native
         appends indexed before the swap carry old offsets: they are not
-        handed to the read plane."""
+        handed to the read plane.  The map goes first: made before or
+        during the diff replay, it would serve the old layout's bytes at
+        the new layout's offsets."""
+        self._drop_mmap()
         self.nm.close()
         self._dat.close()
         os.replace(self.file_name(".cpd"), self.file_name(".dat"))
@@ -733,12 +827,14 @@ class Volume:
         with self.lock:
             self._drain_if_pending()   # callers read the .idx next
             self._dat.flush()
-            os.fsync(self._dat.fileno())
+            if not self.is_remote:
+                os.fsync(self._dat.fileno())
             self.nm.flush()
 
     def close(self) -> None:
         self.detach_native()
         with self.lock:
+            self._drop_mmap()
             self._dat.flush()
             self._dat.close()
             self.nm.close()

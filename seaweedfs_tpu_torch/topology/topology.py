@@ -36,6 +36,9 @@ class VolumeInfo:
     replica_placement: int = 0
     ttl: int = 0
     version: int = 3
+    # on a remote tier (the heartbeat's `remoteTiered`; the JAX master
+    # drops it, so its /vol/list never shows a tiered volume)
+    remote_tiered: bool = False
 
 
 @dataclass
@@ -109,7 +112,8 @@ class Topology:
                     deleted_byte_count=v.get("deletedByteCount", 0),
                     read_only=v.get("readOnly", False),
                     replica_placement=v.get("replicaPlacement", 0),
-                    ttl=v.get("ttl", 0), version=v.get("version", 3))
+                    ttl=v.get("ttl", 0), version=v.get("version", 3),
+                    remote_tiered=bool(v.get("remoteTiered", False)))
                 for v in hb.get("volumes", [])}
             node.ec_shards = {
                 e["id"]: EcShardInfo(
@@ -294,6 +298,10 @@ class Topology:
                         "replicaPlacement": v.replica_placement,
                         "ttl": v.ttl,
                         "version": v.version,
+                        # only where true: the JAX master's entries
+                        # otherwise, key for key
+                        **({"remoteTiered": True} if v.remote_tiered
+                           else {}),
                     } for v in node.volumes.values()],
                     "ecShards": [{
                         "volumeId": e.volume_id,

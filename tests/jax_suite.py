@@ -7,7 +7,10 @@ everything else it imports stays the JAX package's.  It returns the
 suite's tests under new names (`test_<short>__<name>`) and the fixtures
 named in `fixtures`, to be bound into the importing test module, which
 pytest then collects.  `overrides` replaces names in the executed
-module after it ran (a JAX call signature the port spells otherwise).
+module after it ran (a JAX call signature the port spells otherwise),
+and `only`, when given, keeps just those of the suite's tests.
+`port_volume_server` stands in for the JAX `VolumeServer(dirs, master,
+...)` as such an override.
 """
 
 from __future__ import annotations
@@ -19,8 +22,15 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def port_volume_server(dirs, master, **kw):
+    """The JAX suites' `VolumeServer(dirs, master, ...)` on a port volume
+    server with the CPU codec."""
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    return VolumeServer(dirs, device="cpu", master=master, **kw)
+
+
 def load_suite(name: str, ported, exclude=(), fixtures=(),
-               overrides: "dict | None" = None) -> dict:
+               overrides: "dict | None" = None, only=()) -> dict:
     path = os.path.join(HERE, f"{name}.py")
     with open(path) as f:
         src = f.read()
@@ -36,7 +46,8 @@ def load_suite(name: str, ported, exclude=(), fixtures=(),
     short = name.removeprefix("test_")
     out = {f"test_{short}__{k[5:]}": v
            for k, v in module.__dict__.items()
-           if k.startswith("test_") and callable(v) and k not in exclude}
+           if k.startswith("test_") and callable(v) and k not in exclude
+           and (not only or k in only)}
     for k in fixtures:
         out[k] = module.__dict__[k]
     return out

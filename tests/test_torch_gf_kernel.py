@@ -181,6 +181,10 @@ PORT_MODULES_OF_SLICE_12 = tuple(
         "filer.meta_log", "filer.meta_plane", "filer.meta_cache",
         "filer.filer", "filer.client", "server.filer_server",
         "shell.fs_commands"))
+PORT_MODULES_OF_THE_TIERS = tuple(
+    f"seaweedfs_tpu_torch.{m}" for m in (
+        "storage.backend", "s3.s3tables", "filer.cloud_sinks",
+        "filer.s3_sink"))
 
 
 def test_port_imports_neither_jax_nor_reference_package():
@@ -206,6 +210,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert set(PORT_MODULES_OF_SLICE_7) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_9) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_12) <= set(mods)
+    assert set(PORT_MODULES_OF_THE_TIERS) <= set(mods)
     assert bad == []
 
 

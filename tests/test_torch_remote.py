@@ -13,7 +13,9 @@ numpy.
   encoder, `remote_pb2` parses them, and a conf saved by either package
   (its JSON or its wire twin alone) loads in the other;
 - the same script of verbs and reads gives the same transcript on both
-  packages' filers.
+  packages' filers;
+- a read-through and `remote.cache` write the same metalog events on
+  both packages' filers.
 """
 
 import json
@@ -219,3 +221,65 @@ def test_the_remote_verbs_answer_as_the_jax_verbs(foreign, tmp_path):
     for i, (a, b) in enumerate(zip(got["port"], got["jax"])):
         assert a == b, i
     assert len(got["port"]) == len(got["jax"])
+
+
+def _cache_events(kind: str, foreign, tmp_path) -> list:
+    """The metalog events a remote mount's read-through and `remote.cache`
+    write on `kind`'s filer, from after the mount: (op, path, chunks,
+    extended keys, remote entry) each."""
+    pkg = PKGS[kind]
+    cmd = pkg["COMMANDS"]
+    bucket = f"events{kind}"
+    client = remote_storage.S3RemoteStorage(foreign.url, ACCESS, SECRET,
+                                            bucket)
+    client.create_bucket()
+    objects = {"archive/a.txt": b"alpha", "archive/sub/b.bin": _seeded(1, 2000),
+               "archive/big.bin": _seeded(2, (3 << 20) + 5)}
+    for k, v in objects.items():
+        client.write(k, v)
+    c = Cluster(tmp_path / kind, pkg["cluster"], racks=("r1",),
+                size_limit_mb=64)
+    local = pkg["Filer"](c.url, store_path=str(tmp_path / kind / "f.db"))
+    local.start()
+
+    def events() -> list:
+        return json.loads(http_bytes(
+            "GET", f"{local.url}/__meta__/events?sinceNs=0")[1])["events"]
+    try:
+        env = pkg["Env"](c.url, filer=local.url)
+        cmd["remote.configure"](env, [
+            "-name=cloud1", "-type=s3", f"-endpoint={foreign.url}",
+            f"-accessKey={ACCESS}", f"-secretKey={SECRET}"])
+        cmd["remote.mount"](env, ["-dir=/mnt/c",
+                                  f"-remote=cloud1/{bucket}/archive"])
+        start = len(events())
+        for path in ("/mnt/c/a.txt", "/mnt/c/big.bin", "/mnt/c/sub/b.bin"):
+            assert _get(local.url, path)[1] == objects["archive" + path[6:]]
+        cmd["remote.cache"](env, ["-dir=/mnt/c"])
+        got = events()[start:]
+    finally:
+        local.stop()
+        c.close()
+
+    def sig(ev):
+        e = ev.get("newEntry") or ev.get("oldEntry") or {}
+        ext = e.get("extended") or {}
+        return [ev.get("op"), e.get("fullPath"), len(e.get("chunks") or []),
+                sorted(ext), ext.get("remote")]
+    return json.loads(json.dumps([sig(ev) for ev in got]).replace(bucket,
+                                                                   "B"))
+
+
+def test_the_remote_cache_writes_the_jax_filers_events(foreign, tmp_path):
+    """A remote mount's read-through of three files, then `remote.cache`,
+    write the same metalog events on both packages' filers: each file's
+    entry is written twice (its chunks, then its remote record), in the
+    same order, with the same chunk counts and extended attributes.
+    (PR 20's `filer_rest` counted 16 such second writes on the port; the
+    JAX filer writes them alike, so they are no fault.)"""
+    got = {k: _cache_events(k, foreign, tmp_path) for k in ("port", "jax")}
+    assert got["port"] == got["jax"]
+    assert [(op, path) for op, path, *_ in got["port"]] == [
+        ("update", p) for p in ("/mnt/c/a.txt", "/mnt/c/a.txt",
+                                "/mnt/c/big.bin", "/mnt/c/big.bin",
+                                "/mnt/c/sub/b.bin", "/mnt/c/sub/b.bin")]

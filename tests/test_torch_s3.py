@@ -388,11 +388,6 @@ def test_scripted_sequence_same_on_both_gateways(attachment, tmp_path,
         port_out = _run(gw.url)
         assert len(ref_out) == len(port_out) > 70
         for r, p in zip(ref_out, port_out):
-            if r[0] == "GET" and r[1] == "/" and r[3] == 501:
-                # S3 Tables: the JAX gateway has the plane, the port's
-                # answers 501 NotImplemented (ROADMAP A9)
-                assert p[3] == 501
-                continue
             assert r == p
     finally:
         rgw.stop()

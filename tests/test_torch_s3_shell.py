@@ -15,7 +15,8 @@ packages, the config paths masked).
   disable, rotation), with the same statuses;
 - quota enforcement: an over-quota bucket read-only at the gateway, and
   writable again under its quota;
-- the four `s3tables.*` verbs refused, naming the queue item.
+- the four `s3tables.*` verbs: a missing table bucket refused, and the
+  usage line, as the JAX verbs answer.
 """
 
 import json
@@ -292,7 +293,21 @@ def test_quota_enforcement_at_the_gateway(filers):
 @pytest.mark.parametrize("verb", ["s3tables.bucket", "s3tables.namespace",
                                   "s3tables.table", "s3tables.tag"])
 def test_s3tables_verbs_are_refused(verb, filers):
-    with pytest.raises(RuntimeError) as e:
-        run_command(filers["port"].env, f"{verb} -list")
-    assert str(e.value) == (f"{verb}: S3 Tables is not ported "
-                            f"(ROADMAP A3.4)")
+    """Each `s3tables.*` verb (refused outright while S3 Tables was not
+    ported) refuses an operation on a table bucket that does not exist
+    with the JAX verb's error, and with no operation flag prints the JAX
+    verb's usage line."""
+    args = {"s3tables.bucket": "-get -name=nosuch",
+            "s3tables.namespace": "-bucket=nosuch -list",
+            "s3tables.table": "-bucket=nosuch -namespace=ns -list",
+            "s3tables.tag": "-resource=nosuch -list"}[verb]
+    got = {}
+    for name, run in (("port", run_command), ("ref", ref_run_command)):
+        with pytest.raises(RuntimeError) as e:
+            run(filers[name].env, f"{verb} {args}")
+        usage = run(filers[name].env, verb)
+        got[name] = (str(e.value), usage)
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == ("NotFoundException: table bucket nosuch "
+                              "not found")
+    assert got["port"][1].startswith(f"usage: {verb} ")

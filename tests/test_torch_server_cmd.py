@@ -10,7 +10,7 @@ file.
   the other package's encoder run on a copy of the same `.dat`; SIGTERM
   stops the server with exit 0;
 - `version` prints `<name> <version> (python <version>)` in both;
-- the port's `server -tierBackend` exits 2 naming its queue item.
+- `server -tierBackend` starts with the JAX package's banner.
 """
 
 import os
@@ -157,9 +157,23 @@ def test_version_format():
 
 @pytest.mark.parametrize("spec", ["127.0.0.1:9000,tier", "x"])
 def test_server_refuses_the_tier_backend(spec, tmp_path):
-    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
-                        "server", "-tierBackend", spec, "-dir",
-                        str(tmp_path)], cwd=REPO, capture_output=True,
-                       text=True, timeout=60)
-    assert r.returncode == 2 and r.stdout == ""
-    assert r.stderr == "server -tierBackend: not ported yet (ROADMAP A4)\n"
+    """`server -tierBackend` (refused while the tiers were not ported)
+    registers the backend and starts as the JAX package's `server` does:
+    the same banner, and SIGTERM stops it with exit 0."""
+    banners, rcs = {}, {}
+    for module in MODULES:
+        d = tmp_path / module
+        d.mkdir()
+        argv = [sys.executable, "-m", module, "server", "-tierBackend", spec,
+                "-dir", str(d), "-master.port", "0", "-volume.port", "0"]
+        if module == "seaweedfs_tpu_torch":
+            argv += ["-device", "cpu"]
+        p = subprocess.Popen(argv, cwd=str(d), stdout=subprocess.PIPE,
+                             stderr=subprocess.DEVNULL, text=True,
+                             env={**os.environ, "JAX_PLATFORMS": "cpu",
+                                  "PYTHONPATH": REPO})
+        banners[module] = re.sub(r"\S+:\d+", "ADDR", p.stdout.readline())
+        rcs[module] = _stop(p)
+    assert banners["seaweedfs_tpu_torch"] == banners["seaweedfs_tpu"] == \
+        "master on ADDR, volume on ADDR\n"
+    assert rcs["seaweedfs_tpu_torch"] == 0
