@@ -376,14 +376,22 @@ Phases, each printing one JSON line:
    filer A (`-storeType lsm`, its default meta plane and native planes,
    `-notification webhook:` to a receiver in this script), filer B
    (`-storeType redis` over a RESP stand-in this script starts as its own
-   process), both with `-lockPeers A,B`, and an `s3` gateway over B, all
-   subprocesses.  1 GiB written to A by TUS in 8 MiB PATCHes (one cut off
-   mid-body, resumed from a HEAD offset probe) and 512 files of 1-64 KiB,
-   all in one volume; its `ec.encode` on the card (launches against its
-   windows); 4 shards of one server deleted, `filer.sync` A -> B and
-   `filer.backup` to a directory reading through degraded EC reads while
-   `ec.rebuild` runs on the card (launches against its windows); every
-   byte equal through A, through B and in the backup; a lock held through
+   process), both with `-lockPeers A,B`, an `s3` gateway over B, and the
+   file gateways over A (`webdav`; `sftp` with a store written by
+   `sftp.user` and `-ldapServer` at an LDAP stand-in run as its own
+   process), all subprocesses.  1 GiB written to A by TUS in 8 MiB
+   PATCHes (one cut off mid-body, resumed from a HEAD offset probe) and
+   512 files of 1-64 KiB, then ~90 MiB of 1-8 MiB files through WebDAV
+   (PUT, PROPFIND, MOVE, COPY, DELETE), SFTP (password, publickey and
+   LDAP logins; refused logins and a refused write) and the mount's op
+   table (`WeedFS` in this process), all in one volume; its `ec.encode`
+   on the card (launches against its windows); 4 shards of one server
+   deleted, `filer.sync` A -> B and `filer.backup` to a directory reading
+   through degraded EC reads while `ec.rebuild` runs on the card
+   (launches against its windows); every byte equal through A, through B
+   and in the backup; every gateway file read back from the EC volume
+   through WebDAV, SFTP, the op table and, where mount(2) is permitted, a
+   kernel `mount` (no kernel launch in those reads); a lock held through
    A refused (423) through B; a bucket of the gateway mounted into A with
    `remote.mount`, read through, cached, and a local write pushed back by
    `filer.remote.sync`; `filer.meta.tail -once` printing A's events, and
@@ -774,18 +782,20 @@ def phase_device(smi: str) -> dict:
         return time.perf_counter() - t0
     # nvcc runs beside the g++ builds of the host libraries the volume
     # servers and the filer load (the needle CRC32-C, the volume read and
-    # write planes, the filer's meta and read planes), all built here once
-    # before any server starts; one that does not build fails the run
+    # write planes, the filer's meta and read planes), all at once and
+    # all here before any server starts; one that does not build fails
+    # the run
     host_libs = {}
-    with ThreadPoolExecutor(1) as pool:
+    loads = (("crc32c", native.load_crc32c),
+             ("read_plane", native.load_read_plane),
+             ("write_plane", native.load_write_plane),
+             ("meta_plane", native.load_meta_plane),
+             ("filer_read_plane", native.load_filer_read_plane))
+    with ThreadPoolExecutor(1 + len(loads)) as pool:
         kernel_build = pool.submit(build_kernel)
-        for stem, load in (("crc32c", native.load_crc32c),
-                           ("read_plane", native.load_read_plane),
-                           ("write_plane", native.load_write_plane),
-                           ("meta_plane", native.load_meta_plane),
-                           ("filer_read_plane",
-                            native.load_filer_read_plane)):
-            check(load() is not None, f"native {stem} did not build: "
+        built = [(stem, pool.submit(load)) for stem, load in loads]
+        for stem, lib in built:
+            check(lib.result() is not None, f"native {stem} did not build: "
                   f"{native.BUILD_INFO[stem].get('error')}")
             host_libs[stem] = {k: native.BUILD_INFO[stem].get(k)
                                for k in ("seconds", "march_native")}
@@ -1433,7 +1443,18 @@ def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
     regex; by default `<role> server listening on <url>`, the url) once
     each has printed its first line (120 s), and fails if one does
     not."""
-    line = line or rf"{role} server listening on (\S+:\d+)\n"
+    return _await_started(_spawn(argvs, logs, procs, env_extra, log_mode,
+                                 cwd), logs, role, line)
+
+
+def _spawn(argvs: "list[list[str]]", logs: "list[str]", procs: list,
+           env_extra: "dict | None" = None, log_mode: str = "w",
+           cwd: "str | None" = None) -> list:
+    """The first half of `_start_procs`: the processes started and
+    appended to `procs`, not waited for, so that a phase starts a role
+    that needs only the master's url (a filer, the admin, a worker)
+    while its volume servers import torch; `_await_started` is the
+    second half."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo, **(env_extra or {}))
     started = []
@@ -1445,6 +1466,14 @@ def _start_procs(argvs: "list[list[str]]", logs: "list[str]",
                 cwd=cwd)
         procs.append(p)
         started.append(p)
+    return started
+
+
+def _await_started(started: list, logs: "list[str]", role: str,
+                   line: "str | None" = None) -> "list[str]":
+    """The urls of `_spawn`'s processes once each printed its first line
+    (see `_start_procs`)."""
+    line = line or rf"{role} server listening on (\S+:\d+)\n"
     lines = [[] for _ in started]
     readers = [threading.Thread(target=lambda p=p, out=out:
                                 out.append(p.stdout.readline()),
@@ -2317,9 +2346,12 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
             [["master", "-port", "0", "-volumeSizeLimitMB", str(dat >> 20)]],
             [os.path.join(tmp, "master.log")], procs, "master")
         server0 = VolumeServer([dirs[0]], master=murl).start()
-        peer_urls = _start_peers(dirs[1:], tmp, procs, master=murl)
-        urls = [server0.url] + peer_urls
-        dir_of = dict(zip(urls, dirs))
+        # the admin and the command line's worker start while the peers
+        # import torch
+        plogs = [os.path.join(tmp, os.path.basename(d) + ".log")
+                 for d in dirs[1:]]
+        peers = _spawn([["volume", "-dir", d, "-port", "0", "-mserver",
+                         murl] for d in dirs[1:]], plogs, procs)
         (aurl,) = _start_procs(
             [["admin", "-port", "0", "-master", murl,
               "-detectionInterval", "3600",
@@ -2335,6 +2367,9 @@ def phase_worker(ec: dict, batch: dict, tmp: str) -> dict:
             rf"worker (\w+) polling {re.escape(aurl)}\n")
         bad = _stop_peers([procs[-1]])
         check(not bad, f"the worker command did not stop cleanly: {bad}")
+        peer_urls = _await_started(peers, plogs, "volume")
+        urls = [server0.url] + peer_urls
+        dir_of = dict(zip(urls, dirs))
         worker = PluginWorker(
             aurl, murl, os.path.join(tmp, "worker"),
             [EcEncodeHandler(device="cuda"), EcRebuildHandler()],
@@ -3854,19 +3889,22 @@ def phase_filer(tmp: str, seed: int, n_small: int = FILER_N,
         (murl,) = _start_procs(
             [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb)]],
             [os.path.join(tmp, "master.log")], procs, "master")
-        urls = _start_procs(
+        # the filer starts while the volume servers import torch
+        vlogs, flog = [dd + ".log" for dd in dirs], [os.path.join(
+            tmp, "filer.log")]
+        vols = _spawn(
             [["volume", "-dir", dd, "-port", "0", "-mserver", murl,
               "-max", str(WRITE_MAX_VOLUMES), "-device", device]
-             for dd in dirs], [dd + ".log" for dd in dirs], procs,
-            "volume")
-        proc_of = dict(zip(urls, procs[1:]))
-        (furl,) = _start_procs(
+             for dd in dirs], vlogs, procs)
+        filer_p = _spawn(
             [["filer", "-port", "0", "-master", murl, "-store",
               os.path.join(tmp, "filer.db"), "-collection", coll,
-              "-metaPlane", "0"]],
-            [os.path.join(tmp, "filer.log")], procs, "filer",
-            line=r"filer listening on (\S+:\d+)\n",
+              "-metaPlane", "0"]], flog, procs,
             env_extra={"SEAWEEDFS_TPU_FILER_READ_PLANE_NATIVE": "0"})
+        urls = _await_started(vols, vlogs, "volume")
+        proc_of = dict(zip(urls, vols))
+        (furl,) = _await_started(filer_p, flog, "filer",
+                                 line=r"filer listening on (\S+:\d+)\n")
         env = commands.CommandEnv(murl, filer=furl)
 
         def get(path):
@@ -5191,14 +5229,18 @@ def phase_fsync_tier(tmp: str, seed: int, bench_n: int = FSYNC_BENCH_N,
             [["master", "-port", "0", "-volumeSizeLimitMB", str(limit_mb),
               "-defaultReplication", "001"]],
             [os.path.join(tmp, "master.log")], procs, "master")
-        urls = _start_procs([volume_argv(i) for i in range(len(dirs))],
-                            [dd + ".log" for dd in dirs], procs, "volume")
-        proc_of = dict(zip(urls, procs[1:]))
-        (furl,) = _start_procs(
+        # the filer starts while the volume servers import torch
+        vlogs, flog = [dd + ".log" for dd in dirs], [os.path.join(
+            tmp, "filer.log")]
+        vols = _spawn([volume_argv(i) for i in range(len(dirs))], vlogs,
+                      procs)
+        filer_p = _spawn(
             [["filer", "-port", "0", "-master", murl, "-store", store,
-              "-collection", filer_coll]],
-            [os.path.join(tmp, "filer.log")], procs, "filer",
-            line=r"filer listening on (\S+:\d+)\n")
+              "-collection", filer_coll]], flog, procs)
+        urls = _await_started(vols, vlogs, "volume")
+        proc_of = dict(zip(urls, vols))
+        (furl,) = _await_started(filer_p, flog, "filer",
+                                 line=r"filer listening on (\S+:\d+)\n")
 
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
@@ -5976,21 +6018,25 @@ def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
             [[*sec, "master", "-port", "0", "-volumeSizeLimitMB",
               str(limit_mb)]], [os.path.join(tmp, "master.log")], procs,
             "master")
-        urls = _start_procs(
+        # the filer and the gateway start while the volume servers
+        # import torch
+        vlogs, flog = [dd + ".log" for dd in dirs], [os.path.join(
+            tmp, "filer.log")]
+        vols = _spawn(
             [[*sec, "volume", "-dir", dd, "-port", "0", "-mserver", murl,
               "-max", str(WRITE_MAX_VOLUMES), "-device", device]
-             for dd in dirs], [dd + ".log" for dd in dirs], procs, "volume",
-            env_extra=nocache)
-        proc_of = dict(zip(urls, procs[1:]))
+             for dd in dirs], vlogs, procs, env_extra=nocache)
         (furl,) = _start_procs(
             [[*sec, "filer", "-port", "0", "-master", murl, "-store",
               os.path.join(tmp, "filer.db"), "-collection", coll]],
-            [os.path.join(tmp, "filer.log")], procs, "filer",
+            flog, procs, "filer",
             line=r"filer listening on (\S+:\d+)\n", env_extra=nocache)
         (s3url,) = _start_procs(
             [[*sec, "s3", "-port", "0", "-filer", furl, "-iamConfig", iam]],
             [os.path.join(tmp, "s3.log")], procs, "s3",
             line=r"s3 gateway listening on (\S+:\d+).*\n")
+        urls = _await_started(vols, vlogs, "volume")
+        proc_of = dict(zip(urls, vols))
 
         def get(path):
             return http_json("GET", f"{murl}{path}", timeout=30)
@@ -6401,10 +6447,11 @@ def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
         (pm,) = _start_procs([["master", "-port", "0"]],
                              [os.path.join(tmp, "pmaster.log")], procs,
                              "master")
-        purls = _start_procs(
+        pvlogs = [dd + ".log" for dd in pdirs]
+        pvols = _spawn(
             [["volume", "-dir", dd, "-port", "0", "-mserver", pm, "-max",
               str(WRITE_MAX_VOLUMES), "-device", device] for dd in pdirs],
-            [dd + ".log" for dd in pdirs], procs, "volume")
+            pvlogs, procs)
         (pf,) = _start_procs(
             [["filer", "-port", "0", "-master", pm, "-store",
               os.path.join(tmp, "pfiler.db"), "-collection", coll]],
@@ -6414,6 +6461,7 @@ def phase_secure_s3(tmp: str, seed: int, small_n: int = SECURE_SMALL_N,
             [["s3", "-port", "0", "-filer", pf, "-accessKey", S3_ADMIN[0],
               "-secretKey", S3_ADMIN[1]]], [os.path.join(tmp, "ps3.log")],
             procs, "s3", line=r"s3 gateway listening on (\S+:\d+).*\n")
+        purls = _await_started(pvols, pvlogs, "volume")
         end = time.monotonic() + 60
         while len(http_json("GET", f"{pm}/cluster/status")["dataNodes"]) < \
                 len(purls):
@@ -7375,15 +7423,18 @@ def phase_qos_chaos(tmp: str, seed: int, fg_n: int = QOS_FG_N,
             [[*sec, "master", "-port", "0", "-volumeSizeLimitMB",
               str(big_mb)]], [os.path.join(tmp, "master.log")], procs,
             "master")
-        urls = _start_procs(
+        # the filer starts while the volume servers import torch
+        vlogs = [dd + ".log" for dd in dirs]
+        vols = _spawn(
             [[*sec, "volume", "-dir", dd, "-port", "0", "-mserver", murl,
               "-max", str(WRITE_MAX_VOLUMES), "-device", device]
-             for dd in dirs], [dd + ".log" for dd in dirs], procs, "volume")
+             for dd in dirs], vlogs, procs)
         (furl,) = _start_procs(
             [[*sec, "filer", "-port", "0", "-master", murl, "-store",
               os.path.join(tmp, "filer.db")]],
             [os.path.join(tmp, "filer.log")], procs, "filer",
             line=r"filer listening on (\S+:\d+)\n")
+        urls = _await_started(vols, vlogs, "volume")
         poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
              "7 volume servers registered")
         for u in [murl, furl, *urls]:
@@ -7901,12 +7952,13 @@ def phase_maintenance(tmp: str, seed: int, big_mb: int = MAINT_MB,
             [["master", "-port", "0", "-volumeSizeLimitMB",
               str(2 * big_mb)]], [os.path.join(tmp, "master.log")], procs,
             "master")
-        urls = _start_procs(
+        # the admin and the worker start while the volume servers
+        # import torch
+        vlogs = [dd + ".log" for dd in dirs[:MAINT_SERVERS]]
+        vols = _spawn(
             [["volume", "-dir", dd, "-port", "0", "-mserver", murl, "-max",
               str(WRITE_MAX_VOLUMES), "-rack", f"r{i % 2}", "-device", device]
-             for i, dd in enumerate(dirs[:MAINT_SERVERS])],
-            [dd + ".log" for dd in dirs[:MAINT_SERVERS]], procs, "volume")
-        proc_of.update(zip(urls, procs[1:]))
+             for i, dd in enumerate(dirs[:MAINT_SERVERS])], vlogs, procs)
         (aurl,) = _start_procs(
             [["admin", "-port", "0", "-master", murl,
               "-detectionInterval", "3600",
@@ -7920,6 +7972,8 @@ def phase_maintenance(tmp: str, seed: int, big_mb: int = MAINT_MB,
               "-device", device]],
             [os.path.join(tmp, "worker.log")], procs, "worker",
             rf"worker (\w+) polling {re.escape(aurl)}\n")
+        urls = _await_started(vols, vlogs, "volume")
+        proc_of.update(zip(urls, vols))
         poll(lambda: len(get("/cluster/status")["dataNodes"]) == len(urls),
              "4 volume servers registered")
         poll(lambda: {"erasure_coding", "vacuum", "volume_balance",
@@ -8536,12 +8590,13 @@ def phase_master_ha(tmp: str, seed: int, big_mb: int = HA_MB,
         emit({"phase": "master_ha", "step": "election",
               **steps["election"]})
 
-        urls = _start_procs(
+        # the filer, the admin and the worker start while the volume
+        # servers import torch
+        vlogs = [dd + ".log" for dd in dirs]
+        vols = _spawn(
             [["volume", "-dir", dd, "-port", "0", "-mserver", seeds, "-max",
               str(WRITE_MAX_VOLUMES), "-device", device] for dd in dirs],
-            [dd + ".log" for dd in dirs], procs, "volume")
-        vproc = dict(zip(urls, procs[-HA_SERVERS:]))
-        vdir = dict(zip(urls, dirs))
+            vlogs, procs)
         (furl,) = _start_procs(
             [["filer", "-port", "0", "-master", seeds, "-store",
               os.path.join(tmp, "filer.db"), "-collection",
@@ -8559,6 +8614,9 @@ def phase_master_ha(tmp: str, seed: int, big_mb: int = HA_MB,
               "erasure_coding", "-device", device]],
             [os.path.join(tmp, "worker.log")], procs, "worker",
             rf"worker (\w+) polling {re.escape(aurl)}\n")
+        urls = _await_started(vols, vlogs, "volume")
+        vproc = dict(zip(urls, vols))
+        vdir = dict(zip(urls, dirs))
         poll(lambda: len(alive()) == HA_SERVERS, "4 volume servers")
         poll(lambda: "erasure_coding" in admin(
             "GET", "/maintenance/config")["jobTypes"], "the worker")
@@ -9093,6 +9151,376 @@ def _stream_sha(url: str, lo: int = 0, hi: "int | None" = None
         conn.close()
 
 
+GW_DAV_N = 8                 # WebDAV files of 1-8 MiB
+GW_SFTP_N = 8                # SFTP files of 1-8 MiB, from three sessions
+GW_MOUNT_N = 4               # op-table files of 2-8 MiB, 1 MiB writes
+GW_MAX_BYTES = 128 << 20     # all of them, under the volume's headroom
+GW_ROOT = "/rest/gw"
+GW_LDAP_DN = "uid={},ou=people,dc=example,dc=com"
+# the directory's one user, as `MiniLdapServer` takes it (DN ->
+# [password, attributes])
+GW_LDAP_USERS = {GW_LDAP_DN.format("ada"): [
+    "lovelace", {"uid": ["ada"], "cn": ["Ada Lovelace"]}]}
+# the SFTP logins: the store's password user (who may also read and
+# list everything), its publickey user, and the directory's user
+GW_HOMES = {"alice": f"{GW_ROOT}/sftp/alice", "kim": f"{GW_ROOT}/sftp/kim",
+            "ada": "/home/ada"}
+
+# The LDAP stand-in, run as its own process: `python3 -c _LDAP_SERVER
+# USERS_JSON` prints `PORT <n>` and serves until killed.
+_LDAP_SERVER = r'''
+import json, sys, threading
+from seaweedfs_tpu_torch.iam.ldap import MiniLdapServer
+s = MiniLdapServer(json.loads(sys.argv[1])).start()
+print("PORT", s.port, flush=True)
+threading.Event().wait()
+'''
+
+# Plain file reads through a kernel mount, in a process of their own (a
+# stuck FUSE read must not stop this script): `python3 -c _FUSE_READER
+# MOUNTPOINT PATHS_JSON` prints {path: SHA-256}.
+_FUSE_READER = r'''
+import hashlib, json, sys
+out = {}
+for p in json.loads(sys.argv[2]):
+    with open(sys.argv[1] + p, "rb") as f:
+        out[p] = hashlib.sha256(f.read()).hexdigest()
+print(json.dumps(out), flush=True)
+'''
+
+
+def _gw_key(seed: int):
+    """The SFTP publickey user's ed25519 key, from the seed."""
+    import numpy as np
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PrivateKey)
+    return Ed25519PrivateKey.from_private_bytes(
+        np.random.default_rng([seed, 24]).bytes(32))
+
+
+def _gw_sftp(gw: dict, user: str, **kw):
+    """An SFTP session of `user` on the phase's gateway, its host key
+    pinned to the PEM the `sftp` command wrote."""
+    from seaweedfs_tpu_torch.sftp.client import SftpClient
+    if user == "kim":
+        kw["key"] = gw["key"]
+    elif "password" not in kw:
+        kw["password"] = {"alice": "alicepw", "ada": "lovelace"}[user]
+    return SftpClient("127.0.0.1", gw["sftp_port"], user,
+                      expected_host_key=gw["host_raw"], **kw)
+
+
+def _gw_rate(nbytes: int, seconds: float) -> dict:
+    return {"bytes": nbytes, "seconds": seconds,
+            "mb_per_s": nbytes / seconds / 1e6}
+
+
+def _gateways_write(seed: int, furl: str, gw: dict) -> dict:
+    """The `gateways` step of `filer_rest`: seeded files written into
+    filer A through WebDAV, SFTP (three logins) and the mount's op table
+    (`WeedFS` in this process).  Fills gw["files"] (path -> payload, as
+    the files stand after the step) and gw["gone"] (paths a MOVE, a
+    RENAME or a DELETE took away); returns the step's numbers."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.mount import WeedFS
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    from seaweedfs_tpu_torch.sftp.client import SftpError
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 23])
+    mib = 1 << 20
+    dav_sizes = rng.integers(mib, 8 * mib + 1, GW_DAV_N)
+    sftp_sizes = rng.integers(mib, 8 * mib + 1, GW_SFTP_N)
+    mount_sizes = rng.integers(2 * mib, 8 * mib + 1, GW_MOUNT_N)
+    total = int(dav_sizes.sum() + sftp_sizes.sum() + mount_sizes.sum())
+    check(total <= GW_MAX_BYTES, f"the gateways' files come to {total} B")
+    files, gone = gw["files"], gw["gone"]
+    dav = gw["dav"]
+    out = {}
+
+    # WebDAV: a collection, 8 PUTs, PROPFIND, a ranged GET, MOVE, COPY
+    ddir = f"{GW_ROOT}/dav"
+    st = http_bytes("MKCOL", dav + ddir)[0]
+    check(st == 201, f"MKCOL {ddir}: {st}")
+    put = {f"{ddir}/f{i}.bin": _payload_of(seed, f"{ddir}/f{i}.bin", int(n))
+           for i, n in enumerate(dav_sizes)}
+    t = time.perf_counter()
+    for p, body in put.items():
+        st = http_bytes("PUT", dav + p, body, timeout=300)[0]
+        check(st == 201, f"WebDAV PUT {p}: {st}")
+    out["webdav"] = _gw_rate(sum(map(len, put.values())),
+                             time.perf_counter() - t)
+    files.update(put)
+    st, body, _ = http_bytes("PROPFIND", dav + ddir, None, {"Depth": "1"},
+                             timeout=60)
+    check(st == 207, f"PROPFIND {ddir}: {st}")
+    dns = "{DAV:}"
+    listed = {r.find(f"{dns}href").text: r.find(
+        f"{dns}propstat/{dns}prop/{dns}getcontentlength")
+        for r in ET.fromstring(body)}
+    check({h: int(e.text) for h, e in listed.items() if e is not None} ==
+          {p: len(b) for p, b in put.items()},
+          f"PROPFIND lists {sorted(listed)}")
+    p = f"{ddir}/f{GW_DAV_N - 1}.bin"
+    lo, hi = len(put[p]) // 3, len(put[p]) // 3 + mib - 1
+    st, body, _ = http_bytes("GET", dav + p, None,
+                             {"Range": f"bytes={lo}-{hi}"}, timeout=60)
+    check((st, body == put[p][lo:hi + 1]) == (206, True),
+          f"a ranged WebDAV GET: {st}")
+    moved = f"{ddir}/moved0.bin"
+    st = http_bytes("MOVE", dav + f"{ddir}/f0.bin", None,
+                    {"Destination": moved}, timeout=60)[0]
+    check(st == 201, f"WebDAV MOVE: {st}")
+    files[moved] = files.pop(f"{ddir}/f0.bin")
+    gone.append(f"{ddir}/f0.bin")
+    copy = f"{ddir}/copy1.bin"
+    st = http_bytes("COPY", dav + f"{ddir}/f1.bin", None,
+                    {"Destination": copy}, timeout=300)[0]
+    check(st == 201, f"WebDAV COPY: {st}")
+    st, body, _ = http_bytes("GET", dav + copy, timeout=300)
+    check((st, body == files[f"{ddir}/f1.bin"]) == (200, True),
+          f"the copy: {st}")
+    st = http_bytes("DELETE", dav + copy, timeout=60)[0]
+    check(st == 204, f"WebDAV DELETE: {st}")
+    gone.append(copy)
+
+    # SFTP: three logins, two refusals, 8 files, a RENAME, a refused
+    # write outside the user's prefix, READDIR
+    refused = {}
+    for what, user, kw in (("wrong_password", "alice",
+                            {"password": "wrong"}),
+                           ("unknown_user", "mallory", {"password": "x"})):
+        try:
+            _gw_sftp(gw, user, **kw).close()
+            refused[what] = "accepted"
+        except PermissionError as e:
+            refused[what] = str(e)
+    check(all(v != "accepted" for v in refused.values()),
+          f"SFTP logins that must be refused: {refused}")
+    t = time.perf_counter()
+    sessions = {u: _gw_sftp(gw, u) for u in ("alice", "kim", "ada")}
+    login_s = time.perf_counter() - t
+    users = ("alice", "kim", "ada")
+    sput = {}
+    try:
+        t = time.perf_counter()
+        for i, n in enumerate(sftp_sizes):
+            user = users[i % 3]
+            p = f"{GW_HOMES[user]}/f{i}.bin"
+            sput[p] = (user, _payload_of(seed, p, int(n)))
+            sessions[user].write_file(p, sput[p][1])
+        out["sftp"] = _gw_rate(sum(len(b) for _, b in sput.values()),
+                               time.perf_counter() - t)
+        old = f"{GW_HOMES['alice']}/f0.bin"
+        new = f"{GW_HOMES['alice']}/renamed0.bin"
+        sessions["alice"].rename(old, new)
+        sput[new] = sput.pop(old)
+        gone.append(old)
+        try:
+            sessions["alice"].write_file(f"{ddir}/evil.bin", b"nope")
+            refused["write_outside_prefix"] = "written"
+        except SftpError as e:
+            refused["write_outside_prefix"] = e.code
+        check(refused["write_outside_prefix"] == 3,
+              f"a write outside alice's prefix: {refused}")
+        for user, c in sessions.items():
+            mine = {p.rsplit("/", 1)[1]: len(b) for p, (u, b) in
+                    sput.items() if u == user}
+            got = {n: a["size"] for n, a in c.listdir(GW_HOMES[user])}
+            check(got == mine, f"READDIR {GW_HOMES[user]}: {got}")
+    finally:
+        for c in sessions.values():
+            c.close()
+    files.update({p: b for p, (_u, b) in sput.items()})
+    out["sftp"]["login_seconds"] = login_s
+    out["refused"] = refused
+
+    # the mount's op table: create, 1 MiB writes, release
+    w = WeedFS(furl)
+    mput = {f"{GW_ROOT}/mnt/m{i}.bin":
+            _payload_of(seed, f"{GW_ROOT}/mnt/m{i}.bin", int(n))
+            for i, n in enumerate(mount_sizes)}
+    try:
+        t = time.perf_counter()
+        for p, body in mput.items():
+            w.create(p)
+            for off in range(0, len(body), mib):
+                w.write(p, body[off:off + mib], off)
+            w.release(p)
+        out["mount"] = _gw_rate(sum(map(len, mput.values())),
+                                time.perf_counter() - t)
+        for p, body in mput.items():
+            check(w.getattr(p)["st_size"] == len(body), f"getattr {p}")
+    finally:
+        w.close()
+    files.update(mput)
+    out["files"] = len(files)
+    out["bytes"] = total
+    out["step_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fuse_ready() -> str:
+    """An empty string where a kernel mount may be tried, else why it
+    may not."""
+    import ctypes.util
+    if not os.path.exists("/dev/fuse"):
+        return "no /dev/fuse"
+    try:    # as `mount.fuse_ctypes` loads it
+        ctypes.CDLL(ctypes.util.find_library("fuse") or "libfuse.so.2")
+    except OSError:
+        return "no libfuse.so.2"
+    if shutil.which("fusermount") is None:
+        return "no fusermount"
+    return ""
+
+
+def _gateways_fuse(furl: str, files: dict, tmp: str) -> dict:
+    """`python -m seaweedfs_tpu_torch mount -filer A -dir <tmp>/mnt`,
+    every file read back with plain reads (in a process of its own), and
+    `fusermount -u`; {"fuse": "mounted"} with the rate, or the reason
+    the kernel mount did not come up."""
+    reason = _fuse_ready()
+    if reason:
+        return {"fuse": reason}
+    mnt = os.path.join(tmp, "mnt")
+    os.makedirs(mnt)
+    log = os.path.join(tmp, "mount.log")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "mount", "-filer",
+             furl, "-dir", mnt], stdout=subprocess.DEVNULL, stderr=err,
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=repo))
+    out: dict = {}
+    mounted = False
+    try:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                with open(log) as f:
+                    tail = f.read()[-300:].strip()
+                return {"fuse": f"mount(2) not permitted here (exit "
+                                f"{proc.returncode}): {tail}"}
+            if os.path.ismount(mnt):
+                mounted = True
+                break
+            time.sleep(0.1)
+        if not mounted:
+            return {"fuse": "the mount did not come up in 30 s"}
+        paths = sorted(files)
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _FUSE_READER, mnt,
+                            json.dumps(paths)], capture_output=True,
+                           text=True, timeout=300)
+        secs = time.perf_counter() - t
+        check(r.returncode == 0, f"reads through the kernel mount: "
+                                 f"{r.stderr[-500:]}")
+        got = json.loads(r.stdout)
+        bad = [p for p in paths
+               if got.get(p) != hashlib.sha256(files[p]).hexdigest()]
+        check(not bad, f"{len(bad)} files differ through FUSE: {bad[:3]}")
+        listed = sorted(os.listdir(os.path.join(mnt, GW_ROOT[1:], "dav")))
+        check(listed == sorted(p.rsplit("/", 1)[1] for p in files
+                               if p.startswith(f"{GW_ROOT}/dav/")),
+              f"FUSE readdir: {listed}")
+        out = {"fuse": "mounted",
+               "fuse_read": _gw_rate(sum(len(files[p]) for p in paths),
+                                     secs)}
+    finally:
+        if mounted:
+            subprocess.run(["fusermount", "-u", mnt], capture_output=True,
+                           timeout=60)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            subprocess.run(["fusermount", "-u", "-z", mnt],
+                           capture_output=True, timeout=60)
+            proc.kill()
+            rc = proc.wait(timeout=30)
+        if mounted:
+            check(rc == 0, f"the mount process exited {rc}")
+    return out
+
+
+def _gateways_read(furl: str, gw: dict, tmp: str) -> dict:
+    """The `gateways_read` step of `filer_rest`: every file the gateways
+    wrote, read back from the EC volume through WebDAV (whole GETs and a
+    ranged GET), SFTP (READ in 32 KiB requests), the op table (readdir,
+    getattr, 1 MiB reads) and, where the machine allows it, a kernel
+    mount; the paths taken away read 404 / ENOENT everywhere."""
+    from seaweedfs_tpu_torch.mount import FuseError, WeedFS
+    from seaweedfs_tpu_torch.server.httpd import http_bytes
+    from seaweedfs_tpu_torch.sftp.client import SftpError
+
+    t0 = time.perf_counter()
+    files, gone, dav = gw["files"], gw["gone"], gw["dav"]
+    nbytes = sum(map(len, files.values()))
+    out = {}
+    t = time.perf_counter()
+    for p, body in files.items():
+        st, got, _ = http_bytes("GET", dav + p, timeout=300)
+        check((st, got == body) == (200, True), f"WebDAV GET {p}: {st}")
+    out["webdav"] = _gw_rate(nbytes, time.perf_counter() - t)
+    p = max(files, key=lambda k: len(files[k]))
+    lo, hi = len(files[p]) // 2, len(files[p]) // 2 + (1 << 20) - 1
+    st, got, _ = http_bytes("GET", dav + p, None,
+                            {"Range": f"bytes={lo}-{hi}"}, timeout=60)
+    check((st, got == files[p][lo:hi + 1]) == (206, True),
+          f"a ranged WebDAV GET of {p}: {st}")
+    for p in gone:
+        st = http_bytes("GET", dav + p, timeout=60)[0]
+        check(st == 404, f"WebDAV GET of the removed {p}: {st}")
+
+    c = _gw_sftp(gw, "alice")
+    try:
+        t = time.perf_counter()
+        for p, body in files.items():
+            check(c.read_file(p, chunk=32 << 10) == body, f"SFTP READ {p}")
+        out["sftp"] = _gw_rate(nbytes, time.perf_counter() - t)
+        for p in gone:
+            try:
+                c.stat(p)
+                check(False, f"SFTP STAT of the removed {p} answered")
+            except SftpError as e:
+                check(e.code == 2, f"SFTP STAT of the removed {p}: {e}")
+    finally:
+        c.close()
+
+    w = WeedFS(furl)
+    try:
+        t = time.perf_counter()
+        dirs = {p.rsplit("/", 1)[0] for p in files}
+        for d in sorted(dirs):
+            names = set(w.readdir(d))
+            want = {p.rsplit("/", 1)[1] for p in files
+                    if p.rsplit("/", 1)[0] == d}
+            check(want <= names and not {p.rsplit("/", 1)[1] for p in gone
+                                         if p.rsplit("/", 1)[0] == d} &
+                  names, f"readdir {d}: {sorted(names)}")
+        for p, body in files.items():
+            check(w.getattr(p)["st_size"] == len(body), f"getattr {p}")
+            got = b"".join(w.read(p, 1 << 20, off)
+                           for off in range(0, len(body), 1 << 20))
+            check(got == body, f"op-table reads of {p}")
+        out["mount"] = _gw_rate(nbytes, time.perf_counter() - t)
+        for p in gone:
+            try:
+                w.getattr(p)
+                check(False, f"getattr of the removed {p} answered")
+            except FuseError:
+                pass
+    finally:
+        w.close()
+    out.update(_gateways_fuse(furl, files, tmp))
+    out["files"] = len(files)
+    out["step_seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
                      small_n: int = REST_SMALL_N,
                      remote_n: int = REST_REMOTE_N,
@@ -9102,12 +9530,20 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
     default meta plane and native planes, `-notification webhook:` to a
     receiver in this script), filer B (`-storeType redis` over a RESP
     stand-in this script starts as its own process), both with
-    `-lockPeers A,B`, and an `s3` gateway over B, all `python -m
-    seaweedfs_tpu_torch` processes.  Steps, each printed on its JSON
-    line:
+    `-lockPeers A,B`, an `s3` gateway over B, and the file gateways over
+    A: `webdav`, and `sftp` with its store written by `sftp.user` and
+    `-ldapServer` at an LDAP stand-in this script starts as its own
+    process, all `python -m seaweedfs_tpu_torch` processes.  Steps, each
+    printed on its JSON line:
     1. tus: a 1 GiB file written to A by TUS in 8 MiB PATCHes, one PATCH
        cut off mid-body and the upload resumed from a HEAD offset probe;
        512 files of 1-64 KiB; all in one volume of A's collection;
+    1b. gateways: 8 files of 1-8 MiB through WebDAV (MKCOL, PUT, PROPFIND,
+       a ranged GET, MOVE, COPY, DELETE), 8 through SFTP from a password,
+       a publickey and an LDAP session (a wrong password and an unknown
+       user refused, a RENAME, a write outside the prefix refused,
+       READDIR), 4 of 2-8 MiB through the mount's op table in 1 MiB
+       writes; all into the same volume;
     2. encode: `ec.encode` of that volume on the card, launches equal to
        its windows;
     3. sync: 4 shards of one server deleted; `filer.sync` A -> B and
@@ -9116,6 +9552,10 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
        equal to its windows, 14 shards listed again); both run until
        their offsets reach A's last event, and every byte read back
        through A, through B and from the backup equals what was written;
+    3b. gateways_read: every file the gateways wrote read back from the
+       EC volume through WebDAV, SFTP (32 KiB READs), the op table and,
+       where mount(2) is permitted, a kernel mount (`mount`, plain reads,
+       `fusermount -u`), with no kernel launch;
     4. lock: a key taken through A is refused (423) through B, released,
        then taken through B;
     5. remote: a bucket of the gateway with 16 objects mounted into A
@@ -9193,12 +9633,38 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
         except (OSError, ValueError):
             return 0
 
-    resp = None
+    resp = ldap_p = None
+    gw = {"files": {}, "gone": [], "key": _gw_key(seed)}
     try:
-        # the cluster: the RESP stand-in, the master, then the rest at once
+        # the cluster: the RESP and LDAP stand-ins, the master, then the
+        # rest at once; the SFTP store is written by `sftp.user` meanwhile
+        from seaweedfs_tpu_torch.sftp.client import openssh_pubkey
+        repo = os.path.dirname(os.path.abspath(__file__))
         resp = subprocess.Popen([sys.executable, "-c", _RESP_SERVER, "0"],
                                 stdout=subprocess.PIPE, text=True, cwd=tmp)
+        ldap_p = subprocess.Popen(
+            [sys.executable, "-c", _LDAP_SERVER, json.dumps(GW_LDAP_USERS)],
+            stdout=subprocess.PIPE, text=True, cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=repo))
+        store = os.path.join(tmp, "sftp_users.json")
+        host_key = os.path.join(tmp, "sftp_host.pem")
+        store_rc: list = []
+
+        def sftp_users():
+            for extra in (["-name", "alice", "-password", "alicepw",
+                           "-home", GW_HOMES["alice"], "-perm",
+                           "/:read,list"],
+                          ["-name", "kim", "-home", GW_HOMES["kim"],
+                           "-pubkey", openssh_pubkey(gw["key"], "kim")]):
+                store_rc.append(subprocess.run(
+                    [sys.executable, "-m", "seaweedfs_tpu_torch",
+                     "sftp.user", "-store", store, "add", *extra],
+                    capture_output=True, text=True, cwd=tmp, timeout=120,
+                    env=dict(os.environ, PYTHONPATH=repo)).returncode)
+        users_t = threading.Thread(target=sftp_users)
+        users_t.start()
         resp_addr = f"127.0.0.1:{resp.stdout.readline().split()[1]}"
+        ldap_addr = f"127.0.0.1:{ldap_p.stdout.readline().split()[1]}"
         t = time.perf_counter()
         (murl,) = _start_procs(
             [["master", "-port", "0", "-volumeSizeLimitMB",
@@ -9225,6 +9691,22 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
                       *([] if device == "cuda" else ["-device", device])]
                      for dd in dirs], [dd + ".log" for dd in dirs], procs,
                     "volume")))]
+        users_t.join()
+        check(store_rc == [0, 0], f"sftp.user add: {store_rc}")
+        side += [
+            threading.Thread(target=lambda: started.update(
+                webdav=_start_procs(
+                    [["webdav", "-port", "0", "-filer", f"127.0.0.1:{pa}"]],
+                    [os.path.join(tmp, "webdav.log")], procs, "webdav",
+                    line=r"webdav on (\S+:\d+) serving filer .*\n"))),
+            threading.Thread(target=lambda: started.update(
+                sftp=_start_procs(
+                    [["sftp", "-port", "0", "-filer", f"127.0.0.1:{pa}",
+                      "-userStoreFile", store, "-hostKeyFile", host_key,
+                      "-ldapServer", ldap_addr, "-ldapUserDnTemplate",
+                      GW_LDAP_DN]],
+                    [os.path.join(tmp, "sftp.log")], procs, "sftp",
+                    line=r"sftp on (\S+:\d+) serving filer .*\n")))]
         for th in side:
             th.start()
         furl_a, furl_b = _start_procs(
@@ -9240,8 +9722,15 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
             line=r"filer listening on (\S+:\d+)\n", cwd=tmp)
         for th in side:
             th.join()
-        check(len(started) == 2, "the servers or the gateway did not start")
+        check(len(started) == 4, "the servers or a gateway did not start")
         urls, (s3url,) = started["volumes"], started["s3"]
+        from cryptography.hazmat.primitives import serialization
+        with open(host_key, "rb") as f:
+            gw["host_raw"] = serialization.load_pem_private_key(
+                f.read(), None).public_key().public_bytes(
+                serialization.Encoding.Raw, serialization.PublicFormat.Raw)
+        gw["dav"] = started["webdav"][0]
+        gw["sftp_port"] = int(started["sftp"][0].rsplit(":", 1)[1])
         poll(lambda: len(get("/cluster/status").get("dataNodes", [])) ==
              REST_SERVERS, "4 volume servers")
         # a server's /metrics imports its codec module (torch): all at
@@ -9361,6 +9850,19 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
                         "small_files": small_n, "small_seconds": small_s,
                         "volume": va, "cluster_start_seconds": start_s}
         emit({"phase": "filer_rest", "step": "tus", **steps["tus"]})
+
+        # 1b. the file gateways write into A, into the same volume
+        steps["gateways"] = _gateways_write(seed, furl_a, gw)
+        gvids = set()
+        for path in gw["files"]:
+            e = http_json("GET", f"{furl_a}/__meta__/lookup?path={path}",
+                          timeout=30)
+            gvids |= {int(c["fileId"].split(",")[0]) for c in e["chunks"]}
+        check(gvids == {va}, f"the gateways' files are on volumes {gvids}, "
+                             f"A's volume is {va}")
+        steps["gateways"]["volume"] = va
+        emit({"phase": "filer_rest", "step": "gateways",
+              **steps["gateways"]})
 
         # 2. ec.encode on the card
         holder = operation.lookup(murl, va, use_cache=False)[0]["url"]
@@ -9487,6 +9989,23 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
                   f"the TUS file through B: {got}")
             check(big_bak.result() == tus_sha, "the TUS file in the backup")
         check(not bad, f"{len(bad)} small files differ, first {bad[:3]}")
+
+        def gw_ok(item):
+            path, want = item
+            with open(bak_dir + path, "rb") as f:
+                ok = f.read() == want
+            return ok and http_bytes("GET", furl_b + path,
+                                     timeout=300)[1] == want
+        with ThreadPoolExecutor(4) as pool:
+            bad = [pth for (pth, _), ok in zip(
+                gw["files"].items(), pool.map(gw_ok, gw["files"].items()))
+                if not ok]
+        check(not bad, f"gateway files differ through B or in the backup: "
+                       f"{bad[:3]}")
+        for path in gw["gone"]:
+            check(http_bytes("GET", furl_b + path, timeout=60)[0] == 404 and
+                  not os.path.exists(bak_dir + path),
+                  f"{path}, taken away on A, is still on B or in the backup")
         verify_s = time.perf_counter() - t
         steps["sync"] = {"lost": lost, "server": victim,
                          "rebuild_seconds": reb_s, "rebuild_launches": reb,
@@ -9498,8 +10017,18 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
                          "degraded_reads": dlt["degraded"],
                          "kernel_launches_in_reads": dlt["launches"] - reb,
                          "verify_seconds": verify_s,
-                         "files_equal": 1 + small_n}
+                         "files_equal": 1 + small_n + len(gw["files"])}
         emit({"phase": "filer_rest", "step": "sync", **steps["sync"]})
+
+        # 3b. the gateways read their files back from the EC volume
+        c0 = _counters(urls)
+        steps["gateways_read"] = _gateways_read(furl_a, gw, tmp)
+        steps["gateways_read"]["kernel_launches_in_reads"] = \
+            _delta(_counters(urls), c0)["launches"]
+        check(steps["gateways_read"]["kernel_launches_in_reads"] == 0,
+              "a gateway read launched the kernel")
+        emit({"phase": "filer_rest", "step": "gateways_read",
+              **steps["gateways_read"]})
 
         # 4. the lock ring
         key = "rest/lock"
@@ -9590,10 +10119,11 @@ def phase_filer_rest(tmp: str, seed: int, tus_mb: int = REST_TUS_MB,
         emit({"phase": "filer_rest", "step": "events", **steps["events"]})
     finally:
         bad = _stop_peers(procs)
-        if resp is not None:
-            resp.kill()
-            resp.wait(timeout=30)
-            resp.stdout.close()
+        for stand_in in (resp, ldap_p):
+            if stand_in is not None:
+                stand_in.kill()
+                stand_in.wait(timeout=30)
+                stand_in.stdout.close()
         hook.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     check(not bad, f"a process of the phase did not stop: {bad}")

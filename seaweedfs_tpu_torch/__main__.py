@@ -58,6 +58,17 @@
     python3 -m seaweedfs_tpu_torch iam -iamConfig s3.json [-ip 127.0.0.1]
         [-port 8111] [-stsKey KEY [-rolesFile roles.json]
         [-oidcConfig providers.json]]
+    python3 -m seaweedfs_tpu_torch webdav [-ip 127.0.0.1] [-port 7333]
+        [-filer HOST:PORT]
+    python3 -m seaweedfs_tpu_torch sftp -userStoreFile users.json
+        [-ip 127.0.0.1] [-port 2022] [-filer HOST:PORT] [-hostKeyFile PEM]
+        [-authMethods password,publickey] [-banner TEXT]
+        [-ldapServer HOST:PORT [-ldapUserDnTemplate uid={},ou=people,...
+         | -ldapBaseDn DN [-ldapBindDn DN -ldapBindPassword PW]] [-ldapTls]]
+    python3 -m seaweedfs_tpu_torch sftp.user -store users.json
+        add|delete|list [-name N] [-password PW] [-home DIR]
+        [-pubkey 'ssh-ed25519 B64'] [-perm PATH:PERM,PERM ...]
+    python3 -m seaweedfs_tpu_torch mount -dir MOUNTPOINT [-filer HOST:PORT]
     python3 -m seaweedfs_tpu_torch version
     python3 -m seaweedfs_tpu_torch cert [-dir certs]
         [-hosts 127.0.0.1,localhost]
@@ -72,6 +83,17 @@ JSON object a line with `-logJson`, and a line logged inside a request
 carries its request id (`X-Request-ID`).  Every `WEED_*` environment
 default that replaced a flag's default is logged as an `env override`
 line.
+
+`webdav`, `sftp` and `mount` attach to a running filer (`-filer`)
+through `filer/client.FilerClient`, as the reference's `weed webdav`,
+`weed sftp` and `weed mount` do, and import no torch.  `webdav` prints
+`webdav on <ip>:<port> serving filer <filer>` and `sftp` `sftp on
+<ip>:<port> serving filer <filer>`; both serve until SIGTERM.  `sftp`
+authenticates against the JSON user store that `sftp.user` edits
+(`password`, `passwordSha256`, `publicKeys`, `permissions`) and, for a
+user who is not in it, by a bind to `-ldapServer`; `-hostKeyFile` is an
+ed25519 PEM, made and saved if missing.  `mount` serves the filer's
+namespace through libfuse 2.9 at `-dir` until `fusermount -u`.
 
 `-securityToml` (before the role) loads the reference's security.toml
 into the process (`security.py`): `[jwt.signing]` and
@@ -1045,6 +1067,53 @@ def main(argv=None) -> int:
     iamp.add_argument("-oidcConfig", dest="oidc_config", default="",
                       help="JSON list of OIDC providers: [{name, issuer, "
                            "audience?, hs256Secret? | rsaPublicKeyFile?}]")
+    wd = sub.add_parser("webdav", help="WebDAV gateway attached to a "
+                        "running filer (server/webdav_server.go)")
+    wd.add_argument("-ip", default="127.0.0.1")
+    wd.add_argument("-port", type=int, default=7333)
+    wd.add_argument("-filer", default="127.0.0.1:8888",
+                    help="filer host:port whose namespace to serve")
+    mnt = sub.add_parser("mount", help="FUSE-mount a running filer "
+                         "(weed/mount)")
+    mnt.add_argument("-filer", default="127.0.0.1:8888")
+    mnt.add_argument("-dir", required=True, help="mountpoint")
+    sf = sub.add_parser("sftp", help="SFTP gateway attached to a running "
+                        "filer (weed/sftpd)")
+    sf.add_argument("-ip", default="127.0.0.1")
+    sf.add_argument("-port", type=int, default=2022)
+    sf.add_argument("-filer", default="127.0.0.1:8888")
+    sf.add_argument("-userStoreFile", dest="user_store", required=True,
+                    help="JSON user store (sftpd/user/filestore.go)")
+    sf.add_argument("-hostKeyFile", dest="host_key", default="",
+                    help="ed25519 host key PEM; generated and saved if "
+                         "missing")
+    sf.add_argument("-authMethods", dest="auth_methods",
+                    default="password,publickey")
+    sf.add_argument("-banner", default="")
+    sf.add_argument("-ldapServer", dest="ldap_server", default="",
+                    help="host:port of an LDAP server for password auth "
+                         "of users not in the store")
+    sf.add_argument("-ldapUserDnTemplate", dest="ldap_dn_template",
+                    default="",
+                    help="user DN template, {} = username "
+                         "(e.g. uid={},ou=people,dc=corp)")
+    sf.add_argument("-ldapBaseDn", dest="ldap_base_dn", default="")
+    sf.add_argument("-ldapBindDn", dest="ldap_bind_dn", default="")
+    sf.add_argument("-ldapBindPassword", dest="ldap_bind_password",
+                    default="")
+    sf.add_argument("-ldapTls", dest="ldap_tls", action="store_true",
+                    help="reach the directory over TLS (ldaps)")
+    sfu = sub.add_parser("sftp.user", help="manage an SFTP user-store "
+                         "file")
+    sfu.add_argument("-store", required=True)
+    sfu.add_argument("action", choices=["add", "delete", "list"])
+    sfu.add_argument("-name", default="")
+    sfu.add_argument("-password", default="")
+    sfu.add_argument("-home", default="")
+    sfu.add_argument("-pubkey", default="",
+                     help="authorized key line 'ssh-ed25519 <b64>'")
+    sfu.add_argument("-perm", action="append", default=[],
+                     help="path:perm1,perm2 (repeatable)")
     sub.add_parser("version", help="print the version")
     crt = sub.add_parser("cert", help="mint a cluster CA and node "
                          "certificate for the TLS plane")
@@ -1148,6 +1217,21 @@ def main(argv=None) -> int:
         return _s3(ap, args)
     if args.cmd == "iam":
         return _iam(ap, args)
+    if args.cmd == "webdav":
+        from .filer.client import FilerClient
+        from .server.webdav_server import WebDavServer
+        return _serve(WebDavServer("", FilerClient(args.filer), args.ip,
+                                   args.port),
+                      lambda d: f"webdav on {d.url} serving filer "
+                                f"{args.filer}")
+    if args.cmd == "mount":
+        from .mount.fuse_ctypes import mount as fuse_mount
+        print(f"mounting filer {args.filer} at {args.dir}", flush=True)
+        return fuse_mount(args.filer, args.dir)
+    if args.cmd == "sftp":
+        return _sftp(args)
+    if args.cmd == "sftp.user":
+        return _sftp_user(args)
     if args.cmd == "version":
         from . import __version__
         print(f"seaweedfs-tpu-torch {__version__} "
@@ -1238,6 +1322,73 @@ def main(argv=None) -> int:
         return _repl(env)
     for out in run_script(env, " ".join(args.command)):
         print(out, flush=True)
+    return 0
+
+
+def _sftp(args) -> int:
+    """The SFTP gateway over a running filer: the host key from
+    `-hostKeyFile` (an ed25519 PEM, made and saved there if missing),
+    the user store, and an LDAP provider with `-ldapServer`."""
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PrivateKey)
+    from .filer.client import FilerClient
+    from .sftp import SftpService, UserStore
+    key = None
+    if args.host_key:
+        if os.path.exists(args.host_key):
+            with open(args.host_key, "rb") as f:
+                key = serialization.load_pem_private_key(f.read(),
+                                                         password=None)
+        else:
+            key = Ed25519PrivateKey.generate()
+            with open(args.host_key, "wb") as f:
+                f.write(key.private_bytes(
+                    serialization.Encoding.PEM,
+                    serialization.PrivateFormat.PKCS8,
+                    serialization.NoEncryption()))
+    ldap = None
+    if args.ldap_server:
+        from .iam.ldap import LdapProvider
+        host, _, port = args.ldap_server.partition(":")
+        ldap = LdapProvider(
+            host, int(port or (636 if args.ldap_tls else 389)),
+            base_dn=args.ldap_base_dn,
+            user_dn_template=args.ldap_dn_template,
+            bind_dn=args.ldap_bind_dn,
+            bind_password=args.ldap_bind_password, use_tls=args.ldap_tls)
+    svc = SftpService(FilerClient(args.filer), UserStore(args.user_store),
+                      host_key=key, port=args.port, ip=args.ip,
+                      auth_methods=tuple(args.auth_methods.split(",")),
+                      banner=args.banner, ldap=ldap)
+    return _serve(svc, lambda s: f"sftp on {s.ip}:{s.port} serving filer "
+                                 f"{args.filer}")
+
+
+def _sftp_user(args) -> int:
+    """sftp.user add|delete|list on a user-store file."""
+    from .sftp import User, UserStore
+    store = UserStore(args.store)
+    if args.action == "list":
+        for u in store:
+            print(f"{u.username} home={u.home_dir} "
+                  f"keys={len(u.public_keys)} perms={u.permissions}")
+    elif args.action == "delete":
+        store.delete(args.name)
+        print(f"deleted {args.name}")
+    else:
+        u = store.get(args.name) or User(args.name, args.home)
+        if args.home:
+            u.home_dir = args.home
+        if args.password:
+            u.set_password(args.password)
+        if args.pubkey:
+            u.add_public_key(args.pubkey)
+        for spec in args.perm:
+            path, _, perms = spec.partition(":")
+            u.permissions[path] = perms.split(",")
+        store.put(u)
+        print(f"saved {u.username}")
     return 0
 
 

@@ -14,8 +14,9 @@
 - kms_aws:    the AWS KMS wire protocol (`-kmsEndpoint`) and its stub
 - kms_cloud:  GCP KMS, Azure Key Vault and OpenBao transit
               (`-kmsCloud`), each with its fake server
-
-LDAP is not ported (ROADMAP A5, with the SFTP gateway that uses it).
+- ldap:       an LDAP v3 client and provider over a from-scratch BER
+              codec (the SFTP gateway's `-ldapServer`), and
+              `MiniLdapServer`, the stand-in directory
 """
 
 from .identity import (Account, Credential, Identity, IdentityStore,

@@ -34,7 +34,9 @@ SOURCE = os.path.join(_DIR, "gf_rs.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
-_lock = threading.Lock()
+# one lock a library, so that two threads build two libraries at once
+_locks: "dict[str, threading.Lock]" = {}
+_locks_guard = threading.Lock()
 # stem -> the loaded library, or None once a build or load failed
 _libs: "dict[str, ctypes.CDLL | None]" = {}
 # stem -> what its last build or load did: {"path", "seconds",
@@ -112,7 +114,9 @@ def _load(stem: str, bind, deps: "tuple[str, ...]" = ()
     """Build (if needed) and load `<stem>.cc` once a process, with its
     signatures set by `bind`; None when it cannot be built or loaded.
     Callers must never see an exception from here."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(stem, threading.Lock())
+    with lock:
         if stem in _libs:
             return _libs[stem]
         _libs[stem] = None

@@ -384,6 +384,8 @@ class HttpServer:
             do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = \
                 do_OPTIONS = _dispatch
             do_PATCH = _dispatch    # TUS resumable uploads
+            # WebDAV verbs (server/webdav_server.py)
+            do_PROPFIND = do_MKCOL = do_MOVE = do_COPY = _dispatch
 
             def log_message(self, *args):  # quiet
                 pass

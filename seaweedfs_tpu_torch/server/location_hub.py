@@ -32,6 +32,7 @@ class LocationHub:
         self._log: "collections.deque[tuple[int, dict]]" = \
             collections.deque(maxlen=capacity)
         self._seq = 0
+        self._closed = False
 
     @property
     def cursor(self) -> int:
@@ -47,14 +48,24 @@ class LocationHub:
             self._log.append((self._seq, event))
             self._cond.notify_all()
 
+    def close(self) -> None:
+        """End every parked long poll now and park no more: the master
+        is stopping.  A follow stream told to stop then sees an answer
+        and leaves, instead of re-issuing its poll at a closed port."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
     def events_since(self, since: int, timeout: float = 0.0
                      ) -> "tuple[list[dict], int, bool]":
         """(events after `since`, the new cursor, lagged), waiting up to
-        `timeout` seconds for the first event.  lagged means the ring no
-        longer holds everything after `since`: resync from a snapshot."""
+        `timeout` seconds for the first event (not once closed).  lagged
+        means the ring no longer holds everything after `since`: resync
+        from a snapshot."""
         with self._cond:
             if timeout > 0 and self._seq <= since:
-                self._cond.wait_for(lambda: self._seq > since, timeout)
+                self._cond.wait_for(
+                    lambda: self._seq > since or self._closed, timeout)
             oldest = self._log[0][0] if self._log else self._seq + 1
             lagged = since + 1 < oldest and self._seq > since
             events = [e for s, e in self._log if s > since]

@@ -207,7 +207,9 @@ class MasterServer:
         self._reaper_stop.set()
         if self._reaper is not None:
             self._reaper.join(timeout=5)
-        # the listener first: no raft RPC is answered once the log closed
+        # the parked /cluster/watch polls answered, then the listener: no
+        # raft RPC is answered once the log closed
+        self.hub.close()
         self.http.stop()
         self.raft.stop()
 

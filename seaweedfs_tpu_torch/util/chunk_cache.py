@@ -318,6 +318,9 @@ class TieredChunkCache:
             if self.disk is not None:
                 self.disk.delete(key)
 
+    # the mount's meta-event follower speaks paths; its group is the path
+    invalidate_path = invalidate_group
+
     def delete(self, key: str) -> None:
         """Point invalidation of one key across both tiers."""
         self.mem.delete(key)

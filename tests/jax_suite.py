@@ -1,14 +1,17 @@
 """Run a JAX package test file against the port.
 
 `load_suite(name, ported)` executes `tests/<name>.py` with every module
-path in `ported` rewritten from `seaweedfs_tpu.` to `seaweedfs_tpu_torch.`,
+path in `ported` rewritten from `seaweedfs_tpu` to `seaweedfs_tpu_torch`
+(an entry may also be an import clause, `seaweedfs_tpu import security`),
 so the servers and modules the suite drives are the port's while
 everything else it imports stays the JAX package's.  It returns the
 suite's tests under new names (`test_<short>__<name>`) and the fixtures
 named in `fixtures`, to be bound into the importing test module, which
 pytest then collects.  `overrides` replaces names in the executed
 module after it ran (a JAX call signature the port spells otherwise),
-and `only`, when given, keeps just those of the suite's tests.
+`only`, when given, keeps just those of the suite's tests, and
+`replace` swaps literal source text first (a subprocess's
+`"-m", "seaweedfs_tpu"` argv for the port's).
 `port_volume_server` stands in for the JAX `VolumeServer(dirs, master,
 ...)` as such an override.
 """
@@ -30,14 +33,19 @@ def port_volume_server(dirs, master, **kw):
 
 
 def load_suite(name: str, ported, exclude=(), fixtures=(),
-               overrides: "dict | None" = None, only=()) -> dict:
+               overrides: "dict | None" = None, only=(),
+               replace: "dict | None" = None) -> dict:
     path = os.path.join(HERE, f"{name}.py")
     with open(path) as f:
         src = f.read()
+    for old, new in (replace or {}).items():
+        if old not in src:
+            raise ValueError(f"{name}: no {old!r} to replace")
+        src = src.replace(old, new)
     for mod in ported:
         src = re.sub(rf"\b{re.escape(mod)}\b",
-                     mod.replace("seaweedfs_tpu.", "seaweedfs_tpu_torch.",
-                                 1), src)
+                     re.sub(r"^seaweedfs_tpu\b", "seaweedfs_tpu_torch", mod),
+                     src)
     module = types.ModuleType(f"ported_{name}")
     module.__file__ = path
     exec(compile(src, path, "exec"), module.__dict__)

@@ -12,7 +12,9 @@ Tolerance: exact equality (events, cursors, vid maps, RPC counts).
   the followers' maps, and comes back when it heartbeats again;
 - the port's filer follows its master: its reads resolve from the
   pushed map with no `/dir/lookup` RPC (tests/test_cluster_locks.py's
-  follower case), and `enable_follow` is refcounted.
+  follower case), and `enable_follow` is refcounted;
+- a stopping master answers its parked polls (`LocationHub.close`), so a
+  follow stream told to stop leaves without a retry.
 """
 
 import os
@@ -68,6 +70,47 @@ def test_a_poll_waits_for_the_next_event():
     threading.Timer(0.1, hub.publish, args=({"url": "a"},)).start()
     events, cursor, lagged = hub.events_since(0, timeout=5)
     assert events == [{"url": "a"}] and cursor == 1 and not lagged
+
+
+def test_a_closed_hub_ends_every_parked_poll():
+    import threading
+    hub = location_hub.LocationHub()
+    hub.publish({"url": "a"})
+    got = []
+    poller = threading.Thread(
+        target=lambda: got.append(hub.events_since(1, timeout=30)))
+    poller.start()
+    time.sleep(0.1)
+    t0 = time.monotonic()
+    hub.close()
+    poller.join(5)
+    assert got == [([], 1, False)] and time.monotonic() - t0 < 2
+    t0 = time.monotonic()
+    assert hub.events_since(1, timeout=30) == ([], 1, False)
+    assert time.monotonic() - t0 < 2
+
+
+def test_a_stopping_master_answers_a_stopped_followers_poll():
+    """A follow stream told to stop is parked in its long poll; the
+    master's stop answers it, so it leaves without one retry at a
+    closed port (each in-process cluster's teardown left two in the
+    process's retry counter)."""
+    from seaweedfs_tpu_torch import stats
+    master = MasterServer(pulse_seconds=1.0).start()
+    try:
+        operation.enable_follow(master.url)
+        f = operation.follower(master.url)
+        assert f.wait_synced(10)
+        time.sleep(0.3)          # parked in its `since=` poll
+        operation.disable_follow(master.url)
+        before = stats.PROCESS.counter_sum("retry_attempts_total",
+                                           site="httpd.pool")
+    finally:
+        master.stop()
+    f._thread.join(10)
+    assert not f._thread.is_alive()
+    assert stats.PROCESS.counter_sum("retry_attempts_total",
+                                     site="httpd.pool") == before
 
 
 def _maps(followers, vids) -> list:

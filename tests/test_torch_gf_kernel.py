@@ -185,6 +185,11 @@ PORT_MODULES_OF_THE_TIERS = tuple(
     f"seaweedfs_tpu_torch.{m}" for m in (
         "storage.backend", "s3.s3tables", "filer.cloud_sinks",
         "filer.s3_sink"))
+PORT_MODULES_OF_THE_GATEWAYS = tuple(
+    f"seaweedfs_tpu_torch.{m}" for m in (
+        "server.webdav_server", "iam.ldap", "sftp", "sftp.ssh_wire",
+        "sftp.transport", "sftp.users", "sftp.handlers", "sftp.server",
+        "sftp.client", "mount", "mount.weedfs", "mount.fuse_ctypes"))
 
 
 def test_port_imports_neither_jax_nor_reference_package():
@@ -211,6 +216,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert set(PORT_MODULES_OF_SLICE_9) <= set(mods)
     assert set(PORT_MODULES_OF_SLICE_12) <= set(mods)
     assert set(PORT_MODULES_OF_THE_TIERS) <= set(mods)
+    assert set(PORT_MODULES_OF_THE_GATEWAYS) <= set(mods)
     assert bad == []
 
 
